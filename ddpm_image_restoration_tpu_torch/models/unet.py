@@ -1,0 +1,227 @@
+"""The codec-conditioned residual-attention UNet (port of models/unet.py).
+
+Same skeleton and parameter names as the Flax model, so the release npz maps
+onto it key for key (train/checkpoint.py):
+
+  encoder    3 -> w1 -> ... -> w5, 2x2 max-pool between stages
+  bottleneck w5 -> b1 -> b2 -> b3 at image_size/32
+  decoder    5 stages of concat([bilinear-up 2x, skip]) -> ResAttnBlock
+  fusion     u5 + fusion_scale * DCT(u5)
+  head       GroupNorm -> SiLU -> conv3x3 -> tanh
+
+Layout: the public methods take and return NHWC images like the JAX package;
+inside, feature maps (and the `encode` features) are NCHW. Dtype policy as in
+the JAX package (unet.py:43-48,180-183): the block bodies (convs, dense
+layers, attention, frequency module) hold their weights and compute in
+`cfg.compute_dtype`, while GroupNorm, the time embedding, the codec
+embedding and the output head stay f32. Flax's GroupNorm uses eps 1e-6 and
+`nn.gelu` is the tanh form; both are kept.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ddpm_image_restoration_tpu_torch.config import CODECS, CodecPreset, ModelConfig, get_preset
+from ddpm_image_restoration_tpu_torch.device import resolve_device
+from ddpm_image_restoration_tpu_torch.models.freq_blocks import DCTFreqAwareBlock
+from ddpm_image_restoration_tpu_torch.models.time_embedding import TimeEmbedding
+from ddpm_image_restoration_tpu_torch.ops.attention import spatial_attention
+from ddpm_image_restoration_tpu_torch.ops.dct import adjusted_group_count, spatial_block_dct
+from ddpm_image_restoration_tpu_torch.ops.resize import max_pool_2x, upsample_2x_bilinear
+
+_GN_EPS = 1e-6  # Flax GroupNorm's epsilon
+
+
+def _group_norm(c: int) -> nn.GroupNorm:
+    return nn.GroupNorm(adjusted_group_count(c), c, eps=_GN_EPS)
+
+
+class SpatialSelfAttention(nn.Module):
+    """Multi-head self-attention over all H*W tokens: fused `qkv` projection
+    split into q/k/v, then into heads; `out` projection; both with bias."""
+
+    def __init__(self, channels: int, num_heads: int, impl: str = "xla"):
+        super().__init__()
+        self.num_heads = num_heads
+        self.impl = impl
+        self.qkv = nn.Linear(channels, 3 * channels)
+        self.out = nn.Linear(channels, channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        t, heads = h * w, self.num_heads
+        tokens = x.flatten(2).transpose(1, 2)                # [B,T,C]
+        q, k, v = self.qkv(tokens).chunk(3, dim=-1)
+        q, k, v = (z.reshape(b, t, heads, c // heads) for z in (q, k, v))
+        out = spatial_attention(q, k, v, impl=self.impl).reshape(b, t, c)
+        return self.out(out).transpose(1, 2).reshape(b, c, h, w)
+
+
+class ResAttnBlock(nn.Module):
+    """GN -> conv3x3 -> +time -> GN -> GELU -> dropout -> conv3x3 ->
+    self-attention (residual, only at resolution <= cfg.attn_max_resolution)
+    -> frequency module -> shortcut(x) + h (webp_training.py:273-327)."""
+
+    def __init__(self, in_channels: int, out_channels: int, resolution: int,
+                 preset: CodecPreset, cfg: ModelConfig):
+        super().__init__()
+        if preset.adaptive_transform:
+            raise NotImplementedError(
+                "the AVIF frequency blocks are not ported yet")
+        self.dtype = getattr(torch, cfg.compute_dtype)
+        self.norm1 = _group_norm(in_channels)
+        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.time_proj = nn.Linear(cfg.time_dim, out_channels)
+        self.norm2 = _group_norm(out_channels)
+        self.dropout = nn.Dropout(cfg.dropout)
+        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.attn = (
+            SpatialSelfAttention(out_channels, preset.attn_heads, cfg.attention_impl)
+            if resolution <= cfg.attn_max_resolution else None
+        )
+        self.freq_guide = DCTFreqAwareBlock(
+            out_channels, preset.dct_block_size, preset.low_freq_size,
+            preset.high_boost_clamp)
+        self.shortcut = (nn.Conv2d(in_channels, out_channels, 1)
+                         if in_channels != out_channels else None)
+        for m in (self.conv1, self.time_proj, self.conv2, self.attn,
+                  self.freq_guide, self.shortcut):
+            if m is not None:
+                m.to(self.dtype)
+
+    def forward(self, x: torch.Tensor, t_emb: torch.Tensor,
+                compression_level: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        h = self.conv1(self.norm1(x.float()).to(dt))
+        h = h + self.time_proj(t_emb.to(dt))[:, :, None, None]
+        h = F.gelu(self.norm2(h.float()).to(dt), approximate="tanh")
+        h = self.conv2(self.dropout(h))
+        if self.attn is not None:
+            h = h + self.attn(h)
+        h = self.freq_guide(h, compression_level)
+        x = x.to(dt)
+        if self.shortcut is not None:
+            x = self.shortcut(x)
+        return x + h
+
+
+class CodecDiffusionModel(nn.Module):
+    """UNet predicting the restoration in [-1,1], split into `encode`
+    (encoder + bottleneck) and `decode` (decoder + DCT fusion + head) so the
+    solver can reuse encoder features across steps; `forward` is exactly
+    `decode(encode(x))`."""
+
+    def __init__(self, preset: CodecPreset, cfg: ModelConfig):
+        super().__init__()
+        cfg.validate()
+        self.preset, self.cfg = preset, cfg
+        self.time_embed = TimeEmbedding(cfg.time_dim)
+        if cfg.codec_conditioning:
+            self.codec_embed = nn.Embedding(len(CODECS), cfg.time_dim)
+        size = cfg.image_size
+        in_c = cfg.in_channels
+        for i, w in enumerate(cfg.enc_widths):
+            res = size >> i
+            setattr(self, f"down{i + 1}", ResAttnBlock(in_c, w, res, preset, cfg))
+            in_c = w
+        bott_res = size >> len(cfg.enc_widths)
+        for i, w in enumerate(cfg.bottleneck_widths):
+            setattr(self, f"bottleneck{i + 1}", ResAttnBlock(in_c, w, bott_res, preset, cfg))
+            in_c = w
+        # decoder widths mirror the encoder (up1..up5 -> 512,256,128,64,64)
+        self._dec_widths = list(cfg.enc_widths[-2::-1]) + [cfg.enc_widths[0]]
+        n = len(self._dec_widths)
+        for i, w in enumerate(self._dec_widths):
+            skip_c = cfg.enc_widths[n - 1 - i]
+            res = size >> (n - 1 - i)
+            setattr(self, f"up{i + 1}", ResAttnBlock(in_c + skip_c, w, res, preset, cfg))
+            in_c = w
+        self.out_norm = _group_norm(cfg.enc_widths[0])
+        self.out_conv = nn.Conv2d(cfg.enc_widths[0], cfg.in_channels, 3, padding=1)
+
+    def _prep(self, t, compression_level, codec_id=None):
+        dev = self.out_conv.weight.device
+        t = torch.as_tensor(t, dtype=torch.float32, device=dev)
+        if t.dim() == 0:
+            t = t[None]
+        t_emb = self.time_embed(t)
+        if self.cfg.codec_conditioning:
+            if codec_id is None:
+                raise ValueError("codec_conditioning=True: pass codec_id "
+                                 "(config.codec_index of the degradation codec)")
+            cid = torch.as_tensor(codec_id, dtype=torch.long, device=dev).expand(t.shape)
+            t_emb = t_emb + self.codec_embed(cid)
+        if compression_level is None:
+            compression_level = t  # webp_training.py:373-374
+        return t_emb, compression_level
+
+    def encode(self, x: torch.Tensor, t, compression_level=None, codec_id=None):
+        """NHWC image -> (skips tuple, bottleneck features), both NCHW."""
+        t_emb, level = self._prep(t, compression_level, codec_id)
+        h = x.permute(0, 3, 1, 2).to(getattr(torch, self.cfg.compute_dtype))
+        skips = []
+        for i in range(len(self.cfg.enc_widths)):
+            h = getattr(self, f"down{i + 1}")(h if i == 0 else max_pool_2x(h), t_emb, level)
+            skips.append(h)
+        h = max_pool_2x(h)
+        for i in range(len(self.cfg.bottleneck_widths)):
+            h = getattr(self, f"bottleneck{i + 1}")(h, t_emb, level)
+        return tuple(skips), h
+
+    def decode_deep(self, features, t, compression_level=None, depth: int = 1,
+                    codec_id=None) -> torch.Tensor:
+        """Decoder stages up1..up{n-depth} over `encode` output (NCHW)."""
+        t_emb, level = self._prep(t, compression_level, codec_id)
+        skips, h = features
+        for i in range(len(self._dec_widths) - depth):
+            h = torch.cat([upsample_2x_bilinear(h), skips[-(i + 1)]], dim=1)
+            h = getattr(self, f"up{i + 1}")(h, t_emb, level)
+        return h
+
+    def decode_shallow(self, h: torch.Tensor, skips, t, compression_level=None,
+                       depth: int = 1, codec_id=None) -> torch.Tensor:
+        """The last `depth` decoder stages + DCT fusion + head, from a
+        `decode_deep` output; returns the NHWC f32 image."""
+        t_emb, level = self._prep(t, compression_level, codec_id)
+        n = len(self._dec_widths)
+        for i in range(n - depth, n):
+            h = torch.cat([upsample_2x_bilinear(h), skips[-(i + 1)]], dim=1)
+            h = getattr(self, f"up{i + 1}")(h, t_emb, level)
+        h = h + self.preset.dct_fusion_scale * spatial_block_dct(h, self.preset.dct_block_size)
+        h = self.out_conv(F.silu(self.out_norm(h.float())))
+        return torch.tanh(h).permute(0, 2, 3, 1)
+
+    def decode(self, features, t, compression_level=None, codec_id=None) -> torch.Tensor:
+        """Decoder + fusion + head over `encode` output: exactly
+        `decode_shallow(decode_deep(...))` split at depth 0."""
+        h = self.decode_deep(features, t, compression_level, depth=0, codec_id=codec_id)
+        return self.decode_shallow(h, features[0], t, compression_level, depth=0,
+                                   codec_id=codec_id)
+
+    def forward(self, x: torch.Tensor, t, compression_level=None,
+                codec_id=None) -> torch.Tensor:
+        t = torch.as_tensor(t, dtype=torch.float32, device=self.out_conv.weight.device)
+        if t.dim() == 0:
+            t = t.expand(x.shape[0])
+        features = self.encode(x, t, compression_level, codec_id)
+        return self.decode(features, t, compression_level, codec_id)
+
+
+def build_model(codec: str, cfg: Optional[ModelConfig] = None,
+                device: str | torch.device = "cuda") -> CodecDiffusionModel:
+    """The model for `codec` on `device`, in eval mode. Weights are PyTorch's
+    default init under the current torch seed; load release weights with
+    `model.load_state_dict(load_release_params(path))`."""
+    dev = resolve_device(device)
+    cfg = cfg or ModelConfig()
+    if codec.lower() == "all" and not cfg.codec_conditioning:
+        cfg = dataclasses.replace(cfg, codec_conditioning=True)
+    with dev:
+        model = CodecDiffusionModel(get_preset(codec), cfg)
+    return model.eval().requires_grad_(False)
