@@ -3,14 +3,23 @@
 NVIDIA card and checks it, phase by phase:
 
   1. environment: torch and CUDA versions, the card's name and power limit;
-  2. build: every kernel of the serving path, with nvcc, from the checkout;
-  3. kernels: each kernel against its plain PyTorch version, with times;
+  2. build: every kernel of the serving and training paths, with nvcc, from
+     the checkout, one nvcc per source, all started together;
+  3. kernels: each kernel against its plain PyTorch version, with times,
+     and the autograd Function's gradients against autograd through the
+     plain attention;
   4. reference: a half-width f32 restore on the card against the same
      restore on the CPU (the CPU path is the one the tests hold to the JAX
      package);
   5. serve: the WebP restore server core at full width (64², the release
      widths, bf16, flash attention at <= 32²) on three batches of 8 images
-     under the production solver policy, counting the kernel's launches.
+     under the production solver policy, counting the kernel's launches;
+  6. train_reference: one half-width f32 train step on the card against the
+     same step on the CPU (loss and every gradient);
+  7. train: the WebP trainer (`cli/train.py main`) at full width, bf16,
+     batch 18, EMA: one epoch, then a second resumed from the checkpoint the
+     first wrote, counting each kernel's launches in the train steps; then
+     the train step alone, timed and profiled.
 
     python3 chip_smoke.py
 
@@ -24,6 +33,7 @@ saying why, when Pillow is missing.
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
 import math
@@ -43,14 +53,25 @@ JAX_PACKAGE = PACKAGE.removesuffix("_torch")  # the reference; never imported he
 # wide-head cases of the kernel's contract.
 KERNEL_SHAPES = [(32, 1024, 32), (32, 1024, 16), (8, 4096, 16), (4, 300, 64), (2, 256, 128)]
 MAIN_PATH_SHAPES = KERNEL_SHAPES[:2]
-# max |kernel - plain|: both accumulate in f32; bf16 rounds the output once.
+# Backward (BH, T, D): the training path's shapes first (down2 and up4 of a
+# batch of 18 images x 4 heads, 32x32 tokens), then ragged and wide cases.
+BWD_SHAPES = [(72, 1024, 32), (72, 1024, 16), (4, 300, 64), (4, 1300, 16), (2, 256, 128)]
+TRAIN_SHAPES = BWD_SHAPES[:2]
+# max |kernel - plain|: both accumulate in f32; bf16 rounds the output once
+# (the backward's gradients here are below 1: one bf16 step is at most 4e-3).
 ATOL = {"bfloat16": 2e-2, "float32": 2e-3}
+# The Function's gradients against autograd through the plain attention:
+# the same f32 arithmetic; in bf16 the plain route also rounds q.kT and the
+# probabilities' cotangent to bf16 where the kernels keep f32.
+FUNCTION_ATOL = {"bfloat16": 3e-2, "float32": 2e-3}
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s; dense
 # tensor-core bf16 and f32 (non-tensor-core) FLOP/s.
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS_S = {"bfloat16": 989e12, "float32": 67e12}
 SERVE_QUALITIES = (10, 30, 50)
 SERVE_BATCH = 8
+TRAIN_BATCH = 18        # the WebP preset's batch size
+TRAIN_IMAGES = 135      # natural synthetic images: 108 train (6 steps an epoch), 13 val
 SEED = 0
 # The whole run takes well under a minute; past this, fail rather than hang.
 TIME_LIMIT_S = 600
@@ -82,12 +103,44 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_time_ms(fn, iters: int = 10, warmup: int = 3) -> float:
+    """Device time per call: the summed time of the CUDA kernels that
+    `iters` calls launch (torch.profiler), over `iters`. Unlike events around
+    the calls it leaves out the gaps while the host launches, which decide
+    the time of a call made of several short kernels (an autograd
+    backward)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type.name == "CUDA") / 1e3 / iters
+
+
 def attention_bound_ms(bh: int, t: int, d: int, dtype_name: str) -> tuple[float, str]:
     """Least time for the work: q, k, v read once and o written once, over
     the memory rate; the two T x T x D products over the type's peak."""
     elt = 2 if dtype_name == "bfloat16" else 4
     t_bytes = 4 * bh * t * d * elt / PEAK_BYTES_S
     t_ops = 4 * bh * t * t * d / PEAK_FLOPS_S[dtype_name]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def bwd_bound_ms(kind: str, bh: int, t: int, d: int, dtype_name: str) -> tuple[float, str]:
+    """Least time for one backward kernel's work. Bytes: dQ reads q, k, v,
+    o, dO and the LSE and writes dQ and Delta; dK/dV reads q, k, v, dO, the
+    LSE and Delta and writes dK and dV: 6 [BH,T,D] tensors and 2 [BH,T] f32
+    rows either way. Operations: the T x T x D products, 3 of them for dQ
+    (S, dP, dQ) and 4 for dK/dV (S, dP, dV, dK), 2 flops per multiply-add."""
+    elt = 2 if dtype_name == "bfloat16" else 4
+    t_bytes = (6 * bh * t * d * elt + 8 * bh * t) / PEAK_BYTES_S
+    t_ops = {"dq": 6, "dkv": 8}[kind] * bh * t * t * d / PEAK_FLOPS_S[dtype_name]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
@@ -118,12 +171,17 @@ def phase_environment(state: dict) -> None:
 
 
 def phase_build(state: dict) -> None:
+    from concurrent.futures import ThreadPoolExecutor
+
     from ddpm_image_restoration_tpu_torch.ops import build
     from ddpm_image_restoration_tpu_torch.ops import flash_attention as fa
 
-    path, seconds = build.build(fa.KERNEL)
-    log(f"built {path.name} with {build.find_nvcc()} in {seconds:.1f} s")
-    build.load(fa.KERNEL)
+    names = (fa.KERNEL, fa.BWD_KERNEL)
+    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, all at once
+        built = list(pool.map(build.build, names))
+    for name, (path, seconds) in zip(names, built):
+        log(f"built {path.name} with {build.find_nvcc()} in {seconds:.1f} s")
+        build.load(name)
 
 
 def phase_kernels(state: dict) -> None:
@@ -162,8 +220,100 @@ def phase_kernels(state: dict) -> None:
                 f"(atol {ATOL[name]})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
                 f"sdpa {lib_ms:.4f} ms  bound {bound:.4f} ms ({by})")
     state["kernel_rows"] = rows
+    state["bwd_rows"] = check_backward(failures)
+    check_function(failures)
     if failures:
         raise AssertionError("kernel disagrees with its plain version: " + "; ".join(failures))
+
+
+def check_backward(failures: list) -> dict:
+    """The dQ kernel (with Delta) and the dK/dV kernel against their plain
+    versions on the same inputs and LSE; their times, the plain versions',
+    and scaled_dot_product_attention's backward at the same shape (it
+    computes dQ, dK and dV in one call: the yardstick for both rows, taken
+    as its kernels' device time, since the autograd call's host overhead
+    exceeds it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ddpm_image_restoration_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    rows = {}
+    for bh, t, d in BWD_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            q, k, v, do = (torch.randn(bh, t, d, device="cuda", generator=gen).to(dtype)
+                           for _ in range(4))
+            o, lse = fa.flash_attention_fwd(q, k, v, save_lse=True)
+            dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse)
+            dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+            rdq, rdelta = fa.flash_attention_bwd_dq_plain(q, k, v, o, do, lse)
+            rdk, rdv = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, rdelta)
+            torch.cuda.synchronize()
+            errs = {"dq": max((dq.float() - rdq.float()).abs().max().item(),
+                              (delta - rdelta).abs().max().item()),
+                    "dkv": max((dk.float() - rdk.float()).abs().max().item(),
+                               (dv.float() - rdv.float()).abs().max().item())}
+            times = {
+                "dq": (cuda_time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, o, do, lse)),
+                       cuda_time_ms(lambda: fa.flash_attention_bwd_dq_plain(q, k, v, o, do, lse))),
+                "dkv": (cuda_time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)),
+                        cuda_time_ms(lambda: fa.flash_attention_bwd_dkv_plain(
+                            q, k, v, do, lse, delta))),
+            }
+            q4, k4, v4 = (z[None].detach().requires_grad_() for z in (q, k, v))
+            out4 = F.scaled_dot_product_attention(q4, k4, v4)
+
+            def lib_backward():
+                return torch.autograd.grad(out4, (q4, k4, v4), do[None], retain_graph=True)
+
+            lib_ms = device_time_ms(lib_backward)
+            lib_event_ms = cuda_time_ms(lib_backward)
+            for kind in ("dq", "dkv"):
+                err, (ms, plain_ms) = errs[kind], times[kind]
+                if not err <= ATOL[name]:
+                    failures.append(f"bwd {kind} (BH,T,D)=({bh},{t},{d}) {name}: "
+                                    f"max|err| {err:.3g} > {ATOL[name]}")
+                bound, by = bwd_bound_ms(kind, bh, t, d, name)
+                rows[(kind, bh, t, d, name)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                                    library_ms=lib_ms, bound_ms=bound,
+                                                    bound_by=by)
+                log(f"flash_attention_bwd_{kind} (BH,T,D)=({bh},{t},{d}) {name}: max|err| "
+                    f"{err:.3g} (atol {ATOL[name]})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+                    f"sdpa backward {lib_ms:.4f} ms device ({lib_event_ms:.4f} ms between "
+                    f"events)  bound {bound:.4f} ms ({by})")
+    return rows
+
+
+def check_function(failures: list) -> None:
+    """spatial_attention(impl='flash') under autograd (the Function: the
+    forward kernel with LSE, then the dQ and dK/dV kernels) against autograd
+    through the plain attention, at the training path's down2 shape."""
+    import torch
+
+    from ddpm_image_restoration_tpu_torch.ops import flash_attention as fa
+    from ddpm_image_restoration_tpu_torch.ops.attention import spatial_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        q, k, v, do = (torch.randn(TRAIN_BATCH, 1024, 4, 32, device="cuda",
+                                   generator=gen).to(dtype) for _ in range(4))
+        counts = (fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches)
+        grads = []
+        for impl in ("flash", "xla"):
+            leaves = [z.clone().requires_grad_() for z in (q, k, v)]
+            grads.append(torch.autograd.grad(spatial_attention(*leaves, impl=impl), leaves, do))
+        torch.cuda.synchronize()
+        err = max((a.float() - b.float()).abs().max().item() for a, b in zip(*grads))
+        ran = (fa.flash_attention_bwd_dq.launches - counts[0],
+               fa.flash_attention_bwd_dkv.launches - counts[1])
+        log(f"FlashAttention gradients [B,T,H,D]=[{TRAIN_BATCH},1024,4,32] {name} vs autograd "
+            f"through the plain attention: max|diff| {err:.3g} (atol {FUNCTION_ATOL[name]}), "
+            f"backward launches (dQ, dK/dV) {ran}")
+        if not (err <= FUNCTION_ATOL[name] and ran == (1, 1)):
+            failures.append(f"Function gradients {name}: max|diff| {err:.3g}, launches {ran}")
 
 
 def phase_reference(state: dict) -> None:
@@ -250,14 +400,16 @@ def phase_serve(state: dict) -> None:
             f"encoder reuse {reuse}")
 
     torch.cuda.synchronize()
-    fa.flash_attention_fwd.launches = 0
+    _reset_counts()
     outs = [restore_batch(model, y, q, "webp", final_exact=final_exact) for q, y in batches]
     torch.cuda.synchronize()
-    launches = fa.flash_attention_fwd.launches
-    state["launches"] = {fa.KERNEL: launches}
-    log(f"flash_attention_fwd launches on the serving path: {launches} (schedule implies {expected})")
-    if launches != expected:
-        raise AssertionError(f"kernel launched {launches} times, schedule implies {expected}")
+    state["launches"] = counts = _counts()
+    launches = counts[fa.KERNEL]
+    log(f"launches on the serving path: {counts} (schedule implies {expected} forward, "
+        f"no backward)")
+    if launches != expected or counts["flash_attention_bwd_dq"] or \
+            counts["flash_attention_bwd_dkv"]:
+        raise AssertionError(f"kernels launched {counts}, schedule implies {expected} forward")
     for (q, y), out in zip(batches, outs):
         o = out.cpu().numpy()
         if o.shape != tuple(y.shape) or not np.isfinite(o).all() or np.abs(o).max() > 1.0:
@@ -275,12 +427,13 @@ def phase_serve(state: dict) -> None:
     ms = 1e3 * sum(times) / len(times)
     log(f"serve: {ms:.1f} ms/batch of {SERVE_BATCH}, {SERVE_BATCH * len(times) / sum(times):.1f} "
         f"img/s on {state['smi']} (final_exact {final_exact})")
-    profile_restore(lambda: restore_batch(model, batches[1][1], batches[1][0], "webp",
-                                          final_exact=final_exact))
+    profile_run(f"one batch of {SERVE_BATCH}, q30",
+                lambda: restore_batch(model, batches[1][1], batches[1][0], "webp",
+                                      final_exact=final_exact))
 
 
-def profile_restore(run) -> None:
-    """Where one restore's time goes: device-busy share of the wall time and
+def profile_run(label: str, run) -> None:
+    """Where one call's time goes: device-busy share of the wall time and
     the kernels with the most device time (torch.profiler, CUPTI)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -293,37 +446,234 @@ def profile_restore(run) -> None:
         wall_ms = 1e3 * (time.perf_counter() - t0)
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    log(f"profile (one batch of {SERVE_BATCH}, q30): wall {wall_ms:.1f} ms under the profiler, "
+    log(f"profile ({label}): wall {wall_ms:.1f} ms under the profiler, "
         f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.0f}%), "
         f"{sum(e.count for e in events)} device kernel launches")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"  {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:90]}")
 
 
+@contextlib.contextmanager
+def no_tf32():
+    """f32 convolutions and matmuls in full f32 inside the block (cuDNN
+    defaults its f32 convolutions to TF32)."""
+    import torch
+
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _reset_counts() -> None:
+    from ddpm_image_restoration_tpu_torch.ops import flash_attention as fa
+
+    for fn in (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):
+        fn.launches = 0
+
+
+def _counts() -> dict:
+    from ddpm_image_restoration_tpu_torch.ops import flash_attention as fa
+
+    return {fn.__name__: fn.launches for fn in (
+        fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)}
+
+
+def phase_train_reference(state: dict) -> None:
+    """One f32 train step of a half-width model (64², flash attention at
+    <= 32², so down2 and up4 go through the Function at T = 1024, D = 16)
+    on the card against the same step on the CPU: the loss within rtol
+    1e-4; every gradient entry within 1e-4 of the model's largest; the
+    attention projections of the two flash levels each within 1e-3 of their
+    own largest entry (f32 sums in other orders through ~30 layers)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ddpm_image_restoration_tpu_torch.codecs.surrogate import codec_surrogate
+    from ddpm_image_restoration_tpu_torch.config import ModelConfig, TrainConfig
+    from ddpm_image_restoration_tpu_torch.models import build_model
+    from ddpm_image_restoration_tpu_torch.train.steps import create_train_state, make_train_step
+
+    model_cfg = dataclasses.replace(ModelConfig(compute_dtype="float32", attention_impl="flash",
+                                                attn_max_resolution=32), dropout=0.0).scaled(2)
+    cfg = TrainConfig(codec="webp", model=model_cfg, ema_decay=0.999)
+    torch.manual_seed(SEED)
+    cpu_model = build_model("webp", model_cfg, device="cpu")
+    gpu_model = build_model("webp", model_cfg, device="cuda")
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    x0 = torch.from_numpy(synthetic_images(4, 64, SEED + 3))
+    batch = {"x0": x0, "xt": codec_surrogate(x0, 20, codec="webp"),
+             "t": torch.tensor([10, 35, 60, 90], dtype=torch.int32)}
+    with no_tf32():
+        cpu_m = make_train_step(cpu_model, cfg)(create_train_state(cpu_model, cfg), batch, None)
+        _reset_counts()
+        gpu_m = make_train_step(gpu_model, cfg)(
+            create_train_state(gpu_model, cfg), {k: v.cuda() for k, v in batch.items()}, None)
+        torch.cuda.synchronize()
+    counts = _counts()
+    # the loss's angle term jumps by 2 pi at a real-valued FFT bin whose
+    # imaginary part takes another sign: count such bins between the two
+    flips = 0
+    with torch.no_grad():
+        xt = batch["xt"].cuda()
+        pred_gpu = xt + gpu_model(xt, batch["t"].cuda() / 100.0)
+        for z in (batch["x0"], pred_gpu.cpu()):
+            a = torch.angle(torch.fft.rfft2(z.permute(0, 3, 1, 2) * 0.5 + 0.5))
+            b = torch.angle(torch.fft.rfft2(z.cuda().permute(0, 3, 1, 2) * 0.5 + 0.5)).cpu()
+            flips += int(((a - b).abs() > 1.0).sum())
+    loss_rel = abs(gpu_m["loss"].item() - cpu_m["loss"].item()) / abs(cpu_m["loss"].item())
+    cpu_g = {n: p.grad for n, p in cpu_model.named_parameters()}
+    g_max = max(g.abs().max().item() for g in cpu_g.values())
+    worst, worst_attn = (0.0, ""), (0.0, "")
+    for n, p in gpu_model.named_parameters():
+        diff = (p.grad.cpu() - cpu_g[n]).abs().max().item()
+        worst = max(worst, (diff / g_max, n))
+        if n.startswith(("down2.attn.", "up4.attn.")):
+            worst_attn = max(worst_attn, (diff / cpu_g[n].abs().max().item(), n))
+    log(f"card vs CPU train step (4x64x64, half width, f32): loss {gpu_m['loss'].item():.6f} vs "
+        f"{cpu_m['loss'].item():.6f} (rel {loss_rel:.3g}); worst gradient |diff|/max|g| "
+        f"{worst[0]:.3g} ({worst[1]}); worst flash-level attention gradient "
+        f"|diff|/own max {worst_attn[0]:.3g} ({worst_attn[1]}); launches {counts}; "
+        f"FFT angle flips between card and CPU {flips}")
+    if counts != {"flash_attention_fwd": 2, "flash_attention_bwd_dq": 2,
+                  "flash_attention_bwd_dkv": 2}:
+        raise AssertionError(f"the card's train step launched {counts}")
+    if not (np.isfinite(gpu_m["loss"].item()) and loss_rel <= 1e-4 and worst[0] <= 1e-4
+            and worst_attn[0] <= 1e-3):
+        raise AssertionError("the card's train step disagrees with the CPU's")
+
+
+def phase_train(state: dict) -> None:
+    """The WebP trainer at full width through its entry point: one epoch,
+    then a second resumed from the first's checkpoint. In each run the
+    kernels must launch as the schedule implies: per train step the forward
+    kernel with LSE at down2 and up4 and one dQ and one dK/dV launch each;
+    per validation (3 qualities, init_t model evaluations each at stride 1)
+    one forward launch at down2 (encode) and one at up4 (decode) per
+    evaluation. Then the train step alone, timed and profiled."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from ddpm_image_restoration_tpu_torch.cli.train import main as train_main
+    from ddpm_image_restoration_tpu_torch.codecs.quality import init_timestep_for_quality
+    from ddpm_image_restoration_tpu_torch.codecs.surrogate import codec_surrogate
+    from ddpm_image_restoration_tpu_torch.config import ModelConfig, TrainConfig, get_preset
+    from ddpm_image_restoration_tpu_torch.data.dataset import split_indices
+    from ddpm_image_restoration_tpu_torch.train.steps import make_train_step
+
+    ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_train")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    preset = get_preset("webp")
+    steps = len(split_indices(TRAIN_IMAGES)[0]) // TRAIN_BATCH
+    val_evals = sum(init_timestep_for_quality(q, 100, preset) for q in preset.val_qualities)
+    expected = {"flash_attention_fwd": 2 * steps + 2 * val_evals,
+                "flash_attention_bwd_dq": 2 * steps, "flash_attention_bwd_dkv": 2 * steps}
+    argv = ["--codec", "webp", "--attn", "flash", "--attn-max-res", "32", "--batch-size",
+            str(TRAIN_BATCH), "--ema-decay", "0.999", "--synthetic", str(TRAIN_IMAGES),
+            "--synthetic-kind", "natural", "--checkpoint-dir", ckpt_dir, "--seed", str(SEED),
+            "--device", "cuda"]
+    totals = dict.fromkeys(expected, 0)
+    try:
+        for epochs in (1, 2):
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            train_state, hist = train_main(argv + ["--epochs", str(epochs)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _counts()
+            for k, v in counts.items():
+                totals[k] += v
+            model = train_state.model
+            qkv = {lvl: getattr(model, lvl).attn.qkv.weight.grad for lvl in ("down2", "up4")}
+            log(f"train run to epoch {epochs}: {wall:.1f} s; epoch {epochs - 1}: loss "
+                f"{hist['loss'][-1]:.4f}, val_psnr {hist['val_psnr'][-1]:.3f}, val_ssim "
+                f"{hist['val_ssim'][-1]:.4f}, {hist['step_ms'][-1]:.1f} ms/step in the loop "
+                f"(data pipeline included), epoch {hist['epoch_time'][-1]:.1f} s; optimizer step "
+                f"{train_state.step}; launches {counts} (schedule implies {expected}); "
+                f"|qkv grad| max down2 {qkv['down2'].abs().max().item():.3g}, "
+                f"up4 {qkv['up4'].abs().max().item():.3g}")
+            if counts != expected:
+                raise AssertionError(f"kernel launches {counts}, schedule implies {expected}")
+            if not (len(hist["loss"]) == 1 and train_state.step == epochs * steps):
+                raise AssertionError(f"run to epoch {epochs} trained {len(hist['loss'])} "
+                                     f"epochs, {train_state.step} steps: no resume")
+            if not (np.isfinite(hist["loss"]).all() and np.isfinite(hist["val_psnr"]).all()):
+                raise AssertionError(f"non-finite loss or val PSNR: {dict(hist)}")
+            for lvl, g in qkv.items():
+                if g is None or not torch.isfinite(g).all() or g.abs().max().item() == 0:
+                    raise AssertionError(f"{lvl}.attn.qkv got no gradient")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    state["launches_train"] = totals
+
+    # the train step alone, on one device batch (no data pipeline)
+    cfg = TrainConfig(codec="webp", model=ModelConfig(attention_impl="flash",
+                                                      attn_max_resolution=32),
+                      batch_size=TRAIN_BATCH, ema_decay=0.999)
+    x0 = torch.from_numpy(synthetic_images(TRAIN_BATCH, 64, SEED + 4)).cuda()
+    t = torch.randint(1, 100, (TRAIN_BATCH,), generator=torch.Generator().manual_seed(SEED))
+    batch = {"x0": x0, "xt": codec_surrogate(x0, 30, codec="webp"), "t": t.cuda()}
+    step = make_train_step(model, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    step(train_state, batch, gen)
+    torch.cuda.synchronize()
+    n = 5
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step(train_state, batch, gen)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / n
+    log(f"train step alone (webp, full width, bf16, batch {TRAIN_BATCH}, EMA): {ms:.1f} ms/step, "
+        f"{TRAIN_BATCH * 1e3 / ms:.1f} img/s on {state['smi']}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    profile_run(f"one train step, batch {TRAIN_BATCH}", lambda: step(train_state, batch, gen))
+
+
 PHASES = [("environment", phase_environment), ("build", phase_build),
           ("kernels", phase_kernels), ("reference", phase_reference),
-          ("serve", phase_serve)]
+          ("serve", phase_serve), ("train_reference", phase_train_reference),
+          ("train", phase_train)]
 
 
 def kernels_json(state: dict) -> str:
-    rows = state["kernel_rows"]
-    per_shape = []
-    for bh, t, d in MAIN_PATH_SHAPES:
-        r = rows[(bh, t, d, "bfloat16")]
-        per_shape.append({"shape_bh_t_d": [bh, t, d], "dtype": "bfloat16", **r})
-    first = per_shape[0]
-    return json.dumps({"kernels": [{
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": f"{PACKAGE}/csrc/flash_attention_fwd.cu",
-        "replaces": f"{JAX_PACKAGE}/ops/pallas/flash_attention.py:51",
-        "launches": state["launches"]["flash_attention_fwd"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
-        "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
-        "bound_by": first["bound_by"], "library_ms": first["library_ms"],
-        "shape": "BH=32,T=1024,D=32 bf16 (down2)",
-        "main_path_shapes": per_shape,
-    }]})
+    """One row per kernel. Its top-level numbers are at the first training
+    or serving shape in bf16 (down2); `main_path_shapes` has each shape the
+    main paths give it. `launches` sums the main paths' runs (serve, then
+    train), each counted from 0; `launches_by_path` splits it."""
+    serve, train = state["launches"], state.get("launches_train", {})
+
+    def row(name, source, replaces, rows, shapes, key):
+        per_shape = [{"shape_bh_t_d": [bh, t, d], "dtype": "bfloat16",
+                      **rows[key(bh, t, d, "bfloat16")]} for bh, t, d in shapes]
+        first = per_shape[0]
+        by_path = {"serve": serve.get(name, 0), "train": train.get(name, 0)}
+        return {
+            "name": name, "route": "cuda", "source": f"{PACKAGE}/csrc/{source}",
+            "replaces": f"{JAX_PACKAGE}/ops/pallas/flash_attention.py:{replaces}",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max(r["max_abs_err"] for k, r in rows.items()
+                               if key(*k[-4:]) == k),
+            "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"], "library_ms": first["library_ms"],
+            "shape": "BH=%d,T=%d,D=%d bf16 (down2)" % tuple(shapes[0]),
+            "main_path_shapes": per_shape,
+        }
+
+    fwd_rows, bwd_rows = state["kernel_rows"], state.get("bwd_rows", {})
+    kernels = [row("flash_attention_fwd", "flash_attention_fwd.cu", 51, fwd_rows,
+                   MAIN_PATH_SHAPES, lambda bh, t, d, n: (bh, t, d, n))]
+    for kind, line in (("dq", 207), ("dkv", 247)):
+        kernels.append(row(f"flash_attention_bwd_{kind}", "flash_attention_bwd.cu", line,
+                           bwd_rows, TRAIN_SHAPES,
+                           lambda bh, t, d, n, kind=kind: (kind, bh, t, d, n)))
+    return json.dumps({"kernels": kernels})
 
 
 def main() -> int:

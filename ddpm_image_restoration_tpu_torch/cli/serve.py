@@ -27,7 +27,8 @@ from ddpm_image_restoration_tpu_torch.codecs.quality import (
     init_timestep_for_quality,
     student_stride,
 )
-from ddpm_image_restoration_tpu_torch.config import ModelConfig, codec_index, get_preset
+from ddpm_image_restoration_tpu_torch.cli.common import add_model_flags, model_config_from
+from ddpm_image_restoration_tpu_torch.config import codec_index, get_preset
 from ddpm_image_restoration_tpu_torch.diffusion.ddrm import DDRMSampler
 from ddpm_image_restoration_tpu_torch.diffusion.policy import production_solver_config
 
@@ -88,14 +89,7 @@ def main(argv=None):
     ap.add_argument("--watch", required=True, help="input directory to watch")
     ap.add_argument("--output-dir", required=True)
     ap.add_argument("--codec", default="webp", choices=["webp", "jpeg"])
-    ap.add_argument("--image-size", type=int, default=64)
-    ap.add_argument("--width-scale", type=int, default=1,
-                    help="divide all channel widths by this")
-    ap.add_argument("--compute-dtype", default="bfloat16",
-                    choices=["bfloat16", "float32"])
-    ap.add_argument("--attn", default="xla", choices=["xla", "flash"])
-    ap.add_argument("--attn-max-res", type=int, default=1024,
-                    help="apply self-attention only at spatial sizes <= this")
+    add_model_flags(ap)
     ap.add_argument("--params-npz", default=None,
                     help="serve from a release npz (the JAX package's "
                          "export format)")
@@ -114,15 +108,11 @@ def main(argv=None):
     ap.add_argument("--batch-size", type=int, default=8)
     ap.add_argument("--poll-seconds", type=float, default=1.0)
     ap.add_argument("--once", action="store_true", help="drain the directory and exit")
-    ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if not args.params_npz and not args.random_init:
         ap.error("pass --params-npz or --random-init")
 
-    cfg = ModelConfig(image_size=args.image_size, compute_dtype=args.compute_dtype,
-                      attention_impl=args.attn, attn_max_resolution=args.attn_max_res)
-    if args.width_scale > 1:
-        cfg = cfg.scaled(args.width_scale)
+    cfg = model_config_from(args)
     torch.manual_seed(args.seed)
     model = build_model(args.codec, cfg, device=args.device)
     if args.params_npz:

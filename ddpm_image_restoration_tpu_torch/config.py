@@ -224,3 +224,61 @@ class ModelConfig:
             bottleneck_widths=tuple(max(8, w // factor) for w in self.bottleneck_widths),
             time_dim=max(16, self.time_dim // factor),
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training knobs, field for field the JAX package's `TrainConfig`.
+
+    The port's trainer (train/loop.py) runs on one device and refuses what it
+    does not implement yet: `fsdp`, a `consistency_mode` other than
+    'surrogate', a `mesh_shape`/`mesh_axes` other than the default, and the
+    'avif' and 'all' codecs. `viz_every` is kept for parity; the port draws
+    no restoration grids yet."""
+
+    codec: str = "webp"
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    epochs: int = 100
+    steps: int = 100                           # diffusion timesteps (webp_training.py:825)
+    batch_size: int = 0                        # 0 = use the codec preset's batch size
+    weight_decay: float = 1e-5                 # webp_training.py:775
+    betas: Tuple[float, float] = (0.9, 0.99)
+    grad_clip: float = 1.0                     # webp_training.py:523
+    # EMA of params for eval/serving (0 = off = reference behaviour).
+    # Validation and best-checkpoint selection use the EMA when enabled.
+    ema_decay: float = 0.0
+    cosine_t0: int = 100                       # CosineAnnealingWarmRestarts(T_0=100, T_mult=2)
+    cosine_t_mult: int = 2
+    seed: int = 0
+    data_dir: str = "./ILSVRC2012_img_val"     # webp_training.py:61
+    checkpoint_dir: str = "./checkpoints"
+    viz_every: int = 5                         # webp_training.py:808-812
+    # Minimum epochs between checkpoint saves (the last epoch always saves).
+    ckpt_min_interval: int = 1
+    # Dihedral-8 augmentation of the clean image before codec degradation
+    # (not in the reference). Off by default.
+    augment: bool = False
+    # 80/10/10 split (webp_training.py:64-71); AVIF eval seeds with 42 (avif_inference.py:830)
+    split_fracs: Tuple[float, float, float] = (0.8, 0.1, 0.1)
+    split_seed: int = 42
+    # consistency step inside the validation sampler: 'surrogate' (the
+    # on-device codec approximation) is the one the port implements
+    consistency_mode: str = "surrogate"
+    # parallelism (the port trains on one device: only the defaults)
+    mesh_shape: Tuple[int, ...] = (-1,)
+    mesh_axes: Tuple[str, ...] = ("data",)
+    fsdp: bool = False
+    # host input pipeline: batch-producer threads (the batch stream is
+    # identical for any count) and the decoded-image RAM cache
+    data_workers: int = 4
+    cache_decoded: bool = True
+    # learning-rate override: 0 = the codec preset's reference value
+    lr_override: float = 0.0
+
+    @property
+    def preset(self) -> CodecPreset:
+        return get_preset(self.codec)
+
+    @property
+    def effective_batch_size(self) -> int:
+        return self.batch_size or self.preset.batch_size

@@ -42,6 +42,36 @@ def _group_norm(c: int) -> nn.GroupNorm:
     return nn.GroupNorm(adjusted_group_count(c), c, eps=_GN_EPS)
 
 
+class Dropout(nn.Module):
+    """Flax's `nn.Dropout`: in training mode keep each element with
+    probability 1 − rate and scale it by 1/(1 − rate); in eval mode (and at
+    rate 0) the identity. The mask is drawn from `self.generator`, a
+    `torch.Generator` on the input's device that the trainer owns and sets
+    with `set_dropout_generator`, never from the global RNG."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("training dropout needs a torch.Generator: "
+                               "call set_dropout_generator(model, generator)")
+        keep_prob = 1.0 - self.rate
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
+def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """Let every `Dropout` of `model` draw its training masks from `generator`."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+
+
 class SpatialSelfAttention(nn.Module):
     """Multi-head self-attention over all H*W tokens: fused `qkv` projection
     split into q/k/v, then into heads; `out` projection; both with bias."""
@@ -79,7 +109,7 @@ class ResAttnBlock(nn.Module):
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
         self.time_proj = nn.Linear(cfg.time_dim, out_channels)
         self.norm2 = _group_norm(out_channels)
-        self.dropout = nn.Dropout(cfg.dropout)
+        self.dropout = Dropout(cfg.dropout)
         self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
         self.attn = (
             SpatialSelfAttention(out_channels, preset.attn_heads, cfg.attention_impl)
@@ -164,7 +194,11 @@ class CodecDiffusionModel(nn.Module):
     def encode(self, x: torch.Tensor, t, compression_level=None, codec_id=None):
         """NHWC image -> (skips tuple, bottleneck features), both NCHW."""
         t_emb, level = self._prep(t, compression_level, codec_id)
-        h = x.permute(0, 3, 1, 2).to(getattr(torch, self.cfg.compute_dtype))
+        # NCHW in the contiguous layout: a permuted NHWC tensor would carry
+        # channels-last strides through every conv, and GroupNorm's CPU
+        # backward crashes on those
+        h = x.permute(0, 3, 1, 2).to(getattr(torch, self.cfg.compute_dtype),
+                                     memory_format=torch.contiguous_format)
         skips = []
         for i in range(len(self.cfg.enc_widths)):
             h = getattr(self, f"down{i + 1}")(h if i == 0 else max_pool_2x(h), t_emb, level)

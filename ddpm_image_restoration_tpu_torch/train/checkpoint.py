@@ -1,4 +1,7 @@
-"""Release weights: the JAX package's flat fp16 npz <-> a torch state_dict.
+"""Checkpoints: the train state with resume (`CheckpointManager`), and the
+release weights, the JAX package's flat fp16 npz <-> a torch state_dict.
+
+Release weights:
 
 The npz (written by `train/checkpoint.py export_release_params` in the JAX
 package) holds one array per Flax parameter, keyed by its module path joined
@@ -14,8 +17,9 @@ change:
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -79,3 +83,84 @@ def export_release_params(model: nn.Module, out: str, codec: str = "webp",
     np.savez_compressed(out, __codec__=np.str_(codec),
                         __meta__=np.str_(str(meta or {})), **arrays)
     return out
+
+
+class CheckpointManager:
+    """Train-state checkpoints with true resume (port of the JAX package's
+    Orbax `CheckpointManager`).
+
+    `save(step, state, metrics)` writes `ckpt_<step>.pt` with `torch.save`:
+    the f32 master parameters, the Adam moments, the EMA, the optimizer step
+    and the metrics. Retention serves both readers, as in the JAX package:
+    the best `max_to_keep` by `val_psnr` (for `restore_best`) and the latest
+    two (for `restore_latest`, the resume); the rest are deleted. The
+    metrics of the kept checkpoints are listed in `checkpoints.json`. Saves
+    are synchronous and atomic (written aside, then renamed)."""
+
+    def __init__(self, directory: str, max_to_keep: int = 3):
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        os.makedirs(self.directory, exist_ok=True)
+        self._index_path = os.path.join(self.directory, "checkpoints.json")
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.directory, f"ckpt_{step}.pt")
+
+    def _index(self) -> Dict[int, Dict[str, float]]:
+        if not os.path.exists(self._index_path):
+            return {}
+        with open(self._index_path) as f:
+            return {int(k): v for k, v in json.load(f).items()}
+
+    def _write_index(self, index: Dict[int, Dict[str, float]]) -> None:
+        tmp = self._index_path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({str(k): v for k, v in sorted(index.items())}, f)
+        os.replace(tmp, self._index_path)
+
+    @staticmethod
+    def _psnr(metrics: Dict[str, float]) -> float:
+        return metrics.get("val_psnr", -float("inf"))
+
+    def save(self, step: int, state, metrics: Optional[Dict[str, float]] = None) -> str:
+        metrics = {k: float(v) for k, v in (metrics or {}).items()}
+        path = self._path(step)
+        tmp = path + ".tmp"
+        torch.save({"state": state.state_dict(), "metadata": dict(metrics, step=step)}, tmp)
+        os.replace(tmp, path)
+        index = self._index()
+        index[step] = metrics
+        best = sorted(index, key=lambda s: self._psnr(index[s]), reverse=True)[:self.max_to_keep]
+        keep = set(best) | set(sorted(index)[-2:])
+        for s in [s for s in index if s not in keep]:
+            if os.path.exists(self._path(s)):
+                os.remove(self._path(s))
+            del index[s]
+        self._write_index(index)
+        return path
+
+    def all_steps(self) -> list:
+        return sorted(self._index())
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def best_step(self) -> Optional[int]:
+        index = self._index()
+        return max(index, key=lambda s: self._psnr(index[s])) if index else None
+
+    def restore(self, step: int, state) -> Tuple[Any, Dict]:
+        """Load checkpoint `step` into the train state `state` (in place);
+        returns (state, metadata)."""
+        payload = torch.load(self._path(step), map_location="cpu", weights_only=True)
+        state.load_state_dict(payload["state"])
+        return state, payload["metadata"]
+
+    def restore_latest(self, state) -> Optional[Tuple[Any, Dict]]:
+        step = self.latest_step()
+        return None if step is None else self.restore(step, state)
+
+    def restore_best(self, state) -> Optional[Tuple[Any, Dict]]:
+        step = self.best_step()
+        return None if step is None else self.restore(step, state)

@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from ddpm_image_restoration_tpu.models import build_model as jax_build_model
+from ddpm_image_restoration_tpu.train.steps import TrainState, make_optimizer
 from ddpm_image_restoration_tpu.train.checkpoint import (
     load_release_params as jax_load_release_params,
 )
@@ -17,6 +18,7 @@ from ddpm_image_restoration_tpu_torch.models import build_model as torch_build_m
 from ddpm_image_restoration_tpu_torch.train.checkpoint import (
     export_release_params,
     load_release_params,
+    params_to_jax,
 )
 
 
@@ -75,3 +77,33 @@ def smooth_images(n, size, seed=0):
 
 def nchw_to_nhwc(t: torch.Tensor) -> np.ndarray:
     return t.permute(0, 2, 3, 1).numpy()
+
+
+def jax_train_state(jax_model, jax_train_cfg, params, steps_per_epoch=1):
+    """The JAX package's TrainState over `params` (e.g. `model_pair`'s npz
+    weights), built with `TrainState.create` as its `create_train_state`
+    does after `model.init`, which takes tens of seconds on the CPU."""
+    ema = jax.tree_util.tree_map(jnp.copy, params) if jax_train_cfg.ema_decay > 0 else None
+    return TrainState.create(apply_fn=jax_model.apply, params=params,
+                             tx=make_optimizer(jax_train_cfg, steps_per_epoch), ema_params=ema)
+
+
+def as_jax_layout(model, tensors):
+    """Tensors keyed by `model`'s parameter names (a gradient, an EMA or a
+    master copy) in the JAX package's flat '/'-keyed layout, f32 numpy."""
+    with torch.no_grad():
+        saved = {n: p.data for n, p in model.named_parameters()}
+        try:
+            for n, p in model.named_parameters():
+                p.data = tensors[n].detach().float().cpu()
+            return params_to_jax(model)
+        finally:
+            for n, p in model.named_parameters():
+                p.data = saved[n]
+
+
+def flatten_jax(tree):
+    """A Flax params tree as {'a/b/kernel': numpy array}."""
+    from flax.traverse_util import flatten_dict
+
+    return {k: np.asarray(v, np.float32) for k, v in flatten_dict(tree, sep="/").items()}

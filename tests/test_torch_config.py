@@ -41,6 +41,15 @@ def test_model_config_and_codecs_match():
         tcfg.get_preset("png")
 
 
+def test_train_config_matches():
+    assert dataclasses.asdict(tcfg.TrainConfig()) == dataclasses.asdict(jcfg.TrainConfig())
+    for codec, bs in (("webp", 0), ("avif", 0), ("jpeg", 7)):
+        t, j = tcfg.TrainConfig(codec=codec, batch_size=bs), jcfg.TrainConfig(codec=codec,
+                                                                              batch_size=bs)
+        assert t.effective_batch_size == j.effective_batch_size
+        assert dataclasses.asdict(t.preset) == dataclasses.asdict(j.preset)
+
+
 @pytest.mark.parametrize("codec", ["jpeg", "webp", "avif"])
 def test_quality_maps_match(codec):
     for steps in (4, 20, 100, 1000):

@@ -1,8 +1,9 @@
-"""The port's flash-attention forward: its plain version (what a CPU tensor
-takes) against the JAX package's Pallas kernel in interpret mode, at the
-shapes of tests/test_flash_attention.py; the dispatch rules; and the build's
-failure modes. The kernel itself is tested on the card by
-tests/test_torch_kernels_cuda.py."""
+"""The port's flash attention: the plain forward and backward (what a CPU
+tensor takes) against the JAX package's Pallas kernels in interpret mode, at
+the shapes of tests/test_flash_attention.py; the autograd Function against
+`jax.grad` and against autograd through the plain attention; the dispatch
+rules; and the build's failure modes. The kernels themselves are tested on
+the card by tests/test_torch_kernels_cuda.py."""
 
 import jax
 import jax.numpy as jnp
@@ -12,6 +13,7 @@ import torch
 
 from ddpm_image_restoration_tpu.ops.pallas.flash_attention import (
     _flash_bhtd,
+    _flash_bhtd_bwd,
     flash_attention as jax_flash_attention,
 )
 from ddpm_image_restoration_tpu_torch.ops import attention, build
@@ -119,7 +121,111 @@ def test_build_finds_nvcc_and_names_library_by_source(monkeypatch, tmp_path):
     assert build.find_nvcc() == str(fake)
     p = build.library_path(fa.KERNEL)
     assert p.parent == build.BUILD_DIR and p.name.startswith("libflash_attention_fwd_")
+    assert build.library_path(fa.BWD_KERNEL).name.startswith("libflash_attention_bwd_")
     assert build.BUILD_DIR == build.PACKAGE_DIR.parent / "build" / "torch_kernels"
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
     with pytest.raises(RuntimeError, match="nvcc failed"):
         build.build(fa.KERNEL)
+
+
+@pytest.mark.parametrize("bh,t,d", [(4, 300, 64), (4, 1300, 16)])
+def test_bwd_plain_matches_pallas_interpret(rng, bh, t, d):
+    """dQ, dK, dV of the plain backward against the JAX backward kernels
+    (`_flash_bhtd_bwd`, interpret mode) fed the same q, k, v, o, dO and LSE:
+    one block with padding (T=300), and several 512-blocks with padding
+    (T=1300). The JAX LSE is [BH,T,128]; column 0 is the port's [BH,T].
+    f32, atol/rtol 1e-4: the same arithmetic summed in another order."""
+    q, k, v, do = (rng.normal(0, 1, (bh, t, d)).astype(np.float32) for _ in range(4))
+    o, lse = _flash_bhtd(*map(jnp.asarray, (q, k, v)), real_d=d, interpret=True, save_lse=True)
+    want = _flash_bhtd_bwd(*map(jnp.asarray, (q, k, v)), o, lse, jnp.asarray(do), real_d=d,
+                           interpret=True)
+    got = fa.flash_attention_bwd_plain(
+        *map(torch.from_numpy, (q, k, v, np.array(o), do)),
+        torch.from_numpy(np.array(lse)[:, :, 0]))
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == torch.float32 and g.shape == (bh, t, d)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4, rtol=1e-4,
+                                   err_msg=name)
+
+
+def test_bwd_plain_bf16(rng):
+    """bf16 inputs give bf16 gradients, within one bf16 rounding (atol 1e-2
+    for gradients below 1) of the JAX kernels on the same bf16 inputs."""
+    q, k, v, do = (jnp.asarray(rng.normal(0, 1, (2, 300, 32)), jnp.bfloat16) for _ in range(4))
+    o, lse = _flash_bhtd(q, k, v, real_d=32, interpret=True, save_lse=True)
+    want = _flash_bhtd_bwd(q, k, v, o, lse, do, real_d=32, interpret=True)
+
+    def to_torch(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+
+    got = fa.flash_attention_bwd_plain(*map(to_torch, (q, k, v, o, do)),
+                                       torch.from_numpy(np.array(lse)[:, :, 0]))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(w, np.float32), atol=1e-2)
+
+
+def test_bwd_kernel_split_matches_plain(rng):
+    """The per-kernel plain versions (dQ with Delta, then dK/dV on that
+    Delta) give what the one-pass plain backward gives, on the CPU route of
+    the kernel wrappers."""
+    q, k, v, do = (torch.from_numpy(rng.normal(0, 1, (3, 200, 16)).astype(np.float32))
+                   for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, save_lse=True)
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    torch.testing.assert_close(delta, (do * o).sum(-1))
+    for a, b in zip((dq, dk, dv), fa.flash_attention_bwd_plain(q, k, v, o, do, lse)):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("b,t,h,d", [(2, 1024, 2, 32), (1, 1300, 2, 16)])
+def test_function_grads_match_jax_grad(rng, b, t, h, d):
+    """Gradients of spatial_attention(impl='flash') (the autograd Function,
+    on the CPU through the plain backward) against `jax.grad` of the JAX
+    package's flash_attention in interpret mode (its custom VJP with the
+    Pallas backward kernels), [B,T,H,D]; atol/rtol 5e-3 as the JAX package's
+    own gradient test."""
+    q, k, v = _qkv(rng, b, t, h, d)
+    w = rng.normal(0, 1, q.shape).astype(np.float32)
+    want = jax.grad(lambda q, k, v: jnp.sum(
+        jax_flash_attention(q, k, v, interpret="always") * w), argnums=(0, 1, 2))(
+        *map(jnp.asarray, (q, k, v)))
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = attention.spatial_attention(*leaves, impl="flash")
+    assert out.grad_fn is not None
+    got = torch.autograd.grad((out * torch.from_numpy(w)).sum(), leaves)
+    for g, r, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=5e-3, rtol=5e-3,
+                                   err_msg=f"d{name}")
+
+
+def test_function_matches_plain_autograd_and_dispatch(rng, monkeypatch):
+    """The Function's gradients equal autograd through the plain attention
+    (f32, atol 1e-5); it is taken only when a gradient is needed, so a
+    no-grad call runs the forward alone, without the LSE."""
+    q, k, v = _qkv(rng, 1, 1024, 2, 16)
+    w = torch.from_numpy(rng.normal(0, 1, q.shape).astype(np.float32))
+    grads = []
+    for impl in ("flash", "xla"):
+        leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+        grads.append(torch.autograd.grad(
+            (attention.spatial_attention(*leaves, impl=impl) * w).sum(), leaves))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    calls = []
+    real = fa.flash_attention_fwd
+
+    def spy(q, k, v, save_lse=False):
+        calls.append(save_lse)
+        return real(q, k, v, save_lse)
+
+    monkeypatch.setattr(attention, "flash_attention_fwd", spy)
+    monkeypatch.setattr(fa, "flash_attention_fwd", spy)
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    with torch.no_grad():
+        attention.spatial_attention(*leaves, impl="flash")
+    attention.spatial_attention(*[torch.from_numpy(x) for x in (q, k, v)], impl="flash")
+    assert calls == [False, False]
+    attention.spatial_attention(*leaves, impl="flash")
+    assert calls == [False, False, True]

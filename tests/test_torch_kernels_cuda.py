@@ -45,6 +45,96 @@ def test_kernel_matches_plain_on_card(card, bh, t, d, dtype, atol):
         fa.flash_attention_fwd(wide, wide, wide)
 
 
+BWD_SHAPES = [(72, 1024, 32), (72, 1024, 16), (4, 300, 64), (4, 1300, 16), (2, 256, 128),
+              (3, 200, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,t,d", BWD_SHAPES)
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2), (torch.float32, 2e-3)])
+def test_bwd_kernels_match_plain_on_card(card, bh, t, d, dtype, atol):
+    """dQ (with Delta) and dK/dV against the plain backward on the same
+    inputs and the same LSE. The training shapes first (18 images x 4 heads,
+    32x32 tokens, D 32 and 16), then ragged T, a wide head and a head dim
+    that the wrapper zero-pads (8 -> 16). Both sides accumulate in f32; bf16
+    rounds each output once (gradients here are below 1, one bf16 step at
+    most 4e-3)."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v, do = (torch.randn(bh, t, d, device="cuda", generator=g).to(dtype)
+                   for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, save_lse=True)
+    before = (fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches)
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, do, lse)
+    rdq, rdelta = fa.flash_attention_bwd_dq_plain(q, k, v, o, do, lse)
+    assert (delta - rdelta).abs().max().item() <= atol
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == dtype and got.shape == (bh, t, d)
+        assert (got.float() - ref.float()).abs().max().item() <= atol
+
+
+@pytest.mark.cuda
+def test_bwd_wrappers_refuse_bad_stats(card):
+    q = torch.zeros(2, 64, 16, device="cuda")
+    with pytest.raises(ValueError, match="per-row statistics"):
+        fa.flash_attention_bwd_dq(q, q, q, q, q, torch.zeros(2, 64, device="cuda",
+                                                             dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="per-row statistics"):
+        fa.flash_attention_bwd_dkv(q, q, q, q, torch.zeros(2, 64, device="cuda"),
+                                   torch.zeros(2, 63, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 3e-2), (torch.float32, 2e-3)])
+def test_function_grads_match_plain_autograd_on_card(card, dtype, atol):
+    """spatial_attention(impl='flash') under autograd (the Function: forward
+    kernel with LSE, dQ and dK/dV kernels) against autograd through the
+    plain attention, [B,T,H,D] = [4,1024,4,32]."""
+    from ddpm_image_restoration_tpu_torch.ops.attention import spatial_attention
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v, do = (torch.randn(4, 1024, 4, 32, device="cuda", generator=g).to(dtype)
+                   for _ in range(4))
+    leaves = [z.clone().requires_grad_() for z in (q, k, v)]
+    before = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches)
+    got = torch.autograd.grad(spatial_attention(*leaves, impl="flash"), leaves, do)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    ref_leaves = [z.clone().requires_grad_() for z in (q, k, v)]
+    ref = torch.autograd.grad(spatial_attention(*ref_leaves, impl="xla"), ref_leaves, do)
+    for a, b in zip(got, ref):
+        assert a.dtype == dtype
+        assert (a.float() - b.float()).abs().max().item() <= atol
+    # without a gradient to take, only the forward kernel runs (no LSE)
+    with torch.no_grad():
+        spatial_attention(q, k, v, impl="flash")
+    assert fa.flash_attention_bwd_dq.launches == before[1] + 1
+
+
+@pytest.mark.cuda
+def test_flash_block_qkv_grad_on_card(card):
+    """A 32x32 flash attention block's qkv weight gets the gradient the plain
+    route gives (it was None-or-residual-only before the Function)."""
+    from ddpm_image_restoration_tpu_torch.models.unet import SpatialSelfAttention
+
+    torch.manual_seed(0)
+    flash = SpatialSelfAttention(64, 4, impl="flash").cuda()
+    plain = SpatialSelfAttention(64, 4, impl="xla").cuda()
+    plain.load_state_dict(flash.state_dict())
+    x = torch.randn(2, 64, 32, 32, device="cuda")
+    for m in (flash, plain):
+        m(x).square().mean().backward()
+    assert flash.qkv.weight.grad is not None and flash.qkv.weight.grad.abs().max() > 0
+    ref = plain.qkv.weight.grad
+    assert (flash.qkv.weight.grad - ref).abs().max().item() <= 1e-3 * ref.abs().max().item()
+
+
 @pytest.mark.cuda
 def test_small_restore_on_card_matches_cpu(card):
     """A width/8 f32 restore with flash attention at 32² (T = 1024) on the

@@ -131,7 +131,9 @@ def test_chip_smoke_refuses_without_card(tmp_path):
 
 
 def test_chip_smoke_bound_and_kernel_line():
-    """The roofline bound the script reports, and the JSON line's keys."""
+    """The roofline bounds the script reports, and the JSON line's keys: one
+    row per kernel (the forward and the two backward kernels), each naming
+    its source and the Pallas kernel it replaces."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke
 
@@ -139,13 +141,28 @@ def test_chip_smoke_bound_and_kernel_line():
     assert by == "operations" and ms == pytest.approx(1e3 * 4 * 32 * 1024 ** 2 * 32 / 989e12)
     ms, by = chip_smoke.attention_bound_ms(4, 300, 64, "bfloat16")
     assert by == "bytes" and ms == pytest.approx(1e3 * 4 * 4 * 300 * 64 * 2 / 3.35e12)
+    ms, by = chip_smoke.bwd_bound_ms("dq", 72, 1024, 32, "bfloat16")
+    assert by == "operations" and ms == pytest.approx(1e3 * 6 * 72 * 1024 ** 2 * 32 / 989e12)
+    ms, by = chip_smoke.bwd_bound_ms("dkv", 72, 1024, 16, "float32")
+    assert by == "operations" and ms == pytest.approx(1e3 * 8 * 72 * 1024 ** 2 * 16 / 67e12)
+    ms, by = chip_smoke.bwd_bound_ms("dkv", 4, 30, 64, "bfloat16")
+    assert by == "bytes" and ms == pytest.approx(1e3 * (6 * 4 * 30 * 64 * 2 + 8 * 4 * 30) / 3.35e12)
     row = dict(max_abs_err=1e-3, ms=0.3, plain_ms=0.7, library_ms=0.03, bound_ms=0.004,
                bound_by="operations")
     state = {"kernel_rows": {(bh, t, d, "bfloat16"): row for bh, t, d in chip_smoke.KERNEL_SHAPES},
-             "launches": {"flash_attention_fwd": 60}}
-    (k,) = json.loads(chip_smoke.kernels_json(state))["kernels"]
-    assert {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms"} <= set(k)
-    assert (ROOT / k["source"]).exists() and k["route"] == "cuda" and k["launches"] == 60
-    path, line = k["replaces"].split(":")
-    assert "def _kernel(" in (ROOT / path).read_text().splitlines()[int(line) - 1]
+             "bwd_rows": {(kind, bh, t, d, "bfloat16"): row for kind in ("dq", "dkv")
+                          for bh, t, d in chip_smoke.BWD_SHAPES},
+             "launches": {"flash_attention_fwd": 60, "flash_attention_bwd_dq": 0,
+                          "flash_attention_bwd_dkv": 0},
+             "launches_train": {"flash_attention_fwd": 824, "flash_attention_bwd_dq": 24,
+                                "flash_attention_bwd_dkv": 24}}
+    kernels = json.loads(chip_smoke.kernels_json(state))["kernels"]
+    assert [k["name"] for k in kernels] == ["flash_attention_fwd", "flash_attention_bwd_dq",
+                                            "flash_attention_bwd_dkv"]
+    assert [k["launches"] for k in kernels] == [884, 24, 24]
+    for k, body in zip(kernels, ("def _kernel(", "def _bwd_dq_kernel(", "def _bwd_dkv_kernel(")):
+        assert {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms"} <= set(k)
+        assert (ROOT / k["source"]).exists() and k["route"] == "cuda"
+        path, line = k["replaces"].split(":")
+        assert body in (ROOT / path).read_text().splitlines()[int(line) - 1]
