@@ -31,11 +31,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     `save_lse` also the per-query log-sum-exp as [BH, T] f32."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.matmul(q.float() * scale, k.float().transpose(-1, -2))
-    if not save_lse:
-        return torch.matmul(torch.softmax(s, dim=-1), v.float()).to(q.dtype)
     lse = torch.logsumexp(s, dim=-1)
     out = torch.matmul(torch.exp(s - lse[..., None]), v.float()).to(q.dtype)
-    return out, lse
+    return (out, lse) if save_lse else out
 
 
 def _bwd_terms(q, k, v, do, lse, delta):
@@ -214,9 +212,7 @@ flash_attention_bwd_dkv.launches = 0
 
 def flash_attention_bwd(q, k, v, o, do, lse):
     """(dQ, dK, dV): the dQ kernel, then the dK/dV kernel on the Delta it
-    wrote (the plain version for CPU tensors)."""
-    if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, o, do, lse)
+    wrote (each wrapper takes the plain version for CPU tensors)."""
     dq, delta = flash_attention_bwd_dq(q, k, v, o, do, lse)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta)
     return dq, dk, dv

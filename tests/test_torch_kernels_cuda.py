@@ -12,6 +12,20 @@ import torch
 from ddpm_image_restoration_tpu_torch.ops import flash_attention as fa
 
 
+# A kernel against its plain version, entry by entry: |got - ref| <= step *
+# |ref| + 1e-4 * max|ref|. Both accumulate in f32 on the same inputs (1e-4 of
+# the largest entry covers their roundoff); a bf16 output is then rounded
+# once on each side, at most one bf16 step (2^-7) of that entry apart. The
+# LSE and Delta are f32 in either case.
+STEPS = [(torch.bfloat16, 2 ** -7), (torch.float32, 0.0)]
+
+
+def close(got, ref, step=0.0, rel_max=1e-4):
+    ref = ref.float()
+    bound = step * ref.abs() + rel_max * ref.abs().max()
+    return bool(((got.float() - ref).abs() <= bound).all())
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -20,10 +34,11 @@ def card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bh,t,d", [(32, 1024, 32), (32, 1024, 16), (8, 4096, 16),
-                                    (4, 300, 64), (2, 256, 128)])
-@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2), (torch.float32, 2e-3)])
-def test_kernel_matches_plain_on_card(card, bh, t, d, dtype, atol):
+@pytest.mark.parametrize("bh,t,d", [(32, 1024, 32), (32, 1024, 16), (72, 1024, 32),
+                                    (72, 1024, 16), (8, 4096, 16), (4, 300, 64),
+                                    (2, 256, 128)])
+@pytest.mark.parametrize("dtype,step", STEPS)
+def test_kernel_matches_plain_on_card(card, bh, t, d, dtype, step):
     g = torch.Generator(device="cuda").manual_seed(0)
     q, k, v = (torch.randn(bh, t, d, device="cuda", generator=g).to(dtype) for _ in range(3))
     before = fa.flash_attention_fwd.launches
@@ -32,14 +47,14 @@ def test_kernel_matches_plain_on_card(card, bh, t, d, dtype, atol):
     torch.cuda.synchronize()
     assert fa.flash_attention_fwd.launches == before + 1
     assert o.dtype == dtype and lse.shape == (bh, t)
-    assert (o.float() - ro.float()).abs().max().item() <= atol
-    assert (lse - rlse).abs().max().item() <= atol
+    assert close(o, ro, step)
+    assert close(lse, rlse)
     # a head dim between the built ones is zero-padded to the next
     q8, k8, v8 = (z[..., :8].contiguous() for z in (q, k, v))
     o8 = fa.flash_attention_fwd(q8, k8, v8)
     torch.cuda.synchronize()
     assert o8.shape == (bh, t, 8)
-    assert (o8.float() - fa.flash_attention_plain(q8, k8, v8).float()).abs().max().item() <= atol
+    assert close(o8, fa.flash_attention_plain(q8, k8, v8), step)
     wide = torch.zeros(bh, t, 136, device="cuda", dtype=dtype)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention_fwd(wide, wide, wide)
@@ -51,14 +66,13 @@ BWD_SHAPES = [(72, 1024, 32), (72, 1024, 16), (4, 300, 64), (4, 1300, 16), (2, 2
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bh,t,d", BWD_SHAPES)
-@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2), (torch.float32, 2e-3)])
-def test_bwd_kernels_match_plain_on_card(card, bh, t, d, dtype, atol):
+@pytest.mark.parametrize("dtype,step", STEPS)
+def test_bwd_kernels_match_plain_on_card(card, bh, t, d, dtype, step):
     """dQ (with Delta) and dK/dV against the plain backward on the same
     inputs and the same LSE. The training shapes first (18 images x 4 heads,
     32x32 tokens, D 32 and 16), then ragged T, a wide head and a head dim
-    that the wrapper zero-pads (8 -> 16). Both sides accumulate in f32; bf16
-    rounds each output once (gradients here are below 1, one bf16 step at
-    most 4e-3)."""
+    that the wrapper zero-pads (8 -> 16), each entry within one bf16 `step`
+    of the plain output's (see `close`)."""
     g = torch.Generator(device="cuda").manual_seed(1)
     q, k, v, do = (torch.randn(bh, t, d, device="cuda", generator=g).to(dtype)
                    for _ in range(4))
@@ -71,10 +85,10 @@ def test_bwd_kernels_match_plain_on_card(card, bh, t, d, dtype, atol):
         before[0] + 1, before[1] + 1)
     want = fa.flash_attention_bwd_plain(q, k, v, o, do, lse)
     rdq, rdelta = fa.flash_attention_bwd_dq_plain(q, k, v, o, do, lse)
-    assert (delta - rdelta).abs().max().item() <= atol
+    assert close(delta, rdelta)
     for got, ref in zip((dq, dk, dv), want):
         assert got.dtype == dtype and got.shape == (bh, t, d)
-        assert (got.float() - ref.float()).abs().max().item() <= atol
+        assert close(got, ref, step)
 
 
 @pytest.mark.cuda
@@ -89,11 +103,14 @@ def test_bwd_wrappers_refuse_bad_stats(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 3e-2), (torch.float32, 2e-3)])
-def test_function_grads_match_plain_autograd_on_card(card, dtype, atol):
+@pytest.mark.parametrize("dtype,rel", [(torch.bfloat16, 2 ** -6), (torch.float32, 1e-4)])
+def test_function_grads_match_plain_autograd_on_card(card, dtype, rel):
     """spatial_attention(impl='flash') under autograd (the Function: forward
     kernel with LSE, dQ and dK/dV kernels) against autograd through the
-    plain attention, [B,T,H,D] = [4,1024,4,32]."""
+    plain attention, [B,T,H,D] = [4,1024,4,32], within `rel` of the largest
+    gradient entry: in bf16 the kernels take Delta from the rounded output
+    where autograd keeps it in f32 (up to 0.8 bf16 steps of the largest
+    entry measured on the card; two are allowed)."""
     from ddpm_image_restoration_tpu_torch.ops.attention import spatial_attention
 
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -110,7 +127,7 @@ def test_function_grads_match_plain_autograd_on_card(card, dtype, atol):
     ref = torch.autograd.grad(spatial_attention(*ref_leaves, impl="xla"), ref_leaves, do)
     for a, b in zip(got, ref):
         assert a.dtype == dtype
-        assert (a.float() - b.float()).abs().max().item() <= atol
+        assert close(a, b, rel_max=rel)
     # without a gradient to take, only the forward kernel runs (no LSE)
     with torch.no_grad():
         spatial_attention(q, k, v, impl="flash")

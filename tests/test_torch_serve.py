@@ -149,7 +149,11 @@ def test_chip_smoke_bound_and_kernel_line():
     assert by == "bytes" and ms == pytest.approx(1e3 * (6 * 4 * 30 * 64 * 2 + 8 * 4 * 30) / 3.35e12)
     row = dict(max_abs_err=1e-3, ms=0.3, plain_ms=0.7, library_ms=0.03, bound_ms=0.004,
                bound_by="operations")
-    state = {"kernel_rows": {(bh, t, d, "bfloat16"): row for bh, t, d in chip_smoke.KERNEL_SHAPES},
+    ms, by = chip_smoke.attention_bound_ms(4, 300, 64, "bfloat16", save_lse=True)
+    assert by == "bytes" and ms == pytest.approx(1e3 * (4 * 4 * 300 * 64 * 2 + 4 * 4 * 300)
+                                                 / 3.35e12)
+    state = {"kernel_rows": {(bh, t, d, "bfloat16", lse): row for bh, t, d in
+                             chip_smoke.KERNEL_SHAPES for lse in (False, True)},
              "bwd_rows": {(kind, bh, t, d, "bfloat16"): row for kind in ("dq", "dkv")
                           for bh, t, d in chip_smoke.BWD_SHAPES},
              "launches": {"flash_attention_fwd": 60, "flash_attention_bwd_dq": 0,
@@ -160,6 +164,15 @@ def test_chip_smoke_bound_and_kernel_line():
     assert [k["name"] for k in kernels] == ["flash_attention_fwd", "flash_attention_bwd_dq",
                                             "flash_attention_bwd_dkv"]
     assert [k["launches"] for k in kernels] == [884, 24, 24]
+    # every shape the main paths give a kernel has its own row: the forward
+    # at serving, training (with the LSE) and validation shapes
+    fwd_shapes = [(s["path"], *s["shape_bh_t_d"], s["save_lse"])
+                  for s in kernels[0]["main_path_shapes"]]
+    assert fwd_shapes == [tuple(s) for s in chip_smoke.FWD_PATH_SHAPES]
+    assert ("train step", 72, 1024, 32, True) in fwd_shapes
+    for k in kernels[1:]:
+        assert [s["shape_bh_t_d"] for s in k["main_path_shapes"]] == [
+            list(s) for s in chip_smoke.TRAIN_SHAPES]
     for k, body in zip(kernels, ("def _kernel(", "def _bwd_dq_kernel(", "def _bwd_dkv_kernel(")):
         assert {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms"} <= set(k)
