@@ -4,10 +4,13 @@ NVIDIA card and checks it, phase by phase:
 
   1. environment: torch and CUDA versions, the card's name and power limit;
   2. build: every kernel of the serving and training paths, with nvcc, from
-     the checkout, one nvcc per source, all started together;
-  3. kernels: each kernel against its plain PyTorch version, with times,
-     and the autograd Function's gradients against autograd through the
-     plain attention;
+     the checkout, one nvcc per source, all started together; each kernel's
+     registers, spills and shared memory (`ptxas -v`) and its tensor-core
+     instructions (HMMA, counted in `cuobjdump -sass`);
+  3. kernels: each kernel against its plain PyTorch version, with times
+     (the kernels' and SDPA's as device time under torch.profiler, the
+     plain versions' between CUDA events), and the autograd Function's
+     gradients against autograd through the plain attention;
   4. reference: a half-width f32 restore on the card against the same
      restore on the CPU (the CPU path is the one the tests hold to the JAX
      package);
@@ -38,6 +41,7 @@ import importlib.util
 import json
 import math
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -58,10 +62,12 @@ FWD_PATH_SHAPES = [("serve", 32, 1024, 32, False), ("serve", 32, 1024, 16, False
 # (BH, T, D): those shapes, then long, ragged and wide-head cases of the
 # kernel's contract.
 KERNEL_SHAPES = list(dict.fromkeys(s[1:4] for s in FWD_PATH_SHAPES)) + [
-    (8, 4096, 16), (4, 300, 64), (2, 256, 128)]
+    (8, 4096, 16), (4, 300, 64), (2, 256, 128), (3, 17, 32)]
 # Backward (BH, T, D): the training path's shapes first (down2 and up4 of a
-# batch of 18 images x 4 heads, 32x32 tokens), then ragged and wide cases.
-BWD_SHAPES = [(72, 1024, 32), (72, 1024, 16), (4, 300, 64), (4, 1300, 16), (2, 256, 128)]
+# batch of 18 images x 4 heads, 32x32 tokens), then ragged, short and wide
+# cases.
+BWD_SHAPES = [(72, 1024, 32), (72, 1024, 16), (4, 300, 64), (4, 1300, 16), (2, 256, 128),
+              (3, 17, 32)]
 TRAIN_SHAPES = BWD_SHAPES[:2]
 # Each kernel against its plain version, entry by entry:
 #   |got - ref| <= BF16_STEP * |ref| (bf16 outputs only) + F32_REL * max|ref|.
@@ -77,6 +83,12 @@ F32_REL = 1e-4
 # gradient by up to 0.8 bf16 steps of the largest entry on the card; two
 # steps are allowed.
 FUNCTION_REL = {"bfloat16": 2 ** -6, "float32": F32_REL}
+# Which design computes each kernel, per input dtype.
+DESIGNS = {
+    "flash_attention_fwd": {"bf16": "mma.sync m16n8k16, hi/lo P", "f32": "FMA"},
+    "flash_attention_bwd_dq": {"bf16": "FMA", "f32": "FMA"},
+    "flash_attention_bwd_dkv": {"bf16": "mma.sync m16n8k16, hi/lo P and dS", "f32": "FMA"},
+}
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s; dense
 # tensor-core bf16 and f32 (non-tensor-core) FLOP/s.
 PEAK_BYTES_S = 3.35e12
@@ -207,9 +219,43 @@ def phase_build(state: dict) -> None:
     names = (fa.KERNEL, fa.BWD_KERNEL)
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, all at once
         built = list(pool.map(build.build, names))
+    hmma = {}
     for name, (path, seconds) in zip(names, built):
         log(f"built {path.name} with {build.find_nvcc()} in {seconds:.1f} s")
+        log_file = path.with_suffix(".log")
+        for line in build.ptxas_summary(log_file.read_text() if log_file.exists() else ""):
+            log(f"  ptxas: {line}")
+        for kernel, n in sass_mma_counts(path, build.find_nvcc()).items():
+            hmma[kernel] = n
+            log(f"  sass: {kernel}: {n} HMMA instructions")
         build.load(name)
+    # the forward and dK/dV tensor-core kernels, at each of the 4 head dims
+    mma = {k: n for k, n in hmma.items() if "_mma_kernel" in k}
+    if hmma and (len(mma) != 8 or not all(mma.values())):
+        raise AssertionError(f"tensor-core kernels without HMMA in their SASS: {mma}")
+
+
+def sass_mma_counts(path, nvcc: str) -> dict:
+    """Tensor-core (HMMA) instructions per kernel in the library's SASS, from
+    `cuobjdump -sass` beside nvcc; {} (logged) where it cannot be run."""
+    from ddpm_image_restoration_tpu_torch.ops.build import kernel_label
+
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    try:
+        sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                              timeout=120, check=True).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        log(f"  sass: not measured ({tool}: {e})")
+        return {}
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            name = kernel_label(m.group(1))
+            counts[name] = 0
+        elif name and "HMMA" in line:
+            counts[name] += 1
+    return counts
 
 
 def phase_kernels(state: dict) -> None:
@@ -227,7 +273,7 @@ def phase_kernels(state: dict) -> None:
             q, k, v = (torch.randn(bh, t, d, device="cuda", generator=gen).to(dtype)
                        for _ in range(3))
             q4, k4, v4 = (z[None] for z in (q, k, v))
-            lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
+            lib_ms = device_time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
             for save_lse in (False, True):
                 got = fa.flash_attention_fwd(q, k, v, save_lse=save_lse)
                 ref = fa.flash_attention_plain(q, k, v, save_lse=save_lse)
@@ -240,15 +286,17 @@ def phase_kernels(state: dict) -> None:
                     if not sh <= 1.0:
                         failures.append(f"(BH,T,D)=({bh},{t},{d}) {name} {part}: "
                                         f"max|err| {e:.3g}, {sh:.3g} of its bound")
-                ms = cuda_time_ms(lambda: fa.flash_attention_fwd(q, k, v, save_lse))
+                ms = device_time_ms(lambda: fa.flash_attention_fwd(q, k, v, save_lse))
+                event_ms = cuda_time_ms(lambda: fa.flash_attention_fwd(q, k, v, save_lse))
                 plain_ms = cuda_time_ms(lambda: fa.flash_attention_plain(q, k, v, save_lse))
                 bound, by = attention_bound_ms(bh, t, d, name, save_lse)
                 rows[(bh, t, d, name, save_lse)] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                    bound_ms=bound, bound_by=by)
+                    max_abs_err=err, ms=ms, event_ms=event_ms, plain_ms=plain_ms,
+                    library_ms=lib_ms, bound_ms=bound, bound_by=by)
                 log(f"flash_attention_fwd (BH,T,D)=({bh},{t},{d}) {name} lse={save_lse}: "
                     f"max|err| {err:.3g} ({share:.3g} of its bound)  "
-                    f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  "
+                    f"kernel {ms:.4f} ms device ({event_ms:.4f} ms between events)  "
+                    f"plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms device  "
                     f"bound {bound:.4f} ms ({by})")
     state["kernel_rows"] = rows
     state["bwd_rows"] = check_backward(failures)
@@ -261,9 +309,10 @@ def check_backward(failures: list) -> dict:
     """The dQ kernel (with Delta) and the dK/dV kernel against their plain
     versions on the same inputs and LSE; their times, the plain versions',
     and scaled_dot_product_attention's backward at the same shape (it
-    computes dQ, dK and dV in one call: the yardstick for both rows, taken
-    as its kernels' device time, since the autograd call's host overhead
-    exceeds it)."""
+    computes dQ, dK and dV in one call: the yardstick for both rows). Kernel
+    and SDPA times are device time (`device_time_ms`), since a call's host
+    overhead exceeds the tensor-core kernels' time; the kernels' times
+    between CUDA events are kept beside them."""
     import torch
     import torch.nn.functional as F
 
@@ -295,13 +344,13 @@ def check_backward(failures: list) -> dict:
                     if not sh <= 1.0:
                         failures.append(f"bwd {part} (BH,T,D)=({bh},{t},{d}) {name}: "
                                         f"max|err| {e:.3g}, {sh:.3g} of its bound")
-            times = {
-                "dq": (cuda_time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, o, do, lse)),
-                       cuda_time_ms(lambda: fa.flash_attention_bwd_dq_plain(q, k, v, o, do, lse))),
-                "dkv": (cuda_time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)),
-                        cuda_time_ms(lambda: fa.flash_attention_bwd_dkv_plain(
-                            q, k, v, do, lse, delta))),
-            }
+            kernel_calls = {"dq": lambda: fa.flash_attention_bwd_dq(q, k, v, o, do, lse),
+                            "dkv": lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)}
+            plain_calls = {
+                "dq": lambda: fa.flash_attention_bwd_dq_plain(q, k, v, o, do, lse),
+                "dkv": lambda: fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta)}
+            times = {kind: (device_time_ms(kernel_calls[kind]), cuda_time_ms(kernel_calls[kind]),
+                            cuda_time_ms(plain_calls[kind])) for kind in kernel_calls}
             q4, k4, v4 = (z[None].detach().requires_grad_() for z in (q, k, v))
             out4 = F.scaled_dot_product_attention(q4, k4, v4)
 
@@ -311,13 +360,14 @@ def check_backward(failures: list) -> dict:
             lib_ms = device_time_ms(lib_backward)
             lib_event_ms = cuda_time_ms(lib_backward)
             for kind in ("dq", "dkv"):
-                err, (ms, plain_ms) = errs[kind], times[kind]
+                err, (ms, event_ms, plain_ms) = errs[kind], times[kind]
                 bound, by = bwd_bound_ms(kind, bh, t, d, name)
-                rows[(kind, bh, t, d, name)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                                    library_ms=lib_ms, bound_ms=bound,
-                                                    bound_by=by)
+                rows[(kind, bh, t, d, name)] = dict(max_abs_err=err, ms=ms, event_ms=event_ms,
+                                                    plain_ms=plain_ms, library_ms=lib_ms,
+                                                    bound_ms=bound, bound_by=by)
                 log(f"flash_attention_bwd_{kind} (BH,T,D)=({bh},{t},{d}) {name}: max|err| "
-                    f"{err:.3g}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+                    f"{err:.3g}  kernel {ms:.4f} ms device ({event_ms:.4f} ms between events)  "
+                    f"plain {plain_ms:.4f} ms  "
                     f"sdpa backward {lib_ms:.4f} ms device ({lib_event_ms:.4f} ms between "
                     f"events)  bound {bound:.4f} ms ({by})")
     return rows
@@ -703,6 +753,7 @@ def kernels_json(state: dict) -> str:
         by_path = {"serve": serve.get(name, 0), "train": train.get(name, 0)}
         return {
             "name": name, "route": "cuda", "source": f"{PACKAGE}/csrc/{source}",
+            "design": DESIGNS[name],
             "replaces": f"{JAX_PACKAGE}/ops/pallas/flash_attention.py:{replaces}",
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in rows.values()),

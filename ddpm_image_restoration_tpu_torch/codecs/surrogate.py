@@ -169,6 +169,17 @@ def interp(x: torch.Tensor, xp, fp) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Straight-through rounding
+# ---------------------------------------------------------------------------
+
+
+def ste_round(x: torch.Tensor) -> torch.Tensor:
+    """round(x) whose gradient is the identity (the JAX package's
+    `ste_round` custom VJP): the rounding error is added as a constant."""
+    return x + (torch.round(x) - x).detach()
+
+
+# ---------------------------------------------------------------------------
 # In-loop deblocking (WebP/AVIF)
 # ---------------------------------------------------------------------------
 
@@ -306,7 +317,7 @@ def _surrogate_raw(x: torch.Tensor, quality, codec: str, subsample: bool,
         coeffs = block_dct2(chan, b)                       # [B,H/b,W/b,b,b]
         # the orthonormal DCT's coefficients scale as b/8 against JPEG's gauge
         t = table[:, None, None] * (b / 8.0)
-        q = torch.round(coeffs / t) * t
+        q = ste_round(coeffs / t) * t
         return block_idct2(q, h, w)
 
     y_q = quantize_channel(y, qt_l)

@@ -6,11 +6,12 @@
 // Delta = rowsum(dO o O):
 //
 //   dQ = scale * (P o (dO*V^T - Delta)) * K          flash_bwd_dq_kernel
-//   dV = P^T * dO,  dK = scale * dS^T * Q            flash_bwd_dkv_kernel
+//   dV = P^T * dO,  dK = scale * dS^T * Q            flash_bwd_dkv_mma_kernel (bf16)
+//                                                    flash_bwd_dkv_kernel (f32)
 //
 // LSE is the forward kernel's [BH, T] f32 log-sum-exp in natural units
 // (csrc/flash_attention_fwd.cu stores ln2 * (m + log2 l) with m in log2
-// units); both kernels multiply it by log2(e) and evaluate P as
+// units); the kernels multiply it by log2(e) and evaluate P as
 // exp2(scale*log2(e) * q.k - LSE*log2(e)), the forward's own exp2 form.
 // scale = 1/sqrt(real head dim), passed in by the wrapper, never taken from
 // the padded D.
@@ -27,14 +28,30 @@
 //
 // What bounds it on the H100: dQ does 6*T*D and dK/dV 8*T*D flops per query
 // row against ~6*D*elt bytes per row, so at T = 1024 both are compute bound.
-// Like the forward, this first version does the products on the CUDA cores
-// in f32 FMA (67 TFLOP/s ceiling), not on the tensor cores; mma/wgmma is
-// later work. Layout, as in the forward: each row owned by a block is split
-// over TPR = D/8 adjacent lanes that each hold 8 interleaved dims (so the
-// lanes of one row read different shared-memory banks); dot products are
-// the xor-shuffle sum of the lanes' partials; the streamed operand tiles sit
-// in shared memory converted to f32 once; 16 partner rows are processed per
-// chunk so that their shuffles and exp2s overlap.
+//
+// dK/dV in bf16 (flash_bwd_dkv_mma_kernel) runs its products on the tensor
+// cores (`mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32`,
+// flash_mma.cuh). One block of 4 warps owns a (bh, 64-key tile), 16 keys a
+// warp, with K and V held in registers as A fragments for the whole loop.
+// Q and dO stream through a double-buffered cp.async ring (zero-filled past
+// T), with the tile's LSE and Delta beside them. The warp works in the
+// transposed frame, keys as the M rows: S^T = K*Q^T and dP^T = V*dO^T (B
+// fragments from Q and dO by ldmatrix), P^T = exp2(S^T*c - LSE) and dS^T =
+// P^T o (dP^T - Delta) on the accumulators, which repack in registers into A
+// operands for dV += P^T*dO and dK += dS^T*Q (B by ldmatrix.trans). P^T and
+// dS^T are each split into hi = bf16(x) and lo = bf16(x - hi), two products
+// against the same B fragment, since one bf16 rounding moves dK and dV by
+// several bf16 steps against the f32 plain version. Query rows >= T get
+// P = 0 explicitly (a zero-filled LSE would give exp2(0) = 1).
+//
+// dQ (both dtypes) and dK/dV in f32 do the products on the CUDA cores in
+// f32 FMA (67 TFLOP/s ceiling); the tensor-core dQ is later work. Layout:
+// each row owned by a block is split over TPR = D/8 adjacent lanes that each
+// hold 8 interleaved dims (so the lanes of one row read different
+// shared-memory banks); dot products are the xor-shuffle sum of the lanes'
+// partials; the streamed operand tiles sit in shared memory converted to
+// f32 once; 16 partner rows are processed per chunk so that their shuffles
+// and exp2s overlap.
 //
 // Build (plain C interface, no PyTorch headers; loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -44,6 +61,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -156,12 +175,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
-                     T* __restrict__ dk, T* __restrict__ dv, int t_len, float scale,
+                     float* __restrict__ dk, float* __restrict__ dv, int t_len, float scale,
                      float scale_log2) {
   constexpr int TPR = Tile<D>::TPR, ROWS = Tile<D>::ROWS, BN = Tile<D>::BN;
   __shared__ float q_s[BN][D];
@@ -181,8 +200,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int e = 0; e < kDimsPerLane; ++e) {
     const int d = sub + e * TPR;
-    kr[e] = row_ok ? to_f32(k[row_base + d]) * scale_log2 : 0.f;
-    vr[e] = row_ok ? to_f32(v[row_base + d]) : 0.f;
+    kr[e] = row_ok ? k[row_base + d] * scale_log2 : 0.f;
+    vr[e] = row_ok ? v[row_base + d] : 0.f;
     dk_acc[e] = 0.f;
     dv_acc[e] = 0.f;
   }
@@ -190,8 +209,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int q0 = 0; q0 < t_len; q0 += BN) {
     const int n_valid = min(BN, t_len - q0);
     __syncthreads();  // previous tile fully consumed
-    load_tile<T, D, BN>(q_s, q + base + (size_t)q0 * D, n_valid);
-    load_tile<T, D, BN>(do_s, dout + base + (size_t)q0 * D, n_valid);
+    load_tile<float, D, BN>(q_s, q + base + (size_t)q0 * D, n_valid);
+    load_tile<float, D, BN>(do_s, dout + base + (size_t)q0 * D, n_valid);
     for (int i = threadIdx.x; i < BN; i += kThreads) {
       const bool ok = i < n_valid;
       lse_s[i] = ok ? lse[stat_base + q0 + i] * kLog2e : 0.f;
@@ -237,8 +256,170 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (row_ok) {
 #pragma unroll
     for (int e = 0; e < kDimsPerLane; ++e) {
-      dk[row_base + sub + e * TPR] = from_f32<T>(dk_acc[e] * scale);
-      dv[row_base + sub + e * TPR] = from_f32<T>(dv_acc[e]);
+      dk[row_base + sub + e * TPR] = dk_acc[e] * scale;
+      dv[row_base + sub + e * TPR] = dv_acc[e];
+    }
+  }
+}
+
+constexpr int kMmaThreads = 128;  // 4 warps x 16 key rows
+constexpr int kMmaKeys = 64;
+
+template <int D> struct MmaDkv {
+  // query rows per streamed tile: fewer at wide heads, where the dK and dV
+  // accumulators (2*D/8 n8 tiles of 4 f32 a lane) take most registers
+  static constexpr int BQ = D <= 32 ? 64 : (D == 64 ? 32 : 16);
+};
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int t_len,
+                         float scale, float scale_log2) {
+  using namespace mma_sm90;
+  using Tile = SmemTile<D>;
+  constexpr int BQ = MmaDkv<D>::BQ;
+  constexpr int KD = D / 16;   // mma k-steps over the head dim (S^T, dP^T)
+  constexpr int NQ = BQ / 8;   // n8 tiles of S^T per query tile
+  constexpr int KQ = BQ / 16;  // mma k-steps over the queries of a tile (dV, dK)
+  constexpr int ND = D / 8;    // n8 tiles of dK and dV
+  __shared__ __align__(128) bf16 q_s[2][BQ * D];
+  __shared__ __align__(128) bf16 do_s[2][BQ * D];
+  __shared__ __align__(16) float lse_s[2][BQ];    // natural units
+  __shared__ __align__(16) float delta_s[2][BQ];
+
+  const int bh = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const int key0 = blockIdx.x * kMmaKeys + warp * 16;
+  const size_t base = (size_t)bh * t_len * D;
+  const size_t stat_base = (size_t)bh * t_len;
+  const int n_tiles = (t_len + BQ - 1) / BQ;
+
+  auto load_stage = [&](int stage, int q0) {
+    Tile::template load<BQ, kMmaThreads>(smem_addr(q_s[stage]), q + base + (size_t)q0 * D,
+                                         t_len - q0);
+    Tile::template load<BQ, kMmaThreads>(smem_addr(do_s[stage]), dout + base + (size_t)q0 * D,
+                                         t_len - q0);
+    if (threadIdx.x < BQ) {
+      const int i = threadIdx.x;
+      const bool ok = q0 + i < t_len;
+      const size_t src = stat_base + (ok ? q0 + i : 0);
+      cp_async_4(smem_addr(&lse_s[stage][i]), lse + src, ok);
+      cp_async_4(smem_addr(&delta_s[stage][i]), delta + src, ok);
+    }
+    cp_async_commit();
+  };
+  load_stage(0, 0);
+
+  // this warp's 16 keys of K and V as A fragments (rows >= T are zero)
+  uint32_t kf[KD][4], vf[KD][4];
+#pragma unroll
+  for (int kd = 0; kd < KD; ++kd) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = key0 + g + 8 * (i & 1);
+      const size_t at = base + (size_t)row * D + 16 * kd + 2 * tq + 8 * (i >> 1);
+      const bool ok = row < t_len;
+      kf[kd][i] = ok ? *reinterpret_cast<const uint32_t*>(k + at) : 0u;
+      vf[kd][i] = ok ? *reinterpret_cast<const uint32_t*>(v + at) : 0u;
+    }
+  }
+  float dk_acc[ND][4], dv_acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+  }
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int stage = it & 1;
+    const int q0 = it * BQ;
+    if (it + 1 < n_tiles) {  // the next tile streams in while this one is used
+      load_stage(stage ^ 1, q0 + BQ);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys by the tile's BQ queries
+    float s[NQ][4], dp[NQ][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    }
+    const uint32_t qb = smem_addr(q_s[stage]), db = smem_addr(do_s[stage]);
+#pragma unroll
+    for (int j = 0; j < NQ; j += 2) {
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        const uint32_t at = Tile::off(8 * j + (lane & 7) + ((lane >> 4) << 3),
+                                      2 * kd + ((lane >> 3) & 1));
+        uint32_t b[4];
+        ldmatrix_x4(b, qb + at);
+        mma_bf16(s[j], kf[kd], b[0], b[1]);
+        mma_bf16(s[j + 1], kf[kd], b[2], b[3]);
+        ldmatrix_x4(b, db + at);
+        mma_bf16(dp[j], vf[kd], b[0], b[1]);
+        mma_bf16(dp[j + 1], vf[kd], b[2], b[3]);
+      }
+    }
+
+    // P^T and dS^T on the accumulators; query rows >= T give P = 0
+    const int n_valid = t_len - q0;
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = 8 * j + 2 * tq + c;
+        const float lse_log2 = lse_s[stage][col] * kLog2e;
+        const float dlt = delta_s[stage][col];
+        const bool ok = col < n_valid;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int e = 2 * h + c;
+          const float p = ok ? exp2f(s[j][e] * scale_log2 - lse_log2) : 0.f;
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - dlt);
+        }
+      }
+    }
+
+    // dV += (P^T_hi + P^T_lo) dO and dK += (dS^T_hi + dS^T_lo) Q
+#pragma unroll
+    for (int kq = 0; kq < KQ; ++kq) {
+      const Split p = split_a(s[2 * kq], s[2 * kq + 1]);
+      const Split ds = split_a(dp[2 * kq], dp[2 * kq + 1]);
+#pragma unroll
+      for (int j = 0; j < ND; j += 2) {
+        const uint32_t at = Tile::off(16 * kq + (lane & 15), j + (lane >> 4));
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, db + at);
+        mma_split(dv_acc[j], p, b[0], b[1]);
+        mma_split(dv_acc[j + 1], p, b[2], b[3]);
+        ldmatrix_x4_trans(b, qb + at);
+        mma_split(dk_acc[j], ds, b[0], b[1]);
+        mma_split(dk_acc[j + 1], ds, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // this stage is refilled by the next iteration's prefetch
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = key0 + g + 8 * r;
+    if (row >= t_len) continue;
+    const size_t at = base + (size_t)row * D + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      *reinterpret_cast<uint32_t*>(dk + at + 8 * j) =
+          pack_bf16(dk_acc[j][2 * r] * scale, dk_acc[j][2 * r + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dv + at + 8 * j) =
+          pack_bf16(dv_acc[j][2 * r], dv_acc[j][2 * r + 1]);
     }
   }
 }
@@ -259,15 +440,27 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv, int bh,
-                       int t, float scale, cudaStream_t stream) {
-  flash_bwd_dkv_kernel<T, D><<<grid_for<D>(bh, t), kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), t,
-      scale, scale * kLog2e);
+                       int t, int dtype, float scale, cudaStream_t stream) {
+  if (dtype == 0) {
+    flash_bwd_dkv_kernel<D><<<grid_for<D>(bh, t), kThreads, 0, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<float*>(dk), static_cast<float*>(dv), t, scale, scale * kLog2e);
+  } else if (dtype == 1) {
+    const dim3 grid((t + kMmaKeys - 1) / kMmaKeys, bh);
+    flash_bwd_dkv_mma_kernel<D><<<grid, kMmaThreads, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), t, scale,
+        scale * kLog2e);
+  } else {
+    return cudaErrorInvalidValue;
+  }
   return cudaGetLastError();
 }
 
@@ -284,15 +477,14 @@ cudaError_t dq_dispatch(const void* q, const void* k, const void* v, const void*
   }
 }
 
-template <typename T>
 cudaError_t dkv_dispatch(const void* q, const void* k, const void* v, const void* dout,
                          const void* lse, const void* delta, void* dk, void* dv, int bh,
-                         int t, int d, float scale, cudaStream_t s) {
+                         int t, int d, int dtype, float scale, cudaStream_t s) {
   switch (d) {
-    case 16: return launch_dkv<T, 16>(q, k, v, dout, lse, delta, dk, dv, bh, t, scale, s);
-    case 32: return launch_dkv<T, 32>(q, k, v, dout, lse, delta, dk, dv, bh, t, scale, s);
-    case 64: return launch_dkv<T, 64>(q, k, v, dout, lse, delta, dk, dv, bh, t, scale, s);
-    case 128: return launch_dkv<T, 128>(q, k, v, dout, lse, delta, dk, dv, bh, t, scale, s);
+    case 16: return launch_dkv<16>(q, k, v, dout, lse, delta, dk, dv, bh, t, dtype, scale, s);
+    case 32: return launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, bh, t, dtype, scale, s);
+    case 64: return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, bh, t, dtype, scale, s);
+    case 128: return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, bh, t, dtype, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -317,14 +509,13 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
 
 // dK and dV from q, k, v, dO, the LSE and the Delta that
 // flash_attention_bwd_dq wrote (launch this after it on the same stream).
+// dtype 0 = float32 (FMA kernel), 1 = bfloat16 (tensor-core kernel; the
+// [BH, T, d] tensors must be 16-byte aligned).
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                        const void* dout, const void* lse, const void* delta,
                                        void* dk, void* dv, int bh, int t, int d, int dtype,
                                        float sm_scale, void* stream) {
   if (bh <= 0 || bh > 65535 || t <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dkv_dispatch<float>(q, k, v, dout, lse, delta, dk, dv, bh, t, d, sm_scale, s);
-  if (dtype == 1)
-    return (int)dkv_dispatch<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, bh, t, d, sm_scale, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)dkv_dispatch(q, k, v, dout, lse, delta, dk, dv, bh, t, d, dtype, sm_scale, s);
 }

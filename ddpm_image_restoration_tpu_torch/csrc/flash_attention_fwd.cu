@@ -10,14 +10,31 @@
 //
 // What bounds it on the H100: at the UNet's shapes (T = 1024, D = 16 or 32)
 // attention does 4*T*D flops for every 4*D*elt bytes of Q/K/V/O it must move,
-// i.e. ~500 flops per byte at T = 1024 in bf16, so it is compute bound. This
-// first kernel does that arithmetic on the CUDA cores in f32 (FMA), not on
-// the tensor cores, so its ceiling is the 67 TFLOP/s f32 rate; mma/wgmma is
-// later work. What the design does about it:
+// i.e. ~500 flops per byte at T = 1024 in bf16, so it is compute bound. Two
+// designs, one per dtype:
+//
+// bf16: flash_fwd_mma_kernel, products on the tensor cores
+// (`mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32`, flash_mma.cuh).
+//   * one block of 4 warps owns one (bh, 64-query tile), 16 query rows a
+//     warp; Q's A fragments are loaded once with ldmatrix;
+//   * K and V stream as bf16 through a double-buffered shared-memory ring,
+//     BN keys a tile, with 16-byte cp.async that zero-fills past T;
+//   * S = Q*K^T by D/16 mma k-steps with f32 accumulation, scaled by
+//     sm_scale*log2(e) in f32 on the accumulator; the online softmax runs on
+//     the accumulator fragment (row max and sum over the 4 lanes of a quad,
+//     keys >= T masked to -inf, l summed from the unrounded f32 p);
+//   * P*V: P's accumulator fragment is repacked in registers as the A
+//     operand, with V's B fragments from ldmatrix.trans. P is split into
+//     hi = bf16(p) and lo = bf16(p - hi) and O += P_hi*V + P_lo*V: one bf16
+//     rounding of P (as FlashAttention-2 does) moves O by several bf16 steps
+//     against the f32 plain version, where the split keeps it within one.
+//   At D <= 32 a score tile is only 1-2 mma k-steps, so exp2 and the row
+//   bookkeeping on the CUDA cores, not the tensor cores, set the pace.
+//
+// f32: flash_fwd_kernel, products on the CUDA cores in f32 (FMA):
 //   * one block owns one (bh, query tile); K and V stream through shared
-//     memory a tile at a time, converted to f32 once on load, so each key is
-//     read from device memory once per query tile and from shared memory by
-//     every row of the tile;
+//     memory a tile at a time, so each key is read from device memory once
+//     per query tile and from shared memory by every row of the tile;
 //   * each query row is split over TPR = D/8 adjacent lanes that each hold 8
 //     interleaved dims of q and of the accumulator in registers (interleaving
 //     keeps the lanes of one row on different shared-memory banks); a row's
@@ -36,25 +53,22 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_mma.cuh"
+
 namespace {
+
+using mma_sm90::bf16;
 
 constexpr int kThreads = 256;
 constexpr int kDimsPerLane = 8;
 constexpr int kChunk = 16;
+constexpr float kLn2 = 0.69314718055994531f;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int t_len, float scale_log2) {
   constexpr int TPR = D / kDimsPerLane;          // lanes per query row
   constexpr int ROWS = kThreads / TPR;           // query rows per block
@@ -73,7 +87,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int j = 0; j < kDimsPerLane; ++j) {
     const int d = sub + j * TPR;
-    qr[j] = row_ok ? to_f32(q[base + (size_t)row * D + d]) * scale_log2 : 0.f;
+    qr[j] = row_ok ? q[base + (size_t)row * D + d] * scale_log2 : 0.f;
     acc[j] = 0.f;
   }
   float m = -INFINITY;  // running max, in log2 units
@@ -86,8 +100,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = i / D, c = i % D;
       const bool ok = r < n_valid;
       const size_t g = base + (size_t)(k0 + r) * D + c;
-      k_s[r][c] = ok ? to_f32(k[g]) : 0.f;
-      v_s[r][c] = ok ? to_f32(v[g]) : 0.f;
+      k_s[r][c] = ok ? k[g] : 0.f;
+      v_s[r][c] = ok ? v[g] : 0.f;
     }
     __syncthreads();
 
@@ -132,48 +146,219 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv_l = 1.f / l;
 #pragma unroll
     for (int j = 0; j < kDimsPerLane; ++j) {
-      o[base + (size_t)row * D + sub + j * TPR] = from_f32<T>(acc[j] * inv_l);
+      o[base + (size_t)row * D + sub + j * TPR] = acc[j] * inv_l;
     }
     if (lse != nullptr && sub == 0) {
       // back from log2 to natural units: lse = ln(2) * (m + log2(l))
-      lse[(size_t)bh * t_len + row] = 0.69314718055994531f * (m + log2f(l));
+      lse[(size_t)bh * t_len + row] = kLn2 * (m + log2f(l));
     }
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse,
-                   int bh, int t, float sm_scale, cudaStream_t stream) {
+constexpr int kMmaThreads = 128;  // 4 warps x 16 query rows
+constexpr int kMmaRows = 64;
+
+template <int D> struct MmaFwd {
+  static constexpr int BN = D >= 128 ? 32 : 64;  // keys per tile: 48 KB of shared memory at D = 128
+};
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o,
+                     float* __restrict__ lse, int t_len, float scale_log2) {
+  using namespace mma_sm90;
+  using Tile = SmemTile<D>;
+  constexpr int BN = MmaFwd<D>::BN;
+  constexpr int KD = D / 16;   // mma k-steps over the head dim (S = Q K^T)
+  constexpr int NS = BN / 8;   // n8 tiles of S per key tile
+  constexpr int KN = BN / 16;  // mma k-steps over the keys of a tile (O += P V)
+  constexpr int NO = D / 8;    // n8 tiles of O
+  __shared__ __align__(128) bf16 q_s[kMmaRows * D];
+  __shared__ __align__(128) bf16 k_s[2][BN * D];
+  __shared__ __align__(128) bf16 v_s[2][BN * D];
+
+  const int bh = blockIdx.y;
+  const int m0 = blockIdx.x * kMmaRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const size_t base = (size_t)bh * t_len * D;
+  const int n_tiles = (t_len + BN - 1) / BN;
+
+  Tile::template load<kMmaRows, kMmaThreads>(smem_addr(q_s), q + base + (size_t)m0 * D, t_len - m0);
+  Tile::template load<BN, kMmaThreads>(smem_addr(k_s[0]), k + base, t_len);
+  Tile::template load<BN, kMmaThreads>(smem_addr(v_s[0]), v + base, t_len);
+  cp_async_commit();
+
+  uint32_t qf[KD][4];
+  float acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float m_row[2] = {-INFINITY, -INFINITY};  // running max of rows g and g + 8, log2 units
+  float l_row[2] = {0.f, 0.f};              // this lane's share of their normalisers
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int stage = it & 1;
+    const int k0 = it * BN;
+    if (it + 1 < n_tiles) {  // the next tile streams in while this one is used
+      const int k1 = k0 + BN;
+      Tile::template load<BN, kMmaThreads>(smem_addr(k_s[stage ^ 1]), k + base + (size_t)k1 * D,
+                                           t_len - k1);
+      Tile::template load<BN, kMmaThreads>(smem_addr(v_s[stage ^ 1]), v + base + (size_t)k1 * D,
+                                           t_len - k1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (it == 0) {
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd)
+        ldmatrix_x4(qf[kd], smem_addr(q_s) + Tile::off(warp * 16 + (lane & 15), 2 * kd + (lane >> 4)));
+    }
+
+    // S = Q K^T for this warp's 16 rows and the tile's BN keys
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    const uint32_t kb = smem_addr(k_s[stage]);
+#pragma unroll
+    for (int j = 0; j < NS; j += 2) {
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        uint32_t b[4];
+        ldmatrix_x4(b, kb + Tile::off(8 * j + (lane & 7) + ((lane >> 4) << 3),
+                                      2 * kd + ((lane >> 3) & 1)));
+        mma_bf16(s[j], qf[kd], b[0], b[1]);
+        mma_bf16(s[j + 1], qf[kd], b[2], b[3]);
+      }
+    }
+
+    // online softmax on the accumulator fragment
+    const int n_valid = t_len - k0;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (n_valid < BN && 8 * j + 2 * tq + (e & 1) >= n_valid) x = -INFINITY;
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_row[r], mx[r]);  // finite: the tile has a real key
+      alpha[r] = exp2f(m_row[r] - m_new);
+      m_row[r] = m_new;
+      l_row[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[j][e] - m_row[e >> 1]);
+        s[j][e] = p;
+        l_row[e >> 1] += p;
+      }
+    }
+
+    // O += (P_hi + P_lo) V
+    const uint32_t vb = smem_addr(v_s[stage]);
+#pragma unroll
+    for (int kn = 0; kn < KN; ++kn) {
+      const Split p = split_a(s[2 * kn], s[2 * kn + 1]);
+#pragma unroll
+      for (int j = 0; j < NO; j += 2) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, vb + Tile::off(16 * kn + (lane & 15), j + (lane >> 4)));
+        mma_split(acc[j], p, b[0], b[1]);
+        mma_split(acc[j + 1], p, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // this stage is refilled by the next iteration's prefetch
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 1);
+    l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = m0 + warp * 16 + g + 8 * r;
+    if (row >= t_len) continue;
+    const float inv_l = 1.f / l_row[r];
+    bf16* out = o + base + (size_t)row * D + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      *reinterpret_cast<uint32_t*>(out + 8 * j) =
+          pack_bf16(acc[j][2 * r] * inv_l, acc[j][2 * r + 1] * inv_l);
+    }
+    if (lse != nullptr && tq == 0) {
+      // back from log2 to natural units: lse = ln(2) * (m + log2(l))
+      lse[(size_t)bh * t_len + row] = kLn2 * (m_row[r] + log2f(l_row[r]));
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, void* lse,
+                       int bh, int t, float sm_scale, cudaStream_t stream) {
   constexpr int ROWS = kThreads / (D / kDimsPerLane);
   const dim3 grid((t + ROWS - 1) / ROWS, bh);
-  flash_fwd_kernel<T, D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), t, sm_scale * 1.4426950408889634f);
+  flash_fwd_kernel<D><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), static_cast<float*>(lse), t, sm_scale * kLog2e);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, void* lse,
-                       int bh, int t, int d, float sm_scale, cudaStream_t stream) {
-  switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, lse, bh, t, sm_scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, lse, bh, t, sm_scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, lse, bh, t, sm_scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, lse, bh, t, sm_scale, stream);
-    default: return cudaErrorInvalidValue;
-  }
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
+                        int bh, int t, float sm_scale, cudaStream_t stream) {
+  const dim3 grid((t + kMmaRows - 1) / kMmaRows, bh);
+  flash_fwd_mma_kernel<D><<<grid, kMmaThreads, 0, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), static_cast<float*>(lse), t, sm_scale * kLog2e);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
+                   int t, int dtype, float sm_scale, cudaStream_t stream) {
+  if (dtype == 0) return launch_f32<D>(q, k, v, o, lse, bh, t, sm_scale, stream);
+  if (dtype == 1) return launch_bf16<D>(q, k, v, o, lse, bh, t, sm_scale, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. lse may be null. Returns the launch's
-// cudaGetLastError() (cudaErrorInvalidValue for an unsupported d or dtype).
+// dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (tensor-core kernel). lse
+// may be null. q, k, v and o must be 16-byte aligned for bf16. Returns the
+// launch's cudaGetLastError() (cudaErrorInvalidValue for an unsupported d
+// or dtype).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    void* lse, int bh, int t, int d, int dtype,
                                    float sm_scale, void* stream) {
   if (bh <= 0 || bh > 65535 || t <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch_d<float>(q, k, v, o, lse, bh, t, d, sm_scale, s);
-  if (dtype == 1) return (int)dispatch_d<__nv_bfloat16>(q, k, v, o, lse, bh, t, d, sm_scale, s);
-  return (int)cudaErrorInvalidValue;
+  switch (d) {
+    case 16: return (int)launch<16>(q, k, v, o, lse, bh, t, dtype, sm_scale, s);
+    case 32: return (int)launch<32>(q, k, v, o, lse, bh, t, dtype, sm_scale, s);
+    case 64: return (int)launch<64>(q, k, v, o, lse, bh, t, dtype, sm_scale, s);
+    case 128: return (int)launch<128>(q, k, v, o, lse, bh, t, dtype, sm_scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

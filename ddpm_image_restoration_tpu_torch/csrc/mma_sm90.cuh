@@ -1,0 +1,65 @@
+// The sm_90a instructions of the bf16 flash-attention kernels, as inline
+// PTX: `mma.sync.aligned.m16n8k16` (bf16 in, f32 accumulate), `ldmatrix`
+// (plain and transposed) and `cp.async` with zero fill. No CuTe: a plain
+// header keeps nvcc at seconds per source. flash_mma.cuh builds the
+// kernels' tiles and split products on these.
+//
+// Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4; each .b32
+// register holds two bf16, the lower column in the low half):
+//   A 16x16, row major: a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 2t+8..)  a3 (g+8, 2t+8..)
+//   B 16x8, column major: b0 (k 2t..2t+1, n g)  b1 (k 2t+8.., n g)
+//   C 16x8 f32: c0, c1 (g, 2t..2t+1)  c2, c3 (g+8, 2t..2t+1)
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace mma_sm90 {
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory; zeros where !valid (src is not read).
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+// 4 bytes from global to shared memory; zeros where !valid.
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d (16x8 f32) += a (16x16 bf16) * b (16x8 bf16)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+}  // namespace mma_sm90

@@ -8,6 +8,15 @@ Counterpart of `ops/pallas/flash_attention.py` in the JAX package:
 `FlashAttention` of the `_flash_diff` custom VJP. A CPU tensor takes the
 plain version; a CUDA tensor always takes the kernel, and anything the
 kernel does not take raises.
+
+Which design serves which dtype on the card:
+  * bf16: the forward and dK/dV run their products on the tensor cores
+    (`mma.sync` m16n8k16 with f32 accumulation, P and dS carried as a
+    bf16 hi/lo pair); dQ runs them on the CUDA cores in f32 (FMA);
+  * f32: all three run on the CUDA cores in f32 (FMA).
+The tensor-core kernels read rows with `cp.async` and `ldmatrix`, which need
+16-byte-aligned addresses, so every CUDA input must start 16-byte aligned (a
+contiguous view at an odd offset is refused, not copied).
 """
 
 from __future__ import annotations
@@ -92,8 +101,8 @@ def _launcher(name: str):
 
 
 def _check(name: str, *tensors: torch.Tensor) -> None:
-    """Raises unless the [BH, T, D] tensors are CUDA, contiguous, of one
-    shape, float32 or bfloat16 alike, with D <= 128."""
+    """Raises unless the [BH, T, D] tensors are CUDA, contiguous, 16-byte
+    aligned, of one shape, float32 or bfloat16 alike, with D <= 128."""
     q = tensors[0]
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
@@ -109,6 +118,15 @@ def _check(name: str, *tensors: torch.Tensor) -> None:
         raise ValueError(f"{name}: inputs on different devices")
     if not all(z.is_contiguous() for z in tensors):
         raise ValueError(f"{name}: inputs must be contiguous")
+    _check_aligned(name, *tensors)
+
+
+def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
+    """Raises unless every tensor's first element is 16-byte aligned."""
+    bad = [z.data_ptr() % 16 for z in tensors if z.data_ptr() % 16]
+    if bad:
+        raise ValueError(f"{name}: inputs must start 16-byte aligned, got "
+                         f"offsets {bad} (mod 16)")
 
 
 def _check_stats(name: str, q: torch.Tensor, *stats: torch.Tensor) -> None:

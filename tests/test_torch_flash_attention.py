@@ -128,6 +128,52 @@ def test_build_finds_nvcc_and_names_library_by_source(monkeypatch, tmp_path):
         build.build(fa.KERNEL)
 
 
+def test_library_name_tracks_shared_headers(monkeypatch, tmp_path):
+    """A library's name hashes its source and the shared csrc/*.cuh, so an
+    edit to the tensor-core header rebuilds both libraries."""
+    import shutil
+
+    shutil.copytree(build.CSRC_DIR, tmp_path / "csrc")
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path / "csrc")
+    before = [build.library_path(n) for n in (fa.KERNEL, fa.BWD_KERNEL)]
+    header = tmp_path / "csrc" / "flash_mma.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = [build.library_path(n) for n in (fa.KERNEL, fa.BWD_KERNEL)]
+    assert all(a != b for a, b in zip(before, after))
+    for src in ("flash_attention_fwd.cu", "flash_attention_bwd.cu"):
+        assert '#include "flash_mma.cuh"' in (build.CSRC_DIR / src).read_text()
+
+
+def test_ptxas_summary_reads_registers_spills_and_smem():
+    log = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120flash_fwd_mma_kernelILi32EEEvPK13__nv_bfloat16S3_S3_PS1_Pfif' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120flash_fwd_mma_kernelILi32EEEvPK13__nv_bfloat16S3_S3_PS1_Pfif
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers, 24576 bytes smem, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116flash_fwd_kernelILi16EEEvPKfS2_S2_PfS3_if' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116flash_fwd_kernelILi16EEEvPKfS2_S2_PfS3_if
+    8 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 40 registers, 380 bytes cmem[0]
+"""
+    assert build.ptxas_summary(log) == [
+        "flash_fwd_mma_kernel D=32 bf16: 96 registers, spills 0/0 B, 24576 B smem",
+        "flash_fwd_kernel D=16 f32: 40 registers, spills 8/4 B, 0 B smem"]
+    assert build.kernel_label("_ZN12_GLOBAL__N_119flash_bwd_dq_kernelIfLi64EEEvPKT_") == \
+        "flash_bwd_dq_kernel D=64 f32"
+    # nvcc 12.8 names the anonymous namespace after the source file
+    assert build.kernel_label(
+        "_ZN36_GLOBAL__N__2c138979_22_flash_attention_fwd_cu_2c13897920flash_fwd_mma_kernelILi128E"
+        "EEvPK13__nv_bfloat16S3_S3_PS1_Pfif") == "flash_fwd_mma_kernel D=128 bf16"
+
+
+def test_alignment_rule():
+    """The wrappers' 16-byte rule (cp.async, ldmatrix) on the data pointer
+    of a contiguous view; checked on CPU tensors, whose storage is aligned."""
+    base = torch.zeros(2 * 64 * 16 + 8)
+    fa._check_aligned("t", base[:2048].view(2, 64, 16), base[4:2052].view(2, 64, 16))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa._check_aligned("t", base[:2048].view(2, 64, 16), base[1:2049].view(2, 64, 16))
+
+
 @pytest.mark.parametrize("bh,t,d", [(4, 300, 64), (4, 1300, 16)])
 def test_bwd_plain_matches_pallas_interpret(rng, bh, t, d):
     """dQ, dK, dV of the plain backward against the JAX backward kernels

@@ -33,10 +33,15 @@ def card():
     return torch.device("cuda")
 
 
+# Ragged and short T for the tensor-core kernels' 64-row tiles: one partial
+# tile, several tiles with a ragged last one, exactly one tile.
+RAGGED_SHAPES = [(3, 17, 32), (2, 1000, 16), (4, 1300, 32), (2, 64, 16)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bh,t,d", [(32, 1024, 32), (32, 1024, 16), (72, 1024, 32),
                                     (72, 1024, 16), (8, 4096, 16), (4, 300, 64),
-                                    (2, 256, 128)])
+                                    (2, 256, 128), *RAGGED_SHAPES])
 @pytest.mark.parametrize("dtype,step", STEPS)
 def test_kernel_matches_plain_on_card(card, bh, t, d, dtype, step):
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -61,7 +66,7 @@ def test_kernel_matches_plain_on_card(card, bh, t, d, dtype, step):
 
 
 BWD_SHAPES = [(72, 1024, 32), (72, 1024, 16), (4, 300, 64), (4, 1300, 16), (2, 256, 128),
-              (3, 200, 8)]
+              (3, 200, 8), *RAGGED_SHAPES]
 
 
 @pytest.mark.cuda
@@ -100,6 +105,26 @@ def test_bwd_wrappers_refuse_bad_stats(card):
     with pytest.raises(ValueError, match="per-row statistics"):
         fa.flash_attention_bwd_dkv(q, q, q, q, torch.zeros(2, 64, device="cuda"),
                                    torch.zeros(2, 63, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wrappers_refuse_misaligned_views(card, dtype):
+    """cp.async and ldmatrix read 16-byte rows: a contiguous view that starts
+    one element into its storage is refused by every wrapper, not copied."""
+    n = 2 * 64 * 16
+    base = torch.zeros(n + 8, device="cuda", dtype=dtype)
+    bad = base[1:n + 1].view(2, 64, 16)
+    ok = base[:n].view(2, 64, 16)
+    assert bad.is_contiguous() and bad.data_ptr() % 16
+    stat = torch.zeros(2, 64, device="cuda")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention_fwd(ok, ok, bad)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention_bwd_dq(ok, ok, ok, ok, bad, stat)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention_bwd_dkv(bad, ok, ok, ok, stat, stat)
+    assert fa.flash_attention_fwd(ok, ok, ok).shape == (2, 64, 16)
 
 
 @pytest.mark.cuda

@@ -1,0 +1,140 @@
+"""The port's CUDA kernel sources run on the CPU, lane by lane.
+
+The sources in `ddpm_image_restoration_tpu_torch/csrc/` compile with g++
+against `tests/cuda_emu/`, which emulates what they use of CUDA: threads and
+blocks, `__syncthreads`, shuffles, and the sm_90a instructions of
+`mma_sm90.cuh` (`ldmatrix`, `mma.sync` m16n8k16, `cp.async`). The emulated
+launchers (forward with LSE, dQ with Delta, dK/dV) then face the same checks
+as the card tests (tests/test_torch_kernels_cuda.py): each output against
+its plain PyTorch version entry by entry, within one bf16 step of the entry
+(bf16 outputs) plus 1e-4 of the largest. This checks the kernels' indexing,
+fragment layouts, tiling, masking and numerics; it cannot check the PTX
+itself, the timing, or races between cp.async and the threads, which only
+the card shows.
+"""
+
+import re
+import shutil
+import subprocess
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from ddpm_image_restoration_tpu_torch.ops import build
+from ddpm_image_restoration_tpu_torch.ops import flash_attention as fa
+
+torch.set_num_threads(1)
+
+EMU_DIR = Path(__file__).resolve().parent / "cuda_emu"
+LAUNCH = re.compile(r"(\w+<[^<>]*>)<<<(.*?)>>>\(")
+SOUND = "  mma_bf16(d, a.hi, b0, b1);\n  mma_bf16(d, a.lo, b0, b1);\n"
+# Short and ragged T over the 64-row tiles (one partial tile, one full, a
+# ragged third), every head dim of the build.
+SHAPES = [(2, 17, 32), (1, 130, 16), (2, 64, 16), (1, 150, 32), (1, 70, 64), (1, 40, 128)]
+STEPS = [(torch.bfloat16, 2 ** -7), (torch.float32, 0.0)]
+
+
+def _compile(out: Path, faulted: bool = False) -> Path:
+    """The emulation's `run_kernels` program linked with the kernel sources,
+    in `out`; with `faulted`, the split products' `lo` half dropped."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the kernel sources for the CPU")
+    out.mkdir(parents=True, exist_ok=True)
+    for f in EMU_DIR.iterdir():
+        shutil.copy(f, out / f.name)
+    tiles = (build.CSRC_DIR / "flash_mma.cuh").read_text()
+    assert tiles.count(SOUND) == 1
+    if faulted:
+        tiles = tiles.replace(SOUND, "  mma_bf16(d, a.hi, b0, b1);\n")
+    (out / "flash_mma.cuh").write_text(tiles)
+    units = ["run_kernels.cpp"]
+    for name in (fa.KERNEL, fa.BWD_KERNEL):
+        src = (build.CSRC_DIR / f"{name}.cu").read_text()
+        (out / f"{name}.cpp").write_text(
+            LAUNCH.sub(r"emu_launch(std::make_tuple(\2), &\1, ", src))
+        units.append(f"{name}.cpp")
+
+    def compile_unit(unit):
+        return subprocess.run([gxx, "-std=c++17", "-O1", "-w", "-I", str(out), "-c", unit,
+                               "-o", unit + ".o"], cwd=out, capture_output=True, text=True)
+
+    with ThreadPoolExecutor(len(units)) as pool:
+        for unit, r in zip(units, pool.map(compile_unit, units)):
+            assert r.returncode == 0, f"{unit}:\n{r.stderr[-4000:]}"
+    r = subprocess.run([gxx, "-o", "run_kernels", *(u + ".o" for u in units), "-lpthread"],
+                       cwd=out, capture_output=True, text=True)
+    assert r.returncode == 0, r.stderr[-4000:]
+    return out / "run_kernels"
+
+
+@pytest.fixture(scope="module")
+def run_kernels(tmp_path_factory):
+    return _compile(tmp_path_factory.mktemp("cuda_emu"))
+
+
+def _run(run_kernels: Path, work: Path, bh, t, d, dtype, seed=0):
+    """q, k, v, dO from a seeded normal, rounded to `dtype`, through the
+    emulated forward (LSE), dQ (Delta) and dK/dV launchers."""
+    rng = np.random.default_rng(seed)
+    ins = {n: torch.from_numpy(rng.normal(size=(bh, t, d)).astype(np.float32)).to(dtype)
+           for n in ("q", "k", "v", "do")}
+    work.mkdir()
+    for n, x in ins.items():
+        x.float().numpy().tofile(work / n)
+    r = subprocess.run([str(run_kernels), str(work), str(bh), str(t), str(d),
+                        str(int(dtype == torch.bfloat16))], capture_output=True, text=True,
+                       timeout=600)
+    assert r.returncode == 0, r.stderr[-2000:]
+
+    def out(n, shape):
+        return torch.from_numpy(np.fromfile(work / n, np.float32).reshape(shape))
+
+    outs = {n: out(n, (bh, t, d)).to(dtype) for n in ("o", "dq", "dk", "dv")}
+    outs.update({n: out(n, (bh, t)) for n in ("lse", "delta")})
+    return ins, outs
+
+
+def _shares(ins, outs, step):
+    """Each output's largest |got - ref| over its bound (step * |ref| +
+    1e-4 * max|ref|), the references as in the card tests: the plain
+    forward, and the plain backward from the kernel's O and LSE."""
+    q, k, v, do = ins["q"], ins["k"], ins["v"], ins["do"]
+    ro, rlse = fa.flash_attention_plain(q, k, v, save_lse=True)
+    rdq, rdelta = fa.flash_attention_bwd_dq_plain(q, k, v, outs["o"], do, outs["lse"])
+    rdk, rdv = fa.flash_attention_bwd_dkv_plain(q, k, v, do, outs["lse"], rdelta)
+    refs = {"o": ro, "lse": rlse, "dq": rdq, "delta": rdelta, "dk": rdk, "dv": rdv}
+    shares = {}
+    for n, ref in refs.items():
+        s = step if ref.dtype == torch.bfloat16 else 0.0
+        ref = ref.float()
+        bound = s * ref.abs() + 1e-4 * ref.abs().max()
+        shares[n] = ((outs[n].float() - ref).abs() / bound).max().item()
+    return shares
+
+
+@pytest.mark.parametrize("bh,t,d", SHAPES)
+@pytest.mark.parametrize("dtype,step", STEPS)
+def test_emulated_kernels_match_plain(run_kernels, tmp_path, bh, t, d, dtype, step):
+    """bf16 takes the tensor-core forward and dK/dV kernels (and the FMA dQ),
+    f32 the FMA kernels; every output within its bound."""
+    ins, outs = _run(run_kernels, tmp_path / "run", bh, t, d, dtype)
+    shares = _shares(ins, outs, step)
+    print(f"({bh},{t},{d}) {dtype}: shares of the bound {shares}")
+    assert all(s <= 1.0 for s in shares.values()), shares
+
+
+def test_emulated_dropped_lo_fails_the_bound(tmp_path):
+    """A copy of the sources with the `lo` half of the split products
+    dropped (P and dS rounded to bf16 once) fails the bound in the forward
+    output, dK and dV, while the tensor-core-free dQ and the f32 statistics
+    still pass: the bounds see the split."""
+    faulted = _compile(tmp_path / "faulted", faulted=True)
+    ins, outs = _run(faulted, tmp_path / "run", 1, 150, 32, torch.bfloat16)
+    shares = _shares(ins, outs, 2 ** -7)
+    print(f"dropped lo, (1,150,32) bf16: shares of the bound {shares}")
+    assert min(shares["o"], shares["dk"], shares["dv"]) > 1.0, shares
+    assert max(shares["lse"], shares["delta"], shares["dq"]) <= 1.0, shares
