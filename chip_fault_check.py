@@ -3,7 +3,7 @@
 tensor-core kernels: builds a copy of the port's CUDA sources, outside the
 checkout, with the `lo` product of the hi/lo split dropped (`mma_split` in
 `csrc/flash_mma.cuh` then rounds P, and dS, to bf16 once), and holds the
-bf16 forward and dK/dV kernels of that copy and of the checkout to their
+bf16 forward, dQ and dK/dV kernels of that copy and of the checkout to their
 plain versions under chip_smoke.py's bounds, at the D = 32 shapes of the
 main paths (and D = 16 beside them).
 
@@ -26,9 +26,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SOUND = "  mma_bf16(d, a.hi, b0, b1);\n  mma_bf16(d, a.lo, b0, b1);\n"
 FAULTED = "  mma_bf16(d, a.hi, b0, b1);\n"
 # (kernel, BH, T, D, save_lse): the forward at its serving, train-step and
-# validation shapes; dK/dV at the train step's.
+# validation shapes; dQ and dK/dV at the train step's.
 CASES = [("fwd", 32, 1024, 32, False), ("fwd", 72, 1024, 32, True), ("fwd", 16, 1024, 32, False),
-         ("dkv", 72, 1024, 32, True), ("fwd", 32, 1024, 16, False), ("dkv", 72, 1024, 16, True)]
+         ("dq", 72, 1024, 32, True), ("dkv", 72, 1024, 32, True), ("fwd", 32, 1024, 16, False),
+         ("dq", 72, 1024, 16, True), ("dkv", 72, 1024, 16, True)]
 
 
 def shares(fa, max_err) -> list[float]:
@@ -45,12 +46,18 @@ def shares(fa, max_err) -> list[float]:
             ref = fa.flash_attention_plain(q, k, v, save_lse=save_lse)
             pairs = list(zip(("o", "lse"), got, ref)) if save_lse else [("o", got, ref)]
         else:
-            # the sound forward's O and LSE and the plain Delta feed both builds
+            # the sound forward's O and LSE (and for dK/dV the plain Delta)
+            # feed both builds
             o, lse = fa.flash_attention_plain(q, k, v, save_lse=True)
-            delta = (do.float() * o.float()).sum(-1)
-            got = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
-            ref = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta)
-            pairs = list(zip(("dk", "dv"), got, ref))
+            if kind == "dq":
+                got = fa.flash_attention_bwd_dq(q, k, v, o, do, lse)
+                ref = fa.flash_attention_bwd_dq_plain(q, k, v, o, do, lse)
+                pairs = list(zip(("dq", "delta"), got, ref))
+            else:
+                delta = (do.float() * o.float()).sum(-1)
+                got = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+                ref = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta)
+                pairs = list(zip(("dk", "dv"), got, ref))
         torch.cuda.synchronize()
         worst = 0.0
         for part, a, b in pairs:

@@ -64,10 +64,11 @@ FWD_PATH_SHAPES = [("serve", 32, 1024, 32, False), ("serve", 32, 1024, 16, False
 KERNEL_SHAPES = list(dict.fromkeys(s[1:4] for s in FWD_PATH_SHAPES)) + [
     (8, 4096, 16), (4, 300, 64), (2, 256, 128), (3, 17, 32)]
 # Backward (BH, T, D): the training path's shapes first (down2 and up4 of a
-# batch of 18 images x 4 heads, 32x32 tokens), then ragged, short and wide
-# cases.
-BWD_SHAPES = [(72, 1024, 32), (72, 1024, 16), (4, 300, 64), (4, 1300, 16), (2, 256, 128),
-              (3, 17, 32)]
+# batch of 18 images x 4 heads, 32x32 tokens), then contract shapes: the
+# 32x32 level of the 128² model (head dim 64, batch 18), and ragged, short
+# and wide cases.
+BWD_SHAPES = [(72, 1024, 32), (72, 1024, 16), (72, 1024, 64), (4, 300, 64), (4, 1300, 16),
+              (2, 256, 128), (3, 17, 32)]
 TRAIN_SHAPES = BWD_SHAPES[:2]
 # Each kernel against its plain version, entry by entry:
 #   |got - ref| <= BF16_STEP * |ref| (bf16 outputs only) + F32_REL * max|ref|.
@@ -86,7 +87,7 @@ FUNCTION_REL = {"bfloat16": 2 ** -6, "float32": F32_REL}
 # Which design computes each kernel, per input dtype.
 DESIGNS = {
     "flash_attention_fwd": {"bf16": "mma.sync m16n8k16, hi/lo P", "f32": "FMA"},
-    "flash_attention_bwd_dq": {"bf16": "FMA", "f32": "FMA"},
+    "flash_attention_bwd_dq": {"bf16": "mma.sync m16n8k16, hi/lo dS", "f32": "FMA"},
     "flash_attention_bwd_dkv": {"bf16": "mma.sync m16n8k16, hi/lo P and dS", "f32": "FMA"},
 }
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s; dense
@@ -229,9 +230,9 @@ def phase_build(state: dict) -> None:
             hmma[kernel] = n
             log(f"  sass: {kernel}: {n} HMMA instructions")
         build.load(name)
-    # the forward and dK/dV tensor-core kernels, at each of the 4 head dims
+    # the forward, dQ and dK/dV tensor-core kernels, at each of the 4 head dims
     mma = {k: n for k, n in hmma.items() if "_mma_kernel" in k}
-    if hmma and (len(mma) != 8 or not all(mma.values())):
+    if hmma and (len(mma) != 12 or not all(mma.values())):
         raise AssertionError(f"tensor-core kernels without HMMA in their SASS: {mma}")
 
 
@@ -359,15 +360,16 @@ def check_backward(failures: list) -> dict:
 
             lib_ms = device_time_ms(lib_backward)
             lib_event_ms = cuda_time_ms(lib_backward)
+            role = "train step" if (bh, t, d) in TRAIN_SHAPES else "contract"
             for kind in ("dq", "dkv"):
                 err, (ms, event_ms, plain_ms) = errs[kind], times[kind]
                 bound, by = bwd_bound_ms(kind, bh, t, d, name)
                 rows[(kind, bh, t, d, name)] = dict(max_abs_err=err, ms=ms, event_ms=event_ms,
                                                     plain_ms=plain_ms, library_ms=lib_ms,
                                                     bound_ms=bound, bound_by=by)
-                log(f"flash_attention_bwd_{kind} (BH,T,D)=({bh},{t},{d}) {name}: max|err| "
-                    f"{err:.3g}  kernel {ms:.4f} ms device ({event_ms:.4f} ms between events)  "
-                    f"plain {plain_ms:.4f} ms  "
+                log(f"flash_attention_bwd_{kind} (BH,T,D)=({bh},{t},{d}) {name} [{role}]: "
+                    f"max|err| {err:.3g}  kernel {ms:.4f} ms device ({event_ms:.4f} ms between "
+                    f"events)  plain {plain_ms:.4f} ms  "
                     f"sdpa backward {lib_ms:.4f} ms device ({lib_event_ms:.4f} ms between "
                     f"events)  bound {bound:.4f} ms ({by})")
     return rows

@@ -10,9 +10,9 @@ plain version; a CUDA tensor always takes the kernel, and anything the
 kernel does not take raises.
 
 Which design serves which dtype on the card:
-  * bf16: the forward and dK/dV run their products on the tensor cores
+  * bf16: the forward, dQ and dK/dV run their products on the tensor cores
     (`mma.sync` m16n8k16 with f32 accumulation, P and dS carried as a
-    bf16 hi/lo pair); dQ runs them on the CUDA cores in f32 (FMA);
+    bf16 hi/lo pair);
   * f32: all three run on the CUDA cores in f32 (FMA).
 The tensor-core kernels read rows with `cp.async` and `ldmatrix`, which need
 16-byte-aligned addresses, so every CUDA input must start 16-byte aligned (a

@@ -65,8 +65,8 @@ def test_kernel_matches_plain_on_card(card, bh, t, d, dtype, step):
         fa.flash_attention_fwd(wide, wide, wide)
 
 
-BWD_SHAPES = [(72, 1024, 32), (72, 1024, 16), (4, 300, 64), (4, 1300, 16), (2, 256, 128),
-              (3, 200, 8), *RAGGED_SHAPES]
+BWD_SHAPES = [(72, 1024, 32), (72, 1024, 16), (72, 1024, 64), (4, 300, 64), (4, 1300, 16),
+              (2, 256, 128), (3, 200, 8), *RAGGED_SHAPES]
 
 
 @pytest.mark.cuda
@@ -75,9 +75,10 @@ BWD_SHAPES = [(72, 1024, 32), (72, 1024, 16), (4, 300, 64), (4, 1300, 16), (2, 2
 def test_bwd_kernels_match_plain_on_card(card, bh, t, d, dtype, step):
     """dQ (with Delta) and dK/dV against the plain backward on the same
     inputs and the same LSE. The training shapes first (18 images x 4 heads,
-    32x32 tokens, D 32 and 16), then ragged T, a wide head and a head dim
-    that the wrapper zero-pads (8 -> 16), each entry within one bf16 `step`
-    of the plain output's (see `close`)."""
+    32x32 tokens, D 32 and 16), the 32x32 level of the 128² model (D 64),
+    then ragged T, a wide head and a head dim that the wrapper zero-pads
+    (8 -> 16), each entry within one bf16 `step` of the plain output's (see
+    `close`)."""
     g = torch.Generator(device="cuda").manual_seed(1)
     q, k, v, do = (torch.randn(bh, t, d, device="cuda", generator=g).to(dtype)
                    for _ in range(4))
