@@ -13,7 +13,7 @@ NVIDIA card and checks it, phase by phase:
      gradients against autograd through the plain attention;
   4. reference: a half-width f32 restore on the card against the same
      restore on the CPU (the CPU path is the one the tests hold to the JAX
-     package);
+     package), and a traced-budget, mixed-quality one with decoder reuse;
   5. serve: the WebP restore server core at full width (64², the release
      widths, bf16, flash attention at <= 32²) on three batches of 8 images
      under the production solver policy, counting the kernel's launches;
@@ -22,7 +22,14 @@ NVIDIA card and checks it, phase by phase:
   7. train: the WebP trainer (`cli/train.py main`) at full width, bf16,
      batch 18, EMA: one epoch, then a second resumed from the checkpoint the
      first wrote, counting each kernel's launches in the train steps; then
-     the train step alone, timed and profiled.
+     the train step alone, timed and profiled;
+  8. restore: the restore CLI (`cli/restore.py main`) at full width on
+     WebP and JPEG files that Pillow writes (estimated qualities, decoder
+     reuse at depth 1 and 2, a 2-way ensemble, tiles of a non-square
+     image, and the EMA weights of the checkpoint phase `train` wrote), then
+     the server (`cli/serve.py main`) on mixed codecs with the traced
+     budget; each variant's kernel launches against its schedule, and its
+     milliseconds per image.
 
     python3 chip_smoke.py
 
@@ -30,8 +37,8 @@ It prints each phase's seconds, then a JSON line of per-kernel numbers, the
 card's `nvidia-smi` name and power limit, and last `{"ok": true, ...}`. It
 exits non-zero, printing no result, when any phase fails, when no CUDA card
 is visible, or when the port's package is not beside it. It needs torch,
-numpy and nvcc; Pillow only for the exact final projection, which it skips,
-saying why, when Pillow is missing.
+numpy, nvcc and Pillow (phase `restore` reads and writes image files; the
+serving phase skips the exact final projection, saying why, without it).
 """
 
 from __future__ import annotations
@@ -54,11 +61,15 @@ JAX_PACKAGE = PACKAGE.removesuffix("_torch")  # the reference; never imported he
 
 # The forward kernel's shapes on the main paths, (path, BH, T, D, save_lse):
 # 32x32 tokens at down2 (head dim 128/4) and up4 (64/4), for a serving batch
-# of 8 images, a training batch of 18 (with the LSE the backward needs) and
-# the trainer's validation batch of 4 (4 heads each).
+# of 8 images, a training batch of 18 (with the LSE the backward needs), the
+# trainer's validation batch of 4, the restore CLI's single files, its tile
+# batches of 16 and the serve CLI's batches of 7 (4 heads each).
 FWD_PATH_SHAPES = [("serve", 32, 1024, 32, False), ("serve", 32, 1024, 16, False),
                    ("train step", 72, 1024, 32, True), ("train step", 72, 1024, 16, True),
-                   ("validation", 16, 1024, 32, False), ("validation", 16, 1024, 16, False)]
+                   ("validation", 16, 1024, 32, False), ("validation", 16, 1024, 16, False),
+                   ("restore", 4, 1024, 32, False), ("restore", 4, 1024, 16, False),
+                   ("restore tiles", 64, 1024, 32, False), ("restore tiles", 64, 1024, 16, False),
+                   ("serve CLI", 28, 1024, 32, False), ("serve CLI", 28, 1024, 16, False)]
 # (BH, T, D): those shapes, then long, ragged and wide-head cases of the
 # kernel's contract.
 KERNEL_SHAPES = list(dict.fromkeys(s[1:4] for s in FWD_PATH_SHAPES)) + [
@@ -99,6 +110,13 @@ SERVE_BATCH = 8
 TRAIN_BATCH = 18        # the WebP preset's batch size
 TRAIN_IMAGES = 135      # natural synthetic images: 108 train (6 steps an epoch), 13 val
 SEED = 0
+# The restore phase's files: 2 WebPs 64² at each quality, 2 JPEGs, and one
+# non-square WebP for tile mode; the CLIs' common flags (the release model,
+# the production budget and encoder reuse).
+RESTORE_QUALITIES = (10, 30, 50, 90)
+RESTORE_FLAGS = ["--device", "cuda", "--attn", "flash", "--attn-max-res", "32",
+                 "--max-evals", "14", "--encoder-reuse", "2"]
+TILE_SIZE_HW = (136, 200)
 # The whole run takes well under a minute; past this, fail rather than hang.
 TIME_LIMIT_S = 600
 
@@ -414,9 +432,12 @@ def check_function(failures: list) -> None:
 
 
 def phase_reference(state: dict) -> None:
-    """A small f32 restore (64², half widths, flash at <= 32², so down2 and
+    """Small f32 restores (64², half widths, flash at <= 32², so down2 and
     up4 take the kernel at T = 1024, D = 16) on the card against the same
-    restore on the CPU."""
+    restores on the CPU: a q10 batch on the static schedule, and a q10 /
+    q70 batch on the traced budget of the production policy (14 slots,
+    encoder reuse 2) with decoder reuse at depth 1, whose 7 groups launch
+    the kernel once at down2 and once at up4 each."""
     import numpy as np
     import torch
 
@@ -433,24 +454,28 @@ def phase_reference(state: dict) -> None:
     gpu_model = build_model("webp", cfg, device="cuda")
     gpu_model.load_state_dict(cpu_model.state_dict())
     x0 = torch.from_numpy(synthetic_images(2, cfg.image_size, SEED + 1))
-    y = codec_surrogate(x0, 10, codec="webp")
-    # f32 convolutions in full f32 on both sides (cuDNN would use TF32)
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        out_cpu = restore_batch(cpu_model, y, 10, final_exact=False)
-        before = fa.flash_attention_fwd.launches
-        out_gpu = restore_batch(gpu_model, y.cuda(), 10, final_exact=False).cpu()
-        launched = fa.flash_attention_fwd.launches - before
-    finally:
-        torch.backends.cudnn.allow_tf32 = True
-    diff = (out_cpu - out_gpu).abs()
-    log(f"card vs CPU restore (2x64x64, half width, f32, q10, {launched} kernel launches): "
-        f"max|diff| {diff.max().item():.3g}  mean|diff| {diff.mean().item():.3g}")
-    # The surrogate rounds DCT coefficients; a last-bit difference can move
-    # one coefficient by a quantisation step, so the max is looser than the mean.
-    if not (launched > 0 and np.isfinite(out_gpu.numpy()).all()
-            and diff.mean().item() <= 1e-4 and diff.max().item() <= 2e-2):
-        raise AssertionError("the card's restore disagrees with the CPU's")
+    q_mix = [10.0, 70.0]
+    cases = [("q10, static schedule", codec_surrogate(x0, 10, codec="webp"), 10, {}, None),
+             ("q10/q70, traced budget 14, decoder reuse 1",
+              codec_surrogate(x0, torch.tensor(q_mix), codec="webp"), q_mix,
+              dict(bucket=30, traced=True, decoder_reuse_depth=1), 14)]
+    for label, y, quality, kw, want in cases:
+        # f32 convolutions in full f32 on both sides (cuDNN would use TF32)
+        with no_tf32():
+            out_cpu = restore_batch(cpu_model, y, quality, final_exact=False, **kw)
+            before = fa.flash_attention_fwd.launches
+            out_gpu = restore_batch(gpu_model, y.cuda(), quality, final_exact=False, **kw).cpu()
+            launched = fa.flash_attention_fwd.launches - before
+        diff = (out_cpu - out_gpu).abs()
+        log(f"card vs CPU restore (2x64x64, half width, f32, {label}, {launched} kernel "
+            f"launches{'' if want is None else f'; schedule implies {want}'}): "
+            f"max|diff| {diff.max().item():.3g}  mean|diff| {diff.mean().item():.3g}")
+        # The surrogate rounds DCT coefficients; a last-bit difference can move
+        # one coefficient by a quantisation step, so the max is looser than the mean.
+        if not (launched > 0 and (want is None or launched == want)
+                and np.isfinite(out_gpu.numpy()).all()
+                and diff.mean().item() <= 1e-4 and diff.max().item() <= 2e-2):
+            raise AssertionError(f"the card's restore ({label}) disagrees with the CPU's")
 
 
 def phase_serve(state: dict) -> None:
@@ -676,7 +701,7 @@ def phase_train(state: dict) -> None:
             "--synthetic-kind", "natural", "--checkpoint-dir", ckpt_dir, "--seed", str(SEED),
             "--device", "cuda"]
     totals = dict.fromkeys(expected, 0)
-    try:
+    try:  # the checkpoint stays for phase `restore`, which removes it
         for epochs in (1, 2):
             torch.cuda.synchronize()
             _reset_counts()
@@ -706,8 +731,10 @@ def phase_train(state: dict) -> None:
             for lvl, g in qkv.items():
                 if g is None or not torch.isfinite(g).all() or g.abs().max().item() == 0:
                     raise AssertionError(f"{lvl}.attn.qkv got no gradient")
-    finally:
+    except BaseException:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+        raise
+    state["train_ckpt"] = ckpt_dir
     state["launches_train"] = totals
 
     # the train step alone, on one device batch (no data pipeline)
@@ -733,26 +760,194 @@ def phase_train(state: dict) -> None:
     profile_run(f"one train step, batch {TRAIN_BATCH}", lambda: step(train_state, batch, gen))
 
 
+def phase_restore(state: dict) -> None:
+    """The restore CLI at full width (64², bf16, flash at <= 32², random
+    weights under torch.manual_seed(0)) on files Pillow writes, each
+    variant counted from 0 against its schedule: the forward kernel once
+    at down2 per encode and once at up4 per decode, so for a file of n
+    evaluations in g = ceil(n/2) encoder-reuse groups n + g at decoder
+    reuse depth 0 or 2 and 2g at depth 1 (up4 is then in the deep part,
+    run once a group); an ensemble of 2 twice that; tiles that per batch
+    of 16 tiles. Then the same WebPs from the EMA of phase `train`'s
+    checkpoint, and the server on WebPs and JPEGs with --codec auto and the
+    traced budget (n' + g' per batch, the budget padded to whole groups).
+    RESTORE_QUALITIES and TILE_SIZE_HW size the workload.
+    Logs the milliseconds per image of each CLI call (model build and file
+    I/O included)."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+    from PIL import Image  # writing and reading the files needs Pillow
+
+    from ddpm_image_restoration_tpu_torch.cli.restore import main as restore_main
+    from ddpm_image_restoration_tpu_torch.cli.serve import main as serve_main
+    from ddpm_image_restoration_tpu_torch.codecs.estimate import estimate_quality
+    from ddpm_image_restoration_tpu_torch.codecs.quality import (
+        init_timestep_for_quality,
+        student_stride,
+    )
+    from ddpm_image_restoration_tpu_torch.config import get_preset
+    from ddpm_image_restoration_tpu_torch.diffusion.ddrm import _solver_indices
+    from ddpm_image_restoration_tpu_torch.diffusion.policy import (
+        PRODUCTION_ENCODER_REUSE,
+        PRODUCTION_MAX_EVALS,
+    )
+    from ddpm_image_restoration_tpu_torch.ops import flash_attention as fa
+    from ddpm_image_restoration_tpu_torch.utils.tiling import plan_tiles
+
+    ckpt_dir = state.pop("train_ckpt", None)
+    work = os.path.join(ROOT, "build", "chip_smoke_restore")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        if ckpt_dir is None:
+            raise AssertionError("phase train left no checkpoint to restore from")
+        inputs = os.path.join(work, "in")
+        os.makedirs(inputs)
+
+        def write(name, x, **kw):
+            path = os.path.join(inputs, name)
+            Image.fromarray(np.round((x * 0.5 + 0.5) * 255).astype(np.uint8)).save(path, **kw)
+            return path
+
+        imgs = synthetic_images(2 * len(RESTORE_QUALITIES) + 2, 64, SEED + 20)
+        webps = [write(f"w{i}_q{q}.webp", imgs[i], quality=int(q))
+                 for i, q in enumerate(np.repeat(RESTORE_QUALITIES, 2))]
+        jpegs = [write(f"a{i}.jpg", imgs[-2 + i], quality=30 + 40 * i) for i in range(2)]
+        th, tw = TILE_SIZE_HW
+        wide = write("wide.webp", synthetic_images(1, tw, SEED + 21)[0][:th], quality=30)
+
+        preset = get_preset("webp")
+        reuse = int(RESTORE_FLAGS[RESTORE_FLAGS.index("--encoder-reuse") + 1])
+        budget = int(RESTORE_FLAGS[RESTORE_FLAGS.index("--max-evals") + 1])
+
+        def groups(q):
+            """(n, g) of the static budgeted schedule at quality q."""
+            init_t = init_timestep_for_quality(q, 100, preset)
+            n = len(_solver_indices(init_t, student_stride(init_t, budget)))
+            return n, math.ceil(n / reuse)
+
+        qs = [estimate_quality(p) for p in webps]
+        log(f"estimated qualities of the WebPs written at "
+            f"{[int(q) for q in np.repeat(RESTORE_QUALITIES, 2)]}: {qs}")
+        # one batch when every file shares its quality, else one file at a time
+        per_batch = [groups(q) for q in ([qs[0]] if len(set(qs)) == 1 else qs)]
+        n_tiles = len(plan_tiles(th, tw, 64, 32)[0])
+        n_t, g_t = groups(estimate_quality(wide))
+        tile_batches = math.ceil(n_tiles / 16)
+        auto = ["--quality", "auto", "--codec", "webp"]
+        variants = [
+            ("quality auto", webps, ["--random-init"], sum(n + g for n, g in per_batch)),
+            ("decoder reuse 1", webps, ["--random-init", "--decoder-reuse-depth", "1"],
+             sum(2 * g for n, g in per_batch)),
+            ("decoder reuse 2", webps, ["--random-init", "--decoder-reuse-depth", "2"],
+             sum(n + g for n, g in per_batch)),
+            ("ensemble 2", webps, ["--random-init", "--ensemble", "2"],
+             sum(2 * (n + g) for n, g in per_batch)),
+            (f"tile {th}x{tw}, {n_tiles} tiles", [wide], ["--random-init", "--size-mode", "tile"],
+             tile_batches * (n_t + g_t)),
+            ("checkpoint EMA", webps, ["--checkpoint-dir", ckpt_dir, "--use-ema"],
+             sum(n + g for n, g in per_batch)),
+        ]
+        totals = dict.fromkeys(_counts(), 0)
+        failures = []
+        for i, (label, files, extra, want) in enumerate(variants):
+            out_dir = os.path.join(work, f"out{i}")
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as printed:
+                restore_main([*files, *RESTORE_FLAGS, *auto, *extra, "--output-dir", out_dir])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _counts()
+            for k, v in counts.items():
+                totals[k] += v
+            log(f"restore [{label}]: {len(files)} file(s), {1e3 * wall / len(files):.1f} ms/image "
+                f"on {state['smi']}; launches {counts} (schedule implies {want} forward); "
+                f"{printed.getvalue().splitlines()[0]}")
+            if counts != {fa.KERNEL: want, "flash_attention_bwd_dq": 0,
+                          "flash_attention_bwd_dkv": 0}:
+                failures.append(f"restore [{label}]: launches {counts}, schedule implies {want}")
+            shape = (th, tw, 3) if files == [wide] else (64, 64, 3)
+            for f in files:
+                png = os.path.join(out_dir, os.path.splitext(os.path.basename(f))[0]
+                                   + "_restored.png")
+                got = np.asarray(Image.open(png)).shape if os.path.exists(png) else None
+                if got != shape:
+                    failures.append(f"restore [{label}]: {png} has shape {got}, not {shape}")
+
+        # the server: WebPs and JPEGs in codec-pure batches of one less than
+        # the WebPs (the largest group, WebPs, first; then the 2 JPEGs, the
+        # larger group; then the last WebP), where a queue served in name
+        # order (JPEGs first) would give two batches; each batch on the
+        # traced budget (14 slots)
+        watch, out_dir = os.path.join(work, "watch"), os.path.join(work, "served")
+        os.makedirs(watch)
+        for f in webps + jpegs:
+            shutil.copy(f, watch)
+        n_pad = -(-PRODUCTION_MAX_EVALS // PRODUCTION_ENCODER_REUSE) * PRODUCTION_ENCODER_REUSE
+        want = 3 * (n_pad + n_pad // PRODUCTION_ENCODER_REUSE)
+        batch = len(webps) - 1
+        want_batches = [batch, len(jpegs), 1]
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            serve_main(["--watch", watch, "--output-dir", out_dir, *RESTORE_FLAGS,
+                        "--random-init", "--solver", "auto", "--traced", "--quality", "auto",
+                        "--codec", "auto", "--model-codec", "all", "--batch-size", str(batch),
+                        "--once"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        for k, v in counts.items():
+            totals[k] += v
+        served = [int(m) for m in re.findall(r"restored (\d+) images", printed.getvalue())]
+        log(f"serve [--codec auto, --traced, --quality auto]: {len(webps + jpegs)} files in "
+            f"batches of {served}, {1e3 * wall / len(webps + jpegs):.1f} ms/image on "
+            f"{state['smi']}; launches {counts} (schedule implies {want} forward)")
+        if served != want_batches:
+            failures.append(f"serve: batches {served}, codec-pure batches give {want_batches}")
+        if counts != {fa.KERNEL: want, "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}:
+            failures.append(f"serve: launches {counts}, schedule implies {want}")
+        outs = sorted(os.listdir(out_dir))
+        if len(outs) != len(webps + jpegs) or any(np.asarray(Image.open(os.path.join(out_dir, f))).shape
+                                  != (64, 64, 3) for f in outs):
+            failures.append(f"serve wrote {outs}")
+        state["launches_restore"] = totals
+        if failures:
+            raise AssertionError("; ".join(failures))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        if ckpt_dir:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
 PHASES = [("environment", phase_environment), ("build", phase_build),
           ("kernels", phase_kernels), ("reference", phase_reference),
           ("serve", phase_serve), ("train_reference", phase_train_reference),
-          ("train", phase_train)]
+          ("train", phase_train), ("restore", phase_restore)]
 
 
 def kernels_json(state: dict) -> str:
     """One row per kernel. Its top-level numbers are at the first serving
     or training shape in bf16 (down2); `main_path_shapes` has each shape the
     main paths give it, with its own error and times. `launches` sums the
-    main paths' runs (serve, then train), each counted from 0;
-    `launches_by_path` splits it."""
+    main paths' runs (serve, train, then the restore and serve CLIs), each
+    counted from 0; `launches_by_path` splits it."""
     serve, train = state["launches"], state.get("launches_train", {})
+    restore = state.get("launches_restore", {})
 
     def row(name, source, replaces, rows, shapes, key):
         per_shape = [{"path": path, "shape_bh_t_d": [bh, t, d], "dtype": "bfloat16",
                       "save_lse": lse, **rows[key(bh, t, d, "bfloat16", lse)]}
                      for path, bh, t, d, lse in shapes]
         first = per_shape[0]
-        by_path = {"serve": serve.get(name, 0), "train": train.get(name, 0)}
+        by_path = {"serve": serve.get(name, 0), "train": train.get(name, 0),
+                   "restore": restore.get(name, 0)}
         return {
             "name": name, "route": "cuda", "source": f"{PACKAGE}/csrc/{source}",
             "design": DESIGNS[name],

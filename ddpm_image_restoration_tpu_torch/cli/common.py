@@ -1,12 +1,17 @@
-"""Shared CLI plumbing: model and training configs from flags (port of
-cli/common.py; the JAX-only `--platform` and compile-cache setup have no
-counterpart, and `--device` picks the card or the CPU)."""
+"""Shared CLI plumbing: model and training configs from flags, and the
+restore/serve codec flags (port of cli/common.py; the JAX-only `--platform`
+and compile-cache setup have no counterpart, and `--device` picks the card
+or the CPU)."""
 
 from __future__ import annotations
 
 import argparse
+import os
 
-from ddpm_image_restoration_tpu_torch.config import ModelConfig, TrainConfig
+import numpy as np
+import torch
+
+from ddpm_image_restoration_tpu_torch.config import ModelConfig, TrainConfig, codec_index
 
 
 def add_model_flags(ap: argparse.ArgumentParser) -> None:
@@ -20,6 +25,145 @@ def add_model_flags(ap: argparse.ArgumentParser) -> None:
                     help="apply self-attention only at spatial sizes <= this")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cuda' (the default) raises when no card is visible")
+
+
+def load_image(path: str, size: int | None) -> np.ndarray:
+    """An image file as HWC float32 in [-1,1], squashed to size x size
+    unless size is None (Pillow, imported here)."""
+    from PIL import Image
+
+    img = Image.open(path).convert("RGB")
+    if size is not None:
+        img = img.resize((size, size), Image.BILINEAR)
+    return (np.asarray(img, np.float32) / 255.0) * 2.0 - 1.0
+
+
+def save_image(path: str, x: np.ndarray) -> None:
+    """HWC [-1,1] -> 8-bit PNG (clipped)."""
+    from PIL import Image
+
+    Image.fromarray(np.clip((x * 0.5 + 0.5) * 255.0, 0, 255).astype(np.uint8)).save(path)
+
+
+def add_weights_flags(ap: argparse.ArgumentParser) -> None:
+    """Where the restore/serve CLIs take their weights from."""
+    ap.add_argument("--checkpoint-dir", default="./checkpoints",
+                    help="the port's own train/checkpoint.py checkpoints (the "
+                         "best by val_psnr, else the latest)")
+    ap.add_argument("--params-npz", default=None,
+                    help="load the weights from a release npz (the JAX "
+                         "package's export format) instead of a checkpoint")
+    ap.add_argument("--use-ema", action="store_true",
+                    help="restore with the EMA weights of a checkpoint trained "
+                         "with --ema-decay > 0")
+    ap.add_argument("--random-init", action="store_true",
+                    help="PyTorch's init under torch.manual_seed(0), no "
+                         "weights loaded (smoke tests)")
+
+
+def weights_from(args) -> tuple:
+    """(state_dict, description) of the weights the flags of
+    `add_weights_flags` name; the state_dict is None for --random-init.
+    Raises SystemExit when there is no checkpoint to read, before any model
+    is built."""
+    from ddpm_image_restoration_tpu_torch.train.checkpoint import (
+        CheckpointManager,
+        load_release_params,
+    )
+
+    if args.params_npz:
+        return load_release_params(args.params_npz), f"release params: {args.params_npz}"
+    if args.random_init:
+        return None, "random init (PyTorch's init under torch.manual_seed(0))"
+    found = None
+    if os.path.isdir(args.checkpoint_dir):
+        found = CheckpointManager(args.checkpoint_dir).restore_params(ema=args.use_ema)
+    if found is None:
+        raise SystemExit(
+            f"no checkpoint under {args.checkpoint_dir}: the port reads the "
+            "ckpt_<step>.pt files of its own cli/train.py; the JAX package's "
+            "Orbax checkpoints are not readable here (export them with "
+            "scripts/export_release_ckpt.py and pass --params-npz)")
+    params, meta = found
+    if params is None:
+        raise SystemExit("--use-ema: checkpoint has no EMA params "
+                         "(train with --ema-decay > 0)")
+    return params, f"checkpoint: {meta}"
+
+
+def build_restore_model(model_codec: str, args):
+    """The model of `model_codec` on `--device` with the weights the flags
+    name (PyTorch's init under torch.manual_seed(0) for --random-init)."""
+    from ddpm_image_restoration_tpu_torch.models import build_model
+
+    params, what = weights_from(args)
+    torch.manual_seed(0)
+    model = build_model(model_codec, model_config_from(args), device=args.device)
+    if params is not None:
+        model.load_state_dict(params)
+    print(f"weights: {what}", flush=True)
+    return model
+
+
+def add_codec_flags(ap: argparse.ArgumentParser) -> None:
+    """`--codec` and `--model-codec` of the restore and serve CLIs."""
+    ap.add_argument("--codec", default="webp",
+                    choices=["webp", "jpeg", "avif", "all", "auto"],
+                    help="codec the inputs were compressed with; 'auto' detects "
+                         "each input's codec from its bitstream and dispatches "
+                         "(needs --model-codec all, or a matching single-codec "
+                         "checkpoint); 'all' is a training preset and is refused")
+    ap.add_argument("--model-codec", default="",
+                    help="codec the weights were trained for when it differs "
+                         "from --codec: 'all' pairs a unified checkpoint with "
+                         "any target codec (default: same as --codec)")
+
+
+def resolve_codecs(args) -> tuple:
+    """(target_codec, model_codec) for the restore/serve CLIs. The target is
+    what the inputs were compressed with (sampler preset and consistency
+    codec); the model codec is what the weights were trained as ('all' =
+    unified multi-codec). 'auto' as target means per-file detection."""
+    codec = args.codec.lower()
+    if codec == "all":
+        raise SystemExit(
+            "--codec all is a TRAINING preset; restoration/evaluation "
+            "target one codec at a time — use --model-codec all with "
+            "--codec jpeg|webp|avif|auto"
+        )
+    model_codec = (args.model_codec or codec).lower()
+    if model_codec == "auto":
+        raise SystemExit("--codec auto needs --model-codec: the preset the "
+                         "checkpoint was trained as (jpeg|webp|avif|all)")
+    if model_codec == "avif":
+        raise SystemExit("a model of the avif preset needs the AVIF frequency "
+                         "blocks, which are not ported yet (ROADMAP.md Queue 1 "
+                         "item 5); the unified model (--model-codec all) "
+                         "restores AVIF inputs")
+    return codec, model_codec
+
+
+def sampler_codec_id(model, codec: str):
+    """Conditioning id for a (possibly unified) model restoring `codec`."""
+    return codec_index(codec) if model.cfg.codec_conditioning else None
+
+
+def refuse_not_ported(args) -> None:
+    """SystemExit, naming the ROADMAP.md item that will bring it, for each
+    flag of the JAX package's restore/serve CLIs that the port parses but
+    has not implemented."""
+    refused = [
+        (getattr(args, "consistency", "surrogate") != "surrogate",
+         "--consistency callback|host_loop (the exact-codec consistency "
+         "modes: ROADMAP.md Queue 1 item 6)"),
+        (getattr(args, "solver", "") == "gaussian_mixture",
+         "--solver gaussian_mixture (ROADMAP.md Queue 1 item 9)"),
+        (getattr(args, "dp", 0), "--dp (data-parallel restore: ROADMAP.md Queue 1 item 8)"),
+        (getattr(args, "sp", 0), "--sp (spatial-parallel restore: ROADMAP.md Queue 1 item 8)"),
+    ]
+    for flagged, what in refused:
+        if flagged:
+            raise SystemExit(f"{what} is not ported yet")
 
 
 def model_config_from(args) -> ModelConfig:

@@ -1,8 +1,9 @@
 """Quality <-> diffusion-timestep maps and the training quality curriculum.
 
 Copies of `codecs/quality.py` `init_timestep_for_quality`,
-`quality_for_timestep` and `sample_quality_range`, and of
-`train/distill.py student_stride`, from the JAX package (numpy only).
+`quality_for_timestep`, `sample_quality_range` and `estimate_jpeg_quality`,
+and of `train/distill.py student_stride`, from the JAX package (numpy; Pillow
+only inside `estimate_jpeg_quality`).
 """
 
 from __future__ import annotations
@@ -61,3 +62,42 @@ def sample_quality_range(rng: np.random.Generator, epoch: int,
     if rng.random() < 0.5:
         return (40, 70)
     return (preset.quality_min, 40)   # WebP's low range starts at 0 (webp_training.py:496)
+
+
+def _expected_jpeg_tables(quality: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The (luma, chroma) quantization tables libjpeg writes at `quality`
+    with baseline clamping: jpeg_set_quality's scaling of the Annex K tables."""
+    from ddpm_image_restoration_tpu_torch.codecs.surrogate import _JPEG_CHROMA, _JPEG_LUMA
+
+    scale = 5000.0 / quality if quality < 50 else 200.0 - 2.0 * quality
+
+    def scaled(base):
+        return np.clip(np.floor((base * scale + 50.0) / 100.0), 1, 255)
+    return scaled(_JPEG_LUMA), scaled(_JPEG_CHROMA)
+
+
+def estimate_jpeg_quality(image) -> int | None:
+    """The encoder quality of a JPEG (a path or an open PIL image) from its
+    quantization tables: the q in [1, 100] whose libjpeg tables are nearest
+    (L1 over sorted entries, so the coefficient order does not matter), or
+    None when the file is not a JPEG or carries no tables."""
+    from PIL import Image
+
+    im = image
+    if not hasattr(image, "quantization"):
+        try:
+            im = Image.open(image)
+        except Exception:
+            return None
+    tables = getattr(im, "quantization", None)
+    if not tables:
+        return None
+    observed = [np.sort(np.asarray(tables[k], np.float32)) for k in sorted(tables)[:2]]
+    best_q, best_err = None, np.inf
+    for q in range(1, 101):
+        expected = _expected_jpeg_tables(q)[: len(observed)]
+        err = sum(float(np.abs(np.sort(e.ravel()) - o).sum())
+                  for e, o in zip(expected, observed))
+        if err < best_err:
+            best_q, best_err = q, err
+    return best_q

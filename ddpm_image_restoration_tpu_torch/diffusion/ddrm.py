@@ -1,4 +1,5 @@
-"""DDRM-codec sampler, static-schedule path (port of diffusion/ddrm.py).
+"""DDRM-codec sampler (port of diffusion/ddrm.py): the static schedule and
+the traced-budget solver, with encoder and decoder reuse.
 
 Per reverse step i (descending, t = i/steps), as in the reference
 (webp_training.py:424-473):
@@ -12,11 +13,15 @@ Per reverse step i (descending, t = i/steps), as in the reference
     last:      x_t = x'
 
 The JAX package runs the loop as one `lax.scan` under jit; PyTorch runs
-eagerly, so here it is a Python loop with the same step algebra. Encoder
-reuse k > 1 encodes on every k-th step of the schedule and decodes from the
+eagerly, so here it is a Python loop over solver slots with the same step
+algebra. Encoder reuse k > 1 encodes on every k-th slot and decodes from the
 cached features in between, which is the JAX package's scan over groups of k
-steps plus its tail. Sampler statistics stay f32 whatever the model's
-compute dtype. Noise comes from a `torch.Generator`, so at eta > 0 the
+steps plus its tail; decoder reuse caches the deep decoder stages over the
+same groups. The traced-budget solver (the JAX package's `_build_budget`)
+gives each sample its own step indices in a fixed number of slots, with
+per-sample masks; its schedule is host data here, so its branches cost no
+wait on the card. Sampler statistics stay f32 whatever the model's compute
+dtype. Noise comes from a `torch.Generator`, so at eta > 0 the
 samples differ from the JAX package's; at eta 0 (the production policy) the
 two agree.
 """
@@ -114,22 +119,61 @@ def _last_flags(idxs: np.ndarray) -> np.ndarray:
     return flags
 
 
-def _ddrm_update(x_theta, c, y, i: int, last: bool, t, q_first: float, eta: float,
-                 eta_b: float, preset: CodecPreset, generator=None) -> torch.Tensor:
-    """Post-consistency update (webp_training.py:455-471) for one static
-    step `i`. The phase gate is a batch decision keyed off the first
-    sample's quality, as in the reference (avif.py:518-520)."""
+def _budget_schedule(init_t, n_slots: int, s_max: int = 512):
+    """The traced-budget schedule: for each sample's init_t (a [B] vector),
+    the step indices that `student_stride(init_t, n_slots)` and
+    `_solver_indices` give, laid out in `n_slots` slots. Returns (idx, used,
+    last), each [n_slots, B] (int32, bool, bool). A sample whose schedule has
+    fewer steps pads with unused slots (idx 0) after its last step.
+
+    The stride is the smallest s with ceil(init_t/s) + (0 missed) <=
+    n_slots; when none qualifies (n_slots == 1) it is init_t, one evaluation
+    at the degradation's own t, as `_solver_indices` does for stride >=
+    steps."""
+    s = np.asarray(init_t, np.int32).reshape(-1)                      # [B]
+    n = int(n_slots)
+    st_grid = np.arange(1, s_max + 1, dtype=np.int32)[:, None]        # [S,1]
+    n_main_g = (s[None, :] + st_grid - 1) // st_grid                  # [S,B]
+    miss_g = ((s[None, :] - 1) % st_grid) != 0
+    ok = (n_main_g + miss_g) <= n
+    st = np.where(ok.any(axis=0), ok.argmax(axis=0).astype(np.int32) + 1, s)
+    st = np.where(n >= s, 1, st)                                      # [B]
+    n_main = (s + st - 1) // st
+    miss = (((s - 1) % st) != 0) & (st < s)
+    n_used = np.where(st >= s, 1, n_main + miss)
+    k = np.arange(n, dtype=np.int32)[:, None]                         # [N,1]
+    idx = np.where(k < n_main[None, :], np.maximum(s[None, :] - 1 - k * st[None, :], 0), 0)
+    used = k < n_used[None, :]
+    last = k == (n_used[None, :] - 1)
+    return idx.astype(np.int32), used, last
+
+
+def _lanes(mask: torch.Tensor) -> torch.Tensor:
+    return mask[:, None, None, None]
+
+
+def _ddrm_update(x_theta, c, y, t, last: np.ndarray, last_d: torch.Tensor,
+                 phase: np.ndarray, phase_d: torch.Tensor, eta: float, eta_b: float,
+                 preset: CodecPreset, generator=None) -> torch.Tensor:
+    """Post-consistency update (webp_training.py:455-471) for one solver
+    slot. `last` and `phase` are the slot's per-sample flags on the host
+    (they pick the branches, so nothing waits on the card), `last_d` and
+    `phase_d` the same flags on the card for the per-lane selects. The
+    static schedule gives every lane the same flags; the traced budget gives
+    each sample its own."""
     x_prime = x_theta - c + y
-    if last:
+    if last.all():
         return x_prime
     x_next = eta_b * x_prime + (1.0 - eta_b) * x_theta
     if eta:
         noise = torch.randn(y.shape, generator=generator, device=y.device,
                             dtype=torch.float32)
         x_next = x_next + eta * noise * (t * preset.sampler_noise_scale)[:, None, None, None]
-    if (q_first < preset.phase_quality_threshold and i % preset.phase_period == 0
-            and i > 0):
-        x_next = phase_consistency(x_next, y, preset.phase_alpha)
+    if phase.any():
+        adjusted = phase_consistency(x_next, y, preset.phase_alpha)
+        x_next = adjusted if phase.all() else torch.where(_lanes(phase_d), adjusted, x_next)
+    if last.any():
+        x_next = torch.where(_lanes(last_d), x_prime, x_next)
     return x_next
 
 
@@ -150,43 +194,109 @@ class DDRMSampler:
         self.preset = preset
         self.codec_id = codec_id
 
+    def _schedule(self, steps, stride: int, q_host: np.ndarray, encoder_reuse: int,
+                  traced_budget: int):
+        """Per-slot, per-sample (idx, used, last, t, phase) as [slots, B]
+        host arrays. Static: one index list for the whole batch, t = i/steps,
+        the phase gate keyed off the first sample's quality (the reference's
+        batch-scalar rule, avif.py:518-520). Traced budget: each sample's own
+        schedule from its init_t, t = i/init_t, the phase gate per sample,
+        and the slots padded with unused ones to whole encoder-reuse
+        groups."""
+        preset, b = self.preset, len(q_host)
+        if traced_budget:
+            it = np.broadcast_to(np.asarray(steps, np.int32).reshape(-1), (b,))
+            idx, used, last = _budget_schedule(it, traced_budget)
+            pad = -len(idx) % encoder_reuse
+            if pad:
+                idx, used, last = (np.concatenate([a, np.zeros((pad, b), a.dtype)])
+                                   for a in (idx, used, last))
+            t = idx.astype(np.float32) / it.astype(np.float32)
+            q_gate = q_host[None, :]
+        else:
+            idxs = _solver_indices(steps, stride)
+            idx = np.repeat(idxs[:, None], b, axis=1)
+            used = np.ones(idx.shape, bool)
+            last = np.repeat(_last_flags(idxs)[:, None], b, axis=1)
+            t = idx.astype(np.float32) / np.float32(steps)
+            q_gate = q_host[0]
+        phase = ((q_gate < preset.phase_quality_threshold)
+                 & (idx % preset.phase_period == 0) & (idx > 0))
+        return idx, used, last, t, phase
+
     @torch.no_grad()
-    def sample(self, y: torch.Tensor, quality, steps: int, eta: Optional[float] = None,
+    def sample(self, y: torch.Tensor, quality, steps, eta: Optional[float] = None,
                eta_b: Optional[float] = None, stride: int = 1,
                protect: Optional[tuple] = None, protect_adaptive=None,
-               encoder_reuse: int = 1, final_exact: bool = True,
+               encoder_reuse: int = 1, decoder_reuse_depth: int = 0,
+               final_exact: bool = True, traced_budget: int = 0,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Restore the NHWC observation y in [-1,1] at codec `quality` (a
         scalar or a per-sample [B] vector).
 
         `steps` is both the schedule length and the time normaliser;
         `stride` > 1 is the reduced-step solver; `encoder_reuse` = k runs the
-        UNet encoder on every k-th evaluation only. `final_exact` recomputes
-        the final projection x' = x̂ − codec(x̂) + y with the exact host codec
-        (needs Pillow). `protect` = (lo, hi) applies `quality_gated_blend`,
-        then `protect_adaptive` = beta applies `residual_trust_blend`.
+        UNet encoder on every k-th evaluation only; `decoder_reuse_depth` =
+        d > 0 (with k > 1) also runs the deep decoder stages once per
+        encoder-reuse group (`decode_deep` at the group's first t) and only
+        the last d stages and the head on each step (`decode_shallow`).
+
+        `traced_budget` = N > 0 is the fixed-budget solver: `steps` is each
+        sample's init_t (an int or a [B] vector), `stride` is ignored, and
+        every sample runs its own `student_stride(init_t, N)` schedule in N
+        slots (padded to whole encoder-reuse groups). Unused slots still
+        evaluate the model and keep the previous x_t and x̂; the phase gate is
+        decided per sample. A quality-mixed batch thus restores each image as
+        it would be restored alone.
+
+        `final_exact` recomputes the final projection x' = x̂ − codec(x̂) + y
+        with the exact host codec (needs Pillow). `protect` = (lo, hi)
+        applies `quality_gated_blend`, then `protect_adaptive` = beta applies
+        `residual_trust_blend`.
         """
         if encoder_reuse < 1:
             raise ValueError("encoder_reuse must be >= 1")
-        preset, model, cond = self.preset, self.model, self.codec_id
+        if decoder_reuse_depth < 0:
+            raise ValueError("decoder_reuse_depth must be >= 0")
+        if decoder_reuse_depth and encoder_reuse == 1:
+            raise ValueError(
+                "decoder_reuse_depth requires encoder_reuse > 1 (the deep "
+                "decoder is cached per encoder-reuse group)"
+            )
+        preset, model, cond, depth = self.preset, self.model, self.codec_id, decoder_reuse_depth
         eta = preset.eta if eta is None else eta
         eta_b = preset.eta_b if eta_b is None else eta_b
         b = y.shape[0]
         y = y.float()
         q_host = np.broadcast_to(np.asarray(quality, np.float32).reshape(-1), (b,))
         q_vec = torch.tensor(q_host, device=y.device)
-        idxs = _solver_indices(steps, stride)
-        lasts = _last_flags(idxs)
+        if torch.is_tensor(steps):
+            steps = steps.cpu().numpy()
+        idx, used, last, t_host, phase = self._schedule(steps, stride, q_host, encoder_reuse,
+                                                        traced_budget)
+        used_d, last_d, phase_d, t_all = (torch.from_numpy(np.ascontiguousarray(a)).to(y.device)
+                                          for a in (used, last, phase, t_host))
 
         x_t = x_theta = y
-        for p, (i, last) in enumerate(zip(idxs.tolist(), lasts.tolist())):
-            t = torch.full((b,), float(i), dtype=torch.float32, device=y.device) / steps
+        for p in range(len(idx)):
+            t = t_all[p]
             if p % encoder_reuse == 0:
                 feats = model.encode(x_t, t, t, codec_id=cond)
-            x_theta = model.decode(feats, t, t, codec_id=cond).float()
-            c = codec_surrogate(x_theta, q_vec, codec=preset.name).float()
-            x_t = _ddrm_update(x_theta, c, y, i, last, t, float(q_host[0]), eta,
-                               eta_b, preset, generator)
+                if depth:
+                    deep = model.decode_deep(feats, t, t, depth=depth, codec_id=cond)
+            if depth:
+                x_new = model.decode_shallow(deep, feats[0], t, t, depth=depth, codec_id=cond)
+            else:
+                x_new = model.decode(feats, t, t, codec_id=cond)
+            x_new = x_new.float()
+            c = codec_surrogate(x_new, q_vec, codec=preset.name).float()
+            x_next = _ddrm_update(x_new, c, y, t, last[p], last_d[p], phase[p], phase_d[p],
+                                  eta, eta_b, preset, generator)
+            if used[p].all():
+                x_t, x_theta = x_next, x_new
+            else:
+                u = _lanes(used_d[p])
+                x_t, x_theta = torch.where(u, x_next, x_t), torch.where(u, x_new, x_theta)
 
         out = x_t
         if final_exact:

@@ -25,8 +25,10 @@ MIN_TOKENS_FOR_KERNEL = 1024
 
 
 def _to_bhtd(x: torch.Tensor) -> torch.Tensor:
+    """[B,T,H,D] -> contiguous [B·H,T,D] (the kernels' layout; at B = 1 the
+    reshape alone is a strided view)."""
     b, t, h, d = x.shape
-    return x.transpose(1, 2).reshape(b * h, t, d)
+    return x.transpose(1, 2).reshape(b * h, t, d).contiguous()
 
 
 def spatial_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -164,3 +164,17 @@ class CheckpointManager:
     def restore_best(self, state) -> Optional[Tuple[Any, Dict]]:
         step = self.best_step()
         return None if step is None else self.restore(step, state)
+
+    def restore_params(self, ema: bool = False) -> Optional[Tuple[Optional[Dict[str, torch.Tensor]],
+                                                                  Dict]]:
+        """(weights, metadata) for restoring: the best checkpoint by
+        `val_psnr`, else the latest; its f32 master parameters, or with
+        `ema` its EMA (None when it was trained without one). None when the
+        directory holds no checkpoint."""
+        index = self._index()
+        scored = [s for s in index if "val_psnr" in index[s]]
+        step = max(scored, key=lambda s: self._psnr(index[s])) if scored else self.latest_step()
+        if step is None:
+            return None
+        payload = torch.load(self._path(step), map_location="cpu", weights_only=True, mmap=True)
+        return payload["state"]["ema" if ema else "params"], payload["metadata"]

@@ -1,6 +1,7 @@
-"""The port's DDRM sampler (static schedule) against the JAX package's at
-eta 0, the production setting, on the same npz weights (MINI, f32, CPU),
-and its helpers against theirs."""
+"""The port's DDRM sampler against the JAX package's at eta 0, the
+production setting, on the same npz weights (MINI and TINY5, f32, CPU): the
+static schedule, decoder reuse and the traced-budget solver; and its helpers
+against theirs."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,7 +14,7 @@ from ddpm_image_restoration_tpu.diffusion import ddrm as jddrm
 from ddpm_image_restoration_tpu.diffusion.policy import REAL_PHOTO_TRUST
 from ddpm_image_restoration_tpu_torch.config import get_preset
 from ddpm_image_restoration_tpu_torch.diffusion import ddrm
-from tests._tiny import MINI
+from tests._tiny import MINI, TINY5
 from tests._torch_parity import model_pair, smooth_images
 
 torch.set_num_threads(1)
@@ -27,8 +28,17 @@ def mini(tmp_path_factory):
     return jm, jv, tm, y
 
 
-def _both(mini, quality, steps, **kw):
-    jm, jv, tm, y = mini
+@pytest.fixture(scope="module")
+def tiny5(tmp_path_factory):
+    """Five decoder stages: at depth 1 and 2 the deep part is not empty."""
+    jm, jv, tm = model_pair("webp", TINY5, tmp_path_factory.mktemp("w") / "tiny5.npz", seed=3)
+    x0 = smooth_images(2, 32, seed=6)
+    y = np.array(jax_surrogate(jnp.asarray(x0), 10, codec="webp"))
+    return jm, jv, tm, y
+
+
+def _both(pair, quality, steps, **kw):
+    jm, jv, tm, y = pair
     want = np.asarray(jddrm.DDRMSampler(jm, jax_preset("webp")).sample(
         jv, jnp.asarray(y), quality, steps, eta=0.0, **kw))
     got = ddrm.DDRMSampler(tm, get_preset("webp")).sample(
@@ -97,3 +107,70 @@ def test_blends_and_phase_match(rng):
                 np.asarray(jddrm.residual_trust_blend(jnp.asarray(small), jnp.asarray(y), q,
                                                       codec, beta=beta)),
                 atol=1e-5)
+
+
+@pytest.mark.parametrize("encoder_reuse,depth", [(2, 1), (2, 2), (3, 1), (3, 2)])
+def test_decoder_reuse_matches_jax(tiny5, encoder_reuse, depth):
+    """steps 20, stride 4 -> 5 evaluations: with reuse 2 two groups and a
+    tail of 1, with reuse 3 one group and a tail of 2; the deep decoder
+    (up1..up{5-depth}) runs once per group. q10 turns phase consistency on.
+    atol 1e-4 (f32 summation order)."""
+    got, want = _both(tiny5, 10, 20, stride=4, encoder_reuse=encoder_reuse,
+                      decoder_reuse_depth=depth, final_exact=False)
+    np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+def test_decoder_reuse_refusals(mini):
+    jm, jv, tm, y = mini
+    yt = torch.from_numpy(y)
+    for kw in (dict(decoder_reuse_depth=-1, encoder_reuse=2),
+               dict(decoder_reuse_depth=1, encoder_reuse=1)):
+        with pytest.raises(ValueError):
+            ddrm.DDRMSampler(tm, get_preset("webp")).sample(yt, 30, 6, **kw)
+        with pytest.raises(ValueError):
+            jddrm.DDRMSampler(jm, jax_preset("webp")).sample(jv, jnp.asarray(y), 30, 6, **kw)
+
+
+def test_budget_schedule_matches_jax():
+    """Exact equality over init_t 1..100 (one mixed batch per budget)."""
+    init_t = np.arange(1, 101, dtype=np.int32)
+    for n_slots in (1, 5, 14):
+        got = ddrm._budget_schedule(init_t, n_slots)
+        want = jddrm._budget_schedule(jnp.asarray(init_t), n_slots)
+        for g, w in zip(got, want):
+            assert g.shape == (n_slots, 100)
+            np.testing.assert_array_equal(g, np.asarray(w))
+
+
+@pytest.mark.parametrize("pair_name,encoder_reuse,depth,final_exact", [
+    ("mini", 2, 0, True), ("mini", 1, 0, False), ("tiny5", 3, 1, False)])
+def test_traced_budget_mixed_quality_matches_jax(request, pair_name, encoder_reuse, depth,
+                                                 final_exact):
+    """14 slots on a q10 / q70 batch, each sample at its own init_t (80 and
+    30 at 100 steps: strides 6 and 3, 14 and 10 evaluations), so the q70
+    lane runs 4 unused slots; q10 is inside the WebP phase regime (q < 15),
+    q70 is not, which the traced path gates per sample. Reuse 3 pads the 14
+    slots to 15. atol 1e-4."""
+    q = np.array([10.0, 70.0], np.float32)
+    got, want = _both(request.getfixturevalue(pair_name), q, np.array([80, 30], np.int32),
+                      traced_budget=14, encoder_reuse=encoder_reuse,
+                      decoder_reuse_depth=depth, final_exact=final_exact)
+    np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+def test_traced_budget_uniform_batch_equals_static(mini):
+    """A quality-uniform batch: the traced budget equals the port's own
+    static path at stride student_stride(init_t, N), at reuse 1 and 2 (the
+    check of the JAX package's test_traced_budget_matches_static_budget)."""
+    from ddpm_image_restoration_tpu_torch.codecs.quality import student_stride
+
+    _, _, tm, y = mini
+    s = ddrm.DDRMSampler(tm, get_preset("webp"))
+    yt = torch.from_numpy(y)
+    for enc in (1, 2):
+        for q, init_t in ((10, 9), (50, 6), (30, 80)):
+            kw = dict(eta=0.0, encoder_reuse=enc, final_exact=False)
+            static = s.sample(yt, q, init_t, stride=student_stride(init_t, 4), **kw)
+            traced = s.sample(yt, q, init_t, traced_budget=4, **kw)
+            np.testing.assert_allclose(traced.numpy(), static.numpy(), atol=1e-6,
+                                       err_msg=f"enc={enc} q={q}")

@@ -91,6 +91,17 @@ def test_dispatch_threshold(rng, monkeypatch):
         attention.spatial_attention(q, k, v, impl="sdpa")
 
 
+@pytest.mark.parametrize("b", [1, 2])
+def test_kernel_layout_is_contiguous(b):
+    """The [BH,T,D] operands the kernels get are contiguous at every batch
+    size: at B = 1 the transpose-reshape alone gave a strided view, which
+    the CUDA wrappers refuse (a batch-1 restore failed on the card)."""
+    x = torch.randn(b, 1024, 4, 32)
+    got = attention._to_bhtd(x)
+    assert got.shape == (b * 4, 1024, 32) and got.is_contiguous()
+    assert torch.equal(got, x.permute(0, 2, 1, 3).reshape(b * 4, 1024, 32))
+
+
 def test_wrapper_routes_by_device():
     """A CPU tensor takes the plain version and counts no launch; a tensor
     on any other non-CUDA device is refused rather than computed."""

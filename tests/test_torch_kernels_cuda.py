@@ -161,6 +161,23 @@ def test_function_grads_match_plain_autograd_on_card(card, dtype, rel):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 3])
+def test_spatial_attention_any_batch_on_card(card, b):
+    """spatial_attention(impl='flash') at batch 1 (a single-file restore)
+    and 3 launches the kernel and matches the plain attention."""
+    from ddpm_image_restoration_tpu_torch.ops.attention import spatial_attention
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn(b, 1024, 4, 32, device="cuda", generator=g).to(torch.bfloat16)
+               for _ in range(3))
+    before = fa.flash_attention_fwd.launches
+    got = spatial_attention(q, k, v, impl="flash")
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == before + 1
+    assert close(got, spatial_attention(q, k, v, impl="xla"), step=2 ** -7)
+
+
+@pytest.mark.cuda
 def test_flash_block_qkv_grad_on_card(card):
     """A 32x32 flash attention block's qkv weight gets the gradient the plain
     route gives (it was None-or-residual-only before the Function)."""

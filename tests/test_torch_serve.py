@@ -1,5 +1,7 @@
-"""The port's serving slice end to end: `serve --once` on PNGs against the
-JAX package's server on the same npz weights; the card path importing
+"""The port's serving slice end to end: `serve --once` against the JAX
+package's server on the same npz weights (PNGs under the production policy;
+per-file estimated qualities; codec-pure batches from mixed codecs; the
+traced budget; tiles; the processed directory); the card path importing
 neither JAX nor Pillow; chip_smoke.py refusing to run without a card."""
 
 import json
@@ -58,6 +60,100 @@ def test_serve_once_matches_jax(tmp_path):
         ia, ib = (np.asarray(Image.open(p), np.int16) for p in (a, b))
         assert ia.shape == ib.shape == (32, 32, 3)
         assert np.abs(ia - ib).max() <= 1 and np.mean(ia != ib) < 0.01
+
+
+def _write_files(d: Path, files: dict) -> None:
+    """{name: (HWC image in [-1,1], Pillow save kwargs)} into d."""
+    d.mkdir(parents=True)
+    for name, (x, kw) in files.items():
+        Image.fromarray(((x * 0.5 + 0.5) * 255).round().astype(np.uint8)).save(d / name, **kw)
+
+
+def _serve_files():
+    imgs = smooth_images(4, 32, seed=5)
+    big = smooth_images(1, 48, seed=8)[0][:40]  # 40 high, 48 wide
+    return {
+        # The exact final projection re-encodes x̂ with libwebp, whose
+        # decisions can flip on a last-bit change of x̂: with imgs[2] at q70
+        # (estimated 76) the two packages' x̂ differed by 2.2e-5 (the JAX
+        # package's own x̂ moves as much for a 1e-6 change of its input) and
+        # the re-encoded PNGs on 68% of pixels, by up to 20 steps; at q90
+        # (estimated 91) the JAX package's own x̂ moved by 1.8e-4. So the
+        # third file is imgs[3] at q70, where the encoder held its decisions.
+        "quality_auto": {"a10.webp": (imgs[0], dict(quality=10)),
+                         "b50.webp": (imgs[1], dict(quality=50)),
+                         "c70.webp": (imgs[3], dict(quality=70))},
+        "codec_auto": {"a.webp": (imgs[0], dict(quality=30)), "b.webp": (imgs[1], dict(quality=30)),
+                       "c.jpg": (imgs[2], dict(quality=30))},
+        "tile": {"big.png": (big, {})},
+    }
+
+
+# case: (files, flags, the port's log lines that must appear)
+SERVE_CASES = {
+    # per-file estimated qualities, init_t at the bucket of their median
+    "quality_auto": ("quality_auto", ["--codec", "webp", "--quality", "auto", "--batch-size", "4"],
+                     ["init_t bucket"]),
+    # a WebP batch of 2 first (the larger group), then the JPEG alone
+    "codec_auto": ("codec_auto", ["--codec", "auto", "--model-codec", "all", "--quality", "30",
+                                  "--batch-size", "2"],
+                   ["restored 2 images (total 2)", "restored 1 images (total 3)"]),
+    # each file at its own init_t in one 14-slot batch
+    "traced": ("quality_auto", ["--codec", "webp", "--quality", "auto", "--traced",
+                                "--batch-size", "4"], ["restored 3 images (total 3)"]),
+    "tile": ("tile", ["--codec", "webp", "--quality", "30", "--size-mode", "tile",
+                      "--tile-overlap", "16", "--batch-size", "4"], []),
+}
+
+
+@pytest.mark.parametrize("case", list(SERVE_CASES))
+def test_serve_cli_matches_jax(tmp_path, case, capsys):
+    """Both servers drain the same files under the production policy (eta
+    0) and write PNGs within the CLI bound; inputs move to --processed-dir."""
+    from ddpm_image_restoration_tpu.cli.serve import main as jax_main
+    from ddpm_image_restoration_tpu_torch.cli.serve import main as torch_main
+
+    files_key, flags, log_lines = SERVE_CASES[case]
+    files = _serve_files()[files_key]
+    codec = "all" if "all" in flags else "webp"
+    cfg = ModelConfig(image_size=32, compute_dtype="float32", attention_impl="flash",
+                      attn_max_resolution=32).scaled(8)
+    npz = tmp_path / "w.npz"
+    model_pair(codec, cfg, npz, seed=2)
+    names = sorted(Path(f).stem + "_restored.png" for f in files)
+    for name, main, extra in (("jax", jax_main, []), ("torch", torch_main, ["--device", "cpu"])):
+        _write_files(tmp_path / name / "in", files)
+        capsys.readouterr()
+        main(["--watch", str(tmp_path / name / "in"), "--output-dir", str(tmp_path / name / "out"),
+              "--processed-dir", str(tmp_path / name / "processed"), *TINY_FLAGS,
+              "--params-npz", str(npz), "--solver", "auto", "--once", *flags, *extra])
+        log = capsys.readouterr().out
+        assert sorted(p.name for p in (tmp_path / name / "out").iterdir()) == names
+        assert sorted(p.name for p in (tmp_path / name / "processed").iterdir()) == sorted(files)
+        assert not any((tmp_path / name / "in").iterdir())
+    for line in log_lines:
+        assert line in log, log
+    for n in names:
+        ia, ib = (np.asarray(Image.open(tmp_path / d / "out" / n), np.int16)
+                  for d in ("jax", "torch"))
+        assert ia.shape == ib.shape
+        assert np.abs(ia - ib).max() <= 1 and np.mean(ia != ib) < 0.01, n
+    if case == "tile":
+        assert Image.open(tmp_path / "torch" / "out" / names[0]).size == (48, 40)
+
+
+def test_serve_refusals(tmp_path):
+    """--traced without a budget and the unported --dp refuse at startup,
+    before any model is built."""
+    from ddpm_image_restoration_tpu_torch.cli.serve import main
+
+    base = ["--watch", str(tmp_path), "--output-dir", str(tmp_path / "out"), "--random-init",
+            "--once"]
+    with pytest.raises(SystemExit):
+        main([*base, "--traced"])
+    for flags, item in ((["--dp", "2"], "item 8"), (["--model-codec", "avif"], "item 5")):
+        with pytest.raises(SystemExit, match=f"ROADMAP.md Queue 1 {item}"):
+            main([*base, *flags])
 
 
 def test_serve_rejects_and_requires_weights(tmp_path):
