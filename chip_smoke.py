@@ -2,7 +2,8 @@
 """Runs the PyTorch/CUDA port (`ddpm_image_restoration_tpu_torch`) on one
 NVIDIA card and checks it, phase by phase:
 
-  1. environment: torch and CUDA versions, the card's name and power limit;
+  1. environment: torch and CUDA versions, the card's name and power limit,
+     Pillow's version and whether it writes AVIF;
   2. build: every kernel of the serving and training paths, with nvcc, from
      the checkout, one nvcc per source, all started together; each kernel's
      registers, spills and shared memory (`ptxas -v`) and its tensor-core
@@ -13,12 +14,13 @@ NVIDIA card and checks it, phase by phase:
      gradients against autograd through the plain attention;
   4. reference: a half-width f32 restore on the card against the same
      restore on the CPU (the CPU path is the one the tests hold to the JAX
-     package), and a traced-budget, mixed-quality one with decoder reuse;
+     package), a traced-budget, mixed-quality one with decoder reuse, and
+     one of the AVIF-preset model;
   5. serve: the WebP restore server core at full width (64², the release
      widths, bf16, flash attention at <= 32²) on three batches of 8 images
      under the production solver policy, counting the kernel's launches;
   6. train_reference: one half-width f32 train step on the card against the
-     same step on the CPU (loss and every gradient);
+     same step on the CPU (loss and every gradient), WebP and AVIF presets;
   7. train: the WebP trainer (`cli/train.py main`) at full width, bf16,
      batch 18, EMA: one epoch, then a second resumed from the checkpoint the
      first wrote, counting each kernel's launches in the train steps; then
@@ -29,7 +31,16 @@ NVIDIA card and checks it, phase by phase:
      image, and the EMA weights of the checkpoint phase `train` wrote), then
      the server (`cli/serve.py main`) on mixed codecs with the traced
      budget; each variant's kernel launches against its schedule, and its
-     milliseconds per image.
+     milliseconds per image;
+  9. evaluate: the evaluator (`cli/evaluate.py main`) at full width on 20
+     images, q10/30/50 under the production policy, static and traced:
+     launches against the schedule, the metrics summary's fields, images
+     per second per quality;
+ 10. avif: the AVIF model family at full width: `cli/train.py --codec
+     avif` (one epoch, EMA, checkpoint), `cli/evaluate.py` and
+     `cli/restore.py --model-codec avif` on that checkpoint (AVIF files
+     Pillow writes), then two steps of `cli/train.py --codec all`; every
+     kernel's launches against the schedule.
 
     python3 chip_smoke.py
 
@@ -37,12 +48,14 @@ It prints each phase's seconds, then a JSON line of per-kernel numbers, the
 card's `nvidia-smi` name and power limit, and last `{"ok": true, ...}`. It
 exits non-zero, printing no result, when any phase fails, when no CUDA card
 is visible, or when the port's package is not beside it. It needs torch,
-numpy, nvcc and Pillow (phase `restore` reads and writes image files; the
-serving phase skips the exact final projection, saying why, without it).
+numpy, scipy (the Fréchet distance), nvcc and Pillow with AVIF (phases
+`restore`, `evaluate` and `avif` read and write image files; the serving
+phase skips the exact final projection, saying why, without Pillow).
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import importlib.util
 import json
@@ -61,26 +74,35 @@ JAX_PACKAGE = PACKAGE.removesuffix("_torch")  # the reference; never imported he
 
 # The forward kernel's shapes on the main paths, (path, BH, T, D, save_lse):
 # 32x32 tokens at down2 (head dim 128/4) and up4 (64/4), for a serving batch
-# of 8 images, a training batch of 18 (with the LSE the backward needs), the
-# trainer's validation batch of 4, the restore CLI's single files, its tile
-# batches of 16 and the serve CLI's batches of 7 (4 heads each).
+# of 8 images (the evaluator's too), a training batch of 18 (with the LSE
+# the backward needs), the trainer's validation batch of 4, the restore
+# CLI's single files, its tile batches of 16 and the serve CLI's batches of
+# 7 (4 heads each); then the AVIF model's (8 heads: head dim 128/8 = 16 at
+# down2, 64/8 = 8 at up4, which the wrapper zero-pads to 16) for its
+# training and evaluation batches of 8, its validation batch of 4 and the
+# restore CLI's single files.
 FWD_PATH_SHAPES = [("serve", 32, 1024, 32, False), ("serve", 32, 1024, 16, False),
                    ("train step", 72, 1024, 32, True), ("train step", 72, 1024, 16, True),
                    ("validation", 16, 1024, 32, False), ("validation", 16, 1024, 16, False),
                    ("restore", 4, 1024, 32, False), ("restore", 4, 1024, 16, False),
                    ("restore tiles", 64, 1024, 32, False), ("restore tiles", 64, 1024, 16, False),
-                   ("serve CLI", 28, 1024, 32, False), ("serve CLI", 28, 1024, 16, False)]
+                   ("serve CLI", 28, 1024, 32, False), ("serve CLI", 28, 1024, 16, False),
+                   ("avif train step", 64, 1024, 16, True), ("avif train step", 64, 1024, 8, True),
+                   ("avif evaluate", 64, 1024, 16, False), ("avif evaluate", 64, 1024, 8, False),
+                   ("avif validation", 32, 1024, 16, False),
+                   ("avif validation", 32, 1024, 8, False),
+                   ("avif restore", 8, 1024, 16, False), ("avif restore", 8, 1024, 8, False)]
 # (BH, T, D): those shapes, then long, ragged and wide-head cases of the
 # kernel's contract.
 KERNEL_SHAPES = list(dict.fromkeys(s[1:4] for s in FWD_PATH_SHAPES)) + [
     (8, 4096, 16), (4, 300, 64), (2, 256, 128), (3, 17, 32)]
-# Backward (BH, T, D): the training path's shapes first (down2 and up4 of a
-# batch of 18 images x 4 heads, 32x32 tokens), then contract shapes: the
-# 32x32 level of the 128² model (head dim 64, batch 18), and ragged, short
-# and wide cases.
-BWD_SHAPES = [(72, 1024, 32), (72, 1024, 16), (72, 1024, 64), (4, 300, 64), (4, 1300, 16),
-              (2, 256, 128), (3, 17, 32)]
-TRAIN_SHAPES = BWD_SHAPES[:2]
+# Backward (BH, T, D) -> heads: the training paths' shapes first (down2 and
+# up4 of a WebP batch of 18 images x 4 heads and of an AVIF batch of 8 x 8
+# heads, 32x32 tokens), then contract shapes: the 32x32 level of the 128²
+# model (head dim 64, batch 18), and ragged, short and wide cases.
+TRAIN_SHAPES = {(72, 1024, 32): 4, (72, 1024, 16): 4, (64, 1024, 16): 8, (64, 1024, 8): 8}
+BWD_SHAPES = [*TRAIN_SHAPES, (72, 1024, 64), (4, 300, 64), (4, 1300, 16), (2, 256, 128),
+              (3, 17, 32)]
 # Each kernel against its plain version, entry by entry:
 #   |got - ref| <= BF16_STEP * |ref| (bf16 outputs only) + F32_REL * max|ref|.
 # Both accumulate in f32 on the same inputs, so their f32 results differ by
@@ -117,6 +139,25 @@ RESTORE_QUALITIES = (10, 30, 50, 90)
 RESTORE_FLAGS = ["--device", "cuda", "--attn", "flash", "--attn-max-res", "32",
                  "--max-evals", "14", "--encoder-reuse", "2"]
 TILE_SIZE_HW = (136, 200)
+# The evaluate phase: cli/evaluate.py on the webp preset, natural synthetic
+# images in batches of 8 (20 = two full batches and one of 4 real images
+# padded to 8), under the production policy; the flags it shares with the
+# avif phase.
+CARD_FLAGS = ["--device", "cuda", "--attn", "flash", "--attn-max-res", "32"]
+# The diffusion steps of the evaluate and avif phases' CLIs (`--steps`, the
+# CLIs' default), which set each quality's start step and so the schedules.
+DIFFUSION_STEPS = 100
+EVAL_IMAGES = 20
+EVAL_BATCH = 8
+EVAL_QUALITIES = (10, 30, 50)
+# The avif phase: the AVIF trainer (batch 8, the preset's) on natural
+# synthetic images (80% train: 6 steps of 8), the evaluator and the restore
+# CLI on its checkpoint at the preset's validation qualities, then two steps
+# of the unified trainer (batch 18: 36 training images of 45).
+AVIF_TRAIN_IMAGES = 60
+AVIF_EVAL_IMAGES = 8
+AVIF_QUALITIES = (20, 50, 80)
+ALL_TRAIN_IMAGES = 45
 # The whole run takes well under a minute; past this, fail rather than hang.
 TIME_LIMIT_S = 600
 
@@ -147,24 +188,55 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_time_ms(fn, iters: int = 10, warmup: int = 3) -> float:
+def device_time_ms(fn, iters: int = 10, warmup: int = 3, windows: int = 3) -> float:
     """Device time per call: the summed time of the CUDA kernels that
-    `iters` calls launch (torch.profiler), over `iters`. Unlike events around
-    the calls it leaves out the gaps while the host launches, which decide
-    the time of a call made of several short kernels (an autograd
-    backward)."""
+    `iters` calls launch (torch.profiler), over `iters`; the largest over
+    `windows` profiler sessions, each around the `iters` calls alone.
+    Unlike events around the calls it leaves out the gaps while the host
+    launches, which decide the time of a call made of several short kernels
+    (an autograd backward).
+
+    The largest, because a session can miss kernels that ran and never
+    adds any: sessions recorded none of SDPA's cuDNN backward (0.15 ms
+    between events) or of the flash forward, or only the pad and slice
+    kernels around it. (A session that also ran warm-up calls counted the
+    measured kernels twice, so none does.) Sessions that disagree are
+    logged; 0 means every session recorded nothing, and the callers fail on
+    that."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
+    readings = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        readings.append(sum(e.self_device_time_total for e in prof.key_averages()
+                            if e.device_type.name == "CUDA") / 1e3 / iters)
+    ms = max(readings)
+    if min(readings) < 0.5 * ms:
+        log(f"  profiler sessions read {[round(r, 4) for r in readings]} ms: taking {ms:.4f}")
+    return ms
+
+
+def profiled_events(fn) -> str:
+    """What torch.profiler records for one call of `fn`: each event with
+    its device type, count and device time (to tell a call the profiler
+    does not see from one that runs no kernel)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+        fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type.name == "CUDA") / 1e3 / iters
+    return "; ".join(f"{e.key[:60]} [{e.device_type.name}] x{e.count} "
+                     f"{e.self_device_time_total:.1f}/{e.device_time_total:.1f} us"
+                     for e in prof.key_averages())
 
 
 def max_err(got, ref, rel_max: float | None = None) -> tuple[float, float]:
@@ -227,6 +299,18 @@ def phase_environment(state: dict) -> None:
     log(state["smi"])
     state["pil"] = importlib.util.find_spec("PIL") is not None
     log(f"Pillow importable: {state['pil']}")
+    state["avif"] = False
+    if state["pil"]:
+        import PIL
+
+        from ddpm_image_restoration_tpu_torch.codecs.pil_codecs import avif_available
+
+        state["avif"] = avif_available()
+        log(f"Pillow {PIL.__version__}; avif_available() {state['avif']}")
+    log("phase avif: " + ("the AVIF CLIs on AVIF bitstreams that Pillow writes and reads"
+                          if state["avif"] else
+                          "fails: Pillow here cannot write AVIF, which the AVIF trainer's "
+                          "data, the exact final projection and the AVIF files need"))
 
 
 def phase_build(state: dict) -> None:
@@ -292,7 +376,14 @@ def phase_kernels(state: dict) -> None:
             q, k, v = (torch.randn(bh, t, d, device="cuda", generator=gen).to(dtype)
                        for _ in range(3))
             q4, k4, v4 = (z[None] for z in (q, k, v))
-            lib_ms = device_time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
+
+            def sdpa():
+                return F.scaled_dot_product_attention(q4, k4, v4)
+
+            lib_ms = device_time_ms(sdpa)
+            if not lib_ms > 0:
+                failures.append(f"sdpa (BH,T,D)=({bh},{t},{d}) {name}: the profiler summed no "
+                                f"device time; {profiled_events(sdpa)}")
             for save_lse in (False, True):
                 got = fa.flash_attention_fwd(q, k, v, save_lse=save_lse)
                 ref = fa.flash_attention_plain(q, k, v, save_lse=save_lse)
@@ -306,6 +397,9 @@ def phase_kernels(state: dict) -> None:
                         failures.append(f"(BH,T,D)=({bh},{t},{d}) {name} {part}: "
                                         f"max|err| {e:.3g}, {sh:.3g} of its bound")
                 ms = device_time_ms(lambda: fa.flash_attention_fwd(q, k, v, save_lse))
+                if not ms > 0:
+                    failures.append(f"flash_attention_fwd (BH,T,D)=({bh},{t},{d}) {name}: the "
+                                    f"profiler summed no device time")
                 event_ms = cuda_time_ms(lambda: fa.flash_attention_fwd(q, k, v, save_lse))
                 plain_ms = cuda_time_ms(lambda: fa.flash_attention_plain(q, k, v, save_lse))
                 bound, by = attention_bound_ms(bh, t, d, name, save_lse)
@@ -370,6 +464,9 @@ def check_backward(failures: list) -> dict:
                 "dkv": lambda: fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta)}
             times = {kind: (device_time_ms(kernel_calls[kind]), cuda_time_ms(kernel_calls[kind]),
                             cuda_time_ms(plain_calls[kind])) for kind in kernel_calls}
+            failures += [f"flash_attention_bwd_{kind} (BH,T,D)=({bh},{t},{d}) {name}: the "
+                         f"profiler summed no device time" for kind, tm in times.items()
+                         if not tm[0] > 0]
             q4, k4, v4 = (z[None].detach().requires_grad_() for z in (q, k, v))
             out4 = F.scaled_dot_product_attention(q4, k4, v4)
 
@@ -378,6 +475,9 @@ def check_backward(failures: list) -> dict:
 
             lib_ms = device_time_ms(lib_backward)
             lib_event_ms = cuda_time_ms(lib_backward)
+            if not lib_ms > 0:
+                failures.append(f"sdpa backward (BH,T,D)=({bh},{t},{d}) {name}: the profiler "
+                                f"summed no device time; {profiled_events(lib_backward)}")
             role = "train step" if (bh, t, d) in TRAIN_SHAPES else "contract"
             for kind in ("dq", "dkv"):
                 err, (ms, event_ms, plain_ms) = errs[kind], times[kind]
@@ -396,18 +496,19 @@ def check_backward(failures: list) -> dict:
 def check_function(failures: list) -> None:
     """spatial_attention(impl='flash') under autograd (the Function: the
     forward kernel with LSE, then the dQ and dK/dV kernels) against autograd
-    through the plain attention, at the training path's down2 (D = 32) and
-    up4 (D = 16) shapes: the output and the gradients of q, k and v."""
+    through the plain attention, at the training paths' down2 and up4
+    shapes (WebP: D = 32, 16; AVIF: D = 16, 8): the output and the
+    gradients of q, k and v."""
     import torch
 
     from ddpm_image_restoration_tpu_torch.ops import flash_attention as fa
     from ddpm_image_restoration_tpu_torch.ops.attention import spatial_attention
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    for (bh, t, d), dtype in ((s, dt) for s in TRAIN_SHAPES
-                              for dt in (torch.bfloat16, torch.float32)):
+    for ((bh, t, d), heads), dtype in ((s, dt) for s in TRAIN_SHAPES.items()
+                                       for dt in (torch.bfloat16, torch.float32)):
         name = str(dtype).split(".")[-1]
-        shape = (bh // 4, t, 4, d)
+        shape = (bh // heads, t, heads, d)
         q, k, v, do = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
                        for _ in range(4))
         counts = (fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches)
@@ -433,11 +534,13 @@ def check_function(failures: list) -> None:
 
 def phase_reference(state: dict) -> None:
     """Small f32 restores (64², half widths, flash at <= 32², so down2 and
-    up4 take the kernel at T = 1024, D = 16) on the card against the same
-    restores on the CPU: a q10 batch on the static schedule, and a q10 /
+    up4 take the kernel at T = 1024) on the card against the same restores
+    on the CPU: a WebP q10 batch on the static schedule (D = 16); a q10 /
     q70 batch on the traced budget of the production policy (14 slots,
     encoder reuse 2) with decoder reuse at depth 1, whose 7 groups launch
-    the kernel once at down2 and once at up4 each."""
+    the kernel once at down2 and once at up4 each; and an AVIF-preset model
+    (8 heads: D = 8 at down2, 4 at up4, both padded to 16) restoring a q20
+    batch under the AVIF policy (phase consistency on)."""
     import numpy as np
     import torch
 
@@ -449,22 +552,31 @@ def phase_reference(state: dict) -> None:
 
     cfg = ModelConfig(compute_dtype="float32", attention_impl="flash",
                       attn_max_resolution=32).scaled(2)
-    torch.manual_seed(SEED)
-    cpu_model = build_model("webp", cfg, device="cpu")
-    gpu_model = build_model("webp", cfg, device="cuda")
-    gpu_model.load_state_dict(cpu_model.state_dict())
+    models = {}
+    for codec in ("webp", "avif"):
+        torch.manual_seed(SEED)
+        cpu_model = build_model(codec, cfg, device="cpu")
+        gpu_model = build_model(codec, cfg, device="cuda")
+        gpu_model.load_state_dict(cpu_model.state_dict())
+        models[codec] = cpu_model, gpu_model
     x0 = torch.from_numpy(synthetic_images(2, cfg.image_size, SEED + 1))
     q_mix = [10.0, 70.0]
-    cases = [("q10, static schedule", codec_surrogate(x0, 10, codec="webp"), 10, {}, None),
-             ("q10/q70, traced budget 14, decoder reuse 1",
+    n, g = static_schedule(20, "avif")
+    cases = [("webp q10, static schedule", "webp", codec_surrogate(x0, 10, codec="webp"), 10,
+              {}, None),
+             ("webp q10/q70, traced budget 14, decoder reuse 1", "webp",
               codec_surrogate(x0, torch.tensor(q_mix), codec="webp"), q_mix,
-              dict(bucket=30, traced=True, decoder_reuse_depth=1), 14)]
-    for label, y, quality, kw, want in cases:
+              dict(bucket=30, traced=True, decoder_reuse_depth=1), 14),
+             ("avif-preset model, avif q20, static schedule", "avif",
+              codec_surrogate(x0, 20, codec="avif"), 20, {}, n + g)]
+    for label, codec, y, quality, kw, want in cases:
+        cpu_model, gpu_model = models[codec]
         # f32 convolutions in full f32 on both sides (cuDNN would use TF32)
         with no_tf32():
-            out_cpu = restore_batch(cpu_model, y, quality, final_exact=False, **kw)
+            out_cpu = restore_batch(cpu_model, y, quality, codec, final_exact=False, **kw)
             before = fa.flash_attention_fwd.launches
-            out_gpu = restore_batch(gpu_model, y.cuda(), quality, final_exact=False, **kw).cpu()
+            out_gpu = restore_batch(gpu_model, y.cuda(), quality, codec, final_exact=False,
+                                    **kw).cpu()
             launched = fa.flash_attention_fwd.launches - before
         diff = (out_cpu - out_gpu).abs()
         log(f"card vs CPU restore (2x64x64, half width, f32, {label}, {launched} kernel "
@@ -476,6 +588,38 @@ def phase_reference(state: dict) -> None:
                 and np.isfinite(out_gpu.numpy()).all()
                 and diff.mean().item() <= 1e-4 and diff.max().item() <= 2e-2):
             raise AssertionError(f"the card's restore ({label}) disagrees with the CPU's")
+
+
+def restore_budget() -> tuple[int, int]:
+    """(max evals, encoder reuse) of RESTORE_FLAGS."""
+    return tuple(int(RESTORE_FLAGS[RESTORE_FLAGS.index(f) + 1])
+                 for f in ("--max-evals", "--encoder-reuse"))
+
+
+def static_schedule(quality: float, codec: str, budget: int | None = None,
+                    reuse: int | None = None, steps: int = 100) -> tuple[int, int]:
+    """(n, g): the model evaluations of one restore on the static budgeted
+    schedule at `quality` over `steps` diffusion steps (the production
+    policy's budget and encoder reuse unless given) and its encoder-reuse
+    groups. The forward kernel then runs
+    once at down2 per group (encode) and once at up4 per evaluation
+    (decode): n + g launches per batch."""
+    from ddpm_image_restoration_tpu_torch.codecs.quality import (
+        init_timestep_for_quality,
+        student_stride,
+    )
+    from ddpm_image_restoration_tpu_torch.config import get_preset
+    from ddpm_image_restoration_tpu_torch.diffusion.ddrm import _solver_indices
+    from ddpm_image_restoration_tpu_torch.diffusion.policy import (
+        PRODUCTION_ENCODER_REUSE,
+        PRODUCTION_MAX_EVALS,
+    )
+
+    budget = budget or PRODUCTION_MAX_EVALS
+    reuse = reuse or PRODUCTION_ENCODER_REUSE
+    init_t = init_timestep_for_quality(quality, steps, get_preset(codec))
+    n = len(_solver_indices(init_t, student_stride(init_t, budget)))
+    return n, math.ceil(n / reuse)
 
 
 def phase_serve(state: dict) -> None:
@@ -556,7 +700,9 @@ def phase_serve(state: dict) -> None:
 
 def profile_run(label: str, run) -> None:
     """Where one call's time goes: device-busy share of the wall time and
-    the kernels with the most device time (torch.profiler, CUPTI)."""
+    the kernels with the most device time (torch.profiler, CUPTI). One
+    session around the call alone (see device_time_ms): it can miss
+    kernels, so the busy share is a lower bound."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -605,11 +751,13 @@ def _counts() -> dict:
 
 def phase_train_reference(state: dict) -> None:
     """One f32 train step of a half-width model (64², flash attention at
-    <= 32², so down2 and up4 go through the Function at T = 1024, D = 16)
-    on the card against the same step on the CPU: the loss within rtol
-    1e-4; every gradient entry within 1e-4 of the model's largest; the
-    attention projections of the two flash levels each within 1e-3 of their
-    own largest entry (f32 sums in other orders through ~30 layers)."""
+    <= 32², so down2 and up4 go through the Function at T = 1024) on the
+    card against the same step on the CPU, for the WebP preset (D = 16) and
+    the AVIF preset (8 heads: D = 8 and 4, padded to 16; the AVIF loss): the
+    loss within rtol 1e-4; every gradient entry within 1e-4 of the model's
+    largest; the attention projections of the two flash levels each within
+    1e-3 of their own largest entry (f32 sums in other orders through ~30
+    layers)."""
     import dataclasses
 
     import numpy as np
@@ -622,51 +770,57 @@ def phase_train_reference(state: dict) -> None:
 
     model_cfg = dataclasses.replace(ModelConfig(compute_dtype="float32", attention_impl="flash",
                                                 attn_max_resolution=32), dropout=0.0).scaled(2)
-    cfg = TrainConfig(codec="webp", model=model_cfg, ema_decay=0.999)
-    torch.manual_seed(SEED)
-    cpu_model = build_model("webp", model_cfg, device="cpu")
-    gpu_model = build_model("webp", model_cfg, device="cuda")
-    gpu_model.load_state_dict(cpu_model.state_dict())
     x0 = torch.from_numpy(synthetic_images(4, 64, SEED + 3))
-    batch = {"x0": x0, "xt": codec_surrogate(x0, 20, codec="webp"),
-             "t": torch.tensor([10, 35, 60, 90], dtype=torch.int32)}
-    with no_tf32():
-        cpu_m = make_train_step(cpu_model, cfg)(create_train_state(cpu_model, cfg), batch, None)
-        _reset_counts()
-        gpu_m = make_train_step(gpu_model, cfg)(
-            create_train_state(gpu_model, cfg), {k: v.cuda() for k, v in batch.items()}, None)
-        torch.cuda.synchronize()
-    counts = _counts()
-    # the loss's angle term jumps by 2 pi at a real-valued FFT bin whose
-    # imaginary part takes another sign: count such bins between the two
-    flips = 0
-    with torch.no_grad():
-        xt = batch["xt"].cuda()
-        pred_gpu = xt + gpu_model(xt, batch["t"].cuda() / 100.0)
-        for z in (batch["x0"], pred_gpu.cpu()):
-            a = torch.angle(torch.fft.rfft2(z.permute(0, 3, 1, 2) * 0.5 + 0.5))
-            b = torch.angle(torch.fft.rfft2(z.cuda().permute(0, 3, 1, 2) * 0.5 + 0.5)).cpu()
-            flips += int(((a - b).abs() > 1.0).sum())
-    loss_rel = abs(gpu_m["loss"].item() - cpu_m["loss"].item()) / abs(cpu_m["loss"].item())
-    cpu_g = {n: p.grad for n, p in cpu_model.named_parameters()}
-    g_max = max(g.abs().max().item() for g in cpu_g.values())
-    worst, worst_attn = (0.0, ""), (0.0, "")
-    for n, p in gpu_model.named_parameters():
-        diff = (p.grad.cpu() - cpu_g[n]).abs().max().item()
-        worst = max(worst, (diff / g_max, n))
-        if n.startswith(("down2.attn.", "up4.attn.")):
-            worst_attn = max(worst_attn, (diff / cpu_g[n].abs().max().item(), n))
-    log(f"card vs CPU train step (4x64x64, half width, f32): loss {gpu_m['loss'].item():.6f} vs "
-        f"{cpu_m['loss'].item():.6f} (rel {loss_rel:.3g}); worst gradient |diff|/max|g| "
-        f"{worst[0]:.3g} ({worst[1]}); worst flash-level attention gradient "
-        f"|diff|/own max {worst_attn[0]:.3g} ({worst_attn[1]}); launches {counts}; "
-        f"FFT angle flips between card and CPU {flips}")
-    if counts != {"flash_attention_fwd": 2, "flash_attention_bwd_dq": 2,
-                  "flash_attention_bwd_dkv": 2}:
-        raise AssertionError(f"the card's train step launched {counts}")
-    if not (np.isfinite(gpu_m["loss"].item()) and loss_rel <= 1e-4 and worst[0] <= 1e-4
-            and worst_attn[0] <= 1e-3):
-        raise AssertionError("the card's train step disagrees with the CPU's")
+    failed = []
+    for codec in ("webp", "avif"):
+        cfg = TrainConfig(codec=codec, model=model_cfg, ema_decay=0.999)
+        torch.manual_seed(SEED)
+        cpu_model = build_model(codec, model_cfg, device="cpu")
+        gpu_model = build_model(codec, model_cfg, device="cuda")
+        gpu_model.load_state_dict(cpu_model.state_dict())
+        batch = {"x0": x0, "xt": codec_surrogate(x0, 20, codec=codec),
+                 "t": torch.tensor([10, 35, 60, 90], dtype=torch.int32)}
+        with no_tf32():
+            cpu_m = make_train_step(cpu_model, cfg)(create_train_state(cpu_model, cfg), batch,
+                                                    None)
+            _reset_counts()
+            gpu_m = make_train_step(gpu_model, cfg)(
+                create_train_state(gpu_model, cfg), {k: v.cuda() for k, v in batch.items()},
+                None)
+            torch.cuda.synchronize()
+        counts = _counts()
+        # the loss's angle term jumps by 2 pi at a real-valued FFT bin whose
+        # imaginary part takes another sign: count such bins between the two
+        flips = 0
+        with torch.no_grad():
+            xt = batch["xt"].cuda()
+            pred_gpu = xt + gpu_model(xt, batch["t"].cuda() / 100.0)
+            for z in (batch["x0"], pred_gpu.cpu()):
+                a = torch.angle(torch.fft.rfft2(z.permute(0, 3, 1, 2) * 0.5 + 0.5))
+                b = torch.angle(torch.fft.rfft2(z.cuda().permute(0, 3, 1, 2) * 0.5 + 0.5)).cpu()
+                flips += int(((a - b).abs() > 1.0).sum())
+        loss_rel = abs(gpu_m["loss"].item() - cpu_m["loss"].item()) / abs(cpu_m["loss"].item())
+        cpu_g = {n: p.grad for n, p in cpu_model.named_parameters()}
+        g_max = max(g.abs().max().item() for g in cpu_g.values())
+        worst, worst_attn = (0.0, ""), (0.0, "")
+        for n, p in gpu_model.named_parameters():
+            diff = (p.grad.cpu() - cpu_g[n]).abs().max().item()
+            worst = max(worst, (diff / g_max, n))
+            if n.startswith(("down2.attn.", "up4.attn.")):
+                worst_attn = max(worst_attn, (diff / cpu_g[n].abs().max().item(), n))
+        log(f"card vs CPU train step ({codec}, 4x64x64, half width, f32): loss "
+            f"{gpu_m['loss'].item():.6f} vs {cpu_m['loss'].item():.6f} (rel {loss_rel:.3g}); "
+            f"worst gradient |diff|/max|g| {worst[0]:.3g} ({worst[1]}); worst flash-level "
+            f"attention gradient |diff|/own max {worst_attn[0]:.3g} ({worst_attn[1]}); "
+            f"launches {counts}; FFT angle flips between card and CPU {flips}")
+        if counts != {"flash_attention_fwd": 2, "flash_attention_bwd_dq": 2,
+                      "flash_attention_bwd_dkv": 2}:
+            failed.append(f"{codec}: the card's train step launched {counts}")
+        if not (np.isfinite(gpu_m["loss"].item()) and loss_rel <= 1e-4 and worst[0] <= 1e-4
+                and worst_attn[0] <= 1e-3):
+            failed.append(f"{codec}: the card's train step disagrees with the CPU's")
+    if failed:
+        raise AssertionError("; ".join(failed))
 
 
 def phase_train(state: dict) -> None:
@@ -684,10 +838,8 @@ def phase_train(state: dict) -> None:
 
     from ddpm_image_restoration_tpu_torch.cli.train import main as train_main
     from ddpm_image_restoration_tpu_torch.codecs.quality import init_timestep_for_quality
-    from ddpm_image_restoration_tpu_torch.codecs.surrogate import codec_surrogate
-    from ddpm_image_restoration_tpu_torch.config import ModelConfig, TrainConfig, get_preset
+    from ddpm_image_restoration_tpu_torch.config import get_preset
     from ddpm_image_restoration_tpu_torch.data.dataset import split_indices
-    from ddpm_image_restoration_tpu_torch.train.steps import make_train_step
 
     ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_train")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -737,27 +889,42 @@ def phase_train(state: dict) -> None:
     state["train_ckpt"] = ckpt_dir
     state["launches_train"] = totals
 
-    # the train step alone, on one device batch (no data pipeline)
-    cfg = TrainConfig(codec="webp", model=ModelConfig(attention_impl="flash",
-                                                      attn_max_resolution=32),
-                      batch_size=TRAIN_BATCH, ema_decay=0.999)
-    x0 = torch.from_numpy(synthetic_images(TRAIN_BATCH, 64, SEED + 4)).cuda()
-    t = torch.randint(1, 100, (TRAIN_BATCH,), generator=torch.Generator().manual_seed(SEED))
-    batch = {"x0": x0, "xt": codec_surrogate(x0, 30, codec="webp"), "t": t.cuda()}
+    step_alone(state, "webp", model, train_state, TRAIN_BATCH)
+
+
+def step_alone(state: dict, codec: str, model, train_state, batch: int) -> None:
+    """The trainer's step alone on one device batch (no data pipeline),
+    full width, bf16, EMA: wall time over 5 steps after a warm one, the
+    steps' peak device memory (the model and its train state included),
+    then one step profiled."""
+    import torch
+
+    from ddpm_image_restoration_tpu_torch.codecs.surrogate import codec_surrogate
+    from ddpm_image_restoration_tpu_torch.config import TrainConfig
+    from ddpm_image_restoration_tpu_torch.train.steps import make_train_step
+
+    cfg = TrainConfig(codec=codec, model=model.cfg, batch_size=batch, ema_decay=0.999)
+    dev = model.out_conv.weight.device
+    x0 = torch.from_numpy(synthetic_images(batch, model.cfg.image_size, SEED + 4)).to(dev)
+    t = torch.randint(1, 100, (batch,), generator=torch.Generator().manual_seed(SEED))
+    device_batch = {"x0": x0, "xt": codec_surrogate(x0, 30, codec=codec), "t": t.to(dev)}
     step = make_train_step(model, cfg)
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    step(train_state, batch, gen)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    if dev.type == "cuda":  # the step's own peak, not the process's
+        torch.cuda.reset_peak_memory_stats(dev)
+    step(train_state, device_batch, gen)
     torch.cuda.synchronize()
     n = 5
     t0 = time.perf_counter()
     for _ in range(n):
-        step(train_state, batch, gen)
+        step(train_state, device_batch, gen)
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0) / n
-    log(f"train step alone (webp, full width, bf16, batch {TRAIN_BATCH}, EMA): {ms:.1f} ms/step, "
-        f"{TRAIN_BATCH * 1e3 / ms:.1f} img/s on {state['smi']}; peak device memory "
+    log(f"train step alone ({codec}, full width, bf16, batch {batch}, EMA): {ms:.1f} ms/step, "
+        f"{batch * 1e3 / ms:.1f} img/s on {state['smi']}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    profile_run(f"one train step, batch {TRAIN_BATCH}", lambda: step(train_state, batch, gen))
+    profile_run(f"one {codec} train step, batch {batch}",
+                lambda: step(train_state, device_batch, gen))
 
 
 def phase_restore(state: dict) -> None:
@@ -785,12 +952,6 @@ def phase_restore(state: dict) -> None:
     from ddpm_image_restoration_tpu_torch.cli.restore import main as restore_main
     from ddpm_image_restoration_tpu_torch.cli.serve import main as serve_main
     from ddpm_image_restoration_tpu_torch.codecs.estimate import estimate_quality
-    from ddpm_image_restoration_tpu_torch.codecs.quality import (
-        init_timestep_for_quality,
-        student_stride,
-    )
-    from ddpm_image_restoration_tpu_torch.config import get_preset
-    from ddpm_image_restoration_tpu_torch.diffusion.ddrm import _solver_indices
     from ddpm_image_restoration_tpu_torch.diffusion.policy import (
         PRODUCTION_ENCODER_REUSE,
         PRODUCTION_MAX_EVALS,
@@ -819,15 +980,9 @@ def phase_restore(state: dict) -> None:
         th, tw = TILE_SIZE_HW
         wide = write("wide.webp", synthetic_images(1, tw, SEED + 21)[0][:th], quality=30)
 
-        preset = get_preset("webp")
-        reuse = int(RESTORE_FLAGS[RESTORE_FLAGS.index("--encoder-reuse") + 1])
-        budget = int(RESTORE_FLAGS[RESTORE_FLAGS.index("--max-evals") + 1])
-
         def groups(q):
             """(n, g) of the static budgeted schedule at quality q."""
-            init_t = init_timestep_for_quality(q, 100, preset)
-            n = len(_solver_indices(init_t, student_stride(init_t, budget)))
-            return n, math.ceil(n / reuse)
+            return static_schedule(q, "webp", *restore_budget())
 
         qs = [estimate_quality(p) for p in webps]
         log(f"estimated qualities of the WebPs written at "
@@ -926,28 +1081,309 @@ def phase_restore(state: dict) -> None:
             shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
+def _quiet(fn, argv):
+    """fn(argv) with its standard output captured; returns (result, the
+    printed text)."""
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        out = fn(argv)
+    return out, printed.getvalue()
+
+
+def _check_summary(summary: dict, n_images: int, qualities, label: str) -> list:
+    """What an evaluation's metrics summary must hold: every quality with
+    n real images, every metric finite, finite paired CIs, the seeded
+    proxy LPIPS and random-conv Fréchet features, and the partial flag
+    cleared."""
+    import numpy as np
+
+    failures = []
+    if list(summary["results"]) != [str(q) for q in qualities] or summary.get("partial"):
+        failures.append(f"{label}: qualities {list(summary['results'])}, partial "
+                        f"{summary.get('partial')}")
+    if summary["lpips_kind"] != "lpips_proxy":
+        failures.append(f"{label}: lpips_kind {summary['lpips_kind']}")
+    for q, r in summary["results"].items():
+        values = [r[f"{tag}_{m}"] for tag in ("compressed", "restored")
+                  for m in ("psnr", "ssim", "l2", "lpips", "fid")]
+        values += [r["delta_psnr_ci95"], r["delta_ssim_ci95"], r["images_per_sec"]]
+        if r["n"] != n_images or r["fid_kind"] != "random_conv" or \
+                not np.isfinite(values).all():
+            failures.append(f"{label} q{q}: n {r['n']}, fid_kind {r['fid_kind']}, "
+                            f"values {values}")
+    return failures
+
+
+def phase_evaluate(state: dict) -> None:
+    """The evaluator (`cli/evaluate.py main`) at full width on the webp
+    preset (random weights under torch.manual_seed(0)): EVAL_IMAGES natural
+    synthetic images in batches of EVAL_BATCH (the last partial batch padded
+    to EVAL_BATCH) at EVAL_QUALITIES under the production policy, on the
+    static schedule (n + g forward launches per batch) and on the traced
+    budget (14 slots, 7 groups: 21 per batch); no backward launch. Logs
+    each quality's images per second and each run's wall time, then
+    profiles the harness on one batch at q30."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from ddpm_image_restoration_tpu_torch.cli.common import add_model_flags, model_config_from
+    from ddpm_image_restoration_tpu_torch.cli.evaluate import main as evaluate_main
+    from ddpm_image_restoration_tpu_torch.config import EvalConfig
+    from ddpm_image_restoration_tpu_torch.data.dataset import SyntheticImageDataset
+    from ddpm_image_restoration_tpu_torch.diffusion.policy import (
+        PRODUCTION_ENCODER_REUSE,
+        PRODUCTION_MAX_EVALS,
+    )
+    from ddpm_image_restoration_tpu_torch.evaluation.harness import evaluate_restoration
+    from ddpm_image_restoration_tpu_torch.models import build_model
+    from ddpm_image_restoration_tpu_torch.ops import flash_attention as fa
+
+    out = os.path.join(ROOT, "build", "chip_smoke_evaluate")
+    batches = math.ceil(EVAL_IMAGES / EVAL_BATCH)
+    n_pad = -(-PRODUCTION_MAX_EVALS // PRODUCTION_ENCODER_REUSE) * PRODUCTION_ENCODER_REUSE
+    runs = [("static", [], batches * sum(sum(static_schedule(q, "webp", steps=DIFFUSION_STEPS))
+                                         for q in EVAL_QUALITIES)),
+            ("traced", ["--traced"],
+             batches * len(EVAL_QUALITIES) * (n_pad + n_pad // PRODUCTION_ENCODER_REUSE))]
+    argv = ["--codec", "webp", *CARD_FLAGS, "--random-init", "--synthetic", str(EVAL_IMAGES),
+            "--synthetic-kind", "natural", "--batch-size", str(EVAL_BATCH),
+            "--qualities", *map(str, EVAL_QUALITIES), "--solver", "auto",
+            "--steps", str(DIFFUSION_STEPS), "--output-dir", out]
+    totals = dict.fromkeys(_counts(), 0)
+    failures = []
+    try:
+        for label, extra, want in runs:
+            shutil.rmtree(out, ignore_errors=True)
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            summary, printed = _quiet(evaluate_main, [*argv, *extra])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _counts()
+            for k, v in counts.items():
+                totals[k] += v
+            rows = summary["results"]
+            log(f"evaluate [webp, {label}]: {EVAL_IMAGES} images at batch {EVAL_BATCH}, "
+                f"{wall:.1f} s on {state['smi']}; images/s "
+                + ", ".join(f"q{q} {r['images_per_sec']:.2f}" for q, r in rows.items())
+                + f"; launches {counts} (schedule implies {want} forward)")
+            for line in printed.splitlines()[-2 - len(rows):]:
+                log(f"  {line}")
+            if counts != {fa.KERNEL: want, "flash_attention_bwd_dq": 0,
+                          "flash_attention_bwd_dkv": 0}:
+                failures.append(f"evaluate [{label}]: launches {counts}, schedule implies {want}")
+            failures += _check_summary(summary, EVAL_IMAGES, EVAL_QUALITIES, f"evaluate [{label}]")
+            if not os.path.exists(os.path.join(out, "metrics_summary.json")):
+                failures.append(f"evaluate [{label}]: no metrics_summary.json")
+        # where one quality's time goes: the harness on one batch, the
+        # model already built (the CLI's runs above include building it)
+        ap = argparse.ArgumentParser()
+        add_model_flags(ap)
+        args = ap.parse_args(CARD_FLAGS)
+        cfg = EvalConfig(codec="webp", model=model_config_from(args), steps=DIFFUSION_STEPS,
+                         output_dir=out, qualities_override=(30,))
+        torch.manual_seed(SEED)
+        model = build_model("webp", cfg.model, device=args.device)
+        ds = SyntheticImageDataset(EVAL_BATCH, cfg.model.image_size, seed=99, kind="natural")
+        images = np.stack([ds[i] for i in range(EVAL_BATCH)])
+
+        def one_batch():
+            evaluate_restoration(cfg, model, images, batch_size=EVAL_BATCH, verbose=False,
+                                 solver="auto")
+
+        one_batch()
+        profile_run(f"evaluation of one batch of {EVAL_BATCH}, q30, static, with the metrics",
+                    one_batch)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    state["launches_evaluate"] = totals
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def phase_avif(state: dict) -> None:
+    """The AVIF model family at full width (8 heads, the AVIF frequency
+    blocks, bf16, flash attention at <= 32², seeded weights), each run
+    counted from 0 against its schedule:
+      1. `cli/train.py --codec avif`: one epoch of AVIF_TRAIN_IMAGES natural
+         images at the preset's batch of 8 with EMA and a checkpoint (per
+         step the forward with LSE and one dQ and one dK/dV at down2 and
+         up4; validation at 20/50/80 from init_t 75/50/20 at stride 1);
+      2. `cli/evaluate.py --codec avif` on that checkpoint's EMA,
+         AVIF_EVAL_IMAGES images at AVIF_QUALITIES under the AVIF policy;
+      3. `cli/restore.py --model-codec avif` on AVIF files Pillow writes
+         (quality estimated from the bitstream), from the same EMA;
+      4. `cli/train.py --codec all`: two steps on mixed-codec batches of 18,
+         validated once per codec at its middle val quality.
+    Needs Pillow with AVIF (phase environment prints whether it has it)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from ddpm_image_restoration_tpu_torch.cli.evaluate import main as evaluate_main
+    from ddpm_image_restoration_tpu_torch.cli.restore import main as restore_main
+    from ddpm_image_restoration_tpu_torch.cli.train import main as train_main
+    from ddpm_image_restoration_tpu_torch.codecs.quality import init_timestep_for_quality
+    from ddpm_image_restoration_tpu_torch.config import get_preset
+    from ddpm_image_restoration_tpu_torch.data.dataset import split_indices
+
+    if not state["avif"]:
+        raise AssertionError("Pillow cannot write AVIF here (phase environment)")
+    from PIL import Image
+
+    from ddpm_image_restoration_tpu_torch.codecs.estimate import estimate_quality
+
+    work = os.path.join(ROOT, "build", "chip_smoke_avif")
+    shutil.rmtree(work, ignore_errors=True)
+    ckpt = os.path.join(work, "ckpt")
+    totals = dict.fromkeys(_counts(), 0)
+    failures = []
+
+    def run(label, fn, argv, want):
+        """fn(argv) counted from 0: logs its wall time and launches, records
+        a failure unless they are `want` (fwd, dq, dkv)."""
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        out, printed = _quiet(fn, argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        for k, v in counts.items():
+            totals[k] += v
+        want = dict(zip(counts, want))
+        log(f"avif [{label}]: {wall:.1f} s on {state['smi']}; launches {counts} "
+            f"(schedule implies {want})")
+        if counts != want:
+            failures.append(f"avif [{label}]: launches {counts}, schedule implies {want}")
+        return out, printed, wall
+
+    try:
+        avif = get_preset("avif")
+        steps = len(split_indices(AVIF_TRAIN_IMAGES)[0]) // avif.batch_size
+        n_val = sum(init_timestep_for_quality(q, DIFFUSION_STEPS, avif)
+                    for q in avif.val_qualities)
+        (tstate, hist), _, _ = run(
+            "train --codec avif, 1 epoch", train_main,
+            ["--codec", "avif", *CARD_FLAGS, "--ema-decay", "0.999", "--synthetic",
+             str(AVIF_TRAIN_IMAGES), "--synthetic-kind", "natural", "--checkpoint-dir", ckpt,
+             "--seed", str(SEED), "--epochs", "1", "--steps", str(DIFFUSION_STEPS)],
+            (2 * steps + 2 * n_val, 2 * steps, 2 * steps))
+        m = tstate.model
+        grads = {n: getattr(m, lvl).attn.qkv.weight.grad for n, lvl in
+                 (("down2 qkv", "down2"), ("up4 qkv", "up4"))}
+        grads["down2 transform"] = m.down2.freq_guide.adaptive_transform.transform_weights.grad
+        log(f"  heads {m.down2.attn.num_heads}; loss {hist['loss'][-1]:.4f}, val_psnr "
+            f"{hist['val_psnr'][-1]:.3f}, val_ssim {hist['val_ssim'][-1]:.4f}, "
+            f"{hist['step_ms'][-1]:.1f} ms/step in the loop, epoch {hist['epoch_time'][-1]:.1f} s; "
+            f"{steps} steps, {n_val} validation evaluations; |grad| max "
+            + ", ".join(f"{k} {g.abs().max().item():.3g}" for k, g in grads.items()))
+        if not (tstate.step == steps and np.isfinite(hist["loss"]).all()
+                and np.isfinite(hist["val_psnr"]).all()):
+            failures.append(f"avif train: step {tstate.step} of {steps}, history {dict(hist)}")
+        if any(g is None or not torch.isfinite(g).all() or g.abs().max().item() == 0
+               for g in grads.values()):
+            failures.append("avif train: a flash level or the adaptive transform got no gradient")
+        step_alone(state, "avif", m, tstate, avif.batch_size)
+
+        evaluate_want = sum(sum(static_schedule(q, "avif", steps=DIFFUSION_STEPS))
+                            for q in AVIF_QUALITIES)
+        summary, _, wall = run(
+            "evaluate --codec avif, checkpoint EMA", evaluate_main,
+            ["--codec", "avif", *CARD_FLAGS, "--checkpoint-dir", ckpt, "--use-ema",
+             "--solver", "auto", "--synthetic", str(AVIF_EVAL_IMAGES), "--synthetic-kind",
+             "natural", "--batch-size", str(AVIF_EVAL_IMAGES),
+             "--qualities", *map(str, AVIF_QUALITIES), "--steps", str(DIFFUSION_STEPS),
+             "--output-dir", os.path.join(work, "eval")],
+            (evaluate_want, 0, 0))
+        log("  images/s " + ", ".join(f"q{q} {r['images_per_sec']:.2f} (PSNR "
+                                      f"{r['compressed_psnr']:.2f}->{r['restored_psnr']:.2f})"
+                                      for q, r in summary["results"].items()))
+        failures += _check_summary(summary, AVIF_EVAL_IMAGES, AVIF_QUALITIES, "avif evaluate")
+
+        inputs = os.path.join(work, "in")
+        os.makedirs(inputs)
+        imgs = synthetic_images(2 * len(AVIF_QUALITIES), 64, SEED + 30)
+        files = []
+        for i, q in enumerate(np.repeat(AVIF_QUALITIES, 2)):
+            files.append(os.path.join(inputs, f"a{i}_q{q}.avif"))
+            Image.fromarray(np.round((imgs[i] * 0.5 + 0.5) * 255).astype(np.uint8)).save(
+                files[-1], quality=int(q))
+        qs = [estimate_quality(f) for f in files]
+        per_batch = [qs[0]] if len(set(qs)) == 1 else qs
+        out_dir = os.path.join(work, "restored")
+        _, printed, wall = run(
+            "restore --model-codec avif, checkpoint EMA", restore_main,
+            [*files, *RESTORE_FLAGS, "--codec", "avif", "--model-codec", "avif", "--quality",
+             "auto", "--checkpoint-dir", ckpt, "--use-ema", "--steps", str(DIFFUSION_STEPS),
+             "--output-dir", out_dir],
+            (sum(sum(static_schedule(q, "avif", *restore_budget(), steps=DIFFUSION_STEPS))
+                 for q in per_batch), 0, 0))
+        written = [int(q) for q in np.repeat(AVIF_QUALITIES, 2)]
+        log(f"  {len(files)} AVIF files written at {written}, estimated {qs}: "
+            f"{1e3 * wall / len(files):.1f} ms/image")
+        for f in files:
+            png = os.path.join(out_dir, os.path.splitext(os.path.basename(f))[0] + "_restored.png")
+            got = np.asarray(Image.open(png)).shape if os.path.exists(png) else None
+            if got != (64, 64, 3):
+                failures.append(f"avif restore: {png} has shape {got}")
+
+        unified = get_preset("all")
+        all_steps = len(split_indices(ALL_TRAIN_IMAGES)[0]) // unified.batch_size
+        n_val = sum(init_timestep_for_quality(
+            p.val_qualities[len(p.val_qualities) // 2], DIFFUSION_STEPS, p)
+            for p in map(get_preset, ("jpeg", "webp", "avif")))
+        (ustate, uhist), _, _ = run(
+            "train --codec all, 2 steps", train_main,
+            ["--codec", "all", *CARD_FLAGS, "--synthetic", str(ALL_TRAIN_IMAGES),
+             "--synthetic-kind", "natural", "--checkpoint-dir", os.path.join(work, "all"),
+             "--seed", str(SEED), "--epochs", "1", "--steps", str(DIFFUSION_STEPS)],
+            (2 * all_steps + 2 * n_val, 2 * all_steps, 2 * all_steps))
+        emb = ustate.model.codec_embed.weight.grad
+        log(f"  loss {uhist['loss'][-1]:.4f}, val_psnr {uhist['val_psnr'][-1]:.3f} (mean of "
+            f"jpeg q30, webp q30, avif q50), {all_steps} steps, {n_val} validation evaluations; "
+            f"|codec_embed grad| max {emb.abs().max().item():.3g}")
+        if not (ustate.step == all_steps and np.isfinite(uhist["loss"]).all()
+                and np.isfinite(uhist["val_psnr"]).all() and emb.abs().max().item() > 0):
+            failures.append(f"train --codec all: step {ustate.step}, history {dict(uhist)}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    state["launches_avif"] = totals
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
 PHASES = [("environment", phase_environment), ("build", phase_build),
           ("kernels", phase_kernels), ("reference", phase_reference),
           ("serve", phase_serve), ("train_reference", phase_train_reference),
-          ("train", phase_train), ("restore", phase_restore)]
+          ("train", phase_train), ("restore", phase_restore), ("evaluate", phase_evaluate),
+          ("avif", phase_avif)]
 
 
 def kernels_json(state: dict) -> str:
     """One row per kernel. Its top-level numbers are at the first serving
     or training shape in bf16 (down2); `main_path_shapes` has each shape the
     main paths give it, with its own error and times. `launches` sums the
-    main paths' runs (serve, train, then the restore and serve CLIs), each
-    counted from 0; `launches_by_path` splits it."""
-    serve, train = state["launches"], state.get("launches_train", {})
-    restore = state.get("launches_restore", {})
+    main paths' runs (serve, train, the restore and serve CLIs, the
+    evaluator, the AVIF family), each counted from 0; `launches_by_path`
+    splits it."""
+    paths = {"serve": state["launches"], "train": state.get("launches_train", {}),
+             "restore": state.get("launches_restore", {}),
+             "evaluate": state.get("launches_evaluate", {}),
+             "avif": state.get("launches_avif", {})}
 
     def row(name, source, replaces, rows, shapes, key):
         per_shape = [{"path": path, "shape_bh_t_d": [bh, t, d], "dtype": "bfloat16",
                       "save_lse": lse, **rows[key(bh, t, d, "bfloat16", lse)]}
                      for path, bh, t, d, lse in shapes]
         first = per_shape[0]
-        by_path = {"serve": serve.get(name, 0), "train": train.get(name, 0),
-                   "restore": restore.get(name, 0)}
+        by_path = {path: counts.get(name, 0) for path, counts in paths.items()}
         return {
             "name": name, "route": "cuda", "source": f"{PACKAGE}/csrc/{source}",
             "design": DESIGNS[name],
@@ -966,7 +1402,8 @@ def kernels_json(state: dict) -> str:
     for kind, line in (("dq", 207), ("dkv", 247)):
         rows = {k: r for k, r in bwd_rows.items() if k[0] == kind}
         kernels.append(row(f"flash_attention_bwd_{kind}", "flash_attention_bwd.cu", line,
-                           rows, [("train step", *s, True) for s in TRAIN_SHAPES],
+                           rows, [("avif train step" if heads == 8 else "train step", *s, True)
+                                  for s, heads in TRAIN_SHAPES.items()],
                            lambda bh, t, d, n, lse, kind=kind: (kind, bh, t, d, n)))
     return json.dumps({"kernels": kernels})
 

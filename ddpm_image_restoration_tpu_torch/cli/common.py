@@ -1,5 +1,5 @@
-"""Shared CLI plumbing: model and training configs from flags, and the
-restore/serve codec flags (port of cli/common.py; the JAX-only `--platform`
+"""Shared CLI plumbing: model, training and evaluation configs from flags,
+and the restore/serve/evaluate codec flags (port of cli/common.py; the JAX-only `--platform`
 and compile-cache setup have no counterpart, and `--device` picks the card
 or the CPU)."""
 
@@ -11,7 +11,12 @@ import os
 import numpy as np
 import torch
 
-from ddpm_image_restoration_tpu_torch.config import ModelConfig, TrainConfig, codec_index
+from ddpm_image_restoration_tpu_torch.config import (
+    EvalConfig,
+    ModelConfig,
+    TrainConfig,
+    codec_index,
+)
 
 
 def add_model_flags(ap: argparse.ArgumentParser) -> None:
@@ -106,7 +111,7 @@ def build_restore_model(model_codec: str, args):
 
 
 def add_codec_flags(ap: argparse.ArgumentParser) -> None:
-    """`--codec` and `--model-codec` of the restore and serve CLIs."""
+    """`--codec` and `--model-codec` of the restore, serve and evaluate CLIs."""
     ap.add_argument("--codec", default="webp",
                     choices=["webp", "jpeg", "avif", "all", "auto"],
                     help="codec the inputs were compressed with; 'auto' detects "
@@ -119,27 +124,25 @@ def add_codec_flags(ap: argparse.ArgumentParser) -> None:
                          "any target codec (default: same as --codec)")
 
 
-def resolve_codecs(args) -> tuple:
-    """(target_codec, model_codec) for the restore/serve CLIs. The target is
-    what the inputs were compressed with (sampler preset and consistency
-    codec); the model codec is what the weights were trained as ('all' =
-    unified multi-codec). 'auto' as target means per-file detection."""
+def resolve_codecs(args, allow_auto: bool = True) -> tuple:
+    """(target_codec, model_codec) for the restore/serve/evaluate CLIs. The
+    target is what the inputs were compressed with (sampler preset and
+    consistency codec); the model codec is what the weights were trained as
+    ('all' = unified multi-codec). 'auto' as target means per-file detection
+    (restore/serve only: `allow_auto`)."""
     codec = args.codec.lower()
     if codec == "all":
         raise SystemExit(
             "--codec all is a TRAINING preset; restoration/evaluation "
             "target one codec at a time — use --model-codec all with "
-            "--codec jpeg|webp|avif|auto"
+            "--codec jpeg|webp|avif" + ("|auto" if allow_auto else "")
         )
+    if codec == "auto" and not allow_auto:
+        raise SystemExit("--codec auto applies to restore/serve only")
     model_codec = (args.model_codec or codec).lower()
     if model_codec == "auto":
         raise SystemExit("--codec auto needs --model-codec: the preset the "
                          "checkpoint was trained as (jpeg|webp|avif|all)")
-    if model_codec == "avif":
-        raise SystemExit("a model of the avif preset needs the AVIF frequency "
-                         "blocks, which are not ported yet (ROADMAP.md Queue 1 "
-                         "item 5); the unified model (--model-codec all) "
-                         "restores AVIF inputs")
     return codec, model_codec
 
 
@@ -150,12 +153,14 @@ def sampler_codec_id(model, codec: str):
 
 def refuse_not_ported(args) -> None:
     """SystemExit, naming the ROADMAP.md item that will bring it, for each
-    flag of the JAX package's restore/serve CLIs that the port parses but
-    has not implemented."""
+    flag of the JAX package's restore/serve/evaluate CLIs that the port
+    parses but has not implemented."""
     refused = [
         (getattr(args, "consistency", "surrogate") != "surrogate",
          "--consistency callback|host_loop (the exact-codec consistency "
          "modes: ROADMAP.md Queue 1 item 6)"),
+        (getattr(args, "real", 0), "--real (bundled photographic patches: "
+         "data/real_patches.py, ROADMAP.md Queue 1 item 6)"),
         (getattr(args, "solver", "") == "gaussian_mixture",
          "--solver gaussian_mixture (ROADMAP.md Queue 1 item 9)"),
         (getattr(args, "dp", 0), "--dp (data-parallel restore: ROADMAP.md Queue 1 item 8)"),
@@ -197,4 +202,16 @@ def train_config_from(args) -> TrainConfig:
         lr_override=args.lr,
         ckpt_min_interval=args.ckpt_interval,
         augment=args.augment,
+    )
+
+
+def eval_config_from(args) -> EvalConfig:
+    return EvalConfig(
+        codec=args.codec,
+        model=model_config_from(args),
+        steps=args.steps,
+        output_dir=args.output_dir,
+        max_images=args.max_images,
+        consistency_mode=args.consistency,
+        compute_fid=not args.no_fid,
     )

@@ -8,8 +8,9 @@
 
 Runs on `--device` (default cuda; there is no fallback to the CPU). The
 flags of what the port has not implemented yet raise with a message:
-`--real`, `--fsdp`, `--remat`, `--consistency callback|host_loop`,
-`--codec avif|all` and `--auto-restart`.
+`--real`, `--fsdp`, `--remat`, `--consistency callback|host_loop` and
+`--auto-restart`. Every codec trains: `--codec all` is the unified model on
+mixed-codec batches.
 """
 
 from __future__ import annotations

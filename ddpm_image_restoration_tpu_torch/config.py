@@ -1,5 +1,6 @@
 """Config presets: a copy of the JAX package's `config.py` `CodecPreset`,
-the codec presets, `CODECS`, `get_preset` and `ModelConfig`.
+the codec presets, `CODECS`, `get_preset`, `ModelConfig`, `TrainConfig` and
+`EvalConfig`.
 
 The port keeps its own copy so that it imports nothing of the JAX package;
 tests/test_torch_config.py holds every field to the original.
@@ -232,9 +233,9 @@ class TrainConfig:
 
     The port's trainer (train/loop.py) runs on one device and refuses what it
     does not implement yet: `fsdp`, a `consistency_mode` other than
-    'surrogate', a `mesh_shape`/`mesh_axes` other than the default, and the
-    'avif' and 'all' codecs. `viz_every` is kept for parity; the port draws
-    no restoration grids yet."""
+    'surrogate' and a `mesh_shape`/`mesh_axes` other than the default.
+    `viz_every` is kept for parity; the trainer draws no restoration grids
+    yet."""
 
     codec: str = "webp"
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
@@ -282,3 +283,25 @@ class TrainConfig:
     @property
     def effective_batch_size(self) -> int:
         return self.batch_size or self.preset.batch_size
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalConfig:
+    """Evaluation knobs, field for field the JAX package's `EvalConfig`."""
+
+    codec: str = "webp"
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    steps: int = 100
+    output_dir: str = "./eval_results"
+    max_images: int = 0                        # 0 = all; AVIF caps at 500 (avif_inference.py:509-512)
+    consistency_mode: str = "surrogate"
+    compute_fid: bool = True
+    qualities_override: Tuple[int, ...] = ()   # empty = preset.eval_qualities
+
+    @property
+    def preset(self) -> CodecPreset:
+        return get_preset(self.codec)
+
+    @property
+    def eval_qualities(self) -> Tuple[int, ...]:
+        return self.qualities_override or self.preset.eval_qualities

@@ -185,14 +185,18 @@ class DDRMSampler:
         restored = sampler.sample(y, quality=10, steps=70, stride=5)
     """
 
-    def __init__(self, model, preset: CodecPreset, codec_id: Optional[int] = None):
+    def __init__(self, model, preset: CodecPreset, codec_id: Optional[int] = None,
+                 prediction: str = "direct"):
         """`codec_id`: conditioning index (config.codec_index) for a unified
-        multi-codec model; the target codec's preset goes with it. The model
-        output is taken as x̂ itself (the JAX package's prediction='direct',
-        the reference's sampling convention)."""
+        multi-codec model; the target codec's preset goes with it.
+        `prediction='direct'` takes the model output as x̂ itself (the
+        reference's sampling convention); 'residual' adds x_t to it first."""
+        if prediction not in ("direct", "residual"):
+            raise ValueError(prediction)
         self.model = model
         self.preset = preset
         self.codec_id = codec_id
+        self.prediction = prediction
 
     def _schedule(self, steps, stride: int, q_host: np.ndarray, encoder_reuse: int,
                   traced_budget: int):
@@ -289,6 +293,8 @@ class DDRMSampler:
             else:
                 x_new = model.decode(feats, t, t, codec_id=cond)
             x_new = x_new.float()
+            if self.prediction == "residual":
+                x_new = x_t + x_new
             c = codec_surrogate(x_new, q_vec, codec=preset.name).float()
             x_next = _ddrm_update(x_new, c, y, t, last[p], last_d[p], phase[p], phase_d[p],
                                   eta, eta_b, preset, generator)

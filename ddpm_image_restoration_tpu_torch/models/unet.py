@@ -29,7 +29,10 @@ from torch import nn
 
 from ddpm_image_restoration_tpu_torch.config import CODECS, CodecPreset, ModelConfig, get_preset
 from ddpm_image_restoration_tpu_torch.device import resolve_device
-from ddpm_image_restoration_tpu_torch.models.freq_blocks import DCTFreqAwareBlock
+from ddpm_image_restoration_tpu_torch.models.freq_blocks import (
+    AVIFFreqAwareBlock,
+    DCTFreqAwareBlock,
+)
 from ddpm_image_restoration_tpu_torch.models.time_embedding import TimeEmbedding
 from ddpm_image_restoration_tpu_torch.ops.attention import spatial_attention
 from ddpm_image_restoration_tpu_torch.ops.dct import adjusted_group_count, spatial_block_dct
@@ -96,14 +99,13 @@ class SpatialSelfAttention(nn.Module):
 class ResAttnBlock(nn.Module):
     """GN -> conv3x3 -> +time -> GN -> GELU -> dropout -> conv3x3 ->
     self-attention (residual, only at resolution <= cfg.attn_max_resolution)
-    -> frequency module -> shortcut(x) + h (webp_training.py:273-327)."""
+    -> frequency module (the AVIF block when the preset has the adaptive
+    transform, else the DCT block) -> shortcut(x) + h
+    (webp_training.py:273-327)."""
 
     def __init__(self, in_channels: int, out_channels: int, resolution: int,
                  preset: CodecPreset, cfg: ModelConfig):
         super().__init__()
-        if preset.adaptive_transform:
-            raise NotImplementedError(
-                "the AVIF frequency blocks are not ported yet")
         self.dtype = getattr(torch, cfg.compute_dtype)
         self.norm1 = _group_norm(in_channels)
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
@@ -115,9 +117,14 @@ class ResAttnBlock(nn.Module):
             SpatialSelfAttention(out_channels, preset.attn_heads, cfg.attention_impl)
             if resolution <= cfg.attn_max_resolution else None
         )
-        self.freq_guide = DCTFreqAwareBlock(
-            out_channels, preset.dct_block_size, preset.low_freq_size,
-            preset.high_boost_clamp)
+        if preset.adaptive_transform:
+            self.freq_guide = AVIFFreqAwareBlock(
+                out_channels, preset.dct_block_size, preset.color_boost_clamp,
+                preset.edge_boost_clamp)
+        else:
+            self.freq_guide = DCTFreqAwareBlock(
+                out_channels, preset.dct_block_size, preset.low_freq_size,
+                preset.high_boost_clamp)
         self.shortcut = (nn.Conv2d(in_channels, out_channels, 1)
                          if in_channels != out_channels else None)
         for m in (self.conv1, self.time_proj, self.conv2, self.attn,

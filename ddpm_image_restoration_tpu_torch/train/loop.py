@@ -11,11 +11,13 @@ As in the JAX package (train_model_ddrm_* webp_training.py:773-822):
     `ckpt_min_interval` epochs, and always after the last epoch, with true
     resume.
 
+Every codec preset trains: 'jpeg', 'webp', 'avif' and the unified 'all'
+model (per-sample mixed-codec batches, validated across the three codecs).
 The port trains on one device, eagerly: batches stream from the host
 degradation pipeline while the card runs the previous step. It does not yet
 draw the JAX package's training curves and restoration grids (matplotlib),
-and it refuses what it has not ported: the 'avif' and 'all' codecs, FSDP or
-any mesh, remat, and the 'callback'/'host_loop' consistency modes.
+and it refuses what it has not ported: FSDP or any mesh, remat, and the
+'callback'/'host_loop' consistency modes.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import torch
 
 from ddpm_image_restoration_tpu_torch.codecs.pil_codecs import compress_batch
 from ddpm_image_restoration_tpu_torch.codecs.quality import init_timestep_for_quality
-from ddpm_image_restoration_tpu_torch.config import TrainConfig
+from ddpm_image_restoration_tpu_torch.config import CODECS, TrainConfig, codec_index, get_preset
 from ddpm_image_restoration_tpu_torch.data.dataset import (
     ImageFolderDataset,
     SyntheticImageDataset,
@@ -47,10 +49,6 @@ from ddpm_image_restoration_tpu_torch.utils.logging import MetricLogger
 
 def check_supported(cfg: TrainConfig) -> None:
     """Raise for the training options the port has not implemented."""
-    if cfg.codec in ("avif", "all"):
-        raise NotImplementedError(
-            f"training codec {cfg.codec!r} is not ported yet (the AVIF frequency "
-            f"blocks and the unified multi-codec validation); use webp or jpeg")
     if cfg.fsdp or tuple(cfg.mesh_shape) != (-1,) or tuple(cfg.mesh_axes) != ("data",):
         raise NotImplementedError("FSDP and meshes are not ported yet: the port trains "
                                   "on one device")
@@ -61,28 +59,46 @@ def check_supported(cfg: TrainConfig) -> None:
             f"consistency mode {cfg.consistency_mode!r} is not ported yet; use 'surrogate'")
 
 
+def unified_samplers(model) -> Dict[str, DDRMSampler]:
+    """One DDRMSampler per real codec for a unified ('all') model: each pairs
+    that codec's preset (sampler constants and consistency codec) with its
+    conditioning id."""
+    return {c: DDRMSampler(model, get_preset(c), codec_id=codec_index(c)) for c in CODECS}
+
+
 def validate_by_restoration(model, cfg: TrainConfig, val_images: np.ndarray,
-                            sampler: Optional[DDRMSampler] = None,
+                            sampler=None,
                             generator: Optional[torch.Generator] = None) -> Dict[str, float]:
     """Full-sampler validation at the preset's val qualities
     (validate_ddrm_* webp_training.py:540-599) with `model`'s weights, in
     eval mode. The sampler's noise (eta > 0) comes from `generator`
     (default: seed 0 on the model's device), so it is not the JAX package's
-    noise; the metrics are."""
+    noise; the metrics are.
+
+    Unified ('all') training validates across codecs instead of across
+    qualities: one restore per real codec at that codec's middle val
+    quality (as many sampler runs as single-codec validation), averaged.
+    `sampler` is then the dict of `unified_samplers`."""
     preset = cfg.preset
     dev = next(model.parameters()).device
-    sampler = sampler or DDRMSampler(model, preset)
     generator = generator or torch.Generator(device=dev).manual_seed(0)
     x0 = torch.as_tensor(val_images, device=dev)
+    if preset.name == "all":
+        samplers = sampler if isinstance(sampler, dict) else unified_samplers(model)
+        cases = [(s, c, s.preset.val_qualities[len(s.preset.val_qualities) // 2])
+                 for c, s in samplers.items()]
+    else:
+        one = sampler or DDRMSampler(model, preset)
+        cases = [(one, preset.name, q) for q in preset.val_qualities]
     model.eval()
     totals = {"psnr": 0.0, "ssim": 0.0}
-    for quality in preset.val_qualities:
-        y = torch.as_tensor(compress_batch(val_images, preset.name, quality), device=dev)
-        init_t = init_timestep_for_quality(quality, cfg.steps, preset)
-        restored = sampler.sample(y, quality, init_t, generator=generator)
+    for smp, codec_name, quality in cases:
+        y = torch.as_tensor(compress_batch(val_images, codec_name, quality), device=dev)
+        init_t = init_timestep_for_quality(quality, cfg.steps, smp.preset)
+        restored = smp.sample(y, quality, init_t, generator=generator)
         totals["psnr"] += float(psnr(restored, x0))
         totals["ssim"] += float(ssim_metric(restored, x0))
-    n = len(preset.val_qualities)
+    n = len(cases)
     return {"val_psnr": totals["psnr"] / n, "val_ssim": totals["ssim"] / n}
 
 
@@ -162,7 +178,8 @@ def train_model(cfg: TrainConfig, dataset=None, epochs: Optional[int] = None,
     # Validation runs on the EMA weights when the EMA is on: a second model
     # holds them, in the model's dtypes.
     eval_model = build_model(cfg.codec, cfg.model, device=dev) if cfg.ema_decay > 0 else model
-    sampler = DDRMSampler(eval_model, preset)
+    sampler = (unified_samplers(eval_model) if cfg.codec == "all"
+               else DDRMSampler(eval_model, preset))
     generator = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
     # best_psnr tracks the best SAVED checkpoint, so a save skipped by
     # ckpt_min_interval is retried once the interval has passed.

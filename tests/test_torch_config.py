@@ -50,6 +50,15 @@ def test_train_config_matches():
         assert dataclasses.asdict(t.preset) == dataclasses.asdict(j.preset)
 
 
+def test_eval_config_matches():
+    assert dataclasses.asdict(tcfg.EvalConfig()) == dataclasses.asdict(jcfg.EvalConfig())
+    for codec, override in (("webp", ()), ("avif", ()), ("jpeg", (10, 30))):
+        t = tcfg.EvalConfig(codec=codec, qualities_override=override)
+        j = jcfg.EvalConfig(codec=codec, qualities_override=override)
+        assert t.eval_qualities == j.eval_qualities
+        assert dataclasses.asdict(t.preset) == dataclasses.asdict(j.preset)
+
+
 @pytest.mark.parametrize("codec", ["jpeg", "webp", "avif"])
 def test_quality_maps_match(codec):
     for steps in (4, 20, 100, 1000):

@@ -37,11 +37,11 @@ def tiny5(tmp_path_factory):
     return jm, jv, tm, y
 
 
-def _both(pair, quality, steps, **kw):
+def _both(pair, quality, steps, prediction="direct", **kw):
     jm, jv, tm, y = pair
-    want = np.asarray(jddrm.DDRMSampler(jm, jax_preset("webp")).sample(
+    want = np.asarray(jddrm.DDRMSampler(jm, jax_preset("webp"), prediction=prediction).sample(
         jv, jnp.asarray(y), quality, steps, eta=0.0, **kw))
-    got = ddrm.DDRMSampler(tm, get_preset("webp")).sample(
+    got = ddrm.DDRMSampler(tm, get_preset("webp"), prediction=prediction).sample(
         torch.from_numpy(y), quality, steps, eta=0.0, **kw)
     return got.numpy(), want
 
@@ -61,6 +61,18 @@ def test_sample_every_step_per_sample_quality_protect(mini):
     q = np.array([10.0, 60.0], np.float32)
     got, want = _both(mini, q, 8, encoder_reuse=1, final_exact=False, protect=(40.0, 90.0))
     np.testing.assert_allclose(got, want, atol=1e-3)
+
+
+@pytest.mark.parametrize("traced_budget", [0, 6])
+def test_residual_prediction_matches_jax(mini, traced_budget):
+    """prediction='residual' (x̂ = x_t + the model's output), on the static
+    schedule (steps 20, stride 5, encoder reuse 2) and on the traced budget
+    (6 slots); atol 1e-4, as the direct runs."""
+    got, want = _both(mini, 30, 20, prediction="residual", stride=5, encoder_reuse=2,
+                      final_exact=False, traced_budget=traced_budget)
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    with pytest.raises(ValueError):
+        ddrm.DDRMSampler(mini[2], get_preset("webp"), prediction="x0")
 
 
 def test_noise_is_seeded_and_shaped(mini):

@@ -219,3 +219,95 @@ def test_small_restore_on_card_matches_cpu(card):
         torch.backends.cudnn.allow_tf32 = True
     assert fa.flash_attention_fwd.launches > before
     assert (got - want).abs().mean().item() <= 1e-4
+
+
+# The AVIF model's 8-head shapes: batch 8 at down2 (head dim 128/8 = 16) and
+# up4 (64/8 = 8, which the wrappers zero-pad to 16).
+AVIF_SHAPES = [(64, 1024, 16), (64, 1024, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,t,d", AVIF_SHAPES)
+@pytest.mark.parametrize("dtype,step", STEPS)
+def test_avif_shapes_all_kernels_on_card(card, bh, t, d, dtype, step):
+    """The forward (with the LSE), dQ (with Delta) and dK/dV at the AVIF
+    shapes against their plain versions on the unpadded tensors. At D = 8
+    the plain versions scale by 1/√8 and see no padding, so agreement shows
+    that the zero lanes add nothing and the scale stays 1/√8."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v, do = (torch.randn(bh, t, d, device="cuda", generator=g).to(dtype)
+                   for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, save_lse=True)
+    ro, rlse = fa.flash_attention_plain(q, k, v, save_lse=True)
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    rdq, rdelta = fa.flash_attention_bwd_dq_plain(q, k, v, o, do, lse)
+    rdk, rdv = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, rdelta)
+    torch.cuda.synchronize()
+    assert o.shape == dq.shape == dk.shape == dv.shape == (bh, t, d)
+    assert all(z.is_contiguous() for z in (o, dq, dk, dv))
+    assert close(o, ro, step) and close(lse, rlse)
+    assert close(dq, rdq, step) and close(delta, rdelta)
+    assert close(dk, rdk, step) and close(dv, rdv, step)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 8])
+@pytest.mark.parametrize("dtype,rel", [(torch.bfloat16, 2 ** -6), (torch.float32, 1e-4)])
+def test_avif_function_grads_on_card(card, d, dtype, rel):
+    """The Function at the AVIF training shapes, [B,T,H,D] = [8,1024,8,D],
+    against autograd through the plain attention (the bound of
+    `test_function_grads_match_plain_autograd_on_card`)."""
+    from ddpm_image_restoration_tpu_torch.ops.attention import spatial_attention
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, do = (torch.randn(8, 1024, 8, d, device="cuda", generator=g).to(dtype)
+                   for _ in range(4))
+    leaves = [z.clone().requires_grad_() for z in (q, k, v)]
+    before = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches)
+    out = spatial_attention(*leaves, impl="flash")
+    got = (out.detach(), *torch.autograd.grad(out, leaves, do))
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    ref_leaves = [z.clone().requires_grad_() for z in (q, k, v)]
+    ref_out = spatial_attention(*ref_leaves, impl="xla")
+    ref = (ref_out.detach(), *torch.autograd.grad(ref_out, ref_leaves, do))
+    assert close(got[0], ref[0], 2 ** -7 if dtype == torch.bfloat16 else 0.0)
+    for a, b in zip(got[1:], ref[1:]):
+        assert a.dtype == dtype and close(a, b, rel_max=rel)
+
+
+@pytest.mark.cuda
+def test_avif_model_full_width_on_card(card):
+    """The AVIF-preset UNet at full width (64², release widths, 8 heads,
+    flash at <= 32²) on a batch of 8: in f32 the flash route against the
+    same weights on the plain attention (max |diff| <= 1e-3, the FMA
+    kernel's f32 roundoff through ~20 layers), two forward launches (down2
+    at D = 16, up4 at D = 8) per call; in bf16 (the tensor-core kernels)
+    finite, with the same launches."""
+    from ddpm_image_restoration_tpu_torch.config import ModelConfig
+    from ddpm_image_restoration_tpu_torch.models import build_model
+
+    x = torch.rand(8, 64, 64, 3, generator=torch.Generator().manual_seed(6)).to(card) * 2 - 1
+    t = torch.linspace(0.1, 0.9, 8, device=card)
+    outs = {}
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dtype in ("float32", "bfloat16"):
+            for impl in ("flash", "xla"):
+                cfg = ModelConfig(compute_dtype=dtype, attention_impl=impl, attn_max_resolution=32)
+                torch.manual_seed(0)
+                model = build_model("avif", cfg, device=card)
+                assert model.down2.attn.num_heads == 8
+                before = fa.flash_attention_fwd.launches
+                with torch.no_grad():
+                    outs[dtype, impl] = model(x, t).float()
+                torch.cuda.synchronize()
+                assert fa.flash_attention_fwd.launches - before == (2 if impl == "flash" else 0)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    assert (outs["float32", "flash"] - outs["float32", "xla"]).abs().max().item() <= 1e-3
+    assert torch.isfinite(outs["bfloat16", "flash"]).all()
+    assert outs["bfloat16", "flash"].shape == (8, 64, 64, 3)

@@ -1,6 +1,7 @@
 """The port's DCT and resize ops against the JAX package's (NHWC there,
 NCHW in the port), f32, atol 1e-5 (summation order only)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -47,3 +48,18 @@ def test_adaptive_avg_pool(rng, hw, out):
     xj, xt = _pair(rng, (2, hw, hw, 3))
     np.testing.assert_allclose(nchw_to_nhwc(resize.adaptive_avg_pool(xt, out)),
                                np.asarray(jresize.adaptive_avg_pool(xj, out)), atol=1e-5)
+
+
+@pytest.mark.parametrize("src,dst", [(8, 4), (8, 2), (4, 2), (2, 4), (1, 4), (8, 32), (5, 3)])
+def test_resize_linear_matches_jax_image_resize(rng, src, dst):
+    """`resize_linear` against jax.image.resize(..., "linear"), which
+    antialiases when it shrinks (the AVIF block's gates: 8 -> 4 at the 4x4
+    level, 8 -> 2 and 4 -> 2 at the 2x2 bottleneck); atol 1e-5. In bf16
+    the shrinking filter runs in f32 and returns bf16."""
+    xj, xt = _pair(rng, (2, src, src, 3))
+    want = np.asarray(jax.image.resize(xj, (2, dst, dst, 3), method="linear"))
+    np.testing.assert_allclose(nchw_to_nhwc(resize.resize_linear(xt, (dst, dst))), want,
+                               atol=1e-5)
+    got16 = resize.resize_linear(xt.to(torch.bfloat16), (dst, dst))
+    assert got16.dtype == torch.bfloat16
+    np.testing.assert_allclose(nchw_to_nhwc(got16.float()), want, atol=3e-2)

@@ -101,6 +101,8 @@ def _inputs(d: Path) -> dict:
         "webp": [_write(d / "w10.webp", imgs[0], quality=10),
                  _write(d / "w50.webp", imgs[1], quality=50)],
         "jpeg": [_write(d / "j30.jpg", imgs[2], quality=30)],
+        "avif": [_write(d / "a20.avif", imgs[2], quality=20),
+                 _write(d / "a60.avif", imgs[3], quality=60)],
         "big": [_write(d / "big.png", big)],
     }
 
@@ -119,6 +121,7 @@ def npz(tmp_path_factory):
     d = tmp_path_factory.mktemp("weights")
     model_pair("webp", TINY_CFG, d / "webp.npz", seed=2)
     model_pair("all", TINY_CFG, d / "all.npz", seed=3)
+    model_pair("avif", TINY_CFG, d / "avif.npz", seed=4)
     return d
 
 
@@ -134,6 +137,10 @@ RESTORE_CASES = {
                                  "--protect", "40", "90", "--protect-adaptive", "0.5"]),
     "decoder_reuse": ("png", ["--quality", "10", "--max-evals", "6", "--encoder-reuse", "2",
                               "--decoder-reuse-depth", "1"]),
+    # a model of the avif preset on AVIF files at their exact estimated
+    # qualities (one file at a time), the AVIF sampler constants
+    "avif_model": ("avif", ["--codec", "avif", "--quality", "auto", "--max-evals", "6",
+                            "--encoder-reuse", "2"]),
 }
 
 
@@ -145,7 +152,7 @@ def test_restore_cli_matches_jax(tmp_path, npz, eta0, case):
     kind, flags = RESTORE_CASES[case]
     files = _inputs(tmp_path / "in")
     inputs = sum((files[k] for k in kind.split("+")), [])
-    weights = npz / ("all.npz" if "all" in flags else "webp.npz")
+    weights = npz / (next((c for c in ("all", "avif") if c in flags), "webp") + ".npz")
     names = [Path(p).stem + "_restored.png" for p in inputs]
     for name, main, extra in (("jax", jax_main, []), ("torch", torch_main, ["--device", "cpu"])):
         main([*inputs, *TINY_FLAGS, "--params-npz", str(weights), "--output-dir",
@@ -225,8 +232,7 @@ def test_restore_refusals(tmp_path):
     for flags, item in ((["--consistency", "callback"], "item 6"),
                         (["--consistency", "host_loop"], "item 6"),
                         (["--solver", "gaussian_mixture"], "item 9"),
-                        (["--dp", "2"], "item 8"), (["--sp", "2"], "item 8"),
-                        (["--model-codec", "avif"], "item 5"), (["--codec", "avif"], "item 5")):
+                        (["--dp", "2"], "item 8"), (["--sp", "2"], "item 8")):
         with pytest.raises(SystemExit, match=f"ROADMAP.md Queue 1 {item}"):
             main([*img, *flags, "--random-init"])
     for flags in (["--codec", "all"], ["--codec", "auto"]):

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from ddpm_image_restoration_tpu.config import TrainConfig as JTrainConfig
-from ddpm_image_restoration_tpu.diffusion.losses import frequency_aware_loss
+from ddpm_image_restoration_tpu.diffusion.losses import loss_for_preset
 from ddpm_image_restoration_tpu.train.schedules import cosine_warm_restarts as j_cosine
 from ddpm_image_restoration_tpu.train.steps import make_optimizer as j_make_optimizer
 from ddpm_image_restoration_tpu.train.steps import make_train_step as j_make_train_step
@@ -26,7 +26,7 @@ from ddpm_image_restoration_tpu_torch.train.steps import (
     make_train_step,
 )
 
-from ._tiny import TINY5
+from ._tiny import MINI, TINY5
 from ._torch_parity import (
     as_jax_layout,
     flatten_jax,
@@ -86,18 +86,19 @@ def test_optimizer_matches_optax_on_same_gradients(rng):
                                    atol=1e-7, err_msg=k)
 
 
-def _one_step(tmp_path, compute_dtype, with_grads):
-    """One train step of both packages on the same TINY5 weights and batch
-    (flash attention at 32², i.e. T = 1024 at down1 and up5, dropout 0, EMA
-    on). Returns the JAX state and metrics, the port's state and metrics,
-    the port's model and, `with_grads`, the JAX gradients."""
-    jmc = dataclasses.replace(TINY5, dropout=0.0, attention_impl="flash",
+def _one_step(tmp_path, compute_dtype, with_grads, codec="webp", base=TINY5):
+    """One train step of both packages on the same weights and batch of
+    `base` (TINY5: flash attention at 32², i.e. T = 1024 at down1 and up5),
+    dropout 0, EMA on, for `codec`'s preset. Returns the JAX state and
+    metrics, the port's state and metrics, the port's model and,
+    `with_grads`, the JAX gradients."""
+    jmc = dataclasses.replace(base, dropout=0.0, attention_impl="flash",
                               attn_max_resolution=32, compute_dtype=compute_dtype)
-    jm, jvars, tm = model_pair("webp", jmc, tmp_path / "w.npz")
-    jcfg = JTrainConfig(codec="webp", model=jmc, ema_decay=0.999)
-    cfg = TrainConfig(codec="webp", model=torch_cfg(jmc), ema_decay=0.999)
+    jm, jvars, tm = model_pair(codec, jmc, tmp_path / "w.npz")
+    jcfg = JTrainConfig(codec=codec, model=jmc, ema_decay=0.999)
+    cfg = TrainConfig(codec=codec, model=torch_cfg(jmc), ema_decay=0.999)
 
-    x0 = smooth_images(2, 32, seed=3)
+    x0 = smooth_images(2, jmc.image_size, seed=3)
     xt = np.clip(x0 + np.random.default_rng(4).normal(0, 0.1, x0.shape), -1, 1).astype(np.float32)
     t = np.array([17, 64], np.int32)
 
@@ -108,7 +109,7 @@ def _one_step(tmp_path, compute_dtype, with_grads):
     def jax_loss(p):
         tn = jbatch["t"].astype(jnp.float32) / jcfg.steps
         pred = jm.apply({"params": p}, jbatch["xt"], tn, tn)
-        return frequency_aware_loss(jbatch["xt"] + pred, jbatch["x0"])
+        return loss_for_preset(jcfg.preset.loss_kind)(jbatch["xt"] + pred, jbatch["x0"])
 
     jgrads = flatten_jax(jax.jit(jax.grad(jax_loss))(jvars["params"])) if with_grads else None
 
@@ -161,3 +162,25 @@ def test_train_step_matches_jax_f32(tmp_path):
                                   0.99)
     _assert_adam_first_step_close(as_jax_layout(tm, state.ema), flatten_jax(jstate.ema_params),
                                   0.99)
+
+
+def test_avif_train_step_matches_jax_f32(tmp_path):
+    """The avif preset (AVIF frequency blocks, 8 heads, the AVIF loss) in
+    f32 at MINI (16², so the 4x4 bottleneck takes the 8-pooled gate's
+    upsample and antialiased shrink, and their backward; the flash route's
+    backward is held by `test_train_step_matches_jax_f32`): loss and grad
+    norm rtol 1e-5, every gradient entry within 1e-5 of the largest; the
+    adaptive transforms' gradients included."""
+    jstate, jmetrics, state, metrics, tm, jgrads = _one_step(tmp_path, "float32", True, "avif",
+                                                             base=MINI)
+    np.testing.assert_allclose(metrics["loss"].item(), float(jmetrics["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(metrics["grad_norm"].item(), float(jmetrics["grad_norm"]),
+                               rtol=1e-5)
+    grads = as_jax_layout(tm, {n: p.grad for n, p in tm.named_parameters()})
+    assert set(grads) == set(jgrads)
+    assert "bottleneck1/freq_guide/adaptive_transform/transform_weights" in grads
+    g_max = max(np.abs(g).max() for g in jgrads.values())
+    for k, g in jgrads.items():
+        np.testing.assert_allclose(grads[k], g, atol=1e-5 * g_max, rtol=0, err_msg=k)
+    assert np.abs(grads["down1/freq_guide/adaptive_transform/transform_weights"]).max() > 0
+    assert state.step == int(jstate.step) == 1
