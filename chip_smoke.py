@@ -20,23 +20,33 @@ NVIDIA card and checks it, phase by phase:
      widths, bf16, flash attention at <= 32²) on three batches of 8 images
      under the production solver policy, counting the kernel's launches;
   6. train_reference: one half-width f32 train step on the card against the
-     same step on the CPU (loss and every gradient), WebP and AVIF presets;
+     same step on the CPU (loss and every gradient), WebP and AVIF presets,
+     and one half-width f32 distill step (2 student evaluations through the
+     rematerialised solver) likewise;
   7. train: the WebP trainer (`cli/train.py main`) at full width, bf16,
      batch 18, EMA: one epoch, then a second resumed from the checkpoint the
-     first wrote, counting each kernel's launches in the train steps; then
-     the train step alone, timed and profiled;
-  8. restore: the restore CLI (`cli/restore.py main`) at full width on
+     first wrote, counting each kernel's launches in the train steps,
+     validation and the epoch's restoration grid; then the train step
+     alone, timed and profiled;
+  8. distill: solver distillation (`cli/distill.py main`) at full width
+     from phase `train`'s checkpoint: 2 student evaluations at q10/q50
+     against the full-solver teacher, then the progressive chain (budgets
+     4, 2), then `cli/restore.py --max-evals 2` from the student; every
+     kernel's launches against the schedule; then the distill step alone,
+     timed, profiled, and its peak memory with and without the solver's
+     rematerialisation;
+  9. restore: the restore CLI (`cli/restore.py main`) at full width on
      WebP and JPEG files that Pillow writes (estimated qualities, decoder
      reuse at depth 1 and 2, a 2-way ensemble, tiles of a non-square
      image, and the EMA weights of the checkpoint phase `train` wrote), then
      the server (`cli/serve.py main`) on mixed codecs with the traced
      budget; each variant's kernel launches against its schedule, and its
      milliseconds per image;
-  9. evaluate: the evaluator (`cli/evaluate.py main`) at full width on 20
+  10. evaluate: the evaluator (`cli/evaluate.py main`) at full width on 20
      images, q10/30/50 under the production policy, static and traced:
      launches against the schedule, the metrics summary's fields, images
      per second per quality;
- 10. avif: the AVIF model family at full width: `cli/train.py --codec
+ 11. avif: the AVIF model family at full width: `cli/train.py --codec
      avif` (one epoch, EMA, checkpoint), `cli/evaluate.py` and
      `cli/restore.py --model-codec avif` on that checkpoint (AVIF files
      Pillow writes), then two steps of `cli/train.py --codec all`; every
@@ -77,12 +87,16 @@ JAX_PACKAGE = PACKAGE.removesuffix("_torch")  # the reference; never imported he
 # of 8 images (the evaluator's too), a training batch of 18 (with the LSE
 # the backward needs), the trainer's validation batch of 4, the restore
 # CLI's single files, its tile batches of 16 and the serve CLI's batches of
-# 7 (4 heads each); then the AVIF model's (8 heads: head dim 128/8 = 16 at
-# down2, 64/8 = 8 at up4, which the wrapper zero-pads to 16) for its
+# 7 (4 heads each), and the distillation teacher's batch of 18 (without the
+# LSE: it runs under no_grad; the student's shapes are the train step's); then the
+# AVIF model's (8 heads: head dim 128/8 = 16 at down2, 64/8 = 8 at up4,
+# which the wrapper zero-pads to 16) for its
 # training and evaluation batches of 8, its validation batch of 4 and the
 # restore CLI's single files.
 FWD_PATH_SHAPES = [("serve", 32, 1024, 32, False), ("serve", 32, 1024, 16, False),
                    ("train step", 72, 1024, 32, True), ("train step", 72, 1024, 16, True),
+                   ("distill teacher", 72, 1024, 32, False),
+                   ("distill teacher", 72, 1024, 16, False),
                    ("validation", 16, 1024, 32, False), ("validation", 16, 1024, 16, False),
                    ("restore", 4, 1024, 32, False), ("restore", 4, 1024, 16, False),
                    ("restore tiles", 64, 1024, 32, False), ("restore tiles", 64, 1024, 16, False),
@@ -158,8 +172,23 @@ AVIF_TRAIN_IMAGES = 60
 AVIF_EVAL_IMAGES = 8
 AVIF_QUALITIES = (20, 50, 80)
 ALL_TRAIN_IMAGES = 45
-# The whole run takes well under a minute; past this, fail rather than hang.
-TIME_LIMIT_S = 600
+# Flash-attention calls per UNet evaluation at 64² with attention at <= 32²:
+# the two 32² levels, down2 (encode) and up4 (decode).
+FLASH_PER_EVAL = 2
+# The distill phase: the student's budget and qualities against the
+# full-solver teacher on the train phase's images (6 steps of 18), the step
+# alone timed over DISTILL_TIMED_STEPS steps; then the
+# progressive chain from a stride-10 teacher on DISTILL_PROGRESSIVE_IMAGES
+# (36 training images: 2 steps a stage), whose budgets must be these.
+DISTILL_N_EVAL = 2
+DISTILL_QUALITIES = (10, 50)
+DISTILL_TEACHER_STRIDE = 1   # the full solver
+DISTILL_TIMED_STEPS = 3
+DISTILL_PROGRESSIVE_IMAGES = 45
+DISTILL_PROGRESSIVE_STRIDE = 10
+DISTILL_PROGRESSIVE_BUDGETS = [4, 2]
+# The whole run took ~3 minutes in PR 9; past this, fail rather than hang.
+TIME_LIMIT_S = 900
 
 
 def log(msg: str) -> None:
@@ -819,8 +848,71 @@ def phase_train_reference(state: dict) -> None:
         if not (np.isfinite(gpu_m["loss"].item()) and loss_rel <= 1e-4 and worst[0] <= 1e-4
                 and worst_attn[0] <= 1e-3):
             failed.append(f"{codec}: the card's train step disagrees with the CPU's")
+    failed += distill_reference(model_cfg, x0[:2])
     if failed:
         raise AssertionError("; ".join(failed))
+
+
+def distill_reference(model_cfg, x0) -> list:
+    """One f32 distill step of the half-width WebP model (EMA on) on the card
+    against the same step on the CPU: the teacher at stride 10 from q50's
+    start step 50 (6 evaluations), the student at 2 evaluations through the
+    rematerialised solver. Gates as the train step's: the loss within rtol
+    1e-4, every gradient entry within 1e-4 of the largest; the card
+    launches the forward FLASH_PER_EVAL x (6 + 2 x 2) times (each student
+    evaluation once more in the backward) and dQ and dK/dV FLASH_PER_EVAL x
+    2 times each. Returns the failures.
+
+    The weights are seeded with SEED: on them two CPU runs of this step that
+    differ only in their thread count (so in their f32 reduction orders)
+    agree to 4e-6 of the largest gradient. The unrolled solver can amplify
+    last-bit differences (leaky-ReLU kinks, the surrogate's rounding): at
+    seed 5 such CPU runs differed by 1.2e-4 and at seed 1 by 4.9e-3, which
+    no implementation could meet."""
+    import numpy as np
+    import torch
+
+    from ddpm_image_restoration_tpu_torch.codecs.surrogate import codec_surrogate
+    from ddpm_image_restoration_tpu_torch.config import TrainConfig
+    from ddpm_image_restoration_tpu_torch.models import build_model
+    from ddpm_image_restoration_tpu_torch.train.distill import DistillConfig, make_distill_step
+    from ddpm_image_restoration_tpu_torch.train.steps import create_train_state
+
+    cfg = TrainConfig(codec="webp", model=model_cfg, ema_decay=0.999)
+    dcfg = DistillConfig(n_eval=DISTILL_N_EVAL, teacher_stride=10)
+    torch.manual_seed(SEED)
+    weights = build_model("webp", model_cfg, device="cpu").state_dict()
+    batch = {"x0": x0, "xt": codec_surrogate(x0, 50, codec="webp")}
+    runs = []
+    for dev in ("cpu", "cuda"):
+        teacher, student = (build_model("webp", model_cfg, device=dev) for _ in range(2))
+        teacher.load_state_dict(weights)
+        student.load_state_dict(weights)
+        step, _, s_stride, t_stride = make_distill_step(student, teacher, cfg, dcfg, 50)
+        with no_tf32():
+            _reset_counts()
+            m = step(create_train_state(student, cfg), {k: v.to(dev) for k, v in batch.items()})
+            if dev == "cuda":
+                torch.cuda.synchronize()
+        runs.append((m["loss"].item(), {n: p.grad.cpu() for n, p in student.named_parameters()},
+                     _counts()))
+    (cpu_loss, cpu_g, _), (gpu_loss, gpu_g, counts) = runs
+    g_max = max(g.abs().max().item() for g in cpu_g.values())
+    worst = max(((gpu_g[n] - g).abs().max().item() / g_max, n) for n, g in cpu_g.items())
+    loss_rel = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
+    want = {"flash_attention_fwd": FLASH_PER_EVAL * (6 + 2 * DISTILL_N_EVAL),
+            "flash_attention_bwd_dq": FLASH_PER_EVAL * DISTILL_N_EVAL,
+            "flash_attention_bwd_dkv": FLASH_PER_EVAL * DISTILL_N_EVAL}
+    log(f"card vs CPU distill step (webp q50, 2x64x64, half width, f32, teacher stride "
+        f"{t_stride}, student stride {s_stride}, remat): loss {gpu_loss:.6f} vs {cpu_loss:.6f} "
+        f"(rel {loss_rel:.3g}); worst gradient |diff|/max|g| {worst[0]:.3g} ({worst[1]}); "
+        f"launches {counts} (schedule implies {want})")
+    failed = []
+    if counts != want:
+        failed.append(f"distill: the card's step launched {counts}, schedule implies {want}")
+    if not (np.isfinite(gpu_loss) and loss_rel <= 1e-4 and worst[0] <= 1e-4):
+        failed.append("distill: the card's step disagrees with the CPU's")
+    return failed
 
 
 def phase_train(state: dict) -> None:
@@ -830,7 +922,8 @@ def phase_train(state: dict) -> None:
     kernel with LSE at down2 and up4 and one dQ and one dK/dV launch each;
     per validation (3 qualities, init_t model evaluations each at stride 1)
     one forward launch at down2 (encode) and one at up4 (decode) per
-    evaluation. Then the train step alone, timed and profiled."""
+    evaluation, and as many for epoch 0's restoration grid (q10, 80
+    evaluations). Then the train step alone, timed and profiled."""
     import shutil
 
     import numpy as np
@@ -848,6 +941,8 @@ def phase_train(state: dict) -> None:
     val_evals = sum(init_timestep_for_quality(q, 100, preset) for q in preset.val_qualities)
     expected = {"flash_attention_fwd": 2 * steps + 2 * val_evals,
                 "flash_attention_bwd_dq": 2 * steps, "flash_attention_bwd_dkv": 2 * steps}
+    # epoch 0 (in the first run only) also restores the restoration grid
+    grid_evals = grid_restore_evals(preset, 100)
     argv = ["--codec", "webp", "--attn", "flash", "--attn-max-res", "32", "--batch-size",
             str(TRAIN_BATCH), "--ema-decay", "0.999", "--synthetic", str(TRAIN_IMAGES),
             "--synthetic-kind", "natural", "--checkpoint-dir", ckpt_dir, "--seed", str(SEED),
@@ -864,17 +959,20 @@ def phase_train(state: dict) -> None:
             counts = _counts()
             for k, v in counts.items():
                 totals[k] += v
+            want = dict(expected)
+            if epochs == 1:
+                want["flash_attention_fwd"] += 2 * grid_evals
             model = train_state.model
             qkv = {lvl: getattr(model, lvl).attn.qkv.weight.grad for lvl in ("down2", "up4")}
             log(f"train run to epoch {epochs}: {wall:.1f} s; epoch {epochs - 1}: loss "
                 f"{hist['loss'][-1]:.4f}, val_psnr {hist['val_psnr'][-1]:.3f}, val_ssim "
                 f"{hist['val_ssim'][-1]:.4f}, {hist['step_ms'][-1]:.1f} ms/step in the loop "
                 f"(data pipeline included), epoch {hist['epoch_time'][-1]:.1f} s; optimizer step "
-                f"{train_state.step}; launches {counts} (schedule implies {expected}); "
+                f"{train_state.step}; launches {counts} (schedule implies {want}); "
                 f"|qkv grad| max down2 {qkv['down2'].abs().max().item():.3g}, "
                 f"up4 {qkv['up4'].abs().max().item():.3g}")
-            if counts != expected:
-                raise AssertionError(f"kernel launches {counts}, schedule implies {expected}")
+            if counts != want:
+                raise AssertionError(f"kernel launches {counts}, schedule implies {want}")
             if not (len(hist["loss"]) == 1 and train_state.step == epochs * steps):
                 raise AssertionError(f"run to epoch {epochs} trained {len(hist['loss'])} "
                                      f"epochs, {train_state.step} steps: no resume")
@@ -890,6 +988,15 @@ def phase_train(state: dict) -> None:
     state["launches_train"] = totals
 
     step_alone(state, "webp", model, train_state, TRAIN_BATCH)
+
+
+def grid_restore_evals(preset, steps: int) -> int:
+    """Model evaluations of the trainer's restoration grid (epochs that are
+    multiples of viz_every): one full-solver restore at the preset's lowest
+    val quality."""
+    from ddpm_image_restoration_tpu_torch.codecs.quality import init_timestep_for_quality
+
+    return init_timestep_for_quality(preset.val_qualities[0], steps, preset)
 
 
 def step_alone(state: dict, codec: str, model, train_state, batch: int) -> None:
@@ -925,6 +1032,284 @@ def step_alone(state: dict, codec: str, model, train_state, batch: int) -> None:
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     profile_run(f"one {codec} train step, batch {batch}",
                 lambda: step(train_state, device_batch, gen))
+
+
+def _counted(state: dict, label: str, fn, argv, want, totals: dict, failures: list):
+    """fn(argv) counted from 0, its standard output captured: logs its wall
+    time and launches, adds them to `totals`, records a failure unless they
+    are `want` (fwd, dq, dkv). Returns (fn's result, the printed text, the
+    wall seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    out, printed = _quiet(fn, argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    for k, v in counts.items():
+        totals[k] += v
+    want = dict(zip(counts, want))
+    log(f"{label}: {wall:.1f} s on {state['smi']}; launches {counts} (schedule implies {want})")
+    if counts != want:
+        failures.append(f"{label}: launches {counts}, schedule implies {want}")
+    return out, printed, wall
+
+
+def _evals(init_t: int, n_eval: int = 0, stride: int = 1) -> int:
+    """Model evaluations of the static schedule from `init_t` at `stride`, or
+    at the budget `n_eval` (the stride derived by student_stride)."""
+    from ddpm_image_restoration_tpu_torch.codecs.quality import student_stride
+    from ddpm_image_restoration_tpu_torch.diffusion.ddrm import _solver_indices
+
+    return len(_solver_indices(init_t, student_stride(init_t, n_eval) if n_eval else stride))
+
+
+def distill_launches(n_steps: int, n_eval: int, teacher_stride: int = 1,
+                     teacher_n_eval: int = 0, recompute: int = 1) -> tuple:
+    """(forward, dQ, dK/dV) launches of a distill run of `n_steps` steps
+    (DISTILL_QUALITIES round-robin from the first) and its validation. A
+    step at quality q launches the forward FLASH_PER_EVAL·(E_t + (1 + r)·E_s)
+    times, E_t and E_s the teacher's and the student's evaluations from
+    init_t(q) and r = `recompute` the times the backward recomputes a
+    student evaluation, and dQ and dK/dV FLASH_PER_EVAL·E_s times each;
+    validation restores at the webp val qualities at the student's budget
+    (forward only)."""
+    from ddpm_image_restoration_tpu_torch.codecs.quality import init_timestep_for_quality
+    from ddpm_image_restoration_tpu_torch.config import get_preset
+
+    preset = get_preset("webp")
+    fwd = bwd = 0
+    for b in range(n_steps):
+        init_t = init_timestep_for_quality(DISTILL_QUALITIES[b % len(DISTILL_QUALITIES)],
+                                           DIFFUSION_STEPS, preset)
+        e_t = _evals(init_t, teacher_n_eval, teacher_stride)
+        e_s = _evals(init_t, n_eval)
+        fwd += FLASH_PER_EVAL * (e_t + (1 + recompute) * e_s)
+        bwd += FLASH_PER_EVAL * e_s
+    fwd += FLASH_PER_EVAL * sum(
+        _evals(init_timestep_for_quality(q, DIFFUSION_STEPS, preset), n_eval)
+        for q in preset.val_qualities)
+    return fwd, bwd, bwd
+
+
+def phase_distill(state: dict) -> None:
+    """Solver distillation at full width (WebP preset, release widths, bf16,
+    batch 18, EMA, flash attention at <= 32², seeded weights), the teacher
+    being phase `train`'s checkpoint (its EMA), each run counted from 0:
+      1. `cli/distill.py main`: the student at DISTILL_N_EVAL evaluations at
+         q10 and q50 (round-robin) against the full-solver teacher
+         (DISTILL_TEACHER_STRIDE 1), one epoch on the train phase's images
+         (6 steps);
+      2. `--progressive` from a stride-10 teacher on fewer images: the
+         budget chain must be DISTILL_PROGRESSIVE_BUDGETS (stage0, then the
+         root directory);
+      3. `cli/restore.py --max-evals 2` from the student's EMA on the
+         restore phase's WebPs;
+      4. the distill step alone (q50), timed and profiled, and its peak
+         device memory with the solver's rematerialisation on and off.
+    Launches per step follow `distill_launches` with r = 1: the student's
+    solver runs each step under activation checkpointing (`DDRMSampler.run`,
+    remat=True) and its blocks without (no `--remat`), so the backward
+    recomputes each student evaluation once, and the recompute, under grad,
+    launches the forward with the LSE again. (With `--remat` the blocks'
+    checkpoints nest inside the step's and r = 2; without the step's, r = 0.)
+    The student's evaluations launch the forward with the LSE, the
+    teacher's (under no_grad) without it."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from ddpm_image_restoration_tpu_torch.cli.distill import main as distill_main
+    from ddpm_image_restoration_tpu_torch.cli.restore import main as restore_main
+    from ddpm_image_restoration_tpu_torch.codecs.estimate import estimate_quality
+    from ddpm_image_restoration_tpu_torch.codecs.surrogate import codec_surrogate
+    from ddpm_image_restoration_tpu_torch.config import TrainConfig
+    from ddpm_image_restoration_tpu_torch.data.dataset import split_indices
+    from ddpm_image_restoration_tpu_torch.models import build_model
+    from ddpm_image_restoration_tpu_torch.train.distill import (
+        DistillConfig,
+        make_distill_step,
+        teacher_weights,
+    )
+
+    ckpt_dir = state.get("train_ckpt")
+    if ckpt_dir is None:
+        raise AssertionError("phase train left no checkpoint to distill from")
+    work = os.path.join(ROOT, "build", "chip_smoke_distill")
+    shutil.rmtree(work, ignore_errors=True)
+    student_dir = os.path.join(work, "student")
+    totals = dict.fromkeys(_counts(), 0)
+    failures = []
+    common = ["--codec", "webp", *CARD_FLAGS, "--batch-size", str(TRAIN_BATCH), "--ema-decay",
+              "0.999", "--synthetic-kind", "natural", "--steps", str(DIFFUSION_STEPS), "--seed",
+              str(SEED), "--epochs", "1", "--qualities", *map(str, DISTILL_QUALITIES),
+              "--teacher-dir", ckpt_dir]
+    try:
+        steps = len(split_indices(TRAIN_IMAGES)[0]) // TRAIN_BATCH
+        (dstate, hist), _, wall = _counted(
+            state, f"distill [n_eval {DISTILL_N_EVAL}, teacher stride {DISTILL_TEACHER_STRIDE}, "
+            f"{steps} steps]", distill_main,
+            [*common, "--synthetic", str(TRAIN_IMAGES), "--checkpoint-dir", student_dir,
+             "--n-eval", str(DISTILL_N_EVAL), "--teacher-stride", str(DISTILL_TEACHER_STRIDE)],
+            distill_launches(steps, DISTILL_N_EVAL, DISTILL_TEACHER_STRIDE), totals, failures)
+        student = dstate.model
+        qkv = {lvl: getattr(student, lvl).attn.qkv.weight.grad for lvl in ("down2", "up4")}
+        log(f"  loss {hist['loss'][-1]:.4f}, val_psnr {hist['val_psnr'][-1]:.3f} (student at "
+            f"{DISTILL_N_EVAL} evaluations), {hist['step_ms'][-1]:.1f} ms/distill step in the "
+            f"loop (data pipeline included), epoch {hist['epoch_time'][-1]:.1f} s; optimizer "
+            f"step {dstate.step}; |qkv grad| max down2 {qkv['down2'].abs().max().item():.3g}, "
+            f"up4 {qkv['up4'].abs().max().item():.3g}")
+        if not (dstate.step == steps and np.isfinite(hist["loss"]).all()
+                and np.isfinite(hist["val_psnr"]).all()):
+            failures.append(f"distill: step {dstate.step} of {steps}, history {dict(hist)}")
+        if any(g is None or not torch.isfinite(g).all() or g.abs().max().item() == 0
+               for g in qkv.values()):
+            failures.append("distill: a flash level of the student got no gradient")
+
+        p_steps = len(split_indices(DISTILL_PROGRESSIVE_IMAGES)[0]) // TRAIN_BATCH
+        budgets = DISTILL_PROGRESSIVE_BUDGETS
+        want = np.zeros(3, int)
+        teacher = (DISTILL_PROGRESSIVE_STRIDE, 0)
+        for budget in budgets:
+            want += distill_launches(p_steps, budget, *teacher)
+            teacher = (1, budget)
+        prog_dir = os.path.join(work, "progressive")
+        _, printed, _ = _counted(
+            state, f"distill --progressive [teacher stride {DISTILL_PROGRESSIVE_STRIDE}, "
+            f"{p_steps} steps a stage]", distill_main,
+            [*common, "--synthetic", str(DISTILL_PROGRESSIVE_IMAGES), "--checkpoint-dir",
+             prog_dir, "--n-eval", str(DISTILL_N_EVAL), "--teacher-stride",
+             str(DISTILL_PROGRESSIVE_STRIDE), "--progressive"],
+            tuple(int(w) for w in want), totals, failures)
+        chain = [int(b) for b in re.findall(r"\] eval budget (\d+)", printed)]
+        stages = sorted(d for d in os.listdir(prog_dir) if d.startswith("stage"))
+        log(f"  progressive budgets {chain} (JAX's chain for this teacher: {budgets}); stage "
+            f"directories {stages}")
+        if chain != budgets or stages != [f"stage{k}" for k in range(len(budgets) - 1)] \
+                or not any(f.startswith("ckpt_") for f in os.listdir(prog_dir)):
+            failures.append(f"distill --progressive: budgets {chain}, stages {stages}")
+
+        webps, _, _ = write_restore_inputs(os.path.join(work, "in"))
+        qs = [estimate_quality(p) for p in webps]
+        per_batch = [qs[0]] if len(set(qs)) == 1 else qs
+        out_dir = os.path.join(work, "restored")
+        _, _, wall = _counted(
+            state, f"restore --max-evals {DISTILL_N_EVAL} from the student's EMA", restore_main,
+            [*webps, *CARD_FLAGS, "--codec", "webp", "--quality", "auto", "--max-evals",
+             str(DISTILL_N_EVAL), "--checkpoint-dir", student_dir, "--use-ema", "--steps",
+             str(DIFFUSION_STEPS), "--output-dir", out_dir],
+            (sum(sum(static_schedule(q, "webp", DISTILL_N_EVAL, 1, DIFFUSION_STEPS))
+                 for q in per_batch), 0, 0), totals, failures)
+        log(f"  {len(webps)} WebPs (estimated qualities {qs}): {1e3 * wall / len(webps):.1f} "
+            f"ms/image")
+        for f in webps:
+            png = os.path.join(out_dir, os.path.splitext(os.path.basename(f))[0] + "_restored.png")
+            if not os.path.exists(png):
+                failures.append(f"distill restore: no {png}")
+        state["launches_distill"] = totals
+
+        # the distill step alone, on one device batch (no data pipeline)
+        dev = student.out_conv.weight.device
+        teacher_model = build_model("webp", student.cfg, device=dev)
+        teacher_model.load_state_dict(teacher_weights(DistillConfig(teacher_dir=ckpt_dir),
+                                                      verbose=False))
+        cfg = TrainConfig(codec="webp", model=student.cfg, batch_size=TRAIN_BATCH,
+                          ema_decay=0.999, steps=DIFFUSION_STEPS)
+        x0 = torch.from_numpy(synthetic_images(TRAIN_BATCH, student.cfg.image_size,
+                                               SEED + 4)).to(dev)
+        batch = {"x0": x0, "xt": codec_surrogate(x0, 50, codec="webp")}
+        dcfg = DistillConfig(n_eval=DISTILL_N_EVAL, teacher_stride=DISTILL_TEACHER_STRIDE)
+        for remat in (True, False):
+            step, init_t, _, _ = make_distill_step(student, teacher_model, cfg, dcfg, 50,
+                                                   remat=remat)
+            torch.cuda.synchronize()
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            _reset_counts()
+            step(dstate, batch)
+            torch.cuda.synchronize()
+            counts = _counts()
+            peak = (f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
+                    if dev.type == "cuda" else "not measured (no card)")
+            e_t, e_s = _evals(init_t, 0, DISTILL_TEACHER_STRIDE), _evals(init_t, DISTILL_N_EVAL)
+            want = (FLASH_PER_EVAL * (e_t + (2 if remat else 1) * e_s),
+                    FLASH_PER_EVAL * e_s, FLASH_PER_EVAL * e_s)
+            log(f"distill step alone (webp q50: teacher {e_t} evaluations, student {e_s}; "
+                f"full width, bf16, batch {TRAIN_BATCH}, EMA), solver remat {remat}: peak "
+                f"device memory {peak}; launches {counts} (schedule implies {want}); the "
+                f"student's differentiated run and its backward alone: "
+                f"{student_run_peak(student, batch['xt'], init_t, remat)}")
+            if tuple(counts.values()) != want:
+                failures.append(f"distill step alone (remat {remat}): launches {counts}, "
+                                f"schedule implies {want}")
+            if remat:
+                n = DISTILL_TIMED_STEPS
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    step(dstate, batch)
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0) / n
+                log(f"distill step alone: {ms:.1f} ms/step, {TRAIN_BATCH * 1e3 / ms:.1f} img/s "
+                    f"on {state['smi']}")
+                profile_run(f"one distill step, webp q50, batch {TRAIN_BATCH}",
+                            lambda: step(dstate, batch))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def student_run_peak(student, y, init_t: int, remat: bool) -> str:
+    """Peak device memory above what was allocated before, of the student's
+    solver run at DISTILL_N_EVAL evaluations under grad and the backward of
+    a scalar of its output: the activations that the solver's
+    rematerialisation trades for a recompute (the optimizer's temporaries,
+    which set the whole step's peak, left out)."""
+    import torch
+
+    from ddpm_image_restoration_tpu_torch.codecs.quality import student_stride
+    from ddpm_image_restoration_tpu_torch.diffusion.ddrm import DDRMSampler
+
+    dev = y.device
+    if dev.type != "cuda":
+        return "not measured (no card)"
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = DDRMSampler(student, student.preset).run(
+        y, 50, init_t, student_stride(init_t, DISTILL_N_EVAL), eta=0.0, remat=remat)[0]
+    out.square().mean().backward()
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    for p in student.parameters():
+        p.grad = None
+    return f"{peak / 2**30:.2f} GiB above the resident {base / 2**30:.2f} GiB"
+
+
+def write_restore_inputs(inputs: str) -> tuple:
+    """The restore phase's files, written by Pillow into `inputs`: 2 WebPs
+    64² at each of RESTORE_QUALITIES, 2 JPEGs (q30, q70) and one
+    TILE_SIZE_HW WebP at q30. Returns (webps, jpegs, wide)."""
+    import numpy as np
+    from PIL import Image
+
+    os.makedirs(inputs)
+
+    def write(name, x, **kw):
+        path = os.path.join(inputs, name)
+        Image.fromarray(np.round((x * 0.5 + 0.5) * 255).astype(np.uint8)).save(path, **kw)
+        return path
+
+    imgs = synthetic_images(2 * len(RESTORE_QUALITIES) + 2, 64, SEED + 20)
+    webps = [write(f"w{i}_q{q}.webp", imgs[i], quality=int(q))
+             for i, q in enumerate(np.repeat(RESTORE_QUALITIES, 2))]
+    jpegs = [write(f"a{i}.jpg", imgs[-2 + i], quality=30 + 40 * i) for i in range(2)]
+    th, tw = TILE_SIZE_HW
+    wide = write("wide.webp", synthetic_images(1, tw, SEED + 21)[0][:th], quality=30)
+    return webps, jpegs, wide
 
 
 def phase_restore(state: dict) -> None:
@@ -965,20 +1350,8 @@ def phase_restore(state: dict) -> None:
     try:
         if ckpt_dir is None:
             raise AssertionError("phase train left no checkpoint to restore from")
-        inputs = os.path.join(work, "in")
-        os.makedirs(inputs)
-
-        def write(name, x, **kw):
-            path = os.path.join(inputs, name)
-            Image.fromarray(np.round((x * 0.5 + 0.5) * 255).astype(np.uint8)).save(path, **kw)
-            return path
-
-        imgs = synthetic_images(2 * len(RESTORE_QUALITIES) + 2, 64, SEED + 20)
-        webps = [write(f"w{i}_q{q}.webp", imgs[i], quality=int(q))
-                 for i, q in enumerate(np.repeat(RESTORE_QUALITIES, 2))]
-        jpegs = [write(f"a{i}.jpg", imgs[-2 + i], quality=30 + 40 * i) for i in range(2)]
+        webps, jpegs, wide = write_restore_inputs(os.path.join(work, "in"))
         th, tw = TILE_SIZE_HW
-        wide = write("wide.webp", synthetic_images(1, tw, SEED + 21)[0][:th], quality=30)
 
         def groups(q):
             """(n, g) of the static budgeted schedule at quality q."""
@@ -1213,13 +1586,15 @@ def phase_avif(state: dict) -> None:
       1. `cli/train.py --codec avif`: one epoch of AVIF_TRAIN_IMAGES natural
          images at the preset's batch of 8 with EMA and a checkpoint (per
          step the forward with LSE and one dQ and one dK/dV at down2 and
-         up4; validation at 20/50/80 from init_t 75/50/20 at stride 1);
+         up4; validation at 20/50/80 from init_t 75/50/20 at stride 1, and
+         the restoration grid at q20);
       2. `cli/evaluate.py --codec avif` on that checkpoint's EMA,
          AVIF_EVAL_IMAGES images at AVIF_QUALITIES under the AVIF policy;
       3. `cli/restore.py --model-codec avif` on AVIF files Pillow writes
          (quality estimated from the bitstream), from the same EMA;
       4. `cli/train.py --codec all`: two steps on mixed-codec batches of 18,
-         validated once per codec at its middle val quality.
+         validated once per codec at its middle val quality, and the
+         restoration grid of the WebP sampler at q10.
     Needs Pillow with AVIF (phase environment prints whether it has it)."""
     import shutil
 
@@ -1246,23 +1621,7 @@ def phase_avif(state: dict) -> None:
     failures = []
 
     def run(label, fn, argv, want):
-        """fn(argv) counted from 0: logs its wall time and launches, records
-        a failure unless they are `want` (fwd, dq, dkv)."""
-        torch.cuda.synchronize()
-        _reset_counts()
-        t0 = time.perf_counter()
-        out, printed = _quiet(fn, argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = _counts()
-        for k, v in counts.items():
-            totals[k] += v
-        want = dict(zip(counts, want))
-        log(f"avif [{label}]: {wall:.1f} s on {state['smi']}; launches {counts} "
-            f"(schedule implies {want})")
-        if counts != want:
-            failures.append(f"avif [{label}]: launches {counts}, schedule implies {want}")
-        return out, printed, wall
+        return _counted(state, f"avif [{label}]", fn, argv, want, totals, failures)
 
     try:
         avif = get_preset("avif")
@@ -1274,7 +1633,8 @@ def phase_avif(state: dict) -> None:
             ["--codec", "avif", *CARD_FLAGS, "--ema-decay", "0.999", "--synthetic",
              str(AVIF_TRAIN_IMAGES), "--synthetic-kind", "natural", "--checkpoint-dir", ckpt,
              "--seed", str(SEED), "--epochs", "1", "--steps", str(DIFFUSION_STEPS)],
-            (2 * steps + 2 * n_val, 2 * steps, 2 * steps))
+            (2 * steps + 2 * n_val + 2 * grid_restore_evals(avif, DIFFUSION_STEPS), 2 * steps,
+             2 * steps))
         m = tstate.model
         grads = {n: getattr(m, lvl).attn.qkv.weight.grad for n, lvl in
                  (("down2 qkv", "down2"), ("up4 qkv", "up4"))}
@@ -1344,7 +1704,9 @@ def phase_avif(state: dict) -> None:
             ["--codec", "all", *CARD_FLAGS, "--synthetic", str(ALL_TRAIN_IMAGES),
              "--synthetic-kind", "natural", "--checkpoint-dir", os.path.join(work, "all"),
              "--seed", str(SEED), "--epochs", "1", "--steps", str(DIFFUSION_STEPS)],
-            (2 * all_steps + 2 * n_val, 2 * all_steps, 2 * all_steps))
+            (2 * all_steps + 2 * n_val
+             + 2 * grid_restore_evals(get_preset("webp"), DIFFUSION_STEPS),
+             2 * all_steps, 2 * all_steps))
         emb = ustate.model.codec_embed.weight.grad
         log(f"  loss {uhist['loss'][-1]:.4f}, val_psnr {uhist['val_psnr'][-1]:.3f} (mean of "
             f"jpeg q30, webp q30, avif q50), {all_steps} steps, {n_val} validation evaluations; "
@@ -1362,18 +1724,19 @@ def phase_avif(state: dict) -> None:
 PHASES = [("environment", phase_environment), ("build", phase_build),
           ("kernels", phase_kernels), ("reference", phase_reference),
           ("serve", phase_serve), ("train_reference", phase_train_reference),
-          ("train", phase_train), ("restore", phase_restore), ("evaluate", phase_evaluate),
-          ("avif", phase_avif)]
+          ("train", phase_train), ("distill", phase_distill), ("restore", phase_restore),
+          ("evaluate", phase_evaluate), ("avif", phase_avif)]
 
 
 def kernels_json(state: dict) -> str:
     """One row per kernel. Its top-level numbers are at the first serving
     or training shape in bf16 (down2); `main_path_shapes` has each shape the
     main paths give it, with its own error and times. `launches` sums the
-    main paths' runs (serve, train, the restore and serve CLIs, the
-    evaluator, the AVIF family), each counted from 0; `launches_by_path`
-    splits it."""
+    main paths' runs (serve, train, distillation, the restore and serve
+    CLIs, the evaluator, the AVIF family), each counted from 0;
+    `launches_by_path` splits it."""
     paths = {"serve": state["launches"], "train": state.get("launches_train", {}),
+             "distill": state.get("launches_distill", {}),
              "restore": state.get("launches_restore", {}),
              "evaluate": state.get("launches_evaluate", {}),
              "avif": state.get("launches_avif", {})}

@@ -156,11 +156,6 @@ def refuse_not_ported(args) -> None:
     flag of the JAX package's restore/serve/evaluate CLIs that the port
     parses but has not implemented."""
     refused = [
-        (getattr(args, "consistency", "surrogate") != "surrogate",
-         "--consistency callback|host_loop (the exact-codec consistency "
-         "modes: ROADMAP.md Queue 1 item 6)"),
-        (getattr(args, "real", 0), "--real (bundled photographic patches: "
-         "data/real_patches.py, ROADMAP.md Queue 1 item 6)"),
         (getattr(args, "solver", "") == "gaussian_mixture",
          "--solver gaussian_mixture (ROADMAP.md Queue 1 item 9)"),
         (getattr(args, "dp", 0), "--dp (data-parallel restore: ROADMAP.md Queue 1 item 8)"),
@@ -196,7 +191,7 @@ def train_config_from(args) -> TrainConfig:
         checkpoint_dir=args.checkpoint_dir,
         consistency_mode=args.consistency,
         ema_decay=args.ema_decay,
-        fsdp=args.fsdp,
+        fsdp=getattr(args, "fsdp", False),
         data_workers=args.data_workers,
         cache_decoded=not args.no_cache_decoded,
         lr_override=args.lr,

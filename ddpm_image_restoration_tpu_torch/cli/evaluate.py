@@ -13,8 +13,10 @@ quality, with paired 95% CIs), a comparative table and example grids to
 It runs on the card unless `--device cpu` is passed. The weights come from
 a release npz (`--params-npz`), the port's own checkpoints
 (`--checkpoint-dir`, the best by val PSNR, else the latest; `--use-ema`) or
-`--random-init`. `--real` and `--consistency callback|host_loop` are
-parsed and refused (not ported yet).
+`--random-init`. `--real N` evaluates on N bundled photographic patches
+(the 'eval' split of data/real_patches.py, beside any `--synthetic`
+images); `--consistency callback|host_loop` projects through the exact
+host codec each step.
 """
 
 from __future__ import annotations
@@ -72,7 +74,9 @@ def main(argv=None):
                     help="synthetic generator (dead_leaves = natural-image-"
                          "statistics proxy: occluding power-law disks)")
     ap.add_argument("--real", type=int, default=0, metavar="N",
-                    help="real photographic patches (not ported yet: refused)")
+                    help="evaluate on N real photographic patches harvested from "
+                         "package-bundled photographs (-1 = all; the 'eval' split, "
+                         "disjoint from train --real patches)")
     ap.add_argument("--prediction", default="direct", choices=["direct", "residual"])
     ap.add_argument("--stride", type=int, default=1, help=">1 = reduced-step accelerated solver")
     ap.add_argument("--max-evals", type=int, default=0,
@@ -132,9 +136,21 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, qualities_override=tuple(args.qualities))
     model = build_restore_model(model_codec, args)
 
+    parts = []
     if args.synthetic:
-        ds = SyntheticImageDataset(args.synthetic, cfg.model.image_size,
-                                   seed=args.synthetic_seed, kind=args.synthetic_kind)
+        parts.append(SyntheticImageDataset(args.synthetic, cfg.model.image_size,
+                                           seed=args.synthetic_seed, kind=args.synthetic_kind))
+    if args.real:
+        from ddpm_image_restoration_tpu_torch.data.real_patches import RealPatchDataset
+
+        # the split's permutation keeps RealPatchDataset's default seed, the
+        # one the trainer's --real split uses, so the two never overlap
+        parts.append(RealPatchDataset(0 if args.real < 0 else args.real, cfg.model.image_size,
+                                      split="eval"))
+    if parts:
+        from ddpm_image_restoration_tpu_torch.data.real_patches import ConcatDataset
+
+        ds = parts[0] if len(parts) == 1 else ConcatDataset(*parts)
         test_idx = np.arange(len(ds))
     else:
         ds = ImageFolderDataset(args.data_dir, cfg.model.image_size)

@@ -13,8 +13,9 @@ It runs on the card unless `--device cpu` is passed. Files that share one
 (codec, quality) go through the sampler as one batch; otherwise each file is
 restored on its own, at its own detected codec and quality. `--size-mode
 tile` restores each file at its native size through overlapping tiles.
-`--consistency callback|host_loop`, `--solver gaussian_mixture`, `--dp` and
-`--sp` are parsed and refused (not ported yet).
+`--consistency callback|host_loop` projects through the exact host codec
+each step. `--solver gaussian_mixture`, `--dp` and `--sp` are parsed and
+refused (not ported yet).
 """
 
 from __future__ import annotations
@@ -102,7 +103,8 @@ def main(argv=None):
 
     def get_sampler(c: str) -> DDRMSampler:
         if c not in samplers:
-            samplers[c] = DDRMSampler(model, get_preset(c), codec_id=sampler_codec_id(model, c))
+            samplers[c] = DDRMSampler(model, get_preset(c), codec_id=sampler_codec_id(model, c),
+                                      consistency_mode=args.consistency)
         return samplers[c]
 
     if codec == "auto":

@@ -6,11 +6,13 @@
         --synthetic 400 --synthetic-kind natural --epochs 10 \
         --checkpoint-dir ./ckpt
 
-Runs on `--device` (default cuda; there is no fallback to the CPU). The
-flags of what the port has not implemented yet raise with a message:
-`--real`, `--fsdp`, `--remat`, `--consistency callback|host_loop` and
-`--auto-restart`. Every codec trains: `--codec all` is the unified model on
-mixed-codec batches.
+Runs on `--device` (default cuda; there is no fallback to the CPU). Every
+codec trains: `--codec all` is the unified model on mixed-codec batches.
+`--real N` adds bundled photographic patches (data/real_patches.py) to the
+training set, `--remat` rematerialises each UNet block in the backward,
+`--consistency callback|host_loop` validates through the exact host codec,
+and `--auto-restart N` resumes from the last checkpoint after a crash, up to
+N times. `--fsdp` raises: the port trains on one device.
 """
 
 from __future__ import annotations
@@ -18,13 +20,6 @@ from __future__ import annotations
 import argparse
 
 from ddpm_image_restoration_tpu_torch.cli.common import add_model_flags, train_config_from
-
-# Flags that select no config field; the trainer refuses the config values
-# it has not ported (train/loop.py check_supported).
-_NOT_PORTED = {
-    "real": "--real (bundled photographic patches: data/real_patches.py is not ported)",
-    "auto_restart": "--auto-restart (the crash-resume guard)",
-}
 
 
 def main(argv=None):
@@ -49,9 +44,15 @@ def main(argv=None):
                     help="train on N synthetic images instead of --data-dir")
     ap.add_argument("--synthetic-kind", default="waves",
                     choices=["waves", "dead_leaves", "natural", "mixed"])
-    ap.add_argument("--real", type=int, default=0, metavar="N")
-    ap.add_argument("--fsdp", action="store_true")
-    ap.add_argument("--remat", action="store_true")
+    ap.add_argument("--real", type=int, default=0, metavar="N",
+                    help="append N real photographic patches from package-bundled "
+                         "images to the training set (-1 = all; the 'train' split, "
+                         "disjoint from evaluate --real)")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="not ported: the port trains on one device (raises)")
+    ap.add_argument("--remat", action="store_true",
+                    help="rematerialise each UNet block in the backward (less "
+                         "activation memory, one more forward of each block)")
     ap.add_argument("--lr", type=float, default=0.0,
                     help="learning rate (0 = the codec preset's reference value)")
     ap.add_argument("--ema-decay", type=float, default=0.0,
@@ -61,11 +62,9 @@ def main(argv=None):
     ap.add_argument("--augment", action="store_true",
                     help="dihedral-8 augmentation of the clean image before degradation")
     ap.add_argument("--no-resume", action="store_true")
-    ap.add_argument("--auto-restart", type=int, default=0, metavar="N")
+    ap.add_argument("--auto-restart", type=int, default=0, metavar="N",
+                    help="on a crash, resume from the last checkpoint, up to N times")
     args = ap.parse_args(argv)
-    for flag, what in _NOT_PORTED.items():
-        if getattr(args, flag):
-            ap.error(f"{what} is not ported yet")
 
     cfg = train_config_from(args)
     dataset = None
@@ -74,10 +73,31 @@ def main(argv=None):
 
         dataset = SyntheticImageDataset(args.synthetic, cfg.model.image_size,
                                         kind=args.synthetic_kind)
+    if args.real:
+        from ddpm_image_restoration_tpu_torch.data.real_patches import (
+            ConcatDataset,
+            RealPatchDataset,
+        )
+
+        real = RealPatchDataset(0 if args.real < 0 else args.real, cfg.model.image_size,
+                                split="train", augment=True)
+        dataset = real if dataset is None else ConcatDataset(dataset, real)
 
     from ddpm_image_restoration_tpu_torch.train.loop import train_model
 
-    return train_model(cfg, dataset=dataset, resume=not args.no_resume, device=args.device)
+    attempts = 0
+    while True:
+        try:
+            return train_model(cfg, dataset=dataset, device=args.device,
+                               resume=not args.no_resume or attempts > 0)
+        except KeyboardInterrupt:
+            raise
+        except Exception as e:
+            attempts += 1
+            if attempts > args.auto_restart:
+                raise
+            print(f"training crashed ({type(e).__name__}: {e}); resuming from the last "
+                  f"checkpoint (attempt {attempts}/{args.auto_restart})", flush=True)
 
 
 if __name__ == "__main__":

@@ -190,8 +190,8 @@ class ModelConfig:
     # apply full self-attention only at/below this spatial size (reference applies it
     # everywhere, incl. 64x64 = 4096 tokens; set to >=image_size for exact parity)
     attn_max_resolution: int = 1024
-    # rematerialize each ResAttnBlock on the backward pass (training only;
-    # the port's inference path does not read it)
+    # rematerialize each ResAttnBlock on the backward pass (training only:
+    # a block runs under activation checkpointing only when grad is enabled)
     remat: bool = False
     # Unified multi-codec model (the 'all' preset): add a learned per-codec
     # embedding to the time embedding; model methods then REQUIRE a codec_id
@@ -232,10 +232,8 @@ class TrainConfig:
     """Training knobs, field for field the JAX package's `TrainConfig`.
 
     The port's trainer (train/loop.py) runs on one device and refuses what it
-    does not implement yet: `fsdp`, a `consistency_mode` other than
-    'surrogate' and a `mesh_shape`/`mesh_axes` other than the default.
-    `viz_every` is kept for parity; the trainer draws no restoration grids
-    yet."""
+    does not implement yet: `fsdp` and a `mesh_shape`/`mesh_axes` other
+    than the default."""
 
     codec: str = "webp"
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
@@ -263,7 +261,8 @@ class TrainConfig:
     split_fracs: Tuple[float, float, float] = (0.8, 0.1, 0.1)
     split_seed: int = 42
     # consistency step inside the validation sampler: 'surrogate' (the
-    # on-device codec approximation) is the one the port implements
+    # on-device codec approximation), or 'callback'/'host_loop' (the exact
+    # host codec each step; the same thing in the port's eager loop)
     consistency_mode: str = "surrogate"
     # parallelism (the port trains on one device: only the defaults)
     mesh_shape: Tuple[int, ...] = (-1,)

@@ -5,7 +5,7 @@ Per reverse step i (descending, t = i/steps), as in the reference
 (webp_training.py:424-473):
 
     x̂  = model(x_t, t, t)
-    ĉ  = codec_surrogate(x̂, quality)
+    ĉ  = codec_surrogate(x̂, quality)      (or the exact host codec)
     x'  = x̂ - ĉ + y
     not last:  x_t = η_b·x' + (1-η_b)·x̂ + η·N(0, (noise_scale·t)²), and
                every `phase_period` steps while quality < threshold,
@@ -17,13 +17,17 @@ eagerly, so here it is a Python loop over solver slots with the same step
 algebra. Encoder reuse k > 1 encodes on every k-th slot and decodes from the
 cached features in between, which is the JAX package's scan over groups of k
 steps plus its tail; decoder reuse caches the deep decoder stages over the
-same groups. The traced-budget solver (the JAX package's `_build_budget`)
-gives each sample its own step indices in a fixed number of slots, with
-per-sample masks; its schedule is host data here, so its branches cost no
-wait on the card. Sampler statistics stay f32 whatever the model's compute
-dtype. Noise comes from a `torch.Generator`, so at eta > 0 the
-samples differ from the JAX package's; at eta 0 (the production policy) the
-two agree.
+same groups. `DDRMSampler.run` is that loop alone (the JAX package's
+`build_run`): differentiable under grad, with each group optionally under
+activation checkpointing, which is what solver distillation trains the
+student through (train/distill.py); `sample` is `run` without grad plus
+the exact final projection and the protection blends. The traced-budget
+solver (the JAX package's `_build_budget`) gives each sample its own step
+indices in a fixed number of slots, with per-sample masks; its schedule is
+host data here, so its branches cost no wait on the card. Sampler
+statistics stay f32 whatever the model's compute dtype. Noise comes from a
+`torch.Generator`, so at eta > 0 the samples differ from the JAX package's;
+at eta 0 (the production policy) the two agree.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import torch.nn.functional as F
 
 from ddpm_image_restoration_tpu_torch.codecs.surrogate import codec_surrogate, interp
 from ddpm_image_restoration_tpu_torch.config import CodecPreset
+from ddpm_image_restoration_tpu_torch.utils.remat import checkpoint
 
 
 def phase_consistency(x: torch.Tensor, ref: torch.Tensor, alpha: float) -> torch.Tensor:
@@ -177,8 +182,12 @@ def _ddrm_update(x_theta, c, y, t, last: np.ndarray, last_d: torch.Tensor,
     return x_next
 
 
+CONSISTENCY_MODES = ("surrogate", "callback", "host_loop")
+
+
 class DDRMSampler:
-    """DDRM-codec restoration with the on-device codec surrogate.
+    """DDRM-codec restoration with the on-device codec surrogate, or the
+    exact host codec each step.
 
     Example:
         sampler = DDRMSampler(model, preset)
@@ -186,17 +195,29 @@ class DDRMSampler:
     """
 
     def __init__(self, model, preset: CodecPreset, codec_id: Optional[int] = None,
-                 prediction: str = "direct"):
+                 prediction: str = "direct", consistency_mode: str = "surrogate"):
         """`codec_id`: conditioning index (config.codec_index) for a unified
         multi-codec model; the target codec's preset goes with it.
         `prediction='direct'` takes the model output as x̂ itself (the
-        reference's sampling convention); 'residual' adds x_t to it first."""
+        reference's sampling convention); 'residual' adds x_t to it first.
+
+        `consistency_mode` is the codec round-trip of each step: 'surrogate'
+        (`codec_surrogate` on the model's device, differentiable), or
+        'callback' / 'host_loop', the exact host codec (Pillow) on x̂ each
+        step. The JAX package runs its solver as one compiled program and so
+        needs two execution shapes for the host codec (a callback inside the
+        program, or a host loop around per-step programs); the port's loop
+        is eager and already on the host, so the two modes are one code path
+        and give identical samples."""
         if prediction not in ("direct", "residual"):
             raise ValueError(prediction)
+        if consistency_mode not in CONSISTENCY_MODES:
+            raise ValueError(f"unknown consistency mode {consistency_mode!r}")
         self.model = model
         self.preset = preset
         self.codec_id = codec_id
         self.prediction = prediction
+        self.consistency_mode = consistency_mode
 
     def _schedule(self, steps, stride: int, q_host: np.ndarray, encoder_reuse: int,
                   traced_budget: int):
@@ -228,12 +249,105 @@ class DDRMSampler:
                  & (idx % preset.phase_period == 0) & (idx > 0))
         return idx, used, last, t, phase
 
+    def _consistency(self, x: torch.Tensor, q_vec: torch.Tensor,
+                     q_host: np.ndarray) -> torch.Tensor:
+        """codec(x̂): the surrogate on x's device, or the host codec."""
+        if self.consistency_mode == "surrogate":
+            return codec_surrogate(x, q_vec, codec=self.preset.name).float()
+        from ddpm_image_restoration_tpu_torch.codecs.pil_codecs import compress_batch
+
+        c = compress_batch(x.detach().cpu().numpy(), self.preset.name, q_host)
+        return torch.as_tensor(c, dtype=torch.float32, device=x.device)
+
+    def run(self, y: torch.Tensor, quality, steps, stride: int = 1, encoder_reuse: int = 1,
+            decoder_reuse_depth: int = 0, traced_budget: int = 0,
+            eta: Optional[float] = None, eta_b: Optional[float] = None,
+            generator: Optional[torch.Generator] = None, remat: bool = False):
+        """The solver loop alone: (x_t, x̂) after the last slot, where x_t is
+        the last step's consistency projection (through the surrogate in
+        'surrogate' mode; no exact final projection) and x̂ the last model
+        output. The arguments are `sample`'s. The JAX package's `build_run`
+        returns the first of the two.
+
+        It leaves grad mode as it finds it, so under grad it is
+        differentiable end to end in 'surrogate' mode (the surrogate's
+        rounding is straight-through); a host-codec mode under grad raises,
+        since the host codec has no gradient. `remat=True` runs each
+        encoder-reuse group (each solver step at encoder reuse 1; the last,
+        shorter group is the JAX package's tail) under activation
+        checkpointing, so the backward keeps one group's activations at a
+        time instead of every step's, at the cost of a second forward of
+        each group; the noise generator is replayed in the recompute."""
+        if encoder_reuse < 1:
+            raise ValueError("encoder_reuse must be >= 1")
+        if decoder_reuse_depth < 0:
+            raise ValueError("decoder_reuse_depth must be >= 0")
+        if decoder_reuse_depth and encoder_reuse == 1:
+            raise ValueError(
+                "decoder_reuse_depth requires encoder_reuse > 1 (the deep "
+                "decoder is cached per encoder-reuse group)"
+            )
+        if torch.is_grad_enabled() and self.consistency_mode != "surrogate":
+            raise ValueError(
+                f"a differentiable run needs the 'surrogate' consistency mode: the "
+                f"host codec of {self.consistency_mode!r} has no gradient")
+        preset, model, cond, depth = self.preset, self.model, self.codec_id, decoder_reuse_depth
+        eta = preset.eta if eta is None else eta
+        eta_b = preset.eta_b if eta_b is None else eta_b
+        b = y.shape[0]
+        y = y.float()
+        q_host = np.broadcast_to(np.asarray(quality, np.float32).reshape(-1), (b,))
+        q_vec = torch.tensor(q_host, device=y.device)
+        if torch.is_tensor(steps):
+            steps = steps.cpu().numpy()
+        idx, used, last, t_host, phase = self._schedule(steps, stride, q_host, encoder_reuse,
+                                                        traced_budget)
+        used_d, last_d, phase_d, t_all = (torch.from_numpy(np.ascontiguousarray(a)).to(y.device)
+                                          for a in (used, last, phase, t_host))
+
+        def group(x_t, x_theta, first, stop):
+            """Slots first..stop-1: one encode (and deep decode) at the
+            first slot's t, then a decode and an update per slot."""
+            t0 = t_all[first]
+            feats = model.encode(x_t, t0, t0, codec_id=cond)
+            if depth:
+                deep = model.decode_deep(feats, t0, t0, depth=depth, codec_id=cond)
+            for p in range(first, stop):
+                t = t_all[p]
+                if depth:
+                    x_new = model.decode_shallow(deep, feats[0], t, t, depth=depth,
+                                                 codec_id=cond)
+                else:
+                    x_new = model.decode(feats, t, t, codec_id=cond)
+                x_new = x_new.float()
+                if self.prediction == "residual":
+                    x_new = x_t + x_new
+                c = self._consistency(x_new, q_vec, q_host)
+                x_next = _ddrm_update(x_new, c, y, t, last[p], last_d[p], phase[p], phase_d[p],
+                                      eta, eta_b, preset, generator)
+                if used[p].all():
+                    x_t, x_theta = x_next, x_new
+                else:
+                    u = _lanes(used_d[p])
+                    x_t, x_theta = torch.where(u, x_next, x_t), torch.where(u, x_new, x_theta)
+            return x_t, x_theta
+
+        x_t = x_theta = y
+        for first in range(0, len(idx), encoder_reuse):
+            stop = min(first + encoder_reuse, len(idx))
+            if remat:
+                x_t, x_theta = checkpoint(group, x_t, x_theta, first, stop,
+                                          generators=(generator,))
+            else:
+                x_t, x_theta = group(x_t, x_theta, first, stop)
+        return x_t, x_theta
+
     @torch.no_grad()
     def sample(self, y: torch.Tensor, quality, steps, eta: Optional[float] = None,
                eta_b: Optional[float] = None, stride: int = 1,
                protect: Optional[tuple] = None, protect_adaptive=None,
                encoder_reuse: int = 1, decoder_reuse_depth: int = 0,
-               final_exact: bool = True, traced_budget: int = 0,
+               final_exact: Optional[bool] = None, traced_budget: int = 0,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Restore the NHWC observation y in [-1,1] at codec `quality` (a
         scalar or a per-sample [B] vector).
@@ -254,65 +368,27 @@ class DDRMSampler:
         it would be restored alone.
 
         `final_exact` recomputes the final projection x' = x̂ − codec(x̂) + y
-        with the exact host codec (needs Pillow). `protect` = (lo, hi)
-        applies `quality_gated_blend`, then `protect_adaptive` = beta applies
-        `residual_trust_blend`.
+        with the exact host codec (needs Pillow); None (the default) means
+        on in 'surrogate' mode, and the host-codec modes never need it,
+        their last step having projected through that codec already.
+        `protect` = (lo, hi) applies `quality_gated_blend`, then
+        `protect_adaptive` = beta applies `residual_trust_blend`.
         """
-        if encoder_reuse < 1:
-            raise ValueError("encoder_reuse must be >= 1")
-        if decoder_reuse_depth < 0:
-            raise ValueError("decoder_reuse_depth must be >= 0")
-        if decoder_reuse_depth and encoder_reuse == 1:
-            raise ValueError(
-                "decoder_reuse_depth requires encoder_reuse > 1 (the deep "
-                "decoder is cached per encoder-reuse group)"
-            )
-        preset, model, cond, depth = self.preset, self.model, self.codec_id, decoder_reuse_depth
-        eta = preset.eta if eta is None else eta
-        eta_b = preset.eta_b if eta_b is None else eta_b
-        b = y.shape[0]
+        out, x_theta = self.run(y, quality, steps, stride, encoder_reuse, decoder_reuse_depth,
+                                traced_budget, eta, eta_b, generator)
         y = y.float()
-        q_host = np.broadcast_to(np.asarray(quality, np.float32).reshape(-1), (b,))
+        q_host = np.broadcast_to(np.asarray(quality, np.float32).reshape(-1), (y.shape[0],))
         q_vec = torch.tensor(q_host, device=y.device)
-        if torch.is_tensor(steps):
-            steps = steps.cpu().numpy()
-        idx, used, last, t_host, phase = self._schedule(steps, stride, q_host, encoder_reuse,
-                                                        traced_budget)
-        used_d, last_d, phase_d, t_all = (torch.from_numpy(np.ascontiguousarray(a)).to(y.device)
-                                          for a in (used, last, phase, t_host))
-
-        x_t = x_theta = y
-        for p in range(len(idx)):
-            t = t_all[p]
-            if p % encoder_reuse == 0:
-                feats = model.encode(x_t, t, t, codec_id=cond)
-                if depth:
-                    deep = model.decode_deep(feats, t, t, depth=depth, codec_id=cond)
-            if depth:
-                x_new = model.decode_shallow(deep, feats[0], t, t, depth=depth, codec_id=cond)
-            else:
-                x_new = model.decode(feats, t, t, codec_id=cond)
-            x_new = x_new.float()
-            if self.prediction == "residual":
-                x_new = x_t + x_new
-            c = codec_surrogate(x_new, q_vec, codec=preset.name).float()
-            x_next = _ddrm_update(x_new, c, y, t, last[p], last_d[p], phase[p], phase_d[p],
-                                  eta, eta_b, preset, generator)
-            if used[p].all():
-                x_t, x_theta = x_next, x_new
-            else:
-                u = _lanes(used_d[p])
-                x_t, x_theta = torch.where(u, x_next, x_t), torch.where(u, x_new, x_theta)
-
-        out = x_t
-        if final_exact:
+        if final_exact is None:
+            final_exact = self.consistency_mode == "surrogate"
+        if final_exact and self.consistency_mode == "surrogate":
             from ddpm_image_restoration_tpu_torch.codecs.pil_codecs import compress_batch
 
-            c_real = compress_batch(x_theta.cpu().numpy(), preset.name, q_host)
+            c_real = compress_batch(x_theta.cpu().numpy(), self.preset.name, q_host)
             out = x_theta - torch.as_tensor(c_real, device=y.device) + y
         if protect is not None:
             lo, hi = protect
             out = quality_gated_blend(out, y, q_vec, float(lo), float(hi))
         if protect_adaptive is not None:
-            out = residual_trust_blend(out, y, q_vec, preset.name, beta=protect_adaptive)
+            out = residual_trust_blend(out, y, q_vec, self.preset.name, beta=protect_adaptive)
         return out

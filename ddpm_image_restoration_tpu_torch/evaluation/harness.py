@@ -99,9 +99,6 @@ def evaluate_restoration(
     (diffusion/policy.py); `max_evals` derives the stride per quality;
     `traced=True` (needs a budget) runs the traced-budget solver. Each
     override is recorded in the summary."""
-    if cfg.consistency_mode != "surrogate":
-        raise NotImplementedError(
-            f"consistency mode {cfg.consistency_mode!r} is not ported yet; use 'surrogate'")
     preset = cfg.preset
     if phase_threshold is not None:
         preset = dataclasses.replace(preset, phase_quality_threshold=int(phase_threshold))
@@ -113,10 +110,10 @@ def evaluate_restoration(
     # unified ('all') models: condition on the TARGET codec while the
     # sampler uses that codec's own preset
     codec_id = codec_index(preset.name) if model.cfg.codec_conditioning else None
-    sampler = DDRMSampler(model, preset, codec_id=codec_id, prediction=prediction)
+    sampler = DDRMSampler(model, preset, codec_id=codec_id, prediction=prediction,
+                          consistency_mode=cfg.consistency_mode)
     lpips_fn = LPIPS(device=dev)
     extractor = default_feature_extractor(dev) if cfg.compute_fid else None
-    exact = True if final_exact is None else bool(final_exact)
 
     # Fréchet statistics from per-batch features: the originals' once, then
     # per quality only [N, D] feature blocks accumulate
@@ -165,7 +162,7 @@ def evaluate_restoration(
                 sampler, torch.as_tensor(y_in, device=dev), quality, init_t,
                 n_transforms=ensemble, stride=stride, protect=q_protect,
                 protect_adaptive=protect_adaptive, encoder_reuse=q_enc_reuse,
-                decoder_reuse_depth=decoder_reuse_depth, final_exact=exact,
+                decoder_reuse_depth=decoder_reuse_depth, final_exact=final_exact,
                 traced_budget=q_traced_budget, eta=q_eta, eta_b=eta_b,
                 generator=generator)[:n_valid]
             n_restored += n_valid

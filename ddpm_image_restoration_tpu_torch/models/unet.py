@@ -37,6 +37,7 @@ from ddpm_image_restoration_tpu_torch.models.time_embedding import TimeEmbedding
 from ddpm_image_restoration_tpu_torch.ops.attention import spatial_attention
 from ddpm_image_restoration_tpu_torch.ops.dct import adjusted_group_count, spatial_block_dct
 from ddpm_image_restoration_tpu_torch.ops.resize import max_pool_2x, upsample_2x_bilinear
+from ddpm_image_restoration_tpu_torch.utils.remat import checkpoint
 
 _GN_EPS = 1e-6  # Flax GroupNorm's epsilon
 
@@ -101,12 +102,18 @@ class ResAttnBlock(nn.Module):
     self-attention (residual, only at resolution <= cfg.attn_max_resolution)
     -> frequency module (the AVIF block when the preset has the adaptive
     transform, else the DCT block) -> shortcut(x) + h
-    (webp_training.py:273-327)."""
+    (webp_training.py:273-327).
+
+    With `cfg.remat` (the JAX package's `nn.remat(ResAttnBlock)`) a call
+    made with grad enabled keeps only the block's inputs and recomputes its
+    body in the backward; the recompute replays the dropout generator, so
+    it draws the forward's mask."""
 
     def __init__(self, in_channels: int, out_channels: int, resolution: int,
                  preset: CodecPreset, cfg: ModelConfig):
         super().__init__()
         self.dtype = getattr(torch, cfg.compute_dtype)
+        self.remat = cfg.remat
         self.norm1 = _group_norm(in_channels)
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
         self.time_proj = nn.Linear(cfg.time_dim, out_channels)
@@ -134,6 +141,14 @@ class ResAttnBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, t_emb: torch.Tensor,
                 compression_level: torch.Tensor) -> torch.Tensor:
+        if self.remat and torch.is_grad_enabled():
+            drop = self.dropout
+            gen = drop.generator if drop.training and drop.rate else None
+            return checkpoint(self._body, x, t_emb, compression_level, generators=(gen,))
+        return self._body(x, t_emb, compression_level)
+
+    def _body(self, x: torch.Tensor, t_emb: torch.Tensor,
+              compression_level: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         h = self.conv1(self.norm1(x.float()).to(dt))
         h = h + self.time_proj(t_emb.to(dt))[:, :, None, None]

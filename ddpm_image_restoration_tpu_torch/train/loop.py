@@ -1,23 +1,25 @@
-"""The training driver: epochs, validation by restoration, checkpoints
-(port of train/loop.py).
+"""The training driver: epochs, validation by restoration, checkpoints,
+training curves and restoration grids (port of train/loop.py).
 
 As in the JAX package (train_model_ddrm_* webp_training.py:773-822):
   * per-epoch training under the quality curriculum (in the data pipeline);
   * per-epoch validation that runs the full DDRM sampler at the preset's
     val qualities from init_t = clamp((100−q)/100·steps, ...) and reports
     PSNR/SSIM (webp_training.py:540-599), on the EMA weights when the EMA is
-    on (the weights that serving loads);
+    on (the weights that serving loads); a distilled student validates at
+    its own evaluation budget (`n_eval`);
   * checkpoints on a new best val PSNR and every 10 epochs, at most every
     `ckpt_min_interval` epochs, and always after the last epoch, with true
-    resume.
+    resume;
+  * the training curves every epoch and a restoration grid every
+    `viz_every` epochs (utils/viz.py; without matplotlib they warn and are
+    skipped, but the grid's restore still runs).
 
 Every codec preset trains: 'jpeg', 'webp', 'avif' and the unified 'all'
 model (per-sample mixed-codec batches, validated across the three codecs).
 The port trains on one device, eagerly: batches stream from the host
-degradation pipeline while the card runs the previous step. It does not yet
-draw the JAX package's training curves and restoration grids (matplotlib),
-and it refuses what it has not ported: FSDP or any mesh, remat, and the
-'callback'/'host_loop' consistency modes.
+degradation pipeline while the card runs the previous step. It refuses FSDP
+and meshes, which it has not ported.
 """
 
 from __future__ import annotations
@@ -30,7 +32,10 @@ import numpy as np
 import torch
 
 from ddpm_image_restoration_tpu_torch.codecs.pil_codecs import compress_batch
-from ddpm_image_restoration_tpu_torch.codecs.quality import init_timestep_for_quality
+from ddpm_image_restoration_tpu_torch.codecs.quality import (
+    init_timestep_for_quality,
+    student_stride,
+)
 from ddpm_image_restoration_tpu_torch.config import CODECS, TrainConfig, codec_index, get_preset
 from ddpm_image_restoration_tpu_torch.data.dataset import (
     ImageFolderDataset,
@@ -45,6 +50,7 @@ from ddpm_image_restoration_tpu_torch.models import build_model
 from ddpm_image_restoration_tpu_torch.train.checkpoint import CheckpointManager
 from ddpm_image_restoration_tpu_torch.train.steps import create_train_state, make_train_step
 from ddpm_image_restoration_tpu_torch.utils.logging import MetricLogger
+from ddpm_image_restoration_tpu_torch.utils.viz import save_restoration_grid, save_training_curves
 
 
 def check_supported(cfg: TrainConfig) -> None:
@@ -52,28 +58,26 @@ def check_supported(cfg: TrainConfig) -> None:
     if cfg.fsdp or tuple(cfg.mesh_shape) != (-1,) or tuple(cfg.mesh_axes) != ("data",):
         raise NotImplementedError("FSDP and meshes are not ported yet: the port trains "
                                   "on one device")
-    if cfg.model.remat:
-        raise NotImplementedError("remat (activation rematerialisation) is not ported yet")
-    if cfg.consistency_mode != "surrogate":
-        raise NotImplementedError(
-            f"consistency mode {cfg.consistency_mode!r} is not ported yet; use 'surrogate'")
 
 
-def unified_samplers(model) -> Dict[str, DDRMSampler]:
+def unified_samplers(model, consistency_mode: str = "surrogate") -> Dict[str, DDRMSampler]:
     """One DDRMSampler per real codec for a unified ('all') model: each pairs
     that codec's preset (sampler constants and consistency codec) with its
     conditioning id."""
-    return {c: DDRMSampler(model, get_preset(c), codec_id=codec_index(c)) for c in CODECS}
+    return {c: DDRMSampler(model, get_preset(c), codec_id=codec_index(c),
+                           consistency_mode=consistency_mode) for c in CODECS}
 
 
 def validate_by_restoration(model, cfg: TrainConfig, val_images: np.ndarray,
-                            sampler=None,
-                            generator: Optional[torch.Generator] = None) -> Dict[str, float]:
+                            sampler=None, generator: Optional[torch.Generator] = None,
+                            n_eval: Optional[int] = None) -> Dict[str, float]:
     """Full-sampler validation at the preset's val qualities
     (validate_ddrm_* webp_training.py:540-599) with `model`'s weights, in
-    eval mode. The sampler's noise (eta > 0) comes from `generator`
-    (default: seed 0 on the model's device), so it is not the JAX package's
-    noise; the metrics are.
+    eval mode, through `cfg.consistency_mode`. The sampler's noise (eta > 0)
+    comes from `generator` (default: seed 0 on the model's device), so it is
+    not the JAX package's noise; the metrics are. `n_eval` caps the model
+    evaluations per restore (a distilled student's budget): the stride is
+    `student_stride(init_t, n_eval)` per quality.
 
     Unified ('all') training validates across codecs instead of across
     qualities: one restore per real codec at that codec's middle val
@@ -84,25 +88,27 @@ def validate_by_restoration(model, cfg: TrainConfig, val_images: np.ndarray,
     generator = generator or torch.Generator(device=dev).manual_seed(0)
     x0 = torch.as_tensor(val_images, device=dev)
     if preset.name == "all":
-        samplers = sampler if isinstance(sampler, dict) else unified_samplers(model)
+        samplers = (sampler if isinstance(sampler, dict)
+                    else unified_samplers(model, cfg.consistency_mode))
         cases = [(s, c, s.preset.val_qualities[len(s.preset.val_qualities) // 2])
                  for c, s in samplers.items()]
     else:
-        one = sampler or DDRMSampler(model, preset)
+        one = sampler or DDRMSampler(model, preset, consistency_mode=cfg.consistency_mode)
         cases = [(one, preset.name, q) for q in preset.val_qualities]
     model.eval()
     totals = {"psnr": 0.0, "ssim": 0.0}
     for smp, codec_name, quality in cases:
         y = torch.as_tensor(compress_batch(val_images, codec_name, quality), device=dev)
         init_t = init_timestep_for_quality(quality, cfg.steps, smp.preset)
-        restored = smp.sample(y, quality, init_t, generator=generator)
+        stride = 1 if n_eval is None else student_stride(init_t, n_eval)
+        restored = smp.sample(y, quality, init_t, stride=stride, generator=generator)
         totals["psnr"] += float(psnr(restored, x0))
         totals["ssim"] += float(ssim_metric(restored, x0))
     n = len(cases)
     return {"val_psnr": totals["psnr"] / n, "val_ssim": totals["ssim"] / n}
 
 
-def _to_device(batch: Dict[str, np.ndarray], dev: torch.device) -> Dict[str, torch.Tensor]:
+def to_device(batch: Dict[str, np.ndarray], dev: torch.device) -> Dict[str, torch.Tensor]:
     """Host batch -> device tensors; on a card through pinned memory with
     asynchronous copies, so the host does not wait for the running step."""
     if dev.type != "cuda":
@@ -111,7 +117,7 @@ def _to_device(batch: Dict[str, np.ndarray], dev: torch.device) -> Dict[str, tor
             for k, v in batch.items()}
 
 
-def _sync(dev: torch.device) -> None:
+def sync_device(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
 
@@ -178,8 +184,12 @@ def train_model(cfg: TrainConfig, dataset=None, epochs: Optional[int] = None,
     # Validation runs on the EMA weights when the EMA is on: a second model
     # holds them, in the model's dtypes.
     eval_model = build_model(cfg.codec, cfg.model, device=dev) if cfg.ema_decay > 0 else model
-    sampler = (unified_samplers(eval_model) if cfg.codec == "all"
-               else DDRMSampler(eval_model, preset))
+    if cfg.codec == "all":
+        sampler = unified_samplers(eval_model, cfg.consistency_mode)
+        viz_sampler = sampler["webp"]  # one codec for the epoch grids
+    else:
+        sampler = viz_sampler = DDRMSampler(eval_model, preset,
+                                            consistency_mode=cfg.consistency_mode)
     generator = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
     # best_psnr tracks the best SAVED checkpoint, so a save skipped by
     # ckpt_min_interval is retried once the interval has passed.
@@ -191,11 +201,11 @@ def train_model(cfg: TrainConfig, dataset=None, epochs: Optional[int] = None,
         losses = []
         t_warm = None
         for batch in loader.epoch(epoch):
-            losses.append(train_step(state, _to_device(batch, dev), generator)["loss"])
+            losses.append(train_step(state, to_device(batch, dev), generator)["loss"])
             if t_warm is None:
-                _sync(dev)
+                sync_device(dev)
                 t_warm = time.perf_counter()
-        _sync(dev)
+        sync_device(dev)
         timed = {}
         if len(losses) > 1:
             timed["step_ms"] = 1e3 * (time.perf_counter() - t_warm) / (len(losses) - 1)
@@ -216,4 +226,25 @@ def train_model(cfg: TrainConfig, dataset=None, epochs: Optional[int] = None,
             last_save_epoch = epoch
             ckpt.save(epoch, state, {"epoch": epoch, **val})
 
+        save_training_curves(os.path.join(cfg.checkpoint_dir, "curves", "training.png"),
+                             logger.history)
+        if epoch % cfg.viz_every == 0:
+            save_grid(viz_sampler, cfg, val_images, epoch)
+
     return state, logger.history
+
+
+def save_grid(sampler: DDRMSampler, cfg: TrainConfig, val_images: np.ndarray,
+              epoch: int) -> None:
+    """Restore the validation images at the sampler preset's lowest val
+    quality (full solver) and save original / compressed / restored as
+    `<checkpoint_dir>/viz/epoch_<epoch>.png`."""
+    vp = sampler.preset
+    q = vp.val_qualities[0]
+    dev = sampler.model.out_conv.weight.device
+    y = compress_batch(val_images, vp.name, q)
+    restored = sampler.sample(torch.as_tensor(y, device=dev), q,
+                              init_timestep_for_quality(q, cfg.steps, vp),
+                              generator=torch.Generator(device=dev).manual_seed(0))
+    save_restoration_grid(os.path.join(cfg.checkpoint_dir, "viz", f"epoch_{epoch:04d}.png"),
+                          val_images, y, restored.cpu().numpy(), quality=q)

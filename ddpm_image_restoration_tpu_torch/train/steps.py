@@ -171,7 +171,7 @@ def update_ema(state: TrainState, decay: float) -> None:
         torch._foreach_add_(ema, [state.params[n] for n in names], alpha=1.0 - d)
 
 
-def _grads(model: nn.Module) -> Dict[str, torch.Tensor]:
+def param_grads(model: nn.Module) -> Dict[str, torch.Tensor]:
     """Each parameter's gradient as f32 (zeros for a parameter the loss
     did not reach, as `jax.grad` gives)."""
     return {n: (torch.zeros_like(p, dtype=torch.float32) if p.grad is None else p.grad.float())
@@ -198,7 +198,7 @@ def make_train_step(model: nn.Module, cfg: TrainConfig) -> Callable:
         pred = m(batch["xt"], t_norm, t_norm, codec_id=batch.get("codec_id"))
         loss = loss_fn(batch["xt"] + pred, batch["x0"])
         loss.backward()
-        g_norm = apply_gradients(state, _grads(m))
+        g_norm = apply_gradients(state, param_grads(m))
         if cfg.ema_decay > 0:
             update_ema(state, cfg.ema_decay)
         return {"loss": loss.detach(), "grad_norm": g_norm}

@@ -106,3 +106,100 @@ def test_image_folder(tmp_path):
     (tmp_path / "empty").mkdir()
     with pytest.raises(ValueError, match="no images"):
         ImageFolderDataset(str(tmp_path / "empty"), 16)
+
+
+@pytest.mark.parametrize("dither", [False, True])
+def test_forward_process_identical(dither):
+    """`forward_process` of both packages on the same batch, timesteps and
+    seeded dither: the same degraded batch and qualities."""
+    from ddpm_image_restoration_tpu.diffusion.forward import forward_process as j_forward
+    from ddpm_image_restoration_tpu_torch.diffusion.forward import forward_process
+
+    x0 = np.stack([SyntheticImageDataset(4, 16)[i] for i in range(4)])
+    t = np.array([1, 30, 64, 99])
+    for codec in ("jpeg", "webp"):
+        got = forward_process(x0, t, 100, codec, (10, 90), np.random.default_rng(3), dither)
+        want = j_forward(x0, t, 100, codec, (10, 90), np.random.default_rng(3), dither)
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_array_equal(got[0], want[0])
+        assert got[0].dtype == np.float32
+
+
+def _bundled_photos():
+    from ddpm_image_restoration_tpu_torch.data.real_patches import bundled_source_paths
+
+    paths = bundled_source_paths()
+    if not paths:
+        pytest.skip("no bundled photographs here (matplotlib, sklearn and pygame ship them)")
+    return paths
+
+
+@pytest.mark.parametrize("split,augment,n", [("train", True, 0), ("eval", False, 0),
+                                             ("all", False, 37)])
+def test_real_patches_identical(split, augment, n):
+    """`RealPatchDataset` of both packages, item by item (the same source
+    list, region split, tiling, shuffle and dihedral transforms); skipped
+    where no bundled photograph is installed."""
+    from ddpm_image_restoration_tpu.data.real_patches import (
+        RealPatchDataset as JReal,
+        bundled_source_paths as j_sources,
+    )
+    from ddpm_image_restoration_tpu_torch.data.real_patches import RealPatchDataset
+
+    assert _bundled_photos() == j_sources()
+    got = RealPatchDataset(n, 32, split=split, augment=augment)
+    want = JReal(n, 32, split=split, augment=augment)
+    assert len(got) == len(want) > 0 and (n == 0 or len(got) == n)
+    for i in range(len(got)):
+        np.testing.assert_array_equal(got[i], want[i])
+    with pytest.raises(ValueError):
+        RealPatchDataset(2, 32, split="test")
+
+
+def test_concat_dataset_identical():
+    """`ConcatDataset` of synthetic images and real patches in both packages:
+    the same length and items (negative indices included), and the same
+    refusals."""
+    from ddpm_image_restoration_tpu.data.real_patches import (
+        ConcatDataset as JConcat,
+        RealPatchDataset as JReal,
+    )
+    from ddpm_image_restoration_tpu_torch.data.real_patches import (
+        ConcatDataset,
+        RealPatchDataset,
+    )
+
+    _bundled_photos()
+    got = ConcatDataset(SyntheticImageDataset(3, 32), RealPatchDataset(4, 32, split="eval"))
+    want = JConcat(JSynthetic(3, 32), JReal(4, 32, split="eval"))
+    assert len(got) == len(want) == 7
+    for i in [*range(7), -1, -7]:
+        np.testing.assert_array_equal(got[i], want[i])
+    for bad in (7, -8):
+        with pytest.raises(IndexError):
+            got[bad]
+    with pytest.raises(ValueError, match="image sizes"):
+        ConcatDataset(SyntheticImageDataset(1, 16), RealPatchDataset(1, 32))
+    with pytest.raises(ValueError):
+        ConcatDataset()
+
+
+def test_cli_real_patches(tmp_path):
+    """`--real`, which both CLIs refused before: the trainer appends real
+    'train' patches to the synthetic set, the evaluator evaluates on 'eval'
+    patches beside synthetic images (width/16 at 32², the CPU)."""
+    from ddpm_image_restoration_tpu_torch.cli.evaluate import main as evaluate_main
+    from ddpm_image_restoration_tpu_torch.cli.train import main as train_main
+
+    _bundled_photos()
+    flags = ["--device", "cpu", "--image-size", "32", "--width-scale", "16", "--attn-max-res",
+             "16", "--steps", "20"]
+    state, hist = train_main([*flags, "--synthetic", "2", "--real", "6", "--epochs", "1",
+                              "--batch-size", "8", "--data-workers", "1",
+                              "--checkpoint-dir", str(tmp_path / "ck")])
+    # 2 synthetic + 6 patches x 8 dihedral variants = 50 images: 40 train, 5 steps of 8
+    assert state.step == 5 and np.isfinite(hist["loss"]).all()
+    summary = evaluate_main([*flags, "--random-init", "--synthetic", "1", "--real", "3",
+                             "--qualities", "30", "--max-evals", "2", "--batch-size", "4",
+                             "--no-fid", "--output-dir", str(tmp_path / "ev")])
+    assert summary["num_images"] == 4 and summary["results"]["30"]["n"] == 4

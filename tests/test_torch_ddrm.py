@@ -3,6 +3,7 @@ production setting, on the same npz weights (MINI and TINY5, f32, CPU): the
 static schedule, decoder reuse and the traced-budget solver; and its helpers
 against theirs."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -186,3 +187,129 @@ def test_traced_budget_uniform_batch_equals_static(mini):
             traced = s.sample(yt, q, init_t, traced_budget=4, **kw)
             np.testing.assert_allclose(traced.numpy(), static.numpy(), atol=1e-6,
                                        err_msg=f"enc={enc} q={q}")
+
+
+def _grads_of(model, loss):
+    """The parameters' gradients of `loss` (the model's grads cleared
+    first, and again after), keyed by name."""
+    for p in model.parameters():
+        p.grad = None
+    loss.backward()
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    for p in model.parameters():
+        p.grad = None
+    return grads
+
+
+@pytest.mark.parametrize("encoder_reuse", [1, 2])
+def test_run_and_its_gradients_match_jax(mini, encoder_reuse):
+    """`DDRMSampler.run` against the JAX package's `build_run` at q30 over
+    20 steps at stride 19 (2 evaluations, t = 19/20 and 0: each a step of
+    its own, or one encoder-reuse group of 2): the surrogate-projected x_t,
+    no exact final projection, atol 1e-5. Then every parameter's gradient
+    of mean((run(y) - x0)²) against `jax.grad` of the same through
+    `build_run`, within 1e-4 of the largest entry."""
+    from tests._torch_parity import as_jax_layout, flatten_jax
+
+    jm, jv, tm, y = mini
+    x0 = smooth_images(2, 16, seed=4)
+    eta_b = get_preset("webp").eta_b
+    jrun = jddrm.DDRMSampler(jm, jax_preset("webp")).build_run(20, 19, encoder_reuse)
+
+    def jax_loss(params):
+        out = jrun({"params": params}, jnp.asarray(y), 30, jax.random.PRNGKey(0), 0.0, eta_b)
+        return jnp.mean((out - x0) ** 2), out
+
+    (want_loss, want), jgrads = jax.value_and_grad(jax_loss, has_aux=True)(jv["params"])
+    tm.requires_grad_(True)
+    try:
+        got = ddrm.DDRMSampler(tm, get_preset("webp")).run(
+            torch.from_numpy(y), 30, 20, 19, encoder_reuse, eta=0.0)[0]
+        loss = torch.mean((got - torch.from_numpy(x0)) ** 2)
+        grads = as_jax_layout(tm, _grads_of(tm, loss))
+    finally:
+        tm.requires_grad_(False)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=1e-5)
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-5)
+    jgrads = flatten_jax(jgrads)
+    assert set(grads) == set(jgrads)
+    g_max = max(np.abs(g).max() for g in jgrads.values())
+    for k, g in jgrads.items():
+        np.testing.assert_allclose(grads[k], g, atol=1e-4 * g_max, rtol=0, err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def tiny5_flash(tmp_path_factory):
+    """TINY5 with flash attention at 32² (T = 1024 at down1 and up5), so
+    the differentiable run goes through the FlashAttention Function."""
+    import dataclasses
+
+    jmc = dataclasses.replace(TINY5, attention_impl="flash", attn_max_resolution=32)
+    _, _, tm = model_pair("webp", jmc, tmp_path_factory.mktemp("w") / "flash.npz", seed=2)
+    return tm, smooth_images(2, 32, seed=8)
+
+
+@pytest.mark.parametrize("encoder_reuse,traced_budget", [(1, 0), (3, 0), (2, 4)])
+def test_run_remat_equals_plain_run(tiny5_flash, encoder_reuse, traced_budget):
+    """`run(remat=True)` against `run(remat=False)` at eta 0.5 with seeded
+    noise (the recompute must replay the generator): the same x_t and x̂
+    and the same gradients, bitwise on the CPU, and the generator left
+    where the plain run leaves it. Steps 20 at stride 6 (4 evaluations:
+    per step, or one group of 3 and a tail of 1), or a traced budget of 4
+    slots in groups of 2, at q10 (phase consistency on)."""
+    tm, x0 = tiny5_flash
+    y = ddrm.codec_surrogate(torch.from_numpy(x0), 10, codec="webp")
+    sampler = ddrm.DDRMSampler(tm, get_preset("webp"))
+    results = []
+    tm.requires_grad_(True)
+    try:
+        for remat in (False, True):
+            gen = torch.Generator().manual_seed(5)
+            x_t, x_theta = sampler.run(y, 10, 20, 6, encoder_reuse, traced_budget=traced_budget,
+                                       eta=0.5, generator=gen, remat=remat)
+            loss = (x_t ** 2).mean() + (x_theta * y).mean()
+            results.append((x_t.detach(), x_theta.detach(), _grads_of(tm, loss), gen.get_state()))
+    finally:
+        tm.requires_grad_(False)
+    (t0, th0, g0, s0), (t1, th1, g1, s1) = results
+    assert torch.equal(t0, t1) and torch.equal(th0, th1) and torch.equal(s0, s1)
+    assert all(torch.equal(g0[n], g1[n]) for n in g0)
+    assert g0["down1.attn.qkv.weight"].abs().max() > 0
+
+
+def test_host_codec_run_refuses_grad(mini):
+    """The host-codec modes have no gradient: `run` under grad says so;
+    without grad (as `sample` runs it) it runs."""
+    _, _, tm, y = mini
+    for mode in ("callback", "host_loop"):
+        sampler = ddrm.DDRMSampler(tm, get_preset("webp"), consistency_mode=mode)
+        with pytest.raises(ValueError, match="surrogate"):
+            sampler.run(torch.from_numpy(y), 30, 20, 19, eta=0.0)
+        with torch.no_grad():
+            assert sampler.run(torch.from_numpy(y), 30, 20, 19, eta=0.0)[0].shape == y.shape
+    with pytest.raises(ValueError, match="consistency mode"):
+        ddrm.DDRMSampler(tm, get_preset("webp"), consistency_mode="exact")
+
+
+@pytest.mark.parametrize("encoder_reuse", [1, 2])
+def test_host_codec_modes_match_jax_callback(mini, encoder_reuse):
+    """'callback' and 'host_loop' (the exact host codec each step) against
+    the JAX package's 'callback' restore at q10 over 20 steps at stride 5
+    (4 evaluations, phase consistency on; per step, or in groups of 2): the
+    port's two modes give the same samples bitwise, and those agree with
+    JAX's to 1e-5. The final projection stays off in these modes (the last
+    step projected through the host codec already). The host codec rounds
+    x̂ to 8 bits each step; on these inputs a 1e-6 change of y moves the
+    JAX package's own output by 3.4e-6 (asserted within 1e-5), no 8-bit
+    rounding edge being crossed."""
+    jm, jv, tm, y = mini
+    want = np.asarray(jddrm.DDRMSampler(jm, jax_preset("webp"), "callback").sample(
+        jv, jnp.asarray(y), 10, 20, eta=0.0, stride=5, encoder_reuse=encoder_reuse))
+    moved = np.asarray(jddrm.DDRMSampler(jm, jax_preset("webp"), "callback").sample(
+        jv, jnp.asarray(y + 1e-6), 10, 20, eta=0.0, stride=5, encoder_reuse=encoder_reuse))
+    assert np.abs(moved - want).max() <= 1e-5
+    got = [ddrm.DDRMSampler(tm, get_preset("webp"), consistency_mode=mode).sample(
+        torch.from_numpy(y), 10, 20, eta=0.0, stride=5, encoder_reuse=encoder_reuse).numpy()
+        for mode in ("callback", "host_loop")]
+    np.testing.assert_array_equal(got[0], got[1])
+    np.testing.assert_allclose(got[0], want, atol=1e-5)

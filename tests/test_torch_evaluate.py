@@ -108,10 +108,12 @@ def test_harness_end_to_end(tmp_path):
             assert (tmp_path / name).exists()
 
 
-# case: (codec, harness keyword arguments)
+# case: (codec, harness keyword arguments, EvalConfig keyword arguments)
 PARITY_CASES = {
-    "jpeg_static": ("jpeg", {}),
-    "webp_auto_traced": ("webp", dict(solver="auto", traced=True)),
+    "jpeg_static": ("jpeg", {}, {}),
+    "webp_auto_traced": ("webp", dict(solver="auto", traced=True), {}),
+    # the exact host codec each solver step, no final projection
+    "jpeg_host_codec": ("jpeg", {}, dict(consistency_mode="callback")),
 }
 
 
@@ -120,10 +122,10 @@ def test_summary_matches_jax(tmp_path, case):
     """metrics_summary.json of both harnesses on the same MINI weights and
     images at eta 0 (each package draws its own solver noise), q10/q50, 10
     images at batch 4, field for field within the tolerances above."""
-    codec, kw = PARITY_CASES[case]
+    codec, kw, cfg_kw = PARITY_CASES[case]
     jm, jv, tm = model_pair(codec, MINI, tmp_path / "w.npz", seed=1)
     images = _images()
-    common = dict(steps=10, qualities_override=(10, 50))
+    common = dict(steps=10, qualities_override=(10, 50), **cfg_kw)
     want = j_evaluate(JEvalConfig(codec=codec, model=MINI, output_dir=str(tmp_path / "jax"),
                                   **common),
                       jm, jv["params"], images, batch_size=4, verbose=False, eta=0.0, **kw)
@@ -166,16 +168,12 @@ def test_evaluate_cli_matches_jax(tmp_path):
 
 
 def test_evaluate_refusals(tmp_path):
-    """--real and the exact-codec consistency modes name their ROADMAP
-    item; --codec auto and all are refused as in the JAX CLI; a traced
-    run needs a budget; all before any restore runs."""
+    """--codec auto and all are refused as in the JAX CLI; a traced run
+    needs a budget; all before any restore runs."""
     from ddpm_image_restoration_tpu_torch.cli.evaluate import main
 
     base = ["--device", "cpu", "--random-init", "--synthetic", "2", *TINY_FLAGS,
             "--output-dir", str(tmp_path)]
-    for flags in (["--real", "4"], ["--consistency", "callback"], ["--consistency", "host_loop"]):
-        with pytest.raises(SystemExit, match="ROADMAP.md Queue 1 item 6"):
-            main([*base, *flags])
     with pytest.raises(SystemExit, match="restore/serve only"):
         main([*base, "--codec", "auto"])
     with pytest.raises(SystemExit, match="TRAINING preset"):

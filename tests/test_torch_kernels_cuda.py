@@ -161,6 +161,40 @@ def test_function_grads_match_plain_autograd_on_card(card, dtype, rel):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 16])
+def test_function_under_checkpoint_on_card(card, d):
+    """The Function inside activation checkpointing (utils/remat.py
+    `checkpoint`, non-reentrant), as the rematerialised solver and UNet
+    blocks run it, at the distilled student's shapes (72,1024,d) bf16: the
+    backward recomputes the forward, which launches the forward kernel (with
+    the LSE) a second time and saves the same O and LSE, so the output and
+    the gradients equal those without the checkpoint, entry by entry within
+    one bf16 step (both run the same deterministic kernels)."""
+    from ddpm_image_restoration_tpu_torch.utils.remat import checkpoint
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v, do = (torch.randn(72, 1024, d, device="cuda", generator=g).to(torch.bfloat16)
+                   for _ in range(4))
+    results, launched = [], []
+    for remat in (False, True):
+        leaves = [z.clone().requires_grad_() for z in (q, k, v)]
+        before = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dq.launches,
+                  fa.flash_attention_bwd_dkv.launches)
+        out = (checkpoint(fa.FlashAttention.apply, *leaves) if remat
+               else fa.FlashAttention.apply(*leaves))
+        grads = torch.autograd.grad(out, leaves, do)
+        torch.cuda.synchronize()
+        launched.append(tuple(n - m for n, m in zip(
+            (fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dq.launches,
+             fa.flash_attention_bwd_dkv.launches), before)))
+        results.append((out.detach(), *grads))
+    assert launched == [(1, 1, 1), (2, 1, 1)]
+    for got, ref in zip(results[1], results[0]):
+        assert got.dtype == torch.bfloat16
+        assert close(got, ref, 2 ** -7)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b", [1, 3])
 def test_spatial_attention_any_batch_on_card(card, b):
     """spatial_attention(impl='flash') at batch 1 (a single-file restore)

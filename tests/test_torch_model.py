@@ -266,3 +266,50 @@ def test_release_npz_full_width_matches():
     want = np.asarray(japply(jm, {"params": jax_load(npz)}, jnp.asarray(x), jnp.asarray(t)))
     got = tm(torch.from_numpy(x), torch.from_numpy(t)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-3)
+
+
+def test_remat_train_step_with_dropout_equals_plain(tmp_path):
+    """A train step of the TINY5 model (flash attention at 32²) with
+    `ModelConfig(remat=True)` and dropout 0.3 against the same step without
+    remat, both drawing their masks from a generator seeded alike: the same
+    loss and gradients, bitwise on the CPU, and the generator left in the
+    same state. Each block's recompute replays the dropout generator; a
+    checkpoint without that replay (`torch.utils.checkpoint` alone, which
+    restores only the global RNGs) draws other masks in the recompute, and
+    its gradients differ."""
+    import torch.utils.checkpoint
+
+    from ddpm_image_restoration_tpu_torch.config import TrainConfig
+    from ddpm_image_restoration_tpu_torch.models import build_model
+    from ddpm_image_restoration_tpu_torch.models import unet
+    from ddpm_image_restoration_tpu_torch.train.steps import create_train_state, make_train_step
+    from tests._torch_parity import torch_cfg
+
+    base = dataclasses.replace(torch_cfg(TINY5), attention_impl="flash",
+                               attn_max_resolution=32, dropout=0.3)
+    x0, _ = _inputs(2, 32, seed=3)
+    batch = {"x0": torch.from_numpy(x0), "xt": torch.from_numpy(x0 * 0.8),
+             "t": torch.tensor([12, 70])}
+
+    def step(remat):
+        cfg = TrainConfig(codec="webp", model=dataclasses.replace(base, remat=remat))
+        torch.manual_seed(0)
+        model = build_model("webp", cfg.model, device="cpu")
+        gen = torch.Generator().manual_seed(7)
+        loss = make_train_step(model, cfg)(create_train_state(model, cfg), batch, gen)["loss"]
+        return loss, {n: p.grad.clone() for n, p in model.named_parameters()}, gen.get_state()
+
+    loss, grads, gen_state = step(False)
+    r_loss, r_grads, r_gen_state = step(True)
+    assert torch.equal(loss, r_loss) and torch.equal(gen_state, r_gen_state)
+    assert all(torch.equal(grads[n], r_grads[n]) for n in grads)
+    assert grads["down1.attn.qkv.weight"].abs().max() > 0
+
+    def plain_checkpoint(fn, *args, generators=()):
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(unet, "checkpoint", plain_checkpoint)
+        p_loss, p_grads, _ = step(True)
+    assert torch.equal(loss, p_loss)
+    assert not all(torch.equal(grads[n], p_grads[n]) for n in grads)
