@@ -35,24 +35,39 @@ NVIDIA card and checks it, phase by phase:
      kernel's launches against the schedule; then the distill step alone,
      timed, profiled, and its peak memory with and without the solver's
      rematerialisation;
-  9. restore: the restore CLI (`cli/restore.py main`) at full width on
+  9. parallel: the parallel layer (parallel/mesh.py). In this process
+     under a world-1 NCCL process group: `cli/restore.py` and
+     `cli/serve.py` with `--dp -1` against the same calls without it at full
+     width, then the full-width bf16 WebP train step (batch 18, EMA) plain,
+     under the data mesh and under FSDP: ms/step and peak memory. Then two
+     processes of this script sharing the card over gloo: a half-width f32
+     step under the data mesh and under FSDP and a data-parallel restore at
+     eta 0.85, each against the one-process card run, the dry run,
+     `cli/restore.py --dp -1` against the one-rank call, and each rank's
+     peak memory under FSDP against the data mesh at full width; every
+     rank's launches against the schedule;
+ 10. restore: the restore CLI (`cli/restore.py main`) at full width on
      WebP and JPEG files that Pillow writes (estimated qualities, decoder
      reuse at depth 1 and 2, a 2-way ensemble, tiles of a non-square
      image, and the EMA weights of the checkpoint phase `train` wrote), then
      the server (`cli/serve.py main`) on mixed codecs with the traced
      budget; each variant's kernel launches against its schedule, and its
      milliseconds per image;
-  10. evaluate: the evaluator (`cli/evaluate.py main`) at full width on 20
+ 11. evaluate: the evaluator (`cli/evaluate.py main`) at full width on 20
      images, q10/30/50 under the production policy, static and traced:
      launches against the schedule, the metrics summary's fields, images
      per second per quality;
- 11. avif: the AVIF model family at full width: `cli/train.py --codec
+ 12. avif: the AVIF model family at full width: `cli/train.py --codec
      avif` (one epoch, EMA, checkpoint), `cli/evaluate.py` and
      `cli/restore.py --model-codec avif` on that checkpoint (AVIF files
      Pillow writes), then two steps of `cli/train.py --codec all`; every
      kernel's launches against the schedule.
 
     python3 chip_smoke.py
+
+On a host with several cards, `torchrun --standalone --nproc-per-node N
+chip_smoke.py --parallel-child-nccl OUTDIR` runs phase `parallel`'s ranks
+alone over NCCL, a card a rank, with the preset's 18 images a rank.
 
 It prints each phase's seconds, then a JSON line of per-kernel numbers, the
 card's `nvidia-smi` name and power limit, and last `{"ok": true, ...}`. It
@@ -229,16 +244,17 @@ def device_time_ms(fn, iters: int = 10, warmup: int = 3, windows: int = 3) -> fl
     adds any: sessions recorded none of SDPA's cuDNN backward (0.15 ms
     between events) or of the flash forward, or only the pad and slice
     kernels around it. (A session that also ran warm-up calls counted the
-    measured kernels twice, so none does.) Sessions that disagree are
-    logged; 0 means every session recorded nothing, and the callers fail on
-    that."""
+    measured kernels twice, so none does.) While every session so far has
+    recorded nothing, it takes more, up to 3 x `windows` (all 3 of a run's
+    sessions once read 0 at one shape). Sessions that disagree are logged;
+    0 means every session recorded nothing, and the callers fail on that."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     readings = []
-    for _ in range(windows):
+    while len(readings) < windows or (max(readings) == 0 and len(readings) < 3 * windows):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -868,7 +884,9 @@ def distill_reference(model_cfg, x0) -> list:
     agree to 4e-6 of the largest gradient. The unrolled solver can amplify
     last-bit differences (leaky-ReLU kinks, the surrogate's rounding): at
     seed 5 such CPU runs differed by 1.2e-4 and at seed 1 by 4.9e-3, which
-    no implementation could meet."""
+    no implementation could meet. So every run makes the CPU step a second
+    time at half the threads and logs that spread beside the card's
+    difference: the gate's margin on these weights."""
     import numpy as np
     import torch
 
@@ -884,7 +902,9 @@ def distill_reference(model_cfg, x0) -> list:
     weights = build_model("webp", model_cfg, device="cpu").state_dict()
     batch = {"x0": x0, "xt": codec_surrogate(x0, 50, codec="webp")}
     runs = []
-    for dev in ("cpu", "cuda"):
+    threads = torch.get_num_threads()
+    for dev, n_threads in (("cpu", threads), ("cpu", max(1, threads // 2)), ("cuda", threads)):
+        torch.set_num_threads(n_threads)
         teacher, student = (build_model("webp", model_cfg, device=dev) for _ in range(2))
         teacher.load_state_dict(weights)
         student.load_state_dict(weights)
@@ -896,16 +916,21 @@ def distill_reference(model_cfg, x0) -> list:
                 torch.cuda.synchronize()
         runs.append((m["loss"].item(), {n: p.grad.cpu() for n, p in student.named_parameters()},
                      _counts()))
-    (cpu_loss, cpu_g, _), (gpu_loss, gpu_g, counts) = runs
+    torch.set_num_threads(threads)
+    (cpu_loss, cpu_g, _), (_, cpu_half_g, _), (gpu_loss, gpu_g, counts) = runs
     g_max = max(g.abs().max().item() for g in cpu_g.values())
     worst = max(((gpu_g[n] - g).abs().max().item() / g_max, n) for n, g in cpu_g.items())
+    spread = max(((cpu_half_g[n] - g).abs().max().item() / g_max, n)
+                 for n, g in cpu_g.items())
     loss_rel = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
     want = {"flash_attention_fwd": FLASH_PER_EVAL * (6 + 2 * DISTILL_N_EVAL),
             "flash_attention_bwd_dq": FLASH_PER_EVAL * DISTILL_N_EVAL,
             "flash_attention_bwd_dkv": FLASH_PER_EVAL * DISTILL_N_EVAL}
     log(f"card vs CPU distill step (webp q50, 2x64x64, half width, f32, teacher stride "
         f"{t_stride}, student stride {s_stride}, remat): loss {gpu_loss:.6f} vs {cpu_loss:.6f} "
-        f"(rel {loss_rel:.3g}); worst gradient |diff|/max|g| {worst[0]:.3g} ({worst[1]}); "
+        f"(rel {loss_rel:.3g}); worst gradient |diff|/max|g| {worst[0]:.3g} ({worst[1]}) "
+        f"against the gate 1e-4, where the CPU against itself at {threads} and "
+        f"{max(1, threads // 2)} threads reads {spread[0]:.3g} ({spread[1]}); "
         f"launches {counts} (schedule implies {want})")
     failed = []
     if counts != want:
@@ -1721,10 +1746,647 @@ def phase_avif(state: dict) -> None:
         raise AssertionError("; ".join(failures))
 
 
+# The parallel phase: (a) the data mesh at world size 1 under NCCL in this
+# process, (b) PARALLEL_WORLD processes sharing the card over gloo (NCCL
+# refuses two ranks on one device). PARALLEL_SCALE divides the widths of
+# (b)'s half-width f32 checks; PARALLEL_MEMORY_SCALE those of the
+# full-width bf16 models of (a)'s train steps and (b)'s memory readings.
+PARALLEL_WORLD = 2
+PARALLEL_BACKEND = "nccl"
+PARALLEL_SCALE = 2
+PARALLEL_MEMORY_SCALE = 1
+PARALLEL_PER_RANK = 2          # (b)'s full-width steps: images per rank
+PARALLEL_TIMED_STEPS = 5
+PARALLEL_CHILD_TIMEOUT_S = 300
+
+
+def _gib(n_bytes: float) -> str:
+    return f"{n_bytes / 2**30:.3f} GiB"
+
+
+def _peak_since(dev, base: int) -> int | None:
+    """Peak device bytes allocated above `base` since the last reset (None
+    off the card)."""
+    import torch
+
+    return torch.cuda.max_memory_allocated(dev) - base if dev.type == "cuda" else None
+
+
+def diff_stats(got: dict, want: dict, atol: float) -> tuple:
+    """(largest |got - want| over the tensors of `want`, the share of
+    entries within `atol`)."""
+    diffs = [(got[k].float().cpu() - v.float().cpu()).abs() for k, v in want.items()]
+    return (max(d.max().item() for d in diffs),
+            sum(int((d <= atol).sum()) for d in diffs) / sum(d.numel() for d in diffs))
+
+
+def parallel_world1(state: dict, work: str, failures: list) -> None:
+    """Part (a), in this process under a world-1 process group: the restore
+    and serve CLIs with `--dp -1` against the same calls without it, in
+    turns (plain, --dp, --dp, plain): the same PNGs and the same launches,
+    and each call's ms/image; then the train steps
+    (`parallel_train_world1`)."""
+    import shutil
+
+    import numpy as np
+    from PIL import Image
+
+    from ddpm_image_restoration_tpu_torch.cli.restore import main as restore_main
+    from ddpm_image_restoration_tpu_torch.cli.serve import main as serve_main
+
+    webps, _, _ = write_restore_inputs(os.path.join(work, "in"))
+    n, g = static_schedule(30, "webp", *restore_budget())
+    n_s, g_s = static_schedule(30, "webp")
+    batches = -(-len(webps) // SERVE_BATCH)
+    totals = dict.fromkeys(_counts(), 0)
+    turns = [[], ["--dp", "-1"], ["--dp", "-1"], []]
+    for cli, fn, want, what in (
+            ("restore", restore_main, n + g, "one batch"),
+            ("serve", serve_main, batches * (n_s + g_s),
+             f"batches of {SERVE_BATCH}, production policy")):
+        outs = []
+        for i, dp in enumerate(turns):
+            out_dir = os.path.join(work, f"{cli}_{i}")
+            if cli == "restore":
+                argv = [*webps, *RESTORE_FLAGS, "--quality", "30"]
+            else:
+                watch = out_dir + "_in"
+                os.makedirs(watch)
+                for f in webps:
+                    shutil.copy(f, watch)
+                argv = ["--watch", watch, *CARD_FLAGS, "--quality", "30", "--solver", "auto",
+                        "--batch-size", str(SERVE_BATCH), "--once"]
+            _, _, wall = _counted(state, f"{cli}{' --dp -1' if dp else ''} ({len(webps)} "
+                                  f"WebPs, q30, {what})", fn,
+                                  [*argv, "--random-init", "--output-dir", out_dir, *dp],
+                                  (want, 0, 0), totals, failures)
+            log(f"  {1e3 * wall / len(webps):.1f} ms/image")
+            outs.append(out_dir)
+        for f in webps:
+            name = os.path.splitext(os.path.basename(f))[0] + "_restored.png"
+            imgs = [np.asarray(Image.open(os.path.join(d, name)), np.int16) for d in outs]
+            if not all(np.array_equal(imgs[0], b) for b in imgs[1:]):
+                failures.append(f"{cli}: the --dp -1 calls' {name} differs from the plain "
+                                "calls'")
+    log(f"--dp -1 at world 1 wrote the same {len(webps)} PNGs as the plain CLIs: "
+        f"{not any('differs' in f for f in failures)}")
+    parallel_train_world1(state, failures, totals)
+    state["launches_parallel"] = totals
+
+
+def parallel_train_world1(state: dict, failures: list, totals: dict) -> None:
+    """(a)'s train steps: the full-width bf16 WebP step (batch 18, EMA) plain
+    (twice), under the data mesh and under FSDP (which splits nothing at
+    world 1: the JAX rule needs 2 ranks), each from the same weights on the
+    same batch with the same dropout generator. Each state's peak memory
+    while it is built and takes its first step, above what the process held
+    before; then ms/step over PARALLEL_TIMED_STEPS steps each, in turns.
+
+    Bound: at world 1 the mean over the mesh is the step's own gradient, so
+    the loss must agree to rel 1e-6 (the forward is the same), and the
+    masters after one step within 2·lr·1.01 of the first plain step's
+    everywhere and within 1e-6 on at least 90% of entries: the bf16
+    backward (atomic adds in the upsample backward) is not bitwise
+    repeatable, and Adam's first step moves an entry by ~lr·sign(g), so a
+    near-zero gradient that rounds to the other sign moves it by 2·lr (the
+    bound of the bf16 step against the JAX package, tests/
+    test_torch_trainer.py). The second plain step shows that spread."""
+    import torch
+
+    from ddpm_image_restoration_tpu_torch.codecs.surrogate import codec_surrogate
+    from ddpm_image_restoration_tpu_torch.config import ModelConfig, TrainConfig
+    from ddpm_image_restoration_tpu_torch.models import build_model
+    from ddpm_image_restoration_tpu_torch.parallel.mesh import make_mesh, put_state
+    from ddpm_image_restoration_tpu_torch.train.steps import create_train_state, make_train_step
+
+    model_cfg = ModelConfig(attention_impl="flash", attn_max_resolution=32).scaled(
+        PARALLEL_MEMORY_SCALE)
+    cfg = TrainConfig(codec="webp", model=model_cfg, batch_size=TRAIN_BATCH, ema_decay=0.999)
+    dev = torch.device("cuda") if PARALLEL_BACKEND == "nccl" else torch.device("cpu")
+    x0 = torch.from_numpy(synthetic_images(TRAIN_BATCH, 64, SEED + 4))
+    t = torch.randint(1, 100, (TRAIN_BATCH,), generator=torch.Generator().manual_seed(SEED))
+    batch = {"x0": x0.to(dev), "xt": codec_surrogate(x0, 30, codec="webp").to(dev),
+             "t": t.to(dev)}
+    mesh = make_mesh((-1,), ("data",))
+    lr = cfg.preset.lr
+    want = {"flash_attention_fwd": 2, "flash_attention_bwd_dq": 2, "flash_attention_bwd_dkv": 2}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    runs = {}
+    for mode in ("plain", "plain again", "data mesh", "fsdp"):
+        sync()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(SEED)
+            model = build_model("webp", model_cfg, device="cpu").to(dev)
+        st = create_train_state(model, cfg)
+        if mode in ("data mesh", "fsdp"):
+            st = put_state(st, mesh, fsdp=mode == "fsdp")
+        step = make_train_step(model, cfg)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+        _reset_counts()
+        loss = step(st, batch, gen)["loss"].item()
+        sync()
+        counts = _counts()
+        for k, v in counts.items():
+            totals[k] += v
+        if counts != want:
+            failures.append(f"train step ({mode}): launches {counts}, schedule implies {want}")
+        runs[mode] = {"loss": loss, "step": step, "state": st, "gen": gen, "ms": [],
+                      "masters": {k: v.detach().cpu().clone() for k, v in st.params.items()},
+                      "peak": _peak_since(dev, base), "counts": counts,
+                      "split": 0 if st.layout is None else len(st.layout.sharded)}
+    order = ["plain", "data mesh", "fsdp", "fsdp", "data mesh", "plain"]
+    for mode in order:
+        r = runs[mode]
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(PARALLEL_TIMED_STEPS):
+            r["step"](r["state"], batch, r["gen"])
+        sync()
+        r["ms"].append(1e3 * (time.perf_counter() - t0) / PARALLEL_TIMED_STEPS)
+    for mode in ("plain", "data mesh", "fsdp"):
+        r = runs[mode]
+        peak = "not measured" if r["peak"] is None else _gib(r["peak"])
+        log(f"train step ({mode}, world 1, full width/{PARALLEL_MEMORY_SCALE}, bf16, batch "
+            f"{TRAIN_BATCH}, EMA): {' and '.join(f'{ms:.1f}' for ms in r['ms'])} ms/step over "
+            f"{PARALLEL_TIMED_STEPS} steps in turns {order}; peak memory {peak} while built "
+            f"and stepped once, on {state['smi']}; first-step launches {r['counts']}; "
+            f"parameters split {r['split']}")
+    p_loss, p_masters = runs["plain"]["loss"], runs["plain"]["masters"]
+    for mode in ("plain again", "data mesh", "fsdp"):
+        r = runs[mode]
+        rel = abs(r["loss"] - p_loss) / abs(p_loss)
+        worst, close = diff_stats(r["masters"], p_masters, 1e-6)
+        log(f"train step ({mode}) against the plain step: loss rel {rel:.3g} (bound 1e-6); "
+            f"masters max |diff| {worst:.3g} (bound {2 * lr * 1.01:.3g}), "
+            f"{100 * close:.2f}% within 1e-6 (bound 90%)")
+        if not (rel <= 1e-6 and worst <= 2 * lr * 1.01 and close >= 0.9):
+            failures.append(f"train step ({mode}) at world 1 disagrees with the plain step")
+    runs.clear()
+
+
+def parallel_child(rank: int, world: int, work: str, store: str | None = None,
+                   device: str = "cuda", scale: int = PARALLEL_SCALE,
+                   memory_scale: int = PARALLEL_MEMORY_SCALE, backend: str = "gloo",
+                   per_rank: int = PARALLEL_PER_RANK) -> dict:
+    """Part (b), one rank of `world` (sharing the card over gloo on the
+    FileStore `store`, or under `torchrun` with its own card, `store` None,
+    over NCCL), its files under `work`: the half-width (widths/`scale`) f32
+    WebP step with dropout and EMA under the data mesh and under FSDP, each
+    against the one-process step on the card on the whole batch of 4; a
+    data-parallel restore at eta 0.85 of an odd batch against the
+    one-process restore; the dry run; `cli/restore.py --dp -1` against the
+    call on one rank (`parallel_restore_cli`); then the bf16 step at
+    widths/`memory_scale`, `per_rank` images a rank, on this rank's card
+    alone and under each mode: its peak memory and ms/step. Returns what it
+    measured and its failures.
+
+    Gates of the f32 steps: loss and grad norm rel 1e-5, and the gradient
+    averaged over the ranks within 1e-5 of the largest one-process entry
+    (sums in another order); the masters and the EMA after the step within
+    2·lr·1.01 everywhere and within 1e-5 on at least 99.9% of entries. Not
+    1e-5 everywhere, as on the CPU (tests/test_torch_parallel.py): the
+    card's f32 backward is not bitwise repeatable (atomic adds), and Adam's
+    first step divides each gradient by its own magnitude plus 1e-8, so an
+    entry whose gradient is near 1e-8 moves further for a last-bit change
+    (one master entry read 1.07e-5 in a run whose gradients agreed to
+    rounding). The one-process step made twice shows the card's own spread
+    beside them. The restore as the card-against-CPU restore of phase
+    `reference` (mean |diff| <= 1e-4, max <= 2e-2): the batch sizes differ,
+    so cuDNN may sum in other orders, and the surrogate can move one
+    coefficient by a quantisation step for a last-bit difference."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from ddpm_image_restoration_tpu_torch.codecs.quality import init_timestep_for_quality
+    from ddpm_image_restoration_tpu_torch.codecs.surrogate import codec_surrogate
+    from ddpm_image_restoration_tpu_torch.config import ModelConfig, TrainConfig, get_preset
+    from ddpm_image_restoration_tpu_torch.device import resolve_device
+    from ddpm_image_restoration_tpu_torch.diffusion.ddrm import DDRMSampler, _solver_indices
+    from ddpm_image_restoration_tpu_torch.models import build_model
+    from ddpm_image_restoration_tpu_torch.parallel.dryrun import dryrun
+    from ddpm_image_restoration_tpu_torch.parallel.mesh import (
+        all_reduce_,
+        gather_batch,
+        init_distributed,
+        make_mesh,
+        put_state,
+        shard_batch,
+        shard_inference,
+    )
+    from ddpm_image_restoration_tpu_torch.train.steps import create_train_state, make_train_step
+
+    if store is None:  # torchrun's environment
+        init_distributed(device, backend=backend)
+    else:
+        init_distributed(device, backend=backend, init_method=f"file://{store}",
+                         world_size=world, rank=rank)
+    dev = resolve_device(device)
+    mesh = make_mesh((-1,), ("data",))
+    failures, out = [], {"rank": rank}
+
+    def say(msg):
+        log(f"[rank {rank}] {msg}")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    model_cfg = ModelConfig(compute_dtype="float32", attention_impl="flash",
+                            attn_max_resolution=32).scaled(scale)
+    cfg = TrainConfig(codec="webp", model=model_cfg, batch_size=4, ema_decay=0.999)
+    lr = cfg.preset.lr
+    x0 = torch.from_numpy(synthetic_images(4, 64, SEED + 3))
+    batch = {"x0": x0, "xt": codec_surrogate(x0, 20, codec="webp"),
+             "t": torch.tensor([10, 35, 60, 90], dtype=torch.int32)}
+
+    def model_on_card():
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(SEED)
+            return build_model("webp", model_cfg, device="cpu").to(dev)
+
+    def train(mode):
+        model = model_on_card()
+        st = create_train_state(model, cfg)
+        if mode in ("data mesh", "fsdp"):
+            st = put_state(st, mesh, fsdp=mode == "fsdp")
+        mine = batch if st.layout is None else {k: shard_batch(v, mesh) for k, v in batch.items()}
+        _reset_counts()
+        m = make_train_step(model, cfg)(st, {k: v.to(dev) for k, v in mine.items()},
+                                        torch.Generator(device=dev).manual_seed(SEED + 1))
+        sync()
+        counts = _counts()
+        held = {} if st.layout is None else {
+            k: [getattr(st, d)[k].numel() for d in ("params", "mu", "nu", "ema")]
+            for k in st.layout.sharded}
+        params = dict(model.named_parameters())
+        flat = torch.cat([p.grad.float().reshape(-1) for p in params.values()])
+        if st.layout is not None:  # this rank's gradient, averaged over the ranks
+            flat = all_reduce_(flat, mesh) / world
+        grads = {k: g.view(p.shape).cpu() for (k, p), g in
+                 zip(params.items(), flat.split([p.numel() for p in params.values()]))}
+        return m["loss"].item(), m["grad_norm"].item(), st.state_dict(), grads, counts, held
+
+    with no_tf32():
+        one = train("one process")
+        full = {k: v.numel() for k, v in one[2]["params"].items()}
+        g_max = max(g.abs().max().item() for g in one[3].values())
+        for mode in ("one process again", "data mesh", "fsdp"):
+            loss, norm, sd, grads, counts, held = train(mode)
+            rel = abs(loss - one[0]) / abs(one[0])
+            rel_n = abs(norm - one[1]) / abs(one[1])
+            g_rel = diff_stats(grads, one[3], 0.0)[0] / g_max
+            worst, close = diff_stats(sd["params"], one[2]["params"], 1e-5)
+            e_worst, e_close = diff_stats(sd["ema"], one[2]["ema"], 1e-5)
+            split_ok = all(h == [full[k] // world] * 4 for k, h in held.items())
+            say(f"{mode} step (widths/{scale}, f32, dropout 0.1, EMA, "
+                f"{4 if mode.startswith('one') else 4 // world} of 4 images) against the "
+                f"one-process card step: loss rel {rel:.3g}, grad norm rel {rel_n:.3g} (bound "
+                f"1e-5); gradient |diff|/max|g| {g_rel:.3g} (bound 1e-5); masters max |diff| "
+                f"{worst:.3g} (bound {2 * lr * 1.01:.3g}), {100 * close:.3f}% within 1e-5 "
+                f"(bound 99.9%); EMA {e_worst:.3g}, {100 * e_close:.3f}%; parameters split "
+                f"{len(held)}, each 1/{world} per rank: {split_ok}; launches {counts}")
+            out[f"{mode} step"] = {"loss_rel": rel, "grad_norm_rel": rel_n, "grad_rel": g_rel,
+                                   "masters_max_diff": worst, "masters_within_1e-5": close,
+                                   "launches": counts, "split": len(held)}
+            if mode.startswith("one"):
+                continue
+            if not (rel <= 1e-5 and rel_n <= 1e-5 and g_rel <= 1e-5
+                    and max(worst, e_worst) <= 2 * lr * 1.01 and min(close, e_close) >= 0.999
+                    and split_ok):
+                failures.append(f"{mode} step disagrees with the one-process step")
+            if mode == "fsdp" and not held:
+                failures.append("fsdp split no parameter")
+            if counts != {"flash_attention_fwd": 2, "flash_attention_bwd_dq": 2,
+                          "flash_attention_bwd_dkv": 2}:
+                failures.append(f"{mode} step launched {counts}")
+
+        model = model_on_card()
+        preset = get_preset("webp")
+        init_t = init_timestep_for_quality(30, 100, preset)
+        evals = len(_solver_indices(init_t, 10))
+        y5 = torch.from_numpy(synthetic_images(5, 64, SEED + 5))
+        y5 = codec_surrogate(y5, 30, codec="webp").to(dev)
+        sampler = DDRMSampler(model, preset)
+
+        def restore(rows):
+            return sampler.sample(y5, 30, init_t, stride=10, eta=0.85, rows=rows,
+                                  final_exact=False,
+                                  generator=torch.Generator(device=dev).manual_seed(SEED))
+
+        want = restore(None)
+        rows = shard_inference(model, len(y5), mesh)
+        _reset_counts()
+        got = gather_batch(restore(rows), mesh, len(y5))
+        sync()
+        counts = _counts()
+        diff = (got - want).abs()
+        say(f"data-parallel restore (eta 0.85, 5 images, rows {rows}, {evals} evaluations) "
+            f"against the one-process card restore: max |diff| {diff.max().item():.3g} "
+            f"(bound 2e-2), mean {diff.mean().item():.3g} (bound 1e-4); launches {counts} "
+            f"(schedule implies {FLASH_PER_EVAL * evals} forward)")
+        out["restore"] = {"max_diff": diff.max().item(), "mean_diff": diff.mean().item(),
+                          "launches": counts}
+        if not (torch.isfinite(got).all() and diff.mean().item() <= 1e-4
+                and diff.max().item() <= 2e-2):
+            failures.append("the data-parallel restore disagrees with the one-process one")
+        if counts != {"flash_attention_fwd": FLASH_PER_EVAL * evals,
+                      "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}:
+            failures.append(f"the data-parallel restore launched {counts}")
+        del model, sampler
+
+    dr = dryrun(device)
+    say(f"dryrun: FSDP step over {dr['world']} ranks, loss {dr['loss']:.6f}; restore "
+        f"{dr['restored_shape']}")
+    out["dryrun"] = dr
+    out["restore cli"] = parallel_restore_cli(rank, world, work, dev, failures)
+
+    mem_cfg = ModelConfig(attention_impl="flash", attn_max_resolution=32).scaled(memory_scale)
+    n_mem = per_rank * world
+    mcfg = TrainConfig(codec="webp", model=mem_cfg, batch_size=n_mem, ema_decay=0.999)
+    xm = torch.from_numpy(synthetic_images(n_mem, 64, SEED + 6))
+    mbatch = {"x0": xm, "xt": codec_surrogate(xm, 30, codec="webp"),
+              "t": torch.randint(1, 100, (n_mem,), generator=torch.Generator().manual_seed(SEED))}
+    mine = {k: shard_batch(v, mesh).to(dev) for k, v in mbatch.items()}
+    link = ("gloo through host memory (not a measure of NCCL)" if backend == "gloo"
+            else backend)
+    for mode in ("one card", "data mesh", "fsdp"):
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(SEED)
+            model = build_model("webp", mem_cfg, device="cpu").to(dev)
+        st = create_train_state(model, mcfg)
+        if mode != "one card":
+            st = put_state(st, mesh, fsdp=mode == "fsdp")
+        step = make_train_step(model, mcfg)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+        loss = step(st, mine, gen)["loss"].item()
+        sync()
+        peak = _peak_since(dev, base)
+        resident = (torch.cuda.memory_allocated(dev) - base) if dev.type == "cuda" else None
+        t0 = time.perf_counter()
+        for _ in range(PARALLEL_TIMED_STEPS):
+            step(st, mine, gen)
+        sync()
+        ms = 1e3 * (time.perf_counter() - t0) / PARALLEL_TIMED_STEPS
+        state_bytes = 4 * sum(v.numel() for d in (st.params, st.mu, st.nu, st.ema)
+                              for v in d.values())
+        say(f"{mode} (full width/{memory_scale}, bf16, EMA, {per_rank} images per rank): f32 "
+            f"state {_gib(state_bytes)} held by this rank; resident after a step "
+            f"{'not measured' if resident is None else _gib(resident)}, peak "
+            f"{'not measured' if peak is None else _gib(peak)}; {ms:.1f} ms/step over "
+            f"{PARALLEL_TIMED_STEPS} steps" + ("" if mode == "one card" else f" with {link}")
+            + f"; loss {loss:.5f}")
+        out[f"{mode} memory"] = {"state_bytes": state_bytes, "resident_bytes": resident,
+                                 "peak_bytes": peak, "ms_per_step": ms}
+        if not np.isfinite(loss):
+            failures.append(f"memory run ({mode}): non-finite loss")
+        del model, st, step
+    dm, fs = out["data mesh memory"], out["fsdp memory"]
+    if not fs["state_bytes"] < 0.75 * dm["state_bytes"]:
+        failures.append(f"fsdp holds {fs['state_bytes']} bytes of state, the data mesh "
+                        f"{dm['state_bytes']}")
+    out["failures"] = failures
+    for f in failures:
+        say(f"FAILED: {f}")
+    return out
+
+
+def parallel_restore_cli(rank: int, world: int, work: str, dev, failures: list) -> dict:
+    """`cli/restore.py` at full width on the restore phase's WebPs (q30,
+    one batch), in turns: on one rank (plain), with `--dp -1` over every
+    rank (twice), on one rank again; every rank calls each, rank 0 reads
+    and writes the files. Each rank must launch the forward as one batch's
+    schedule implies (each rank runs every evaluation on its rows; ranks
+    past 0 launch nothing in the one-rank calls).
+
+    Rank 0 then restores the same batch on its own card through the
+    sampler as the CLI calls it, whole and in the ranks' row blocks: the
+    whole batch must give the plain calls' PNGs and the row blocks the
+    `--dp -1` calls' PNGs, bit for bit. The `--dp -1` PNGs are held to the
+    row blocks and not to the whole batch: a block of fewer images runs
+    cuDNN's bf16 convolutions with other algorithms, and on random weights
+    the solver and the exact WebP projection turn those last bits into
+    visible changes (on four cards, 2 images a rank against 8: ~8 of 255
+    on average); the log gives that difference."""
+    import numpy as np
+
+    from ddpm_image_restoration_tpu_torch.cli.restore import main as restore_main
+    from ddpm_image_restoration_tpu_torch.parallel.mesh import barrier, make_mesh
+
+    inputs = os.path.join(work, "restore_in")
+    if rank == 0:
+        webps = write_restore_inputs(inputs)[0]
+    else:  # the same names; only rank 0 reads them
+        webps = [os.path.join(inputs, f"w{i}_q{int(q)}.webp")
+                 for i, q in enumerate(np.repeat(RESTORE_QUALITIES, 2))]
+    n, g = static_schedule(30, "webp", *restore_budget())
+    name = torch_device_name(dev)
+    totals = dict.fromkeys(_counts(), 0)
+    outs = []
+    for i, dp in enumerate([[], ["--dp", "-1"], ["--dp", "-1"], []]):
+        out_dir = os.path.join(work, f"restore_cli_{i}")
+        label = (f"[rank {rank}] restore{' --dp -1' if dp else ''} ({len(webps)} WebPs, q30, "
+                 f"one batch{f' over {world} ranks' if dp else ''})")
+        _, _, wall = _counted({"smi": name}, label, restore_main,
+                              [*webps, *RESTORE_FLAGS, "--quality", "30", "--random-init",
+                               "--output-dir", out_dir, *dp],
+                              (n + g if dp or rank == 0 else 0, 0, 0), totals, failures)
+        log(f"[rank {rank}]   {1e3 * wall / len(webps):.1f} ms/image")
+        outs.append(out_dir)
+    barrier(make_mesh())
+    if rank != 0:
+        return {"launches": totals}
+    from PIL import Image
+
+    pngs = [np.stack([np.asarray(Image.open(os.path.join(d, os.path.splitext(
+        os.path.basename(f))[0] + "_restored.png")), np.int16) for f in webps]) for d in outs]
+    plain, dp = restore_cli_on_one_card(webps, dev, world)
+    ok = {"plain calls = whole batch": all(np.array_equal(plain, pngs[i]) for i in (0, 3)),
+          "--dp -1 calls = row blocks": all(np.array_equal(dp, pngs[i]) for i in (1, 2))}
+    diff = np.abs(pngs[1] - pngs[0])
+    log(f"[rank 0] restore on one card through the sampler, PNGs bit for bit: {ok}; the "
+        f"--dp -1 PNGs against the plain ones: max {diff.max()}, mean {diff.mean():.3f} of "
+        f"255, {100 * np.mean(diff > 0):.2f}% of pixels differ")
+    if not all(ok.values()):
+        failures.append(f"restore --dp -1: the PNGs are not what one card computes: {ok}")
+    return {"launches": totals, **ok, "dp_vs_plain_mean_diff": float(diff.mean())}
+
+
+def restore_cli_on_one_card(webps: list, dev, world: int) -> tuple:
+    """What `cli/restore.py` with RESTORE_FLAGS, `--quality 30
+    --random-init` computes for `webps` as one batch (uint8 HWC PNG pixels),
+    whole and as the `world` ranks' row blocks (`--dp -1`), on `dev`."""
+    import argparse
+
+    import numpy as np
+    import torch
+
+    from ddpm_image_restoration_tpu_torch.cli.common import (
+        add_model_flags,
+        load_image,
+        model_config_from,
+    )
+    from ddpm_image_restoration_tpu_torch.codecs.quality import (
+        init_timestep_for_quality,
+        student_stride,
+    )
+    from ddpm_image_restoration_tpu_torch.config import get_preset
+    from ddpm_image_restoration_tpu_torch.diffusion.ddrm import DDRMSampler
+    from ddpm_image_restoration_tpu_torch.diffusion.ensemble import sample_ensemble
+    from ddpm_image_restoration_tpu_torch.models import build_model
+
+    ap = argparse.ArgumentParser()
+    add_model_flags(ap)
+    flags, _ = ap.parse_known_args(RESTORE_FLAGS)
+    max_evals, reuse = restore_budget()
+    cfg = model_config_from(flags)
+    torch.manual_seed(0)  # --random-init
+    model = build_model("webp", cfg, device=dev)
+    sampler = DDRMSampler(model, get_preset("webp"))
+    init_t = init_timestep_for_quality(30, 100, sampler.preset)
+    y = torch.as_tensor(np.stack([load_image(p, cfg.image_size) for p in webps]), device=dev)
+    per = -(-len(webps) // world)
+
+    def restore(rows):
+        return sample_ensemble(sampler, y, 30, init_t, n_transforms=1,
+                               stride=student_stride(init_t, max_evals), encoder_reuse=reuse,
+                               generator=torch.Generator(device=dev).manual_seed(0),
+                               rows=rows).cpu().numpy()
+
+    blocks = np.concatenate([restore((k * per, (k + 1) * per)) for k in range(world)])
+    return tuple(np.clip((x * 0.5 + 0.5) * 255.0, 0, 255).astype(np.uint8).astype(np.int16)
+                 for x in (restore(None), blocks[:len(webps)]))
+
+
+def torch_device_name(dev) -> str:
+    import torch
+
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "CPU"
+
+
+def run_parallel_children(state: dict, work: str) -> list:
+    """Start PARALLEL_WORLD processes of this script (`--parallel-child`),
+    wait for them, and return their results; a child that fails, hangs past
+    PARALLEL_CHILD_TIMEOUT_S or writes no result fails the phase (each child
+    is stopped before this returns)."""
+    outs = [os.path.join(work, f"child_{r}.json") for r in range(PARALLEL_WORLD)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-child",
+                               str(r), str(PARALLEL_WORLD), work, outs[r]])
+             for r in range(PARALLEL_WORLD)]
+    deadline = time.monotonic() + PARALLEL_CHILD_TIMEOUT_S
+    codes = []
+    try:
+        for p in procs:
+            try:
+                codes.append(p.wait(timeout=max(1.0, deadline - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                codes.append("timeout")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    log(f"parallel children exited with {codes}")
+    if any(c != 0 for c in codes):
+        raise AssertionError(f"a parallel child failed: exit codes {codes}")
+    results = []
+    for path in outs:
+        with open(path) as f:
+            results.append(json.load(f))
+    return results
+
+
+def child_main(argv: list) -> int:
+    """One rank of part (b); writes its results as JSON; exit 1 on a failure.
+
+        chip_smoke.py --parallel-child RANK WORLD WORK OUT  (gloo, one card)
+        torchrun --nproc-per-node N chip_smoke.py --parallel-child-nccl OUTDIR
+
+    The second runs part (b) over NCCL, one card a rank, with 18 images a
+    rank in the full-width steps (the preset's batch on each card); OUTDIR
+    gets child_<rank>.json."""
+    import torch
+
+    if argv[0] == "--parallel-child-nccl":
+        rank, world, work = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]), argv[1]
+        os.makedirs(work, exist_ok=True)
+        out_path = os.path.join(work, f"child_{rank}.json")
+        kw = dict(backend="nccl", per_rank=TRAIN_BATCH)
+    else:
+        rank, world, work, out_path = int(argv[1]), int(argv[2]), argv[3], argv[4]
+        kw = dict(store=os.path.join(work, "store"))
+    try:
+        out = parallel_child(rank, world, work, **kw)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 1 if out["failures"] else 0
+
+
+def phase_parallel(state: dict) -> None:
+    """The parallel layer (parallel/mesh.py): part (a) in this process under
+    a world-1 PARALLEL_BACKEND process group on a FileStore
+    (`parallel_world1`), then part (b) in PARALLEL_WORLD processes sharing
+    the card over gloo (`parallel_child`); every rank's launches against the
+    schedule. A failing child fails the phase."""
+    import shutil
+
+    import torch
+
+    from ddpm_image_restoration_tpu_torch.parallel.mesh import init_distributed
+
+    work = os.path.join(ROOT, "build", "chip_smoke_parallel")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    failures = []
+    try:
+        init_distributed("cuda" if PARALLEL_BACKEND == "nccl" else "cpu",
+                         backend=PARALLEL_BACKEND, init_method=f"file://{work}/store1",
+                         world_size=1, rank=0)
+        try:
+            parallel_world1(state, work, failures)
+        finally:
+            torch.distributed.destroy_process_group()
+        children = run_parallel_children(state, work)
+        for r, res in enumerate(children):
+            for label in ("data mesh step", "fsdp step", "restore", "restore cli"):
+                for k, v in res[label]["launches"].items():
+                    state["launches_parallel"][k] += v
+        dm = [res["data mesh memory"] for res in children]
+        fs = [res["fsdp memory"] for res in children]
+        for r, (a, b) in enumerate(zip(dm, fs)):
+            saved = (None if a["peak_bytes"] is None
+                     else (a["peak_bytes"] - b["peak_bytes"], a["resident_bytes"] - b["resident_bytes"]))
+            log(f"rank {r}: FSDP against the data mesh at world {PARALLEL_WORLD}: state "
+                f"{_gib(b['state_bytes'])} against {_gib(a['state_bytes'])}"
+                + ("" if saved is None else f"; peak saved {_gib(saved[0])}, resident saved "
+                   f"{_gib(saved[1])}"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
 PHASES = [("environment", phase_environment), ("build", phase_build),
           ("kernels", phase_kernels), ("reference", phase_reference),
           ("serve", phase_serve), ("train_reference", phase_train_reference),
-          ("train", phase_train), ("distill", phase_distill), ("restore", phase_restore),
+          ("train", phase_train), ("distill", phase_distill), ("parallel", phase_parallel),
+          ("restore", phase_restore),
           ("evaluate", phase_evaluate), ("avif", phase_avif)]
 
 
@@ -1732,11 +2394,13 @@ def kernels_json(state: dict) -> str:
     """One row per kernel. Its top-level numbers are at the first serving
     or training shape in bf16 (down2); `main_path_shapes` has each shape the
     main paths give it, with its own error and times. `launches` sums the
-    main paths' runs (serve, train, distillation, the restore and serve
-    CLIs, the evaluator, the AVIF family), each counted from 0;
+    main paths' runs (serve, train, distillation, the parallel phase's
+    ranks, the restore and serve CLIs, the evaluator, the AVIF family), each
+    counted from 0;
     `launches_by_path` splits it."""
     paths = {"serve": state["launches"], "train": state.get("launches_train", {}),
              "distill": state.get("launches_distill", {}),
+             "parallel": state.get("launches_parallel", {}),
              "restore": state.get("launches_restore", {}),
              "evaluate": state.get("launches_evaluate", {}),
              "avif": state.get("launches_avif", {})}
@@ -1782,6 +2446,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] in (["--parallel-child"], ["--parallel-child-nccl"]):
+        return child_main(sys.argv[1:])
     def on_alarm(signum, frame):
         raise TimeoutError(f"chip_smoke exceeded {TIME_LIMIT_S} s")
 

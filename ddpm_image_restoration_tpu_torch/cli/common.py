@@ -17,6 +17,17 @@ from ddpm_image_restoration_tpu_torch.config import (
     TrainConfig,
     codec_index,
 )
+from ddpm_image_restoration_tpu_torch.device import resolve_device
+from ddpm_image_restoration_tpu_torch.parallel.mesh import (
+    broadcast_object,
+    data_rank,
+    gather_batch,
+    init_distributed,
+    make_mesh,
+    rank,
+    shard_rows,
+    world_size,
+)
 
 
 def add_model_flags(ap: argparse.ArgumentParser) -> None:
@@ -157,13 +168,49 @@ def refuse_not_ported(args) -> None:
     parses but has not implemented."""
     refused = [
         (getattr(args, "solver", "") == "gaussian_mixture",
-         "--solver gaussian_mixture (ROADMAP.md Queue 1 item 9)"),
-        (getattr(args, "dp", 0), "--dp (data-parallel restore: ROADMAP.md Queue 1 item 8)"),
-        (getattr(args, "sp", 0), "--sp (spatial-parallel restore: ROADMAP.md Queue 1 item 8)"),
+         "--solver gaussian_mixture (ROADMAP.md Queue 1 item 4)"),
+        (getattr(args, "sp", 0), "--sp (spatial-parallel restore: ROADMAP.md Queue 1 item 7)"),
     ]
     for flagged, what in refused:
         if flagged:
             raise SystemExit(f"{what} is not ported yet")
+
+
+class DataParallel:
+    """`--dp N` of the restore and serve CLIs (the JAX package's data mesh of
+    min(N, device count) devices, all of them for N = -1): a ('data',) mesh
+    of min(N, world) ranks of the process group (`torchrun`), one rank
+    without --dp. Data rank 0 reads the inputs and writes the outputs;
+    `share` hands what it read to the other ranks, and `run` restores a
+    batch with each rank taking its block of rows (the batch padded to a
+    multiple of the mesh). A rank outside the mesh is not `active` and has
+    nothing to do. In one process both are the identity."""
+
+    def __init__(self, want: int, device: str):
+        init_distributed(device)
+        world = world_size()
+        self.n = world if want < 0 else max(1, min(want, world))
+        self.mesh = make_mesh((self.n,), ("data",))
+        self.device = device
+        r = data_rank(self.mesh)
+        self.active, self.main = r is not None, r == 0
+        if not self.active:
+            print(f"rank {rank()}: outside the data mesh of {self.n} of {world} rank(s); "
+                  "nothing to do", flush=True)
+
+    def share(self, obj):
+        """Data rank 0's `obj` (picklable) on every rank."""
+        return broadcast_object(obj, self.mesh)
+
+    def run(self, fn, batch: np.ndarray) -> np.ndarray:
+        """`fn(batch, rows)` restores rows (start, stop) of the whole NHWC
+        `batch` (`rows` None: all of it) and returns them as numpy; this
+        returns the whole restored batch, gathered, on every rank."""
+        if self.mesh is None:
+            return fn(batch, None)
+        mine = fn(batch, shard_rows(len(batch), self.mesh))
+        return gather_batch(torch.as_tensor(mine, device=resolve_device(self.device)),
+                            self.mesh, len(batch)).cpu().numpy()
 
 
 def model_config_from(args) -> ModelConfig:

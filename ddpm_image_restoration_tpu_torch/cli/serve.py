@@ -15,8 +15,11 @@ ones to `<watch>/rejected`).
 restores each image at its own quality; the batch's start step snaps to the
 bucket (10, 30, 50, 70, 90) nearest the batch median, unless `--traced`
 gives every file its own start step. `--codec auto` serves codec-pure
-batches, the largest group first. `--dp` is parsed and refused (not ported
-yet).
+batches, the largest group first. `--dp N` serves each batch data-parallel
+over N ranks (-1: all) of a `torchrun` world, in fixed-size mode with
+`--batch-size` a multiple of N: rank 0 watches the directory, reads the
+files and writes the PNGs, every rank restores a block of the batch's rows,
+and the output is the one-process output.
 
 `restore_batch` is the server core for callers that hold tensors. Pillow is
 needed only to read and write the image files, to estimate qualities, and
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 
 from ddpm_image_restoration_tpu_torch.cli.common import (
+    DataParallel,
     add_codec_flags,
     add_model_flags,
     add_weights_flags,
@@ -51,6 +55,7 @@ from ddpm_image_restoration_tpu_torch.codecs.quality import (
 from ddpm_image_restoration_tpu_torch.config import get_preset
 from ddpm_image_restoration_tpu_torch.diffusion.ddrm import DDRMSampler
 from ddpm_image_restoration_tpu_torch.diffusion.policy import production_solver_config
+from ddpm_image_restoration_tpu_torch.parallel.mesh import replicated
 
 _EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".webp", ".avif")
 # init_t buckets of --quality auto without --traced (around the batch median)
@@ -79,7 +84,8 @@ def sample_batch(model, y: torch.Tensor, quality, codec: str = "webp", steps: in
                  encoder_reuse: int = 1, final_exact: bool = True,
                  generator: torch.Generator | None = None, bucket: float | None = None,
                  decoder_reuse_depth: int = 0, protect: tuple | None = None,
-                 protect_adaptive: float | None = None, traced: bool = False) -> torch.Tensor:
+                 protect_adaptive: float | None = None, traced: bool = False,
+                 rows: tuple | None = None) -> torch.Tensor:
     """Restore the NHWC batch `y` in [-1,1], compressed by `codec`, with
     `model` (which holds its weights, on y's device); the restoration as the
     sampler returns it.
@@ -88,7 +94,9 @@ def sample_batch(model, y: torch.Tensor, quality, codec: str = "webp", steps: in
     at its own quality. `bucket` is the quality that sets the batch's
     init_t and its solver policy (default: `quality`, then a scalar).
     `traced` runs the traced-budget solver instead, each image at its own
-    init_t, with the policy's budget (`solver` 'auto') or `max_evals`."""
+    init_t, with the policy's budget (`solver` 'auto') or `max_evals`.
+    `rows` = (start, stop) restores only those rows of the batch (a
+    data-parallel rank's share; `DDRMSampler.sample`)."""
     preset = get_preset(codec)
     bucket = quality if bucket is None else bucket
     init_t = init_timestep_for_quality(int(bucket), steps, preset)
@@ -105,7 +113,7 @@ def sample_batch(model, y: torch.Tensor, quality, codec: str = "webp", steps: in
         y, quality, steps_arg, stride=b_stride, protect=b_protect,
         protect_adaptive=protect_adaptive, encoder_reuse=b_enc, eta=b_eta,
         decoder_reuse_depth=decoder_reuse_depth, traced_budget=budget,
-        final_exact=final_exact, generator=generator)
+        final_exact=final_exact, generator=generator, rows=rows)
 
 
 def restore_batch(model, y: torch.Tensor, quality, codec: str = "webp", steps: int = 100,
@@ -145,7 +153,9 @@ def main(argv=None):
     ap.add_argument("--traced", action="store_true",
                     help="fixed-budget solver (needs --solver auto or "
                          "--max-evals): each file restores at its own init_t")
-    ap.add_argument("--dp", type=int, default=0)
+    ap.add_argument("--dp", type=int, default=0,
+                    help="data-parallel serving over N ranks of a torchrun world "
+                         "(-1 = all); fixed-size mode, --batch-size a multiple of N")
     ap.add_argument("--encoder-reuse", type=int, default=1)
     ap.add_argument("--decoder-reuse-depth", type=int, default=0,
                     help="with encoder reuse > 1: run the deep decoder stages "
@@ -170,8 +180,21 @@ def main(argv=None):
         ap.error("--traced needs --solver auto or --max-evals")
     refuse_not_ported(args)
     codec, model_codec = resolve_codecs(args)
+    if args.dp and args.size_mode == "tile":
+        raise SystemExit("--dp requires fixed-size mode: tile batches "
+                         "are variable-sized and cannot be sharded "
+                         "(drop --dp or --size-mode tile)")
+    dp = DataParallel(args.dp, args.device)
+    if args.batch_size % dp.n:
+        raise SystemExit(f"--batch-size {args.batch_size} must be a "
+                         f"multiple of --dp {dp.n}")
+    if not dp.active:
+        return
+    if args.dp and dp.main:
+        print(f"data-parallel serving over {dp.n} device(s)", flush=True)
 
     model = build_restore_model(model_codec, args)
+    replicated(model, dp.mesh)
     dev = model.out_conv.weight.device
     generator = torch.Generator(device=dev).manual_seed(args.seed)
     fallback = model_codec if model_codec != "all" else "jpeg"
@@ -204,27 +227,29 @@ def main(argv=None):
         print(f"auto quality: per-file {qualities} -> init_t bucket {bucket}", flush=True)
         return qualities, bucket
 
-    os.makedirs(args.output_dir, exist_ok=True)
     done_dir = args.processed_dir or os.path.join(args.watch, "done")
     reject_dir = os.path.join(args.watch, "rejected")
-    os.makedirs(done_dir, exist_ok=True)
+    if dp.main:
+        os.makedirs(args.output_dir, exist_ok=True)
+        os.makedirs(done_dir, exist_ok=True)
     solver_kw = dict(steps=args.steps, solver=args.solver, stride=args.stride,
                      max_evals=args.max_evals, encoder_reuse=args.encoder_reuse,
                      generator=generator, decoder_reuse_depth=args.decoder_reuse_depth,
                      protect=tuple(args.protect) if args.protect else None,
                      protect_adaptive=args.protect_adaptive)
     size = None if args.size_mode == "tile" else args.image_size
-    served = 0
-    while True:
+
+    def next_batch():
+        """On data rank 0: the next batch to serve, read and decoded, as
+        (files, codec, images, qualities, bucket quality); None to look
+        again at once (every file of the batch was rejected), 'idle' when
+        the directory is empty, 'stop' when it is empty under --once."""
         files = sorted(
             f for f in os.listdir(args.watch)
             if f.lower().endswith(_EXTS) and os.path.isfile(os.path.join(args.watch, f))
         )
         if not files:
-            if args.once:
-                break
-            time.sleep(args.poll_seconds)
-            continue
+            return "stop" if args.once else "idle"
         take, batch_codec = select_batch(files)
         batch, imgs = [], []
         for f in take:
@@ -236,8 +261,22 @@ def main(argv=None):
                 os.replace(os.path.join(args.watch, f), os.path.join(reject_dir, f))
                 print(f"rejected undecodable input {f}: {e}", flush=True)
         if not batch:
-            continue
+            return None
         qualities, bucket = quality_for([os.path.join(args.watch, f) for f in batch])
+        return batch, batch_codec, imgs, qualities, bucket
+
+    served = 0
+    while True:
+        plan = dp.share(next_batch() if dp.main else None)
+        if plan == "stop":
+            break
+        if plan == "idle":
+            if dp.main:
+                time.sleep(args.poll_seconds)
+            continue
+        if plan is None:
+            continue
+        batch, batch_codec, imgs, qualities, bucket = plan
         if args.size_mode == "tile":
             from ddpm_image_restoration_tpu_torch.utils.tiling import restore_tiled
 
@@ -254,16 +293,23 @@ def main(argv=None):
             pad = args.batch_size - n  # one batch shape for every request
             y = np.concatenate([np.stack(imgs), np.zeros((pad, *imgs[0].shape), np.float32)])
             q = qualities[0] if len(set(qualities)) == 1 else qualities + [float(bucket)] * pad
-            out = restore_batch(model, torch.as_tensor(y, device=dev), q, batch_codec,
-                                bucket=bucket, traced=args.traced,
-                                **solver_kw).cpu().numpy()[:n]
+
+            def restore_rows(yb: np.ndarray, rows) -> np.ndarray:
+                return restore_batch(model, torch.as_tensor(yb, device=dev), q, batch_codec,
+                                     bucket=bucket, traced=args.traced, rows=rows,
+                                     **solver_kw).cpu().numpy()
+
+            out = dp.run(restore_rows, y)[:n]
+        served += len(batch)
+        if not dp.main:
+            continue
         for f, img in zip(batch, out):
             save_image(os.path.join(args.output_dir, os.path.splitext(f)[0] + "_restored.png"),
                        img)
             os.replace(os.path.join(args.watch, f), os.path.join(done_dir, f))
-        served += len(batch)
         print(f"restored {len(batch)} images (total {served})", flush=True)
-    print(f"done; served {served} images", flush=True)
+    if dp.main:
+        print(f"done; served {served} images", flush=True)
 
 
 if __name__ == "__main__":

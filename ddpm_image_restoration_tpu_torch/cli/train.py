@@ -12,7 +12,17 @@ codec trains: `--codec all` is the unified model on mixed-codec batches.
 training set, `--remat` rematerialises each UNet block in the backward,
 `--consistency callback|host_loop` validates through the exact host codec,
 and `--auto-restart N` resumes from the last checkpoint after a crash, up to
-N times. `--fsdp` raises: the port trains on one device.
+N times.
+
+Under `torchrun` it trains data-parallel over gcd(batch size, ranks) ranks,
+each rank on its own card (`cuda:LOCAL_RANK`, NCCL) and its own block of
+every batch; `--fsdp` also splits the f32 masters, both Adam moments and the
+EMA over them. Rank 0 logs and writes the checkpoints, which load into any
+world size:
+
+    torchrun --nproc-per-node 8 -m ddpm_image_restoration_tpu_torch.cli.train \
+        --codec webp --attn flash --attn-max-res 32 --ema-decay 0.999 \
+        --batch-size 144 --fsdp --synthetic 4000 --checkpoint-dir ./ckpt
 """
 
 from __future__ import annotations
@@ -49,7 +59,8 @@ def main(argv=None):
                          "images to the training set (-1 = all; the 'train' split, "
                          "disjoint from evaluate --real)")
     ap.add_argument("--fsdp", action="store_true",
-                    help="not ported: the port trains on one device (raises)")
+                    help="under torchrun: split the f32 masters, Adam moments and EMA "
+                         "over the data-parallel ranks (ZeRO-3)")
     ap.add_argument("--remat", action="store_true",
                     help="rematerialise each UNet block in the backward (less "
                          "activation memory, one more forward of each block)")

@@ -231,9 +231,9 @@ class ModelConfig:
 class TrainConfig:
     """Training knobs, field for field the JAX package's `TrainConfig`.
 
-    The port's trainer (train/loop.py) runs on one device and refuses what it
-    does not implement yet: `fsdp` and a `mesh_shape`/`mesh_axes` other
-    than the default."""
+    The port's trainer (train/loop.py) trains over a 1-D ('data',) mesh of
+    the process group's ranks, with `fsdp` optional, and refuses a 'model'
+    axis or any other mesh."""
 
     codec: str = "webp"
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
@@ -264,7 +264,7 @@ class TrainConfig:
     # on-device codec approximation), or 'callback'/'host_loop' (the exact
     # host codec each step; the same thing in the port's eager loop)
     consistency_mode: str = "surrogate"
-    # parallelism (the port trains on one device: only the defaults)
+    # parallelism: (-1,) = gcd(batch, world) ranks; the port has no 'model' axis
     mesh_shape: Tuple[int, ...] = (-1,)
     mesh_axes: Tuple[str, ...] = ("data",)
     fsdp: bool = False

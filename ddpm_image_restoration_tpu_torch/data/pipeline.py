@@ -9,7 +9,10 @@ Batch content is a pure function of (seed, epoch, batch index) — each batch
 draws from its own derived RNG stream — so the stream is identical whether
 batches are produced serially or by ``num_workers`` threads, a resumed run
 sees exactly the data a run without the interruption would have, and the
-batches equal the JAX package's.
+batches equal the JAX package's. A data-parallel rank (`rows`) draws the
+random fields of the whole batch from that stream and decodes and degrades
+only its own block of rows, so the ranks' blocks make up the one-process
+batch.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import collections
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, Optional, Sequence
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -89,6 +92,7 @@ class DegradationLoader:
         degradation_backend: str = "pil",
         num_workers: int = 0,
         augment: bool = False,
+        rows: Tuple[int, int] = (0, 1),
     ):
         """degradation_backend: 'pil' — real codec bitstreams via
         libjpeg/libwebp/libaom (reference-exact degradation). The JAX
@@ -99,7 +103,14 @@ class DegradationLoader:
         N > 1 = a thread pool decoding and degrading N batches concurrently
         (PIL decode and the codec round-trips release the GIL). Batch
         content is identical for any worker count.
+
+        rows: (r, n) yields the r-th of n equal blocks of rows of each batch
+        of `batch_size` (a data-parallel rank's share; `batch_size` a
+        multiple of n).
         """
+        if batch_size % rows[1]:
+            raise ValueError(f"batch size {batch_size} is not a multiple of the "
+                             f"{rows[1]} data-parallel ranks")
         self.dataset = dataset
         self.indices = np.asarray(indices)[host_id::num_hosts]
         self.preset = preset
@@ -111,12 +122,13 @@ class DegradationLoader:
         if degradation_backend == "native_surrogate":
             raise NotImplementedError(
                 "degradation_backend='native_surrogate' needs codecs/native.py, "
-                "which the port does not have yet; use 'pil'")
+                "which the port does not have yet (ROADMAP.md Queue 1 item 5); use 'pil'")
         if degradation_backend != "pil":
             raise ValueError(degradation_backend)
         self.degradation_backend = degradation_backend
         self.num_workers = num_workers
         self.augment = augment
+        self.rows = rows
 
     def steps_per_epoch(self) -> int:
         if self.drop_remainder:
@@ -127,13 +139,16 @@ class DegradationLoader:
         # Own RNG stream per (seed, epoch, batch): deterministic and
         # order-independent, so parallel workers produce the serial stream.
         rng = np.random.default_rng((self.seed, epoch, batch_idx))
-        x0 = np.stack([self.dataset[int(i)] for i in idxs])
+        n_all = len(idxs)
+        r, n = self.rows
+        mine = slice(r * n_all // n, (r + 1) * n_all // n)
+        x0 = np.stack([self.dataset[int(i)] for i in idxs[mine]])
         if self.augment:
             # dihedral-8 augmentation of the CLEAN image before degradation,
             # so xt stays the true codec round-trip of the training target
             # (same rng stream: deterministic + worker-count independent)
-            ks = rng.integers(0, 4, size=len(idxs))
-            fl = rng.integers(0, 2, size=len(idxs))
+            ks = rng.integers(0, 4, size=n_all)[mine]
+            fl = rng.integers(0, 2, size=n_all)[mine]
             x0 = np.stack([
                 np.ascontiguousarray(
                     np.rot90(img[:, ::-1] if f else img, int(k), axes=(0, 1))
@@ -141,7 +156,7 @@ class DegradationLoader:
                 for img, k, f in zip(x0, ks, fl)
             ])
         qr = sample_quality_range(rng, epoch, self.preset)
-        t = rng.integers(1, self.steps, size=len(idxs))
+        t = rng.integers(1, self.steps, size=n_all)[mine]
         quality = quality_for_timestep(t, self.steps, qr)
         quality = np.maximum(quality, self.preset.quality_min)
         batch = {
@@ -153,7 +168,7 @@ class DegradationLoader:
             # unified multi-codec training: per-sample codec choice (drawn
             # AFTER the shared fields, so jpeg/webp/avif batch streams are
             # untouched); the batch carries the conditioning ids
-            codec_ids = rng.integers(0, len(CODECS), size=len(idxs))
+            codec_ids = rng.integers(0, len(CODECS), size=n_all)[mine]
             xt = np.empty_like(x0)
             for ci, cname in enumerate(CODECS):
                 m = codec_ids == ci

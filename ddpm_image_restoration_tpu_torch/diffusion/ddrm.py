@@ -32,7 +32,7 @@ at eta 0 (the production policy) the two agree.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +40,7 @@ import torch.nn.functional as F
 
 from ddpm_image_restoration_tpu_torch.codecs.surrogate import codec_surrogate, interp
 from ddpm_image_restoration_tpu_torch.config import CodecPreset
+from ddpm_image_restoration_tpu_torch.parallel.mesh import take_rows
 from ddpm_image_restoration_tpu_torch.utils.remat import checkpoint
 
 
@@ -159,21 +160,19 @@ def _lanes(mask: torch.Tensor) -> torch.Tensor:
 
 def _ddrm_update(x_theta, c, y, t, last: np.ndarray, last_d: torch.Tensor,
                  phase: np.ndarray, phase_d: torch.Tensor, eta: float, eta_b: float,
-                 preset: CodecPreset, generator=None) -> torch.Tensor:
+                 preset: CodecPreset, noise) -> torch.Tensor:
     """Post-consistency update (webp_training.py:455-471) for one solver
     slot. `last` and `phase` are the slot's per-sample flags on the host
     (they pick the branches, so nothing waits on the card), `last_d` and
     `phase_d` the same flags on the card for the per-lane selects. The
     static schedule gives every lane the same flags; the traced budget gives
-    each sample its own."""
+    each sample its own. `noise()` draws the eta noise, shaped like y."""
     x_prime = x_theta - c + y
     if last.all():
         return x_prime
     x_next = eta_b * x_prime + (1.0 - eta_b) * x_theta
     if eta:
-        noise = torch.randn(y.shape, generator=generator, device=y.device,
-                            dtype=torch.float32)
-        x_next = x_next + eta * noise * (t * preset.sampler_noise_scale)[:, None, None, None]
+        x_next = x_next + eta * noise() * (t * preset.sampler_noise_scale)[:, None, None, None]
     if phase.any():
         adjusted = phase_consistency(x_next, y, preset.phase_alpha)
         x_next = adjusted if phase.all() else torch.where(_lanes(phase_d), adjusted, x_next)
@@ -262,7 +261,8 @@ class DDRMSampler:
     def run(self, y: torch.Tensor, quality, steps, stride: int = 1, encoder_reuse: int = 1,
             decoder_reuse_depth: int = 0, traced_budget: int = 0,
             eta: Optional[float] = None, eta_b: Optional[float] = None,
-            generator: Optional[torch.Generator] = None, remat: bool = False):
+            generator: Optional[torch.Generator] = None, remat: bool = False,
+            rows: Optional[Tuple[int, int]] = None):
         """The solver loop alone: (x_t, x̂) after the last slot, where x_t is
         the last step's consistency projection (through the surrogate in
         'surrogate' mode; no exact final projection) and x̂ the last model
@@ -277,7 +277,13 @@ class DDRMSampler:
         shorter group is the JAX package's tail) under activation
         checkpointing, so the backward keeps one group's activations at a
         time instead of every step's, at the cost of a second forward of
-        each group; the noise generator is replayed in the recompute."""
+        each group; the noise generator is replayed in the recompute.
+
+        `rows` = (start, stop) restores only rows start..stop-1 of the batch
+        (a data-parallel rank's share; rows past the batch's end repeat its
+        last row and are padding). The schedule, the phase gate and the eta
+        noise are still those of the whole batch, so each row comes out as a
+        restore of the whole batch gives it."""
         if encoder_reuse < 1:
             raise ValueError("encoder_reuse must be >= 1")
         if decoder_reuse_depth < 0:
@@ -297,11 +303,20 @@ class DDRMSampler:
         b = y.shape[0]
         y = y.float()
         q_host = np.broadcast_to(np.asarray(quality, np.float32).reshape(-1), (b,))
-        q_vec = torch.tensor(q_host, device=y.device)
         if torch.is_tensor(steps):
             steps = steps.cpu().numpy()
         idx, used, last, t_host, phase = self._schedule(steps, stride, q_host, encoder_reuse,
                                                         traced_budget)
+        if rows is not None:
+            y, q_host = take_rows(y, rows), take_rows(q_host, rows)
+            idx, used, last, t_host, phase = (take_rows(a, rows, axis=1)
+                                              for a in (idx, used, last, t_host, phase))
+        q_vec = torch.tensor(q_host, device=y.device)
+
+        def noise() -> torch.Tensor:
+            z = torch.randn((b, *y.shape[1:]), generator=generator, device=y.device,
+                            dtype=torch.float32)
+            return take_rows(z, rows)
         used_d, last_d, phase_d, t_all = (torch.from_numpy(np.ascontiguousarray(a)).to(y.device)
                                           for a in (used, last, phase, t_host))
 
@@ -324,7 +339,7 @@ class DDRMSampler:
                     x_new = x_t + x_new
                 c = self._consistency(x_new, q_vec, q_host)
                 x_next = _ddrm_update(x_new, c, y, t, last[p], last_d[p], phase[p], phase_d[p],
-                                      eta, eta_b, preset, generator)
+                                      eta, eta_b, preset, noise)
                 if used[p].all():
                     x_t, x_theta = x_next, x_new
                 else:
@@ -348,9 +363,11 @@ class DDRMSampler:
                protect: Optional[tuple] = None, protect_adaptive=None,
                encoder_reuse: int = 1, decoder_reuse_depth: int = 0,
                final_exact: Optional[bool] = None, traced_budget: int = 0,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+               generator: Optional[torch.Generator] = None,
+               rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         """Restore the NHWC observation y in [-1,1] at codec `quality` (a
-        scalar or a per-sample [B] vector).
+        scalar or a per-sample [B] vector); with `rows` (see `run`) only
+        those rows of it.
 
         `steps` is both the schedule length and the time normaliser;
         `stride` > 1 is the reduced-step solver; `encoder_reuse` = k runs the
@@ -375,9 +392,9 @@ class DDRMSampler:
         `protect_adaptive` = beta applies `residual_trust_blend`.
         """
         out, x_theta = self.run(y, quality, steps, stride, encoder_reuse, decoder_reuse_depth,
-                                traced_budget, eta, eta_b, generator)
-        y = y.float()
+                                traced_budget, eta, eta_b, generator, rows=rows)
         q_host = np.broadcast_to(np.asarray(quality, np.float32).reshape(-1), (y.shape[0],))
+        y, q_host = take_rows(y.float(), rows), take_rows(q_host, rows)
         q_vec = torch.tensor(q_host, device=y.device)
         if final_exact is None:
             final_exact = self.consistency_mode == "surrogate"

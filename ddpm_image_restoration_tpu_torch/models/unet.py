@@ -21,7 +21,7 @@ embedding and the output head stay f32. Flax's GroupNorm uses eps 1e-6 and
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -51,12 +51,19 @@ class Dropout(nn.Module):
     probability 1 − rate and scale it by 1/(1 − rate); in eval mode (and at
     rate 0) the identity. The mask is drawn from `self.generator`, a
     `torch.Generator` on the input's device that the trainer owns and sets
-    with `set_dropout_generator`, never from the global RNG."""
+    with `set_dropout_generator`, never from the global RNG.
+
+    Under data parallelism (`self.shard` = (r, n), this rank's input being
+    the r-th of n equal blocks of the batch) it draws the mask of the whole
+    batch and keeps its block, so the masks are those of one process on the
+    whole batch (as JAX's partitionable threefry gives the sharded mask);
+    each rank pays n times the RNG work of its own rows."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
         self.generator: Optional[torch.Generator] = None
+        self.shard: Tuple[int, int] = (0, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
@@ -65,15 +72,21 @@ class Dropout(nn.Module):
             raise RuntimeError("training dropout needs a torch.Generator: "
                                "call set_dropout_generator(model, generator)")
         keep_prob = 1.0 - self.rate
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device) < keep_prob
+        r, n = self.shard
+        b = x.shape[0]
+        u = torch.rand((n * b, *x.shape[1:]), generator=self.generator, device=x.device)
+        keep = u[r * b:(r + 1) * b] < keep_prob
         return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
-def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]) -> None:
-    """Let every `Dropout` of `model` draw its training masks from `generator`."""
+def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator],
+                          shard: Tuple[int, int] = (0, 1)) -> None:
+    """Let every `Dropout` of `model` draw its training masks from
+    `generator`, as block `shard` = (r, n) of the whole batch's masks."""
     for m in model.modules():
         if isinstance(m, Dropout):
             m.generator = generator
+            m.shard = shard
 
 
 class SpatialSelfAttention(nn.Module):

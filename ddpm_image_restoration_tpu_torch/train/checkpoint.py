@@ -53,22 +53,28 @@ def load_release_params(npz_path: str) -> Dict[str, torch.Tensor]:
         return params_from_jax({k: data[k] for k in data.files})
 
 
+def jax_layout(module: nn.Module, p_name: str, ndim: int) -> Tuple[str, Tuple[int, ...]]:
+    """(Flax leaf name, axis order) of `module`'s parameter `p_name`: the
+    JAX package's array is this parameter's `permute(order)`."""
+    if p_name == "weight":
+        if isinstance(module, nn.Conv2d):
+            return "kernel", (2, 3, 1, 0)                 # OIHW -> HWIO
+        if isinstance(module, nn.Linear):
+            return "kernel", (1, 0)                       # [out,in] -> [in,out]
+        if isinstance(module, nn.GroupNorm):
+            return "scale", tuple(range(ndim))
+        if isinstance(module, nn.Embedding):
+            return "embedding", tuple(range(ndim))
+    return p_name, tuple(range(ndim))
+
+
 def params_to_jax(model: nn.Module) -> Dict[str, np.ndarray]:
     """Inverse of `params_from_jax` for `model`'s parameters (f32 numpy)."""
     flat = {}
     for mod_name, module in model.named_modules():
         for p_name, p in module.named_parameters(recurse=False):
-            arr = p.detach().float().cpu().numpy()
-            leaf = p_name
-            if p_name == "weight":
-                if isinstance(module, nn.Conv2d):
-                    leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)
-                elif isinstance(module, nn.Linear):
-                    leaf, arr = "kernel", arr.T
-                elif isinstance(module, nn.GroupNorm):
-                    leaf = "scale"
-                elif isinstance(module, nn.Embedding):
-                    leaf = "embedding"
+            leaf, order = jax_layout(module, p_name, p.dim())
+            arr = p.detach().float().cpu().numpy().transpose(order)
             path = mod_name.split(".") if mod_name else []
             flat["/".join([*path, leaf])] = np.ascontiguousarray(arr)
     return flat
@@ -95,7 +101,13 @@ class CheckpointManager:
     the best `max_to_keep` by `val_psnr` (for `restore_best`) and the latest
     two (for `restore_latest`, the resume); the rest are deleted. The
     metrics of the kept checkpoints are listed in `checkpoints.json`. Saves
-    are synchronous and atomic (written aside, then renamed)."""
+    are synchronous and atomic (written aside, then renamed).
+
+    Over a data mesh (a state with a `layout`) every rank of the mesh calls
+    `save`: the state is gathered to the one-process layout, data rank 0
+    writes it between two barriers, and every rank loads a checkpoint into
+    its own parts. So a file moves freely between world sizes and between
+    FSDP and replicated runs."""
 
     def __init__(self, directory: str, max_to_keep: int = 3):
         self.directory = os.path.abspath(directory)
@@ -125,8 +137,22 @@ class CheckpointManager:
     def save(self, step: int, state, metrics: Optional[Dict[str, float]] = None) -> str:
         metrics = {k: float(v) for k, v in (metrics or {}).items()}
         path = self._path(step)
+        sd = state.state_dict()
+        layout = getattr(state, "layout", None)
+        if layout is not None:
+            layout.barrier()  # every rank is done reading the directory
+            try:
+                if layout.rank == 0:
+                    self._write(step, path, sd, metrics)
+            finally:
+                layout.barrier()  # the files are there for every rank
+            return path
+        self._write(step, path, sd, metrics)
+        return path
+
+    def _write(self, step: int, path: str, sd: dict, metrics: Dict[str, float]) -> None:
         tmp = path + ".tmp"
-        torch.save({"state": state.state_dict(), "metadata": dict(metrics, step=step)}, tmp)
+        torch.save({"state": sd, "metadata": dict(metrics, step=step)}, tmp)
         os.replace(tmp, path)
         index = self._index()
         index[step] = metrics
@@ -137,7 +163,6 @@ class CheckpointManager:
                 os.remove(self._path(s))
             del index[s]
         self._write_index(index)
-        return path
 
     def all_steps(self) -> list:
         return sorted(self._index())

@@ -17,13 +17,22 @@ As in the JAX package (train_model_ddrm_* webp_training.py:773-822):
 
 Every codec preset trains: 'jpeg', 'webp', 'avif' and the unified 'all'
 model (per-sample mixed-codec batches, validated across the three codecs).
-The port trains on one device, eagerly: batches stream from the host
-degradation pipeline while the card runs the previous step. It refuses FSDP
-and meshes, which it has not ported.
+The port trains eagerly: batches stream from the host degradation pipeline
+while the card runs the previous step.
+
+Under a process group (`torchrun`, parallel/mesh.py) it trains data-parallel
+over a ('data',) mesh, by default of gcd(batch, world) ranks as in the JAX
+package, and with `fsdp` splits the masters, moments and EMA over it. Each
+rank degrades only its block of every batch. A rank outside the mesh says so
+and returns at once, taking no part. Every rank of the mesh validates the
+whole validation set (the numbers are one process's); only data rank 0 logs,
+prints, and writes checkpoints, curves and grids. The 'model' axis and any
+other mesh shape are refused.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import time
 from typing import Dict, Optional
@@ -47,6 +56,16 @@ from ddpm_image_restoration_tpu_torch.device import resolve_device
 from ddpm_image_restoration_tpu_torch.diffusion.ddrm import DDRMSampler
 from ddpm_image_restoration_tpu_torch.evaluation.metrics import psnr, ssim_metric
 from ddpm_image_restoration_tpu_torch.models import build_model
+from ddpm_image_restoration_tpu_torch.parallel.mesh import (
+    broadcast_object,
+    data_rank,
+    data_size,
+    init_distributed,
+    make_mesh,
+    put_state,
+    rank,
+    world_size,
+)
 from ddpm_image_restoration_tpu_torch.train.checkpoint import CheckpointManager
 from ddpm_image_restoration_tpu_torch.train.steps import create_train_state, make_train_step
 from ddpm_image_restoration_tpu_torch.utils.logging import MetricLogger
@@ -54,10 +73,28 @@ from ddpm_image_restoration_tpu_torch.utils.viz import save_restoration_grid, sa
 
 
 def check_supported(cfg: TrainConfig) -> None:
-    """Raise for the training options the port has not implemented."""
-    if cfg.fsdp or tuple(cfg.mesh_shape) != (-1,) or tuple(cfg.mesh_axes) != ("data",):
-        raise NotImplementedError("FSDP and meshes are not ported yet: the port trains "
-                                  "on one device")
+    """Raise for the training options the port has not implemented: a
+    'model' (tensor-parallel) mesh axis, and any mesh but a 1-D ('data',)
+    one."""
+    axes, shape = tuple(cfg.mesh_axes), tuple(cfg.mesh_shape)
+    if "model" in axes:
+        raise NotImplementedError("the 'model' (tensor-parallel) mesh axis is not ported yet "
+                                  "(ROADMAP.md Queue 1 item 8); use a ('data',) mesh")
+    if axes != ("data",) or len(shape) != 1:
+        raise NotImplementedError(f"mesh {shape} over {axes}: the port trains over a 1-D "
+                                  "('data',) mesh only")
+
+
+def train_mesh(cfg: TrainConfig, batch_size: int):
+    """The training mesh: by default (mesh_shape (-1,)) gcd(batch_size,
+    world) ranks, the most that split the batch evenly (the JAX package's
+    rule); else `cfg.mesh_shape`. None in one process."""
+    n = cfg.mesh_shape[0]
+    if n == -1:
+        n = math.gcd(batch_size, world_size())
+    if batch_size % n:
+        raise ValueError(f"batch size {batch_size} does not split over a data mesh of {n}")
+    return make_mesh((n,), ("data",))
 
 
 def unified_samplers(model, consistency_mode: str = "surrogate") -> Dict[str, DDRMSampler]:
@@ -130,8 +167,12 @@ def train_model(cfg: TrainConfig, dataset=None, epochs: Optional[int] = None,
     Each epoch logs `loss` (mean train loss), `val_psnr`, `val_ssim`,
     `epoch_time` (s, with validation) and, when the epoch has two or more
     steps, `step_ms`: wall time per train step after the epoch's first
-    (warm) step, ending in a device synchronise."""
+    (warm) step, ending in a device synchronise.
+
+    Under a process group every rank calls it (module docstring); a rank
+    outside the training mesh returns (None, {})."""
     check_supported(cfg)
+    init_distributed(device)
     dev = resolve_device(device)
     epochs = epochs or cfg.epochs
     preset = cfg.preset
@@ -150,9 +191,20 @@ def train_model(cfg: TrainConfig, dataset=None, epochs: Optional[int] = None,
         print(f"warning: batch size {batch_size} > {len(train_idx)} training "
               f"images; clamping to {len(train_idx)}", flush=True)
         batch_size = len(train_idx)
+    mesh = train_mesh(cfg, batch_size)
+    if data_rank(mesh) is None:
+        print(f"rank {rank()}: outside the data mesh of {data_size(mesh)} of "
+              f"{world_size()} ranks (batch {batch_size}); it takes no part in training",
+              flush=True)
+        return None, {}
+    main = data_rank(mesh) == 0
+    verbose = verbose and main
+    if main and mesh is not None:
+        print(f"data-parallel training over {data_size(mesh)} rank(s)"
+              f"{' with FSDP' if cfg.fsdp else ''}", flush=True)
     loader = DegradationLoader(dataset, train_idx, preset, batch_size, cfg.steps,
                                seed=cfg.seed, num_workers=cfg.data_workers,
-                               augment=cfg.augment)
+                               augment=cfg.augment, rows=(data_rank(mesh), data_size(mesh)))
     if len(val_idx) == 0:  # tiny datasets: validate on training images
         val_idx = train_idx
     val_images = np.stack([dataset[int(i)] for i in val_idx[:val_batch]])
@@ -162,7 +214,8 @@ def train_model(cfg: TrainConfig, dataset=None, epochs: Optional[int] = None,
         torch.random.default_generator.manual_seed(cfg.seed)
         model = build_model(cfg.codec, cfg.model, device="cpu")
     model.to(dev)
-    state = create_train_state(model, cfg, max(1, loader.steps_per_epoch()))
+    state = put_state(create_train_state(model, cfg, max(1, loader.steps_per_epoch())), mesh,
+                      fsdp=cfg.fsdp)
     train_step = make_train_step(model, cfg)
 
     ckpt = CheckpointManager(cfg.checkpoint_dir)
@@ -180,7 +233,7 @@ def train_model(cfg: TrainConfig, dataset=None, epochs: Optional[int] = None,
             if verbose:
                 print(f"resumed from epoch {start_epoch - 1}", flush=True)
 
-    logger = MetricLogger(cfg.checkpoint_dir)
+    logger = MetricLogger(cfg.checkpoint_dir if main else None)
     # Validation runs on the EMA weights when the EMA is on: a second model
     # holds them, in the model's dtypes.
     eval_model = build_model(cfg.codec, cfg.model, device=dev) if cfg.ema_decay > 0 else model
@@ -211,11 +264,16 @@ def train_model(cfg: TrainConfig, dataset=None, epochs: Optional[int] = None,
             timed["step_ms"] = 1e3 * (time.perf_counter() - t_warm) / (len(losses) - 1)
         train_loss = float(torch.stack(losses).mean()) if losses else float("nan")
 
-        if state.ema is not None:
+        if state.ema is not None and state.layout is not None:
+            state.layout.gather_into(eval_model, state.ema)
+        elif state.ema is not None:
             with torch.no_grad():
                 ps = [p for _, p in eval_model.named_parameters()]
                 torch._foreach_copy_(ps, [state.ema[n] for n, _ in eval_model.named_parameters()])
-        val = validate_by_restoration(eval_model, cfg, val_images, sampler)
+        # data rank 0's numbers decide the saves on every rank (a save is a
+        # collective over the mesh)
+        val = broadcast_object(validate_by_restoration(eval_model, cfg, val_images, sampler),
+                               mesh)
         logger.log(epoch, loss=train_loss, epoch_time=time.time() - t_start, **timed, **val)
         if verbose:
             print(logger.summary(epoch, prefix=f"{preset.name} "), flush=True)
@@ -226,10 +284,11 @@ def train_model(cfg: TrainConfig, dataset=None, epochs: Optional[int] = None,
             last_save_epoch = epoch
             ckpt.save(epoch, state, {"epoch": epoch, **val})
 
-        save_training_curves(os.path.join(cfg.checkpoint_dir, "curves", "training.png"),
-                             logger.history)
-        if epoch % cfg.viz_every == 0:
-            save_grid(viz_sampler, cfg, val_images, epoch)
+        if main:
+            save_training_curves(os.path.join(cfg.checkpoint_dir, "curves", "training.png"),
+                                 logger.history)
+            if epoch % cfg.viz_every == 0:
+                save_grid(viz_sampler, cfg, val_images, epoch)
 
     return state, logger.history
 

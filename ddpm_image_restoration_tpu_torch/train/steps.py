@@ -24,12 +24,18 @@ parameter, the Adam moments and the EMA; after each update the masters are
 written back into the module, rounded to its dtype, which is the value the
 JAX package's cast would compute with. For an f32 parameter the master is
 the parameter itself.
+
+Over a data mesh (parallel/mesh.py `put_state`) the state carries a
+`ShardedState` layout: the step averages the gradients and the loss over
+the mesh, and under FSDP each rank holds and updates its blocks of the
+large masters, moments and EMA, then all-gathers the module's weights. The
+step's arithmetic is the one-process step's on the whole batch.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 from torch import nn
@@ -53,12 +59,15 @@ class ClipAdamW:
     eps: float = 1e-8
 
     def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
-               mu: List[torch.Tensor], nu: List[torch.Tensor], count: int) -> torch.Tensor:
+               mu: List[torch.Tensor], nu: List[torch.Tensor], count: int,
+               g_norm: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One step at optimizer count `count` (steps taken so far): clips
         `grads` (not in place), updates the moments and `params` in place,
         and returns the global gradient norm before clipping (a 0-d tensor;
-        nothing here waits for the device)."""
-        g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        nothing here waits for the device). `g_norm` is that norm when the
+        caller has it (the lists then hold parts of the tensors: FSDP)."""
+        if g_norm is None:
+            g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         # optax: t if ‖g‖ < max_norm else (t/‖g‖)·max_norm
         grads = torch._foreach_mul(grads, torch.clamp(self.max_norm / g_norm, max=1.0))
         torch._foreach_mul_(mu, self.b1)
@@ -88,7 +97,9 @@ def make_optimizer(cfg: TrainConfig, steps_per_epoch: int = 1) -> ClipAdamW:
 class TrainState:
     """The model and what training keeps beside it: f32 master parameters
     (`params`, keyed by parameter name), the Adam moments, the optional EMA
-    of the masters, and the count of optimizer steps taken."""
+    of the masters, and the count of optimizer steps taken. `layout` is the
+    `parallel.mesh.ShardedState` over a data mesh (None in one process):
+    then the dicts hold this rank's parts of the split tensors."""
 
     model: nn.Module
     tx: ClipAdamW
@@ -97,10 +108,15 @@ class TrainState:
     nu: Dict[str, torch.Tensor]
     ema: Optional[Dict[str, torch.Tensor]]
     step: int = 0
+    layout: Optional[Any] = None
 
     def write_back(self) -> None:
         """Copy the masters into the module's parameters that are not f32
-        (rounding them to the parameter's dtype)."""
+        (rounding them to the parameter's dtype); over a mesh, every
+        parameter the layout splits, all-gathered."""
+        if self.layout is not None:
+            self.layout.gather_into(self.model, self.params)
+            return
         pairs = [(p, self.params[n]) for n, p in self.model.named_parameters()
                  if p.dtype != torch.float32]
         if pairs:
@@ -108,23 +124,32 @@ class TrainState:
                 torch._foreach_copy_([p for p, _ in pairs], [m for _, m in pairs])
 
     def state_dict(self) -> dict:
-        """Everything a resume needs, on the CPU."""
+        """Everything a resume needs, on the CPU, in the one-process layout
+        (over a mesh a collective: every rank calls it)."""
         def cpu(d):
-            return None if d is None else {k: v.detach().cpu() for k, v in d.items()}
+            if d is None:
+                return None
+            if self.layout is not None:
+                return self.layout.full(d)
+            return {k: v.detach().cpu() for k, v in d.items()}
         return {"step": self.step, "params": cpu(self.params), "mu": cpu(self.mu),
                 "nu": cpu(self.nu), "ema": cpu(self.ema)}
 
     def load_state_dict(self, sd: dict) -> None:
-        """Restore `state_dict()` output. The EMA is taken from `sd` only
+        """Restore `state_dict()` output (the one-process layout; over a
+        mesh each rank takes its parts). The EMA is taken from `sd` only
         (None when it holds none), never from the current masters."""
+        def mine(k, v):
+            return v if self.layout is None else self.layout.local(k, v)
+
         with torch.no_grad():
             for name in ("params", "mu", "nu"):
                 dst = getattr(self, name)
                 for k, v in sd[name].items():
-                    dst[k].copy_(v)
+                    dst[k].copy_(mine(k, v))
             dev = next(iter(self.params.values())).device
             self.ema = None if sd["ema"] is None else {
-                k: v.to(dev, torch.float32).clone() for k, v in sd["ema"].items()}
+                k: mine(k, v.to(dev, torch.float32)).clone() for k, v in sd["ema"].items()}
         self.step = int(sd["step"])
         self.write_back()
 
@@ -145,13 +170,14 @@ def create_train_state(model: nn.Module, cfg: TrainConfig,
 
 def apply_gradients(state: TrainState, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Clip + AdamW on the masters with `grads` (f32, keyed like
-    `state.params`), write back, count the step; returns the global norm
-    of `grads`."""
+    `state.params`, in its layout), write back, count the step; returns the
+    global norm of `grads`."""
     names = list(state.params)
     with torch.no_grad():
+        g_norm = None if state.layout is None else state.layout.grad_norm(grads)
         g_norm = state.tx.update([state.params[n] for n in names], [grads[n] for n in names],
                                  [state.mu[n] for n in names], [state.nu[n] for n in names],
-                                 state.step)
+                                 state.step, g_norm)
     state.step += 1
     state.write_back()
     return g_norm
@@ -183,25 +209,32 @@ def make_train_step(model: nn.Module, cfg: TrainConfig) -> Callable:
     on `batch` (a dict of tensors on the model's device: `x0`, `xt` NHWC,
     `t` [B] int, optionally `codec_id`), with training dropout drawing its
     masks from `generator`. Returns {'loss', 'grad_norm'} as 0-d tensors;
-    the parameters' `.grad` keep this step's gradients."""
+    the parameters' `.grad` keep this step's gradients.
+
+    Over a data mesh (`state.layout`), `batch` is this rank's block of the
+    whole batch: the dropout masks are the whole batch's block, and the
+    gradients and the loss are averaged over the mesh (the loss of the
+    whole batch); `.grad` keeps this rank's own gradients."""
     loss_fn = loss_for_preset(cfg.preset.loss_kind)
     steps = cfg.steps
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
-        m = state.model
+        m, layout = state.model, state.layout
         m.train()
-        set_dropout_generator(m, generator)
+        set_dropout_generator(m, generator, (0, 1) if layout is None else (layout.rank, layout.n))
         for p in m.parameters():
             p.grad = None
         t_norm = batch["t"].float() / steps
         pred = m(batch["xt"], t_norm, t_norm, codec_id=batch.get("codec_id"))
         loss = loss_fn(batch["xt"] + pred, batch["x0"])
         loss.backward()
-        g_norm = apply_gradients(state, param_grads(m))
+        grads = param_grads(m) if layout is None else layout.reduce_grads(m)
+        g_norm = apply_gradients(state, grads)
         if cfg.ema_decay > 0:
             update_ema(state, cfg.ema_decay)
-        return {"loss": loss.detach(), "grad_norm": g_norm}
+        loss = loss.detach()
+        return {"loss": loss if layout is None else layout.mean(loss), "grad_norm": g_norm}
 
     return train_step
 

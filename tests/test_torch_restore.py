@@ -227,16 +227,18 @@ def test_restore_from_own_checkpoint_with_ema(tmp_path, capsys):
 
 
 def test_restore_refusals(tmp_path):
-    """The unported flags name their ROADMAP item; a directory without the
-    port's checkpoints (an Orbax one, or none) says so; all before any
-    model is built."""
+    """The unported flags name their ROADMAP item, and --dp with --sp is
+    refused as in the JAX CLI; a directory without the port's checkpoints
+    (an Orbax one, or none) says so; all before any model is built."""
     from ddpm_image_restoration_tpu_torch.cli.restore import main
 
     img = _inputs(tmp_path / "in")["png"][:1]
-    for flags, item in ((["--solver", "gaussian_mixture"], "item 9"),
-                        (["--dp", "2"], "item 8"), (["--sp", "2"], "item 8")):
+    for flags, item in ((["--solver", "gaussian_mixture"], "item 4"),
+                        (["--sp", "2"], "item 7")):
         with pytest.raises(SystemExit, match=f"ROADMAP.md Queue 1 {item}"):
             main([*img, *flags, "--random-init"])
+    with pytest.raises(SystemExit, match="mutually exclusive"):
+        main([*img, "--dp", "2", "--sp", "2", "--random-init"])
     for flags in (["--codec", "all"], ["--codec", "auto"]):
         with pytest.raises(SystemExit, match="--model-codec"):
             main([*img, *flags, "--random-init"])

@@ -148,16 +148,16 @@ def test_serve_cli_matches_jax(tmp_path, case, capsys):
 
 
 def test_serve_refusals(tmp_path):
-    """--traced without a budget and the unported --dp refuse at startup,
-    before any model is built."""
+    """--traced without a budget, and --dp with tile mode (as in the JAX
+    CLI), refuse at startup, before any model is built."""
     from ddpm_image_restoration_tpu_torch.cli.serve import main
 
     base = ["--watch", str(tmp_path), "--output-dir", str(tmp_path / "out"), "--random-init",
             "--once"]
     with pytest.raises(SystemExit):
         main([*base, "--traced"])
-    with pytest.raises(SystemExit, match="ROADMAP.md Queue 1 item 8"):
-        main([*base, "--dp", "2"])
+    with pytest.raises(SystemExit, match="fixed-size mode"):
+        main([*base, "--dp", "2", "--size-mode", "tile"])
 
 
 def test_serve_rejects_and_requires_weights(tmp_path):
