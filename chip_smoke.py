@@ -61,7 +61,22 @@ NVIDIA card and checks it, phase by phase:
      avif` (one epoch, EMA, checkpoint), `cli/evaluate.py` and
      `cli/restore.py --model-codec avif` on that checkpoint (AVIF files
      Pillow writes), then two steps of `cli/train.py --codec all`; every
-     kernel's launches against the schedule.
+     kernel's launches against the schedule;
+ 13. gaussian_mixture: `cli/restore.py --solver gaussian_mixture` at full
+     width on 8 WebPs at q30 (cold and warm) and a non-square WebP in
+     tiles, the forward kernel's launches against init_t x 2 a batch, ms
+     per image; the sampler's per-step threefry draws (host) and batched
+     SVD (card), a profile of one sampler batch; a half-width f32 sampler
+     run on the card against the CPU;
+ 14. modules: DDIM and the DDPM chain over the experimental models at
+     their default widths, card against CPU in f32; the native codec
+     engine built from `native/codec_engine.cpp` into build/, its loader
+     batches against the surrogate on the card and its ms/batch against
+     Pillow's; `utils/profiling.trace` around a serve batch; the serve
+     batch with the upsample and block DCT swapped for the JAX package's
+     other formulations (shift/adds, block-diagonal matmuls, defined
+     here), in turns: ms/batch, output against the default, and each op's
+     time on its own between CUDA events.
 
     python3 chip_smoke.py
 
@@ -73,15 +88,17 @@ It prints each phase's seconds, then a JSON line of per-kernel numbers, the
 card's `nvidia-smi` name and power limit, and last `{"ok": true, ...}`. It
 exits non-zero, printing no result, when any phase fails, when no CUDA card
 is visible, or when the port's package is not beside it. It needs torch,
-numpy, scipy (the Fréchet distance), nvcc and Pillow with AVIF (phases
-`restore`, `evaluate` and `avif` read and write image files; the serving
-phase skips the exact final projection, saying why, without Pillow).
+numpy, scipy (the Fréchet distance), nvcc, a C++ compiler (the native
+codec engine) and Pillow with AVIF (phases `restore`, `evaluate`, `avif`
+and `gaussian_mixture` read and write image files; the serving phase skips
+the exact final projection, saying why, without Pillow).
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import importlib.util
 import json
 import math
@@ -107,7 +124,8 @@ JAX_PACKAGE = PACKAGE.removesuffix("_torch")  # the reference; never imported he
 # AVIF model's (8 heads: head dim 128/8 = 16 at down2, 64/8 = 8 at up4,
 # which the wrapper zero-pads to 16) for its
 # training and evaluation batches of 8, its validation batch of 4 and the
-# restore CLI's single files.
+# restore CLI's single files; last the Gaussian-mixture restore's batch of 8
+# files and its tile batches (the serve and restore-tile shapes again).
 FWD_PATH_SHAPES = [("serve", 32, 1024, 32, False), ("serve", 32, 1024, 16, False),
                    ("train step", 72, 1024, 32, True), ("train step", 72, 1024, 16, True),
                    ("distill teacher", 72, 1024, 32, False),
@@ -120,7 +138,11 @@ FWD_PATH_SHAPES = [("serve", 32, 1024, 32, False), ("serve", 32, 1024, 16, False
                    ("avif evaluate", 64, 1024, 16, False), ("avif evaluate", 64, 1024, 8, False),
                    ("avif validation", 32, 1024, 16, False),
                    ("avif validation", 32, 1024, 8, False),
-                   ("avif restore", 8, 1024, 16, False), ("avif restore", 8, 1024, 8, False)]
+                   ("avif restore", 8, 1024, 16, False), ("avif restore", 8, 1024, 8, False),
+                   ("gaussian_mixture", 32, 1024, 32, False),
+                   ("gaussian_mixture", 32, 1024, 16, False),
+                   ("gaussian_mixture tiles", 64, 1024, 32, False),
+                   ("gaussian_mixture tiles", 64, 1024, 16, False)]
 # (BH, T, D): those shapes, then long, ragged and wide-head cases of the
 # kernel's contract.
 KERNEL_SHAPES = list(dict.fromkeys(s[1:4] for s in FWD_PATH_SHAPES)) + [
@@ -2382,12 +2404,595 @@ def phase_parallel(state: dict) -> None:
         raise AssertionError("; ".join(failures))
 
 
+# The gaussian_mixture phase: the restore CLI with --solver gaussian_mixture
+# at full width on GM_FILES WebPs at GM_QUALITY (one batch, restored twice:
+# cold, then warm) and one GM_TILE_HW WebP in tiles, GM_TILE_BATCH a batch
+# (the CLI pads the last batch to it). Each
+# batch runs init_t model evaluations, each launching the forward kernel
+# FLASH_PER_EVAL times. Its card-against-CPU case: the sampler at half
+# width, f32, GM_REFERENCE_STEPS steps (the SVD guidance at i = 10..6, the
+# phase projection at i = 10 and 5) on two 64² images at GM_QUALITY, from
+# key 0.
+GM_FLAGS = ["--device", "cuda", "--attn", "flash", "--attn-max-res", "32", "--random-init"]
+GM_QUALITY = 30
+GM_FILES = 8
+GM_TILE_HW = (72, 100)
+GM_TILE_BATCH = 16
+GM_REFERENCE_STEPS = 11
+# Steps of the profiled sampler batch: the SVD guidance on the first half,
+# as at init_t; the profiler's own processing of a 70-step batch's 184,402
+# kernels took ~100 s on the H100's host.
+GM_PROFILE_STEPS = 10
+# The modules phase: DDIM (T = 70 on a grid of MODULES_DDIM_STEPS) and the
+# DDPM chain (T = MODULES_DDPM_T) over the experimental models at their
+# default widths, card against CPU in f32, each within MODULES_MEAN on
+# average (absolute: ~5x the 9e-6 that SelectiveFreqUNet's DDIM measured
+# on the H100) and MODULES_REL·max(1, max|ref|) at most; the native engine's
+# DegradationLoader batches (MODULES_LOADER_IMAGES natural 64² images in
+# batches of 18, WebP) against the surrogate on the card; the serve batch
+# (8 images at q30) under each of FORMULATIONS in turns, the model's
+# output on it within one bf16 step (2^-7) of the default's on average. (The restored batch itself is logged, not gated: on random
+# weights the surrogate's per-step rounding turns a last-bit change of the
+# model's output into a mean change of ~0.15, as a CPU rehearsal at
+# width/16 showed for every formulation.)
+# MODULES_SCALE divides every model width of the phase and of
+# `full_width_model` (1: the defaults); CARD is the device the new phases
+# hold against the CPU.
+CARD = "cuda"
+MODULES_SCALE = 1
+MODULES_DDIM_STEPS = 10
+MODULES_DDPM_T = 70
+MODULES_MEAN = 5e-5
+MODULES_REL = 1e-3
+MODULES_LOADER_IMAGES = 54
+MODULES_TIMED = 3  # timed serve batches per formulation
+
+
+# The JAX package's other formulations of the 2x upsample and the block DCT
+# (its DDPM_IR_RESIZE_IMPL=shifts and DDPM_IR_DCT_IMPL=shifts|blockdiag),
+# which the port's ops leave out: measured here by swapping them into the
+# models for the serve batch, and held to the JAX package's in
+# tests/test_torch_modules_phase.py.
+def _upsample_axis_shifts(x, axis: int):
+    """Exact 2x linear upsample (half-pixel centres) along one axis by
+    fixed-weight shift/adds in x's dtype: out[2i] = 0.25·in[i-1] +
+    0.75·in[i], out[2i+1] = 0.75·in[i] + 0.25·in[i+1], edges clamped."""
+    import torch
+
+    n = x.shape[axis]
+    prev = torch.cat([x.narrow(axis, 0, 1), x.narrow(axis, 0, n - 1)], axis)
+    nxt = torch.cat([x.narrow(axis, 1, n - 1), x.narrow(axis, n - 1, 1)], axis)
+    stacked = torch.stack([0.25 * prev + 0.75 * x, 0.75 * x + 0.25 * nxt], dim=axis + 1)
+    shape = list(x.shape)
+    shape[axis] = 2 * n
+    return stacked.reshape(shape)
+
+
+def upsample_2x_shifts(x):
+    """`ops.resize.upsample_2x_bilinear` as separable shift/adds, H then W."""
+    return _upsample_axis_shifts(_upsample_axis_shifts(x, 2), 3)
+
+
+def _block_padded(form):
+    """`form(x, bs)` on NCHW x zero-padded to block multiples, cropped
+    back, as `ops.dct.spatial_block_dct` pads."""
+    import functools
+
+    @functools.wraps(form)
+    def padded(x, bs: int):
+        import torch.nn.functional as F
+
+        h, w = x.shape[-2:]
+        return form(F.pad(x, (0, (-w) % bs, 0, (-h) % bs)), bs)[:, :, :h, :w]
+    return padded
+
+
+def _axis_dct_shifts(t, axis: int, bs: int):
+    """The blockwise 1-D DCT along `axis` as strided slices and scalar
+    multiply-adds in f32: within a block, output row i is the bs-term sum
+    of d[i, j]·(input row j), summed left to right as the JAX package
+    does."""
+    import functools
+
+    import torch
+
+    from ddpm_image_restoration_tpu_torch.codecs.surrogate import dct_matrix
+
+    d = dct_matrix(bs).astype("float64")
+    shape = list(t.shape)
+    blocks = t.reshape(*shape[:axis], shape[axis] // bs, bs, *shape[axis + 1:])
+    slices = [blocks.select(axis + 1, j).float() for j in range(bs)]
+    outs = [functools.reduce(torch.add, (float(d[i, j]) * slices[j] for j in range(bs)))
+            for i in range(bs)]
+    return torch.stack(outs, dim=axis + 1).reshape(shape)
+
+
+@_block_padded
+def block_dct_shifts(x, bs: int):
+    """`ops.dct.spatial_block_dct` as strided slices and scalar
+    multiply-adds accumulated in f32, cast back once."""
+    return _axis_dct_shifts(_axis_dct_shifts(x, 2, bs), 3, bs).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _block_diag_dct(n: int, bs: int):
+    """kron(I_{n/bs}, D_bs) [n, n] in f32, the blockwise 1-D DCT of a
+    length-n axis as one matrix (cached, as the JAX package caches it)."""
+    import numpy as np
+
+    from ddpm_image_restoration_tpu_torch.codecs.surrogate import dct_matrix
+
+    return np.kron(np.eye(n // bs), dct_matrix(bs).astype(np.float64)).astype(np.float32)
+
+
+@_block_padded
+def block_dct_blockdiag(x, bs: int):
+    """`ops.dct.spatial_block_dct` as contractions of H and W against
+    kron(I, D) block-diagonal matrices (rounded to x's dtype) in f32, cast
+    back once (f32 matmuls use no TF32 unless
+    `torch.backends.cuda.matmul.allow_tf32` is set)."""
+    import torch
+
+    d_h, d_w = (torch.from_numpy(_block_diag_dct(n, bs)).to(x.device, x.dtype).float()
+                for n in x.shape[-2:])
+    return torch.einsum("Hh,bchw,Ww->bcHW", d_h, x.float(), d_w).to(x.dtype)
+
+
+FORMULATIONS = [("default", {}), ("resize=shifts", {"upsample_2x_bilinear": upsample_2x_shifts}),
+                ("dct=shifts", {"spatial_block_dct": block_dct_shifts}),
+                ("dct=blockdiag", {"spatial_block_dct": block_dct_blockdiag}), ("default", {})]
+
+
+def full_width_model():
+    """The WebP model at the release widths (divided by MODULES_SCALE),
+    bf16, flash attention at <= 32², on CARD, under the current seed."""
+    from ddpm_image_restoration_tpu_torch.config import ModelConfig
+    from ddpm_image_restoration_tpu_torch.models import build_model
+
+    cfg = ModelConfig(attention_impl="flash", attn_max_resolution=32)
+    return build_model("webp", cfg.scaled(MODULES_SCALE) if MODULES_SCALE > 1 else cfg,
+                       device=CARD)
+
+
+def gm_reference_case():
+    """(cfg, y): the gaussian_mixture phase's card-against-CPU case. The
+    model is the half-width f32 WebP model (flash at <= 32²) under
+    torch.manual_seed(SEED); y two 64² images through the WebP surrogate at
+    GM_QUALITY (NHWC numpy). On these inputs the JAX package's own sampler
+    moves by far less than the gate for a 1e-6 input change
+    (tests/test_torch_gaussian_mixture_phase.py)."""
+    import torch
+
+    from ddpm_image_restoration_tpu_torch.codecs.surrogate import codec_surrogate
+    from ddpm_image_restoration_tpu_torch.config import ModelConfig
+
+    cfg = ModelConfig(compute_dtype="float32", attention_impl="flash",
+                      attn_max_resolution=32).scaled(2)
+    x0 = torch.from_numpy(synthetic_images(2, cfg.image_size, SEED + 30))
+    return cfg, codec_surrogate(x0, GM_QUALITY, codec="webp").numpy()
+
+
+def write_gm_inputs(inputs: str) -> tuple:
+    """GM_FILES WebPs 64² and one GM_TILE_HW WebP, all at GM_QUALITY,
+    written by Pillow into `inputs`: (webps, wide)."""
+    import numpy as np
+    from PIL import Image
+
+    os.makedirs(inputs)
+
+    def write(name, x):
+        path = os.path.join(inputs, name)
+        Image.fromarray(np.round((x * 0.5 + 0.5) * 255).astype(np.uint8)).save(
+            path, quality=GM_QUALITY)
+        return path
+
+    imgs = synthetic_images(GM_FILES, 64, SEED + 31)
+    th, tw = GM_TILE_HW
+    wide = write("wide.webp", synthetic_images(1, tw, SEED + 32)[0][:th])
+    return [write(f"g{i}.webp", imgs[i]) for i in range(GM_FILES)], wide
+
+
+def gm_launches(n_tiles: int = 0) -> int:
+    """Forward launches of one gaussian_mixture CLI call: init_t
+    evaluations a batch (FLASH_PER_EVAL each), one batch, or one per
+    GM_TILE_BATCH tiles."""
+    from ddpm_image_restoration_tpu_torch.codecs.quality import init_timestep_for_quality
+    from ddpm_image_restoration_tpu_torch.config import get_preset
+
+    init_t = init_timestep_for_quality(GM_QUALITY, DIFFUSION_STEPS, get_preset("webp"))
+    return (math.ceil(n_tiles / GM_TILE_BATCH) if n_tiles else 1) * init_t * FLASH_PER_EVAL
+
+
+def phase_gaussian_mixture(state: dict) -> None:
+    """`cli/restore.py --solver gaussian_mixture` at full width (64², bf16,
+    flash at <= 32², random weights under torch.manual_seed(0)) on files
+    Pillow writes, each call counted from 0 against init_t x FLASH_PER_EVAL
+    a batch; its ms/image; the sampler's per-step host cost (the threefry
+    draws: the key split, the mixture uniform and the batch's normals) and
+    card cost (the batched SVD of the guidance); a profile of one sampler
+    batch (device busy share, the kernels with the most device time); then
+    the half-width f32 sampler on the card against the CPU (mean |diff| <=
+    1e-4)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from PIL import Image  # writing and reading the files needs Pillow
+
+    from ddpm_image_restoration_tpu_torch.cli.restore import main as restore_main
+    from ddpm_image_restoration_tpu_torch.config import get_preset
+    from ddpm_image_restoration_tpu_torch.diffusion.gaussian_mixture import (
+        GaussianMixtureSampler,
+        svd_structure_preservation,
+    )
+    from ddpm_image_restoration_tpu_torch.evaluation import prng
+    from ddpm_image_restoration_tpu_torch.models import build_model
+    from ddpm_image_restoration_tpu_torch.ops import flash_attention as fa
+    from ddpm_image_restoration_tpu_torch.utils.tiling import plan_tiles
+
+    failures = []
+    work = os.path.join(ROOT, "build", "chip_smoke_gaussian_mixture")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        webps, wide = write_gm_inputs(os.path.join(work, "in"))
+        th, tw = GM_TILE_HW
+        n_tiles = len(plan_tiles(th, tw, 64, 32)[0])
+        flags = [*GM_FLAGS, "--solver", "gaussian_mixture", "--codec", "webp",
+                 "--quality", str(GM_QUALITY), "--steps", str(DIFFUSION_STEPS)]
+        variants = [("cold", webps, [], gm_launches()), ("warm", webps, [], gm_launches()),
+                    (f"tile {th}x{tw}, {n_tiles} tiles", [wide],
+                     ["--size-mode", "tile", "--tile-batch", str(GM_TILE_BATCH)],
+                     gm_launches(n_tiles))]
+        totals = dict.fromkeys(_counts(), 0)
+        for i, (label, files, extra, want) in enumerate(variants):
+            out_dir = os.path.join(work, f"out{i}")
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            _quiet(restore_main, [*files, *flags, *extra, "--output-dir", out_dir])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _counts()
+            for k, v in counts.items():
+                totals[k] += v
+            log(f"restore --solver gaussian_mixture [{label}]: {len(files)} file(s), "
+                f"{1e3 * wall / len(files):.1f} ms/image ({wall:.2f} s) on {state['smi']}; "
+                f"launches {counts} (init_t x {FLASH_PER_EVAL} a batch implies {want} forward)")
+            if counts != {fa.KERNEL: want, "flash_attention_bwd_dq": 0,
+                          "flash_attention_bwd_dkv": 0}:
+                failures.append(f"gaussian_mixture [{label}]: launches {counts}, "
+                                f"the schedule implies {want}")
+            shape = (th, tw, 3) if files == [wide] else (64, 64, 3)
+            for f in files:
+                png = os.path.join(out_dir, os.path.splitext(os.path.basename(f))[0]
+                                   + "_restored.png")
+                got = np.asarray(Image.open(png)).shape if os.path.exists(png) else None
+                if got != shape:
+                    failures.append(f"gaussian_mixture [{label}]: {png} has shape {got}")
+        state["launches_gaussian_mixture"] = totals
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # per-step costs at the CLI batch's shape: the draws on the host, the
+    # guidance's SVD of the [8·3, 64, 64] planes on the card
+    shape, reps = (GM_FILES, 64, 64, 3), 10
+    key = prng.prng_key(0)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        key, k_noise, k_choice = prng.split(key, 3)
+        prng.uniform(k_choice, ())
+        prng.normal(k_noise, shape)
+    draw_ms = 1e3 * (time.perf_counter() - t0) / reps
+    x = torch.from_numpy(synthetic_images(GM_FILES, 64, SEED + 33)).to(CARD)
+    for _ in range(2):
+        svd_structure_preservation(x, 0.9)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        svd_structure_preservation(x, 0.9)
+    torch.cuda.synchronize()
+    svd_ms = 1e3 * (time.perf_counter() - t0) / reps
+    n_steps = gm_launches() // FLASH_PER_EVAL
+    log(f"gaussian_mixture per step at {list(shape)}: threefry draws {draw_ms:.2f} ms on the "
+        f"host (x{n_steps} steps = {draw_ms * n_steps / 1e3:.2f} s a batch); batched SVD "
+        f"{svd_ms:.2f} ms (host wall, synchronised; on {n_steps // 2} of the {n_steps} steps) "
+        f"on {state['smi']}")
+    state["gm_step_ms"] = {"draws_host": draw_ms, "svd": svd_ms}
+    torch.manual_seed(0)
+    smp = GaussianMixtureSampler(full_width_model(), get_preset("webp"))
+    profile_run(f"one gaussian_mixture batch of {GM_FILES}, {GM_PROFILE_STEPS} steps",
+                lambda: smp.sample(x, steps=GM_PROFILE_STEPS))
+
+    cfg, y = gm_reference_case()
+    torch.manual_seed(SEED)
+    cpu_model = build_model("webp", cfg, device="cpu")
+    card_model = build_model("webp", cfg, device=CARD)  # initialised by the card's RNG
+    card_model.load_state_dict(cpu_model.state_dict())
+    outs = []
+    for dev, model in (("cpu", cpu_model), (CARD, card_model)):
+        smp = GaussianMixtureSampler(model, get_preset("webp"))
+        with no_tf32():
+            before = fa.flash_attention_fwd.launches
+            outs.append(smp.sample(torch.from_numpy(y).to(dev),
+                                   steps=GM_REFERENCE_STEPS).cpu())
+            launched = fa.flash_attention_fwd.launches - before
+    diff = (outs[0] - outs[1]).abs()
+    log(f"card vs CPU gaussian_mixture (2x64x64, half width, f32, webp q{GM_QUALITY}, "
+        f"{GM_REFERENCE_STEPS} steps, key 0; {launched} kernel launches on the card, "
+        f"{GM_REFERENCE_STEPS * FLASH_PER_EVAL} implied): max|diff| {diff.max().item():.3g}  "
+        f"mean|diff| {diff.mean().item():.3g}  max|x| {outs[0].abs().max().item():.3g}")
+    if not (launched == GM_REFERENCE_STEPS * FLASH_PER_EVAL
+            and np.isfinite(outs[1].numpy()).all() and diff.mean().item() <= 1e-4):
+        failures.append("the card's gaussian_mixture restore disagrees with the CPU's")
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+@contextlib.contextmanager
+def swapped(forms: dict):
+    """The WebP model's ops swapped inside the block: each name in `forms`
+    (`upsample_2x_bilinear`, `spatial_block_dct`) rebound to its form in
+    every model module that calls it."""
+    from ddpm_image_restoration_tpu_torch.models import freq_blocks, unet
+
+    sites = [(mod, name) for name in forms for mod in (unet, freq_blocks) if hasattr(mod, name)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in sites]
+    for mod, name in sites:
+        setattr(mod, name, forms[name])
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def modules_experimental(failures: list) -> None:
+    """DDIM at eta 0 and 0.5 over SelectiveFreqUNet and SimpleConvUNet, and
+    the DDPM chain over MLPDenoiser, at their default widths, f32, on the
+    card against the CPU from the same key."""
+    import torch
+
+    from ddpm_image_restoration_tpu_torch.diffusion.ddpm_schedule import (
+        ddim_inference,
+        ddpm_inference,
+    )
+    from ddpm_image_restoration_tpu_torch.evaluation import prng
+    from ddpm_image_restoration_tpu_torch.models import experimental as exp
+
+    def widths(ws):
+        return tuple(w // MODULES_SCALE for w in ws)
+
+    cases = [("SelectiveFreqUNet", lambda: exp.SelectiveFreqUNet(
+                  widths((64, 128, 256, 512, 512)), widths((1024, 1024, 512)),
+                  256 // MODULES_SCALE), 64, "ddim"),
+             ("SimpleConvUNet", lambda: exp.SimpleConvUNet(widths((64, 128, 256))), 64, "ddim"),
+             ("MLPDenoiser", lambda: exp.MLPDenoiser(32, widths((1024, 2048, 1024))), 32,
+              "ddpm")]
+    for name, make, size, chain in cases:
+        torch.manual_seed(SEED)
+        cpu_model = make().eval()
+        gpu_model = make().to(CARD).eval()
+        gpu_model.load_state_dict(cpu_model.state_dict())
+        y = torch.from_numpy(synthetic_images(2, size, SEED + 40)).permute(0, 3, 1, 2)
+        runs = ([(f"ddim eta {eta}", lambda m, x, eta=eta: ddim_inference(
+                    m, x, T=70, n_steps=MODULES_DDIM_STEPS, eta=eta, key=prng.prng_key(SEED)))
+                 for eta in (0.0, 0.5)] if chain == "ddim" else
+                [(f"ddpm T {MODULES_DDPM_T}",
+                  lambda m, x: ddpm_inference(m, x, T=MODULES_DDPM_T))])
+        n_params = sum(p.numel() for p in cpu_model.parameters())
+        for label, run in runs:
+            with no_tf32():
+                ref = run(cpu_model, y)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = run(gpu_model, y.to(CARD)).cpu()
+                wall = time.perf_counter() - t0
+            diff = (got - ref).abs()
+            scale = max(1.0, ref.abs().max().item())
+            log(f"{name} ({n_params / 1e6:.2f} M parameters, 2x{size}x{size}) {label}: card vs "
+                f"CPU max|diff| {diff.max().item():.3g}  mean|diff| {diff.mean().item():.3g}  "
+                f"max|ref| {ref.abs().max().item():.3g}; card {1e3 * wall:.1f} ms")
+            if not (torch.isfinite(got).all() and diff.mean().item() <= MODULES_MEAN
+                    and diff.max().item() <= MODULES_REL * scale):
+                failures.append(f"{name} {label}: the card disagrees with the CPU")
+
+
+def modules_native(state: dict, failures: list) -> None:
+    """The native engine built from native/codec_engine.cpp into build/;
+    its DegradationLoader batches against the surrogate on the card within
+    tests/test_native.py's bounds; ms/batch against the 'pil' backend, in
+    turns."""
+    import numpy as np
+    import torch
+
+    from ddpm_image_restoration_tpu_torch.codecs import native
+    from ddpm_image_restoration_tpu_torch.codecs.pil_codecs import compress_batch
+    from ddpm_image_restoration_tpu_torch.codecs.surrogate import codec_surrogate
+    from ddpm_image_restoration_tpu_torch.config import get_preset
+    from ddpm_image_restoration_tpu_torch.data.dataset import SyntheticImageDataset
+    from ddpm_image_restoration_tpu_torch.data.pipeline import DegradationLoader
+
+    t0 = time.perf_counter()
+    available = native.native_available()
+    log(f"native engine: available {available}, {native.library_path()} "
+        f"({time.perf_counter() - t0:.1f} s to build and load)")
+    if not available:
+        failures.append("the native codec engine did not build from native/codec_engine.cpp")
+        return
+    ds = SyntheticImageDataset(MODULES_LOADER_IMAGES, 64, seed=SEED, kind="natural")
+    ms = {"native_surrogate": [], "pil": []}
+    for backend in ("native_surrogate", "pil", "native_surrogate", "pil"):
+        loader = DegradationLoader(ds, np.arange(len(ds)), get_preset("webp"), TRAIN_BATCH,
+                                   seed=SEED, degradation_backend=backend)
+        t0 = time.perf_counter()
+        batches = list(loader.epoch(0))
+        ms[backend].append(1e3 * (time.perf_counter() - t0) / len(batches))
+        if backend == "native_surrogate":
+            b = batches[0]
+            ref = codec_surrogate(torch.from_numpy(b["x0"]).to(CARD),
+                                  torch.from_numpy(np.maximum(b["quality"], 1)).float().to(CARD),
+                                  codec="webp").cpu().numpy()
+            diff = np.abs(b["xt"] - ref)
+    log(f"native_surrogate batch of {TRAIN_BATCH} (64², webp, qualities "
+        f"{b['quality'].min()}-{b['quality'].max()}) vs codec_surrogate on the card: "
+        f"mean|diff| {diff.mean():.3g}  max|diff| {diff.max():.3g}  "
+        f"share > 1e-3 {(diff > 1e-3).mean():.3g}")
+    if not (diff.mean() < 5e-3 and diff.max() < 8e-2):
+        failures.append(f"native batch vs surrogate: mean {diff.mean():.3g}, max {diff.max():.3g}")
+    # the degradation alone, on that batch's clean images and qualities
+    alone = {"native_surrogate": [], "pil": []}
+    for backend in ("native_surrogate", "pil", "native_surrogate", "pil"):
+        t0 = time.perf_counter()
+        if backend == "pil":
+            compress_batch(b["x0"], "webp", b["quality"])
+        else:
+            native.codec_surrogate_native(b["x0"], np.maximum(b["quality"], 1), "webp")
+        alone[backend].append(1e3 * (time.perf_counter() - t0))
+    log(f"DegradationLoader ms/batch of {TRAIN_BATCH} natural images in turns (native, pil, "
+        f"native, pil; images made in the loop): native "
+        f"{[round(v, 1) for v in ms['native_surrogate']]}, pil {[round(v, 1) for v in ms['pil']]}"
+        f"; the degradation alone: native {[round(v, 2) for v in alone['native_surrogate']]}, "
+        f"pil {[round(v, 2) for v in alone['pil']]} ms on the card's host ({os.cpu_count()} "
+        f"cores)")
+    state["native_ms_per_batch"] = {"loader": ms, "degradation": alone}
+
+
+def modules_formulations(state: dict, failures: list) -> None:
+    """utils/profiling.trace around one serve batch (8 images, q30, full
+    width, bf16): its Chrome trace must hold the card's kernels. Then the
+    serve batch under each FORMULATIONS entry in turns: ms/batch; one model
+    evaluation on the batch (t = 0.5) against the first default's, gated,
+    and the restored batch against the first default's, logged; and the
+    time per batch of the upsample and block-DCT calls: each call's shape
+    recorded in one batch, each shape's op timed alone between CUDA events
+    (20 back-to-back calls: device time where the kernels outlast their
+    launches, else the launches' host time) times its calls. (torch.profiler
+    read 0 in most sessions around these 3-350 us ops on the H100.)"""
+    import shutil
+
+    import collections
+
+    import numpy as np
+    import torch
+
+    from ddpm_image_restoration_tpu_torch.cli.serve import restore_batch
+    from ddpm_image_restoration_tpu_torch.codecs.surrogate import codec_surrogate
+    from ddpm_image_restoration_tpu_torch.models import freq_blocks, unet
+    from ddpm_image_restoration_tpu_torch.utils import profiling
+
+    torch.manual_seed(SEED)
+    model = full_width_model()
+    x0 = torch.from_numpy(synthetic_images(SERVE_BATCH, 64, SEED + 11)).to(CARD)
+    y = codec_surrogate(x0, 30, codec="webp")
+
+    def run():
+        return restore_batch(model, y, 30, "webp", final_exact=False)
+
+    t_half = torch.full((SERVE_BATCH,), 0.5, device=CARD)
+
+    def evaluate():
+        with torch.no_grad():
+            return model(y, t_half, t_half)
+
+    run()
+    tdir = os.path.join(ROOT, "build", "chip_smoke_trace")
+    shutil.rmtree(tdir, ignore_errors=True)
+    try:
+        with profiling.trace(tdir):
+            with profiling.annotate("serve_batch"):
+                run()
+        with open(os.path.join(tdir, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        shutil.rmtree(tdir, ignore_errors=True)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    annotated = any(e.get("name") == "serve_batch" for e in events)
+    log(f"profiling.trace of one serve batch: {len(events)} events, {len(kernels)} kernel "
+        f"events, region 'serve_batch' {'found' if annotated else 'missing'}")
+    if not kernels or not annotated:
+        failures.append("profiling.trace wrote no kernel events or lost the annotation")
+
+    originals = {(unet, "upsample_2x_bilinear"): unet.upsample_2x_bilinear,
+                 (unet, "spatial_block_dct"): unet.spatial_block_dct,
+                 (freq_blocks, "spatial_block_dct"): freq_blocks.spatial_block_dct}
+    calls = collections.Counter()  # (op, shape, dtype, args) -> calls in one batch
+
+    def recording(fn):
+        def wrapped(x, *a):
+            calls[(fn.__name__, tuple(x.shape), x.dtype, a)] += 1
+            return fn(x, *a)
+        return wrapped
+
+    for (mod, name), fn in originals.items():
+        setattr(mod, name, recording(fn))
+    try:
+        run()
+    finally:
+        for (mod, name), fn in originals.items():
+            setattr(mod, name, fn)
+    per_op = collections.Counter(k[0] for k in calls.elements())
+    log(f"upsample and DCT calls in one serve batch: {dict(per_op)} over {len(calls)} shapes")
+
+    def op_ms() -> dict:
+        """ms per batch of the upsample and DCT calls, each timed alone, in
+        the form the models call now."""
+        total = dict.fromkeys(per_op, 0.0)
+        for (name, shape, dtype, args), n in calls.items():
+            x = torch.randn(shape, device=CARD).to(dtype)
+            fn = getattr(unet, name)
+            total[name] += n * cuda_time_ms(lambda: fn(x, *args))
+        return total
+
+    ref = ref_eval = None
+    rows = []
+    for label, forms in FORMULATIONS:
+        with swapped(forms):
+            out, out_eval = run(), evaluate()
+            times = []
+            for _ in range(MODULES_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+            ops = op_ms()
+        if ref is None:
+            ref, ref_eval = out, out_eval
+        diff, diff_eval = (out - ref).abs(), (out_eval - ref_eval).abs()
+        rows.append({"formulation": label, "ms_per_batch": times, "op_event_ms": ops,
+                     "eval_mean_abs_diff": diff_eval.mean().item(),
+                     "eval_max_abs_diff": diff_eval.max().item(),
+                     "restore_mean_abs_diff": diff.mean().item()})
+        log(f"serve batch [{label}]: {[round(t, 1) for t in times]} ms/batch of {SERVE_BATCH}; "
+            f"ops alone (events) {({k: round(v, 3) for k, v in ops.items()})} ms; vs the default: one "
+            f"evaluation mean|diff| {diff_eval.mean().item():.3g} max "
+            f"{diff_eval.max().item():.3g}, the restore mean|diff| {diff.mean().item():.3g} "
+            f"max {diff.max().item():.3g} on {state['smi']}")
+        if not (np.isfinite(out.cpu().numpy()).all()
+                and diff_eval.mean().item() <= 2 ** -7):
+            failures.append(f"serve batch [{label}]: one evaluation mean|diff| "
+                            f"{diff_eval.mean().item():.3g} from the default")
+    state["formulations"] = rows
+
+
+def phase_modules(state: dict) -> None:
+    """The modules of the experimental family, the native engine, the
+    profiling helpers and the resize/DCT formulations on the card."""
+    failures = []
+    modules_experimental(failures)
+    modules_native(state, failures)
+    modules_formulations(state, failures)
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
 PHASES = [("environment", phase_environment), ("build", phase_build),
           ("kernels", phase_kernels), ("reference", phase_reference),
           ("serve", phase_serve), ("train_reference", phase_train_reference),
           ("train", phase_train), ("distill", phase_distill), ("parallel", phase_parallel),
           ("restore", phase_restore),
-          ("evaluate", phase_evaluate), ("avif", phase_avif)]
+          ("evaluate", phase_evaluate), ("avif", phase_avif),
+          ("gaussian_mixture", phase_gaussian_mixture), ("modules", phase_modules)]
 
 
 def kernels_json(state: dict) -> str:
@@ -2395,15 +3000,16 @@ def kernels_json(state: dict) -> str:
     or training shape in bf16 (down2); `main_path_shapes` has each shape the
     main paths give it, with its own error and times. `launches` sums the
     main paths' runs (serve, train, distillation, the parallel phase's
-    ranks, the restore and serve CLIs, the evaluator, the AVIF family), each
-    counted from 0;
+    ranks, the restore and serve CLIs, the evaluator, the AVIF family, the
+    Gaussian-mixture restore), each counted from 0;
     `launches_by_path` splits it."""
     paths = {"serve": state["launches"], "train": state.get("launches_train", {}),
              "distill": state.get("launches_distill", {}),
              "parallel": state.get("launches_parallel", {}),
              "restore": state.get("launches_restore", {}),
              "evaluate": state.get("launches_evaluate", {}),
-             "avif": state.get("launches_avif", {})}
+             "avif": state.get("launches_avif", {}),
+             "gaussian_mixture": state.get("launches_gaussian_mixture", {})}
 
     def row(name, source, replaces, rows, shapes, key):
         per_shape = [{"path": path, "shape_bh_t_d": [bh, t, d], "dtype": "bfloat16",

@@ -166,14 +166,9 @@ def refuse_not_ported(args) -> None:
     """SystemExit, naming the ROADMAP.md item that will bring it, for each
     flag of the JAX package's restore/serve/evaluate CLIs that the port
     parses but has not implemented."""
-    refused = [
-        (getattr(args, "solver", "") == "gaussian_mixture",
-         "--solver gaussian_mixture (ROADMAP.md Queue 1 item 4)"),
-        (getattr(args, "sp", 0), "--sp (spatial-parallel restore: ROADMAP.md Queue 1 item 7)"),
-    ]
-    for flagged, what in refused:
-        if flagged:
-            raise SystemExit(f"{what} is not ported yet")
+    if getattr(args, "sp", 0):
+        raise SystemExit("--sp (spatial-parallel restore: ROADMAP.md Queue 1 item 7) "
+                         "is not ported yet")
 
 
 class DataParallel:

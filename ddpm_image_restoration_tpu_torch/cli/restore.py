@@ -14,8 +14,12 @@ It runs on the card unless `--device cpu` is passed. Files that share one
 restored on its own, at its own detected codec and quality. `--size-mode
 tile` restores each file at its native size through overlapping tiles.
 `--consistency callback|host_loop` projects through the exact host codec
-each step. `--solver gaussian_mixture` and `--sp` are parsed and refused
-(not ported yet).
+each step. `--solver gaussian_mixture` restores with the experimental
+Gaussian-mixture sampler instead (diffusion/gaussian_mixture.py) over
+init_t steps from key 0, as the JAX CLI does: the DDRM-only flags
+(ensemble, protection, encoder and decoder reuse, stride) do not apply to
+it, and `--max-evals` is refused with it. `--sp` is parsed and refused (not
+ported yet).
 
 `--dp N` restores each batch data-parallel over N ranks (-1: all) of a
 `torchrun` world, each rank taking a block of the batch's rows (padded to a
@@ -54,6 +58,7 @@ from ddpm_image_restoration_tpu_torch.codecs.quality import (
 from ddpm_image_restoration_tpu_torch.config import get_preset
 from ddpm_image_restoration_tpu_torch.diffusion.ddrm import DDRMSampler
 from ddpm_image_restoration_tpu_torch.diffusion.ensemble import sample_ensemble
+from ddpm_image_restoration_tpu_torch.diffusion.gaussian_mixture import GaussianMixtureSampler
 from ddpm_image_restoration_tpu_torch.parallel.mesh import replicated
 
 
@@ -72,7 +77,10 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--consistency", default="surrogate",
                     choices=["surrogate", "callback", "host_loop"])
-    ap.add_argument("--solver", default="ddrm", choices=["ddrm", "gaussian_mixture"])
+    ap.add_argument("--solver", default="ddrm", choices=["ddrm", "gaussian_mixture"],
+                    help="ddrm = codec-consistency sampler (production); "
+                         "gaussian_mixture = the reference's experimental "
+                         "two-component solver with SVD structure guidance")
     ap.add_argument("--stride", type=int, default=1, help=">1 = reduced-step solver")
     ap.add_argument("--max-evals", type=int, default=0,
                     help="cap model evaluations per restore (derives the stride "
@@ -111,6 +119,9 @@ def main(argv=None):
                          "data x spatial mesh adds nothing at this model's "
                          "sizes; pick the axis that matches your batch)")
     refuse_not_ported(args)
+    if args.max_evals and args.solver == "gaussian_mixture":
+        raise SystemExit("--max-evals applies to the DDRM solver only (the "
+                         "gaussian_mixture sampler has no stride); drop one")
     codec, model_codec = resolve_codecs(args)
 
     dp = DataParallel(args.dp, args.device)
@@ -171,10 +182,23 @@ def main(argv=None):
         return codecs, qualities, [load_image(p, size) for p in args.inputs]
 
     codecs, qualities, images = dp.share(read_inputs() if dp.main else None)
+    mixtures = {}
 
     def make_restore_batch(file_codec: str, quality: int):
+        preset = get_preset(file_codec)
+        init_t = init_timestep_for_quality(quality, args.steps, preset)
+        if args.solver == "gaussian_mixture":
+            if file_codec not in mixtures:
+                mixtures[file_codec] = GaussianMixtureSampler(
+                    model, preset, codec_id=sampler_codec_id(model, file_codec))
+            gm = mixtures[file_codec]
+
+            def restore_gm(batch: np.ndarray, rows=None) -> np.ndarray:
+                return gm.sample(torch.as_tensor(batch, device=dev), steps=init_t,
+                                 rows=rows).cpu().numpy()
+
+            return lambda batch: dp.run(restore_gm, batch)
         smp = get_sampler(file_codec)
-        init_t = init_timestep_for_quality(quality, args.steps, smp.preset)
         stride = student_stride(init_t, args.max_evals) if args.max_evals else args.stride
 
         def restore_batch(batch: np.ndarray, rows=None) -> np.ndarray:

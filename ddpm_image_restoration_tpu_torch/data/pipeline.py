@@ -1,5 +1,6 @@
 """Degradation data pipeline: clean images -> (x0, xt, t, quality) batches
-(port of data/pipeline.py; numpy and Pillow, no torch).
+(port of data/pipeline.py; numpy and Pillow, and the C++ codec engine of
+codecs/native.py for the native_surrogate backend).
 
 Degradation runs in the host input pipeline: background producer threads
 assemble batches (the host codec inside), prefetched in a queue, so codec
@@ -95,9 +96,10 @@ class DegradationLoader:
         rows: Tuple[int, int] = (0, 1),
     ):
         """degradation_backend: 'pil' — real codec bitstreams via
-        libjpeg/libwebp/libaom (reference-exact degradation). The JAX
-        package's 'native_surrogate' (its C++ codec engine) is not ported
-        yet and raises.
+        libjpeg/libwebp/libaom (reference-exact degradation);
+        'native_surrogate' — the C++ codec engine (codecs/native.py): the
+        on-device surrogate's degradation model on the host, batched and
+        threaded, so training pairs match the sampler's consistency step.
 
         num_workers: batch-producer threads. 0/1 = one background producer;
         N > 1 = a thread pool decoding and degrading N batches concurrently
@@ -119,11 +121,7 @@ class DegradationLoader:
         self.seed = seed
         self.prefetch = prefetch
         self.drop_remainder = drop_remainder
-        if degradation_backend == "native_surrogate":
-            raise NotImplementedError(
-                "degradation_backend='native_surrogate' needs codecs/native.py, "
-                "which the port does not have yet (ROADMAP.md Queue 1 item 5); use 'pil'")
-        if degradation_backend != "pil":
+        if degradation_backend not in ("pil", "native_surrogate"):
             raise ValueError(degradation_backend)
         self.degradation_backend = degradation_backend
         self.num_workers = num_workers
@@ -181,6 +179,10 @@ class DegradationLoader:
         return batch
 
     def _degrade(self, x0, quality, codec: str):
+        if self.degradation_backend == "native_surrogate":
+            from ddpm_image_restoration_tpu_torch.codecs.native import codec_surrogate_native
+
+            return codec_surrogate_native(x0, np.maximum(quality, 1), codec)
         return compress_batch(x0, codec, quality)
 
     def _batch_indices(self, epoch: int):

@@ -145,6 +145,17 @@ RESTORE_CASES = {
     # scan; the port's eager loop), no final projection
     "host_codec": ("webp", ["--quality", "auto", "--max-evals", "6", "--encoder-reuse", "2",
                             "--consistency", "callback"]),
+    # the Gaussian-mixture solver over init_t steps (key 0 in both
+    # packages), which ignores the DDRM-only flags: one batch; per-file
+    # codecs on the unified model; tiles, the sampler called per tile batch
+    "gaussian_mixture": ("png", ["--solver", "gaussian_mixture", "--quality", "30",
+                                 "--steps", "20", "--ensemble", "2", "--encoder-reuse", "2"]),
+    "gaussian_mixture_unified": ("webp+jpeg", ["--solver", "gaussian_mixture",
+                                               "--model-codec", "all", "--codec", "auto",
+                                               "--quality", "auto", "--steps", "12"]),
+    "gaussian_mixture_tile": ("big", ["--solver", "gaussian_mixture", "--quality", "30",
+                                      "--steps", "12", "--size-mode", "tile",
+                                      "--tile-overlap", "16", "--tile-batch", "4"]),
 }
 
 
@@ -227,16 +238,17 @@ def test_restore_from_own_checkpoint_with_ema(tmp_path, capsys):
 
 
 def test_restore_refusals(tmp_path):
-    """The unported flags name their ROADMAP item, and --dp with --sp is
-    refused as in the JAX CLI; a directory without the port's checkpoints
-    (an Orbax one, or none) says so; all before any model is built."""
+    """The unported flag names its ROADMAP item; --max-evals with the
+    Gaussian-mixture solver and --dp with --sp are refused with the JAX
+    CLI's messages; a directory without the port's checkpoints (an Orbax
+    one, or none) says so; all before any model is built."""
     from ddpm_image_restoration_tpu_torch.cli.restore import main
 
     img = _inputs(tmp_path / "in")["png"][:1]
-    for flags, item in ((["--solver", "gaussian_mixture"], "item 4"),
-                        (["--sp", "2"], "item 7")):
-        with pytest.raises(SystemExit, match=f"ROADMAP.md Queue 1 {item}"):
-            main([*img, *flags, "--random-init"])
+    with pytest.raises(SystemExit, match="ROADMAP.md Queue 1 item 7"):
+        main([*img, "--sp", "2", "--random-init"])
+    with pytest.raises(SystemExit, match="--max-evals applies to the DDRM solver only"):
+        main([*img, "--solver", "gaussian_mixture", "--max-evals", "6", "--random-init"])
     with pytest.raises(SystemExit, match="mutually exclusive"):
         main([*img, "--dp", "2", "--sp", "2", "--random-init"])
     for flags in (["--codec", "all"], ["--codec", "auto"]):

@@ -192,6 +192,10 @@ import torch
 torch.set_num_threads(1)
 import ddpm_image_restoration_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+new = {pkg.__name__ + "." + m for m in ("diffusion.gaussian_mixture", "diffusion.ddpm_schedule",
+                                        "models.experimental", "codecs.native",
+                                        "utils.profiling")}
+assert new <= set(names), new - set(names)
 for n in names:
     importlib.import_module(n)
 import chip_smoke
