@@ -41,10 +41,12 @@ NVIDIA card and checks it, phase by phase:
      width, then the full-width bf16 WebP train step (batch 18, EMA) plain,
      under the data mesh and under FSDP: ms/step and peak memory. Then two
      processes of this script sharing the card over gloo: a half-width f32
-     step under the data mesh and under FSDP and a data-parallel restore at
-     eta 0.85, each against the one-process card run, the dry run,
-     `cli/restore.py --dp -1` against the one-rank call, and each rank's
-     peak memory under FSDP against the data mesh at full width; every
+     step under the data mesh, under FSDP and on a (1, 2) ('data', 'model')
+     mesh (tensor parallelism), a data-parallel and a spatial-parallel
+     restore at eta 0.85, each against the one-process card run, the dry
+     run, `cli/restore.py --dp -1` and `--sp -1` against the one-rank call,
+     and each rank's state, resident and peak memory and ms/step at full
+     width under the data mesh, FSDP and the model axis (batch 18); every
      rank's launches against the schedule;
  10. restore: the restore CLI (`cli/restore.py main`) at full width on
      WebP and JPEG files that Pillow writes (estimated qualities, decoder
@@ -82,7 +84,8 @@ NVIDIA card and checks it, phase by phase:
 
 On a host with several cards, `torchrun --standalone --nproc-per-node N
 chip_smoke.py --parallel-child-nccl OUTDIR` runs phase `parallel`'s ranks
-alone over NCCL, a card a rank, with the preset's 18 images a rank.
+alone over NCCL, a card a rank, with the preset's 18 images a rank (N even:
+the model axis runs on an (N/2, 2) mesh, `--sp` over all N).
 
 It prints each phase's seconds, then a JSON line of per-kernel numbers, the
 card's `nvidia-smi` name and power limit, and last `{"ok": true, ...}`. It
@@ -124,8 +127,13 @@ JAX_PACKAGE = PACKAGE.removesuffix("_torch")  # the reference; never imported he
 # AVIF model's (8 heads: head dim 128/8 = 16 at down2, 64/8 = 8 at up4,
 # which the wrapper zero-pads to 16) for its
 # training and evaluation batches of 8, its validation batch of 4 and the
-# restore CLI's single files; last the Gaussian-mixture restore's batch of 8
-# files and its tile batches (the serve and restore-tile shapes again).
+# restore CLI's single files; then the Gaussian-mixture restore's batch of 8
+# files and its tile batches (the serve and restore-tile shapes again); last
+# the train step on a (2, 2) ('data', 'model') mesh, 9 images a data rank
+# (`--parallel-child-nccl` on four cards; the script's own (1, 2) mesh and
+# `--sp` restores give the train-step and serve shapes: a model rank
+# attends over its data rank's whole batch, an `--sp` rank over the
+# gathered tokens of every image).
 FWD_PATH_SHAPES = [("serve", 32, 1024, 32, False), ("serve", 32, 1024, 16, False),
                    ("train step", 72, 1024, 32, True), ("train step", 72, 1024, 16, True),
                    ("distill teacher", 72, 1024, 32, False),
@@ -142,16 +150,22 @@ FWD_PATH_SHAPES = [("serve", 32, 1024, 32, False), ("serve", 32, 1024, 16, False
                    ("gaussian_mixture", 32, 1024, 32, False),
                    ("gaussian_mixture", 32, 1024, 16, False),
                    ("gaussian_mixture tiles", 64, 1024, 32, False),
-                   ("gaussian_mixture tiles", 64, 1024, 16, False)]
+                   ("gaussian_mixture tiles", 64, 1024, 16, False),
+                   ("model axis (2, 2)", 36, 1024, 32, True),
+                   ("model axis (2, 2)", 36, 1024, 16, True)]
 # (BH, T, D): those shapes, then long, ragged and wide-head cases of the
 # kernel's contract.
 KERNEL_SHAPES = list(dict.fromkeys(s[1:4] for s in FWD_PATH_SHAPES)) + [
     (8, 4096, 16), (4, 300, 64), (2, 256, 128), (3, 17, 32)]
 # Backward (BH, T, D) -> heads: the training paths' shapes first (down2 and
 # up4 of a WebP batch of 18 images x 4 heads and of an AVIF batch of 8 x 8
-# heads, 32x32 tokens), then contract shapes: the 32x32 level of the 128²
+# heads, 32x32 tokens, and of 9 images x 4 heads a data rank of the (2, 2)
+# model-axis step), then contract shapes: the 32x32 level of the 128²
 # model (head dim 64, batch 18), and ragged, short and wide cases.
-TRAIN_SHAPES = {(72, 1024, 32): 4, (72, 1024, 16): 4, (64, 1024, 16): 8, (64, 1024, 8): 8}
+TRAIN_SHAPES = {(72, 1024, 32): 4, (72, 1024, 16): 4, (64, 1024, 16): 8, (64, 1024, 8): 8,
+                (36, 1024, 32): 4, (36, 1024, 16): 4}
+TRAIN_PATHS = {(64, 1024, 16): "avif train step", (64, 1024, 8): "avif train step",
+               (36, 1024, 32): "model axis (2, 2)", (36, 1024, 16): "model axis (2, 2)"}
 BWD_SHAPES = [*TRAIN_SHAPES, (72, 1024, 64), (4, 300, 64), (4, 1300, 16), (2, 256, 128),
               (3, 17, 32)]
 # Each kernel against its plain version, entry by entry:
@@ -213,18 +227,19 @@ ALL_TRAIN_IMAGES = 45
 # the two 32² levels, down2 (encode) and up4 (decode).
 FLASH_PER_EVAL = 2
 # The distill phase: the student's budget and qualities against the
-# full-solver teacher on the train phase's images (6 steps of 18), the step
-# alone timed over DISTILL_TIMED_STEPS steps; then the
-# progressive chain from a stride-10 teacher on DISTILL_PROGRESSIVE_IMAGES
-# (36 training images: 2 steps a stage), whose budgets must be these.
+# full-solver teacher on DISTILL_IMAGES natural images (36 training images:
+# 2 steps of 18), the step alone timed over DISTILL_TIMED_STEPS steps; then
+# the progressive chain from a stride-10 teacher on DISTILL_PROGRESSIVE_IMAGES
+# (18 training images: 1 step a stage), whose budgets must be these.
 DISTILL_N_EVAL = 2
 DISTILL_QUALITIES = (10, 50)
 DISTILL_TEACHER_STRIDE = 1   # the full solver
-DISTILL_TIMED_STEPS = 3
-DISTILL_PROGRESSIVE_IMAGES = 45
+DISTILL_IMAGES = 45
+DISTILL_TIMED_STEPS = 1
+DISTILL_PROGRESSIVE_IMAGES = 23
 DISTILL_PROGRESSIVE_STRIDE = 10
 DISTILL_PROGRESSIVE_BUDGETS = [4, 2]
-# The whole run took ~3 minutes in PR 9; past this, fail rather than hang.
+# The whole run takes 6-11 minutes on an H100; past this, fail rather than hang.
 TIME_LIMIT_S = 900
 
 
@@ -769,23 +784,34 @@ def profile_run(label: str, run) -> None:
     """Where one call's time goes: device-busy share of the wall time and
     the kernels with the most device time (torch.profiler, CUPTI). One
     session around the call alone (see device_time_ms): it can miss
-    kernels, so the busy share is a lower bound."""
+    kernels, so the busy share is a lower bound. It records the device's
+    activity only and sums the profiler's raw events, never building its
+    per-op tables: for a call of ~80,000 launches (a distill step) those
+    took 24-50 s on the H100's host, and nothing here reads them. (On the
+    CPU, where there is no device activity, it records the host's.)"""
+    import collections
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activity = ProfilerActivity.CUDA if torch.cuda.is_available() else ProfilerActivity.CPU
+    with profile(activities=[activity]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    per_kernel = collections.defaultdict(lambda: [0, 0.0])   # name -> [count, device us]
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            per_kernel[e.name()][0] += 1
+            per_kernel[e.name()][1] += e.duration_ns() / 1e3
+    busy_ms = sum(us for _, us in per_kernel.values()) / 1e3
     log(f"profile ({label}): wall {wall_ms:.1f} ms under the profiler, "
         f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.0f}%), "
-        f"{sum(e.count for e in events)} device kernel launches")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"  {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:90]}")
+        f"{sum(n for n, _ in per_kernel.values())} device kernel launches")
+    for name, (n, us) in sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:8]:
+        log(f"  {us / 1e3:8.2f} ms  x{n:<5d} {name[:90]}")
 
 
 @contextlib.contextmanager
@@ -1147,8 +1173,8 @@ def phase_distill(state: dict) -> None:
     being phase `train`'s checkpoint (its EMA), each run counted from 0:
       1. `cli/distill.py main`: the student at DISTILL_N_EVAL evaluations at
          q10 and q50 (round-robin) against the full-solver teacher
-         (DISTILL_TEACHER_STRIDE 1), one epoch on the train phase's images
-         (6 steps);
+         (DISTILL_TEACHER_STRIDE 1), one epoch on DISTILL_IMAGES natural
+         images (2 steps);
       2. `--progressive` from a stride-10 teacher on fewer images: the
          budget chain must be DISTILL_PROGRESSIVE_BUDGETS (stage0, then the
          root directory);
@@ -1185,6 +1211,11 @@ def phase_distill(state: dict) -> None:
     ckpt_dir = state.get("train_ckpt")
     if ckpt_dir is None:
         raise AssertionError("phase train left no checkpoint to distill from")
+    t_phase = time.perf_counter()
+
+    def elapsed(what):
+        log(f"  ({what}: {time.perf_counter() - t_phase:.1f} s into the phase)")
+
     work = os.path.join(ROOT, "build", "chip_smoke_distill")
     shutil.rmtree(work, ignore_errors=True)
     student_dir = os.path.join(work, "student")
@@ -1195,11 +1226,11 @@ def phase_distill(state: dict) -> None:
               str(SEED), "--epochs", "1", "--qualities", *map(str, DISTILL_QUALITIES),
               "--teacher-dir", ckpt_dir]
     try:
-        steps = len(split_indices(TRAIN_IMAGES)[0]) // TRAIN_BATCH
+        steps = len(split_indices(DISTILL_IMAGES)[0]) // TRAIN_BATCH
         (dstate, hist), _, wall = _counted(
             state, f"distill [n_eval {DISTILL_N_EVAL}, teacher stride {DISTILL_TEACHER_STRIDE}, "
             f"{steps} steps]", distill_main,
-            [*common, "--synthetic", str(TRAIN_IMAGES), "--checkpoint-dir", student_dir,
+            [*common, "--synthetic", str(DISTILL_IMAGES), "--checkpoint-dir", student_dir,
              "--n-eval", str(DISTILL_N_EVAL), "--teacher-stride", str(DISTILL_TEACHER_STRIDE)],
             distill_launches(steps, DISTILL_N_EVAL, DISTILL_TEACHER_STRIDE), totals, failures)
         student = dstate.model
@@ -1215,6 +1246,7 @@ def phase_distill(state: dict) -> None:
         if any(g is None or not torch.isfinite(g).all() or g.abs().max().item() == 0
                for g in qkv.values()):
             failures.append("distill: a flash level of the student got no gradient")
+        elapsed("distill CLI")
 
         p_steps = len(split_indices(DISTILL_PROGRESSIVE_IMAGES)[0]) // TRAIN_BATCH
         budgets = DISTILL_PROGRESSIVE_BUDGETS
@@ -1238,6 +1270,7 @@ def phase_distill(state: dict) -> None:
         if chain != budgets or stages != [f"stage{k}" for k in range(len(budgets) - 1)] \
                 or not any(f.startswith("ckpt_") for f in os.listdir(prog_dir)):
             failures.append(f"distill --progressive: budgets {chain}, stages {stages}")
+        elapsed("progressive")
 
         webps, _, _ = write_restore_inputs(os.path.join(work, "in"))
         qs = [estimate_quality(p) for p in webps]
@@ -1257,6 +1290,7 @@ def phase_distill(state: dict) -> None:
             if not os.path.exists(png):
                 failures.append(f"distill restore: no {png}")
         state["launches_distill"] = totals
+        elapsed("student restore")
 
         # the distill step alone, on one device batch (no data pipeline)
         dev = student.out_conv.weight.device
@@ -1301,8 +1335,10 @@ def phase_distill(state: dict) -> None:
                 ms = 1e3 * (time.perf_counter() - t0) / n
                 log(f"distill step alone: {ms:.1f} ms/step, {TRAIN_BATCH * 1e3 / ms:.1f} img/s "
                     f"on {state['smi']}")
+                elapsed("step alone timed")
                 profile_run(f"one distill step, webp q50, batch {TRAIN_BATCH}",
                             lambda: step(dstate, batch))
+                elapsed("profile")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if failures:
@@ -1778,7 +1814,7 @@ PARALLEL_BACKEND = "nccl"
 PARALLEL_SCALE = 2
 PARALLEL_MEMORY_SCALE = 1
 PARALLEL_PER_RANK = 2          # (b)'s full-width steps: images per rank
-PARALLEL_TIMED_STEPS = 5
+PARALLEL_TIMED_STEPS = 2
 PARALLEL_CHILD_TIMEOUT_S = 300
 
 
@@ -1957,17 +1993,27 @@ def parallel_child(rank: int, world: int, work: str, store: str | None = None,
                    device: str = "cuda", scale: int = PARALLEL_SCALE,
                    memory_scale: int = PARALLEL_MEMORY_SCALE, backend: str = "gloo",
                    per_rank: int = PARALLEL_PER_RANK) -> dict:
-    """Part (b), one rank of `world` (sharing the card over gloo on the
+    """Part (b), one rank of `world` (even; sharing the card over gloo on the
     FileStore `store`, or under `torchrun` with its own card, `store` None,
     over NCCL), its files under `work`: the half-width (widths/`scale`) f32
-    WebP step with dropout and EMA under the data mesh and under FSDP, each
-    against the one-process step on the card on the whole batch of 4; a
-    data-parallel restore at eta 0.85 of an odd batch against the
-    one-process restore; the dry run; `cli/restore.py --dp -1` against the
-    call on one rank (`parallel_restore_cli`); then the bf16 step at
-    widths/`memory_scale`, `per_rank` images a rank, on this rank's card
-    alone and under each mode: its peak memory and ms/step. Returns what it
-    measured and its failures.
+    WebP step with dropout and EMA under the data mesh, under FSDP and on a
+    (world/2, 2) ('data', 'model') mesh, each against the one-process step
+    on the card on the whole batch of 4; a data-parallel and a
+    spatial-parallel (`shard_inference_spatial` over every rank) restore at
+    eta 0.85 of an odd batch against the one-process restore; the dry run;
+    `cli/restore.py --dp -1` and `--sp -1` against the call on one rank
+    (`parallel_restore_cli`); then the bf16 step at widths/`memory_scale`,
+    `per_rank` images a rank, on this rank's card alone, under the data
+    mesh and FSDP, and on the ('data', 'model') mesh at the preset's batch
+    (TRAIN_BATCH): its state, resident and peak memory, ms/step and
+    first-step launches. Returns what it measured and its failures.
+
+    The model axis is held to the train gates (loss and grad norm rtol
+    1e-4, the gradient averaged over the data axis within 1e-4 of the
+    largest one-process entry), its masters logged; the spatial restore to
+    phase `reference`'s gate (mean |diff| <= 1e-4), its max logged, and its
+    launches to the one-process schedule (the attention runs on the
+    gathered tokens, replicated).
 
     Gates of the f32 steps: loss and grad norm rel 1e-5, and the gradient
     averaged over the ranks within 1e-5 of the largest one-process entry
@@ -1996,13 +2042,13 @@ def parallel_child(rank: int, world: int, work: str, store: str | None = None,
     from ddpm_image_restoration_tpu_torch.models import build_model
     from ddpm_image_restoration_tpu_torch.parallel.dryrun import dryrun
     from ddpm_image_restoration_tpu_torch.parallel.mesh import (
-        all_reduce_,
         gather_batch,
         init_distributed,
         make_mesh,
         put_state,
         shard_batch,
         shard_inference,
+        shard_inference_spatial,
     )
     from ddpm_image_restoration_tpu_torch.train.steps import create_train_state, make_train_step
 
@@ -2013,6 +2059,9 @@ def parallel_child(rank: int, world: int, work: str, store: str | None = None,
                          world_size=world, rank=rank)
     dev = resolve_device(device)
     mesh = make_mesh((-1,), ("data",))
+    tp_shape = (world // 2, 2)
+    tp_mesh = make_mesh(tp_shape, ("data", "model"))
+    sp_mesh = make_mesh((-1,), ("spatial",))
     failures, out = [], {"rank": rank}
 
     def say(msg):
@@ -2038,52 +2087,68 @@ def parallel_child(rank: int, world: int, work: str, store: str | None = None,
     def train(mode):
         model = model_on_card()
         st = create_train_state(model, cfg)
-        if mode in ("data mesh", "fsdp"):
-            st = put_state(st, mesh, fsdp=mode == "fsdp")
-        mine = batch if st.layout is None else {k: shard_batch(v, mesh) for k, v in batch.items()}
+        m_mesh = tp_mesh if mode == "model axis" else mesh
+        if mode in ("data mesh", "fsdp", "model axis"):
+            st = put_state(st, m_mesh, fsdp=mode == "fsdp")
+        mine = batch if st.layout is None else {k: shard_batch(v, m_mesh)
+                                                for k, v in batch.items()}
         _reset_counts()
         m = make_train_step(model, cfg)(st, {k: v.to(dev) for k, v in mine.items()},
                                         torch.Generator(device=dev).manual_seed(SEED + 1))
         sync()
         counts = _counts()
-        held = {} if st.layout is None else {
-            k: [getattr(st, d)[k].numel() for d in ("params", "mu", "nu", "ema")]
-            for k in st.layout.sharded}
-        params = dict(model.named_parameters())
-        flat = torch.cat([p.grad.float().reshape(-1) for p in params.values()])
-        if st.layout is not None:  # this rank's gradient, averaged over the ranks
-            flat = all_reduce_(flat, mesh) / world
-        grads = {k: g.view(p.shape).cpu() for (k, p), g in
-                 zip(params.items(), flat.split([p.numel() for p in params.values()]))}
-        return m["loss"].item(), m["grad_norm"].item(), st.state_dict(), grads, counts, held
+        held, split_ok = {}, True
+        if st.layout is not None:
+            for k in st.layout.sharded:
+                held[k] = [getattr(st, d)[k].numel() for d in ("params", "mu", "nu", "ema")]
+                s = st.layout.splits[k]
+                parts = (st.layout.m if s.model is not None else 1) * (
+                    st.layout.n if s.data is not None else 1)
+                split_ok = split_ok and held[k] == [st.layout.shapes[k].numel() // parts] * 4
+            # the gradient averaged over the data axis, in the one-process layout
+            grads = st.layout.full(st.layout.reduce_grads(model))
+        else:
+            grads = {k: p.grad.float().cpu() for k, p in model.named_parameters()}
+        return (m["loss"].item(), m["grad_norm"].item(), st.state_dict(), grads, counts, held,
+                split_ok)
 
     with no_tf32():
         one = train("one process")
         full = {k: v.numel() for k, v in one[2]["params"].items()}
         g_max = max(g.abs().max().item() for g in one[3].values())
-        for mode in ("one process again", "data mesh", "fsdp"):
-            loss, norm, sd, grads, counts, held = train(mode)
+        for mode in ("one process again", "data mesh", "fsdp", "model axis"):
+            loss, norm, sd, grads, counts, held, split_ok = train(mode)
             rel = abs(loss - one[0]) / abs(one[0])
             rel_n = abs(norm - one[1]) / abs(one[1])
             g_rel = diff_stats(grads, one[3], 0.0)[0] / g_max
             worst, close = diff_stats(sd["params"], one[2]["params"], 1e-5)
             e_worst, e_close = diff_stats(sd["ema"], one[2]["ema"], 1e-5)
-            split_ok = all(h == [full[k] // world] * 4 for k, h in held.items())
+            # the 'model' axis is held to the train gates (loss rtol 1e-4,
+            # gradients within 1e-4 of the largest); its masters are logged
+            bound = 1e-4 if mode == "model axis" else 1e-5
+            images = 4 if mode.startswith("one") else 4 // (
+                tp_shape[0] if mode == "model axis" else world)
             say(f"{mode} step (widths/{scale}, f32, dropout 0.1, EMA, "
-                f"{4 if mode.startswith('one') else 4 // world} of 4 images) against the "
-                f"one-process card step: loss rel {rel:.3g}, grad norm rel {rel_n:.3g} (bound "
-                f"1e-5); gradient |diff|/max|g| {g_rel:.3g} (bound 1e-5); masters max |diff| "
-                f"{worst:.3g} (bound {2 * lr * 1.01:.3g}), {100 * close:.3f}% within 1e-5 "
-                f"(bound 99.9%); EMA {e_worst:.3g}, {100 * e_close:.3f}%; parameters split "
-                f"{len(held)}, each 1/{world} per rank: {split_ok}; launches {counts}")
+                f"{images} of 4 images{f', mesh {tp_shape}' if mode == 'model axis' else ''})"
+                f" against the one-process card step: loss rel {rel:.3g}, grad norm rel "
+                f"{rel_n:.3g} (bound {bound:g}); gradient |diff|/max|g| {g_rel:.3g} (bound "
+                f"{bound:g}); masters max |diff| {worst:.3g} (bound {2 * lr * 1.01:.3g}), "
+                f"{100 * close:.3f}% within 1e-5 (bound 99.9%); EMA {e_worst:.3g}, "
+                f"{100 * e_close:.3f}%; parameters split {len(held)}, each rank its blocks: "
+                f"{split_ok}; launches {counts}")
             out[f"{mode} step"] = {"loss_rel": rel, "grad_norm_rel": rel_n, "grad_rel": g_rel,
                                    "masters_max_diff": worst, "masters_within_1e-5": close,
                                    "launches": counts, "split": len(held)}
             if mode.startswith("one"):
                 continue
-            if not (rel <= 1e-5 and rel_n <= 1e-5 and g_rel <= 1e-5
-                    and max(worst, e_worst) <= 2 * lr * 1.01 and min(close, e_close) >= 0.999
-                    and split_ok):
+            if mode == "model axis":
+                if not (rel <= 1e-4 and rel_n <= 1e-4 and g_rel <= 1e-4 and split_ok):
+                    failures.append(f"{mode} step disagrees with the one-process step")
+                if not held:
+                    failures.append("the model axis split no parameter")
+            elif not (rel <= 1e-5 and rel_n <= 1e-5 and g_rel <= 1e-5
+                      and max(worst, e_worst) <= 2 * lr * 1.01
+                      and min(close, e_close) >= 0.999 and split_ok):
                 failures.append(f"{mode} step disagrees with the one-process step")
             if mode == "fsdp" and not held:
                 failures.append("fsdp split no parameter")
@@ -2123,11 +2188,35 @@ def parallel_child(rank: int, world: int, work: str, store: str | None = None,
         if counts != {"flash_attention_fwd": FLASH_PER_EVAL * evals,
                       "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}:
             failures.append(f"the data-parallel restore launched {counts}")
-        del model, sampler
+
+        # the same restore with each image's height split over every rank
+        sp_model = shard_inference_spatial(model_on_card(), sp_mesh)
+        sp_sampler = DDRMSampler(sp_model, preset)
+        _reset_counts()
+        got = sp_sampler.sample(y5, 30, init_t, stride=10, eta=0.85, final_exact=False,
+                                generator=torch.Generator(device=dev).manual_seed(SEED))
+        sync()
+        counts = _counts()
+        diff = (got - want).abs()
+        plan = [lvl is not None for lvl in sp_model.spatial_levels(y5.shape[1])]
+        say(f"spatial-parallel restore (--sp over {world} ranks, eta 0.85, 5 images, "
+            f"{evals} evaluations, levels split {plan}) against the one-process card "
+            f"restore: mean |diff| {diff.mean().item():.3g} (bound 1e-4), max "
+            f"{diff.max().item():.3g}; launches {counts} (schedule implies "
+            f"{FLASH_PER_EVAL * evals} forward, the attention on the gathered tokens)")
+        out["sp restore"] = {"max_diff": diff.max().item(), "mean_diff": diff.mean().item(),
+                             "launches": counts}
+        if not (torch.isfinite(got).all() and diff.mean().item() <= 1e-4 and any(plan)):
+            failures.append("the spatial-parallel restore disagrees with the one-process one")
+        if counts != {"flash_attention_fwd": FLASH_PER_EVAL * evals,
+                      "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}:
+            failures.append(f"the spatial-parallel restore launched {counts}")
+        del model, sampler, sp_model, sp_sampler
 
     dr = dryrun(device)
-    say(f"dryrun: FSDP step over {dr['world']} ranks, loss {dr['loss']:.6f}; restore "
-        f"{dr['restored_shape']}")
+    say(f"dryrun: FSDP step over {dr['world']} ranks (mesh {dr['mesh']}), loss "
+        f"{dr['loss']:.6f}; restore {dr['restored_shape']}, spatial restore "
+        f"{dr['sp_restored_shape']}")
     out["dryrun"] = dr
     out["restore cli"] = parallel_restore_cli(rank, world, work, dev, failures)
 
@@ -2138,9 +2227,17 @@ def parallel_child(rank: int, world: int, work: str, store: str | None = None,
     mbatch = {"x0": xm, "xt": codec_surrogate(xm, 30, codec="webp"),
               "t": torch.randint(1, 100, (n_mem,), generator=torch.Generator().manual_seed(SEED))}
     mine = {k: shard_batch(v, mesh).to(dev) for k, v in mbatch.items()}
+    # the 'model' axis at the preset's batch: every model rank of a data rank
+    # takes that data rank's images
+    tcfg = TrainConfig(codec="webp", model=mem_cfg, batch_size=TRAIN_BATCH, ema_decay=0.999)
+    xt = torch.from_numpy(synthetic_images(TRAIN_BATCH, 64, SEED + 6))
+    tbatch = {"x0": xt, "xt": codec_surrogate(xt, 30, codec="webp"),
+              "t": torch.randint(1, 100, (TRAIN_BATCH,),
+                                 generator=torch.Generator().manual_seed(SEED))}
+    tmine = {k: shard_batch(v, tp_mesh).to(dev) for k, v in tbatch.items()}
     link = ("gloo through host memory (not a measure of NCCL)" if backend == "gloo"
             else backend)
-    for mode in ("one card", "data mesh", "fsdp"):
+    for mode in ("one card", "data mesh", "fsdp", "model axis"):
         gc.collect()
         if dev.type == "cuda":
             torch.cuda.empty_cache()
@@ -2149,37 +2246,49 @@ def parallel_child(rank: int, world: int, work: str, store: str | None = None,
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(SEED)
             model = build_model("webp", mem_cfg, device="cpu").to(dev)
-        st = create_train_state(model, mcfg)
+        tp = mode == "model axis"
+        st = create_train_state(model, tcfg if tp else mcfg)
         if mode != "one card":
-            st = put_state(st, mesh, fsdp=mode == "fsdp")
-        step = make_train_step(model, mcfg)
+            st = put_state(st, tp_mesh if tp else mesh, fsdp=mode == "fsdp")
+        step = make_train_step(model, tcfg if tp else mcfg)
         gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-        loss = step(st, mine, gen)["loss"].item()
+        _reset_counts()
+        loss = step(st, tmine if tp else mine, gen)["loss"].item()
         sync()
+        counts = _counts()
         peak = _peak_since(dev, base)
         resident = (torch.cuda.memory_allocated(dev) - base) if dev.type == "cuda" else None
         t0 = time.perf_counter()
         for _ in range(PARALLEL_TIMED_STEPS):
-            step(st, mine, gen)
+            step(st, tmine if tp else mine, gen)
         sync()
         ms = 1e3 * (time.perf_counter() - t0) / PARALLEL_TIMED_STEPS
         state_bytes = 4 * sum(v.numel() for d in (st.params, st.mu, st.nu, st.ema)
                               for v in d.values())
-        say(f"{mode} (full width/{memory_scale}, bf16, EMA, {per_rank} images per rank): f32 "
-            f"state {_gib(state_bytes)} held by this rank; resident after a step "
+        what = (f"mesh {tp_shape}, batch {TRAIN_BATCH}, {TRAIN_BATCH // tp_shape[0]} images per "
+                "data rank" if tp else f"{per_rank} images per rank")
+        say(f"{mode} (full width/{memory_scale}, bf16, EMA, {what}): f32 state "
+            f"{_gib(state_bytes)} held by this rank; resident after a step "
             f"{'not measured' if resident is None else _gib(resident)}, peak "
             f"{'not measured' if peak is None else _gib(peak)}; {ms:.1f} ms/step over "
             f"{PARALLEL_TIMED_STEPS} steps" + ("" if mode == "one card" else f" with {link}")
-            + f"; loss {loss:.5f}")
+            + f"; loss {loss:.5f}; first-step launches {counts}")
         out[f"{mode} memory"] = {"state_bytes": state_bytes, "resident_bytes": resident,
-                                 "peak_bytes": peak, "ms_per_step": ms}
+                                 "peak_bytes": peak, "ms_per_step": ms, "launches": counts}
         if not np.isfinite(loss):
             failures.append(f"memory run ({mode}): non-finite loss")
+        if counts != {"flash_attention_fwd": 2, "flash_attention_bwd_dq": 2,
+                      "flash_attention_bwd_dkv": 2}:
+            failures.append(f"memory run ({mode}) launched {counts}, the one-process step 2 "
+                            "of each")
         del model, st, step
-    dm, fs = out["data mesh memory"], out["fsdp memory"]
+    dm, fs, ma = out["data mesh memory"], out["fsdp memory"], out["model axis memory"]
     if not fs["state_bytes"] < 0.75 * dm["state_bytes"]:
         failures.append(f"fsdp holds {fs['state_bytes']} bytes of state, the data mesh "
                         f"{dm['state_bytes']}")
+    if not ma["state_bytes"] < 0.75 * out["one card memory"]["state_bytes"]:
+        failures.append(f"the model axis holds {ma['state_bytes']} bytes of state, one card "
+                        f"{out['one card memory']['state_bytes']}")
     out["failures"] = failures
     for f in failures:
         say(f"FAILED: {f}")
@@ -2189,10 +2298,14 @@ def parallel_child(rank: int, world: int, work: str, store: str | None = None,
 def parallel_restore_cli(rank: int, world: int, work: str, dev, failures: list) -> dict:
     """`cli/restore.py` at full width on the restore phase's WebPs (q30,
     one batch), in turns: on one rank (plain), with `--dp -1` over every
-    rank (twice), on one rank again; every rank calls each, rank 0 reads
+    rank (twice), with `--sp -1` over every rank (twice: each image's
+    height split), on one rank again; every rank calls each, rank 0 reads
     and writes the files. Each rank must launch the forward as one batch's
-    schedule implies (each rank runs every evaluation on its rows; ranks
-    past 0 launch nothing in the one-rank calls).
+    schedule implies (each rank runs every evaluation on its rows, or under
+    `--sp` on the gathered tokens of all rows; ranks past 0 launch nothing
+    in the one-rank calls). The `--sp -1` PNGs are logged against the plain
+    ones (bf16 convolutions on row blocks sum in other orders, and the exact
+    projection turns last bits into visible changes on random weights).
 
     Rank 0 then restores the same batch on its own card through the
     sampler as the CLI calls it, whole and in the ranks' row blocks: the
@@ -2218,10 +2331,11 @@ def parallel_restore_cli(rank: int, world: int, work: str, dev, failures: list) 
     name = torch_device_name(dev)
     totals = dict.fromkeys(_counts(), 0)
     outs = []
-    for i, dp in enumerate([[], ["--dp", "-1"], ["--dp", "-1"], []]):
+    turns = [[], ["--dp", "-1"], ["--dp", "-1"], ["--sp", "-1"], ["--sp", "-1"], []]
+    for i, dp in enumerate(turns):
         out_dir = os.path.join(work, f"restore_cli_{i}")
-        label = (f"[rank {rank}] restore{' --dp -1' if dp else ''} ({len(webps)} WebPs, q30, "
-                 f"one batch{f' over {world} ranks' if dp else ''})")
+        label = (f"[rank {rank}] restore{' ' + ' '.join(dp) if dp else ''} ({len(webps)} "
+                 f"WebPs, q30, one batch{f' over {world} ranks' if dp else ''})")
         _, _, wall = _counted({"smi": name}, label, restore_main,
                               [*webps, *RESTORE_FLAGS, "--quality", "30", "--random-init",
                                "--output-dir", out_dir, *dp],
@@ -2236,15 +2350,18 @@ def parallel_restore_cli(rank: int, world: int, work: str, dev, failures: list) 
     pngs = [np.stack([np.asarray(Image.open(os.path.join(d, os.path.splitext(
         os.path.basename(f))[0] + "_restored.png")), np.int16) for f in webps]) for d in outs]
     plain, dp = restore_cli_on_one_card(webps, dev, world)
-    ok = {"plain calls = whole batch": all(np.array_equal(plain, pngs[i]) for i in (0, 3)),
+    ok = {"plain calls = whole batch": all(np.array_equal(plain, pngs[i]) for i in (0, 5)),
           "--dp -1 calls = row blocks": all(np.array_equal(dp, pngs[i]) for i in (1, 2))}
-    diff = np.abs(pngs[1] - pngs[0])
+    diff, sp_diff = np.abs(pngs[1] - pngs[0]), np.abs(pngs[3] - pngs[0])
     log(f"[rank 0] restore on one card through the sampler, PNGs bit for bit: {ok}; the "
         f"--dp -1 PNGs against the plain ones: max {diff.max()}, mean {diff.mean():.3f} of "
-        f"255, {100 * np.mean(diff > 0):.2f}% of pixels differ")
+        f"255, {100 * np.mean(diff > 0):.2f}% of pixels differ; the --sp -1 PNGs: max "
+        f"{sp_diff.max()}, mean {sp_diff.mean():.3f}, {100 * np.mean(sp_diff > 0):.2f}%; the "
+        f"two --sp -1 calls alike: {np.array_equal(pngs[3], pngs[4])}")
     if not all(ok.values()):
         failures.append(f"restore --dp -1: the PNGs are not what one card computes: {ok}")
-    return {"launches": totals, **ok, "dp_vs_plain_mean_diff": float(diff.mean())}
+    return {"launches": totals, **ok, "dp_vs_plain_mean_diff": float(diff.mean()),
+            "sp_vs_plain_mean_diff": float(sp_diff.mean())}
 
 
 def restore_cli_on_one_card(webps: list, dev, world: int) -> tuple:
@@ -2380,13 +2497,17 @@ def phase_parallel(state: dict) -> None:
         init_distributed("cuda" if PARALLEL_BACKEND == "nccl" else "cpu",
                          backend=PARALLEL_BACKEND, init_method=f"file://{work}/store1",
                          world_size=1, rank=0)
+        t0 = time.perf_counter()
         try:
             parallel_world1(state, work, failures)
         finally:
             torch.distributed.destroy_process_group()
+        log(f"  (part (a): {time.perf_counter() - t0:.1f} s)")
         children = run_parallel_children(state, work)
+        log(f"  (parts (a) and (b): {time.perf_counter() - t0:.1f} s)")
         for r, res in enumerate(children):
-            for label in ("data mesh step", "fsdp step", "restore", "restore cli"):
+            for label in ("data mesh step", "fsdp step", "model axis step", "restore",
+                          "sp restore", "restore cli", "model axis memory"):
                 for k, v in res[label]["launches"].items():
                     state["launches_parallel"][k] += v
         dm = [res["data mesh memory"] for res in children]
@@ -2398,6 +2519,11 @@ def phase_parallel(state: dict) -> None:
                 f"{_gib(b['state_bytes'])} against {_gib(a['state_bytes'])}"
                 + ("" if saved is None else f"; peak saved {_gib(saved[0])}, resident saved "
                    f"{_gib(saved[1])}"))
+            one, tp = children[r]["one card memory"], children[r]["model axis memory"]
+            log(f"rank {r}: the model axis at batch {TRAIN_BATCH} against one card at "
+                f"{PARALLEL_PER_RANK}: state {_gib(tp['state_bytes'])} against "
+                f"{_gib(one['state_bytes'])}; {tp['ms_per_step']:.1f} ms/step (one process at "
+                f"batch {TRAIN_BATCH}: part (a)'s plain step)")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if failures:
@@ -2734,8 +2860,10 @@ def swapped(forms: dict):
     (`upsample_2x_bilinear`, `spatial_block_dct`) rebound to its form in
     every model module that calls it."""
     from ddpm_image_restoration_tpu_torch.models import freq_blocks, unet
+    from ddpm_image_restoration_tpu_torch.parallel import spatial
 
-    sites = [(mod, name) for name in forms for mod in (unet, freq_blocks) if hasattr(mod, name)]
+    sites = [(mod, name) for name in forms for mod in (unet, freq_blocks, spatial)
+             if hasattr(mod, name)]
     saved = [(mod, name, getattr(mod, name)) for mod, name in sites]
     for mod, name in sites:
         setattr(mod, name, forms[name])
@@ -2878,6 +3006,7 @@ def modules_formulations(state: dict, failures: list) -> None:
     from ddpm_image_restoration_tpu_torch.cli.serve import restore_batch
     from ddpm_image_restoration_tpu_torch.codecs.surrogate import codec_surrogate
     from ddpm_image_restoration_tpu_torch.models import freq_blocks, unet
+    from ddpm_image_restoration_tpu_torch.parallel import spatial
     from ddpm_image_restoration_tpu_torch.utils import profiling
 
     torch.manual_seed(SEED)
@@ -2912,7 +3041,7 @@ def modules_formulations(state: dict, failures: list) -> None:
     if not kernels or not annotated:
         failures.append("profiling.trace wrote no kernel events or lost the annotation")
 
-    originals = {(unet, "upsample_2x_bilinear"): unet.upsample_2x_bilinear,
+    originals = {(spatial, "upsample_2x_bilinear"): spatial.upsample_2x_bilinear,
                  (unet, "spatial_block_dct"): unet.spatial_block_dct,
                  (freq_blocks, "spatial_block_dct"): freq_blocks.spatial_block_dct}
     calls = collections.Counter()  # (op, shape, dtype, args) -> calls in one batch
@@ -2939,7 +3068,7 @@ def modules_formulations(state: dict, failures: list) -> None:
         total = dict.fromkeys(per_op, 0.0)
         for (name, shape, dtype, args), n in calls.items():
             x = torch.randn(shape, device=CARD).to(dtype)
-            fn = getattr(unet, name)
+            fn = next(getattr(m, name) for m in (unet, spatial) if hasattr(m, name))
             total[name] += n * cuda_time_ms(lambda: fn(x, *args))
         return total
 
@@ -3035,8 +3164,8 @@ def kernels_json(state: dict) -> str:
     for kind, line in (("dq", 207), ("dkv", 247)):
         rows = {k: r for k, r in bwd_rows.items() if k[0] == kind}
         kernels.append(row(f"flash_attention_bwd_{kind}", "flash_attention_bwd.cu", line,
-                           rows, [("avif train step" if heads == 8 else "train step", *s, True)
-                                  for s, heads in TRAIN_SHAPES.items()],
+                           rows, [(TRAIN_PATHS.get(s, "train step"), *s, True)
+                                  for s in TRAIN_SHAPES],
                            lambda bh, t, d, n, lse, kind=kind: (kind, bh, t, d, n)))
     return json.dumps({"kernels": kernels})
 

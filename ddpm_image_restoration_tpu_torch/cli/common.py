@@ -19,8 +19,10 @@ from ddpm_image_restoration_tpu_torch.config import (
 )
 from ddpm_image_restoration_tpu_torch.device import resolve_device
 from ddpm_image_restoration_tpu_torch.parallel.mesh import (
+    DATA,
+    SPATIAL,
+    axis_rank,
     broadcast_object,
-    data_rank,
     gather_batch,
     init_distributed,
     make_mesh,
@@ -162,46 +164,50 @@ def sampler_codec_id(model, codec: str):
     return codec_index(codec) if model.cfg.codec_conditioning else None
 
 
-def refuse_not_ported(args) -> None:
-    """SystemExit, naming the ROADMAP.md item that will bring it, for each
-    flag of the JAX package's restore/serve/evaluate CLIs that the port
-    parses but has not implemented."""
-    if getattr(args, "sp", 0):
-        raise SystemExit("--sp (spatial-parallel restore: ROADMAP.md Queue 1 item 7) "
-                         "is not ported yet")
-
-
 class DataParallel:
     """`--dp N` of the restore and serve CLIs (the JAX package's data mesh of
     min(N, device count) devices, all of them for N = -1): a ('data',) mesh
     of min(N, world) ranks of the process group (`torchrun`), one rank
-    without --dp. Data rank 0 reads the inputs and writes the outputs;
-    `share` hands what it read to the other ranks, and `run` restores a
-    batch with each rank taking its block of rows (the batch padded to a
-    multiple of the mesh). A rank outside the mesh is not `active` and has
-    nothing to do. In one process both are the identity."""
+    without --dp. With `axis` 'spatial' it is `--sp N` of the restore CLI: a
+    ('spatial',) mesh of as many ranks, clamped to the largest divisor of
+    the image `height` (the height is split unpadded: codec block grids make
+    padding it wrong), with the JAX CLI's message. Rank 0 of the mesh reads
+    the inputs and writes the outputs; `share` hands what it read to the
+    other ranks, and `run` restores a batch: over 'data' each rank takes its
+    block of rows (the batch padded to a multiple of the mesh); over
+    'spatial' each rank restores the whole batch, its model splitting the
+    height (`parallel.mesh.shard_inference_spatial`). A rank outside the
+    mesh is not `active` and has nothing to do. In one process both are the
+    identity."""
 
-    def __init__(self, want: int, device: str):
+    def __init__(self, want: int, device: str, axis: str = DATA, height: int = 0):
         init_distributed(device)
         world = world_size()
         self.n = world if want < 0 else max(1, min(want, world))
-        self.mesh = make_mesh((self.n,), ("data",))
+        if axis == SPATIAL and want:
+            while height % self.n:
+                self.n -= 1
+            if self.n != (want if want > 0 else world):
+                print(f"--sp: clamped mesh to {self.n} device(s) (largest divisor of image "
+                      f"height {height})", flush=True)
+        self.axis = axis
+        self.mesh = make_mesh((self.n,), (axis,))
         self.device = device
-        r = data_rank(self.mesh)
+        r = axis_rank(self.mesh, axis)
         self.active, self.main = r is not None, r == 0
         if not self.active:
-            print(f"rank {rank()}: outside the data mesh of {self.n} of {world} rank(s); "
+            print(f"rank {rank()}: outside the {axis} mesh of {self.n} of {world} rank(s); "
                   "nothing to do", flush=True)
 
     def share(self, obj):
-        """Data rank 0's `obj` (picklable) on every rank."""
-        return broadcast_object(obj, self.mesh)
+        """Rank 0's `obj` (picklable) on every rank of the mesh."""
+        return broadcast_object(obj, self.mesh, self.axis)
 
     def run(self, fn, batch: np.ndarray) -> np.ndarray:
         """`fn(batch, rows)` restores rows (start, stop) of the whole NHWC
         `batch` (`rows` None: all of it) and returns them as numpy; this
         returns the whole restored batch, gathered, on every rank."""
-        if self.mesh is None:
+        if self.mesh is None or self.axis == SPATIAL:
             return fn(batch, None)
         mine = fn(batch, shard_rows(len(batch), self.mesh))
         return gather_batch(torch.as_tensor(mine, device=resolve_device(self.device)),

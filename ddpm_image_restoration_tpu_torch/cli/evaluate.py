@@ -32,7 +32,6 @@ from ddpm_image_restoration_tpu_torch.cli.common import (
     add_weights_flags,
     build_restore_model,
     eval_config_from,
-    refuse_not_ported,
     resolve_codecs,
 )
 
@@ -120,7 +119,6 @@ def main(argv=None):
     ap.add_argument("--phase-threshold", type=int, default=None,
                     help="override the phase-consistency quality gate (0 disables it)")
     args = ap.parse_args(argv)
-    refuse_not_ported(args)
     codec, model_codec = resolve_codecs(args, allow_auto=False)
     args.codec = codec
 

@@ -18,8 +18,7 @@ each step. `--solver gaussian_mixture` restores with the experimental
 Gaussian-mixture sampler instead (diffusion/gaussian_mixture.py) over
 init_t steps from key 0, as the JAX CLI does: the DDRM-only flags
 (ensemble, protection, encoder and decoder reuse, stride) do not apply to
-it, and `--max-evals` is refused with it. `--sp` is parsed and refused (not
-ported yet).
+it, and `--max-evals` is refused with it.
 
 `--dp N` restores each batch data-parallel over N ranks (-1: all) of a
 `torchrun` world, each rank taking a block of the batch's rows (padded to a
@@ -28,6 +27,15 @@ is the one-process output:
 
     torchrun --nproc-per-node 8 -m ddpm_image_restoration_tpu_torch.cli.restore \
         in/*.webp --dp -1 --params-npz w.npz --output-dir out
+
+`--sp N` restores spatial-parallel over N ranks (-1: all), clamped to the
+largest divisor of the image height: every rank runs the solver on the whole
+batch, and the model splits each image's height over the ranks
+(`parallel.mesh.shard_inference_spatial`), which suits batches smaller than
+the world. Rank 0 reads and writes the files, tiles and the ensemble go
+through the same call, and the output is the one-process output up to the
+order of f32 sums. Both solvers take it. `--dp` and `--sp` exclude each
+other.
 """
 
 from __future__ import annotations
@@ -46,7 +54,6 @@ from ddpm_image_restoration_tpu_torch.cli.common import (
     build_restore_model,
     load_image,
     model_config_from,
-    refuse_not_ported,
     resolve_codecs,
     sampler_codec_id,
     save_image,
@@ -59,7 +66,11 @@ from ddpm_image_restoration_tpu_torch.config import get_preset
 from ddpm_image_restoration_tpu_torch.diffusion.ddrm import DDRMSampler
 from ddpm_image_restoration_tpu_torch.diffusion.ensemble import sample_ensemble
 from ddpm_image_restoration_tpu_torch.diffusion.gaussian_mixture import GaussianMixtureSampler
-from ddpm_image_restoration_tpu_torch.parallel.mesh import replicated
+from ddpm_image_restoration_tpu_torch.parallel.mesh import (
+    SPATIAL,
+    replicated,
+    shard_inference_spatial,
+)
 
 
 def main(argv=None):
@@ -90,7 +101,10 @@ def main(argv=None):
                          "(-1 = all): each rank restores a block of the batch's rows "
                          "(batches are padded to a multiple of N)")
     ap.add_argument("--sp", type=int, default=0,
-                    help="spatial-parallel restore (not ported; refused)")
+                    help="spatial-parallel restore over N ranks of a torchrun world "
+                         "(-1 = all): the model splits each image's height over them "
+                         "(clamped to a divisor of the height); for batches smaller "
+                         "than the world. Mutually exclusive with --dp")
     ap.add_argument("--encoder-reuse", type=int, default=1,
                     help="run the UNet encoder only every k-th model evaluation")
     ap.add_argument("--decoder-reuse-depth", type=int, default=0,
@@ -118,20 +132,25 @@ def main(argv=None):
         raise SystemExit("--dp and --sp are mutually exclusive (a combined "
                          "data x spatial mesh adds nothing at this model's "
                          "sizes; pick the axis that matches your batch)")
-    refuse_not_ported(args)
     if args.max_evals and args.solver == "gaussian_mixture":
         raise SystemExit("--max-evals applies to the DDRM solver only (the "
                          "gaussian_mixture sampler has no stride); drop one")
     codec, model_codec = resolve_codecs(args)
 
-    dp = DataParallel(args.dp, args.device)
+    mcfg = model_config_from(args)
+    if args.sp:
+        dp = DataParallel(args.sp, args.device, SPATIAL, mcfg.image_size)
+    else:
+        dp = DataParallel(args.dp, args.device)
     if not dp.active:
         return
-    if args.dp and dp.main:
-        print(f"data-parallel restore over {dp.n} device(s)")
-    mcfg = model_config_from(args)
+    if (args.dp or args.sp) and dp.main:
+        print(f"{'spatial' if args.sp else 'data'}-parallel restore over {dp.n} device(s)")
     model = build_restore_model(model_codec, args)
-    replicated(model, dp.mesh)
+    if args.sp:
+        shard_inference_spatial(model, dp.mesh)
+    else:
+        replicated(model, dp.mesh)
     dev = model.out_conv.weight.device
 
     samplers = {}

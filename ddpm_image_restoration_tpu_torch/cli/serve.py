@@ -43,7 +43,6 @@ from ddpm_image_restoration_tpu_torch.cli.common import (
     add_weights_flags,
     build_restore_model,
     load_image,
-    refuse_not_ported,
     resolve_codecs,
     sampler_codec_id,
     save_image,
@@ -178,7 +177,6 @@ def main(argv=None):
     if args.traced and args.solver != "auto" and not args.max_evals:
         # at startup, not when the first batch arrives
         ap.error("--traced needs --solver auto or --max-evals")
-    refuse_not_ported(args)
     codec, model_codec = resolve_codecs(args)
     if args.dp and args.size_mode == "tile":
         raise SystemExit("--dp requires fixed-size mode: tile batches "

@@ -12,6 +12,11 @@ models/freq_blocks.py), NCHW inside, one interface
 
 Parameter names follow the Flax modules (`low_attn_in`, `adaptive_transform`,
 `ms4_out`, ...), so the release npz maps onto them key for key.
+
+Given a `parallel.spatial.SpatialLevel` (`sp`), `x` is this rank's rows of
+a level split over a spatial mesh: the block transforms and the 1x1 gates
+stay local (each shard holds whole blocks), the 3x3 convolutions take a
+halo, and the AVIF gates pool every rank's rows.
 """
 
 from __future__ import annotations
@@ -24,7 +29,8 @@ from torch import nn
 
 from ddpm_image_restoration_tpu_torch.codecs.surrogate import dct_matrix
 from ddpm_image_restoration_tpu_torch.ops.dct import low_freq_mask, spatial_block_dct
-from ddpm_image_restoration_tpu_torch.ops.resize import adaptive_avg_pool, resize_linear
+from ddpm_image_restoration_tpu_torch.ops.resize import resize_linear
+from ddpm_image_restoration_tpu_torch.parallel import spatial
 
 
 def _level_col(level: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -55,7 +61,8 @@ class DCTFreqAwareBlock(nn.Module):
     def _gate(h, conv_in, conv_out):
         return torch.sigmoid(conv_out(F.leaky_relu(conv_in(h), 0.2)))
 
-    def forward(self, x: torch.Tensor, compression_level: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, compression_level: torch.Tensor,
+                sp=None) -> torch.Tensor:
         x_dct = spatial_block_dct(x, self.block_size)
         mask = low_freq_mask(x.shape[2], x.shape[3], self.block_size,
                              self.low_size, device=x.device, dtype=x.dtype)
@@ -65,7 +72,7 @@ class DCTFreqAwareBlock(nn.Module):
         high_attn = self._gate(high, self.high_attn_in, self.high_attn_out)
         lo, hi = self.high_boost_clamp
         high_attn = high_attn * torch.clamp(1.0 - _level_col(compression_level, x), lo, hi)
-        return self.conv_out(x + low_attn * low + high_attn * high)
+        return spatial.conv3x3(self.conv_out, x + low_attn * low + high_attn * high, sp)
 
 
 class AVIFAdaptiveTransform(nn.Module):
@@ -125,22 +132,24 @@ class AVIFFreqAwareBlock(nn.Module):
         self.edge_out = nn.Conv2d(c // 2, c, 3, padding=1)
         self.conv_out = nn.Conv2d(c, c, 3, padding=1)
 
-    def forward(self, x: torch.Tensor, compression_level: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, compression_level: torch.Tensor,
+                sp=None) -> torch.Tensor:
         x_t = self.adaptive_transform(x)
-        size = x.shape[-2:]
+        size = x.shape[-2:] if sp is None else (sp.height, x.shape[-1])
         attn_sum = 0.0
         for s in self.SCALES:
             conv_in, conv_out = getattr(self, f"ms{s}_in"), getattr(self, f"ms{s}_out")
-            a = torch.sigmoid(conv_out(torch.relu(conv_in(adaptive_avg_pool(x, s)))))
+            a = torch.sigmoid(conv_out(torch.relu(conv_in(spatial.pooled(x, s, sp)))))
             if a.shape[-2:] != size:
                 a = resize_linear(a, size)
-            attn_sum = attn_sum + a
+            attn_sum = attn_sum + spatial.take_rows(a, sp)
         attn_avg = attn_sum / 4.0
         color_attn = torch.sigmoid(self.color_out(torch.relu(self.color_in(x))))
-        edge_attn = torch.sigmoid(self.edge_out(torch.relu(self.edge_in(x))))
+        edge_attn = torch.sigmoid(spatial.conv3x3(
+            self.edge_out, torch.relu(spatial.conv3x3(self.edge_in, x, sp)), sp))
         lvl = _level_col(compression_level, x)
         clo, chi = self.color_boost_clamp
         elo, ehi = self.edge_boost_clamp
         color_attn = color_attn * torch.clamp(0.5 + 0.5 * (1.0 - lvl), clo, chi)
         edge_attn = edge_attn * torch.clamp(0.7 + 0.3 * (1.0 - lvl), elo, ehi)
-        return self.conv_out(x + x_t * attn_avg * color_attn * edge_attn)
+        return spatial.conv3x3(self.conv_out, x + x_t * attn_avg * color_attn * edge_attn, sp)

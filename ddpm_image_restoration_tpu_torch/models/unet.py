@@ -16,6 +16,11 @@ layers, attention, frequency module) hold their weights and compute in
 `cfg.compute_dtype`, while GroupNorm, the time embedding, the codec
 embedding and the output head stay f32. Flax's GroupNorm uses eps 1e-6 and
 `nn.gelu` is the tanh form; both are kept.
+
+With `spatial_mesh` set (parallel/mesh.py `shard_inference_spatial`) the
+public methods still take and return whole images, but inside each rank
+computes only its rows of the levels that `parallel/spatial.py split_plan`
+splits (that module says how each op crosses the shard edges).
 """
 
 from __future__ import annotations
@@ -36,7 +41,9 @@ from ddpm_image_restoration_tpu_torch.models.freq_blocks import (
 from ddpm_image_restoration_tpu_torch.models.time_embedding import TimeEmbedding
 from ddpm_image_restoration_tpu_torch.ops.attention import spatial_attention
 from ddpm_image_restoration_tpu_torch.ops.dct import adjusted_group_count, spatial_block_dct
-from ddpm_image_restoration_tpu_torch.ops.resize import max_pool_2x, upsample_2x_bilinear
+from ddpm_image_restoration_tpu_torch.ops.resize import max_pool_2x
+from ddpm_image_restoration_tpu_torch.parallel import spatial
+from ddpm_image_restoration_tpu_torch.parallel.mesh import SPATIAL, axis_rank, axis_size
 from ddpm_image_restoration_tpu_torch.utils.remat import checkpoint
 
 _GN_EPS = 1e-6  # Flax GroupNorm's epsilon
@@ -91,7 +98,9 @@ def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]
 
 class SpatialSelfAttention(nn.Module):
     """Multi-head self-attention over all H*W tokens: fused `qkv` projection
-    split into q/k/v, then into heads; `out` projection; both with bias."""
+    split into q/k/v, then into heads; `out` projection; both with bias.
+    Given a `SpatialLevel`, `x` is this rank's rows: q, k and v of every
+    rank's tokens are gathered, and the output keeps this rank's."""
 
     def __init__(self, channels: int, num_heads: int, impl: str = "xla"):
         super().__init__()
@@ -100,14 +109,15 @@ class SpatialSelfAttention(nn.Module):
         self.qkv = nn.Linear(channels, 3 * channels)
         self.out = nn.Linear(channels, channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, sp=None) -> torch.Tensor:
         b, c, h, w = x.shape
-        t, heads = h * w, self.num_heads
+        heads = self.num_heads
         tokens = x.flatten(2).transpose(1, 2)                # [B,T,C]
-        q, k, v = self.qkv(tokens).chunk(3, dim=-1)
-        q, k, v = (z.reshape(b, t, heads, c // heads) for z in (q, k, v))
-        out = spatial_attention(q, k, v, impl=self.impl).reshape(b, t, c)
-        return self.out(out).transpose(1, 2).reshape(b, c, h, w)
+        qkv = spatial.gather_tokens(self.qkv(tokens), sp)
+        t = qkv.shape[1]
+        q, k, v = (z.reshape(b, t, heads, c // heads) for z in qkv.chunk(3, dim=-1))
+        out = spatial.own_tokens(spatial_attention(q, k, v, impl=self.impl), sp)
+        return self.out(out.reshape(b, h * w, c)).transpose(1, 2).reshape(b, c, h, w)
 
 
 class ResAttnBlock(nn.Module):
@@ -120,13 +130,17 @@ class ResAttnBlock(nn.Module):
     With `cfg.remat` (the JAX package's `nn.remat(ResAttnBlock)`) a call
     made with grad enabled keeps only the block's inputs and recomputes its
     body in the backward; the recompute replays the dropout generator, so
-    it draws the forward's mask."""
+    it draws the forward's mask.
+
+    `sp` is the block's `parallel.spatial.SpatialLevel` when its level runs
+    split over a spatial mesh (set by the model), else None."""
 
     def __init__(self, in_channels: int, out_channels: int, resolution: int,
                  preset: CodecPreset, cfg: ModelConfig):
         super().__init__()
         self.dtype = getattr(torch, cfg.compute_dtype)
         self.remat = cfg.remat
+        self.sp = None
         self.norm1 = _group_norm(in_channels)
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
         self.time_proj = nn.Linear(cfg.time_dim, out_channels)
@@ -162,14 +176,14 @@ class ResAttnBlock(nn.Module):
 
     def _body(self, x: torch.Tensor, t_emb: torch.Tensor,
               compression_level: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype
-        h = self.conv1(self.norm1(x.float()).to(dt))
+        dt, sp = self.dtype, self.sp
+        h = spatial.conv3x3(self.conv1, spatial.group_norm(self.norm1, x.float(), sp).to(dt), sp)
         h = h + self.time_proj(t_emb.to(dt))[:, :, None, None]
-        h = F.gelu(self.norm2(h.float()).to(dt), approximate="tanh")
-        h = self.conv2(self.dropout(h))
+        h = F.gelu(spatial.group_norm(self.norm2, h.float(), sp).to(dt), approximate="tanh")
+        h = spatial.conv3x3(self.conv2, self.dropout(h), sp)
         if self.attn is not None:
-            h = h + self.attn(h)
-        h = self.freq_guide(h, compression_level)
+            h = h + self.attn(h, sp)
+        h = self.freq_guide(h, compression_level, sp)
         x = x.to(dt)
         if self.shortcut is not None:
             x = self.shortcut(x)
@@ -180,7 +194,11 @@ class CodecDiffusionModel(nn.Module):
     """UNet predicting the restoration in [-1,1], split into `encode`
     (encoder + bottleneck) and `decode` (decoder + DCT fusion + head) so the
     solver can reuse encoder features across steps; `forward` is exactly
-    `decode(encode(x))`."""
+    `decode(encode(x))`.
+
+    `spatial_mesh` (None, or a ('spatial',) mesh set by
+    `parallel.mesh.shard_inference_spatial`) splits the image height inside
+    these methods (module docstring)."""
 
     def __init__(self, preset: CodecPreset, cfg: ModelConfig):
         super().__init__()
@@ -209,6 +227,41 @@ class CodecDiffusionModel(nn.Module):
             in_c = w
         self.out_norm = _group_norm(cfg.enc_widths[0])
         self.out_conv = nn.Conv2d(cfg.enc_widths[0], cfg.in_channels, 3, padding=1)
+        self.spatial_mesh = None
+        self._levels = (None, (None,) * (len(cfg.enc_widths) + 1))  # (key, per level)
+
+    def _blocks(self):
+        """(level, block) for every ResAttnBlock: down{i+1} at level i, the
+        bottleneck at level n, up{i+1} at level n-1-i."""
+        n = len(self.cfg.enc_widths)
+        for i in range(n):
+            yield i, getattr(self, f"down{i + 1}")
+        for i in range(len(self.cfg.bottleneck_widths)):
+            yield n, getattr(self, f"bottleneck{i + 1}")
+        for i in range(n):
+            yield n - 1 - i, getattr(self, f"up{i + 1}")
+
+    def spatial_levels(self, height: int) -> tuple:
+        """Per level, its `SpatialLevel` when it runs split over
+        `spatial_mesh` for images `height` rows high, else None (all None
+        without a mesh); sets each block's `sp`, and logs the plan (spatial
+        rank 0) the first time a height is seen."""
+        key = (height, id(self.spatial_mesh))
+        if self._levels[0] == key:
+            return self._levels[1]
+        n = len(self.cfg.enc_widths)
+        m = axis_size(self.spatial_mesh, SPATIAL)
+        plan = spatial.split_plan(height, n, self.preset.dct_block_size, m)
+        levels = tuple(spatial.SpatialLevel(self.spatial_mesh, height >> i) if split else None
+                       for i, split in enumerate(plan))
+        for lvl, block in self._blocks():
+            block.sp = levels[lvl]
+        if m > 1 and axis_rank(self.spatial_mesh, SPATIAL) == 0:
+            print(f"spatial plan over {m} ranks at height {height}: " + ", ".join(
+                f"{height >> i}: {'split' if s else 'replicated'}" for i, s in enumerate(plan)),
+                flush=True)
+        self._levels = (key, levels)
+        return levels
 
     def _prep(self, t, compression_level, codec_id=None):
         dev = self.out_conv.weight.device
@@ -234,11 +287,13 @@ class CodecDiffusionModel(nn.Module):
         # backward crashes on those
         h = x.permute(0, 3, 1, 2).to(getattr(torch, self.cfg.compute_dtype),
                                      memory_format=torch.contiguous_format)
+        sp = self.spatial_levels(h.shape[2])
+        h = spatial.take_rows(h, sp[0])
         skips = []
         for i in range(len(self.cfg.enc_widths)):
-            h = getattr(self, f"down{i + 1}")(h if i == 0 else max_pool_2x(h), t_emb, level)
+            h = getattr(self, f"down{i + 1}")(h if i == 0 else self._pool(h, i), t_emb, level)
             skips.append(h)
-        h = max_pool_2x(h)
+        h = self._pool(h, len(self.cfg.enc_widths))
         for i in range(len(self.cfg.bottleneck_widths)):
             h = getattr(self, f"bottleneck{i + 1}")(h, t_emb, level)
         return tuple(skips), h
@@ -249,9 +304,22 @@ class CodecDiffusionModel(nn.Module):
         t_emb, level = self._prep(t, compression_level, codec_id)
         skips, h = features
         for i in range(len(self._dec_widths) - depth):
-            h = torch.cat([upsample_2x_bilinear(h), skips[-(i + 1)]], dim=1)
+            h = torch.cat([self._up(h, i), skips[-(i + 1)]], dim=1)
             h = getattr(self, f"up{i + 1}")(h, t_emb, level)
         return h
+
+    def _pool(self, h: torch.Tensor, lvl: int) -> torch.Tensor:
+        """The 2x2 max pool into level `lvl`, gathered where that level runs
+        whole and the one above it split."""
+        sp = self._levels[1]
+        h = max_pool_2x(h)
+        return spatial.gather_rows(h, sp[lvl - 1]) if sp[lvl] is None else h
+
+    def _up(self, h: torch.Tensor, i: int) -> torch.Tensor:
+        """The 2x upsample into decoder stage i (level n-1-i), in the
+        layouts of the two levels."""
+        sp, lvl = self._levels[1], len(self._dec_widths) - 1 - i
+        return spatial.upsample_2x(h, sp[lvl + 1], sp[lvl])
 
     def decode_shallow(self, h: torch.Tensor, skips, t, compression_level=None,
                        depth: int = 1, codec_id=None) -> torch.Tensor:
@@ -260,11 +328,13 @@ class CodecDiffusionModel(nn.Module):
         t_emb, level = self._prep(t, compression_level, codec_id)
         n = len(self._dec_widths)
         for i in range(n - depth, n):
-            h = torch.cat([upsample_2x_bilinear(h), skips[-(i + 1)]], dim=1)
+            h = torch.cat([self._up(h, i), skips[-(i + 1)]], dim=1)
             h = getattr(self, f"up{i + 1}")(h, t_emb, level)
+        sp = self._levels[1][0]
         h = h + self.preset.dct_fusion_scale * spatial_block_dct(h, self.preset.dct_block_size)
-        h = self.out_conv(F.silu(self.out_norm(h.float())))
-        return torch.tanh(h).permute(0, 2, 3, 1)
+        h = F.silu(spatial.group_norm(self.out_norm, h.float(), sp))
+        h = spatial.conv3x3(self.out_conv, h, sp)
+        return spatial.gather_rows(torch.tanh(h), sp).permute(0, 2, 3, 1)
 
     def decode(self, features, t, compression_level=None, codec_id=None) -> torch.Tensor:
         """Decoder + fusion + head over `encode` output: exactly

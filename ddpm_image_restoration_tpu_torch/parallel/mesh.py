@@ -8,36 +8,54 @@ started without `torchrun` (no process group) is a world of one, in which
 `make_mesh` returns None and every function below that takes a mesh is the
 identity.
 
-Layouts over the ('data',) axis, as in the JAX package:
-  * data parallelism: each rank takes a contiguous block of the leading
-    (batch) axis, the batch padded to a multiple of the mesh; parameters are
-    replicated; gradients are averaged over the mesh in f32 before the
-    optimizer, so a step equals the one-process step on the whole batch up
-    to the order of f32 sums.
-  * FSDP / ZeRO-3 (`fsdp=True`): each large f32 master, both Adam moments
-    and the EMA are split over the mesh along the axis `param_shardings`
-    picks (the JAX `_fsdp_spec` rule on the parameter in the JAX layout);
-    gradients are reduce-scattered into those shards, the global gradient
-    norm is all-reduced, AdamW and the EMA update the shards, and the
-    module's weights (bf16 body, f32 norms) are all-gathered after the step.
-    The JAX package's `shard_train_step` has no function of its own here:
-    `put_state` gives the state its layout (`ShardedState`), and the step of
-    `train/steps.py make_train_step` follows it.
+Layouts, as in the JAX package:
+  * 'data' axis, data parallelism: each rank takes a contiguous block of the
+    leading (batch) axis, the batch padded to a multiple of the axis;
+    gradients are averaged over the axis in f32 before the optimizer, so a
+    step equals the one-process step on the whole batch up to the order of
+    f32 sums.
+  * 'data' axis, FSDP / ZeRO-3 (`fsdp=True`): each large f32 master, both
+    Adam moments and the EMA are split over the axis along the dimension
+    `param_shardings` picks (the JAX `_fsdp_spec` rule on the parameter in
+    the JAX layout); gradients are reduce-scattered into those blocks, the
+    global gradient norm is all-reduced, AdamW and the EMA update the
+    blocks, and the module's weights are all-gathered after the step.
+  * 'model' axis, tensor parallelism: the JAX `_kernel_spec` rule splits a
+    parameter's trailing (output) axis in the JAX layout. Every
+    `nn.Conv2d`/`nn.Linear` whose output channels it splits becomes
+    column-parallel (`shard_module`): each model rank holds its block of
+    output channels of the weight and bias, in the module as in the f32
+    master, both moments and the EMA, computes those channels, and the
+    output is all-gathered along the channels (`_GatherChannels`); the
+    backward takes this rank's slice of the output gradient and all-reduces
+    the input gradient over the axis (`_SumInputGrad`). Every other
+    parameter the rule splits (GroupNorm affines, embeddings, the AVIF
+    transform weights) keeps its master and moments split and is
+    all-gathered into the module after each step, as FSDP does. Downstream
+    of each gather every model rank computes the same thing, so the
+    gradient of a parameter the module holds whole is the same on every
+    model rank and is never summed over 'model'. A ('data', 'model') mesh
+    takes both, with or without FSDP (which then splits another dimension
+    of each parameter over 'data'). The JAX package's `shard_train_step`
+    has no function of its own here: `put_state` gives the state its layout
+    (`ShardedState`), and the step of `train/steps.py make_train_step`
+    follows it.
+  * 'spatial' axis, the spatial-parallel restore (`shard_inference_spatial`,
+    parallel/spatial.py): the image height of one batch split over the
+    ranks inside the model, with halo exchanges, all-reduced statistics
+    and gathers where a level's ops cross the shard edges.
 
 Random draws that the JAX package makes for the whole sharded batch (the
 dropout masks, the sampler's eta noise) are drawn here for the whole batch
 by every rank, which keeps its own rows (`take_rows`): each rank pays the
 RNG work of the whole batch, and a sharded run draws what one process
-would.
+would. The model ranks of one data rank draw the same masks.
 
-The 'model' (tensor-parallel) axis and the spatial-parallel restore are
-not ported: `make_mesh` builds any mesh, and its users refuse the axes they
-do not implement.
-
-Every collective goes through the helpers below, the one place where gloo
-and NCCL differ: under gloo, CUDA tensors are copied through host memory for
-each collective (gloo's CUDA support differs between torch releases: some
-lack reduce-scatter and all-gather of CUDA tensors).
+Every collective goes through the helpers below, over one named axis of the
+mesh, the one place where gloo and NCCL differ: under gloo, CUDA tensors are
+copied through host memory for each collective (gloo's CUDA support differs
+between torch releases: some lack reduce-scatter and all-gather of CUDA
+tensors).
 """
 
 from __future__ import annotations
@@ -45,7 +63,7 @@ from __future__ import annotations
 import math
 import os
 import warnings
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -56,7 +74,7 @@ from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 from ddpm_image_restoration_tpu_torch.device import local_rank, resolve_device
 from ddpm_image_restoration_tpu_torch.train.checkpoint import jax_layout
 
-DATA = "data"
+DATA, MODEL, SPATIAL = "data", "model", "spatial"
 
 
 def init_distributed(device: str | torch.device = "cuda", backend: Optional[str] = None,
@@ -119,24 +137,49 @@ def make_mesh(shape: Sequence[int] = (-1,), axes: Sequence[str] = (DATA,)):
                       mesh_dim_names=tuple(axes))
 
 
+def axis_size(mesh, axis: str = DATA) -> int:
+    """Ranks along the mesh's `axis` (1 without a mesh or that axis)."""
+    if mesh is None or axis not in mesh.mesh_dim_names:
+        return 1
+    return mesh.size(mesh.mesh_dim_names.index(axis))
+
+
+def axis_rank(mesh, axis: str = DATA) -> Optional[int]:
+    """This rank's coordinate on `axis`: 0 without a mesh or that axis, None
+    for a rank outside the mesh."""
+    if mesh is None:
+        return 0
+    coord = mesh.get_coordinate()
+    if coord is None:
+        return None
+    return coord[mesh.mesh_dim_names.index(axis)] if axis in mesh.mesh_dim_names else 0
+
+
 def data_size(mesh) -> int:
     """Ranks along the mesh's 'data' axis (1 without a mesh)."""
-    return 1 if mesh is None else mesh.size(mesh.mesh_dim_names.index(DATA))
+    return axis_size(mesh, DATA)
 
 
 def data_rank(mesh) -> Optional[int]:
     """This rank's coordinate on the 'data' axis: 0 without a mesh, None
     for a rank outside it."""
+    return axis_rank(mesh, DATA)
+
+
+def is_main(mesh) -> bool:
+    """Whether this rank is the mesh's first (coordinate 0 on every axis):
+    the one that logs and writes files. True without a mesh."""
     if mesh is None:
-        return 0
+        return True
     coord = mesh.get_coordinate()
-    return None if coord is None else coord[mesh.mesh_dim_names.index(DATA)]
+    return coord is not None and not any(coord)
 
 
-# ---- collectives over the 'data' axis (the one place gloo and NCCL differ)
+# ---- collectives over one axis (the one place gloo and NCCL differ); the
+# identity without a mesh or when the mesh lacks the axis
 
-def _group(mesh):
-    return mesh.get_group(DATA)
+def _has(mesh, axis: str) -> bool:
+    return mesh is not None and axis in mesh.mesh_dim_names
 
 
 def _via_host(group, x: torch.Tensor) -> bool:
@@ -158,60 +201,78 @@ def _call(op, group, out: torch.Tensor, inp: Optional[torch.Tensor] = None) -> N
         out.copy_(o)
 
 
-def all_reduce_(x: torch.Tensor, mesh) -> torch.Tensor:
-    """Sum `x` over the data axis, in place."""
-    if mesh is not None:
-        _call(lambda o, _, g: dist.all_reduce(o, group=g), _group(mesh), x)
+def all_reduce_(x: torch.Tensor, mesh, axis: str = DATA) -> torch.Tensor:
+    """Sum `x` over `axis`, in place."""
+    if _has(mesh, axis):
+        _call(lambda o, _, g: dist.all_reduce(o, group=g), mesh.get_group(axis), x)
     return x
 
 
-def broadcast_(x: torch.Tensor, mesh) -> torch.Tensor:
-    """`x` from data rank 0 to every rank of the axis, in place."""
-    if mesh is not None:
-        g = _group(mesh)
+def broadcast_(x: torch.Tensor, mesh, axis: str = DATA) -> torch.Tensor:
+    """`x` from coordinate 0 of `axis` to every rank of the axis, in place."""
+    if _has(mesh, axis):
+        g = mesh.get_group(axis)
         _call(lambda o, _, g: dist.broadcast(o, dist.get_global_rank(g, 0), group=g), g, x)
     return x
 
 
-def all_gather(x: torch.Tensor, mesh) -> torch.Tensor:
-    """Every rank's `x` stacked along the leading axis, in data-rank order."""
-    if mesh is None:
+def all_gather(x: torch.Tensor, mesh, axis: str = DATA) -> torch.Tensor:
+    """Every rank's `x` stacked along the leading axis, in `axis` order."""
+    if not _has(mesh, axis):
         return x
     x = x.contiguous()
-    out = x.new_empty((data_size(mesh) * x.shape[0], *x.shape[1:]))
-    _call(lambda o, i, g: dist.all_gather_into_tensor(o, i, group=g), _group(mesh), out, x)
+    out = x.new_empty((axis_size(mesh, axis) * x.shape[0], *x.shape[1:]))
+    _call(lambda o, i, g: dist.all_gather_into_tensor(o, i, group=g), mesh.get_group(axis),
+          out, x)
     return out
 
 
-def reduce_scatter(x: torch.Tensor, mesh) -> torch.Tensor:
-    """The sum over the data axis of `x`'s r-th block of leading rows, on
-    data rank r (`x.shape[0]` a multiple of the axis size)."""
-    if mesh is None:
+def reduce_scatter(x: torch.Tensor, mesh, axis: str = DATA) -> torch.Tensor:
+    """The sum over `axis` of `x`'s r-th block of leading rows, on rank r of
+    the axis (`x.shape[0]` a multiple of the axis size)."""
+    if not _has(mesh, axis):
         return x
     x = x.contiguous()
-    out = x.new_empty((x.shape[0] // data_size(mesh), *x.shape[1:]))
-    _call(lambda o, i, g: dist.reduce_scatter_tensor(o, i, group=g), _group(mesh), out, x)
+    out = x.new_empty((x.shape[0] // axis_size(mesh, axis), *x.shape[1:]))
+    _call(lambda o, i, g: dist.reduce_scatter_tensor(o, i, group=g), mesh.get_group(axis),
+          out, x)
     return out
 
 
-def broadcast_object(obj, mesh):
-    """A picklable object from data rank 0 (every rank returns it)."""
-    if mesh is None:
+def gather_dim(x: torch.Tensor, dim: int, mesh, axis: str) -> torch.Tensor:
+    """Every rank's `x` concatenated along `dim`, in `axis` order, as a
+    contiguous tensor."""
+    if not _has(mesh, axis):
+        return x
+    n = axis_size(mesh, axis)
+    out = all_gather(x.unsqueeze(0), mesh, axis)                 # [n, *x.shape]
+    dim = dim % x.dim()
+    return out.movedim(0, dim).reshape(*x.shape[:dim], n * x.shape[dim],
+                                       *x.shape[dim + 1:]).contiguous()
+
+
+def broadcast_object(obj, mesh, axis: str = DATA):
+    """A picklable object from coordinate 0 of `axis` (every rank of the
+    axis returns it)."""
+    if not _has(mesh, axis):
         return obj
-    g = _group(mesh)
+    g = mesh.get_group(axis)
     box = [obj]
     dist.broadcast_object_list(box, src=dist.get_global_rank(g, 0), group=g)
     return box[0]
 
 
 def barrier(mesh) -> None:
+    """Wait for every rank of the mesh (one barrier per axis, in turn)."""
     if mesh is not None:
-        dist.barrier(group=_group(mesh))
+        for axis in mesh.mesh_dim_names:
+            dist.barrier(group=mesh.get_group(axis))
 
 
 def replicated(tensors: nn.Module | Iterable[torch.Tensor], mesh) -> None:
-    """Make every rank hold data rank 0's values of `tensors` (a module's
-    parameters and buffers, or a list), in place."""
+    """Make every rank of the mesh hold the first rank's values of `tensors`
+    (a module's parameters and buffers, or a list), in place: a broadcast
+    over each axis in turn."""
     if mesh is None:
         return
     if isinstance(tensors, nn.Module):
@@ -221,7 +282,9 @@ def replicated(tensors: nn.Module | Iterable[torch.Tensor], mesh) -> None:
         groups.setdefault((t.dtype, t.device), []).append(t)
     with torch.no_grad():
         for ts in groups.values():
-            flat = broadcast_(_flatten_dense_tensors([t.detach() for t in ts]), mesh)
+            flat = _flatten_dense_tensors([t.detach() for t in ts])
+            for axis in mesh.mesh_dim_names:
+                broadcast_(flat, mesh, axis)
             for t, v in zip(ts, _unflatten_dense_tensors(flat, ts)):
                 t.copy_(v)
 
@@ -249,8 +312,8 @@ def take_rows(x, rows: Optional[Tuple[int, int]], axis: int = 0):
 
 
 def shard_batch(x, mesh):
-    """This rank's rows of the batch `x` (padded to a multiple of the
-    mesh); the JAX package's `batch_sharding` placement."""
+    """This rank's rows of the batch `x` (padded to a multiple of the data
+    axis); the JAX package's `batch_sharding` placement."""
     return x if mesh is None else take_rows(x, shard_rows(x.shape[0], mesh))
 
 
@@ -273,164 +336,299 @@ def shard_inference(model: nn.Module, n_rows: int, mesh) -> Optional[Tuple[int, 
     return shard_rows(n_rows, mesh)
 
 
-# ---- FSDP
+def shard_inference_spatial(model: nn.Module, mesh) -> nn.Module:
+    """Spatial-parallel restoration placement over a ('spatial',) mesh: the
+    model's weights replicated from spatial rank 0, and the mesh set on the
+    model, whose `encode`/`decode` then split the image height of whatever
+    they are given over the ranks (parallel/spatial.py; the split levels
+    follow `spatial.split_plan`). The solver and its inputs stay whole and
+    replicated on every rank: the model's 3-channel output is all-gathered,
+    and every rank draws the same noise, so each rank holds what one
+    process computes. Without a mesh: the model as it is."""
+    if mesh is not None:
+        replicated(model, mesh)
+    model.spatial_mesh = mesh
+    return model
 
-def fsdp_dim(shape: Sequence[int], n: int) -> Optional[int]:
-    """The JAX package's `_fsdp_spec` on an unsharded spec: the largest axis
-    that `n` divides with at least 2n entries (the first of equal ones), or
-    None (replicated)."""
+
+# ---- parameter layouts: FSDP over 'data', tensor parallelism over 'model'
+
+class Split(NamedTuple):
+    """The dimensions of a parameter (the port's tensor) split over the
+    mesh's 'model' and 'data' axes; None where it is not."""
+
+    model: Optional[int] = None
+    data: Optional[int] = None
+
+
+def kernel_dim(shape: Sequence[int], m: int) -> Optional[int]:
+    """The JAX package's `_kernel_spec` on a parameter in the JAX layout:
+    its trailing (output) axis when `m` divides it and it has at least 2m
+    entries, else None (replicated)."""
+    if not shape or m < 2:
+        return None
+    return len(shape) - 1 if shape[-1] % m == 0 and shape[-1] >= 2 * m else None
+
+
+def fsdp_dim(shape: Sequence[int], n: int, taken: Optional[int] = None) -> Optional[int]:
+    """The JAX package's `_fsdp_spec`: the largest axis other than `taken`
+    (the one the 'model' axis splits) that `n` divides with at least 2n
+    entries (the first of equal ones), or None (replicated)."""
     for i in sorted(range(len(shape)), key=lambda i: -shape[i]):
-        if shape[i] % n == 0 and shape[i] >= 2 * n:
+        if i != taken and shape[i] % n == 0 and shape[i] >= 2 * n:
             return i
     return None
 
 
-def param_shardings(model: nn.Module, mesh, fsdp: bool = False) -> Dict[str, Optional[int]]:
-    """For each parameter name, the axis of the port's tensor that is split
-    over the data axis, or None (replicated). With `fsdp` and more than one
-    rank it is the axis `fsdp_dim` picks in the JAX package's layout of the
-    same parameter (HWIO convolutions, [in, out] dense kernels), mapped to
-    the port's; otherwise every parameter is replicated."""
-    n = data_size(mesh) if fsdp else 1
-    dims = {}
+def param_shardings(model: nn.Module, mesh, fsdp: bool = False) -> Dict[str, Split]:
+    """For each parameter name, the dimensions of the port's tensor split
+    over the 'model' axis (`kernel_dim`) and, with `fsdp`, over the 'data'
+    axis (`fsdp_dim`), each picked in the JAX package's layout of the
+    parameter (HWIO convolutions, [in, out] dense kernels) and mapped to the
+    port's; `Split()` where nothing is split (always without a mesh)."""
+    m = axis_size(mesh, MODEL)
+    n = axis_size(mesh, DATA) if fsdp else 1
+    splits = {}
     for mod_name, module in model.named_modules():
         for p_name, p in module.named_parameters(recurse=False):
             name = f"{mod_name}.{p_name}" if mod_name else p_name
             _, order = jax_layout(module, p_name, p.dim())
-            j = fsdp_dim([p.shape[k] for k in order], n) if n > 1 else None
-            dims[name] = None if j is None else order[j]
-    return dims
+            shape = [p.shape[k] for k in order]
+            mj = kernel_dim(shape, m)
+            dj = fsdp_dim(shape, n, mj) if n > 1 else None
+            splits[name] = Split(None if mj is None else order[mj],
+                                 None if dj is None else order[dj])
+    return splits
+
+
+def column_parallel_modules(model: nn.Module, splits: Dict[str, Split]) -> List[str]:
+    """The names of `model`'s `nn.Conv2d`/`nn.Linear` modules whose output
+    channels (the port's dimension 0) `splits` puts over 'model'."""
+    return [name for name, mod in model.named_modules()
+            if isinstance(mod, (nn.Conv2d, nn.Linear))
+            and splits[f"{name}.weight" if name else "weight"].model == 0]
+
+
+class _SumInputGrad(torch.autograd.Function):
+    """The identity forward; the backward all-reduces the gradient over
+    'model' (a column-parallel layer's input: each model rank's channels
+    contribute their part of it)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_(grad.clone(memory_format=torch.contiguous_format), ctx.mesh,
+                           MODEL), None
+
+
+class _GatherChannels(torch.autograd.Function):
+    """The forward all-gathers a column-parallel layer's output along its
+    channel dimension `dim` over 'model' (contiguous, in model-rank order);
+    the backward keeps this rank's slice of the output gradient (the same on
+    every model rank, as everything downstream is)."""
+
+    @staticmethod
+    def forward(ctx, y, mesh, dim):
+        ctx.mesh, ctx.dim, ctx.size = mesh, dim, y.shape[dim]
+        return gather_dim(y, dim, mesh, MODEL)
+
+    @staticmethod
+    def backward(ctx, grad):
+        r = axis_rank(ctx.mesh, MODEL)
+        return grad.narrow(ctx.dim, r * ctx.size, ctx.size).contiguous(), None, None
+
+
+def _column_parallel(module: nn.Module, mesh) -> None:
+    """Make `module` (its weight and bias already this rank's blocks)
+    column-parallel: its input passes `_SumInputGrad`, its output
+    `_GatherChannels`."""
+    dim = 1 if isinstance(module, nn.Conv2d) else -1
+    module.register_forward_pre_hook(
+        lambda mod, args: (_SumInputGrad.apply(args[0], mesh), *args[1:]))
+    module.register_forward_hook(lambda mod, args, out: _GatherChannels.apply(out, mesh, dim))
+    module.column_parallel = True
 
 
 class ShardedState:
     """How a `TrainState`'s f32 tensors (masters, Adam moments, EMA) lie over
-    a data mesh, and the train step's collectives. A parameter that
-    `param_shardings` splits along axis d is held by data rank r as the r-th
-    of n equal blocks of `movedim(d, 0)`, flattened; the others are held
-    whole on every rank."""
+    a ('data',) or ('data', 'model') mesh, and the train step's collectives.
+    A parameter that `param_shardings` splits is held by the rank at (data
+    rank d, model rank r) as the r-th of m chunks along its 'model'
+    dimension, and of that the d-th of n chunks along its 'data'
+    dimension (a contiguous tensor); the others are held whole on every
+    rank. The module holds the model chunk of a column-parallel layer's
+    weight and bias, and every other parameter whole."""
 
     def __init__(self, model: nn.Module, mesh, fsdp: bool = False):
         self.mesh = mesh
-        self.n = data_size(mesh)
-        self.rank = data_rank(mesh)
-        self.dims = param_shardings(model, mesh, fsdp)
-        params = dict(model.named_parameters())
-        self.shapes = {k: p.shape for k, p in params.items()}
-        self.sharded = [k for k, d in self.dims.items() if d is not None]
-        self.replicated = [k for k, d in self.dims.items() if d is None]
-        # all-gathered after each step in the module's own dtype, per dtype
-        self.gather_groups: Dict[torch.dtype, List[str]] = {}
-        for k in self.sharded:
-            self.gather_groups.setdefault(params[k].dtype, []).append(k)
+        self.n, self.rank = data_size(mesh), data_rank(mesh)
+        self.m, self.mrank = axis_size(mesh, MODEL), axis_rank(mesh, MODEL)
+        self.main = is_main(mesh)
+        self.splits = param_shardings(model, mesh, fsdp)
+        self.column_modules = column_parallel_modules(model, self.splits)
+        cols = set(self.column_modules)
+        self.in_module = {k for k in self.splits if k.rpartition(".")[0] in cols}
+        self.shapes = {k: p.shape for k, p in model.named_parameters()}
+        self.sharded = [k for k, s in self.splits.items() if s != Split()]
+        self.replicated = [k for k, s in self.splits.items() if s == Split()]
 
-    def _numel(self, k: str) -> int:
-        return math.prod(self.shapes[k]) // self.n
+    # -- blocks
 
-    def _blocks(self, k: str, x: torch.Tensor) -> torch.Tensor:
-        """[n, numel/n]: the n blocks of `x` (shaped like parameter k)."""
-        return x.movedim(self.dims[k], 0).reshape(self.n, -1)
-
-    def _whole(self, k: str, blocks: torch.Tensor) -> torch.Tensor:
-        """Inverse of `_blocks` (a view when it can be)."""
-        d, shape = self.dims[k], self.shapes[k]
-        moved = (shape[d], *(s for i, s in enumerate(shape) if i != d))
-        return blocks.reshape(moved).movedim(0, d)
+    def _model_chunk(self, k: str, full: torch.Tensor) -> torch.Tensor:
+        d = self.splits[k].model
+        return full if d is None else full.chunk(self.m, d)[self.mrank]
 
     def local(self, k: str, full: torch.Tensor) -> torch.Tensor:
         """This rank's part of `full` (shaped like parameter k): its block,
         a new tensor, or `full` itself when k is replicated."""
-        if self.dims[k] is None:
+        if self.splits[k] == Split():
             return full
-        return self._blocks(k, full)[self.rank].clone()
+        x = self._model_chunk(k, full)
+        if self.splits[k].data is not None:
+            x = x.chunk(self.n, self.splits[k].data)[self.rank]
+        return x.clone(memory_format=torch.contiguous_format)
+
+    def _gather(self, items: List[Tuple[str, torch.Tensor]], axis: str) -> Dict[str, torch.Tensor]:
+        """Each (k, block) of `items` concatenated over `axis` along k's
+        dimension on that axis, one all-gather per dtype."""
+        size = axis_size(self.mesh, axis)
+        out = {}
+        by_dtype: Dict[torch.dtype, List[Tuple[str, torch.Tensor]]] = {}
+        for k, t in items:
+            by_dtype.setdefault(t.dtype, []).append((k, t))
+        for group in by_dtype.values():
+            dims = [getattr(self.splits[k], axis) for k, _ in group]
+            moved = [t.movedim(d, 0) for (_, t), d in zip(group, dims)]
+            flat = all_gather(torch.cat([t.reshape(-1) for t in moved]), self.mesh, axis)
+            parts = flat.reshape(size, -1).split([t.numel() for t in moved], dim=1)
+            for (k, _), t, d, part in zip(group, moved, dims, parts):
+                whole = part.reshape(size * t.shape[0], *t.shape[1:])
+                out[k] = whole.movedim(0, d)
+        return out
+
+    def _reduce_scatter(self, items: List[Tuple[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+        """The sum over 'data' of each (k, tensor) of `items` (f32), this
+        rank's chunk of it along k's 'data' dimension; one collective."""
+        moved = [t.float().movedim(self.splits[k].data, 0) for k, t in items]
+        sizes = [t.numel() // self.n for t in moved]
+        buf = torch.empty((self.n, sum(sizes)), dtype=torch.float32, device=moved[0].device)
+        for t, part in zip(moved, buf.split(sizes, dim=1)):
+            part.copy_(t.reshape(self.n, -1))
+        mine = reduce_scatter(buf.reshape(-1), self.mesh, DATA).split(sizes)
+        return {k: v.reshape(t.shape[0] // self.n, *t.shape[1:]).movedim(0, self.splits[k].data)
+                .contiguous() for (k, _), t, v in zip(items, moved, mine)}
+
+    # -- the train step
 
     def reduce_grads(self, model: nn.Module) -> Dict[str, torch.Tensor]:
-        """The mean over the mesh of each parameter's gradient, in f32
-        (zeros where the loss did not reach): this rank's block of it for a
-        split parameter (one reduce-scatter), the whole of it otherwise (one
-        all-reduce)."""
-        grads = {n: p.grad for n, p in model.named_parameters()}
-        dev = next(model.parameters()).device
-
-        def grad(k):
-            g = grads[k]
-            return torch.zeros(self.shapes[k], device=dev) if g is None else g
-
+        """The mean over the data axis of each parameter's gradient, in f32
+        (zeros where the loss did not reach), in this layout: the model
+        chunk of a parameter split over 'model' (its own gradient in a
+        column-parallel layer; the slice of the whole gradient, the same on
+        every model rank, otherwise), then this rank's data chunk of a
+        parameter split over 'data' (one reduce-scatter), the whole of it
+        otherwise (one all-reduce)."""
+        grads = {}
+        for k, p in model.named_parameters():
+            g = torch.zeros_like(p, dtype=torch.float32) if p.grad is None else p.grad
+            grads[k] = g if k in self.in_module else self._model_chunk(k, g)
         out = {}
-        if self.sharded:
-            sizes = [self._numel(k) for k in self.sharded]
-            buf = torch.empty((self.n, sum(sizes)), dtype=torch.float32, device=dev)
-            for k, part in zip(self.sharded, buf.split(sizes, dim=1)):
-                part.copy_(self._blocks(k, grad(k)))
-            mine = reduce_scatter(buf.reshape(-1), self.mesh).div_(self.n)
-            out.update(zip(self.sharded, mine.split(sizes)))
-        if self.replicated:
-            flat = torch.cat([grad(k).float().reshape(-1) for k in self.replicated])
-            all_reduce_(flat, self.mesh).div_(self.n)
-            out.update((k, v.view(self.shapes[k]))
-                       for k, v in zip(self.replicated,
-                                       flat.split([math.prod(self.shapes[k])
-                                                   for k in self.replicated])))
-        return {k: out[k] for k in self.dims}
+        scattered = [k for k in grads if self.splits[k].data is not None]
+        if scattered:
+            out.update(self._reduce_scatter([(k, grads[k]) for k in scattered]))
+            for k in scattered:
+                out[k].div_(self.n)
+        whole = [k for k in grads if self.splits[k].data is None]
+        if whole:
+            flat = torch.cat([grads[k].float().reshape(-1) for k in whole])
+            all_reduce_(flat, self.mesh, DATA).div_(self.n)
+            out.update((k, v.view(grads[k].shape))
+                       for k, v in zip(whole, flat.split([grads[k].numel() for k in whole])))
+        return {k: out[k] for k in self.splits}
 
     def grad_norm(self, grads: Dict[str, torch.Tensor]) -> Optional[torch.Tensor]:
         """The global norm of the reduced `grads` when some are split over
-        the mesh (each rank's blocks, plus the replicated ones once, summed
-        over the mesh); None when every rank holds them all, where the
-        optimizer computes it as in one process."""
+        the mesh: each block counted once (on the ranks at coordinate 0 of
+        every axis that does not split it), summed over both axes; None when
+        every rank holds them all, where the optimizer computes it as in one
+        process."""
         if not self.sharded:
             return None
-
-        def sq(ts):
-            if not ts:
-                return torch.zeros((), device=grads[self.sharded[0]].device)
-            return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(ts))) ** 2
-
-        total = sq([grads[k] for k in self.sharded])
-        if self.rank == 0:
-            total = total + sq([grads[k] for k in self.replicated])
-        return all_reduce_(total, self.mesh).sqrt()
+        mine = [grads[k] for k, s in self.splits.items()
+                if (s.data is not None or self.rank == 0)
+                and (s.model is not None or self.mrank == 0)]
+        dev = next(iter(grads.values())).device
+        total = (torch.linalg.vector_norm(torch.stack(torch._foreach_norm(mine))) ** 2
+                 if mine else torch.zeros((), device=dev))
+        return all_reduce_(all_reduce_(total, self.mesh, DATA), self.mesh, MODEL).sqrt()
 
     def barrier(self) -> None:
         barrier(self.mesh)
 
     def mean(self, x: torch.Tensor) -> torch.Tensor:
-        """The mean over the mesh of the 0-d (or any) tensor `x`."""
-        return all_reduce_(x.detach().clone(), self.mesh) / self.n
+        """The mean over the data axis of the 0-d (or any) tensor `x` (the
+        model ranks of a data rank hold the same)."""
+        return all_reduce_(x.detach().clone(), self.mesh, DATA) / self.n
+
+    # -- modules and checkpoints
+
+    def shard_module(self, model: nn.Module) -> None:
+        """Make `model` (a module of the shapes this layout was made for,
+        holding whole weights) hold this rank's model chunks of the
+        column-parallel layers' weights and biases, and compute those layers
+        column-parallel. Done once per module."""
+        for name in self.column_modules:
+            mod = model.get_submodule(name)
+            if getattr(mod, "column_parallel", False):
+                continue
+            for p_name, p in list(mod.named_parameters(recurse=False)):
+                k = f"{name}.{p_name}" if name else p_name
+                chunk = self._model_chunk(k, p.detach()).clone(
+                    memory_format=torch.contiguous_format)
+                setattr(mod, p_name, nn.Parameter(chunk, requires_grad=p.requires_grad))
+            _column_parallel(mod, self.mesh)
 
     def gather_into(self, model: nn.Module, tensors: Dict[str, torch.Tensor]) -> None:
         """Write `tensors` (masters or EMA, in this layout) into `model`'s
-        parameters, rounded to each parameter's dtype: the split ones
-        all-gathered in that dtype, one collective per dtype."""
+        parameters (a module `shard_module` made column-parallel), rounded
+        to each parameter's dtype: the data chunks all-gathered over 'data'
+        in that dtype, then the model chunks of the parameters the module
+        holds whole over 'model', one collective per dtype and axis."""
         params = dict(model.named_parameters())
         with torch.no_grad():
-            for k in self.replicated:
-                if params[k].data_ptr() != tensors[k].data_ptr():
-                    params[k].copy_(tensors[k])
-            for dtype, names in self.gather_groups.items():
-                mine = torch.cat([tensors[k].to(dtype) for k in names])
-                full = all_gather(mine, self.mesh).reshape(self.n, -1)
-                for k, part in zip(names, full.split([self._numel(k) for k in names], dim=1)):
-                    params[k].copy_(self._whole(k, part))
+            vals = {k: tensors[k] for k in params}
+            vals.update(self._gather(
+                [(k, tensors[k].to(params[k].dtype)) for k in params
+                 if self.splits[k].data is not None], DATA))
+            vals.update(self._gather(
+                [(k, vals[k].to(params[k].dtype)) for k in params
+                 if self.splits[k].model is not None and k not in self.in_module], MODEL))
+            for k, p in params.items():
+                if p.data_ptr() != vals[k].data_ptr():
+                    p.copy_(vals[k])
 
     def full(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """`tensors` in the one-process layout, on the CPU (a collective:
         every rank of the mesh calls it)."""
-        out = {k: tensors[k].detach().cpu() for k in self.replicated}
-        if self.sharded:
-            full = all_gather(torch.cat([tensors[k] for k in self.sharded]),
-                              self.mesh).reshape(self.n, -1)
-            for k, part in zip(self.sharded,
-                               full.split([self._numel(k) for k in self.sharded], dim=1)):
-                out[k] = self._whole(k, part).contiguous().cpu()
-        return {k: out[k] for k in tensors}
+        vals = dict(tensors)
+        vals.update(self._gather([(k, tensors[k]) for k in tensors
+                                  if self.splits[k].data is not None], DATA))
+        vals.update(self._gather([(k, vals[k]) for k in tensors
+                                  if self.splits[k].model is not None], MODEL))
+        return {k: vals[k].detach().contiguous().cpu() for k in tensors}
 
 
 def put_state(state, mesh, fsdp: bool = False):
-    """Place a one-process `TrainState` on the mesh, in place: data rank 0's
-    masters, moments and EMA on every rank, then, with `fsdp`, each rank
-    keeps its blocks of the split ones (`ShardedState`); the module takes
-    the masters. The train step and checkpoints follow `state.layout`.
-    Without a mesh: `state` as it is."""
+    """Place a one-process `TrainState` on the mesh, in place: the first
+    rank's masters, moments and EMA on every rank, then each rank keeps its
+    blocks of the split ones (`ShardedState`), the module's column-parallel
+    layers keep their model chunks, and the module takes the masters. The
+    train step and checkpoints follow `state.layout`. Without a mesh:
+    `state` as it is."""
     if mesh is None:
         return state
     dicts = [state.params, state.mu, state.nu] + ([state.ema] if state.ema is not None else [])
@@ -440,6 +638,13 @@ def put_state(state, mesh, fsdp: bool = False):
     for d in dicts:
         for k in layout.sharded:
             d[k] = layout.local(k, d[k])
+    layout.shard_module(state.model)
+    for k, p in state.model.named_parameters():
+        # an f32 parameter whose block the module holds is its own master,
+        # as in one process
+        if (p.dtype == torch.float32 and k in layout.in_module
+                and layout.splits[k].data is None):
+            state.params[k] = p.detach()
     state.layout = layout
     state.write_back()
     return state

@@ -103,11 +103,11 @@ class CheckpointManager:
     metrics of the kept checkpoints are listed in `checkpoints.json`. Saves
     are synchronous and atomic (written aside, then renamed).
 
-    Over a data mesh (a state with a `layout`) every rank of the mesh calls
-    `save`: the state is gathered to the one-process layout, data rank 0
-    writes it between two barriers, and every rank loads a checkpoint into
-    its own parts. So a file moves freely between world sizes and between
-    FSDP and replicated runs."""
+    Over a mesh (a state with a `layout`) every rank of the mesh calls
+    `save`: the state is gathered to the one-process layout, the mesh's
+    first rank writes it between two barriers, and every rank loads a
+    checkpoint into its own parts. So a file moves freely between world
+    sizes, mesh shapes, and FSDP and replicated runs."""
 
     def __init__(self, directory: str, max_to_keep: int = 3):
         self.directory = os.path.abspath(directory)
@@ -142,7 +142,7 @@ class CheckpointManager:
         if layout is not None:
             layout.barrier()  # every rank is done reading the directory
             try:
-                if layout.rank == 0:
+                if layout.main:
                     self._write(step, path, sd, metrics)
             finally:
                 layout.barrier()  # the files are there for every rank

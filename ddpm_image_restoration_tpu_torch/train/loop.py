@@ -22,12 +22,14 @@ while the card runs the previous step.
 
 Under a process group (`torchrun`, parallel/mesh.py) it trains data-parallel
 over a ('data',) mesh, by default of gcd(batch, world) ranks as in the JAX
-package, and with `fsdp` splits the masters, moments and EMA over it. Each
-rank degrades only its block of every batch. A rank outside the mesh says so
-and returns at once, taking no part. Every rank of the mesh validates the
-whole validation set (the numbers are one process's); only data rank 0 logs,
-prints, and writes checkpoints, curves and grids. The 'model' axis and any
-other mesh shape are refused.
+package, and with `fsdp` splits the masters, moments and EMA over it; a
+('data', 'model') mesh (`TrainConfig.mesh_shape`/`mesh_axes`) adds tensor
+parallelism over 'model' (column-parallel layers). Each data rank degrades
+only its block of every batch. A rank outside the mesh says so and returns
+at once, taking no part. Every rank of the mesh validates the whole
+validation set (the numbers are one process's); only the mesh's first rank
+logs, prints, and writes checkpoints, curves and grids. Any other mesh is
+refused.
 """
 
 from __future__ import annotations
@@ -57,10 +59,13 @@ from ddpm_image_restoration_tpu_torch.diffusion.ddrm import DDRMSampler
 from ddpm_image_restoration_tpu_torch.evaluation.metrics import psnr, ssim_metric
 from ddpm_image_restoration_tpu_torch.models import build_model
 from ddpm_image_restoration_tpu_torch.parallel.mesh import (
+    MODEL,
+    axis_size,
     broadcast_object,
     data_rank,
     data_size,
     init_distributed,
+    is_main,
     make_mesh,
     put_state,
     rank,
@@ -73,28 +78,27 @@ from ddpm_image_restoration_tpu_torch.utils.viz import save_restoration_grid, sa
 
 
 def check_supported(cfg: TrainConfig) -> None:
-    """Raise for the training options the port has not implemented: a
-    'model' (tensor-parallel) mesh axis, and any mesh but a 1-D ('data',)
-    one."""
+    """Raise for a training mesh the port has not implemented: any but a
+    ('data',) or a ('data', 'model') one."""
     axes, shape = tuple(cfg.mesh_axes), tuple(cfg.mesh_shape)
-    if "model" in axes:
-        raise NotImplementedError("the 'model' (tensor-parallel) mesh axis is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 8); use a ('data',) mesh")
-    if axes != ("data",) or len(shape) != 1:
-        raise NotImplementedError(f"mesh {shape} over {axes}: the port trains over a 1-D "
-                                  "('data',) mesh only")
+    if axes not in (("data",), ("data", "model")) or len(shape) != len(axes):
+        raise NotImplementedError(f"mesh {shape} over {axes}: the port trains over a "
+                                  "('data',) or a ('data', 'model') mesh")
 
 
 def train_mesh(cfg: TrainConfig, batch_size: int):
-    """The training mesh: by default (mesh_shape (-1,)) gcd(batch_size,
-    world) ranks, the most that split the batch evenly (the JAX package's
-    rule); else `cfg.mesh_shape`. None in one process."""
-    n = cfg.mesh_shape[0]
-    if n == -1:
-        n = math.gcd(batch_size, world_size())
-    if batch_size % n:
-        raise ValueError(f"batch size {batch_size} does not split over a data mesh of {n}")
-    return make_mesh((n,), ("data",))
+    """The training mesh: by default (mesh_shape (-1,) over ('data',))
+    gcd(batch_size, world) ranks, the most that split the batch evenly (the
+    JAX package's rule); else `cfg.mesh_shape` over `cfg.mesh_axes`, -1
+    absorbing the ranks the other axis leaves. None in one process."""
+    shape = list(cfg.mesh_shape)
+    if shape == [-1] and tuple(cfg.mesh_axes) == ("data",):
+        shape = [math.gcd(batch_size, world_size())]
+    mesh = make_mesh(shape, cfg.mesh_axes)
+    if batch_size % data_size(mesh):
+        raise ValueError(f"batch size {batch_size} does not split over a data mesh of "
+                         f"{data_size(mesh)}")
+    return mesh
 
 
 def unified_samplers(model, consistency_mode: str = "surrogate") -> Dict[str, DDRMSampler]:
@@ -197,10 +201,12 @@ def train_model(cfg: TrainConfig, dataset=None, epochs: Optional[int] = None,
               f"{world_size()} ranks (batch {batch_size}); it takes no part in training",
               flush=True)
         return None, {}
-    main = data_rank(mesh) == 0
+    main = is_main(mesh)
     verbose = verbose and main
     if main and mesh is not None:
+        tp = axis_size(mesh, MODEL)
         print(f"data-parallel training over {data_size(mesh)} rank(s)"
+              f"{f', tensor-parallel over {tp}' if tp > 1 else ''}"
               f"{' with FSDP' if cfg.fsdp else ''}", flush=True)
     loader = DegradationLoader(dataset, train_idx, preset, batch_size, cfg.steps,
                                seed=cfg.seed, num_workers=cfg.data_workers,
@@ -237,6 +243,8 @@ def train_model(cfg: TrainConfig, dataset=None, epochs: Optional[int] = None,
     # Validation runs on the EMA weights when the EMA is on: a second model
     # holds them, in the model's dtypes.
     eval_model = build_model(cfg.codec, cfg.model, device=dev) if cfg.ema_decay > 0 else model
+    if state.layout is not None:
+        state.layout.shard_module(eval_model)
     if cfg.codec == "all":
         sampler = unified_samplers(eval_model, cfg.consistency_mode)
         viz_sampler = sampler["webp"]  # one codec for the epoch grids
@@ -287,17 +295,19 @@ def train_model(cfg: TrainConfig, dataset=None, epochs: Optional[int] = None,
         if main:
             save_training_curves(os.path.join(cfg.checkpoint_dir, "curves", "training.png"),
                                  logger.history)
-            if epoch % cfg.viz_every == 0:
-                save_grid(viz_sampler, cfg, val_images, epoch)
+        # every model rank of data rank 0 restores the grid (its layers are
+        # column-parallel over them); the first writes it
+        if data_rank(mesh) == 0 and epoch % cfg.viz_every == 0:
+            save_grid(viz_sampler, cfg, val_images, epoch, write=main)
 
     return state, logger.history
 
 
 def save_grid(sampler: DDRMSampler, cfg: TrainConfig, val_images: np.ndarray,
-              epoch: int) -> None:
+              epoch: int, write: bool = True) -> None:
     """Restore the validation images at the sampler preset's lowest val
-    quality (full solver) and save original / compressed / restored as
-    `<checkpoint_dir>/viz/epoch_<epoch>.png`."""
+    quality (full solver) and, if `write`, save original / compressed /
+    restored as `<checkpoint_dir>/viz/epoch_<epoch>.png`."""
     vp = sampler.preset
     q = vp.val_qualities[0]
     dev = sampler.model.out_conv.weight.device
@@ -305,5 +315,6 @@ def save_grid(sampler: DDRMSampler, cfg: TrainConfig, val_images: np.ndarray,
     restored = sampler.sample(torch.as_tensor(y, device=dev), q,
                               init_timestep_for_quality(q, cfg.steps, vp),
                               generator=torch.Generator(device=dev).manual_seed(0))
-    save_restoration_grid(os.path.join(cfg.checkpoint_dir, "viz", f"epoch_{epoch:04d}.png"),
-                          val_images, y, restored.cpu().numpy(), quality=q)
+    if write:
+            save_restoration_grid(os.path.join(cfg.checkpoint_dir, "viz", f"epoch_{epoch:04d}.png"),
+                              val_images, y, restored.cpu().numpy(), quality=q)

@@ -25,10 +25,11 @@ written back into the module, rounded to its dtype, which is the value the
 JAX package's cast would compute with. For an f32 parameter the master is
 the parameter itself.
 
-Over a data mesh (parallel/mesh.py `put_state`) the state carries a
+Over a mesh (parallel/mesh.py `put_state`) the state carries a
 `ShardedState` layout: the step averages the gradients and the loss over
-the mesh, and under FSDP each rank holds and updates its blocks of the
-large masters, moments and EMA, then all-gathers the module's weights. The
+the data axis; under FSDP and over a 'model' axis each rank holds and
+updates its blocks of the split masters, moments and EMA, then all-gathers
+the module's weights (a column-parallel layer keeps its model block). The
 step's arithmetic is the one-process step's on the whole batch.
 """
 
@@ -98,8 +99,8 @@ class TrainState:
     """The model and what training keeps beside it: f32 master parameters
     (`params`, keyed by parameter name), the Adam moments, the optional EMA
     of the masters, and the count of optimizer steps taken. `layout` is the
-    `parallel.mesh.ShardedState` over a data mesh (None in one process):
-    then the dicts hold this rank's parts of the split tensors."""
+    `parallel.mesh.ShardedState` over a mesh (None in one process): then
+    the dicts hold this rank's parts of the split tensors."""
 
     model: nn.Module
     tx: ClipAdamW
@@ -211,10 +212,11 @@ def make_train_step(model: nn.Module, cfg: TrainConfig) -> Callable:
     masks from `generator`. Returns {'loss', 'grad_norm'} as 0-d tensors;
     the parameters' `.grad` keep this step's gradients.
 
-    Over a data mesh (`state.layout`), `batch` is this rank's block of the
-    whole batch: the dropout masks are the whole batch's block, and the
-    gradients and the loss are averaged over the mesh (the loss of the
-    whole batch); `.grad` keeps this rank's own gradients."""
+    Over a mesh (`state.layout`), `batch` is this data rank's block of the
+    whole batch (the same on every model rank of it): the dropout masks are
+    the whole batch's block, and the gradients and the loss are averaged
+    over the data axis (the loss of the whole batch); `.grad` keeps this
+    rank's own gradients (of its blocks, in a column-parallel layer)."""
     loss_fn = loss_for_preset(cfg.preset.loss_kind)
     steps = cfg.steps
 

@@ -81,11 +81,11 @@ def make_batch(b: int = 8, s: int = 16, seed: int = 0) -> dict:
             "quality": np.full((b,), 30, np.int32)}
 
 
-def mini_model(weights=None, cfg: ModelConfig = MINI):
-    """The MINI WebP model on the CPU: PyTorch's init under seed 0, or
-    `weights` (a state_dict, or the path of a release npz)."""
+def mini_model(weights=None, cfg: ModelConfig = MINI, codec: str = "webp"):
+    """The MINI model of `codec` (WebP) on the CPU: PyTorch's init under seed
+    0, or `weights` (a state_dict, or the path of a release npz)."""
     torch.manual_seed(0)
-    model = build_model("webp", cfg, device="cpu")
+    model = build_model(codec, cfg, device="cpu")
     if weights is not None:
         model.load_state_dict(load_release_params(weights) if isinstance(weights, str)
                               else weights)
@@ -93,10 +93,11 @@ def mini_model(weights=None, cfg: ModelConfig = MINI):
 
 
 def train_cfg(dropout: float = 0.1, ema_decay: float = 0.9, fsdp: bool = False,
-              batch: int = 8) -> TrainConfig:
+              batch: int = 8, codec: str = "webp", remat: bool = False) -> TrainConfig:
     import dataclasses
 
-    return TrainConfig(codec="webp", model=dataclasses.replace(MINI, dropout=dropout),
+    return TrainConfig(codec=codec, model=dataclasses.replace(MINI, dropout=dropout,
+                                                              remat=remat),
                        batch_size=batch, ema_decay=ema_decay, fsdp=fsdp)
 
 
@@ -106,7 +107,7 @@ def run_steps(cfg: TrainConfig, batch: dict, n_steps: int, mesh=None, weights=No
     process; the losses, grad norms, the state in the one-process layout,
     and each split parameter's numel in this rank's masters, moments and
     EMA."""
-    model = mini_model(weights, cfg.model)
+    model = mini_model(weights, cfg.model, cfg.codec)
     state = pm.put_state(create_train_state(model, cfg), mesh, fsdp=cfg.fsdp)
     step = make_train_step(model, cfg)
     local = {k: torch.from_numpy(pm.shard_batch(v, mesh)) for k, v in batch.items()}
@@ -120,7 +121,8 @@ def run_steps(cfg: TrainConfig, batch: dict, n_steps: int, mesh=None, weights=No
     held = {}
     if layout is not None:
         for k in layout.sharded:
-            held[k] = {d: getattr(state, d)[k].numel() for d in ("params", "mu", "nu", "ema")}
+            held[k] = {d: getattr(state, d)[k].numel() for d in ("params", "mu", "nu", "ema")
+                       if getattr(state, d) is not None}
     module = {k: v.detach().clone() for k, v in model.state_dict().items()}
     return {"loss": losses, "grad_norm": norms, "state": state.state_dict(), "held": held,
             "sharded": [] if layout is None else list(layout.sharded), "module": module,
@@ -229,6 +231,7 @@ def scenario_chip_child(rank, world, tmp, scale):
     fa.flash_attention_bwd_dkv = _counting("flash_attention_bwd_dkv",
                                            fa.flash_attention_bwd_dkv_plain)
     chip_smoke.PARALLEL_TIMED_STEPS = 1
+    chip_smoke.TRAIN_BATCH = 2
     chip_smoke.RESTORE_QUALITIES = (30,)
     chip_smoke.RESTORE_FLAGS = ["--device", "cpu", "--attn", "flash", "--attn-max-res", "32",
                                 "--width-scale", str(scale), "--compute-dtype", "float32",
@@ -236,3 +239,141 @@ def scenario_chip_child(rank, world, tmp, scale):
     torch.cuda.synchronize = lambda *a, **k: None
     return chip_smoke.parallel_child(rank, world, str(tmp), device="cpu", scale=scale,
                                      memory_scale=scale)
+
+
+# ---- the spatial-parallel restore (tests/test_torch_parallel_spatial.py)
+
+def sp_op_cases(seed: int = 0) -> dict:
+    """The edge-crossing ops of a split level, each as (module or None,
+    input): seeded modules and NCHW inputs, the same in every process."""
+    from torch import nn
+
+    from ddpm_image_restoration_tpu_torch.models.freq_blocks import (
+        AVIFFreqAwareBlock,
+        DCTFreqAwareBlock,
+    )
+    from ddpm_image_restoration_tpu_torch.models.unet import SpatialSelfAttention
+
+    torch.manual_seed(seed)
+    g = torch.Generator().manual_seed(seed)
+
+    def x(*shape):
+        return torch.randn(*shape, generator=g)
+
+    gn = nn.GroupNorm(4, 8, eps=1e-6)
+    with torch.no_grad():
+        gn.weight.add_(0.3 * torch.randn(8))
+        gn.bias.add_(0.3 * torch.randn(8))
+    return {
+        "conv": (nn.Conv2d(6, 5, 3, padding=1), x(2, 6, 32, 12)),
+        "upsample": (None, x(2, 3, 16, 10)),
+        "upsample_whole": (None, x(2, 3, 16, 10)),
+        "group_norm": (gn, 3.0 + x(2, 8, 32, 12)),
+        "attention": (SpatialSelfAttention(8, 2), x(2, 8, 32, 8)),
+        "dct_block": (DCTFreqAwareBlock(8, 4, 2, (0.5, 1.5)), x(2, 8, 32, 16)),
+        "avif_block": (AVIFFreqAwareBlock(16, 8), x(2, 16, 32, 32)),
+        "pooled": (None, x(2, 4, 32, 32)),
+        "pooled_resize": (None, x(2, 4, 24, 24)),
+    }
+
+
+def sp_op(name: str, module, x: torch.Tensor, sp):
+    """Op `name` of `sp_op_cases` on this rank's rows of `x` (`sp` a
+    SpatialLevel of x's height; None: the whole op); returns this rank's
+    rows of its output (the pooled grid, whole, for 'pooled*')."""
+    from ddpm_image_restoration_tpu_torch.parallel import spatial
+    from ddpm_image_restoration_tpu_torch.parallel.spatial import SpatialLevel
+
+    level = torch.full((x.shape[0],), 0.4)
+    mine = spatial.take_rows(x, sp)
+    with torch.no_grad():
+        if name == "conv":
+            return spatial.conv3x3(module, mine, sp)
+        if name == "upsample":
+            out_sp = None if sp is None else SpatialLevel(sp.mesh, 2 * sp.height)
+            return spatial.upsample_2x(mine, sp, out_sp)
+        if name == "upsample_whole":
+            out_sp = None if sp is None else SpatialLevel(sp.mesh, 2 * sp.height)
+            return spatial.upsample_2x(x, None, out_sp)
+        if name == "group_norm":
+            return spatial.group_norm(module, mine, sp)
+        if name == "attention":
+            return module(mine, sp)
+        if name in ("dct_block", "avif_block"):
+            return module(mine, level, sp)
+        return torch.cat([spatial.pooled(mine, s, sp).flatten(2) for s in (1, 2, 4, 8)], dim=-1)
+
+
+def scenario_sp_ops(rank, world, tmp):
+    """Every op of `sp_op_cases` on this rank's rows, over a ('spatial',)
+    mesh of every rank."""
+    from ddpm_image_restoration_tpu_torch.parallel.spatial import SpatialLevel
+
+    mesh = pm.make_mesh((-1,), ("spatial",))
+    return {name: sp_op(name, mod, x, SpatialLevel(mesh, x.shape[2]))
+            for name, (mod, x) in sp_op_cases().items()}
+
+
+def sp_restore(codec: str, cfg: ModelConfig, npz: str, y: np.ndarray, eta: float,
+               encoder_reuse: int, decoder_reuse_depth: int = 0, mesh=None) -> torch.Tensor:
+    """The restore of the spatial tests (q30, steps 4, noise seed 7, no
+    exact final projection) with the npz weights, over `mesh` (None: one
+    process)."""
+    from ddpm_image_restoration_tpu_torch.diffusion.ddrm import DDRMSampler
+
+    model = build_model(codec, cfg, device="cpu")
+    model.load_state_dict(load_release_params(npz))
+    pm.shard_inference_spatial(model, mesh)
+    return DDRMSampler(model, get_preset(codec)).sample(
+        torch.from_numpy(y), 30, 4, eta=eta, encoder_reuse=encoder_reuse,
+        decoder_reuse_depth=decoder_reuse_depth, final_exact=False,
+        generator=torch.Generator().manual_seed(7))
+
+
+def scenario_sp_restores(rank, world, tmp, cases):
+    """`sp_restore` of each (key, (codec, cfg, npz, y, eta, encoder_reuse,
+    decoder_reuse_depth)) of `cases` over a ('spatial',) mesh of every
+    rank."""
+    mesh = pm.make_mesh((-1,), ("spatial",))
+    return {key: sp_restore(*case, mesh=mesh) for key, case in cases}
+
+
+# ---- the 'model' axis (tests/test_torch_parallel_model.py)
+
+def scenario_tp_train(rank, world, tmp, shape, cfg, batch, n_steps, weights=None):
+    """`run_steps` over a ('data', 'model') mesh of `shape`."""
+    out = run_steps(cfg, batch, n_steps, pm.make_mesh(shape, ("data", "model")), weights)
+    out.pop("_state")
+    return out
+
+
+def scenario_tp_checkpoints(rank, world, tmp, cfg, batch):
+    """`scenario_checkpoints` on a (2, 2) ('data', 'model') mesh: one step,
+    saved into tmp/ck_tp; then a fresh state loads tmp/ck_one (written by
+    one process before the spawn)."""
+    mesh = pm.make_mesh((2, 2), ("data", "model"))
+    out = run_steps(cfg, batch, 1, mesh)
+    CheckpointManager(str(tmp / "ck_tp")).save(1, out.pop("_state"), {"val_psnr": 1.0})
+    fresh = pm.put_state(create_train_state(mini_model(), cfg), mesh, fsdp=cfg.fsdp)
+    if CheckpointManager(str(tmp / "ck_one")).restore_latest(fresh) is None:
+        raise FileNotFoundError(f"no checkpoint under {tmp / 'ck_one'}")
+    module = {n: p.detach().clone() for n, p in fresh.model.named_parameters()}
+    return {"saved": out["state"], "loaded": fresh.state_dict(), "loaded_module": module,
+            "loaded_held": {k: fresh.params[k].numel() for k in fresh.layout.sharded}}
+
+
+def scenario_tp_trainer(rank, world, tmp, cfg):
+    """`train/loop.py train_model` for one epoch on 12 synthetic images on
+    `cfg`'s mesh: (optimizer step, history, files in the checkpoint
+    directory)."""
+    import os
+
+    from ddpm_image_restoration_tpu_torch.data.dataset import SyntheticImageDataset
+    from ddpm_image_restoration_tpu_torch.train.loop import train_mesh, train_model
+
+    mesh = train_mesh(cfg, cfg.effective_batch_size)
+    shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    state, hist = train_model(cfg, SyntheticImageDataset(12, cfg.model.image_size), epochs=1,
+                              verbose=False, device="cpu")
+    files = sorted(os.listdir(cfg.checkpoint_dir))
+    return {"step": state.step, "history": dict(hist), "files": files, "mesh": shape}

@@ -34,7 +34,7 @@ def test_distill_phase_counts_on_cpu(tmp_path, monkeypatch, counted_kernels, cap
     monkeypatch.setattr(chip_smoke, "ROOT", str(tmp_path))
     monkeypatch.setattr(chip_smoke, "CARD_FLAGS", CPU_FLAGS)
     monkeypatch.setattr(chip_smoke, "DIFFUSION_STEPS", 20)
-    monkeypatch.setattr(chip_smoke, "TRAIN_IMAGES", 5)
+    monkeypatch.setattr(chip_smoke, "DISTILL_IMAGES", 5)
     monkeypatch.setattr(chip_smoke, "TRAIN_BATCH", 2)
     monkeypatch.setattr(chip_smoke, "RESTORE_QUALITIES", (10,))
     monkeypatch.setattr(chip_smoke, "DISTILL_TEACHER_STRIDE", 4)

@@ -345,3 +345,112 @@ def test_avif_model_full_width_on_card(card):
     assert (outs["float32", "flash"] - outs["float32", "xla"]).abs().max().item() <= 1e-3
     assert torch.isfinite(outs["bfloat16", "flash"]).all()
     assert outs["bfloat16", "flash"].shape == (8, 64, 64, 3)
+
+
+# The spatial-parallel restore and the 'model' axis on the card: two ranks
+# spawned here share it over gloo (tests/_torch_parallel_worker.py), each
+# running the kernels on its own tensors; the test process runs the same
+# work alone on the card.
+PARALLEL_CFG = dict(image_size=64, compute_dtype="float32", attention_impl="flash",
+                    attn_max_resolution=32)
+
+
+def _card_model(codec="webp"):
+    from ddpm_image_restoration_tpu_torch.config import ModelConfig
+    from ddpm_image_restoration_tpu_torch.models import build_model
+
+    torch.manual_seed(0)
+    model = build_model(codec, ModelConfig(**PARALLEL_CFG).scaled(8), device="cpu")
+    return model.to("cuda")
+
+
+def _sp_restore(y, mesh=None):
+    from ddpm_image_restoration_tpu_torch.config import get_preset
+    from ddpm_image_restoration_tpu_torch.diffusion.ddrm import DDRMSampler
+    from ddpm_image_restoration_tpu_torch.parallel.mesh import shard_inference_spatial
+
+    model = shard_inference_spatial(_card_model(), mesh)
+    before = fa.flash_attention_fwd.launches
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = DDRMSampler(model, get_preset("webp")).sample(
+            y.cuda(), 30, 20, stride=5, eta=0.85, final_exact=False,
+            generator=torch.Generator(device="cuda").manual_seed(7))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    return out.cpu(), fa.flash_attention_fwd.launches - before
+
+
+def scenario_sp_on_card(rank, world, tmp, y):
+    from ddpm_image_restoration_tpu_torch.parallel.mesh import make_mesh
+
+    return _sp_restore(y, make_mesh((-1,), ("spatial",)))
+
+
+@pytest.mark.cuda
+def test_spatial_restore_on_card_matches_one_process(card, tmp_path):
+    """A width/8 f32 restore of 3 images (eta 0.85, 4 evaluations, flash at
+    32²: T = 1024) with each image's height over 2 ranks sharing the card
+    equals the one-process card restore (mean |diff| <= 1e-4, max <= 1e-3),
+    and each rank launches the forward kernel as often as one process: the
+    attention runs on the gathered tokens."""
+    from . import _torch_parallel_worker as w
+
+    y = torch.rand(3, 64, 64, 3, generator=torch.Generator().manual_seed(2)) * 2 - 1
+    want, launches = _sp_restore(y)
+    assert launches == 10   # 5 evaluations (20 steps, stride 5), 2 levels at 32²
+    for got, n in w.spawn(scenario_sp_on_card, 2, tmp_path, y):
+        assert n == launches
+        diff = (got - want).abs()
+        assert diff.mean().item() <= 1e-4 and diff.max().item() <= 1e-3
+
+
+def _tp_step(mesh=None):
+    from ddpm_image_restoration_tpu_torch.config import TrainConfig
+    from ddpm_image_restoration_tpu_torch.parallel.mesh import put_state, shard_batch
+    from ddpm_image_restoration_tpu_torch.train.steps import create_train_state, make_train_step
+
+    from . import _torch_parallel_worker as w
+
+    model = _card_model()
+    cfg = TrainConfig(codec="webp", model=model.cfg, batch_size=4, ema_decay=0.999)
+    state = put_state(create_train_state(model, cfg), mesh)
+    batch = {k: torch.from_numpy(shard_batch(v, mesh)).cuda()
+             for k, v in w.make_batch(4, 64).items()}
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    before = [k.launches for k in kernels]
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        m = make_train_step(model, cfg)(state, batch,
+                                        torch.Generator(device="cuda").manual_seed(3))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    grads = (state.layout.full(state.layout.reduce_grads(model)) if state.layout else
+             {k: p.grad.cpu() for k, p in model.named_parameters()})
+    return m["loss"].item(), grads, [k.launches - b for k, b in zip(kernels, before)]
+
+
+def scenario_tp_on_card(rank, world, tmp):
+    from ddpm_image_restoration_tpu_torch.parallel.mesh import make_mesh
+
+    return _tp_step(make_mesh((1, 2), ("data", "model")))
+
+
+@pytest.mark.cuda
+def test_model_axis_step_on_card_matches_one_process(card, tmp_path):
+    """A width/8 f32 train step (batch 4, flash at 32²) on a (1, 2)
+    ('data', 'model') mesh of 2 ranks sharing the card, its convolutions
+    and dense layers column-parallel, against the one-process card step:
+    loss rel 1e-4, every gradient within 1e-4 of the largest; each rank
+    launches all three kernels as one process does."""
+    from . import _torch_parallel_worker as w
+
+    loss, grads, launches = _tp_step()
+    assert launches == [2, 2, 2]
+    top = max(g.abs().max().item() for g in grads.values())
+    for got_loss, got, n in w.spawn(scenario_tp_on_card, 2, tmp_path):
+        assert n == launches
+        assert abs(got_loss - loss) <= 1e-4 * abs(loss)
+        assert max((got[k] - g).abs().max().item() for k, g in grads.items()) <= 1e-4 * top

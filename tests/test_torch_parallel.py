@@ -50,7 +50,7 @@ RESTORE_Y = np.clip(np.random.default_rng(5).normal(0, 0.4, (5, 16, 16, 3)), -1,
 def _grads_of_one_step(cfg, batch, weights=None):
     """The one-process gradients of the first step (the reference for which
     entries are noise)."""
-    model = w.mini_model(weights, cfg.model)
+    model = w.mini_model(weights, cfg.model, cfg.codec)
     state = create_train_state(model, cfg)
     make_train_step(model, cfg)(state, {k: torch.from_numpy(v) for k, v in batch.items()},
                                 torch.Generator().manual_seed(3))
@@ -135,15 +135,16 @@ def test_make_mesh_shapes(world4):
 @pytest.mark.parametrize("n", [2, 4, 8])
 def test_param_shardings_match_jax_fsdp_spec(n):
     """For every parameter of the TINY5-shaped WebP model (and MINI's), the
-    axis `param_shardings` splits is the one the JAX package's `_fsdp_spec`
-    shards in its own layout of that parameter, or neither shards it."""
+    axis `param_shardings` splits over 'data' is the one the JAX package's
+    `_fsdp_spec` shards in its own layout of that parameter, or neither
+    shards it (a data-only mesh splits nothing over 'model')."""
     from ._tiny import TINY5
 
     for cfg in (J_MINI, TINY5):
         torch.manual_seed(0)
         model = build_model("webp", ModelConfig(**dataclasses.asdict(cfg)), device="cpu")
         dims = pm.param_shardings(model, None, fsdp=True)  # no mesh: one rank, nothing split
-        assert set(dims.values()) == {None}
+        assert set(dims.values()) == {pm.Split()}
         dims = {}
         for mod_name, module in model.named_modules():
             for p_name, p in module.named_parameters(recurse=False):
@@ -155,7 +156,8 @@ def test_param_shardings_match_jax_fsdp_spec(n):
                 assert got == want, (mod_name, p_name, jax_shape)
                 dims[f"{mod_name}.{p_name}" if mod_name else p_name] = (
                     None if got is None else order[got])
-        assert pm.param_shardings(model, _FakeMesh(n), fsdp=True) == dims
+        assert pm.param_shardings(model, _FakeMesh(n), fsdp=True) == {
+            k: pm.Split(None, d) for k, d in dims.items()}
         assert any(d is not None for d in dims.values())
 
 
@@ -194,7 +196,7 @@ def test_fsdp_shards_the_large_tensors(world, world2, world4):
     model = w.mini_model()
     full = {n: p.numel() for n, p in model.named_parameters()}
     want = [k for k, d in pm.param_shardings(model, _FakeMesh(world), fsdp=True).items()
-            if d is not None]
+            if d.data is not None]
     assert sum(full[k] for k in want) > 0.9 * sum(full.values())
     for out in res:
         got = out["fsdp"]
@@ -316,6 +318,7 @@ def test_parallel_phase_counts_on_cpu(tmp_path, monkeypatch, counted_kernels, ca
         assert f"rank {r}: FSDP against the data mesh" in log, log
     counts = state["launches_parallel"]
     # 4 one-rank steps (plain twice, data mesh, FSDP), and per rank a
-    # data-mesh and an FSDP step, 2 levels each
-    assert counts["flash_attention_bwd_dq"] == counts["flash_attention_bwd_dkv"] == 2 * (4 + 4)
+    # data-mesh, an FSDP and a model-axis step and the model axis's first
+    # full-width step, 2 levels each
+    assert counts["flash_attention_bwd_dq"] == counts["flash_attention_bwd_dkv"] == 2 * (4 + 8)
     assert not (tmp_path / "build" / "chip_smoke_parallel").exists()

@@ -238,15 +238,13 @@ def test_restore_from_own_checkpoint_with_ema(tmp_path, capsys):
 
 
 def test_restore_refusals(tmp_path):
-    """The unported flag names its ROADMAP item; --max-evals with the
-    Gaussian-mixture solver and --dp with --sp are refused with the JAX
-    CLI's messages; a directory without the port's checkpoints (an Orbax
-    one, or none) says so; all before any model is built."""
+    """--max-evals with the Gaussian-mixture solver and --dp with --sp are
+    refused with the JAX CLI's messages; a directory without the port's
+    checkpoints (an Orbax one, or none) says so; all before any model is
+    built. (--sp itself is ported: tests/test_torch_parallel_spatial.py.)"""
     from ddpm_image_restoration_tpu_torch.cli.restore import main
 
     img = _inputs(tmp_path / "in")["png"][:1]
-    with pytest.raises(SystemExit, match="ROADMAP.md Queue 1 item 7"):
-        main([*img, "--sp", "2", "--random-init"])
     with pytest.raises(SystemExit, match="--max-evals applies to the DDRM solver only"):
         main([*img, "--solver", "gaussian_mixture", "--max-evals", "6", "--random-init"])
     with pytest.raises(SystemExit, match="mutually exclusive"):

@@ -218,8 +218,8 @@ def test_validate_all_matches_jax(tmp_path, monkeypatch):
 @pytest.mark.parametrize("flags", [["--fsdp"]])
 def test_cli_refuses_unported_config(flags, monkeypatch):
     """`--fsdp` is ported: the CLI hands it to the trainer, whose check
-    accepts it. What the trainer still refuses is a 'model' mesh axis (no
-    CLI flag reaches it), naming its ROADMAP item."""
+    accepts it, as it accepts a ('data', 'model') mesh (no CLI flag reaches
+    it); what it still refuses is any other mesh."""
     import dataclasses
 
     from ddpm_image_restoration_tpu_torch.train import loop
@@ -234,18 +234,21 @@ def test_cli_refuses_unported_config(flags, monkeypatch):
     monkeypatch.setattr(loop, "train_model", fake_train_model)
     train_main(["--device", "cpu", *flags])
     assert seen["cfg"].fsdp
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8"):
+    loop.check_supported(dataclasses.replace(seen["cfg"], mesh_shape=(1, 1),
+                                             mesh_axes=("data", "model")))
+    with pytest.raises(NotImplementedError, match="'data', 'model'"):
         loop.check_supported(dataclasses.replace(seen["cfg"], mesh_shape=(1, 1),
-                                                 mesh_axes=("data", "model")))
+                                                 mesh_axes=("model", "data")))
 
 
 def test_trainer_refuses_what_it_lacks():
     from ddpm_image_restoration_tpu_torch.train.loop import check_supported
 
-    for cfg in (TrainConfig(mesh_shape=(2, 2), mesh_axes=("data", "model")),
+    for cfg in (TrainConfig(mesh_shape=(2,), mesh_axes=("data", "model")),
                 TrainConfig(mesh_shape=(4,), mesh_axes=("spatial",))):
         with pytest.raises(NotImplementedError):
             check_supported(cfg)
+    check_supported(TrainConfig(mesh_shape=(2, 2), mesh_axes=("data", "model")))
     for cfg in (TrainConfig(model=ModelConfig(remat=True)),
                 TrainConfig(consistency_mode="host_loop"), TrainConfig(fsdp=True),
                 TrainConfig(mesh_shape=(2,))):
