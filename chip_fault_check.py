@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Shows that the card's kernel bounds catch a numerics fault in the
 tensor-core kernels: builds a copy of the port's CUDA sources, outside the
-checkout, with the `lo` product of the hi/lo split dropped (`mma_split` in
-`csrc/flash_mma.cuh` then rounds P, and dS, to bf16 once), and holds the
-bf16 forward, dQ and dK/dV kernels of that copy and of the checkout to their
-plain versions under chip_smoke.py's bounds, at the D = 32 shapes of the
-main paths (and D = 16 beside them).
+checkout, with the `lo` product of the hi/lo split dropped at both split
+points of `csrc/flash_mma.cuh` (`mma_split`, which dQ uses, and
+`wgmma_split`, which the forward and dK/dV use: each then rounds P, and dS,
+to bf16 once), and holds the bf16 forward, dQ and dK/dV kernels of that copy
+and of the checkout to their plain versions under chip_smoke.py's bounds, at
+the D = 32 shapes of the main paths, D = 16 and 8 beside them, and the
+restore CLI's (4, 1024, 32), which the forward splits over a cluster.
 
     python3 chip_fault_check.py
 
@@ -23,13 +25,19 @@ import tempfile
 from pathlib import Path
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-SOUND = "  mma_bf16(d, a.hi, b0, b1);\n  mma_bf16(d, a.lo, b0, b1);\n"
-FAULTED = "  mma_bf16(d, a.hi, b0, b1);\n"
-# (kernel, BH, T, D, save_lse): the forward at its serving, train-step and
-# validation shapes; dQ and dK/dV at the train step's.
+# (sound, faulted) at each split point: mma_split, then wgmma_split.
+SPLITS = [("  mma_bf16(d, a.hi, b0, b1);\n  mma_bf16(d, a.lo, b0, b1);\n",
+           "  mma_bf16(d, a.hi, b0, b1);\n"),
+          ("  wgmma_sm90::wgmma_rs<1>(d, a.hi, b, true);\n"
+           "  wgmma_sm90::wgmma_rs<1>(d, a.lo, b, true);\n",
+           "  wgmma_sm90::wgmma_rs<1>(d, a.hi, b, true);\n")]
+# (kernel, BH, T, D, save_lse): the forward at its serving, train-step,
+# validation and restore shapes; dQ and dK/dV at the train steps'.
 CASES = [("fwd", 32, 1024, 32, False), ("fwd", 72, 1024, 32, True), ("fwd", 16, 1024, 32, False),
+         ("fwd", 4, 1024, 32, False),
          ("dq", 72, 1024, 32, True), ("dkv", 72, 1024, 32, True), ("fwd", 32, 1024, 16, False),
-         ("dq", 72, 1024, 16, True), ("dkv", 72, 1024, 16, True)]
+         ("dq", 72, 1024, 16, True), ("dkv", 72, 1024, 16, True), ("fwd", 64, 1024, 8, True),
+         ("dq", 64, 1024, 8, True), ("dkv", 64, 1024, 8, True)]
 
 
 def shares(fa, max_err) -> list[float]:
@@ -89,9 +97,11 @@ def main() -> int:
         shutil.copytree(build.CSRC_DIR, work / "csrc")
         header = work / "csrc" / "flash_mma.cuh"
         text = header.read_text()
-        if text.count(SOUND) != 1:
-            raise RuntimeError("mma_split's two products not found in flash_mma.cuh")
-        header.write_text(text.replace(SOUND, FAULTED))
+        for whole, dropped in SPLITS:
+            if text.count(whole) != 1:
+                raise RuntimeError(f"split products not found in flash_mma.cuh: {whole!r}")
+            text = text.replace(whole, dropped)
+        header.write_text(text)
         build.CSRC_DIR, build.BUILD_DIR = work / "csrc", work / "build"
         build._LOADED.clear()
         for name in (fa.KERNEL, fa.BWD_KERNEL):

@@ -7,7 +7,9 @@ NVIDIA card and checks it, phase by phase:
   2. build: every kernel of the serving and training paths, with nvcc, from
      the checkout, one nvcc per source, all started together; each kernel's
      registers, spills and shared memory (`ptxas -v`) and its tensor-core
-     instructions (HMMA, counted in `cuobjdump -sass`);
+     and TMA instructions (HGMMA in every instantiation of the wgmma
+     forward and dK/dV kernels, with UTMALDG; HMMA in the dQ kernel;
+     counted in `cuobjdump -sass`);
   3. kernels: each kernel against its plain PyTorch version, with times
      (the kernels' and SDPA's as device time under torch.profiler, the
      plain versions' between CUDA events), and the autograd Function's
@@ -125,7 +127,8 @@ JAX_PACKAGE = PACKAGE.removesuffix("_torch")  # the reference; never imported he
 # 7 (4 heads each), and the distillation teacher's batch of 18 (without the
 # LSE: it runs under no_grad; the student's shapes are the train step's); then the
 # AVIF model's (8 heads: head dim 128/8 = 16 at down2, 64/8 = 8 at up4,
-# which the wrapper zero-pads to 16) for its
+# which the bf16 forward and dK/dV take natively and dQ's wrapper
+# zero-pads to 16) for its
 # training and evaluation batches of 8, its validation batch of 4 and the
 # restore CLI's single files; then the Gaussian-mixture restore's batch of 8
 # files and its tile batches (the serve and restore-tile shapes again); last
@@ -184,10 +187,35 @@ F32_REL = 1e-4
 FUNCTION_REL = {"bfloat16": 2 ** -6, "float32": F32_REL}
 # Which design computes each kernel, per input dtype.
 DESIGNS = {
-    "flash_attention_fwd": {"bf16": "mma.sync m16n8k16, hi/lo P", "f32": "FMA"},
+    "flash_attention_fwd": {"bf16": "wgmma m64nNk16, TMA/mbarrier ring, hi/lo P, cluster "
+                                    "split over keys", "f32": "FMA"},
     "flash_attention_bwd_dq": {"bf16": "mma.sync m16n8k16, hi/lo dS", "f32": "FMA"},
-    "flash_attention_bwd_dkv": {"bf16": "mma.sync m16n8k16, hi/lo P and dS", "f32": "FMA"},
+    "flash_attention_bwd_dkv": {"bf16": "wgmma m64nNk16, TMA/mbarrier ring, hi/lo P and dS",
+                                "f32": "FMA"},
 }
+# The bf16 path shapes' (kernel, SDPA) device ms of the mma.sync forward and
+# dK/dV kernels that the wgmma ones replaced, as chip_smoke measured them on
+# `NVIDIA H100 80GB HBM3, 700.00 W` (PERF.md §6, the kernel table's "was"):
+# the ratio each run logs its own beside. Forward: (BH, T, D, save_lse);
+# dK/dV: (BH, T, D) against SDPA's whole backward.
+MMA_SYNC_FWD_MS = {
+    (32, 1024, 32, False): (0.0382, 0.0242), (32, 1024, 16, False): (0.0309, 0.0241),
+    (72, 1024, 32, True): (0.0811, 0.0544), (72, 1024, 16, True): (0.0642, 0.0539),
+    (72, 1024, 32, False): (0.0806, 0.0544), (4, 1024, 32, False): (0.0196, 0.0129),
+    (64, 1024, 16, True): (0.0576, 0.0440), (64, 1024, 8, True): (0.0733, 0.0447),
+    (36, 1024, 32, True): (0.0462, 0.0352), (36, 1024, 16, True): (0.0376, 0.0337)}
+MMA_SYNC_DKV_MS = {
+    (72, 1024, 32): (0.1322, 0.1411), (72, 1024, 16): (0.0999, 0.1297),
+    (64, 1024, 16): (0.0889, 0.1066), (64, 1024, 8): (0.1123, 0.1101),
+    (36, 1024, 32): (0.0762, 0.0825), (36, 1024, 16): (0.0600, 0.0796)}
+
+
+def ratio_note(ms: float, lib_ms: float, was) -> str:
+    """'kernel/SDPA r (mma.sync kernel: r0)' for a path shape's log line."""
+    then = f"{was[0] / was[1]:.3f}" if was else "not recorded"
+    return f"kernel/SDPA {ms / lib_ms if lib_ms > 0 else float('nan'):.3f} (mma.sync kernel: {then})"
+
+
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s; dense
 # tensor-core bf16 and f32 (non-tensor-core) FLOP/s.
 PEAK_BYTES_S = 3.35e12
@@ -379,6 +407,10 @@ def phase_environment(state: dict) -> None:
     log(f"device {torch.cuda.get_device_name(0)}  count {torch.cuda.device_count()}")
     state["smi"] = nvidia_smi_line()
     log(state["smi"])
+    clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
+                             "--format=csv,noheader"], capture_output=True, text=True,
+                            timeout=60).stdout.strip()
+    log(f"SM clock (max, now): {clocks}")
     state["pil"] = importlib.util.find_spec("PIL") is not None
     log(f"Pillow importable: {state['pil']}")
     state["avif"] = False
@@ -404,25 +436,40 @@ def phase_build(state: dict) -> None:
     names = (fa.KERNEL, fa.BWD_KERNEL)
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, all at once
         built = list(pool.map(build.build, names))
-    hmma = {}
+    sass = {}
     for name, (path, seconds) in zip(names, built):
         log(f"built {path.name} with {build.find_nvcc()} in {seconds:.1f} s")
         log_file = path.with_suffix(".log")
-        for line in build.ptxas_summary(log_file.read_text() if log_file.exists() else ""):
+        text = log_file.read_text() if log_file.exists() else ""
+        for line in build.ptxas_summary(text):
             log(f"  ptxas: {line}")
-        for kernel, n in sass_mma_counts(path, build.find_nvcc()).items():
-            hmma[kernel] = n
-            log(f"  sass: {kernel}: {n} HMMA instructions")
+        for line in text.splitlines():  # e.g. wgmma serialized by ptxas
+            if "wgmma" in line.lower() or "warning" in line.lower():
+                log(f"  nvcc: {line.strip()}")
+        for kernel, ops in sass_op_counts(path, build.find_nvcc()).items():
+            sass[kernel] = ops
+            log(f"  sass: {kernel}: " + ", ".join(f"{n} {op}" for op, n in ops.items()))
         build.load(name)
-    # the forward, dQ and dK/dV tensor-core kernels, at each of the 4 head dims
-    mma = {k: n for k, n in hmma.items() if "_mma_kernel" in k}
-    if hmma and (len(mma) != 12 or not all(mma.values())):
-        raise AssertionError(f"tensor-core kernels without HMMA in their SASS: {mma}")
+    if not sass:
+        return
+    # every instantiation of the forward and dK/dV wgmma kernels (D = 8 to
+    # 128) runs HGMMA and loads by TMA (UTMALDG); the dQ kernel runs HMMA
+    hopper = {k: ops for k, ops in sass.items() if "_wgmma_kernel" in k}
+    dq = {k: ops for k, ops in sass.items() if "dq_mma_kernel" in k}
+    bad = [k for k, ops in hopper.items() if not (ops["HGMMA"] and ops["UTMALDG"])]
+    bad += [k for k, ops in dq.items() if not ops["HMMA"]]
+    if len(hopper) != 10 or len(dq) != 4 or bad:
+        raise AssertionError(f"tensor-core kernels without HGMMA/UTMALDG or HMMA in their SASS: "
+                             f"{bad or sorted(hopper) + sorted(dq)}")
 
 
-def sass_mma_counts(path, nvcc: str) -> dict:
-    """Tensor-core (HMMA) instructions per kernel in the library's SASS, from
-    `cuobjdump -sass` beside nvcc; {} (logged) where it cannot be run."""
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG")
+
+
+def sass_op_counts(path, nvcc: str) -> dict:
+    """Tensor-core (HGMMA: wgmma; HMMA: mma.sync) and TMA-load (UTMALDG)
+    instructions per kernel in the library's SASS, from `cuobjdump -sass`
+    beside nvcc; {} (logged) where it cannot be run."""
     from ddpm_image_restoration_tpu_torch.ops.build import kernel_label
 
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
@@ -437,9 +484,11 @@ def sass_mma_counts(path, nvcc: str) -> dict:
         m = re.search(r"Function : (\w+)", line)
         if m:
             name = kernel_label(m.group(1))
-            counts[name] = 0
-        elif name and "HMMA" in line:
-            counts[name] += 1
+            counts[name] = dict.fromkeys(SASS_OPS, 0)
+        elif name:
+            for op in SASS_OPS:
+                if re.search(rf"\b{op}\b", line):
+                    counts[name][op] += 1
     return counts
 
 
@@ -494,6 +543,10 @@ def phase_kernels(state: dict) -> None:
                     f"plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms device  "
                     f"bound {bound:.4f} ms ({by})")
     state["kernel_rows"] = rows
+    for path, bh, t, d, lse in FWD_PATH_SHAPES:
+        r = rows[(bh, t, d, "bfloat16", lse)]
+        log(f"flash_attention_fwd [{path}] (BH,T,D)=({bh},{t},{d}) bf16 lse={lse}: "
+            + ratio_note(r["ms"], r["library_ms"], MMA_SYNC_FWD_MS.get((bh, t, d, lse))))
     state["bwd_rows"] = check_backward(failures)
     check_function(failures)
     if failures:
@@ -572,6 +625,10 @@ def check_backward(failures: list) -> dict:
                     f"events)  plain {plain_ms:.4f} ms  "
                     f"sdpa backward {lib_ms:.4f} ms device ({lib_event_ms:.4f} ms between "
                     f"events)  bound {bound:.4f} ms ({by})")
+                if kind == "dkv" and name == "bfloat16" and (bh, t, d) in TRAIN_SHAPES:
+                    log(f"flash_attention_bwd_dkv [{TRAIN_PATHS.get((bh, t, d), 'train step')}] "
+                        f"(BH,T,D)=({bh},{t},{d}) bf16: "
+                        + ratio_note(ms, lib_ms, MMA_SYNC_DKV_MS.get((bh, t, d))))
     return rows
 
 

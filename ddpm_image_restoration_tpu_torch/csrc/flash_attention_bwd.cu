@@ -7,7 +7,7 @@
 //
 //   dQ = scale * (P o (dO*V^T - Delta)) * K          flash_bwd_dq_mma_kernel (bf16)
 //                                                    flash_bwd_dq_kernel (f32)
-//   dV = P^T * dO,  dK = scale * dS^T * Q            flash_bwd_dkv_mma_kernel (bf16)
+//   dV = P^T * dO,  dK = scale * dS^T * Q            flash_bwd_dkv_wgmma_kernel (bf16)
 //                                                    flash_bwd_dkv_kernel (f32)
 //
 // LSE is the forward kernel's [BH, T] f32 log-sum-exp in natural units
@@ -30,29 +30,58 @@
 // What bounds it on the H100: dQ does 6*T*D and dK/dV 8*T*D flops per query
 // row against ~6*D*elt bytes per row, so at T = 1024 both are compute bound.
 //
-// In bf16 both kernels run their products on the tensor cores
-// (`mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32`, flash_mma.cuh),
-// one block of 4 warps per (bh, 64-row tile), 16 rows a warp, the rows'
-// operands held in registers as A fragments for the whole loop and the
-// other side streamed through a double-buffered cp.async ring (zero-filled
-// past T). P and dS are each split into hi = bf16(x) and lo = bf16(x - hi),
-// two products against the same B fragment, since one bf16 rounding moves
-// dQ, dK and dV by several bf16 steps against the f32 plain version.
+// dQ (flash_bwd_dq_mma_kernel) runs its products on the tensor cores by
+// `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32` (flash_mma.cuh),
+// one block of 4 warps per (bh, 64-query tile), 16 rows a warp, in the
+// untransposed frame: Q and dO are A fragments held in registers for the
+// whole loop, with each row's LSE and Delta (from the bf16 O and dO rows,
+// in f32) in the registers of its quad; K and V stream through a
+// double-buffered cp.async ring (zero-filled past T). S = Q*K^T and dP =
+// dO*V^T (B fragments from K and V by ldmatrix), P = exp2(S*c - LSE) and
+// dS = P o (dP - Delta) on the accumulators, which repack in registers into
+// the A operand of dQ += dS*K (B by ldmatrix.trans on the same K tile). Key
+// columns >= T get P = 0 explicitly.
 //
-// dQ (flash_bwd_dq_mma_kernel) works in the untransposed frame, queries as
-// the M rows: Q and dO are A fragments, with each row's LSE and Delta (from
-// the bf16 O and dO rows, in f32) in the registers of its quad; K and V
-// stream. S = Q*K^T and dP = dO*V^T (B fragments from K and V by ldmatrix),
-// P = exp2(S*c - LSE) and dS = P o (dP - Delta) on the accumulators, which
-// repack in registers into the A operand of dQ += dS*K (B by ldmatrix.trans
-// on the same K tile). Key columns >= T get P = 0 explicitly.
+// dK/dV (flash_bwd_dkv_wgmma_kernel) works in the transposed frame, keys as
+// the M rows, by Hopper's wgmma (wgmma_sm90.cuh). What bounds it at T =
+// 1024 (132 SMs at 1980 MHz; per 72 heads): its products, S^T and dP^T at
+// depth DP = max(D, 16) and dV and dK twice each (hi/lo), 12*T^2*DP flops a
+// head at 989 TFLOP/s: 14.7 us at D = 8 and 16, 29.3 at 32, 58.6 at 64;
+// the MUFU's T^2 exp2 a head at 16 a clock per SM, 18.0 us whatever D (the
+// floor at D <= 16); the fill is no limit (8*BH blocks of 128 keys: 576 at
+// the train step). The design:
+//   * a block is two consumer warpgroups of 64 keys and one producer warp
+//     (288 threads; one block an SM, ptxas's cap of 168 registers: ptxas -v
+//     gives 147 at D = 32, 128 at 16 and 8, 168 at 64 and 128, where D =
+//     128 spills 196 bytes and its products are serialized; it is on no
+//     path. Without the producer warp, at 256 threads with warp 0
+//     loading, D = 32 ran slower on the card); each
+//     warpgroup's K and V tiles arrive once by TMA and stay in shared
+//     memory as wgmma's A operands;
+//   * the producer streams every query tile's Q and dO by TMA ([BH, T, D]
+//     tensor maps, boxes of BQ rows, zero-filled past T and, at D = 8, over
+//     the columns 8..15) and its LSE and Delta rows by the warp's lanes,
+//     through a ring of 4 (D <= 32), 3 (64) or 2 (128) stages with
+//     full/empty mbarriers; BQ = 64 queries, 32 at D = 128, where the dK and
+//     dV accumulators take 128 f32 a thread;
+//   * S^T = K*Q^T and dP^T = V*dO^T by wgmma m64n{BQ}k16 from K-major
+//     descriptors; P^T = exp2(S^T*c - LSE) and dS^T = P^T o (dP^T - Delta)
+//     on the accumulators, query columns >= T given P = 0 explicitly (a
+//     zero LSE would give exp2(0) = 1); dV += P^T*dO and dK += dS^T*Q by
+//     register-A wgmma against MN-major dO and Q descriptors, each operand
+//     split into bf16 hi and lo (wgmma_split) by truncation on the integer
+//     pipes (flash_mma.cuh split_a_trunc), the dV and dK products
+//     interleaved so that neighbouring products are independent;
+//   * the two warpgroups take turns at issuing each group of products
+//     (named barriers), 4-5% faster than issuing at will (PERF.md §6);
+//   * D = 8 natively (zero-filled to the wgmma depth 16 in shared memory;
+//     dK and dV written 8 wide).
 //
-// dK/dV (flash_bwd_dkv_mma_kernel) works in the transposed frame, keys as
-// the M rows: K and V are A fragments; Q and dO stream with the tile's LSE
-// and Delta beside them. S^T = K*Q^T and dP^T = V*dO^T, P^T = exp2(S^T*c -
-// LSE) and dS^T = P^T o (dP^T - Delta) on the accumulators, then dV +=
-// P^T*dO and dK += dS^T*Q (B by ldmatrix.trans). Query rows >= T get P = 0
-// explicitly (a zero-filled LSE would give exp2(0) = 1).
+// No atomics: every output element is written by one thread, once, and
+// results are deterministic. P and dS are carried as hi = bf16(x) and lo =
+// bf16(x - hi), two products against the same B operand, since one bf16
+// rounding moves dQ, dK and dV by several bf16 steps against the f32 plain
+// version.
 //
 // In f32 both run on the CUDA cores in f32 FMA (67 TFLOP/s ceiling).
 // Layout: each row owned by a block is split over TPR = D/8 adjacent lanes
@@ -261,167 +290,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-constexpr int kMmaThreads = 128;  // 4 warps x 16 rows (keys in dK/dV, queries in dQ)
+constexpr int kMmaThreads = 128;  // dQ: 4 warps x 16 query rows
 constexpr int kMmaRows = 64;
-
-template <int D> struct MmaDkv {
-  // query rows per streamed tile: fewer at wide heads, where the dK and dV
-  // accumulators (2*D/8 n8 tiles of 4 f32 a lane) take most registers
-  static constexpr int BQ = D <= 32 ? 64 : (D == 64 ? 32 : 16);
-};
-
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int t_len,
-                         float scale, float scale_log2) {
-  using namespace mma_sm90;
-  using Tile = SmemTile<D>;
-  constexpr int BQ = MmaDkv<D>::BQ;
-  constexpr int KD = D / 16;   // mma k-steps over the head dim (S^T, dP^T)
-  constexpr int NQ = BQ / 8;   // n8 tiles of S^T per query tile
-  constexpr int KQ = BQ / 16;  // mma k-steps over the queries of a tile (dV, dK)
-  constexpr int ND = D / 8;    // n8 tiles of dK and dV
-  __shared__ __align__(128) bf16 q_s[2][BQ * D];
-  __shared__ __align__(128) bf16 do_s[2][BQ * D];
-  __shared__ __align__(16) float lse_s[2][BQ];    // natural units
-  __shared__ __align__(16) float delta_s[2][BQ];
-
-  const int bh = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tq = lane & 3;
-  const int key0 = blockIdx.x * kMmaRows + warp * 16;
-  const size_t base = (size_t)bh * t_len * D;
-  const size_t stat_base = (size_t)bh * t_len;
-  const int n_tiles = (t_len + BQ - 1) / BQ;
-
-  auto load_stage = [&](int stage, int q0) {
-    Tile::template load<BQ, kMmaThreads>(smem_addr(q_s[stage]), q + base + (size_t)q0 * D,
-                                         t_len - q0);
-    Tile::template load<BQ, kMmaThreads>(smem_addr(do_s[stage]), dout + base + (size_t)q0 * D,
-                                         t_len - q0);
-    if (threadIdx.x < BQ) {
-      const int i = threadIdx.x;
-      const bool ok = q0 + i < t_len;
-      const size_t src = stat_base + (ok ? q0 + i : 0);
-      cp_async_4(smem_addr(&lse_s[stage][i]), lse + src, ok);
-      cp_async_4(smem_addr(&delta_s[stage][i]), delta + src, ok);
-    }
-    cp_async_commit();
-  };
-  load_stage(0, 0);
-
-  // this warp's 16 keys of K and V as A fragments (rows >= T are zero)
-  uint32_t kf[KD][4], vf[KD][4];
-#pragma unroll
-  for (int kd = 0; kd < KD; ++kd) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = key0 + g + 8 * (i & 1);
-      const size_t at = base + (size_t)row * D + 16 * kd + 2 * tq + 8 * (i >> 1);
-      const bool ok = row < t_len;
-      kf[kd][i] = ok ? *reinterpret_cast<const uint32_t*>(k + at) : 0u;
-      vf[kd][i] = ok ? *reinterpret_cast<const uint32_t*>(v + at) : 0u;
-    }
-  }
-  float dk_acc[ND][4], dv_acc[ND][4];
-#pragma unroll
-  for (int j = 0; j < ND; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
-  }
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int stage = it & 1;
-    const int q0 = it * BQ;
-    if (it + 1 < n_tiles) {  // the next tile streams in while this one is used
-      load_stage(stage ^ 1, q0 + BQ);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys by the tile's BQ queries
-    float s[NQ][4], dp[NQ][4];
-#pragma unroll
-    for (int j = 0; j < NQ; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    }
-    const uint32_t qb = smem_addr(q_s[stage]), db = smem_addr(do_s[stage]);
-#pragma unroll
-    for (int j = 0; j < NQ; j += 2) {
-#pragma unroll
-      for (int kd = 0; kd < KD; ++kd) {
-        const uint32_t at = Tile::off(8 * j + (lane & 7) + ((lane >> 4) << 3),
-                                      2 * kd + ((lane >> 3) & 1));
-        uint32_t b[4];
-        ldmatrix_x4(b, qb + at);
-        mma_bf16(s[j], kf[kd], b[0], b[1]);
-        mma_bf16(s[j + 1], kf[kd], b[2], b[3]);
-        ldmatrix_x4(b, db + at);
-        mma_bf16(dp[j], vf[kd], b[0], b[1]);
-        mma_bf16(dp[j + 1], vf[kd], b[2], b[3]);
-      }
-    }
-
-    // P^T and dS^T on the accumulators; query rows >= T give P = 0
-    const int n_valid = t_len - q0;
-#pragma unroll
-    for (int j = 0; j < NQ; ++j) {
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int col = 8 * j + 2 * tq + c;
-        const float lse_log2 = lse_s[stage][col] * kLog2e;
-        const float dlt = delta_s[stage][col];
-        const bool ok = col < n_valid;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int e = 2 * h + c;
-          const float p = ok ? exp2f(s[j][e] * scale_log2 - lse_log2) : 0.f;
-          s[j][e] = p;
-          dp[j][e] = p * (dp[j][e] - dlt);
-        }
-      }
-    }
-
-    // dV += (P^T_hi + P^T_lo) dO and dK += (dS^T_hi + dS^T_lo) Q
-#pragma unroll
-    for (int kq = 0; kq < KQ; ++kq) {
-      const Split p = split_a(s[2 * kq], s[2 * kq + 1]);
-      const Split ds = split_a(dp[2 * kq], dp[2 * kq + 1]);
-#pragma unroll
-      for (int j = 0; j < ND; j += 2) {
-        const uint32_t at = Tile::off(16 * kq + (lane & 15), j + (lane >> 4));
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, db + at);
-        mma_split(dv_acc[j], p, b[0], b[1]);
-        mma_split(dv_acc[j + 1], p, b[2], b[3]);
-        ldmatrix_x4_trans(b, qb + at);
-        mma_split(dk_acc[j], ds, b[0], b[1]);
-        mma_split(dk_acc[j + 1], ds, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // this stage is refilled by the next iteration's prefetch
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = key0 + g + 8 * r;
-    if (row >= t_len) continue;
-    const size_t at = base + (size_t)row * D + 2 * tq;
-#pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      *reinterpret_cast<uint32_t*>(dk + at + 8 * j) =
-          pack_bf16(dk_acc[j][2 * r] * scale, dk_acc[j][2 * r + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + at + 8 * j) =
-          pack_bf16(dv_acc[j][2 * r], dv_acc[j][2 * r + 1]);
-    }
-  }
-}
 
 template <int D> struct MmaDq {
   // keys per streamed tile: fewer at D = 128, where the Q and dO fragments
@@ -575,6 +445,229 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   }
 }
 
+constexpr int kWarpgroups = 2;                   // consumer warpgroups a block
+constexpr int kConsumers = 128 * kWarpgroups;
+constexpr int kHopperThreads = kConsumers + 32;  // and one producer warp
+constexpr int kBlockKeys = 64 * kWarpgroups;     // keys a block
+
+template <int D> struct HopperDkv {
+  static constexpr int DP = D < 16 ? 16 : D;              // head dim in shared memory
+  static constexpr int SW = 2 * DP < 128 ? 2 * DP : 128;  // bytes a panel row: the swizzle
+  static constexpr int W = SW / 2;                        // columns a panel
+  static constexpr int PANELS = DP / W;
+  static constexpr int NO = W / 8;                        // n8 blocks of dK, dV a panel
+  // queries a ring stage: fewer at D = 128, where the dK and dV
+  // accumulators (2 * D / 2 f32 a thread) take most registers
+  static constexpr int BQ = D <= 64 ? 64 : 32;
+  static constexpr int KTILE = 64 * DP * 2;  // [64 keys, DP]
+  static constexpr int QTILE = BQ * DP * 2;  // [BQ queries, DP]
+  static constexpr int STAGES = D >= 128 ? 2 : (D == 64 ? 3 : 4);
+  // From the 1024-aligned base: each warpgroup's K tile, then each one's V
+  // tile; the ring (a Q and a dO tile a stage); the LSE and Delta rows of
+  // each stage; the barriers (full, empty, then K/V's).
+  static constexpr int RING = 2 * kWarpgroups * KTILE;
+  static constexpr int STATS = RING + STAGES * 2 * QTILE;
+  static constexpr int BARS = STATS + STAGES * 2 * BQ * 4;
+  static constexpr int SMEM = 1024 + BARS + 16 * (STAGES + 1);
+};
+
+// The byte offset of the k16 slice kd of a [rows, DP] K-major tile: its
+// panel, then 32 bytes a slice along the swizzled row.
+template <int D> __device__ __forceinline__ uint32_t kslice(int kd, int rows) {
+  using F = HopperDkv<D>;
+  return (16 * kd / F::W) * rows * F::SW + (16 * kd % F::W) * 2;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const __grid_constant__ CUtensorMap do_map,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                           int t_len, float scale, float scale_log2) {
+  using namespace mma_sm90;
+  using namespace wgmma_sm90;
+  using F = HopperDkv<D>;
+  char* const raw = dynamic_smem();
+  const uint32_t base = (smem_u32(raw) + 1023) & ~1023u;
+  float* const stats = reinterpret_cast<float*>(raw + (base - smem_u32(raw)) + F::STATS);
+  const uint32_t bars = base + F::BARS;
+  const uint32_t kv_bar = bars + 16 * F::STAGES;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (F::STAGES + s); };
+  auto q_at = [&](int s) { return base + F::RING + s * 2 * F::QTILE; };  // Q, then dO
+  auto k_at = [&](int w) { return base + w * F::KTILE; };
+  auto v_at = [&](int w) { return base + (kWarpgroups + w) * F::KTILE; };
+
+  const int bh = blockIdx.y;
+  const int key0 = blockIdx.x * kBlockKeys;
+  const int n_tiles = (t_len + F::BQ - 1) / F::BQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < F::STAGES; ++s) {
+      mbar_init(full(s), 1 + 32);  // the TMA's bytes, then each producer lane's rows
+      mbar_init(empty(s), kConsumers / 32);
+    }
+    mbar_init(kv_bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {
+    // the producer: the block's K and V once, then every query tile's Q
+    // and dO by TMA and its LSE and Delta rows by the warp's lanes (zeros
+    // past T) through the ring. (A 1-D tensor map of the [BH*T] rows
+    // faulted on the card where BH*T*4 bytes is not a multiple of 16.)
+    if (lane == 0) {
+      mbar_arrive_expect_tx(kv_bar, 2 * kWarpgroups * F::KTILE);
+      for (int w = 0; w < kWarpgroups; ++w) {
+        for (int pn = 0; pn < F::PANELS; ++pn) {
+          tma_load_3d(k_at(w) + pn * 64 * F::SW, &k_map, kv_bar, pn * F::W, key0 + 64 * w, bh);
+          tma_load_3d(v_at(w) + pn * 64 * F::SW, &v_map, kv_bar, pn * F::W, key0 + 64 * w, bh);
+        }
+      }
+    }
+    const size_t head = (size_t)bh * t_len;  // this head's first row
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % F::STAGES;
+      const int q0 = j * F::BQ;
+      mbar_wait(empty(s), ((j / F::STAGES) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_arrive_expect_tx(full(s), 2 * F::QTILE);
+        for (int pn = 0; pn < F::PANELS; ++pn) {
+          tma_load_3d(q_at(s) + pn * F::BQ * F::SW, &q_map, full(s), pn * F::W, q0, bh);
+          tma_load_3d(q_at(s) + F::QTILE + pn * F::BQ * F::SW, &do_map, full(s), pn * F::W, q0,
+                      bh);
+        }
+      }
+      float* const st = stats + s * 2 * F::BQ;
+      for (int i = lane; i < F::BQ; i += 32) {
+        const bool ok = q0 + i < t_len;
+        st[i] = ok ? lse[head + q0 + i] : 0.f;
+        st[F::BQ + i] = ok ? delta[head + q0 + i] : 0.f;
+      }
+      mbar_arrive(full(s));
+    }
+  } else {
+    const int wg = warp / 4;
+    const int g = lane >> 2, tq = lane & 3;
+    float dk_acc[F::PANELS][F::NO][4], dv_acc[F::PANELS][F::NO][4];
+#pragma unroll
+    for (int pn = 0; pn < F::PANELS; ++pn) {
+#pragma unroll
+      for (int j = 0; j < F::NO; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dk_acc[pn][j][e] = dv_acc[pn][j][e] = 0.f;
+      }
+    }
+    float s[F::BQ / 8][4], dp[F::BQ / 8][4];  // S^T and dP^T: 64 keys x BQ queries
+    Split p[F::BQ / 16], ds[F::BQ / 16];      // P^T and dS^T as A operands, hi and lo
+
+    // The two warpgroups take turns at issuing each group of products
+    // (named barriers 1 and 2; warpgroup 0 first), so that one's exp2 and
+    // dS run while the other's products do (FlashAttention-3's ping-pong).
+    auto my_turn = [&]() { named_sync(1 + wg, kConsumers); };
+    auto your_turn = [&]() { named_arrive(2 - wg, kConsumers); };
+    if (wg == 0) named_arrive(1, kConsumers);
+
+    mbar_wait(kv_bar, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int stage = it % F::STAGES;
+      mbar_wait(full(stage), (it / F::STAGES) & 1);
+      const uint32_t qt = q_at(stage), dot = qt + F::QTILE;
+
+      // S^T = K Q^T and dP^T = V dO^T, two independent chains
+      my_turn();
+      wgmma_fence();
+#pragma unroll
+      for (int kd = 0; kd < F::DP / 16; ++kd) {
+        wgmma_ss<0>(s, make_desc(k_at(wg) + kslice<D>(kd, 64), F::SW),
+                    make_desc(qt + kslice<D>(kd, F::BQ), F::SW), kd > 0);
+        wgmma_ss<0>(dp, make_desc(v_at(wg) + kslice<D>(kd, 64), F::SW),
+                    make_desc(dot + kslice<D>(kd, F::BQ), F::SW), kd > 0);
+      }
+      wgmma_commit();
+      your_turn();
+      wgmma_wait<0>();
+      fence_acc(s);
+      fence_acc(dp);
+
+      // P^T = exp2(S^T c - LSE) and dS^T = P^T o (dP^T - Delta); query
+      // columns >= T get P = 0 explicitly (a zero-filled LSE would give
+      // exp2(0) = 1)
+      const float* const lse_s = stats + stage * 2 * F::BQ;
+      const float* const delta_s = lse_s + F::BQ;
+      const int n_valid = t_len - it * F::BQ;
+#pragma unroll
+      for (int j = 0; j < F::BQ / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = 8 * j + 2 * tq + c;
+          const float neg_lse = -lse_s[col] * kLog2e, dlt = delta_s[col];
+          const bool ok = col < n_valid;
+#pragma unroll
+          for (int e = c; e < 4; e += 2) {
+            const float pe = ok ? exp2_approx(fmaf(s[j][e], scale_log2, neg_lse)) : 0.f;
+            s[j][e] = pe;
+            dp[j][e] = pe * (dp[j][e] - dlt);
+          }
+        }
+      }
+#pragma unroll
+      for (int kq = 0; kq < F::BQ / 16; ++kq) {
+        p[kq] = split_a_trunc(s[2 * kq], s[2 * kq + 1]);
+        ds[kq] = split_a_trunc(dp[2 * kq], dp[2 * kq + 1]);
+      }
+
+      // dV += (P^T_hi + P^T_lo) dO and dK += (dS^T_hi + dS^T_lo) Q,
+      // interleaved so that neighbouring products are independent
+      my_turn();
+      wgmma_fence();
+#pragma unroll
+      for (int kq = 0; kq < F::BQ / 16; ++kq) {
+#pragma unroll
+        for (int pn = 0; pn < F::PANELS; ++pn) {
+          const uint32_t at = pn * F::BQ * F::SW + kq * 16 * F::SW;
+          wgmma_split(dv_acc[pn], p[kq], make_desc(dot + at, F::SW));
+          wgmma_split(dk_acc[pn], ds[kq], make_desc(qt + at, F::SW));
+        }
+      }
+      wgmma_commit();
+      your_turn();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int pn = 0; pn < F::PANELS; ++pn) {
+        fence_acc(dk_acc[pn]);
+        fence_acc(dv_acc[pn]);
+      }
+      if (lane == 0) mbar_arrive(empty(stage));  // this stage is free for the producer
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = key0 + 64 * wg + 16 * (warp % 4) + g + 8 * r;
+      if (row >= t_len) continue;
+      const size_t at = ((size_t)bh * t_len + row) * D + 2 * tq;
+#pragma unroll
+      for (int pn = 0; pn < F::PANELS; ++pn) {
+#pragma unroll
+        for (int j = 0; j < F::NO; ++j) {
+          if (D >= 16 || 8 * j < D) {  // D = 8: the zero-filled columns 8..15 stay unwritten
+            const size_t c = at + pn * F::W + 8 * j;
+            *reinterpret_cast<uint32_t*>(dk + c) =
+                pack_bf16(dk_acc[pn][j][2 * r] * scale, dk_acc[pn][j][2 * r + 1] * scale);
+            *reinterpret_cast<uint32_t*>(dv + c) =
+                pack_bf16(dv_acc[pn][j][2 * r], dv_acc[pn][j][2 * r + 1]);
+          }
+        }
+      }
+    }
+  }
+}
+
 template <int D> dim3 grid_for(int bh, int t) {
   return dim3((t + Tile<D>::ROWS - 1) / Tile<D>::ROWS, bh);
 }
@@ -604,27 +697,48 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o
 }
 
 template <int D>
+cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
+                            const void* lse, const void* delta, void* dk, void* dv, int bh,
+                            int t, float scale, cudaStream_t stream) {
+  namespace host = wgmma_sm90_host;
+  using F = HopperDkv<D>;
+  CUtensorMap maps[4];
+  const void* tiles[4] = {q, k, v, dout};
+  const int rows[4] = {F::BQ, 64, 64, F::BQ};
+  cudaError_t err = cudaSuccess;
+  for (int i = 0; i < 4 && err == cudaSuccess; ++i)
+    err = host::tile_map(&maps[i], tiles[i], bh, t, D, F::W, rows[i], F::SW);
+  static uint64_t allowed = 0;
+  if (err == cudaSuccess) err = host::allow_smem(flash_bwd_dkv_wgmma_kernel<D>, F::SMEM, allowed);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((t + kBlockKeys - 1) / kBlockKeys, bh);
+  cfg.blockDim = dim3(kHopperThreads);
+  cfg.dynamicSmemBytes = F::SMEM;
+  cfg.stream = stream;
+  err = cudaLaunchKernelEx(&cfg, flash_bwd_dkv_wgmma_kernel<D>, maps[0], maps[1], maps[2],
+                           maps[3], static_cast<const float*>(lse),
+                           static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
+                           static_cast<__nv_bfloat16*>(dv), t, scale, scale * kLog2e);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv, int bh,
                        int t, int dtype, float scale, cudaStream_t stream) {
-  if (dtype == 0) {
-    flash_bwd_dkv_kernel<D><<<grid_for<D>(bh, t), kThreads, 0, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<float*>(dk), static_cast<float*>(dv), t, scale, scale * kLog2e);
-  } else if (dtype == 1) {
-    const dim3 grid((t + kMmaRows - 1) / kMmaRows, bh);
-    flash_bwd_dkv_mma_kernel<D><<<grid, kMmaThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), t, scale,
-        scale * kLog2e);
-  } else {
-    return cudaErrorInvalidValue;
+  if (dtype == 1) return launch_dkv_bf16<D>(q, k, v, dout, lse, delta, dk, dv, bh, t, scale, stream);
+  if constexpr (D >= 16) {  // the f32 kernel is built from D = 16 up
+    if (dtype == 0) {
+      flash_bwd_dkv_kernel<D><<<grid_for<D>(bh, t), kThreads, 0, stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<const float*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<float*>(dk), static_cast<float*>(dv), t, scale, scale * kLog2e);
+      return cudaGetLastError();
+    }
   }
-  return cudaGetLastError();
+  return cudaErrorInvalidValue;
 }
 
 cudaError_t dq_dispatch(const void* q, const void* k, const void* v, const void* o,
@@ -643,6 +757,7 @@ cudaError_t dkv_dispatch(const void* q, const void* k, const void* v, const void
                          const void* lse, const void* delta, void* dk, void* dv, int bh,
                          int t, int d, int dtype, float scale, cudaStream_t s) {
   switch (d) {
+    case 8: return launch_dkv<8>(q, k, v, dout, lse, delta, dk, dv, bh, t, dtype, scale, s);
     case 16: return launch_dkv<16>(q, k, v, dout, lse, delta, dk, dv, bh, t, dtype, scale, s);
     case 32: return launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, bh, t, dtype, scale, s);
     case 64: return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, bh, t, dtype, scale, s);
@@ -670,8 +785,8 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
 
 // dK and dV from q, k, v, dO, the LSE and the Delta that
 // flash_attention_bwd_dq wrote (launch this after it on the same stream).
-// dtype 0 = float32 (FMA kernel), 1 = bfloat16 (tensor-core kernel; the
-// [BH, T, d] tensors must be 16-byte aligned).
+// dtype 0 = float32 (FMA kernel; d >= 16), 1 = bfloat16 (wgmma kernel, d = 8
+// too; the [BH, T, d] tensors must be 16-byte aligned).
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                        const void* dout, const void* lse, const void* delta,
                                        void* dk, void* dv, int bh, int t, int d, int dtype,

@@ -29,12 +29,6 @@ __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, bool 
                "r"(valid ? 16 : 0));
 }
 
-// 4 bytes from global to shared memory; zeros where !valid.
-__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 4 : 0));
-}
-
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 template <int N> __device__ __forceinline__ void cp_async_wait() {

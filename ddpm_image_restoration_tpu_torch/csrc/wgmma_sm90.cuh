@@ -1,0 +1,331 @@
+// Hopper's own instructions for the bf16 flash-attention forward and dK/dV
+// kernels (sm_90a), as inline PTX, beside mma_sm90.cuh's Ampere-style ones:
+//   * wgmma.mma_async m64nNk16 (N = 16, 32, 64; bf16 in, f32 accumulate),
+//     A from a shared-memory descriptor or from registers, B from a
+//     descriptor, K-major or MN-major; fence, commit and wait;
+//   * the 64-bit shared-memory matrix descriptor of a swizzled tile;
+//   * mbarrier init, arrive, arrive.expect_tx and try_wait.parity;
+//   * the TMA tile load (cp.async.bulk.tensor.3d) completing on
+//     an mbarrier, and the host side: a tensor map encoded with
+//     cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint (no
+//     -lcuda, no PyTorch headers);
+//   * named barriers (bar.sync, bar.arrive), with which dK/dV's two
+//     consumer warpgroups take turns at issuing their products;
+//   * the cluster barrier and distributed shared memory (mapa and
+//     ld.shared::cluster), for the forward's split over keys;
+//   * ex2.approx.ftz.f32.
+// No setmaxnreg: the forward has no producer warp (its thread 0 issues
+// the loads) and dK/dV's is one warp, with too few registers to be worth
+// giving back.
+//
+// Tiles. A [rows, DP] bf16 tile (DP = the head dim, at least 16, the
+// wgmma depth) lies in shared memory as PANELS = DP*2/SW panels [rows, SW/2]
+// of SW = min(128, 2*DP) bytes a row, each 1024-byte aligned, in the SW-byte
+// swizzle (SW = 32, 64, 128): the 16-byte chunk c of the row at byte
+// address a goes to chunk c ^ ((a >> 7) & (SW/16 - 1)). TMA writes that
+// layout (CU_TENSOR_MAP_SWIZZLE_<SW>B, a box {SW/2, rows, 1}) and wgmma
+// reads it through a descriptor of the same swizzle mode:
+//   * K-major (the reduction dim along the row: Q and K in Q*K^T): the k16
+//     slice k of a panel starts at the panel + 32*k bytes; rows are SW
+//     apart and groups of 8 rows SBO = 8*SW apart;
+//   * MN-major (the output columns along the row: V in P*V): the k16 slice
+//     (16 rows) starts at the panel + 16*SW*k bytes, groups of 8 rows SBO
+//     = 8*SW apart, and N = SW/2 columns (one panel) per instruction.
+// LBO, the stride between panels in one instruction, is never used: each
+// wgmma reads one panel (N <= SW/2, and a k16 slice lies in one row).
+//
+// Fragments. The m64nNk16 accumulator of a warpgroup gives warp w rows
+// 16w..16w+15 and lane l the pairs (row 16w + l/4 (+8), columns 8j +
+// 2(l%4), +1) as d[j][0..1] (d[j][2..3] for row +8): the m16n8 layout of
+// mma_sm90.cuh, n8 block j after block j. The register A operand of a k16
+// step is mma.m16n8k16's A fragment on each warp's 16 rows, so two n8
+// accumulator blocks repack into it in registers (flash_mma.cuh split_a).
+//
+// The CPU emulation (tests/cuda_emu/wgmma_sm90.cuh) defines the same names.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace wgmma_sm90 {
+
+// ---- shared memory --------------------------------------------------------
+
+// The block's dynamic shared memory.
+__device__ __forceinline__ char* dynamic_smem() {
+  extern __shared__ __align__(1024) char smem_dynamic[];
+  return smem_dynamic;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarrier -------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// Makes the initialised barriers visible to the async proxy (TMA).
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// One arrival that also expects `bytes` more of transactions (a TMA load).
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Returns once the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// ---- TMA ------------------------------------------------------------------
+
+// Box (c0, c1, c2) of the 3-D tensor map into shared memory at dst,
+// completing `bar`'s transactions by the box's bytes (zeros out of bounds).
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// ---- wgmma ----------------------------------------------------------------
+
+// Descriptor of a swizzled tile at shared address `addr` with rows of `sw`
+// bytes (32, 64 or 128); SBO = 8 rows, LBO unused (1), base offset 0.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, int sw) {
+  const uint64_t mode = sw == 128 ? 1 : (sw == 64 ? 2 : 3);
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)((8 * sw) >> 4) << 32) | (mode << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pins accumulator registers in place around the asynchronous products, so
+// that the compiler neither reads them before a wait nor writes them while
+// a product is in flight.
+template <int NB> __device__ __forceinline__ void fence_acc(float (&d)[NB][4]) {
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+  }
+}
+
+#define WG_D4(i) "+f"(d[i][0]), "+f"(d[i][1]), "+f"(d[i][2]), "+f"(d[i][3])
+#define WG_D8(i) WG_D4(i), WG_D4(i + 1)
+#define WG_D16(i) WG_D8(i), WG_D8(i + 2)
+#define WG_D32(i) WG_D16(i), WG_D16(i + 4)
+#define WG_R8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define WG_R16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define WG_R32                                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define WG_OP(N) "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 "
+#define WG_PRED(S) "{\n.reg .pred wg_acc;\nsetp.ne.b32 wg_acc, %" #S ", 0;\n"
+
+// d (64 x N f32, N = 8 * NB) (+)= A * B, A (64 x 16) from a K-major
+// descriptor, B (16 x N) from a descriptor, K-major (TRANS_B = 0) or
+// MN-major (1); accumulate = false overwrites d.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss(float (&d)[2][4], uint64_t a, uint64_t b, bool accumulate) {
+  asm volatile(WG_PRED(10) WG_OP(16) WG_R8 ", %8, %9, wg_acc, 1, 1, 0, %11;\n}\n"
+               : WG_D8(0)
+               : "l"(a), "l"(b), "r"((int)accumulate), "n"(TRANS_B));
+}
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss(float (&d)[4][4], uint64_t a, uint64_t b, bool accumulate) {
+  asm volatile(WG_PRED(18) WG_OP(32) WG_R16 ", %16, %17, wg_acc, 1, 1, 0, %19;\n}\n"
+               : WG_D16(0)
+               : "l"(a), "l"(b), "r"((int)accumulate), "n"(TRANS_B));
+}
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t a, uint64_t b, bool accumulate) {
+  asm volatile(WG_PRED(34) WG_OP(64) WG_R32 ", %32, %33, wg_acc, 1, 1, 0, %35;\n}\n"
+               : WG_D32(0)
+               : "l"(a), "l"(b), "r"((int)accumulate), "n"(TRANS_B));
+}
+
+// The same with A from registers: each thread's a[4] is its part of the
+// 64 x 16 operand in mma.m16n8k16's A layout on its warp's 16 rows.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[2][4], const uint32_t (&a)[4], uint64_t b,
+                                         bool accumulate) {
+  asm volatile(WG_PRED(13) WG_OP(16) WG_R8 ", {%8, %9, %10, %11}, %12, wg_acc, 1, 1, %14;\n}\n"
+               : WG_D8(0)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"((int)accumulate),
+                 "n"(TRANS_B));
+}
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[4][4], const uint32_t (&a)[4], uint64_t b,
+                                         bool accumulate) {
+  asm volatile(WG_PRED(21) WG_OP(32) WG_R16 ", {%16, %17, %18, %19}, %20, wg_acc, 1, 1, %22;\n}\n"
+               : WG_D16(0)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"((int)accumulate),
+                 "n"(TRANS_B));
+}
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[8][4], const uint32_t (&a)[4], uint64_t b,
+                                         bool accumulate) {
+  asm volatile(WG_PRED(37) WG_OP(64) WG_R32 ", {%32, %33, %34, %35}, %36, wg_acc, 1, 1, %38;\n}\n"
+               : WG_D32(0)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"((int)accumulate),
+                 "n"(TRANS_B));
+}
+
+#undef WG_D4
+#undef WG_D8
+#undef WG_D16
+#undef WG_D32
+#undef WG_R8
+#undef WG_R16
+#undef WG_R32
+#undef WG_OP
+#undef WG_PRED
+
+// ---- named barriers ---------------------------------------------------------
+
+// Barrier `id` (1 to 15; 0 is __syncthreads') of `count` threads, counting
+// whole warps: wait at it, or arrive at it and go on.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// ---- cluster and distributed shared memory ---------------------------------
+
+// Every thread of every block of the cluster; orders shared-memory writes
+// before it with reads after it, across the cluster's blocks.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::
+                   : "memory");
+}
+
+// The address of the same shared-memory location in block `rank` of the
+// cluster, and a load from it.
+__device__ __forceinline__ uint32_t map_to_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// ---- arithmetic -----------------------------------------------------------
+
+// 2^x on the MUFU, subnormal results flushed to 0.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+}  // namespace wgmma_sm90
+
+// ---- host: tensor maps and launches ----------------------------------------
+
+namespace wgmma_sm90_host {
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the libcuda the runtime loaded (null if none).
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess) ? reinterpret_cast<EncodeTiled>(p)
+                                                                        : nullptr;
+  }();
+  return fn;
+}
+
+// A map of the bf16 [bh, t, d] tensor at `base` (row-major) with boxes of
+// {cols, rows, 1} in the `sw`-byte swizzle (cols * 2 == sw); out-of-bounds
+// elements (rows >= t, columns >= d) load as zeros.
+inline cudaError_t tile_map(CUtensorMap* map, const void* base, int bh, int t, int d, int cols,
+                            int rows, int sw) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)t * d * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle = sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                         strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The current device's SM count (cached per device).
+inline int sm_count() {
+  static int counts[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (counts[dev] == 0) {
+    int n = 0;
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    counts[dev] = n > 0 ? n : 132;
+  }
+  return counts[dev];
+}
+
+// Raises a kernel's dynamic shared-memory limit to `bytes` once per device.
+template <class Kernel>
+inline cudaError_t allow_smem(Kernel kernel, int bytes, uint64_t& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = (uint64_t)1 << (dev & 63);
+  if (done & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done |= bit;
+  return err;
+}
+
+}  // namespace wgmma_sm90_host

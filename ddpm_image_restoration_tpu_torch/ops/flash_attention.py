@@ -10,13 +10,20 @@ plain version; a CUDA tensor always takes the kernel, and anything the
 kernel does not take raises.
 
 Which design serves which dtype on the card:
-  * bf16: the forward, dQ and dK/dV run their products on the tensor cores
-    (`mma.sync` m16n8k16 with f32 accumulation, P and dS carried as a
-    bf16 hi/lo pair);
+  * bf16: the forward and dK/dV run their products by Hopper's `wgmma`,
+    their tiles arriving by TMA into an mbarrier ring; dQ by `mma.sync`
+    m16n8k16; all with f32 accumulation, P and dS carried as a bf16 hi/lo
+    pair;
   * f32: all three run on the CUDA cores in f32 (FMA).
-The tensor-core kernels read rows with `cp.async` and `ldmatrix`, which need
-16-byte-aligned addresses, so every CUDA input must start 16-byte aligned (a
-contiguous view at an odd offset is refused, not copied).
+The tensor-core kernels read rows by TMA (whose tensor maps need 16-byte
+aligned bases) or by `cp.async` and `ldmatrix` (16-byte-aligned addresses),
+so every CUDA input must start 16-byte aligned (a contiguous view at an odd
+offset is refused, not copied).
+
+Head dims: each kernel is built for the dims in `HEAD_DIMS`, and the bf16
+forward and dK/dV for D = 8 too (zero-filled to the wgmma depth of 16 in
+shared memory); a smaller D is zero-padded to the next built one
+(`kernel_head_dim`), so dQ and the f32 kernels pad D = 8 to 16.
 """
 
 from __future__ import annotations
@@ -31,6 +38,9 @@ from ddpm_image_restoration_tpu_torch.ops import build
 KERNEL = "flash_attention_fwd"
 BWD_KERNEL = "flash_attention_bwd"
 HEAD_DIMS = (16, 32, 64, 128)
+# The bf16 forward and dK/dV (wgmma) are built for D = 8 too.
+WGMMA_HEAD_DIMS = (8, *HEAD_DIMS)
+WGMMA_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -138,10 +148,18 @@ def _check_stats(name: str, q: torch.Tensor, *stats: torch.Tensor) -> None:
                              f"{s.dtype} on {s.device}")
 
 
-def _pad_d(d: int, *tensors: torch.Tensor):
-    """The built head dim for `d` and the tensors zero-padded to it (zero
-    lanes add nothing to any dot product, and the scale stays 1/√d)."""
-    d_kernel = next(h for h in HEAD_DIMS if h >= d)
+def kernel_head_dim(name: str, d: int, dtype: torch.dtype) -> int:
+    """The head dim the launcher `name` runs for a D of `d` in `dtype`: the
+    smallest of its built dims that holds it (WGMMA_HEAD_DIMS for the bf16
+    forward and dK/dV, HEAD_DIMS for dQ and every f32 kernel)."""
+    wgmma = dtype == torch.bfloat16 and name in WGMMA_KERNELS
+    return next(h for h in (WGMMA_HEAD_DIMS if wgmma else HEAD_DIMS) if h >= d)
+
+
+def _pad_d(name: str, d: int, *tensors: torch.Tensor):
+    """`kernel_head_dim` and the tensors zero-padded to it (zero lanes add
+    nothing to any dot product, and the scale stays 1/√d)."""
+    d_kernel = kernel_head_dim(name, d, tensors[0].dtype)
     if d_kernel == d:
         return d_kernel, tensors
     return d_kernel, tuple(torch.nn.functional.pad(z, (0, d_kernel - d)) for z in tensors)
@@ -163,13 +181,14 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     computes. Launches the kernel for CUDA tensors (bf16 or f32, contiguous,
     D <= 128) and counts each launch in `flash_attention_fwd.launches`. The
     kernel is built for the head dims in HEAD_DIMS; a smaller D is
-    zero-padded to the next one (zero lanes add nothing to the scores, and
-    the softmax scale stays 1/√D), as the JAX wrapper pads D to 128 lanes."""
+    zero-padded to the next one (`kernel_head_dim`: zero lanes add nothing
+    to the scores, and the softmax scale stays 1/√D), as the JAX wrapper
+    pads D to 128 lanes."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, save_lse)
     _check("flash_attention_fwd", q, k, v)
     bh, t, d = q.shape
-    d_kernel, (q, k, v) = _pad_d(d, q, k, v)
+    d_kernel, (q, k, v) = _pad_d("flash_attention_fwd", d, q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((bh, t), dtype=torch.float32, device=q.device) if save_lse else None
     _launch("flash_attention_fwd",
@@ -190,7 +209,7 @@ def flash_attention_bwd_dq(q, k, v, o, do, lse):
     _check("flash_attention_bwd_dq", q, k, v, o, do)
     _check_stats("flash_attention_bwd_dq", q, lse)
     bh, t, d = q.shape
-    d_kernel, (q, k, v, o, do) = _pad_d(d, q, k, v, o, do)
+    d_kernel, (q, k, v, o, do) = _pad_d("flash_attention_bwd_dq", d, q, k, v, o, do)
     dq = torch.empty_like(q)
     delta = torch.empty((bh, t), dtype=torch.float32, device=q.device)
     _launch("flash_attention_bwd_dq",
@@ -211,7 +230,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta):
     _check("flash_attention_bwd_dkv", q, k, v, do)
     _check_stats("flash_attention_bwd_dkv", q, lse, delta)
     bh, t, d = q.shape
-    d_kernel, (q, k, v, do) = _pad_d(d, q, k, v, do)
+    d_kernel, (q, k, v, do) = _pad_d("flash_attention_bwd_dkv", d, q, k, v, do)
     dk, dv = torch.empty_like(q), torch.empty_like(q)
     _launch("flash_attention_bwd_dkv",
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),

@@ -1,0 +1,174 @@
+#!/usr/bin/env python3
+"""Times the bf16 flash-attention forward and dK/dV kernels of several
+builds of the port's CUDA sources on one card, in turns.
+
+    python3 kernel_ab.py [--splits] NAME=CSRC_DIR [NAME=CSRC_DIR ...]
+
+Each CSRC_DIR is a copy of `ddpm_image_restoration_tpu_torch/csrc` (the
+checkout's, a parent commit's from `git archive`, or an edited copy); each
+is built with the port's nvcc flags into a temporary directory and loaded
+side by side. Every build is first held to the plain versions at every
+shape (within chip_smoke.py's bounds, or the script stops), then the card
+is warmed for 10 s, then each shape is timed for every build in ROUNDS
+rounds, the order reversed each round, as device time under
+torch.profiler (chip_smoke.device_time_ms). The last lines are the
+medians. Timing builds in turns within one process is what makes them
+comparable: the same kernels can read much faster a minute into a call
+than at its start.
+
+The forward is called through `flash_attention_fwd` (each build's own
+split rule), dK/dV through `flash_attention_bwd_dkv` on the plain
+version's LSE and Delta. A build that does not take D = 8 (before the
+wgmma kernels) is timed at the D = 8 shapes as "-". With --splits, the
+first build's forward is also timed with its keys split over clusters of
+1, 2 and 4 blocks (`flash_attention_fwd_split`) at the small-BH shapes of
+SPLIT_SHAPES. Needs a CUDA card and nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import sys
+import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+ROUNDS = 3
+# (BH, T, D, save_lse): the forward's serve, train-step, restore and AVIF
+# train-step shapes; dK/dV's train-step shapes (BH, T, D)
+FWD = [(32, 1024, 32, False), (32, 1024, 16, False), (72, 1024, 32, True),
+       (4, 1024, 32, False), (64, 1024, 8, True)]
+DKV = [(72, 1024, 32), (72, 1024, 16), (64, 1024, 8)]
+# (BH, T, D): the restore CLI's, the AVIF restore's and the validation's
+SPLIT_SHAPES = [(4, 1024, 32), (8, 1024, 16), (8, 1024, 32), (16, 1024, 32)]
+
+
+def build(name: str, csrc: Path, nvcc: str, flags) -> tuple[str, dict]:
+    out = Path(tempfile.mkdtemp(prefix=f"ab_{name}_"))
+    libs = {}
+    for lib in ("flash_attention_fwd", "flash_attention_bwd"):
+        so = out / f"lib{lib}.so"
+        r = subprocess.run([nvcc, *flags, "-o", str(so), str(csrc / f"{lib}.cu")],
+                           capture_output=True, text=True)
+        if r.returncode:
+            raise RuntimeError(f"{name}: nvcc failed on {lib}:\n{r.stderr[-3000:]}")
+        libs[lib] = ctypes.CDLL(str(so))
+    fwd, dkv = libs["flash_attention_fwd"].flash_attention_fwd, \
+        libs["flash_attention_bwd"].flash_attention_bwd_dkv
+    fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    dkv.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    fwd.restype = dkv.restype = ctypes.c_int
+    return name, {"fwd": fwd, "dkv": dkv, "lib": libs["flash_attention_fwd"]}
+
+
+def main() -> int:
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    if not torch.cuda.is_available() or len(sys.argv) < 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    import chip_smoke
+    from ddpm_image_restoration_tpu_torch.ops import build as port_build
+    from ddpm_image_restoration_tpu_torch.ops import flash_attention as fa
+
+    splits = "--splits" in sys.argv[1:]
+    specs = [arg.split("=", 1) for arg in sys.argv[1:] if arg != "--splits"]
+    nvcc = port_build.find_nvcc()
+    with ThreadPoolExecutor(len(specs)) as pool:
+        builds = dict(pool.map(lambda s: build(s[0], Path(s[1]).resolve(), nvcc,
+                                               port_build.NVCC_FLAGS), specs))
+    print(chip_smoke.nvidia_smi_line(), flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def randn(bh, t, d):
+        return torch.randn(bh, t, d, device="cuda", generator=gen).to(torch.bfloat16)
+
+    calls = {}  # (kind, shape) -> (name -> call or None), and the check
+    for shape in FWD:
+        bh, t, d, lse = shape
+        q, k, v = randn(bh, t, d), randn(bh, t, d), randn(bh, t, d)
+        o, l = torch.empty_like(q), torch.empty(bh, t, device="cuda")
+        ref = fa.flash_attention_plain(q, k, v)
+
+        def make(f, q=q, k=k, v=v, o=o, l=l, bh=bh, t=t, d=d, lse=lse):
+            return lambda: f(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                             l.data_ptr() if lse else None, bh, t, d, 1, d ** -0.5, stream)
+        calls[("fwd", shape)] = ({n: make(b["fwd"]) for n, b in builds.items()},
+                                 lambda o=o, ref=ref: [(o, ref)])
+    for shape in DKV:
+        bh, t, d = shape
+        q, k, v, do = randn(bh, t, d), randn(bh, t, d), randn(bh, t, d), randn(bh, t, d)
+        o, lse = fa.flash_attention_plain(q, k, v, save_lse=True)
+        delta = (do.float() * o.float()).sum(-1)
+        dk, dv = torch.empty_like(q), torch.empty_like(q)
+        rdk, rdv = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta)
+
+        def make(f, q=q, k=k, v=v, do=do, lse=lse, delta=delta, dk=dk, dv=dv, bh=bh, t=t, d=d):
+            return lambda: f(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                             bh, t, d, 1, d ** -0.5, stream)
+        calls[("dkv", shape)] = ({n: make(b["dkv"]) for n, b in builds.items()},
+                                 lambda dk=dk, dv=dv, rdk=rdk, rdv=rdv: [(dk, rdk), (dv, rdv)])
+
+    # each build's calls against the plain versions; a refused launch is "-"
+    for key, (per_build, outputs) in calls.items():
+        for name, call in per_build.items():
+            if call() != 0:
+                per_build[name] = None
+                continue
+            torch.cuda.synchronize()
+            share = max(chip_smoke.max_err(a, b)[1] for a, b in outputs())
+            if not share <= 1.0:
+                raise AssertionError(f"{name} {key}: {share:.3g} of the bound")
+    print("every build within the bounds", flush=True)
+    t0 = time.time()
+    while time.time() - t0 < 10:
+        for per_build, _ in calls.values():
+            for call in per_build.values():
+                if call:
+                    call()
+    torch.cuda.synchronize()
+
+    names = list(builds)
+    times = {n: {key: [] for key in calls} for n in names}
+    for rnd in range(ROUNDS):
+        for name in names if rnd % 2 == 0 else names[::-1]:
+            for key, (per_build, _) in calls.items():
+                call = per_build[name]
+                times[name][key].append(chip_smoke.device_time_ms(call) if call else None)
+    print("device us, median of", ROUNDS, "rounds:", [f"{k}{s}" for k, s in calls], flush=True)
+    for name in names:
+        row = []
+        for key in calls:
+            xs = [x for x in times[name][key] if x is not None]
+            row.append(f"{sorted(xs)[len(xs) // 2] * 1e3:7.1f}" if xs else "      -")
+        print(f"{name:>12} " + " ".join(row), flush=True)
+    if splits:
+        name = names[0]
+        fwd_split = builds[name]["lib"].flash_attention_fwd_split
+        fwd_split.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fwd_split.restype = ctypes.c_int
+        print(f"{name}: forward device us split over 1, 2, 4 blocks, median of {ROUNDS} rounds",
+              flush=True)
+        for bh, t, d in SPLIT_SHAPES:
+            q, k, v = randn(bh, t, d), randn(bh, t, d), randn(bh, t, d)
+            o = torch.empty_like(q)
+            row = []
+            for split in (1, 2, 4):
+                def call(split=split):
+                    return fwd_split(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None,
+                                     bh, t, d, 1, d ** -0.5, split, stream)
+                xs = sorted(chip_smoke.device_time_ms(call) for _ in range(ROUNDS))
+                row.append(f"{xs[len(xs) // 2] * 1e3:7.1f}")
+            print(f"  ({bh},{t},{d}) " + " ".join(row), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

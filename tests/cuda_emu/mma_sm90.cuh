@@ -23,11 +23,6 @@ inline void cp_async_16(uint32_t dst, const void* src, bool valid) {
   else memset(emu_smem(dst), 0, 16);
 }
 
-inline void cp_async_4(uint32_t dst, const void* src, bool valid) {
-  if (valid) memcpy(emu_smem(dst), src, 4);
-  else memset(emu_smem(dst), 0, 4);
-}
-
 inline void cp_async_commit() {}
 template <int N> inline void cp_async_wait() {}
 

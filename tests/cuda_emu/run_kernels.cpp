@@ -3,7 +3,11 @@
 // launch dtype, runs the forward (with LSE), dQ and dK/dV, and writes o,
 // lse, dq, delta, dk, dv back to <dir> as raw f32.
 //
-//   run_kernels <dir> <bh> <t> <d> <dtype: 0 f32, 1 bf16>
+//   run_kernels <dir> <bh> <t> <d> <dtype: 0 f32, 1 bf16> <split> <d_fwd> <d_dq> <d_dkv>
+//
+// split: the bf16 forward's split over keys (0: the launcher's own rule);
+// d_fwd, d_dq, d_dkv: the head dim each launcher runs at, to which its
+// inputs are zero-padded as the wrappers pad them (the outputs sliced back).
 #include <cstdio>
 #include <cstdlib>
 #include <string>
@@ -11,8 +15,8 @@
 
 #include "emu.h"
 
-extern "C" int flash_attention_fwd(const void*, const void*, const void*, void*, void*, int,
-                                   int, int, int, float, void*);
+extern "C" int flash_attention_fwd_split(const void*, const void*, const void*, void*, void*,
+                                         int, int, int, int, float, int, void*);
 extern "C" int flash_attention_bwd_dq(const void*, const void*, const void*, const void*,
                                       const void*, const void*, void*, void*, int, int, int,
                                       int, float, void*);
@@ -43,6 +47,14 @@ struct Tensor {
   }
 };
 
+// [rows, d] as [rows, d_to], zeros in the new columns (d_to >= d), or back.
+std::vector<float> repad(const std::vector<float>& x, size_t rows, int d, int d_to) {
+  std::vector<float> y(rows * d_to, 0.f);
+  for (size_t r = 0; r < rows; ++r)
+    for (int c = 0; c < d && c < d_to; ++c) y[r * d_to + c] = x[r * d + c];
+  return y;
+}
+
 std::vector<float> read(const std::string& path, size_t n) {
   std::vector<float> f(n);
   FILE* fp = fopen(path.c_str(), "rb");
@@ -60,28 +72,46 @@ void write(const std::string& path, const std::vector<float>& f) {
 }  // namespace
 
 int main(int argc, char** argv) {
-  if (argc != 6) { fprintf(stderr, "usage: run_kernels dir bh t d dtype\n"); return 2; }
+  if (argc != 10) {
+    fprintf(stderr, "usage: run_kernels dir bh t d dtype split d_fwd d_dq d_dkv\n");
+    return 2;
+  }
   const std::string dir = argv[1];
   const int bh = atoi(argv[2]), t = atoi(argv[3]), d = atoi(argv[4]), dt = atoi(argv[5]);
-  const size_t n = (size_t)bh * t * d, rows = (size_t)bh * t;
+  const int split = atoi(argv[6]), d_fwd = atoi(argv[7]), d_dq = atoi(argv[8]), d_dkv = atoi(argv[9]);
+  const size_t rows = (size_t)bh * t, n = rows * d;
   const float scale = 1.f / sqrtf((float)d);
-  Tensor q(dt, n), k(dt, n), v(dt, n), dout(dt, n), o(dt, n), dq(dt, n), dk(dt, n), dv(dt, n);
+  const std::vector<float> fq = read(dir + "/q", n), fk = read(dir + "/k", n),
+                           fv = read(dir + "/v", n), fdo = read(dir + "/do", n);
+  // the inputs and outputs of one launch, at its head dim dk
+  auto tensors = [&](int dk, std::vector<const std::vector<float>*> ins, int n_out) {
+    std::vector<Tensor> ts;
+    for (auto* x : ins) {
+      ts.emplace_back(dt, rows * dk);
+      ts.back().set(repad(*x, rows, d, dk));
+    }
+    for (int i = 0; i < n_out; ++i) ts.emplace_back(dt, rows * dk);
+    return ts;
+  };
   Tensor lse(0, rows), delta(0, rows);
-  q.set(read(dir + "/q", n));
-  k.set(read(dir + "/k", n));
-  v.set(read(dir + "/v", n));
-  dout.set(read(dir + "/do", n));
-  int err = flash_attention_fwd(q.ptr(), k.ptr(), v.ptr(), o.ptr(), lse.ptr(), bh, t, d, dt, scale, nullptr);
-  err = err ? err : flash_attention_bwd_dq(q.ptr(), k.ptr(), v.ptr(), o.ptr(), dout.ptr(), lse.ptr(),
-                                           dq.ptr(), delta.ptr(), bh, t, d, dt, scale, nullptr);
-  err = err ? err : flash_attention_bwd_dkv(q.ptr(), k.ptr(), v.ptr(), dout.ptr(), lse.ptr(),
-                                            delta.ptr(), dk.ptr(), dv.ptr(), bh, t, d, dt, scale, nullptr);
+  std::vector<Tensor> f = tensors(d_fwd, {&fq, &fk, &fv}, 1);
+  int err = flash_attention_fwd_split(f[0].ptr(), f[1].ptr(), f[2].ptr(), f[3].ptr(), lse.ptr(), bh,
+                                      t, d_fwd, dt, scale, split, nullptr);
+  const std::vector<float> fo = repad(f[3].get(), rows, d_fwd, d);
+  std::vector<Tensor> b = tensors(d_dq, {&fq, &fk, &fv, &fo, &fdo}, 1);
+  err = err ? err : flash_attention_bwd_dq(b[0].ptr(), b[1].ptr(), b[2].ptr(), b[3].ptr(),
+                                           b[4].ptr(), lse.ptr(), b[5].ptr(), delta.ptr(), bh, t,
+                                           d_dq, dt, scale, nullptr);
+  std::vector<Tensor> c = tensors(d_dkv, {&fq, &fk, &fv, &fdo}, 2);
+  err = err ? err : flash_attention_bwd_dkv(c[0].ptr(), c[1].ptr(), c[2].ptr(), c[3].ptr(),
+                                            lse.ptr(), delta.ptr(), c[4].ptr(), c[5].ptr(), bh, t,
+                                            d_dkv, dt, scale, nullptr);
   if (err) { fprintf(stderr, "launch error %d\n", err); return 1; }
-  write(dir + "/o", o.get());
+  write(dir + "/o", fo);
   write(dir + "/lse", lse.get());
-  write(dir + "/dq", dq.get());
+  write(dir + "/dq", repad(b[5].get(), rows, d_dq, d));
   write(dir + "/delta", delta.get());
-  write(dir + "/dk", dk.get());
-  write(dir + "/dv", dv.get());
+  write(dir + "/dk", repad(c[4].get(), rows, d_dkv, d));
+  write(dir + "/dv", repad(c[5].get(), rows, d_dkv, d));
   return 0;
 }

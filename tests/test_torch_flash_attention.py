@@ -185,6 +185,41 @@ def test_alignment_rule():
         fa._check_aligned("t", base[:2048].view(2, 64, 16), base[1:2049].view(2, 64, 16))
 
 
+# (D, dtype) -> the head dim the forward, dQ and dK/dV launchers run it at.
+HEAD_DIM_RULE = [(4, torch.bfloat16, 8, 16, 8), (8, torch.bfloat16, 8, 16, 8),
+                 (12, torch.bfloat16, 16, 16, 16), (16, torch.bfloat16, 16, 16, 16),
+                 (33, torch.bfloat16, 64, 64, 64), (128, torch.bfloat16, 128, 128, 128),
+                 (4, torch.float32, 16, 16, 16), (8, torch.float32, 16, 16, 16),
+                 (32, torch.float32, 32, 32, 32)]
+
+
+@pytest.mark.parametrize("d,dtype,fwd,dq,dkv", HEAD_DIM_RULE)
+def test_kernel_head_dim_rule(d, dtype, fwd, dq, dkv):
+    """Which head dims each kernel takes natively and which it pads: the
+    bf16 forward and dK/dV (wgmma, the head dim zero-filled to the wgmma
+    depth in shared memory) take D = 8 as it is; the dQ kernel and the f32
+    kernels pad it to 16; any other D pads to the next built one."""
+    assert fa.kernel_head_dim("flash_attention_fwd", d, dtype) == fwd
+    assert fa.kernel_head_dim("flash_attention_bwd_dq", d, dtype) == dq
+    assert fa.kernel_head_dim("flash_attention_bwd_dkv", d, dtype) == dkv
+
+
+@pytest.mark.parametrize("name,dtype,padded", [
+    ("flash_attention_fwd", torch.bfloat16, False), ("flash_attention_bwd_dq", torch.bfloat16, True),
+    ("flash_attention_bwd_dkv", torch.bfloat16, False), ("flash_attention_fwd", torch.float32, True)])
+def test_d8_pad_by_kernel(name, dtype, padded):
+    """At D = 8 the wrappers hand the bf16 forward and dK/dV kernels the
+    tensors as they are (the same objects: no copy, no slice after), and
+    the dQ and f32 kernels a copy zero-padded to 16."""
+    x = torch.randn(2, 70, 8).to(dtype)
+    d_kernel, (y,) = fa._pad_d(name, 8, x)
+    if padded:
+        assert d_kernel == 16 and y.shape == (2, 70, 16)
+        assert torch.equal(y[..., :8], x) and not y[..., 8:].any()
+    else:
+        assert d_kernel == 8 and y is x
+
+
 @pytest.mark.parametrize("bh,t,d", [(4, 300, 64), (4, 1300, 16)])
 def test_bwd_plain_matches_pallas_interpret(rng, bh, t, d):
     """dQ, dK, dV of the plain backward against the JAX backward kernels

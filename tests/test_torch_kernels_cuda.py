@@ -54,7 +54,7 @@ def test_kernel_matches_plain_on_card(card, bh, t, d, dtype, step):
     assert o.dtype == dtype and lse.shape == (bh, t)
     assert close(o, ro, step)
     assert close(lse, rlse)
-    # a head dim between the built ones is zero-padded to the next
+    # D = 8: the bf16 forward takes it natively, the f32 one pads it to 16
     q8, k8, v8 = (z[..., :8].contiguous() for z in (q, k, v))
     o8 = fa.flash_attention_fwd(q8, k8, v8)
     torch.cuda.synchronize()
@@ -256,7 +256,8 @@ def test_small_restore_on_card_matches_cpu(card):
 
 
 # The AVIF model's 8-head shapes: batch 8 at down2 (head dim 128/8 = 16) and
-# up4 (64/8 = 8, which the wrappers zero-pad to 16).
+# up4 (64/8 = 8, which the bf16 forward and dK/dV take natively and the
+# other wrappers zero-pad to 16).
 AVIF_SHAPES = [(64, 1024, 16), (64, 1024, 8)]
 
 
@@ -454,3 +455,78 @@ def test_model_axis_step_on_card_matches_one_process(card, tmp_path):
         assert n == launches
         assert abs(got_loss - loss) <= 1e-4 * abs(loss)
         assert max((got[k] - g).abs().max().item() for k, g in grads.items()) <= 1e-4 * top
+
+
+def _counting_pads(monkeypatch):
+    """Counts torch.nn.functional.pad calls, which the wrappers' head-dim
+    padding makes."""
+    calls = []
+    real = torch.nn.functional.pad
+
+    def pad(*args, **kwargs):
+        calls.append(args[0].shape)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(torch.nn.functional, "pad", pad)
+    return calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,t", [(64, 1024), (3, 200)])
+@pytest.mark.parametrize("dtype,step", STEPS)
+def test_d8_forward_and_dkv_take_no_pad_on_card(card, monkeypatch, bh, t, dtype, step):
+    """At D = 8 the bf16 forward and dK/dV kernels run on the [BH, T, 8]
+    tensors as they are (the wgmma kernels zero-fill the head dim to 16 in
+    shared memory; no pad and no slice), dQ and the f32 kernels pad to 16,
+    and all three stay within their bounds: the AVIF up4 shape and a ragged
+    one."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v, do = (torch.randn(bh, t, 8, device="cuda", generator=g).to(dtype)
+                   for _ in range(4))
+    pads = _counting_pads(monkeypatch)
+    bf16 = dtype == torch.bfloat16
+    o, lse = fa.flash_attention_fwd(q, k, v, save_lse=True)
+    assert len(pads) == (0 if bf16 else 3)
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse)
+    assert len(pads) == (5 if bf16 else 8)  # q, k, v, o, dO for the dQ kernel
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    assert len(pads) == (5 if bf16 else 12)
+    torch.cuda.synchronize()
+    ro, rlse = fa.flash_attention_plain(q, k, v, save_lse=True)
+    rdq, rdelta = fa.flash_attention_bwd_dq_plain(q, k, v, o, do, lse)
+    rdk, rdv = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, rdelta)
+    assert close(o, ro, step) and close(lse, rlse)
+    assert close(dq, rdq, step) and close(delta, rdelta)
+    assert close(dk, rdk, step) and close(dv, rdv, step)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,t,d", [(4, 1024, 32), (8, 1024, 16), (2, 300, 8)])
+@pytest.mark.parametrize("split", [0, 1, 2, 4])
+def test_forward_split_over_keys_on_card(card, bh, t, d, split):
+    """The bf16 forward at the restore CLI's shape (4, 1024, 32), the AVIF
+    restore's (8, 1024, 16) and a ragged D = 8 one, with its keys split over
+    a cluster of 1, 2 or 4 blocks (the launcher's C entry point forced; 0:
+    its own rule, which takes 4, 2 and 4 here) and merged through
+    distributed shared memory: O and the LSE within their bounds."""
+    import ctypes
+
+    from ddpm_image_restoration_tpu_torch.ops import build
+
+    fn = build.load(fa.KERNEL).flash_attention_fwd_split
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    g = torch.Generator(device="cuda").manual_seed(8)
+    q, k, v = (torch.randn(bh, t, d, device="cuda", generator=g).to(torch.bfloat16)
+               for _ in range(3))
+    o = torch.empty_like(q)
+    lse = torch.empty(bh, t, device="cuda")
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), bh, t, d,
+             1, d ** -0.5, split, torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    ro, rlse = fa.flash_attention_plain(q, k, v, save_lse=True)
+    assert close(o, ro, 2 ** -7) and close(lse, rlse)
+    if split == 0:  # the wrapper's call, the same rule
+        assert close(fa.flash_attention_fwd(q, k, v), ro, 2 ** -7)

@@ -1,16 +1,22 @@
 """The port's CUDA kernel sources run on the CPU, lane by lane.
 
 The sources in `ddpm_image_restoration_tpu_torch/csrc/` compile with g++
-against `tests/cuda_emu/`, which emulates what they use of CUDA: threads and
-blocks, `__syncthreads`, shuffles, and the sm_90a instructions of
-`mma_sm90.cuh` (`ldmatrix`, `mma.sync` m16n8k16, `cp.async`). The emulated
-launchers (forward with LSE, dQ with Delta, dK/dV) then face the same checks
-as the card tests (tests/test_torch_kernels_cuda.py): each output against
-its plain PyTorch version entry by entry, within one bf16 step of the entry
-(bf16 outputs) plus 1e-4 of the largest. This checks the kernels' indexing,
-fragment layouts, tiling, masking and numerics; it cannot check the PTX
-itself, the timing, or races between cp.async and the threads, which only
-the card shows.
+against `tests/cuda_emu/`, which emulates what they use of CUDA: threads,
+blocks and clusters, `__syncthreads`, shuffles, the sm_90a instructions of
+`mma_sm90.cuh` (`ldmatrix`, `mma.sync` m16n8k16, `cp.async`: the dQ
+kernel) and of `wgmma_sm90.cuh` (the forward and dK/dV: `wgmma` from
+swizzled shared-memory descriptors and registers, run at the wait that
+needs it; `mbarrier` phases and transaction counts; TMA tile loads with
+zero fill and swizzle; the cluster barrier and distributed shared memory),
+and the tensor-map encoder's checks. The emulated launchers (forward with
+LSE, dQ with Delta, dK/dV) then face the same checks as the card tests
+(tests/test_torch_kernels_cuda.py): each output against its plain PyTorch
+version entry by entry, within one bf16 step of the entry (bf16 outputs)
+plus 1e-4 of the largest. This checks the kernels' indexing, fragment and
+shared-memory layouts, tiling, the ring's protocol, masking and numerics; it
+cannot check the PTX itself, the timing, or races the emulation does not
+provoke, which only the card shows, and it reads the PTX ISA as the
+kernels' author does (tests/cuda_emu/wgmma_sm90.cuh).
 """
 
 import re
@@ -30,10 +36,17 @@ torch.set_num_threads(1)
 
 EMU_DIR = Path(__file__).resolve().parent / "cuda_emu"
 LAUNCH = re.compile(r"(\w+<[^<>]*>)<<<(.*?)>>>\(")
-SOUND = "  mma_bf16(d, a.hi, b0, b1);\n  mma_bf16(d, a.lo, b0, b1);\n"
+# The two split products, each with its lo half: mma_split (dQ) and
+# wgmma_split (the forward and dK/dV), and each without it.
+SPLITS = [("  mma_bf16(d, a.hi, b0, b1);\n  mma_bf16(d, a.lo, b0, b1);\n",
+           "  mma_bf16(d, a.hi, b0, b1);\n"),
+          ("  wgmma_sm90::wgmma_rs<1>(d, a.hi, b, true);\n"
+           "  wgmma_sm90::wgmma_rs<1>(d, a.lo, b, true);\n",
+           "  wgmma_sm90::wgmma_rs<1>(d, a.hi, b, true);\n")]
 # Short and ragged T over the 64-row tiles (one partial tile, one full, a
 # ragged third), every head dim of the build.
-SHAPES = [(2, 17, 32), (1, 130, 16), (2, 64, 16), (1, 150, 32), (1, 70, 64), (1, 40, 128)]
+SHAPES = [(2, 17, 32), (1, 130, 16), (2, 64, 16), (1, 150, 32), (1, 70, 64), (1, 40, 128),
+          (1, 130, 8), (2, 70, 8)]
 STEPS = [(torch.bfloat16, 2 ** -7), (torch.float32, 0.0)]
 
 
@@ -47,10 +60,15 @@ def _compile(out: Path, faulted: bool = False) -> Path:
     for f in EMU_DIR.iterdir():
         shutil.copy(f, out / f.name)
     tiles = (build.CSRC_DIR / "flash_mma.cuh").read_text()
-    assert tiles.count(SOUND) == 1
-    if faulted:
-        tiles = tiles.replace(SOUND, "  mma_bf16(d, a.hi, b0, b1);\n")
+    for sound, dropped in SPLITS:
+        assert tiles.count(sound) == 1
+        if faulted:
+            tiles = tiles.replace(sound, dropped)
     (out / "flash_mma.cuh").write_text(tiles)
+    # the launchers' host code (tensor maps, the shared-memory limit) as it
+    # stands, for the emulation's wgmma_sm90.cuh to include
+    hopper = (build.CSRC_DIR / "wgmma_sm90.cuh").read_text()
+    (out / "wgmma_sm90_host.inc").write_text(hopper[hopper.index("namespace wgmma_sm90_host"):])
     units = ["run_kernels.cpp"]
     for name in (fa.KERNEL, fa.BWD_KERNEL):
         src = (build.CSRC_DIR / f"{name}.cu").read_text()
@@ -76,18 +94,22 @@ def run_kernels(tmp_path_factory):
     return _compile(tmp_path_factory.mktemp("cuda_emu"))
 
 
-def _run(run_kernels: Path, work: Path, bh, t, d, dtype, seed=0):
+def _run(run_kernels: Path, work: Path, bh, t, d, dtype, seed=0, split=1):
     """q, k, v, dO from a seeded normal, rounded to `dtype`, through the
-    emulated forward (LSE), dQ (Delta) and dK/dV launchers."""
+    emulated forward (LSE; its bf16 split over keys forced to `split`, 0
+    for the launcher's rule), dQ (Delta) and dK/dV launchers, each at the
+    head dim its wrapper pads D to."""
     rng = np.random.default_rng(seed)
     ins = {n: torch.from_numpy(rng.normal(size=(bh, t, d)).astype(np.float32)).to(dtype)
            for n in ("q", "k", "v", "do")}
     work.mkdir()
     for n, x in ins.items():
         x.float().numpy().tofile(work / n)
+    dims = [str(fa.kernel_head_dim(name, d, dtype)) for name in
+            ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")]
     r = subprocess.run([str(run_kernels), str(work), str(bh), str(t), str(d),
-                        str(int(dtype == torch.bfloat16))], capture_output=True, text=True,
-                       timeout=600)
+                        str(int(dtype == torch.bfloat16)), str(split), *dims],
+                       capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stderr[-2000:]
 
     def out(n, shape):
@@ -119,20 +141,39 @@ def _shares(ins, outs, step):
 @pytest.mark.parametrize("bh,t,d", SHAPES)
 @pytest.mark.parametrize("dtype,step", STEPS)
 def test_emulated_kernels_match_plain(run_kernels, tmp_path, bh, t, d, dtype, step):
-    """bf16 takes the tensor-core forward, dQ and dK/dV kernels, f32 the FMA
-    kernels; every output within its bound."""
+    """bf16 takes the tensor-core forward, dQ and dK/dV kernels (the
+    forward unsplit), f32 the FMA kernels; every output within its bound."""
     ins, outs = _run(run_kernels, tmp_path / "run", bh, t, d, dtype)
     shares = _shares(ins, outs, step)
     print(f"({bh},{t},{d}) {dtype}: shares of the bound {shares}")
     assert all(s <= 1.0 for s in shares.values()), shares
 
 
-@pytest.mark.parametrize("bh,t,d", [(1, 150, 32), (1, 130, 16)])
+# (BH, T, D, split): the forward's keys over a cluster of 4 blocks (one
+# with two key tiles, three with one, T ragged), over 2 at D = 8, and the
+# launcher's own rule at a shape where it splits (3 row tiles, 5 key tiles:
+# 4 ways).
+SPLIT_CASES = [(1, 300, 32, 4), (2, 150, 8, 2), (1, 300, 16, 0)]
+
+
+@pytest.mark.parametrize("bh,t,d,split", SPLIT_CASES)
+@pytest.mark.parametrize("dtype,step", STEPS)
+def test_emulated_split_route_matches_plain(run_kernels, tmp_path, bh, t, d, split, dtype, step):
+    """The bf16 forward with its keys split over a cluster and merged
+    through distributed shared memory (the f32 kernel ignores the split):
+    every output within its bound."""
+    ins, outs = _run(run_kernels, tmp_path / "run", bh, t, d, dtype, split=split)
+    shares = _shares(ins, outs, step)
+    print(f"({bh},{t},{d}) split {split} {dtype}: shares of the bound {shares}")
+    assert all(s <= 1.0 for s in shares.values()), shares
+
+
+@pytest.mark.parametrize("bh,t,d", [(1, 150, 32), (1, 130, 16), (1, 130, 8)])
 def test_emulated_dropped_lo_fails_the_bound(tmp_path, bh, t, d):
-    """A copy of the sources with the `lo` half of the split products
-    dropped (P and dS rounded to bf16 once) fails the bound in the forward
-    output, dQ, dK and dV, while the f32 statistics still pass: the bounds
-    see the split."""
+    """A copy of the sources with the `lo` half dropped at both split
+    points (mma_split and wgmma_split: P and dS rounded to bf16 once) fails
+    the bound in the forward output, dQ, dK and dV, while the f32
+    statistics still pass: the bounds see both splits."""
     faulted = _compile(tmp_path / "faulted", faulted=True)
     ins, outs = _run(faulted, tmp_path / "run", bh, t, d, torch.bfloat16)
     shares = _shares(ins, outs, 2 ** -7)
