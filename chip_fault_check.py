@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Shows that the card's kernel bounds catch a numerics fault in the
 tensor-core kernels: builds a copy of the port's CUDA sources, outside the
-checkout, with the `lo` product of the hi/lo split dropped at both split
-points of `csrc/flash_mma.cuh` (`mma_split`, which dQ uses, and
-`wgmma_split`, which the forward and dK/dV use: each then rounds P, and dS,
-to bf16 once), and holds the bf16 forward, dQ and dK/dV kernels of that copy
-and of the checkout to their plain versions under chip_smoke.py's bounds, at
-the D = 32 shapes of the main paths, D = 16 and 8 beside them, and the
-restore CLI's (4, 1024, 32), which the forward splits over a cluster.
+checkout, with the `lo` product of the hi/lo split dropped at the split
+product of `csrc/flash_mma.cuh` (`wgmma_split`, which the forward, dQ and
+dK/dV use: each then rounds P, and dS, to bf16 once), and holds the bf16
+forward, dQ and dK/dV kernels of that copy and of the checkout to their
+plain versions under chip_smoke.py's bounds, at the D = 32 shapes of the
+main paths, D = 16 and 8 beside them, and the restore CLI's (4, 1024, 32),
+which the forward splits over a cluster.
 
     python3 chip_fault_check.py
 
@@ -25,10 +25,8 @@ import tempfile
 from pathlib import Path
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-# (sound, faulted) at each split point: mma_split, then wgmma_split.
-SPLITS = [("  mma_bf16(d, a.hi, b0, b1);\n  mma_bf16(d, a.lo, b0, b1);\n",
-           "  mma_bf16(d, a.hi, b0, b1);\n"),
-          ("  wgmma_sm90::wgmma_rs<1>(d, a.hi, b, true);\n"
+# (sound, faulted) at the split point, wgmma_split.
+SPLITS = [("  wgmma_sm90::wgmma_rs<1>(d, a.hi, b, true);\n"
            "  wgmma_sm90::wgmma_rs<1>(d, a.lo, b, true);\n",
            "  wgmma_sm90::wgmma_rs<1>(d, a.hi, b, true);\n")]
 # (kernel, BH, T, D, save_lse): the forward at its serving, train-step,

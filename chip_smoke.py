@@ -7,9 +7,9 @@ NVIDIA card and checks it, phase by phase:
   2. build: every kernel of the serving and training paths, with nvcc, from
      the checkout, one nvcc per source, all started together; each kernel's
      registers, spills and shared memory (`ptxas -v`) and its tensor-core
-     and TMA instructions (HGMMA in every instantiation of the wgmma
-     forward and dK/dV kernels, with UTMALDG; HMMA in the dQ kernel;
-     counted in `cuobjdump -sass`);
+     and TMA instructions (HGMMA with UTMALDG in every instantiation of
+     the wgmma forward, dQ and dK/dV kernels, and HMMA in none; counted in
+     `cuobjdump -sass`);
   3. kernels: each kernel against its plain PyTorch version, with times
      (the kernels' and SDPA's as device time under torch.profiler, the
      plain versions' between CUDA events), and the autograd Function's
@@ -189,7 +189,8 @@ FUNCTION_REL = {"bfloat16": 2 ** -6, "float32": F32_REL}
 DESIGNS = {
     "flash_attention_fwd": {"bf16": "wgmma m64nNk16, TMA/mbarrier ring, hi/lo P, cluster "
                                     "split over keys", "f32": "FMA"},
-    "flash_attention_bwd_dq": {"bf16": "mma.sync m16n8k16, hi/lo dS", "f32": "FMA"},
+    "flash_attention_bwd_dq": {"bf16": "wgmma m64nNk16, TMA/mbarrier ring, hi/lo dS",
+                               "f32": "FMA"},
     "flash_attention_bwd_dkv": {"bf16": "wgmma m64nNk16, TMA/mbarrier ring, hi/lo P and dS",
                                 "f32": "FMA"},
 }
@@ -208,6 +209,14 @@ MMA_SYNC_DKV_MS = {
     (72, 1024, 32): (0.1322, 0.1411), (72, 1024, 16): (0.0999, 0.1297),
     (64, 1024, 16): (0.0889, 0.1066), (64, 1024, 8): (0.1123, 0.1101),
     (36, 1024, 32): (0.0762, 0.0825), (36, 1024, 16): (0.0600, 0.0796)}
+# The same for the mma.sync dQ kernel that the wgmma one replaced (PERF.md
+# §6, the dQ rows' "was", from one run): (dQ, SDPA's whole backward, the
+# wgmma dK/dV beside it) device ms, so that each run logs dQ/SDPA and the
+# pair's (dQ + dK/dV)/SDPA beside the mma.sync dQ's.
+MMA_SYNC_DQ_MS = {
+    (72, 1024, 32): (0.0879, 0.1424, 0.0991), (72, 1024, 16): (0.0651, 0.1303, 0.0830),
+    (64, 1024, 16): (0.0566, 0.1051, 0.0671), (64, 1024, 8): (0.0812, 0.1100, 0.0679),
+    (36, 1024, 32): (0.0535, 0.0827, 0.0583), (36, 1024, 16): (0.0416, 0.0803, 0.0501)}
 
 
 def ratio_note(ms: float, lib_ms: float, was) -> str:
@@ -452,15 +461,16 @@ def phase_build(state: dict) -> None:
         build.load(name)
     if not sass:
         return
-    # every instantiation of the forward and dK/dV wgmma kernels (D = 8 to
-    # 128) runs HGMMA and loads by TMA (UTMALDG); the dQ kernel runs HMMA
+    # every instantiation of the forward, dQ and dK/dV wgmma kernels (D = 8
+    # to 128) runs HGMMA and loads by TMA (UTMALDG); no kernel runs HMMA
+    # (mma.sync)
     hopper = {k: ops for k, ops in sass.items() if "_wgmma_kernel" in k}
-    dq = {k: ops for k, ops in sass.items() if "dq_mma_kernel" in k}
+    dq = [k for k in hopper if "dq_wgmma_kernel" in k]
     bad = [k for k, ops in hopper.items() if not (ops["HGMMA"] and ops["UTMALDG"])]
-    bad += [k for k, ops in dq.items() if not ops["HMMA"]]
-    if len(hopper) != 10 or len(dq) != 4 or bad:
-        raise AssertionError(f"tensor-core kernels without HGMMA/UTMALDG or HMMA in their SASS: "
-                             f"{bad or sorted(hopper) + sorted(dq)}")
+    bad += [k for k, ops in sass.items() if ops["HMMA"]]
+    if len(hopper) != 15 or len(dq) != 5 or bad:
+        raise AssertionError(f"wgmma kernels without HGMMA/UTMALDG, or kernels with HMMA, in "
+                             f"their SASS: {bad or sorted(hopper)}")
 
 
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG")
@@ -625,10 +635,18 @@ def check_backward(failures: list) -> dict:
                     f"events)  plain {plain_ms:.4f} ms  "
                     f"sdpa backward {lib_ms:.4f} ms device ({lib_event_ms:.4f} ms between "
                     f"events)  bound {bound:.4f} ms ({by})")
-                if kind == "dkv" and name == "bfloat16" and (bh, t, d) in TRAIN_SHAPES:
-                    log(f"flash_attention_bwd_dkv [{TRAIN_PATHS.get((bh, t, d), 'train step')}] "
-                        f"(BH,T,D)=({bh},{t},{d}) bf16: "
-                        + ratio_note(ms, lib_ms, MMA_SYNC_DKV_MS.get((bh, t, d))))
+            if name == "bfloat16" and (bh, t, d) in TRAIN_SHAPES:
+                path = TRAIN_PATHS.get((bh, t, d), "train step")
+                dkv_ms, dq_ms = times["dkv"][0], times["dq"][0]
+                log(f"flash_attention_bwd_dkv [{path}] (BH,T,D)=({bh},{t},{d}) bf16: "
+                    + ratio_note(dkv_ms, lib_ms, MMA_SYNC_DKV_MS.get((bh, t, d))))
+                was = MMA_SYNC_DQ_MS.get((bh, t, d))
+                pair_was = f"{(was[0] + was[2]) / was[1]:.3f}" if was else "not recorded"
+                log(f"flash_attention_bwd_dq [{path}] (BH,T,D)=({bh},{t},{d}) bf16: "
+                    + ratio_note(dq_ms, lib_ms, was)
+                    + f"; pair dQ + dK/dV {dq_ms + dkv_ms:.4f} ms, pair/SDPA "
+                    f"{(dq_ms + dkv_ms) / lib_ms if lib_ms > 0 else float('nan'):.3f} "
+                    f"(with the mma.sync dQ: {pair_was})")
     return rows
 
 

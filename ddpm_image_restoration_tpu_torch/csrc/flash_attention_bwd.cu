@@ -5,7 +5,7 @@
 // `_bwd_dkv_kernel` (:247). With S = scale*Q*K^T, P = exp(S - LSE) and
 // Delta = rowsum(dO o O):
 //
-//   dQ = scale * (P o (dO*V^T - Delta)) * K          flash_bwd_dq_mma_kernel (bf16)
+//   dQ = scale * (P o (dO*V^T - Delta)) * K          flash_bwd_dq_wgmma_kernel (bf16)
 //                                                    flash_bwd_dq_kernel (f32)
 //   dV = P^T * dO,  dK = scale * dS^T * Q            flash_bwd_dkv_wgmma_kernel (bf16)
 //                                                    flash_bwd_dkv_kernel (f32)
@@ -30,23 +30,48 @@
 // What bounds it on the H100: dQ does 6*T*D and dK/dV 8*T*D flops per query
 // row against ~6*D*elt bytes per row, so at T = 1024 both are compute bound.
 //
-// dQ (flash_bwd_dq_mma_kernel) runs its products on the tensor cores by
-// `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32` (flash_mma.cuh),
-// one block of 4 warps per (bh, 64-query tile), 16 rows a warp, in the
-// untransposed frame: Q and dO are A fragments held in registers for the
-// whole loop, with each row's LSE and Delta (from the bf16 O and dO rows,
-// in f32) in the registers of its quad; K and V stream through a
-// double-buffered cp.async ring (zero-filled past T). S = Q*K^T and dP =
-// dO*V^T (B fragments from K and V by ldmatrix), P = exp2(S*c - LSE) and
-// dS = P o (dP - Delta) on the accumulators, which repack in registers into
-// the A operand of dQ += dS*K (B by ldmatrix.trans on the same K tile). Key
-// columns >= T get P = 0 explicitly.
+// dQ (flash_bwd_dq_wgmma_kernel) works in the untransposed frame, queries
+// as the M rows, by Hopper's wgmma (wgmma_sm90.cuh). What bounds it at T =
+// 1024 (132 SMs at 1980 MHz; per 72 heads): its products, S and dP at
+// depth DP = max(D, 16) and dQ twice (hi/lo), 8*T^2*DP flops a head at 989
+// TFLOP/s: 9.8 us at D = 8 and 16, 19.5 at 32; the MUFU's T^2 exp2 a head,
+// 18.0 us whatever D; the fill: 8*BH blocks of 128 queries (576 at the
+// train step, two blocks an SM at D <= 32: 2.2 waves). The design:
+//   * a block is two warpgroups of 64 queries (256 threads) and no producer
+//     warp: thread 0 issues every load. Two blocks an SM at D <= 32
+//     (ptxas -v: 124 registers at D = 32, 98 at 16 and 8; 147 and 154 at
+//     D = 64 and 128, one block an SM), for four warpgroups an SM to hide
+//     each other's latency;
+//   * each warpgroup's Q and dO tiles arrive once by TMA and stay in shared
+//     memory as wgmma's A operands; K and V stream by TMA through a ring of
+//     STAGES stages of 64 keys with full/empty mbarriers, thread 0
+//     refilling a stage LAG iterations after its use (the forward's ring);
+//     [BH, T, D] tensor maps zero-fill rows >= T and, at D = 8, the columns
+//     8..15. While they arrive, each thread sums Delta = rowsum(dO o O) of
+//     its two rows from the bf16 rows in device memory (the quad's lanes,
+//     then shuffles) and writes it for dK/dV;
+//   * S = Q*K^T and dP = dO*V^T by wgmma m64n64k16 from K-major
+//     descriptors; P = exp2(S*c - LSE) and dS = P o (dP - Delta) on the
+//     accumulators, key columns >= T given P = 0 explicitly (a zero-filled
+//     K gives S = 0, and exp2(0 - LSE) is not 0); dQ += dS*K by register-A
+//     wgmma m64n{W}k16 against the same K tile through MN-major
+//     descriptors, dS split into bf16 hi and lo by truncation
+//     (split_a_trunc, wgmma_split);
+//   * each warpgroup runs its tile's products and its exp2 one after the
+//     other and leaves the overlap to the other warpgroups of the SM:
+//     issuing tile j's S and dP with tile j-1's dQ product (the forward's
+//     pipelining) keeps dS of tile j-1 live beside S and dP, spilled at two
+//     blocks an SM and was 1.1-1.4x slower on the card; taking turns (named
+//     barriers), 32 keys a stage and three blocks an SM were slower too
+//     (PERF.md §6);
+//   * D = 8 natively (zero-filled to the wgmma depth 16 in shared memory;
+//     dQ written 8 wide).
 //
 // dK/dV (flash_bwd_dkv_wgmma_kernel) works in the transposed frame, keys as
-// the M rows, by Hopper's wgmma (wgmma_sm90.cuh). What bounds it at T =
-// 1024 (132 SMs at 1980 MHz; per 72 heads): its products, S^T and dP^T at
-// depth DP = max(D, 16) and dV and dK twice each (hi/lo), 12*T^2*DP flops a
-// head at 989 TFLOP/s: 14.7 us at D = 8 and 16, 29.3 at 32, 58.6 at 64;
+// the M rows. What bounds it at T = 1024 (per 72 heads): its products,
+// S^T and dP^T at depth DP and dV and dK twice each (hi/lo), 12*T^2*DP
+// flops a head at 989 TFLOP/s: 14.7 us at D = 8 and 16, 29.3 at 32, 58.6
+// at 64;
 // the MUFU's T^2 exp2 a head at 16 a clock per SM, 18.0 us whatever D (the
 // floor at D <= 16); the fill is no limit (8*BH blocks of 128 keys: 576 at
 // the train step). The design:
@@ -78,10 +103,10 @@
 //     dK and dV written 8 wide).
 //
 // No atomics: every output element is written by one thread, once, and
-// results are deterministic. P and dS are carried as hi = bf16(x) and lo =
-// bf16(x - hi), two products against the same B operand, since one bf16
-// rounding moves dQ, dK and dV by several bf16 steps against the f32 plain
-// version.
+// results are deterministic. P and dS are carried as a bf16 hi part (x
+// rounded toward zero) and lo = bf16(x - hi), two products against the
+// same B operand, since one bf16 rounding moves dQ, dK and dV by several
+// bf16 steps against the f32 plain version.
 //
 // In f32 both run on the CUDA cores in f32 FMA (67 TFLOP/s ceiling).
 // Layout: each row owned by a block is split over TPR = D/8 adjacent lanes
@@ -290,177 +315,234 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-constexpr int kMmaThreads = 128;  // dQ: 4 warps x 16 query rows
-constexpr int kMmaRows = 64;
-
-template <int D> struct MmaDq {
-  // keys per streamed tile: fewer at D = 128, where the Q and dO fragments
-  // and the dQ accumulator take most registers
-  static constexpr int BN = D >= 128 ? 32 : 64;
-};
-
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
-                        const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                        __nv_bfloat16* __restrict__ dq, float* __restrict__ delta, int t_len,
-                        float scale, float scale_log2) {
-  using namespace mma_sm90;
-  using Tile = SmemTile<D>;
-  constexpr int BN = MmaDq<D>::BN;
-  constexpr int KD = D / 16;   // mma k-steps over the head dim (S, dP)
-  constexpr int NS = BN / 8;   // n8 tiles of S per key tile
-  constexpr int KN = BN / 16;  // mma k-steps over the keys of a tile (dQ)
-  constexpr int ND = D / 8;    // n8 tiles of dQ
-  __shared__ __align__(128) bf16 k_s[2][BN * D];
-  __shared__ __align__(128) bf16 v_s[2][BN * D];
-
-  const int bh = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tq = lane & 3;
-  const int row0 = blockIdx.x * kMmaRows + warp * 16;
-  const size_t base = (size_t)bh * t_len * D;
-  const int n_tiles = (t_len + BN - 1) / BN;
-
-  auto load_stage = [&](int stage, int k0) {
-    Tile::template load<BN, kMmaThreads>(smem_addr(k_s[stage]), k + base + (size_t)k0 * D,
-                                         t_len - k0);
-    Tile::template load<BN, kMmaThreads>(smem_addr(v_s[stage]), v + base + (size_t)k0 * D,
-                                         t_len - k0);
-    cp_async_commit();
-  };
-  load_stage(0, 0);
-
-  // this warp's 16 queries of Q and dO as A fragments (rows >= T are zero),
-  // and Delta = rowsum(dO o O) of rows g and g + 8, this lane's columns
-  // first, then over the quad
-  uint32_t qf[KD][4], dof[KD][4];
-  float dlt[2] = {0.f, 0.f};
-#pragma unroll
-  for (int kd = 0; kd < KD; ++kd) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = row0 + g + 8 * (i & 1);
-      const size_t at = base + (size_t)row * D + 16 * kd + 2 * tq + 8 * (i >> 1);
-      const bool ok = row < t_len;
-      qf[kd][i] = ok ? *reinterpret_cast<const uint32_t*>(q + at) : 0u;
-      dof[kd][i] = ok ? *reinterpret_cast<const uint32_t*>(dout + at) : 0u;
-      if (ok) {
-        const __nv_bfloat162 d2 = *reinterpret_cast<const __nv_bfloat162*>(dout + at);
-        const __nv_bfloat162 o2 = *reinterpret_cast<const __nv_bfloat162*>(o + at);
-        dlt[i & 1] = fmaf(__bfloat162float(d2.x), __bfloat162float(o2.x), dlt[i & 1]);
-        dlt[i & 1] = fmaf(__bfloat162float(d2.y), __bfloat162float(o2.y), dlt[i & 1]);
-      }
-    }
-  }
-  float lse_log2[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    dlt[r] += __shfl_xor_sync(0xffffffffu, dlt[r], 1);
-    dlt[r] += __shfl_xor_sync(0xffffffffu, dlt[r], 2);
-    const int row = row0 + g + 8 * r;
-    const size_t stat = (size_t)bh * t_len + row;
-    lse_log2[r] = row < t_len ? lse[stat] * kLog2e : 0.f;
-    if (row < t_len && tq == 0) delta[stat] = dlt[r];
-  }
-  float acc[ND][4];
-#pragma unroll
-  for (int j = 0; j < ND; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int stage = it & 1;
-    const int k0 = it * BN;
-    if (it + 1 < n_tiles) {  // the next tile streams in while this one is used
-      load_stage(stage ^ 1, k0 + BN);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T: this warp's 16 queries by the tile's BN keys
-    float s[NS][4], dp[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    }
-    const uint32_t kb = smem_addr(k_s[stage]), vb = smem_addr(v_s[stage]);
-#pragma unroll
-    for (int j = 0; j < NS; j += 2) {
-#pragma unroll
-      for (int kd = 0; kd < KD; ++kd) {
-        const uint32_t at = Tile::off(8 * j + (lane & 7) + ((lane >> 4) << 3),
-                                      2 * kd + ((lane >> 3) & 1));
-        uint32_t b[4];
-        ldmatrix_x4(b, kb + at);
-        mma_bf16(s[j], qf[kd], b[0], b[1]);
-        mma_bf16(s[j + 1], qf[kd], b[2], b[3]);
-        ldmatrix_x4(b, vb + at);
-        mma_bf16(dp[j], dof[kd], b[0], b[1]);
-        mma_bf16(dp[j + 1], dof[kd], b[2], b[3]);
-      }
-    }
-
-    // P and dS on the accumulators; key columns >= T give P = 0 (a
-    // zero-filled K gives S = 0, and exp2(0 - LSE) is not 0)
-    const int n_valid = t_len - k0;
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const bool ok = n_valid >= BN || 8 * j + 2 * tq + (e & 1) < n_valid;
-        const float p = ok ? exp2f(s[j][e] * scale_log2 - lse_log2[r]) : 0.f;
-        dp[j][e] = p * (dp[j][e] - dlt[r]);
-      }
-    }
-
-    // dQ += (dS_hi + dS_lo) K
-#pragma unroll
-    for (int kn = 0; kn < KN; ++kn) {
-      const Split ds = split_a(dp[2 * kn], dp[2 * kn + 1]);
-#pragma unroll
-      for (int j = 0; j < ND; j += 2) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, kb + Tile::off(16 * kn + (lane & 15), j + (lane >> 4)));
-        mma_split(acc[j], ds, b[0], b[1]);
-        mma_split(acc[j + 1], ds, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // this stage is refilled by the next iteration's prefetch
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + g + 8 * r;
-    if (row >= t_len) continue;
-    __nv_bfloat16* out = dq + base + (size_t)row * D + 2 * tq;
-#pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      *reinterpret_cast<uint32_t*>(out + 8 * j) =
-          pack_bf16(acc[j][2 * r] * scale, acc[j][2 * r + 1] * scale);
-    }
-  }
-}
-
 constexpr int kWarpgroups = 2;                   // consumer warpgroups a block
 constexpr int kConsumers = 128 * kWarpgroups;
-constexpr int kHopperThreads = kConsumers + 32;  // and one producer warp
-constexpr int kBlockKeys = 64 * kWarpgroups;     // keys a block
+constexpr int kHopperThreads = kConsumers + 32;  // and dK/dV's producer warp
+constexpr int kBlockRows = 64 * kWarpgroups;     // keys (dK/dV) or queries (dQ) a block
 
-template <int D> struct HopperDkv {
+// The [rows, DP] bf16 tiles of the wgmma kernels (wgmma_sm90.cuh).
+template <int D> struct HopperDims {
   static constexpr int DP = D < 16 ? 16 : D;              // head dim in shared memory
   static constexpr int SW = 2 * DP < 128 ? 2 * DP : 128;  // bytes a panel row: the swizzle
   static constexpr int W = SW / 2;                        // columns a panel
   static constexpr int PANELS = DP / W;
-  static constexpr int NO = W / 8;                        // n8 blocks of dK, dV a panel
+  static constexpr int NO = W / 8;                        // n8 blocks of an output a panel
+};
+
+// The byte offset of the k16 slice kd of a [rows, DP] K-major tile: its
+// panel, then 32 bytes a slice along the swizzled row.
+template <int D> __device__ __forceinline__ uint32_t kslice(int kd, int rows) {
+  using F = HopperDims<D>;
+  return (16 * kd / F::W) * rows * F::SW + (16 * kd % F::W) * 2;
+}
+
+template <int D> struct HopperDq : HopperDims<D> {
+  using B = HopperDims<D>;
+  // one [64, DP] bf16 tile: a warpgroup's Q or dO, a ring stage's K or V
+  static constexpr int TILE = 64 * B::DP * 2;
+  // blocks an SM: two at D <= 32, where 128 registers a thread suffice
+  static constexpr int MIN_BLOCKS = D <= 32 ? 2 : 1;
+  // The ring: STAGES stages of 64 keys (a K and a V tile each); the stage
+  // of key tile j is refilled (with tile j + STAGES) by thread 0 at the top
+  // of iteration j + LAG, once both warpgroups have let it go (each lets go
+  // of tile j at the end of iteration j; LAG - 1 iterations of slack before
+  // thread 0 waits on the other warpgroup). STAGES - LAG tiles stay ahead.
+  static constexpr int STAGES = D <= 64 ? 6 : 4;
+  static constexpr int LAG = D <= 64 ? 3 : 2;
+  // From the 1024-aligned base: each warpgroup's Q tile, then each one's
+  // dO tile; the ring; its barriers (full, empty, then Q and dO's).
+  static constexpr int RING = 2 * kWarpgroups * TILE;
+  static constexpr int BARS = RING + STAGES * 2 * TILE;
+  static constexpr int SMEM = 1024 + BARS + 16 * (STAGES + 1);
+};
+
+template <int D>
+__global__ void __launch_bounds__(kConsumers, HopperDq<D>::MIN_BLOCKS)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap do_map,
+                          const __nv_bfloat16* __restrict__ o,
+                          const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                          __nv_bfloat16* __restrict__ dq, float* __restrict__ delta, int t_len,
+                          float scale, float scale_log2) {
+  using namespace flash_mma;
+  using namespace wgmma_sm90;
+  using F = HopperDq<D>;
+  char* const raw = dynamic_smem();
+  const uint32_t base = (smem_u32(raw) + 1023) & ~1023u;
+  const uint32_t bars = base + F::BARS;
+  const uint32_t q_bar = bars + 16 * F::STAGES;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (F::STAGES + s); };
+  auto stage_at = [&](int s) { return base + F::RING + s * 2 * F::TILE; };  // K, then V
+
+  const int bh = blockIdx.y;
+  const int m0 = blockIdx.x * kBlockRows;
+  const int n_tiles = (t_len + 63) / 64;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4;
+  const int g = lane >> 2, tq = lane & 3;
+  const bool loader = threadIdx.x == 0;  // issues every TMA load of the block
+
+  // key tile j (K and V) into stage j % STAGES
+  auto load_tile = [&](int j) {
+    const int st = j % F::STAGES;
+    mbar_arrive_expect_tx(full(st), 2 * F::TILE);
+    for (int pn = 0; pn < F::PANELS; ++pn) {
+      tma_load_3d(stage_at(st) + pn * 64 * F::SW, &k_map, full(st), pn * F::W, 64 * j, bh);
+      tma_load_3d(stage_at(st) + F::TILE + pn * 64 * F::SW, &v_map, full(st), pn * F::W, 64 * j,
+                  bh);
+    }
+  };
+  if (loader) {
+    for (int st = 0; st < F::STAGES; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), kConsumers / 32);
+    }
+    mbar_init(q_bar, 1);
+    mbar_fence_init();
+    mbar_arrive_expect_tx(q_bar, 2 * kWarpgroups * F::TILE);
+    for (int w = 0; w < kWarpgroups; ++w) {
+      for (int pn = 0; pn < F::PANELS; ++pn) {
+        tma_load_3d(base + w * F::TILE + pn * 64 * F::SW, &q_map, q_bar, pn * F::W, m0 + 64 * w,
+                    bh);
+        tma_load_3d(base + (kWarpgroups + w) * F::TILE + pn * 64 * F::SW, &do_map, q_bar,
+                    pn * F::W, m0 + 64 * w, bh);
+      }
+    }
+    for (int j = 0; j < F::STAGES && j < n_tiles; ++j) load_tile(j);
+  }
+  __syncthreads();
+
+  // While the tiles arrive: Delta = rowsum(dO o O) of this lane's rows g
+  // and g + 8, in f32 from the bf16 rows (columns 8j + 2tq, +1, then over
+  // the quad), and their LSE in log2 units; rows >= T get 0 for both, so
+  // that their P = 1 meets a zero dO and Delta: dS = 0.
+  const int row0 = m0 + 64 * wg + 16 * (warp % 4) + g;
+  float dlt[2] = {0.f, 0.f}, neg_lse[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    const size_t stat = (size_t)bh * t_len + row;
+    if (row < t_len) {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const size_t at = stat * D + 8 * j + 2 * tq;
+        const __nv_bfloat162 d2 = *reinterpret_cast<const __nv_bfloat162*>(dout + at);
+        const __nv_bfloat162 o2 = *reinterpret_cast<const __nv_bfloat162*>(o + at);
+        dlt[r] = fmaf(__bfloat162float(d2.x), __bfloat162float(o2.x), dlt[r]);
+        dlt[r] = fmaf(__bfloat162float(d2.y), __bfloat162float(o2.y), dlt[r]);
+      }
+      neg_lse[r] = -lse[stat] * kLog2e;
+    }
+    dlt[r] += __shfl_xor_sync(0xffffffffu, dlt[r], 1);
+    dlt[r] += __shfl_xor_sync(0xffffffffu, dlt[r], 2);
+    if (row < t_len && tq == 0) delta[stat] = dlt[r];
+  }
+
+  const uint32_t q_wg = base + wg * F::TILE, do_wg = base + (kWarpgroups + wg) * F::TILE;
+  float acc[F::PANELS][F::NO][4];
+#pragma unroll
+  for (int pn = 0; pn < F::PANELS; ++pn) {
+#pragma unroll
+    for (int j = 0; j < F::NO; ++j) acc[pn][j][0] = acc[pn][j][1] = acc[pn][j][2] = acc[pn][j][3] = 0.f;
+  }
+  float s[8][4], dp[8][4];  // S, then P; dP, then dS: 64 queries x 64 keys
+  Split ds[4];              // dS as the A operand of dS*K, hi and lo
+
+  auto issue_s = [&](int stage) {  // S = Q K^T and dP = dO V^T, two independent chains
+    const uint32_t kt = stage_at(stage), vt = kt + F::TILE;
+#pragma unroll
+    for (int kd = 0; kd < F::DP / 16; ++kd) {
+      wgmma_ss<0>(s, make_desc(q_wg + kslice<D>(kd, 64), F::SW),
+                  make_desc(kt + kslice<D>(kd, 64), F::SW), kd > 0);
+      wgmma_ss<0>(dp, make_desc(do_wg + kslice<D>(kd, 64), F::SW),
+                  make_desc(vt + kslice<D>(kd, 64), F::SW), kd > 0);
+    }
+    wgmma_commit();
+  };
+  auto issue_dq = [&](int stage) {  // dQ += (dS_hi + dS_lo) K, K read MN-major
+    const uint32_t kt = stage_at(stage);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int pn = 0; pn < F::PANELS; ++pn)
+        wgmma_split(acc[pn], ds[kk], make_desc(kt + pn * 64 * F::SW + kk * 16 * F::SW, F::SW));
+    }
+    wgmma_commit();
+  };
+  // P = exp2(S c - LSE) and dS = P o (dP - Delta) on the accumulators; key
+  // columns >= T get P = 0 explicitly (a zero-filled K gives S = 0, and
+  // exp2(0 - LSE) is not 0)
+  auto grads = [&](int n_valid) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const bool ok = n_valid >= 64 || 8 * j + 2 * tq + (e & 1) < n_valid;
+        const float p = ok ? exp2_approx(fmaf(s[j][e], scale_log2, neg_lse[r])) : 0.f;
+        dp[j][e] = p * (dp[j][e] - dlt[r]);
+      }
+    }
+  };
+  auto split_ds = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) ds[kk] = split_a_trunc(dp[2 * kk], dp[2 * kk + 1]);
+  };
+  auto release = [&](int stage) {
+#pragma unroll
+    for (int pn = 0; pn < F::PANELS; ++pn) fence_acc(acc[pn]);
+    if (lane == 0) mbar_arrive(empty(stage));
+  };
+
+  mbar_wait(q_bar, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int stage = j % F::STAGES;
+    const int refill = j - F::LAG + F::STAGES;  // into the stage of tile j - LAG
+    if (loader && j >= F::LAG && refill < n_tiles) {
+      mbar_wait(empty(refill % F::STAGES), ((j - F::LAG) / F::STAGES) & 1);
+      load_tile(refill);
+    }
+    mbar_wait(full(stage), (j / F::STAGES) & 1);
+    wgmma_fence();
+    issue_s(stage);
+    wgmma_wait<0>();
+    fence_acc(s);
+    fence_acc(dp);
+    grads(t_len - 64 * j);
+    split_ds();
+    wgmma_fence();
+    issue_dq(stage);
+    wgmma_wait<0>();
+    release(stage);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= t_len) continue;
+    __nv_bfloat16* const out = dq + ((size_t)bh * t_len + row) * D + 2 * tq;
+#pragma unroll
+    for (int pn = 0; pn < F::PANELS; ++pn) {
+#pragma unroll
+      for (int j = 0; j < F::NO; ++j) {
+        if (D >= 16 || 8 * j < D)  // D = 8: the zero-filled columns 8..15 stay unwritten
+          *reinterpret_cast<uint32_t*>(out + pn * F::W + 8 * j) =
+              pack_bf16(acc[pn][j][2 * r] * scale, acc[pn][j][2 * r + 1] * scale);
+      }
+    }
+  }
+}
+
+template <int D> struct HopperDkv : HopperDims<D> {
+  using B = HopperDims<D>;
   // queries a ring stage: fewer at D = 128, where the dK and dV
   // accumulators (2 * D / 2 f32 a thread) take most registers
   static constexpr int BQ = D <= 64 ? 64 : 32;
-  static constexpr int KTILE = 64 * DP * 2;  // [64 keys, DP]
-  static constexpr int QTILE = BQ * DP * 2;  // [BQ queries, DP]
+  static constexpr int KTILE = 64 * B::DP * 2;  // [64 keys, DP]
+  static constexpr int QTILE = BQ * B::DP * 2;  // [BQ queries, DP]
   static constexpr int STAGES = D >= 128 ? 2 : (D == 64 ? 3 : 4);
   // From the 1024-aligned base: each warpgroup's K tile, then each one's V
   // tile; the ring (a Q and a dO tile a stage); the LSE and Delta rows of
@@ -471,13 +553,6 @@ template <int D> struct HopperDkv {
   static constexpr int SMEM = 1024 + BARS + 16 * (STAGES + 1);
 };
 
-// The byte offset of the k16 slice kd of a [rows, DP] K-major tile: its
-// panel, then 32 bytes a slice along the swizzled row.
-template <int D> __device__ __forceinline__ uint32_t kslice(int kd, int rows) {
-  using F = HopperDkv<D>;
-  return (16 * kd / F::W) * rows * F::SW + (16 * kd % F::W) * 2;
-}
-
 template <int D>
 __global__ void __launch_bounds__(kHopperThreads, 1)
 flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -487,7 +562,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                            const float* __restrict__ lse, const float* __restrict__ delta,
                            __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                            int t_len, float scale, float scale_log2) {
-  using namespace mma_sm90;
+  using namespace flash_mma;
   using namespace wgmma_sm90;
   using F = HopperDkv<D>;
   char* const raw = dynamic_smem();
@@ -502,7 +577,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   auto v_at = [&](int w) { return base + (kWarpgroups + w) * F::KTILE; };
 
   const int bh = blockIdx.y;
-  const int key0 = blockIdx.x * kBlockKeys;
+  const int key0 = blockIdx.x * kBlockRows;
   const int n_tiles = (t_len + F::BQ - 1) / F::BQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
@@ -673,27 +748,48 @@ template <int D> dim3 grid_for(int bh, int t) {
 }
 
 template <int D>
+cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v, const void* o,
+                           const void* dout, const void* lse, void* dq, void* delta, int bh,
+                           int t, float scale, cudaStream_t stream) {
+  namespace host = wgmma_sm90_host;
+  using F = HopperDq<D>;
+  CUtensorMap maps[4];
+  const void* tiles[4] = {q, k, v, dout};
+  cudaError_t err = cudaSuccess;
+  for (int i = 0; i < 4 && err == cudaSuccess; ++i)
+    err = host::tile_map(&maps[i], tiles[i], bh, t, D, F::W, 64, F::SW);
+  static uint64_t allowed = 0;
+  if (err == cudaSuccess) err = host::allow_smem(flash_bwd_dq_wgmma_kernel<D>, F::SMEM, allowed);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((t + kBlockRows - 1) / kBlockRows, bh);
+  cfg.blockDim = dim3(kConsumers);
+  cfg.dynamicSmemBytes = F::SMEM;
+  cfg.stream = stream;
+  err = cudaLaunchKernelEx(&cfg, flash_bwd_dq_wgmma_kernel<D>, maps[0], maps[1], maps[2], maps[3],
+                           static_cast<const __nv_bfloat16*>(o),
+                           static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
+                           static_cast<__nv_bfloat16*>(dq), static_cast<float*>(delta), t, scale,
+                           scale * kLog2e);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o,
                       const void* dout, const void* lse, void* dq, void* delta, int bh,
                       int t, int dtype, float scale, cudaStream_t stream) {
-  if (dtype == 0) {
-    flash_bwd_dq_kernel<D><<<grid_for<D>(bh, t), kThreads, 0, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(o),
-        static_cast<const float*>(dout), static_cast<const float*>(lse),
-        static_cast<float*>(dq), static_cast<float*>(delta), t, scale, scale * kLog2e);
-  } else if (dtype == 1) {
-    const dim3 grid((t + kMmaRows - 1) / kMmaRows, bh);
-    flash_bwd_dq_mma_kernel<D><<<grid, kMmaThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(o),
-        static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
-        static_cast<__nv_bfloat16*>(dq), static_cast<float*>(delta), t, scale,
-        scale * kLog2e);
-  } else {
-    return cudaErrorInvalidValue;
+  if (dtype == 1) return launch_dq_bf16<D>(q, k, v, o, dout, lse, dq, delta, bh, t, scale, stream);
+  if constexpr (D >= 16) {  // the f32 kernel is built from D = 16 up
+    if (dtype == 0) {
+      flash_bwd_dq_kernel<D><<<grid_for<D>(bh, t), kThreads, 0, stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<const float*>(o),
+          static_cast<const float*>(dout), static_cast<const float*>(lse),
+          static_cast<float*>(dq), static_cast<float*>(delta), t, scale, scale * kLog2e);
+      return cudaGetLastError();
+    }
   }
-  return cudaGetLastError();
+  return cudaErrorInvalidValue;
 }
 
 template <int D>
@@ -712,7 +808,7 @@ cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v, const v
   if (err == cudaSuccess) err = host::allow_smem(flash_bwd_dkv_wgmma_kernel<D>, F::SMEM, allowed);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((t + kBlockKeys - 1) / kBlockKeys, bh);
+  cfg.gridDim = dim3((t + kBlockRows - 1) / kBlockRows, bh);
   cfg.blockDim = dim3(kHopperThreads);
   cfg.dynamicSmemBytes = F::SMEM;
   cfg.stream = stream;
@@ -745,6 +841,7 @@ cudaError_t dq_dispatch(const void* q, const void* k, const void* v, const void*
                         const void* dout, const void* lse, void* dq, void* delta, int bh,
                         int t, int d, int dtype, float scale, cudaStream_t s) {
   switch (d) {
+    case 8: return launch_dq<8>(q, k, v, o, dout, lse, dq, delta, bh, t, dtype, scale, s);
     case 16: return launch_dq<16>(q, k, v, o, dout, lse, dq, delta, bh, t, dtype, scale, s);
     case 32: return launch_dq<32>(q, k, v, o, dout, lse, dq, delta, bh, t, dtype, scale, s);
     case 64: return launch_dq<64>(q, k, v, o, dout, lse, dq, delta, bh, t, dtype, scale, s);
@@ -769,8 +866,9 @@ cudaError_t dkv_dispatch(const void* q, const void* k, const void* v, const void
 }  // namespace
 
 // dQ and Delta = rowsum(dO o O) from q, k, v, o, dO ([BH, T, d], dtype 0 =
-// float32 (FMA kernel), 1 = bfloat16 (tensor-core kernel; the [BH, T, d]
-// tensors must be 16-byte aligned)) and the forward's [BH, T] f32 LSE. dq
+// float32 (FMA kernel; d >= 16), 1 = bfloat16 (wgmma kernel, d = 8 too; the
+// [BH, T, d] tensors must be 16-byte aligned)) and the forward's [BH, T]
+// f32 LSE. dq
 // has q's dtype; delta is [BH, T] f32. Returns the launch's
 // cudaGetLastError() (cudaErrorInvalidValue for an unsupported d, dtype or
 // size).

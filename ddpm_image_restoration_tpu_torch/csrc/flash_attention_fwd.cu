@@ -87,7 +87,7 @@
 
 namespace {
 
-using mma_sm90::bf16;
+using flash_mma::bf16;
 
 constexpr int kThreads = 256;
 constexpr int kDimsPerLane = 8;
@@ -231,7 +231,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
                        const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o,
                        float* __restrict__ lse, int t_len, float scale_log2, int split) {
-  using namespace mma_sm90;
+  using namespace flash_mma;
   using namespace wgmma_sm90;
   using F = HopperFwd<D>;
   char* const raw = dynamic_smem();

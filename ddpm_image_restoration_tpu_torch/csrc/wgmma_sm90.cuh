@@ -1,5 +1,5 @@
-// Hopper's own instructions for the bf16 flash-attention forward and dK/dV
-// kernels (sm_90a), as inline PTX, beside mma_sm90.cuh's Ampere-style ones:
+// Hopper's own instructions for the bf16 flash-attention kernels (the
+// forward, dQ and dK/dV; sm_90a), as inline PTX:
 //   * wgmma.mma_async m64nNk16 (N = 16, 32, 64; bf16 in, f32 accumulate),
 //     A from a shared-memory descriptor or from registers, B from a
 //     descriptor, K-major or MN-major; fence, commit and wait;
@@ -14,9 +14,9 @@
 //   * the cluster barrier and distributed shared memory (mapa and
 //     ld.shared::cluster), for the forward's split over keys;
 //   * ex2.approx.ftz.f32.
-// No setmaxnreg: the forward has no producer warp (its thread 0 issues
-// the loads) and dK/dV's is one warp, with too few registers to be worth
-// giving back.
+// No setmaxnreg: the forward and dQ have no producer warp (their thread 0
+// issues the loads) and dK/dV's is one warp, with too few registers to be
+// worth giving back.
 //
 // Tiles. A [rows, DP] bf16 tile (DP = the head dim, at least 16, the
 // wgmma depth) lies in shared memory as PANELS = DP*2/SW panels [rows, SW/2]
@@ -34,12 +34,14 @@
 // LBO, the stride between panels in one instruction, is never used: each
 // wgmma reads one panel (N <= SW/2, and a k16 slice lies in one row).
 //
-// Fragments. The m64nNk16 accumulator of a warpgroup gives warp w rows
-// 16w..16w+15 and lane l the pairs (row 16w + l/4 (+8), columns 8j +
-// 2(l%4), +1) as d[j][0..1] (d[j][2..3] for row +8): the m16n8 layout of
-// mma_sm90.cuh, n8 block j after block j. The register A operand of a k16
-// step is mma.m16n8k16's A fragment on each warp's 16 rows, so two n8
-// accumulator blocks repack into it in registers (flash_mma.cuh split_a).
+// Fragments (g = lane / 4, t = lane % 4). The m64nNk16 accumulator of a
+// warpgroup gives warp w rows 16w..16w+15 and lane l the pairs (row 16w + g
+// (+8), columns 8j + 2t, +1) as d[j][0..1] (d[j][2..3] for row +8): the
+// C layout of mma.m16n8k16, n8 block j after block j. The register A
+// operand of a k16 step is mma.m16n8k16's A fragment on each warp's 16
+// rows, each .b32 two bf16, the lower column in the low half: a0 (g, 2t..),
+// a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8, 2t+8..). So two n8 accumulator
+// blocks repack into it in registers (flash_mma.cuh split_a_trunc).
 //
 // The CPU emulation (tests/cuda_emu/wgmma_sm90.cuh) defines the same names.
 #pragma once

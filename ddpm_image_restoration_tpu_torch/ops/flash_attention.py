@@ -10,20 +10,18 @@ plain version; a CUDA tensor always takes the kernel, and anything the
 kernel does not take raises.
 
 Which design serves which dtype on the card:
-  * bf16: the forward and dK/dV run their products by Hopper's `wgmma`,
-    their tiles arriving by TMA into an mbarrier ring; dQ by `mma.sync`
-    m16n8k16; all with f32 accumulation, P and dS carried as a bf16 hi/lo
-    pair;
+  * bf16: the forward, dQ and dK/dV run their products by Hopper's
+    `wgmma`, their tiles arriving by TMA into an mbarrier ring, with f32
+    accumulation, P and dS carried as a bf16 hi/lo pair;
   * f32: all three run on the CUDA cores in f32 (FMA).
-The tensor-core kernels read rows by TMA (whose tensor maps need 16-byte
-aligned bases) or by `cp.async` and `ldmatrix` (16-byte-aligned addresses),
-so every CUDA input must start 16-byte aligned (a contiguous view at an odd
-offset is refused, not copied).
+The tensor-core kernels read rows by TMA, whose tensor maps need 16-byte
+aligned bases, so every CUDA input must start 16-byte aligned (a
+contiguous view at an odd offset is refused, not copied).
 
-Head dims: each kernel is built for the dims in `HEAD_DIMS`, and the bf16
-forward and dK/dV for D = 8 too (zero-filled to the wgmma depth of 16 in
-shared memory); a smaller D is zero-padded to the next built one
-(`kernel_head_dim`), so dQ and the f32 kernels pad D = 8 to 16.
+Head dims: each kernel is built for the dims in `HEAD_DIMS`, and the three
+bf16 kernels for D = 8 too (zero-filled to the wgmma depth of 16 in shared
+memory); a smaller D is zero-padded to the next built one
+(`kernel_head_dim`), so the f32 kernels pad D = 8 to 16.
 """
 
 from __future__ import annotations
@@ -38,9 +36,9 @@ from ddpm_image_restoration_tpu_torch.ops import build
 KERNEL = "flash_attention_fwd"
 BWD_KERNEL = "flash_attention_bwd"
 HEAD_DIMS = (16, 32, 64, 128)
-# The bf16 forward and dK/dV (wgmma) are built for D = 8 too.
+# The bf16 kernels (wgmma) are built for D = 8 too.
 WGMMA_HEAD_DIMS = (8, *HEAD_DIMS)
-WGMMA_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv")
+WGMMA_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -151,7 +149,7 @@ def _check_stats(name: str, q: torch.Tensor, *stats: torch.Tensor) -> None:
 def kernel_head_dim(name: str, d: int, dtype: torch.dtype) -> int:
     """The head dim the launcher `name` runs for a D of `d` in `dtype`: the
     smallest of its built dims that holds it (WGMMA_HEAD_DIMS for the bf16
-    forward and dK/dV, HEAD_DIMS for dQ and every f32 kernel)."""
+    kernels, HEAD_DIMS for the f32 ones)."""
     wgmma = dtype == torch.bfloat16 and name in WGMMA_KERNELS
     return next(h for h in (WGMMA_HEAD_DIMS if wgmma else HEAD_DIMS) if h >= d)
 

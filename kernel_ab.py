@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Times the bf16 flash-attention forward and dK/dV kernels of several
+"""Times the bf16 flash-attention forward, dQ and dK/dV kernels of several
 builds of the port's CUDA sources on one card, in turns.
 
     python3 kernel_ab.py [--splits] NAME=CSRC_DIR [NAME=CSRC_DIR ...]
@@ -17,9 +17,13 @@ comparable: the same kernels can read much faster a minute into a call
 than at its start.
 
 The forward is called through `flash_attention_fwd` (each build's own
-split rule), dK/dV through `flash_attention_bwd_dkv` on the plain
-version's LSE and Delta. A build that does not take D = 8 (before the
-wgmma kernels) is timed at the D = 8 shapes as "-". With --splits, the
+split rule), dQ through `flash_attention_bwd_dq` and dK/dV through
+`flash_attention_bwd_dkv`, on the plain version's O, LSE and Delta. A
+build whose forward or dK/dV does not take D = 8 (before the wgmma
+kernels) is timed at those D = 8 shapes as "-"; a dQ launcher that refuses
+D = 8 (before the wgmma dQ) is timed as that build's wrapper ran it: the
+five inputs zero-padded to 16, the launch at 16 and dQ sliced back, the
+pad and slice kernels counted in its device time. With --splits, the
 first build's forward is also timed with its keys split over clusters of
 1, 2 and 4 blocks (`flash_attention_fwd_split`) at the small-BH shapes of
 SPLIT_SHAPES. Needs a CUDA card and nvcc.
@@ -38,17 +42,21 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 ROUNDS = 3
 # (BH, T, D, save_lse): the forward's serve, train-step, restore and AVIF
-# train-step shapes; dK/dV's train-step shapes (BH, T, D)
+# train-step shapes; dQ's and dK/dV's train-step shapes (BH, T, D): WebP
+# down2 and up4, AVIF, a rank of the (2, 2) model-axis step
 FWD = [(32, 1024, 32, False), (32, 1024, 16, False), (72, 1024, 32, True),
        (4, 1024, 32, False), (64, 1024, 8, True)]
-DKV = [(72, 1024, 32), (72, 1024, 16), (64, 1024, 8)]
+BWD = [(72, 1024, 32), (72, 1024, 16), (64, 1024, 16), (64, 1024, 8), (36, 1024, 32),
+       (36, 1024, 16)]
 # (BH, T, D): the restore CLI's, the AVIF restore's and the validation's
 SPLIT_SHAPES = [(4, 1024, 32), (8, 1024, 16), (8, 1024, 32), (16, 1024, 32)]
 
 
 def build(name: str, csrc: Path, nvcc: str, flags) -> tuple[str, dict]:
+    from ddpm_image_restoration_tpu_torch.ops.build import ptxas_summary
+
     out = Path(tempfile.mkdtemp(prefix=f"ab_{name}_"))
-    libs = {}
+    libs, ptxas = {}, []
     for lib in ("flash_attention_fwd", "flash_attention_bwd"):
         so = out / f"lib{lib}.so"
         r = subprocess.run([nvcc, *flags, "-o", str(so), str(csrc / f"{lib}.cu")],
@@ -56,12 +64,17 @@ def build(name: str, csrc: Path, nvcc: str, flags) -> tuple[str, dict]:
         if r.returncode:
             raise RuntimeError(f"{name}: nvcc failed on {lib}:\n{r.stderr[-3000:]}")
         libs[lib] = ctypes.CDLL(str(so))
-    fwd, dkv = libs["flash_attention_fwd"].flash_attention_fwd, \
-        libs["flash_attention_bwd"].flash_attention_bwd_dkv
+        ptxas += [line for line in ptxas_summary(r.stdout + r.stderr) if "bf16" in line]
+    fwd = libs["flash_attention_fwd"].flash_attention_fwd
+    dq, dkv = (getattr(libs["flash_attention_bwd"], f"flash_attention_bwd_{kind}")
+               for kind in ("dq", "dkv"))
     fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
-    dkv.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
-    fwd.restype = dkv.restype = ctypes.c_int
-    return name, {"fwd": fwd, "dkv": dkv, "lib": libs["flash_attention_fwd"]}
+    for f in (dq, dkv):
+        f.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float,
+                                                                    ctypes.c_void_p]
+    fwd.restype = dq.restype = dkv.restype = ctypes.c_int
+    return name, {"fwd": fwd, "dq": dq, "dkv": dkv, "lib": libs["flash_attention_fwd"],
+                  "ptxas": ptxas}
 
 
 def main() -> int:
@@ -82,6 +95,9 @@ def main() -> int:
         builds = dict(pool.map(lambda s: build(s[0], Path(s[1]).resolve(), nvcc,
                                                port_build.NVCC_FLAGS), specs))
     print(chip_smoke.nvidia_smi_line(), flush=True)
+    for name, b in builds.items():
+        for line in b["ptxas"]:
+            print(f"{name} ptxas: {line}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -100,7 +116,33 @@ def main() -> int:
                              l.data_ptr() if lse else None, bh, t, d, 1, d ** -0.5, stream)
         calls[("fwd", shape)] = ({n: make(b["fwd"]) for n, b in builds.items()},
                                  lambda o=o, ref=ref: [(o, ref)])
-    for shape in DKV:
+    for shape in BWD:
+        bh, t, d = shape
+        q, k, v, do = randn(bh, t, d), randn(bh, t, d), randn(bh, t, d), randn(bh, t, d)
+        o, lse = fa.flash_attention_plain(q, k, v, save_lse=True)
+        dq, delta = torch.empty_like(q), torch.empty(bh, t, device="cuda")
+        rdq, rdelta = fa.flash_attention_bwd_dq_plain(q, k, v, o, do, lse)
+
+        def make(f, q=q, k=k, v=v, o=o, do=do, lse=lse, dq=dq, delta=delta, bh=bh, t=t, d=d):
+            def launch(d_k, ins, out):
+                return f(*(z.data_ptr() for z in ins), lse.data_ptr(), out.data_ptr(),
+                         delta.data_ptr(), bh, t, d_k, 1, d ** -0.5, stream)
+
+            if launch(d, (q, k, v, o, do), dq) == 0:
+                return lambda: launch(d, (q, k, v, o, do), dq)
+            d_k = next(h for h in fa.HEAD_DIMS if h >= d)  # the build's wrapper pads
+
+            def padded():
+                ins = [torch.nn.functional.pad(z, (0, d_k - d)) for z in (q, k, v, o, do)]
+                out = torch.empty_like(ins[0])
+                err = launch(d_k, ins, out)
+                dq.copy_(out[..., :d])
+                return err
+            return padded
+        calls[("dq", shape)] = ({n: make(b["dq"]) for n, b in builds.items()},
+                                lambda dq=dq, delta=delta, rdq=rdq, rdelta=rdelta:
+                                [(dq, rdq), (delta, rdelta)])
+    for shape in BWD:
         bh, t, d = shape
         q, k, v, do = randn(bh, t, d), randn(bh, t, d), randn(bh, t, d), randn(bh, t, d)
         o, lse = fa.flash_attention_plain(q, k, v, save_lse=True)

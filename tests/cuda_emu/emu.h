@@ -4,9 +4,9 @@
 // block is an OS thread. Blocks run one after another, except that the
 // blocks of a cluster (cudaLaunchKernelEx with a cluster dimension) run
 // together. __syncthreads is a barrier of the block's threads and a
-// warp-collective operation (shuffle, ldmatrix, mma) a barrier of the warp's
-// 32 threads around an exchange of the lanes' operands; a warpgroup
-// operation (wgmma) likewise over its 128 threads. cp.async copies at once.
+// warp-collective operation (shuffle) a barrier of the warp's 32 threads
+// around an exchange of the lanes' operands; a warpgroup operation (wgmma)
+// likewise over its 128 threads.
 //
 // Shared memory: addresses are 32-bit offsets from one host address. Block
 // r of a cluster has its dynamic shared memory at offset r << 20, 1024-byte

@@ -177,7 +177,7 @@ ptxas info    : Used 40 registers, 380 bytes cmem[0]
 
 
 def test_alignment_rule():
-    """The wrappers' 16-byte rule (cp.async, ldmatrix) on the data pointer
+    """The wrappers' 16-byte rule (TMA's tensor maps) on the data pointer
     of a contiguous view; checked on CPU tensors, whose storage is aligned."""
     base = torch.zeros(2 * 64 * 16 + 8)
     fa._check_aligned("t", base[:2048].view(2, 64, 16), base[4:2052].view(2, 64, 16))
@@ -186,7 +186,7 @@ def test_alignment_rule():
 
 
 # (D, dtype) -> the head dim the forward, dQ and dK/dV launchers run it at.
-HEAD_DIM_RULE = [(4, torch.bfloat16, 8, 16, 8), (8, torch.bfloat16, 8, 16, 8),
+HEAD_DIM_RULE = [(4, torch.bfloat16, 8, 8, 8), (8, torch.bfloat16, 8, 8, 8),
                  (12, torch.bfloat16, 16, 16, 16), (16, torch.bfloat16, 16, 16, 16),
                  (33, torch.bfloat16, 64, 64, 64), (128, torch.bfloat16, 128, 128, 128),
                  (4, torch.float32, 16, 16, 16), (8, torch.float32, 16, 16, 16),
@@ -196,21 +196,22 @@ HEAD_DIM_RULE = [(4, torch.bfloat16, 8, 16, 8), (8, torch.bfloat16, 8, 16, 8),
 @pytest.mark.parametrize("d,dtype,fwd,dq,dkv", HEAD_DIM_RULE)
 def test_kernel_head_dim_rule(d, dtype, fwd, dq, dkv):
     """Which head dims each kernel takes natively and which it pads: the
-    bf16 forward and dK/dV (wgmma, the head dim zero-filled to the wgmma
-    depth in shared memory) take D = 8 as it is; the dQ kernel and the f32
-    kernels pad it to 16; any other D pads to the next built one."""
+    three bf16 kernels (wgmma, the head dim zero-filled to the wgmma depth
+    in shared memory) take D = 8 as it is; the f32 kernels pad it to 16;
+    any other D pads to the next built one."""
     assert fa.kernel_head_dim("flash_attention_fwd", d, dtype) == fwd
     assert fa.kernel_head_dim("flash_attention_bwd_dq", d, dtype) == dq
     assert fa.kernel_head_dim("flash_attention_bwd_dkv", d, dtype) == dkv
 
 
 @pytest.mark.parametrize("name,dtype,padded", [
-    ("flash_attention_fwd", torch.bfloat16, False), ("flash_attention_bwd_dq", torch.bfloat16, True),
-    ("flash_attention_bwd_dkv", torch.bfloat16, False), ("flash_attention_fwd", torch.float32, True)])
+    ("flash_attention_fwd", torch.bfloat16, False), ("flash_attention_bwd_dq", torch.bfloat16, False),
+    ("flash_attention_bwd_dkv", torch.bfloat16, False), ("flash_attention_fwd", torch.float32, True),
+    ("flash_attention_bwd_dq", torch.float32, True)])
 def test_d8_pad_by_kernel(name, dtype, padded):
-    """At D = 8 the wrappers hand the bf16 forward and dK/dV kernels the
-    tensors as they are (the same objects: no copy, no slice after), and
-    the dQ and f32 kernels a copy zero-padded to 16."""
+    """At D = 8 the wrappers hand the three bf16 kernels the tensors as
+    they are (the same objects: no copy, no slice after), and the f32
+    kernels a copy zero-padded to 16."""
     x = torch.randn(2, 70, 8).to(dtype)
     d_kernel, (y,) = fa._pad_d(name, 8, x)
     if padded:

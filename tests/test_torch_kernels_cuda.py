@@ -65,8 +65,9 @@ def test_kernel_matches_plain_on_card(card, bh, t, d, dtype, step):
         fa.flash_attention_fwd(wide, wide, wide)
 
 
-BWD_SHAPES = [(72, 1024, 32), (72, 1024, 16), (72, 1024, 64), (4, 300, 64), (4, 1300, 16),
-              (2, 256, 128), (3, 200, 8), *RAGGED_SHAPES]
+BWD_SHAPES = [(72, 1024, 32), (72, 1024, 16), (36, 1024, 32), (36, 1024, 16), (64, 1024, 8),
+              (72, 1024, 64), (4, 300, 64), (4, 1300, 16), (2, 256, 128), (3, 200, 8),
+              *RAGGED_SHAPES]
 
 
 @pytest.mark.cuda
@@ -75,9 +76,10 @@ BWD_SHAPES = [(72, 1024, 32), (72, 1024, 16), (72, 1024, 64), (4, 300, 64), (4, 
 def test_bwd_kernels_match_plain_on_card(card, bh, t, d, dtype, step):
     """dQ (with Delta) and dK/dV against the plain backward on the same
     inputs and the same LSE. The training shapes first (18 images x 4 heads,
-    32x32 tokens, D 32 and 16), the 32x32 level of the 128² model (D 64),
-    then ragged T, a wide head and a head dim that the wrapper zero-pads
-    (8 -> 16), each entry within one bf16 `step` of the plain output's (see
+    32x32 tokens, D 32 and 16; a rank of the (2, 2) model-axis step; the
+    AVIF up4 level, D 8), the 32x32 level of the 128² model (D 64),
+    then ragged T, a wide head and D = 8 (bf16 unpadded, f32 zero-padded to
+    16), each entry within one bf16 `step` of the plain output's (see
     `close`)."""
     g = torch.Generator(device="cuda").manual_seed(1)
     q, k, v, do = (torch.randn(bh, t, d, device="cuda", generator=g).to(dtype)
@@ -111,8 +113,10 @@ def test_bwd_wrappers_refuse_bad_stats(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_wrappers_refuse_misaligned_views(card, dtype):
-    """cp.async and ldmatrix read 16-byte rows: a contiguous view that starts
-    one element into its storage is refused by every wrapper, not copied."""
+    """The bf16 kernels load by TMA, whose tensor maps need 16-byte-aligned
+    bases, and the wrappers hold both dtypes to that rule: a contiguous view
+    that starts one element into its storage is refused by every wrapper,
+    not copied."""
     n = 2 * 64 * 16
     base = torch.zeros(n + 8, device="cuda", dtype=dtype)
     bad = base[1:n + 1].view(2, 64, 16)
@@ -475,11 +479,11 @@ def _counting_pads(monkeypatch):
 @pytest.mark.parametrize("bh,t", [(64, 1024), (3, 200)])
 @pytest.mark.parametrize("dtype,step", STEPS)
 def test_d8_forward_and_dkv_take_no_pad_on_card(card, monkeypatch, bh, t, dtype, step):
-    """At D = 8 the bf16 forward and dK/dV kernels run on the [BH, T, 8]
-    tensors as they are (the wgmma kernels zero-fill the head dim to 16 in
-    shared memory; no pad and no slice), dQ and the f32 kernels pad to 16,
-    and all three stay within their bounds: the AVIF up4 shape and a ragged
-    one."""
+    """At D = 8 the three bf16 kernels (the forward, dQ and dK/dV) run on
+    the [BH, T, 8] tensors as they are (the wgmma kernels zero-fill the head
+    dim to 16 in shared memory; no pad and no slice), the f32 kernels pad
+    to 16, and all three stay within their bounds: the AVIF up4 shape and a
+    ragged one."""
     g = torch.Generator(device="cuda").manual_seed(7)
     q, k, v, do = (torch.randn(bh, t, 8, device="cuda", generator=g).to(dtype)
                    for _ in range(4))
@@ -488,9 +492,9 @@ def test_d8_forward_and_dkv_take_no_pad_on_card(card, monkeypatch, bh, t, dtype,
     o, lse = fa.flash_attention_fwd(q, k, v, save_lse=True)
     assert len(pads) == (0 if bf16 else 3)
     dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse)
-    assert len(pads) == (5 if bf16 else 8)  # q, k, v, o, dO for the dQ kernel
+    assert len(pads) == (0 if bf16 else 8)  # f32: q, k, v, o, dO for the dQ kernel
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
-    assert len(pads) == (5 if bf16 else 12)
+    assert len(pads) == (0 if bf16 else 12)
     torch.cuda.synchronize()
     ro, rlse = fa.flash_attention_plain(q, k, v, save_lse=True)
     rdq, rdelta = fa.flash_attention_bwd_dq_plain(q, k, v, o, do, lse)

@@ -2,13 +2,12 @@
 
 The sources in `ddpm_image_restoration_tpu_torch/csrc/` compile with g++
 against `tests/cuda_emu/`, which emulates what they use of CUDA: threads,
-blocks and clusters, `__syncthreads`, shuffles, the sm_90a instructions of
-`mma_sm90.cuh` (`ldmatrix`, `mma.sync` m16n8k16, `cp.async`: the dQ
-kernel) and of `wgmma_sm90.cuh` (the forward and dK/dV: `wgmma` from
-swizzled shared-memory descriptors and registers, run at the wait that
-needs it; `mbarrier` phases and transaction counts; TMA tile loads with
-zero fill and swizzle; the cluster barrier and distributed shared memory),
-and the tensor-map encoder's checks. The emulated launchers (forward with
+blocks and clusters, `__syncthreads`, shuffles, and the sm_90a instructions
+of `wgmma_sm90.cuh` that the three bf16 kernels run (`wgmma` from swizzled
+shared-memory descriptors, K-major and MN-major, and from registers, run at
+the wait that needs it; `mbarrier` phases and transaction counts; TMA tile
+loads with zero fill and swizzle; named barriers; the cluster barrier and
+distributed shared memory), and the tensor-map encoder's checks. The emulated launchers (forward with
 LSE, dQ with Delta, dK/dV) then face the same checks as the card tests
 (tests/test_torch_kernels_cuda.py): each output against its plain PyTorch
 version entry by entry, within one bf16 step of the entry (bf16 outputs)
@@ -36,11 +35,9 @@ torch.set_num_threads(1)
 
 EMU_DIR = Path(__file__).resolve().parent / "cuda_emu"
 LAUNCH = re.compile(r"(\w+<[^<>]*>)<<<(.*?)>>>\(")
-# The two split products, each with its lo half: mma_split (dQ) and
-# wgmma_split (the forward and dK/dV), and each without it.
-SPLITS = [("  mma_bf16(d, a.hi, b0, b1);\n  mma_bf16(d, a.lo, b0, b1);\n",
-           "  mma_bf16(d, a.hi, b0, b1);\n"),
-          ("  wgmma_sm90::wgmma_rs<1>(d, a.hi, b, true);\n"
+# The split product of all three bf16 kernels (wgmma_split), with its lo
+# half and without it.
+SPLITS = [("  wgmma_sm90::wgmma_rs<1>(d, a.hi, b, true);\n"
            "  wgmma_sm90::wgmma_rs<1>(d, a.lo, b, true);\n",
            "  wgmma_sm90::wgmma_rs<1>(d, a.hi, b, true);\n")]
 # Short and ragged T over the 64-row tiles (one partial tile, one full, a
@@ -142,7 +139,10 @@ def _shares(ins, outs, step):
 @pytest.mark.parametrize("dtype,step", STEPS)
 def test_emulated_kernels_match_plain(run_kernels, tmp_path, bh, t, d, dtype, step):
     """bf16 takes the tensor-core forward, dQ and dK/dV kernels (the
-    forward unsplit), f32 the FMA kernels; every output within its bound."""
+    forward unsplit; all three at the head dim itself, D = 8 too), f32 the
+    FMA kernels; every output within its bound."""
+    if dtype == torch.bfloat16:
+        assert all(fa.kernel_head_dim(name, d, dtype) == d for name in fa.WGMMA_KERNELS)
     ins, outs = _run(run_kernels, tmp_path / "run", bh, t, d, dtype)
     shares = _shares(ins, outs, step)
     print(f"({bh},{t},{d}) {dtype}: shares of the bound {shares}")
@@ -170,10 +170,10 @@ def test_emulated_split_route_matches_plain(run_kernels, tmp_path, bh, t, d, spl
 
 @pytest.mark.parametrize("bh,t,d", [(1, 150, 32), (1, 130, 16), (1, 130, 8)])
 def test_emulated_dropped_lo_fails_the_bound(tmp_path, bh, t, d):
-    """A copy of the sources with the `lo` half dropped at both split
-    points (mma_split and wgmma_split: P and dS rounded to bf16 once) fails
-    the bound in the forward output, dQ, dK and dV, while the f32
-    statistics still pass: the bounds see both splits."""
+    """A copy of the sources with the `lo` half dropped at the split
+    product (wgmma_split: P and dS rounded to bf16 once) fails the bound in
+    the forward output, dQ, dK and dV, while the f32 statistics still pass:
+    the bounds see the split in every kernel."""
     faulted = _compile(tmp_path / "faulted", faulted=True)
     ins, outs = _run(faulted, tmp_path / "run", bh, t, d, torch.bfloat16)
     shares = _shares(ins, outs, 2 ** -7)
