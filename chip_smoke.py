@@ -8,12 +8,20 @@ NVIDIA card and checks it, phase by phase:
      the checkout, one nvcc per source, all started together; each kernel's
      registers, spills and shared memory (`ptxas -v`) and its tensor-core
      and TMA instructions (HGMMA with UTMALDG in every instantiation of
-     the wgmma forward, dQ and dK/dV kernels, and HMMA in none; counted in
-     `cuobjdump -sass`);
+     the wgmma forward, dQ and dK/dV kernels, D = 8 to 256, and HMMA in
+     none; counted in `cuobjdump -sass`);
   3. kernels: each kernel against its plain PyTorch version, with times
      (the kernels' and SDPA's as device time under torch.profiler, the
      plain versions' between CUDA events), and the autograd Function's
-     gradients against autograd through the plain attention;
+     gradients against autograd through the plain attention, at every path
+     shape (D = 256 and 128 of the 1024² path too) and contract shape;
+  3b. path1024: the WebP preset's full-width UNet at 1024² (flash attention
+     at <= 32²: only the bottleneck attends, at T = 1024 with D = 256, 256
+     and 128; random weights, batch 1): `cli/restore.py` on a 1024² WebP
+     under the production policy, one train step with block remat, each
+     kernel's launches per head dim against what the model's structure
+     predicts, and one UNet evaluation with flash attention against the
+     same weights with the plain attention (bf16);
   4. reference: a half-width f32 restore on the card against the same
      restore on the CPU (the CPU path is the one the tests hold to the JAX
      package), a traced-budget, mixed-quality one with decoder reuse, and
@@ -56,7 +64,10 @@ NVIDIA card and checks it, phase by phase:
      image, and the EMA weights of the checkpoint phase `train` wrote), then
      the server (`cli/serve.py main`) on mixed codecs with the traced
      budget; each variant's kernel launches against its schedule, and its
-     milliseconds per image;
+     milliseconds per image; then that checkpoint through `cli/export.py`
+     (EMA, and `--raw-params`) into release npz files that hold its weights
+     rounded to fp16 in the JAX package's layout, and the restore CLI on
+     the EMA npz (`--params-npz`);
  11. evaluate: the evaluator (`cli/evaluate.py main`) at full width on 20
      images, q10/30/50 under the production policy, static and traced:
      launches against the schedule, the metrics summary's fields, images
@@ -136,7 +147,9 @@ JAX_PACKAGE = PACKAGE.removesuffix("_torch")  # the reference; never imported he
 # (`--parallel-child-nccl` on four cards; the script's own (1, 2) mesh and
 # `--sp` restores give the train-step and serve shapes: a model rank
 # attends over its data rank's whole batch, an `--sp` rank over the
-# gathered tokens of every image).
+# gathered tokens of every image); then phase `path1024`'s bottleneck at
+# 1024² (4 heads of 1024 and 512 channels at 32² tokens, batch 1: D = 256
+# and 128), restored and trained.
 FWD_PATH_SHAPES = [("serve", 32, 1024, 32, False), ("serve", 32, 1024, 16, False),
                    ("train step", 72, 1024, 32, True), ("train step", 72, 1024, 16, True),
                    ("distill teacher", 72, 1024, 32, False),
@@ -155,22 +168,29 @@ FWD_PATH_SHAPES = [("serve", 32, 1024, 32, False), ("serve", 32, 1024, 16, False
                    ("gaussian_mixture tiles", 64, 1024, 32, False),
                    ("gaussian_mixture tiles", 64, 1024, 16, False),
                    ("model axis (2, 2)", 36, 1024, 32, True),
-                   ("model axis (2, 2)", 36, 1024, 16, True)]
+                   ("model axis (2, 2)", 36, 1024, 16, True),
+                   ("restore 1024²", 4, 1024, 256, False), ("restore 1024²", 4, 1024, 128, False),
+                   ("train step 1024²", 4, 1024, 256, True),
+                   ("train step 1024²", 4, 1024, 128, True)]
 # (BH, T, D): those shapes, then long, ragged and wide-head cases of the
 # kernel's contract.
 KERNEL_SHAPES = list(dict.fromkeys(s[1:4] for s in FWD_PATH_SHAPES)) + [
-    (8, 4096, 16), (4, 300, 64), (2, 256, 128), (3, 17, 32)]
+    (8, 4096, 16), (4, 300, 64), (2, 256, 128), (3, 17, 32), (32, 1024, 256), (3, 300, 256),
+    (2, 300, 192)]
 # Backward (BH, T, D) -> heads: the training paths' shapes first (down2 and
 # up4 of a WebP batch of 18 images x 4 heads and of an AVIF batch of 8 x 8
 # heads, 32x32 tokens, and of 9 images x 4 heads a data rank of the (2, 2)
-# model-axis step), then contract shapes: the 32x32 level of the 128²
-# model (head dim 64, batch 18), and ragged, short and wide cases.
+# model-axis step; the 1024² train step's bottleneck, one image x 4 heads
+# at D = 256 and 128), then contract shapes: the 32x32 level of the 128²
+# model (head dim 64, batch 18), ragged, short and wide cases, and D = 256
+# at a batch of 8 images, ragged, and at D = 192 (padded to 256).
 TRAIN_SHAPES = {(72, 1024, 32): 4, (72, 1024, 16): 4, (64, 1024, 16): 8, (64, 1024, 8): 8,
-                (36, 1024, 32): 4, (36, 1024, 16): 4}
+                (36, 1024, 32): 4, (36, 1024, 16): 4, (4, 1024, 256): 4, (4, 1024, 128): 4}
 TRAIN_PATHS = {(64, 1024, 16): "avif train step", (64, 1024, 8): "avif train step",
-               (36, 1024, 32): "model axis (2, 2)", (36, 1024, 16): "model axis (2, 2)"}
+               (36, 1024, 32): "model axis (2, 2)", (36, 1024, 16): "model axis (2, 2)",
+               (4, 1024, 256): "train step 1024²", (4, 1024, 128): "train step 1024²"}
 BWD_SHAPES = [*TRAIN_SHAPES, (72, 1024, 64), (4, 300, 64), (4, 1300, 16), (2, 256, 128),
-              (3, 17, 32)]
+              (3, 17, 32), (32, 1024, 256), (3, 300, 256), (2, 300, 192)]
 # Each kernel against its plain version, entry by entry:
 #   |got - ref| <= BF16_STEP * |ref| (bf16 outputs only) + F32_REL * max|ref|.
 # Both accumulate in f32 on the same inputs, so their f32 results differ by
@@ -187,12 +207,14 @@ F32_REL = 1e-4
 FUNCTION_REL = {"bfloat16": 2 ** -6, "float32": F32_REL}
 # Which design computes each kernel, per input dtype.
 DESIGNS = {
-    "flash_attention_fwd": {"bf16": "wgmma m64nNk16, TMA/mbarrier ring, hi/lo P, cluster "
-                                    "split over keys", "f32": "FMA"},
-    "flash_attention_bwd_dq": {"bf16": "wgmma m64nNk16, TMA/mbarrier ring, hi/lo dS",
-                               "f32": "FMA"},
-    "flash_attention_bwd_dkv": {"bf16": "wgmma m64nNk16, TMA/mbarrier ring, hi/lo P and dS",
-                                "f32": "FMA"},
+    "flash_attention_fwd": {"bf16": "wgmma m64nNk16, TMA/mbarrier ring (32-key stages at D = "
+                                    "256), hi/lo P, cluster split over keys (merged through "
+                                    "the ring's space at D = 256)", "f32": "FMA"},
+    "flash_attention_bwd_dq": {"bf16": "wgmma m64nNk16, TMA/mbarrier ring (32-key stages at "
+                                       "D = 256), hi/lo dS", "f32": "FMA"},
+    "flash_attention_bwd_dkv": {"bf16": "wgmma m64nNk16, TMA/mbarrier ring, hi/lo P and dS "
+                                        "(at D = 256 two blocks a key tile, each with half "
+                                        "the columns of dK and dV)", "f32": "FMA"},
 }
 # The bf16 path shapes' (kernel, SDPA) device ms of the mma.sync forward and
 # dK/dV kernels that the wgmma ones replaced, as chip_smoke measured them on
@@ -240,6 +262,8 @@ SEED = 0
 RESTORE_QUALITIES = (10, 30, 50, 90)
 RESTORE_FLAGS = ["--device", "cuda", "--attn", "flash", "--attn-max-res", "32",
                  "--max-evals", "14", "--encoder-reuse", "2"]
+# `cli/export.py`'s flags for phase `train`'s checkpoint (that run's model).
+EXPORT_FLAGS = ["--device", "cuda", "--codec", "webp", "--attn-max-res", "32"]
 TILE_SIZE_HW = (136, 200)
 # The evaluate phase: cli/evaluate.py on the webp preset, natural synthetic
 # images in batches of 8 (20 = two full batches and one of 4 real images
@@ -462,13 +486,13 @@ def phase_build(state: dict) -> None:
     if not sass:
         return
     # every instantiation of the forward, dQ and dK/dV wgmma kernels (D = 8
-    # to 128) runs HGMMA and loads by TMA (UTMALDG); no kernel runs HMMA
+    # to 256) runs HGMMA and loads by TMA (UTMALDG); no kernel runs HMMA
     # (mma.sync)
     hopper = {k: ops for k, ops in sass.items() if "_wgmma_kernel" in k}
     dq = [k for k in hopper if "dq_wgmma_kernel" in k]
     bad = [k for k, ops in hopper.items() if not (ops["HGMMA"] and ops["UTMALDG"])]
     bad += [k for k, ops in sass.items() if ops["HMMA"]]
-    if len(hopper) != 15 or len(dq) != 5 or bad:
+    if len(hopper) != 18 or len(dq) != 6 or bad:
         raise AssertionError(f"wgmma kernels without HGMMA/UTMALDG, or kernels with HMMA, in "
                              f"their SASS: {bad or sorted(hopper)}")
 
@@ -687,6 +711,220 @@ def check_function(failures: list) -> None:
             if not sh <= 1.0:
                 failures.append(f"Function {part} {list(shape)} {name}: max|diff| {e:.3g}, "
                                 f"{sh:.3g} of its bound")
+
+
+# Phase `path1024`: the WebP preset's full-width UNet at --image-size 1024
+# with flash attention at <= 32², where only the bottleneck attends (1024,
+# 1024 and 512 channels over 4 heads at 32² = 1024 tokens: D = 256, 256 and
+# 128); seeded random weights, batch 1. The restore CLI at q30 under the
+# production budget (RESTORE_FLAGS), then one train step with block remat.
+PATH1024_SIZE = 1024
+PATH1024_QUALITY = 30
+PATH1024_SCALE = 1  # widths divided by this (the CPU rehearsal's narrow model)
+
+
+def flash_head_dims(model, size: int) -> tuple:
+    """From the model's structure: the head dims of its attention blocks
+    that take the flash kernel on size² images (flash impl, and at least
+    the kernel's threshold of tokens at the block's level), as (encode,
+    decode) lists; `encode` holds the encoder's and the bottleneck's."""
+    from ddpm_image_restoration_tpu_torch.ops.attention import MIN_TOKENS_FOR_KERNEL
+
+    n_enc = len(model.cfg.enc_widths) + len(model.cfg.bottleneck_widths)
+    dims = ([], [])
+    for i, (level, block) in enumerate(model._blocks()):
+        attn = block.attn
+        if (attn is not None and attn.impl == "flash"
+                and (size >> level) ** 2 >= MIN_TOKENS_FOR_KERNEL):
+            dims[i >= n_enc].append(attn.qkv.in_features // attn.num_heads)
+    return dims
+
+
+@contextlib.contextmanager
+def launches_by_head_dim():
+    """Records each kernel launch as (wrapper name, head dim the kernel ran
+    at) from the one helper every wrapper launches through
+    (`ops.flash_attention._launch`); the wrappers' counts are untouched."""
+    from ddpm_image_restoration_tpu_torch.ops import flash_attention as fa
+
+    real, seen = fa._launch, []
+
+    def recording(name, pointers, bh, t, d_kernel, dtype, d, device):
+        real(name, pointers, bh, t, d_kernel, dtype, d, device)
+        seen.append((name, d_kernel))
+
+    fa._launch = recording
+    try:
+        yield seen
+    finally:
+        fa._launch = real
+
+
+def phase_path1024(state: dict) -> None:
+    """The 1024² path at full width (`PATH1024_SIZE`), each run counted from
+    0, its launches per kernel and head dim against what the model's
+    structure predicts (`flash_head_dims`):
+      * `cli/restore.py` on a 1024² WebP at q30 under the production policy
+        (DDRMSampler, surrogate steps, final_exact): the forward once per
+        bottleneck block per encode, so 3g launches for g encoder groups,
+        2g of them at D = 256;
+      * one train step (`train/steps.py make_train_step`, bf16, block remat,
+        EMA): per attention block the forward with the LSE twice (the
+        recompute), dQ and dK/dV once, at (4, 1024, 256) for two blocks;
+        the loss and every gradient finite;
+      * one UNet evaluation with flash attention against the same weights
+        with the plain attention, both bf16 (a whole restore is chaotic on
+        random weights: ROADMAP "Random-weight restores"), within the plain
+        model's own bf16 error against its f32 evaluation, mean and max."""
+    import collections
+    import dataclasses
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from ddpm_image_restoration_tpu_torch.cli.common import load_image
+    from ddpm_image_restoration_tpu_torch.cli.restore import main as restore_main
+    from ddpm_image_restoration_tpu_torch.config import ModelConfig, TrainConfig
+    from ddpm_image_restoration_tpu_torch.models import build_model
+    from ddpm_image_restoration_tpu_torch.ops import flash_attention as fa
+    from ddpm_image_restoration_tpu_torch.train.steps import create_train_state, make_train_step
+
+    size, q = PATH1024_SIZE, PATH1024_QUALITY
+    work = os.path.join(ROOT, "build", "chip_smoke_path1024")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    failures, totals = [], dict.fromkeys(_counts(), 0)
+    cfg = ModelConfig(image_size=size, attention_impl="flash", attn_max_resolution=32)
+    narrow = ["--width-scale", str(PATH1024_SCALE)] if PATH1024_SCALE > 1 else []
+    if narrow:
+        cfg = cfg.scaled(PATH1024_SCALE)
+    torch.manual_seed(SEED)
+    model = build_model("webp", cfg, device=CARD).eval()
+    enc, dec = flash_head_dims(model, size)
+    log(f"1024² path: flash attention head dims per encode {enc}, per decode {dec}")
+    if not narrow and sorted(enc + dec) != [128, 256, 256]:
+        failures.append(f"the 1024² model's flash blocks have head dims {enc + dec}, "
+                        f"not the bottleneck's 256, 256 and 128")
+
+    def check(label, seen, want, wall):
+        got, counts = collections.Counter(seen), _counts()
+        for k, v in counts.items():
+            totals[k] += v
+        by_kernel = {n: sum(v for (k, _), v in got.items() if k == n) for n in counts}
+        log(f"{label}: {wall:.2f} s on {state['smi']}; launches by (kernel, head dim) "
+            f"{dict(sorted(got.items()))}, the structure predicts {dict(sorted(want.items()))}; "
+            f"wrapper counts {counts}")
+        if got != want or by_kernel != counts:
+            failures.append(f"{label}: launches {dict(got)} (wrappers {counts}), the "
+                            f"structure predicts {dict(want)}")
+
+    try:
+        x = synthetic_images(1, size, SEED + 3)[0]
+        src = os.path.join(work, "in.webp")
+        Image.fromarray(np.round((x * 0.5 + 0.5) * 255).astype(np.uint8)).save(src, quality=q)
+
+        # the restore CLI: encoder blocks once per group, decoder blocks per evaluation
+        n, g = static_schedule(q, "webp", *restore_budget())
+        want = collections.Counter({(fa.KERNEL, d): 0 for d in enc + dec})
+        for d in enc:
+            want[(fa.KERNEL, d)] += g
+        for d in dec:
+            want[(fa.KERNEL, d)] += n
+        out_dir = os.path.join(work, "out")
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        with launches_by_head_dim() as seen, \
+                contextlib.redirect_stdout(io.StringIO()) as printed:
+            restore_main([src, *RESTORE_FLAGS, *narrow, "--image-size", str(size),
+                          "--random-init", "--quality", str(q), "--codec", "webp",
+                          "--output-dir", out_dir])
+        torch.cuda.synchronize()
+        check(f"restore 1024² (n {n}, g {g}; {printed.getvalue().splitlines()[0]})", seen, want,
+              time.perf_counter() - t0)
+        png = os.path.join(out_dir, "in_restored.png")
+        shape = np.asarray(Image.open(png)).shape if os.path.exists(png) else None
+        if shape != (size, size, 3):
+            failures.append(f"restore 1024² wrote {png} of shape {shape}")
+
+        # one train step with block remat: each block's forward again in the backward
+        tcfg = TrainConfig(codec="webp", model=dataclasses.replace(cfg, remat=True),
+                           batch_size=1, ema_decay=0.999)
+        torch.manual_seed(SEED)
+        train_model = build_model("webp", tcfg.model, device=CARD)
+        train_state = create_train_state(train_model, tcfg)
+        step = make_train_step(train_model, tcfg)
+        xt = torch.from_numpy(load_image(src, None)[None]).to(CARD)
+        batch = {"x0": torch.from_numpy(x[None]).to(CARD), "xt": xt,
+                 "t": torch.tensor([50], device=CARD), "quality": torch.tensor([q], device=CARD)}
+        want = collections.Counter()
+        for d in enc + dec:
+            want[(fa.KERNEL, d)] += 2
+            want[("flash_attention_bwd_dq", d)] += 1
+            want[("flash_attention_bwd_dkv", d)] += 1
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        with launches_by_head_dim() as seen:
+            metrics = step(train_state, batch, torch.Generator(device=CARD).manual_seed(SEED))
+            torch.cuda.synchronize()
+        check(f"train step 1024² (bf16, remat; loss {metrics['loss'].item():.4f}, grad norm "
+              f"{metrics['grad_norm'].item():.4g})", seen, want, time.perf_counter() - t0)
+        bad = [k for k, p in train_model.named_parameters()
+               if p.grad is None or not torch.isfinite(p.grad).all()]
+        qkv = [getattr(train_model, f"bottleneck{i}").attn.qkv.weight.grad.abs().max().item()
+               for i in (1, 2, 3)]
+        log(f"  |bottleneck qkv grad| max {qkv}; parameters without a finite gradient: {bad}")
+        if bad or not all(v > 0 for v in qkv) or not all(
+                math.isfinite(metrics[k].item()) for k in ("loss", "grad_norm")):
+            failures.append(f"train step 1024²: loss {metrics['loss'].item()}, grad norm "
+                            f"{metrics['grad_norm'].item()}, non-finite or missing gradients "
+                            f"{bad[:5]}, bottleneck qkv grads {qkv}")
+        del train_state, train_model, step, metrics
+        torch.cuda.empty_cache()
+
+        # one evaluation: flash against plain attention on the same weights (bf16), and
+        # the plain model's own bf16 error against f32 as the yardstick
+        weights = model.state_dict()
+        plain = build_model("webp", dataclasses.replace(cfg, attention_impl="xla"),
+                            device=CARD).eval()
+        plain.load_state_dict(weights)
+        exact = build_model("webp", dataclasses.replace(cfg, attention_impl="xla",
+                                                        compute_dtype="float32"),
+                            device=CARD).eval()
+        exact.load_state_dict(weights)
+        t = torch.tensor([0.5], device=CARD)
+        want = collections.Counter()
+        for d in enc + dec:
+            want[(fa.KERNEL, d)] += 1
+        with torch.no_grad(), no_tf32():
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            with launches_by_head_dim() as seen:
+                out = model(xt, t).float()
+                torch.cuda.synchronize()
+            check("UNet evaluation 1024² (bf16, flash)", seen, want, time.perf_counter() - t0)
+            ref = plain(xt, t).float()
+            ref32 = exact(xt, t).float()
+        err, floor = (out - ref).abs(), (ref - ref32).abs()
+        log(f"  flash against plain attention: max|diff| {err.max().item():.4g}, mean "
+            f"{err.mean().item():.4g}; plain bf16 against f32: max {floor.max().item():.4g}, "
+            f"mean {floor.mean().item():.4g}; max|out| {ref.abs().max().item():.4g}")
+        if not (torch.isfinite(out).all() and err.mean() <= floor.mean()
+                and err.max() <= floor.max()):
+            failures.append(f"UNet 1024²: flash against plain attention max {err.max().item()}"
+                            f", mean {err.mean().item()}, beyond the bf16 model's own error "
+                            f"(max {floor.max().item()}, mean {floor.mean().item()})")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        _reset_counts()
+    state["launches_path1024"] = totals
+    if failures:
+        raise AssertionError("; ".join(failures))
 
 
 def phase_reference(state: dict) -> None:
@@ -1603,6 +1841,8 @@ def phase_restore(state: dict) -> None:
         if len(outs) != len(webps + jpegs) or any(np.asarray(Image.open(os.path.join(out_dir, f))).shape
                                   != (64, 64, 3) for f in outs):
             failures.append(f"serve wrote {outs}")
+        export_round_trip(state, ckpt_dir, webps, work, [*auto, *RESTORE_FLAGS],
+                          sum(n + g for n, g in per_batch), totals, failures)
         state["launches_restore"] = totals
         if failures:
             raise AssertionError("; ".join(failures))
@@ -1610,6 +1850,82 @@ def phase_restore(state: dict) -> None:
         shutil.rmtree(work, ignore_errors=True)
         if ckpt_dir:
             shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def export_round_trip(state: dict, ckpt_dir: str, webps: list, work: str, flags: list,
+                      want_fwd: int, totals: dict, failures: list) -> None:
+    """Phase `train`'s checkpoint through `cli/export.py` on the card: the
+    EMA npz (the default) and the `--raw-params` one each hold that
+    checkpoint's weights rounded once to fp16, as the port's
+    `load_release_params` reads them and as the JAX package's reads them
+    (its '/'-joined Flax names, f32: the checkpoint's weights in the JAX
+    layout, `params_to_jax`); then `cli/restore.py --params-npz` restores
+    the WebPs from the EMA npz with `want_fwd` forward launches."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from ddpm_image_restoration_tpu_torch.cli import export
+    from ddpm_image_restoration_tpu_torch.cli.restore import main as restore_main
+    from ddpm_image_restoration_tpu_torch.ops import flash_attention as fa
+    from ddpm_image_restoration_tpu_torch.train.checkpoint import (
+        CheckpointManager,
+        load_release_params,
+        params_to_jax,
+    )
+
+    mgr = CheckpointManager(ckpt_dir)
+    template = export.release_template(export.parse_args([ckpt_dir, "--out", "-",
+                                                           *EXPORT_FLAGS]))
+    npz = {}
+    for which, extra in (("ema", []), ("raw", ["--raw-params"])):
+        out = os.path.join(work, f"release_{which}.npz")
+        t0 = time.perf_counter()
+        _, printed = _quiet(export.main, [ckpt_dir, "--out", out, *EXPORT_FLAGS, *extra])
+        wall = time.perf_counter() - t0
+        weights, _ = mgr.restore_params(ema=which == "ema")
+        rounded = {k: v.half().float() for k, v in weights.items()}
+        got = load_release_params(out)
+        port_ok = got.keys() == rounded.keys() and all(torch.equal(got[k], v)
+                                                       for k, v in rounded.items())
+        template.load_state_dict(rounded)
+        want = params_to_jax(template)
+        with np.load(out) as data:
+            as_jax = {k: data[k].astype(np.float32) for k in data.files if not k.startswith("__")}
+            npz[which] = as_jax
+        jax_ok = as_jax.keys() == want.keys() and all(np.array_equal(as_jax[k], v)
+                                                      for k, v in want.items())
+        log(f"export [{which}]: {wall:.1f} s; {printed.strip().splitlines()[-1][:160]}; "
+            f"the port's reader gives the checkpoint's {which} weights in fp16: {port_ok}; "
+            f"in the JAX package's layout: {jax_ok}")
+        if not (port_ok and jax_ok):
+            failures.append(f"export [{which}]: the npz does not hold the checkpoint's weights "
+                            f"(port reader {port_ok}, JAX layout {jax_ok})")
+    if all(np.array_equal(npz["ema"][k], v) for k, v in npz["raw"].items()):
+        failures.append("export: the EMA npz equals the raw one")
+    out_dir = os.path.join(work, "out_npz")
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    _, printed = _quiet(restore_main, [*webps, *flags, "--params-npz",
+                                       os.path.join(work, "release_ema.npz"),
+                                       "--output-dir", out_dir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    for k, v in counts.items():
+        totals[k] += v
+    log(f"restore [exported EMA npz]: {len(webps)} file(s), {1e3 * wall / len(webps):.1f} "
+        f"ms/image on {state['smi']}; launches {counts} (schedule implies {want_fwd} forward)")
+    if counts != {fa.KERNEL: want_fwd, "flash_attention_bwd_dq": 0,
+                  "flash_attention_bwd_dkv": 0}:
+        failures.append(f"restore [exported EMA npz]: launches {counts}, schedule implies "
+                        f"{want_fwd}")
+    for f in webps:
+        png = os.path.join(out_dir, os.path.splitext(os.path.basename(f))[0] + "_restored.png")
+        shape = np.asarray(Image.open(png)).shape if os.path.exists(png) else None
+        if shape != (64, 64, 3):
+            failures.append(f"restore [exported EMA npz]: {png} has shape {shape}")
 
 
 def _quiet(fn, argv):
@@ -3191,7 +3507,8 @@ def phase_modules(state: dict) -> None:
 
 
 PHASES = [("environment", phase_environment), ("build", phase_build),
-          ("kernels", phase_kernels), ("reference", phase_reference),
+          ("kernels", phase_kernels), ("path1024", phase_path1024),
+          ("reference", phase_reference),
           ("serve", phase_serve), ("train_reference", phase_train_reference),
           ("train", phase_train), ("distill", phase_distill), ("parallel", phase_parallel),
           ("restore", phase_restore),
@@ -3203,11 +3520,12 @@ def kernels_json(state: dict) -> str:
     """One row per kernel. Its top-level numbers are at the first serving
     or training shape in bf16 (down2); `main_path_shapes` has each shape the
     main paths give it, with its own error and times. `launches` sums the
-    main paths' runs (serve, train, distillation, the parallel phase's
-    ranks, the restore and serve CLIs, the evaluator, the AVIF family, the
-    Gaussian-mixture restore), each counted from 0;
+    main paths' runs (serve, the 1024² path, train, distillation, the
+    parallel phase's ranks, the restore and serve CLIs, the evaluator, the
+    AVIF family, the Gaussian-mixture restore), each counted from 0;
     `launches_by_path` splits it."""
-    paths = {"serve": state["launches"], "train": state.get("launches_train", {}),
+    paths = {"serve": state["launches"], "path1024": state.get("launches_path1024", {}),
+             "train": state.get("launches_train", {}),
              "distill": state.get("launches_distill", {}),
              "parallel": state.get("launches_parallel", {}),
              "restore": state.get("launches_restore", {}),

@@ -65,7 +65,12 @@
 //     barriers), 32 keys a stage and three blocks an SM were slower too
 //     (PERF.md §6);
 //   * D = 8 natively (zero-filled to the wgmma depth 16 in shared memory;
-//     dQ written 8 wide).
+//     dQ written 8 wide);
+//   * D = 256 (the 1024² model's bottleneck): the two warpgroups' Q and dO
+//     tiles take 128 KB of the 227 KB, so the ring's stages hold 32 keys
+//     (32 KB of K and V; 3 stages, refilled one iteration after their use,
+//     two tiles ahead; 225 KB in all); S and dP take 16 f32 a thread each
+//     and dQ 128 (ptxas -v: 186 registers, no spill; one block an SM).
 //
 // dK/dV (flash_bwd_dkv_wgmma_kernel) works in the transposed frame, keys as
 // the M rows. What bounds it at T = 1024 (per 72 heads): its products,
@@ -86,9 +91,9 @@
 //   * the producer streams every query tile's Q and dO by TMA ([BH, T, D]
 //     tensor maps, boxes of BQ rows, zero-filled past T and, at D = 8, over
 //     the columns 8..15) and its LSE and Delta rows by the warp's lanes,
-//     through a ring of 4 (D <= 32), 3 (64) or 2 (128) stages with
-//     full/empty mbarriers; BQ = 64 queries, 32 at D = 128, where the dK and
-//     dV accumulators take 128 f32 a thread;
+//     through a ring of 4 (D <= 32), 3 (64, 256) or 2 (128) stages with
+//     full/empty mbarriers; BQ = 64 queries, 32 from D = 128, where the dK
+//     and dV accumulators take 128 f32 a thread;
 //   * S^T = K*Q^T and dP^T = V*dO^T by wgmma m64n{BQ}k16 from K-major
 //     descriptors; P^T = exp2(S^T*c - LSE) and dS^T = P^T o (dP^T - Delta)
 //     on the accumulators, query columns >= T given P = 0 explicitly (a
@@ -100,7 +105,15 @@
 //   * the two warpgroups take turns at issuing each group of products
 //     (named barriers), 4-5% faster than issuing at will (PERF.md §6);
 //   * D = 8 natively (zero-filled to the wgmma depth 16 in shared memory;
-//     dK and dV written 8 wide).
+//     dK and dV written 8 wide);
+//   * D = 256: dK and dV of 64 keys over all 256 columns would take 256 f32
+//     a thread, more than a thread has, so two blocks share each key tile,
+//     each accumulating half of the columns (64 + 64 f32, as at D = 128)
+//     and computing S^T and dP^T over the whole depth itself (those
+//     products twice: 4/3 of one block's flops); both warpgroups' K and V
+//     take 128 KB, the ring 3 stages of 32 queries (32 KB each; 226 KB in
+//     all). ptxas -v: 168 registers, 204 bytes spilled, its products
+//     serialized, as at D = 128.
 //
 // No atomics: every output element is written by one thread, once, and
 // results are deterministic. P and dS are carried as a bf16 hi part (x
@@ -111,9 +124,11 @@
 // In f32 both run on the CUDA cores in f32 FMA (67 TFLOP/s ceiling).
 // Layout: each row owned by a block is split over TPR = D/8 adjacent lanes
 // that each hold 8 interleaved dims (so the lanes of one row read different
-// shared-memory banks); dot products are the xor-shuffle sum of the lanes'
-// partials; the streamed operand tiles sit in shared memory; 16 partner
-// rows are processed per chunk so that their shuffles and exp2s overlap.
+// shared-memory banks), 16 dims at D = 256 (16 lanes a row); dot products
+// are the xor-shuffle sum of the lanes' partials; the streamed operand
+// tiles sit in static shared memory (48 KB at most: 16-row tiles at D =
+// 256); 16 partner rows are processed per chunk so that their shuffles and
+// exp2s overlap.
 //
 // Build (plain C interface, no PyTorch headers; loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -129,14 +144,16 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kDimsPerLane = 8;
 constexpr int kChunk = 16;
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D> struct Tile {
-  static constexpr int TPR = D / kDimsPerLane;   // lanes per owned row
+  static constexpr int DPL = D > 128 ? 16 : 8;   // dims of an owned row a lane holds
+  static constexpr int TPR = D / DPL;            // lanes per owned row
   static constexpr int ROWS = kThreads / TPR;    // owned rows per block
-  static constexpr int BN = D >= 128 ? 32 : 64;  // streamed rows per shared tile
+  // streamed rows per shared tile: two tiles take 2*BN*D*4 bytes of the 48
+  // KB of static shared memory (32 KB at D = 128 and 256)
+  static constexpr int BN = D > 128 ? 16 : (D == 128 ? 32 : 64);
 };
 
 // Loads rows [r0, r0 + BN) of a [T, D] slab into a f32 shared tile, zeros
@@ -157,7 +174,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ dout, const float* __restrict__ lse,
                     float* __restrict__ dq, float* __restrict__ delta, int t_len,
                     float scale, float scale_log2) {
-  constexpr int TPR = Tile<D>::TPR, ROWS = Tile<D>::ROWS, BN = Tile<D>::BN;
+  constexpr int DPL = Tile<D>::DPL, TPR = Tile<D>::TPR, ROWS = Tile<D>::ROWS, BN = Tile<D>::BN;
   __shared__ float k_s[BN][D];
   __shared__ float v_s[BN][D];
 
@@ -168,10 +185,10 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const size_t base = (size_t)bh * t_len * D;
   const size_t row_base = base + (size_t)(row_ok ? row : 0) * D;
 
-  float qr[kDimsPerLane], dor[kDimsPerLane], acc[kDimsPerLane];
+  float qr[DPL], dor[DPL], acc[DPL];
   float dsum = 0.f;
 #pragma unroll
-  for (int e = 0; e < kDimsPerLane; ++e) {
+  for (int e = 0; e < DPL; ++e) {
     const int d = sub + e * TPR;
     qr[e] = row_ok ? q[row_base + d] * scale_log2 : 0.f;
     dor[e] = row_ok ? dout[row_base + d] : 0.f;
@@ -197,7 +214,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < kChunk; ++j) {
         float a = 0.f, b = 0.f;
 #pragma unroll
-        for (int e = 0; e < kDimsPerLane; ++e) {
+        for (int e = 0; e < DPL; ++e) {
           a = fmaf(qr[e], k_s[c0 + j][sub + e * TPR], a);
           b = fmaf(dor[e], v_s[c0 + j][sub + e * TPR], b);
         }
@@ -217,14 +234,14 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const float p = (row_ok && c0 + j < n_valid) ? exp2f(s[j] - lse_log2) : 0.f;
         const float ds = p * (dp[j] - dsum);
 #pragma unroll
-        for (int e = 0; e < kDimsPerLane; ++e) acc[e] = fmaf(ds, k_s[c0 + j][sub + e * TPR], acc[e]);
+        for (int e = 0; e < DPL; ++e) acc[e] = fmaf(ds, k_s[c0 + j][sub + e * TPR], acc[e]);
       }
     }
   }
 
   if (row_ok) {
 #pragma unroll
-    for (int e = 0; e < kDimsPerLane; ++e) dq[row_base + sub + e * TPR] = acc[e] * scale;
+    for (int e = 0; e < DPL; ++e) dq[row_base + sub + e * TPR] = acc[e] * scale;
   }
 }
 
@@ -235,7 +252,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      float* __restrict__ dk, float* __restrict__ dv, int t_len, float scale,
                      float scale_log2) {
-  constexpr int TPR = Tile<D>::TPR, ROWS = Tile<D>::ROWS, BN = Tile<D>::BN;
+  constexpr int DPL = Tile<D>::DPL, TPR = Tile<D>::TPR, ROWS = Tile<D>::ROWS, BN = Tile<D>::BN;
   __shared__ float q_s[BN][D];
   __shared__ float do_s[BN][D];
   __shared__ float lse_s[BN];    // log2 units
@@ -249,9 +266,9 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const size_t row_base = base + (size_t)(row_ok ? row : 0) * D;
   const size_t stat_base = (size_t)bh * t_len;
 
-  float kr[kDimsPerLane], vr[kDimsPerLane], dk_acc[kDimsPerLane], dv_acc[kDimsPerLane];
+  float kr[DPL], vr[DPL], dk_acc[DPL], dv_acc[DPL];
 #pragma unroll
-  for (int e = 0; e < kDimsPerLane; ++e) {
+  for (int e = 0; e < DPL; ++e) {
     const int d = sub + e * TPR;
     kr[e] = row_ok ? k[row_base + d] * scale_log2 : 0.f;
     vr[e] = row_ok ? v[row_base + d] : 0.f;
@@ -277,7 +294,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < kChunk; ++j) {
         float a = 0.f, b = 0.f;
 #pragma unroll
-        for (int e = 0; e < kDimsPerLane; ++e) {
+        for (int e = 0; e < DPL; ++e) {
           a = fmaf(kr[e], q_s[c0 + j][sub + e * TPR], a);
           b = fmaf(vr[e], do_s[c0 + j][sub + e * TPR], b);
         }
@@ -298,7 +315,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const float p = (row_ok && i < n_valid) ? exp2f(s[j] - lse_s[i]) : 0.f;
         const float ds = p * (dp[j] - delta_s[i]);
 #pragma unroll
-        for (int e = 0; e < kDimsPerLane; ++e) {
+        for (int e = 0; e < DPL; ++e) {
           dv_acc[e] = fmaf(p, do_s[i][sub + e * TPR], dv_acc[e]);
           dk_acc[e] = fmaf(ds, q_s[i][sub + e * TPR], dk_acc[e]);
         }
@@ -308,7 +325,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   if (row_ok) {
 #pragma unroll
-    for (int e = 0; e < kDimsPerLane; ++e) {
+    for (int e = 0; e < DPL; ++e) {
       dk[row_base + sub + e * TPR] = dk_acc[e] * scale;
       dv[row_base + sub + e * TPR] = dv_acc[e];
     }
@@ -338,21 +355,25 @@ template <int D> __device__ __forceinline__ uint32_t kslice(int kd, int rows) {
 
 template <int D> struct HopperDq : HopperDims<D> {
   using B = HopperDims<D>;
-  // one [64, DP] bf16 tile: a warpgroup's Q or dO, a ring stage's K or V
-  static constexpr int TILE = 64 * B::DP * 2;
+  // keys a ring stage: 32 at D = 256, where the two warpgroups' Q and dO
+  // tiles take 128 KB and a stage of 64 keys' K and V 64 KB more
+  static constexpr int BN = D > 128 ? 32 : 64;
+  static constexpr int QTILE = 64 * B::DP * 2;  // a warpgroup's [64, DP] Q or dO tile
+  static constexpr int KTILE = BN * B::DP * 2;  // a stage's [BN, DP] K or V tile
   // blocks an SM: two at D <= 32, where 128 registers a thread suffice
   static constexpr int MIN_BLOCKS = D <= 32 ? 2 : 1;
-  // The ring: STAGES stages of 64 keys (a K and a V tile each); the stage
+  // The ring: STAGES stages of BN keys (a K and a V tile each); the stage
   // of key tile j is refilled (with tile j + STAGES) by thread 0 at the top
   // of iteration j + LAG, once both warpgroups have let it go (each lets go
   // of tile j at the end of iteration j; LAG - 1 iterations of slack before
-  // thread 0 waits on the other warpgroup). STAGES - LAG tiles stay ahead.
-  static constexpr int STAGES = D <= 64 ? 6 : 4;
-  static constexpr int LAG = D <= 64 ? 3 : 2;
+  // thread 0 waits on the other warpgroup). STAGES - LAG tiles stay ahead:
+  // at D = 256 three stages fit, and LAG 1 keeps two ahead.
+  static constexpr int STAGES = D <= 64 ? 6 : (D == 128 ? 4 : 3);
+  static constexpr int LAG = D <= 64 ? 3 : (D == 128 ? 2 : 1);
   // From the 1024-aligned base: each warpgroup's Q tile, then each one's
   // dO tile; the ring; its barriers (full, empty, then Q and dO's).
-  static constexpr int RING = 2 * kWarpgroups * TILE;
-  static constexpr int BARS = RING + STAGES * 2 * TILE;
+  static constexpr int RING = 2 * kWarpgroups * QTILE;
+  static constexpr int BARS = RING + STAGES * 2 * KTILE;
   static constexpr int SMEM = 1024 + BARS + 16 * (STAGES + 1);
 };
 
@@ -375,11 +396,11 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const uint32_t q_bar = bars + 16 * F::STAGES;
   auto full = [&](int s) { return bars + 8 * s; };
   auto empty = [&](int s) { return bars + 8 * (F::STAGES + s); };
-  auto stage_at = [&](int s) { return base + F::RING + s * 2 * F::TILE; };  // K, then V
+  auto stage_at = [&](int s) { return base + F::RING + s * 2 * F::KTILE; };  // K, then V
 
   const int bh = blockIdx.y;
   const int m0 = blockIdx.x * kBlockRows;
-  const int n_tiles = (t_len + 63) / 64;
+  const int n_tiles = (t_len + F::BN - 1) / F::BN;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wg = warp / 4;
   const int g = lane >> 2, tq = lane & 3;
@@ -388,11 +409,11 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   // key tile j (K and V) into stage j % STAGES
   auto load_tile = [&](int j) {
     const int st = j % F::STAGES;
-    mbar_arrive_expect_tx(full(st), 2 * F::TILE);
+    mbar_arrive_expect_tx(full(st), 2 * F::KTILE);
     for (int pn = 0; pn < F::PANELS; ++pn) {
-      tma_load_3d(stage_at(st) + pn * 64 * F::SW, &k_map, full(st), pn * F::W, 64 * j, bh);
-      tma_load_3d(stage_at(st) + F::TILE + pn * 64 * F::SW, &v_map, full(st), pn * F::W, 64 * j,
-                  bh);
+      tma_load_3d(stage_at(st) + pn * F::BN * F::SW, &k_map, full(st), pn * F::W, F::BN * j, bh);
+      tma_load_3d(stage_at(st) + F::KTILE + pn * F::BN * F::SW, &v_map, full(st), pn * F::W,
+                  F::BN * j, bh);
     }
   };
   if (loader) {
@@ -402,12 +423,12 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     }
     mbar_init(q_bar, 1);
     mbar_fence_init();
-    mbar_arrive_expect_tx(q_bar, 2 * kWarpgroups * F::TILE);
+    mbar_arrive_expect_tx(q_bar, 2 * kWarpgroups * F::QTILE);
     for (int w = 0; w < kWarpgroups; ++w) {
       for (int pn = 0; pn < F::PANELS; ++pn) {
-        tma_load_3d(base + w * F::TILE + pn * 64 * F::SW, &q_map, q_bar, pn * F::W, m0 + 64 * w,
+        tma_load_3d(base + w * F::QTILE + pn * 64 * F::SW, &q_map, q_bar, pn * F::W, m0 + 64 * w,
                     bh);
-        tma_load_3d(base + (kWarpgroups + w) * F::TILE + pn * 64 * F::SW, &do_map, q_bar,
+        tma_load_3d(base + (kWarpgroups + w) * F::QTILE + pn * 64 * F::SW, &do_map, q_bar,
                     pn * F::W, m0 + 64 * w, bh);
       }
     }
@@ -441,34 +462,35 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     if (row < t_len && tq == 0) delta[stat] = dlt[r];
   }
 
-  const uint32_t q_wg = base + wg * F::TILE, do_wg = base + (kWarpgroups + wg) * F::TILE;
+  const uint32_t q_wg = base + wg * F::QTILE, do_wg = base + (kWarpgroups + wg) * F::QTILE;
   float acc[F::PANELS][F::NO][4];
 #pragma unroll
   for (int pn = 0; pn < F::PANELS; ++pn) {
 #pragma unroll
     for (int j = 0; j < F::NO; ++j) acc[pn][j][0] = acc[pn][j][1] = acc[pn][j][2] = acc[pn][j][3] = 0.f;
   }
-  float s[8][4], dp[8][4];  // S, then P; dP, then dS: 64 queries x 64 keys
-  Split ds[4];              // dS as the A operand of dS*K, hi and lo
+  float s[F::BN / 8][4], dp[F::BN / 8][4];  // S, then P; dP, then dS: 64 queries x BN keys
+  Split ds[F::BN / 16];                     // dS as the A operand of dS*K, hi and lo
 
   auto issue_s = [&](int stage) {  // S = Q K^T and dP = dO V^T, two independent chains
-    const uint32_t kt = stage_at(stage), vt = kt + F::TILE;
+    const uint32_t kt = stage_at(stage), vt = kt + F::KTILE;
 #pragma unroll
     for (int kd = 0; kd < F::DP / 16; ++kd) {
       wgmma_ss<0>(s, make_desc(q_wg + kslice<D>(kd, 64), F::SW),
-                  make_desc(kt + kslice<D>(kd, 64), F::SW), kd > 0);
+                  make_desc(kt + kslice<D>(kd, F::BN), F::SW), kd > 0);
       wgmma_ss<0>(dp, make_desc(do_wg + kslice<D>(kd, 64), F::SW),
-                  make_desc(vt + kslice<D>(kd, 64), F::SW), kd > 0);
+                  make_desc(vt + kslice<D>(kd, F::BN), F::SW), kd > 0);
     }
     wgmma_commit();
   };
   auto issue_dq = [&](int stage) {  // dQ += (dS_hi + dS_lo) K, K read MN-major
     const uint32_t kt = stage_at(stage);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < F::BN / 16; ++kk) {
 #pragma unroll
       for (int pn = 0; pn < F::PANELS; ++pn)
-        wgmma_split(acc[pn], ds[kk], make_desc(kt + pn * 64 * F::SW + kk * 16 * F::SW, F::SW));
+        wgmma_split(acc[pn], ds[kk],
+                    make_desc(kt + pn * F::BN * F::SW + kk * 16 * F::SW, F::SW));
     }
     wgmma_commit();
   };
@@ -477,11 +499,11 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   // exp2(0 - LSE) is not 0)
   auto grads = [&](int n_valid) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < F::BN / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
-        const bool ok = n_valid >= 64 || 8 * j + 2 * tq + (e & 1) < n_valid;
+        const bool ok = n_valid >= F::BN || 8 * j + 2 * tq + (e & 1) < n_valid;
         const float p = ok ? exp2_approx(fmaf(s[j][e], scale_log2, neg_lse[r])) : 0.f;
         dp[j][e] = p * (dp[j][e] - dlt[r]);
       }
@@ -489,7 +511,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   };
   auto split_ds = [&]() {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) ds[kk] = split_a_trunc(dp[2 * kk], dp[2 * kk + 1]);
+    for (int kk = 0; kk < F::BN / 16; ++kk) ds[kk] = split_a_trunc(dp[2 * kk], dp[2 * kk + 1]);
   };
   auto release = [&](int stage) {
 #pragma unroll
@@ -511,7 +533,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     wgmma_wait<0>();
     fence_acc(s);
     fence_acc(dp);
-    grads(t_len - 64 * j);
+    grads(t_len - F::BN * j);
     split_ds();
     wgmma_fence();
     issue_dq(stage);
@@ -538,12 +560,19 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
 template <int D> struct HopperDkv : HopperDims<D> {
   using B = HopperDims<D>;
-  // queries a ring stage: fewer at D = 128, where the dK and dV
-  // accumulators (2 * D / 2 f32 a thread) take most registers
+  // blocks a key tile: at D = 256 the dK and dV accumulators of all 256
+  // columns (256 f32 a thread) exceed a thread's registers, so each of two
+  // blocks owns half the columns of dK and dV (OUT_PANELS panels from the
+  // kernel's pn0) and computes S^T and dP^T over the whole depth itself:
+  // those two products are done twice, 4/3 of the flops of one block
+  static constexpr int HALVES = D > 128 ? 2 : 1;
+  static constexpr int OUT_PANELS = B::PANELS / HALVES;
+  // queries a ring stage: fewer from D = 128, where the dK and dV
+  // accumulators (2 * 128 / 2 f32 a thread) take most registers
   static constexpr int BQ = D <= 64 ? 64 : 32;
   static constexpr int KTILE = 64 * B::DP * 2;  // [64 keys, DP]
   static constexpr int QTILE = BQ * B::DP * 2;  // [BQ queries, DP]
-  static constexpr int STAGES = D >= 128 ? 2 : (D == 64 ? 3 : 4);
+  static constexpr int STAGES = D == 128 ? 2 : (D == 64 || D == 256 ? 3 : 4);
   // From the 1024-aligned base: each warpgroup's K tile, then each one's V
   // tile; the ring (a Q and a dO tile a stage); the LSE and Delta rows of
   // each stage; the barriers (full, empty, then K/V's).
@@ -577,7 +606,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   auto v_at = [&](int w) { return base + (kWarpgroups + w) * F::KTILE; };
 
   const int bh = blockIdx.y;
-  const int key0 = blockIdx.x * kBlockRows;
+  const int key0 = blockIdx.x / F::HALVES * kBlockRows;
+  const int pn0 = blockIdx.x % F::HALVES * F::OUT_PANELS;  // the first panel of dK and dV it owns
   const int n_tiles = (t_len + F::BQ - 1) / F::BQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
@@ -629,9 +659,9 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   } else {
     const int wg = warp / 4;
     const int g = lane >> 2, tq = lane & 3;
-    float dk_acc[F::PANELS][F::NO][4], dv_acc[F::PANELS][F::NO][4];
+    float dk_acc[F::OUT_PANELS][F::NO][4], dv_acc[F::OUT_PANELS][F::NO][4];
 #pragma unroll
-    for (int pn = 0; pn < F::PANELS; ++pn) {
+    for (int pn = 0; pn < F::OUT_PANELS; ++pn) {
 #pragma unroll
       for (int j = 0; j < F::NO; ++j) {
 #pragma unroll
@@ -704,8 +734,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
       for (int kq = 0; kq < F::BQ / 16; ++kq) {
 #pragma unroll
-        for (int pn = 0; pn < F::PANELS; ++pn) {
-          const uint32_t at = pn * F::BQ * F::SW + kq * 16 * F::SW;
+        for (int pn = 0; pn < F::OUT_PANELS; ++pn) {
+          const uint32_t at = (pn0 + pn) * F::BQ * F::SW + kq * 16 * F::SW;
           wgmma_split(dv_acc[pn], p[kq], make_desc(dot + at, F::SW));
           wgmma_split(dk_acc[pn], ds[kq], make_desc(qt + at, F::SW));
         }
@@ -714,7 +744,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       your_turn();
       wgmma_wait<0>();
 #pragma unroll
-      for (int pn = 0; pn < F::PANELS; ++pn) {
+      for (int pn = 0; pn < F::OUT_PANELS; ++pn) {
         fence_acc(dk_acc[pn]);
         fence_acc(dv_acc[pn]);
       }
@@ -727,11 +757,11 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       if (row >= t_len) continue;
       const size_t at = ((size_t)bh * t_len + row) * D + 2 * tq;
 #pragma unroll
-      for (int pn = 0; pn < F::PANELS; ++pn) {
+      for (int pn = 0; pn < F::OUT_PANELS; ++pn) {
 #pragma unroll
         for (int j = 0; j < F::NO; ++j) {
           if (D >= 16 || 8 * j < D) {  // D = 8: the zero-filled columns 8..15 stay unwritten
-            const size_t c = at + pn * F::W + 8 * j;
+            const size_t c = at + (pn0 + pn) * F::W + 8 * j;
             *reinterpret_cast<uint32_t*>(dk + c) =
                 pack_bf16(dk_acc[pn][j][2 * r] * scale, dk_acc[pn][j][2 * r + 1] * scale);
             *reinterpret_cast<uint32_t*>(dv + c) =
@@ -756,8 +786,10 @@ cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v, const vo
   CUtensorMap maps[4];
   const void* tiles[4] = {q, k, v, dout};
   cudaError_t err = cudaSuccess;
+  // Q's and dO's boxes are a warpgroup's rows, K's and V's a stage's
+  const int rows[4] = {64, F::BN, F::BN, 64};
   for (int i = 0; i < 4 && err == cudaSuccess; ++i)
-    err = host::tile_map(&maps[i], tiles[i], bh, t, D, F::W, 64, F::SW);
+    err = host::tile_map(&maps[i], tiles[i], bh, t, D, F::W, rows[i], F::SW);
   static uint64_t allowed = 0;
   if (err == cudaSuccess) err = host::allow_smem(flash_bwd_dq_wgmma_kernel<D>, F::SMEM, allowed);
   if (err != cudaSuccess) return err;
@@ -808,7 +840,7 @@ cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v, const v
   if (err == cudaSuccess) err = host::allow_smem(flash_bwd_dkv_wgmma_kernel<D>, F::SMEM, allowed);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((t + kBlockRows - 1) / kBlockRows, bh);
+  cfg.gridDim = dim3((t + kBlockRows - 1) / kBlockRows * F::HALVES, bh);
   cfg.blockDim = dim3(kHopperThreads);
   cfg.dynamicSmemBytes = F::SMEM;
   cfg.stream = stream;
@@ -846,6 +878,7 @@ cudaError_t dq_dispatch(const void* q, const void* k, const void* v, const void*
     case 32: return launch_dq<32>(q, k, v, o, dout, lse, dq, delta, bh, t, dtype, scale, s);
     case 64: return launch_dq<64>(q, k, v, o, dout, lse, dq, delta, bh, t, dtype, scale, s);
     case 128: return launch_dq<128>(q, k, v, o, dout, lse, dq, delta, bh, t, dtype, scale, s);
+    case 256: return launch_dq<256>(q, k, v, o, dout, lse, dq, delta, bh, t, dtype, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -859,6 +892,7 @@ cudaError_t dkv_dispatch(const void* q, const void* k, const void* v, const void
     case 32: return launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, bh, t, dtype, scale, s);
     case 64: return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, bh, t, dtype, scale, s);
     case 128: return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, bh, t, dtype, scale, s);
+    case 256: return launch_dkv<256>(q, k, v, dout, lse, delta, dk, dv, bh, t, dtype, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -877,6 +911,8 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
                                       void* dq, void* delta, int bh, int t, int d, int dtype,
                                       float sm_scale, void* stream) {
   if (bh <= 0 || bh > 65535 || t <= 0) return (int)cudaErrorInvalidValue;
+  const cudaError_t bound = wgmma_sm90_host::bind_device();
+  if (bound != cudaSuccess) return (int)bound;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)dq_dispatch(q, k, v, o, dout, lse, dq, delta, bh, t, d, dtype, sm_scale, s);
 }
@@ -890,6 +926,8 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
                                        void* dk, void* dv, int bh, int t, int d, int dtype,
                                        float sm_scale, void* stream) {
   if (bh <= 0 || bh > 65535 || t <= 0) return (int)cudaErrorInvalidValue;
+  const cudaError_t bound = wgmma_sm90_host::bind_device();
+  if (bound != cudaSuccess) return (int)bound;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)dkv_dispatch(q, k, v, dout, lse, delta, dk, dv, bh, t, d, dtype, sm_scale, s);
 }

@@ -55,19 +55,29 @@
 //     rows from every block's shared memory (distributed shared memory:
 //     M = max m_k, O = sum 2^(m_k - M) O_k / sum 2^(m_k - M) l_k) and
 //     writes them. The rule (fill_split): split = 4, else 2, while blocks *
-//     split <= the 132 SMs and split <= the key tiles: the restore CLI's
-//     (4, 1024, 32) takes 4, the AVIF restore's (8, 1024, 16) 2, every
-//     larger path shape 1. flash_attention_fwd_split forces it;
+//     split <= the 132 SMs and split <= the key tiles, at most 2 from D =
+//     128: the restore CLI's (4, 1024, 32) takes 4, the AVIF restore's (8,
+//     1024, 16) 2, the 1024² path's (4, 1024, 256) and (4, 1024, 128) 2,
+//     every larger path shape 1. flash_attention_fwd_split forces it;
 //   * D = 8 runs natively: the head dim is zero-filled to the wgmma depth
-//     16 by the box, and O is written 8 wide.
+//     16 by the box, and O is written 8 wide;
+//   * D = 256 (the 1024² model's bottleneck): a [64, 256] tile is 32 KB and
+//     the two warpgroups' Q tiles 64 KB, so the ring's stages hold 32 keys
+//     (32 KB of K and V a stage, 5 stages, 225 KB in all) and S and P take
+//     16 f32 a thread beside O's 128 (ptxas -v: 186 registers, no spill).
+//     The split's merge area (m, l and O of 128 rows, 132 KB) has no room
+//     of its own: it overlays the Q tiles and the ring once every product
+//     of the block has run (a __syncthreads before it is written).
 //
 // f32: flash_fwd_kernel, products on the CUDA cores in f32 (FMA):
 //   * one block owns one (bh, query tile); K and V stream through shared
 //     memory a tile at a time, so each key is read from device memory once
 //     per query tile and from shared memory by every row of the tile;
 //   * each query row is split over TPR = D/8 adjacent lanes that each hold 8
-//     interleaved dims of q and of the accumulator in registers (interleaving
-//     keeps the lanes of one row on different shared-memory banks); a row's
+//     interleaved dims of q and of the accumulator in registers (16 dims at
+//     D = 256, whose tiles of K and V are 16 keys, 32 KB of the 48 KB of
+//     static shared memory; interleaving keeps the lanes of one row on
+//     different shared-memory banks); a row's
 //     score is the xor-shuffle sum of its lanes' partial dot products, so
 //     every lane holds the same running max and normaliser;
 //   * keys are processed in chunks of 16: the chunk's scores sit in
@@ -90,7 +100,9 @@ namespace {
 using flash_mma::bf16;
 
 constexpr int kThreads = 256;
-constexpr int kDimsPerLane = 8;
+// dims of a query row a lane holds: 16 at D = 256, so that a row takes 16
+// lanes and not the whole warp
+template <int D> constexpr int kDimsPerLane = D > 128 ? 16 : 8;
 constexpr int kChunk = 16;
 constexpr float kLn2 = 0.69314718055994531f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -100,9 +112,12 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int t_len, float scale_log2) {
-  constexpr int TPR = D / kDimsPerLane;          // lanes per query row
+  constexpr int DPL = kDimsPerLane<D>;
+  constexpr int TPR = D / DPL;                   // lanes per query row
   constexpr int ROWS = kThreads / TPR;           // query rows per block
-  constexpr int BN = D >= 128 ? 32 : 64;         // keys per shared-memory tile
+  // keys per shared-memory tile: K and V take 2*BN*D*4 bytes of the 48 KB
+  // of static shared memory (32 KB at D = 128 and 256)
+  constexpr int BN = D > 128 ? 16 : (D == 128 ? 32 : 64);
   __shared__ float k_s[BN][D];
   __shared__ float v_s[BN][D];
 
@@ -112,10 +127,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const bool row_ok = row < t_len;
   const size_t base = (size_t)bh * t_len * D;
 
-  float qr[kDimsPerLane];
-  float acc[kDimsPerLane];
+  float qr[DPL];
+  float acc[DPL];
 #pragma unroll
-  for (int j = 0; j < kDimsPerLane; ++j) {
+  for (int j = 0; j < DPL; ++j) {
     const int d = sub + j * TPR;
     qr[j] = row_ok ? q[base + (size_t)row * D + d] * scale_log2 : 0.f;
     acc[j] = 0.f;
@@ -141,7 +156,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < kChunk; ++j) {
         float a = 0.f;
 #pragma unroll
-        for (int e = 0; e < kDimsPerLane; ++e) a = fmaf(qr[e], k_s[c0 + j][sub + e * TPR], a);
+        for (int e = 0; e < DPL; ++e) a = fmaf(qr[e], k_s[c0 + j][sub + e * TPR], a);
         s[j] = a;
       }
 #pragma unroll
@@ -160,13 +175,13 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float alpha = exp2f(m - m_new);
       l *= alpha;
 #pragma unroll
-      for (int e = 0; e < kDimsPerLane; ++e) acc[e] *= alpha;
+      for (int e = 0; e < DPL; ++e) acc[e] *= alpha;
 #pragma unroll
       for (int j = 0; j < kChunk; ++j) {
         const float p = exp2f(s[j] - m_new);
         l += p;
 #pragma unroll
-        for (int e = 0; e < kDimsPerLane; ++e) acc[e] = fmaf(p, v_s[c0 + j][sub + e * TPR], acc[e]);
+        for (int e = 0; e < DPL; ++e) acc[e] = fmaf(p, v_s[c0 + j][sub + e * TPR], acc[e]);
       }
       m = m_new;
     }
@@ -175,7 +190,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (row_ok) {
     const float inv_l = 1.f / l;
 #pragma unroll
-    for (int j = 0; j < kDimsPerLane; ++j) {
+    for (int j = 0; j < DPL; ++j) {
       o[base + (size_t)row * D + sub + j * TPR] = acc[j] * inv_l;
     }
     if (lse != nullptr && sub == 0) {
@@ -188,7 +203,6 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 constexpr int kWarpgroups = 2;                // warpgroups a block, 64 query rows each
 constexpr int kThreadsWg = 128 * kWarpgroups;
 constexpr int kBlockRows = 64 * kWarpgroups;  // query rows a block
-constexpr int kBN = 64;                       // keys a ring stage
 constexpr int kMaxSplit = 4;
 
 template <int D> struct HopperFwd {
@@ -197,32 +211,48 @@ template <int D> struct HopperFwd {
   static constexpr int W = SW / 2;                        // columns a panel
   static constexpr int PANELS = DP / W;
   static constexpr int NO = W / 8;                        // n8 blocks of O a panel
-  static constexpr int TILE = 64 * DP * 2;                // one [64, DP] bf16 tile
+  // keys a ring stage: 32 at D = 256, where a stage of 64 keys' K and V
+  // (64 KB) leaves no room for a ring beside the two Q tiles (64 KB)
+  static constexpr int BN = D > 128 ? 32 : 64;
+  static constexpr int QTILE = 64 * DP * 2;               // a warpgroup's [64, DP] Q tile
+  static constexpr int KTILE = BN * DP * 2;               // a stage's [BN, DP] K or V tile
   // blocks an SM: two at D <= 32, where 128 registers a thread suffice
   static constexpr int MIN_BLOCKS = D <= 32 ? 2 : 1;
-  // The ring: STAGES stages of 64 keys; the stage of tile j is refilled
+  // The ring: STAGES stages of BN keys; the stage of tile j is refilled
   // (with tile j + STAGES) by thread 0 at the top of iteration j + LAG.
   // A warpgroup lets go of tile j in iteration j + 1, so LAG >= 2; 3 gives
   // the other warpgroup an iteration's slack before thread 0 waits on it.
   // STAGES - LAG tiles stay ahead.
-  static constexpr int STAGES = D <= 64 ? 6 : 4;
+  static constexpr int STAGES = D <= 64 ? 6 : (D == 128 ? 4 : 5);
   static constexpr int LAG = D <= 64 ? 3 : 2;
   // From the 1024-aligned base: a Q tile per warpgroup, the ring (a K and
   // a V tile a stage), its barriers (full, empty, then Q's), and (split
-  // only) the merge area: m[128], l[128] and O[128][DP], f32.
-  static constexpr int RING = kWarpgroups * TILE;
-  static constexpr int BARS = RING + STAGES * 2 * TILE;
-  static constexpr int MERGE = BARS + 16 * (STAGES + 1);
+  // only) the merge area: m[128], l[128] and O[128][DP], f32. At D = 256
+  // the merge area (132 KB) has no room of its own: it overlays the Q
+  // tiles and the ring, which are free once both warpgroups' last
+  // products have run.
+  static constexpr int RING = kWarpgroups * QTILE;
+  static constexpr int BARS = RING + STAGES * 2 * KTILE;
+  static constexpr int END = BARS + 16 * (STAGES + 1);
+  static constexpr int MERGE_BYTES = kBlockRows * (2 + DP) * 4;
+  static constexpr bool MERGE_IN_RING = D > 128;
+  static constexpr int MERGE = MERGE_IN_RING ? 0 : END;
+  // the most blocks fill_split deals a row tile's keys over: 2 from D =
+  // 128, where the merge reads 128 rows of D columns from every block
+  // (kernel_ab.py --splits on the H100: at (4, 1024, 256) 53.6, 48.5 and
+  // 55.8 us unsplit, over 2 and over 4; at (4, 1024, 128) 25.5, 25.2, 31.8)
+  static constexpr int MAX_SPLIT = D >= 128 ? 2 : kMaxSplit;
+  static_assert(!MERGE_IN_RING || MERGE_BYTES <= BARS, "the merge area overlays the ring");
   static constexpr int smem_bytes(bool split) {
-    return 1024 + MERGE + (split ? kBlockRows * (2 + DP) * 4 : 0);
+    return 1024 + END + (split && !MERGE_IN_RING ? MERGE_BYTES : 0);
   }
 };
 
-// The byte offset of the k16 slice kd of a [64, DP] K-major tile: its
+// The byte offset of the k16 slice kd of a [rows, DP] K-major tile: its
 // panel, then 32 bytes a slice along the swizzled row.
-template <int D> __device__ __forceinline__ uint32_t kslice(int kd) {
+template <int D> __device__ __forceinline__ uint32_t kslice(int kd, int rows) {
   using F = HopperFwd<D>;
-  return (16 * kd / F::W) * 64 * F::SW + (16 * kd % F::W) * 2;
+  return (16 * kd / F::W) * rows * F::SW + (16 * kd % F::W) * 2;
 }
 
 template <int D>
@@ -241,12 +271,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const uint32_t q_bar = bars + 16 * F::STAGES;
   auto full = [&](int s) { return bars + 8 * s; };
   auto empty = [&](int s) { return bars + 8 * (F::STAGES + s); };
-  auto stage_at = [&](int s) { return base + F::RING + s * 2 * F::TILE; };  // K, then V
+  auto stage_at = [&](int s) { return base + F::RING + s * 2 * F::KTILE; };  // K, then V
 
   const int bh = blockIdx.y;
   const int rank = blockIdx.x % split;  // the cluster rank where split > 1
   const int m0 = blockIdx.x / split * kBlockRows;
-  const int n_tiles = (t_len + kBN - 1) / kBN;
+  const int n_tiles = (t_len + F::BN - 1) / F::BN;
   const int n_local = rank < n_tiles ? (n_tiles - rank + split - 1) / split : 0;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wg = warp / 4;
@@ -256,11 +286,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   // this block's j-th key tile (K and V) into stage j % STAGES
   auto load_tile = [&](int j) {
     const int st = j % F::STAGES;
-    const int k0 = (rank + j * split) * kBN;
-    mbar_arrive_expect_tx(full(st), 2 * F::TILE);
+    const int k0 = (rank + j * split) * F::BN;
+    mbar_arrive_expect_tx(full(st), 2 * F::KTILE);
     for (int pn = 0; pn < F::PANELS; ++pn) {
-      tma_load_3d(stage_at(st) + pn * 64 * F::SW, &k_map, full(st), pn * F::W, k0, bh);
-      tma_load_3d(stage_at(st) + F::TILE + pn * 64 * F::SW, &v_map, full(st), pn * F::W, k0, bh);
+      tma_load_3d(stage_at(st) + pn * F::BN * F::SW, &k_map, full(st), pn * F::W, k0, bh);
+      tma_load_3d(stage_at(st) + F::KTILE + pn * F::BN * F::SW, &v_map, full(st), pn * F::W, k0,
+                  bh);
     }
   };
   if (loader) {
@@ -270,17 +301,17 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     }
     mbar_init(q_bar, 1);
     mbar_fence_init();
-    mbar_arrive_expect_tx(q_bar, kWarpgroups * F::TILE);
+    mbar_arrive_expect_tx(q_bar, kWarpgroups * F::QTILE);
     for (int w = 0; w < kWarpgroups; ++w) {
       for (int pn = 0; pn < F::PANELS; ++pn)
-        tma_load_3d(base + w * F::TILE + pn * 64 * F::SW, &q_map, q_bar, pn * F::W, m0 + 64 * w,
+        tma_load_3d(base + w * F::QTILE + pn * 64 * F::SW, &q_map, q_bar, pn * F::W, m0 + 64 * w,
                     bh);
     }
     for (int j = 0; j < F::STAGES && j < n_local; ++j) load_tile(j);
   }
   __syncthreads();
 
-  const uint32_t q_wg = base + wg * F::TILE;
+  const uint32_t q_wg = base + wg * F::QTILE;
   float acc[F::PANELS][F::NO][4];
 #pragma unroll
   for (int pn = 0; pn < F::PANELS; ++pn) {
@@ -289,35 +320,35 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
   float m_row[2] = {-INFINITY, -INFINITY};  // running max of rows g and g + 8, log2 units
   float l_row[2] = {0.f, 0.f};              // this lane's share of their normalisers
-  float s[kBN / 8][4];                      // S, then P, of one key tile
-  Split p[kBN / 16];                        // P as the A operand of P*V, hi and lo
+  float s[F::BN / 8][4];                    // S, then P, of one key tile
+  Split p[F::BN / 16];                      // P as the A operand of P*V, hi and lo
 
   auto issue_s = [&](int stage) {  // S = Q K^T
 #pragma unroll
     for (int kd = 0; kd < F::DP / 16; ++kd)
-      wgmma_ss<0>(s, make_desc(q_wg + kslice<D>(kd), F::SW),
-                  make_desc(stage_at(stage) + kslice<D>(kd), F::SW), kd > 0);
+      wgmma_ss<0>(s, make_desc(q_wg + kslice<D>(kd, 64), F::SW),
+                  make_desc(stage_at(stage) + kslice<D>(kd, F::BN), F::SW), kd > 0);
     wgmma_commit();
   };
   auto issue_pv = [&](int stage) {  // O += (P_hi + P_lo) V
-    const uint32_t vt = stage_at(stage) + F::TILE;
+    const uint32_t vt = stage_at(stage) + F::KTILE;
 #pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk) {
+    for (int kk = 0; kk < F::BN / 16; ++kk) {
 #pragma unroll
       for (int pn = 0; pn < F::PANELS; ++pn)
         wgmma_split(acc[pn], p[kk],
-                    make_desc(vt + pn * 64 * F::SW + kk * 16 * F::SW, F::SW));
+                    make_desc(vt + pn * F::BN * F::SW + kk * 16 * F::SW, F::SW));
     }
     wgmma_commit();
   };
   // the online softmax of the tile's scores in s (keys >= n_valid
   // masked), leaving P in s; returns each row's rescale factor. Row
-  // maxima and sums go by trees over the lane's 16 columns a row, so that
-  // their chains are 4 deep, not 16.
+  // maxima and sums go by trees over the lane's BN/4 columns a row, so
+  // that their chains are log2(BN/8) deep, not BN/4.
   auto softmax = [&](int n_valid, float (&alpha)[2]) {
-    if (n_valid < kBN) {  // the ragged last tile
+    if (n_valid < F::BN) {  // the ragged last tile
 #pragma unroll
-      for (int j = 0; j < kBN / 8; ++j) {
+      for (int j = 0; j < F::BN / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           if (8 * j + 2 * tq + (e & 1) >= n_valid) s[j][e] = -INFINITY;
@@ -326,11 +357,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     float neg_m[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      float t[kBN / 8];
+      float t[F::BN / 8];
 #pragma unroll
-      for (int j = 0; j < kBN / 8; ++j) t[j] = fmaxf(s[j][2 * r], s[j][2 * r + 1]);
+      for (int j = 0; j < F::BN / 8; ++j) t[j] = fmaxf(s[j][2 * r], s[j][2 * r + 1]);
 #pragma unroll
-      for (int w = kBN / 16; w > 0; w /= 2) {
+      for (int w = F::BN / 16; w > 0; w /= 2) {
 #pragma unroll
         for (int j = 0; j < w; ++j) t[j] = fmaxf(t[j], t[j + w]);
       }
@@ -343,15 +374,15 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      float t[kBN / 8];
+      float t[F::BN / 8];
 #pragma unroll
-      for (int j = 0; j < kBN / 8; ++j) {
+      for (int j = 0; j < F::BN / 8; ++j) {
         s[j][2 * r] = exp2_approx(fmaf(s[j][2 * r], scale_log2, neg_m[r]));
         s[j][2 * r + 1] = exp2_approx(fmaf(s[j][2 * r + 1], scale_log2, neg_m[r]));
         t[j] = s[j][2 * r] + s[j][2 * r + 1];
       }
 #pragma unroll
-      for (int w = kBN / 16; w > 0; w /= 2) {
+      for (int w = F::BN / 16; w > 0; w /= 2) {
 #pragma unroll
         for (int j = 0; j < w; ++j) t[j] += t[j + w];
       }
@@ -360,7 +391,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   };
   auto split_p = [&]() {
 #pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk) p[kk] = split_a_trunc(s[2 * kk], s[2 * kk + 1]);
+    for (int kk = 0; kk < F::BN / 16; ++kk) p[kk] = split_a_trunc(s[2 * kk], s[2 * kk + 1]);
   };
   auto release = [&](int stage) {
 #pragma unroll
@@ -376,7 +407,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     issue_s(0);
     wgmma_wait<0>();
     fence_acc(s);
-    softmax(t_len - rank * kBN, alpha);
+    softmax(t_len - rank * F::BN, alpha);
     split_p();
     for (int j = 1; j < n_local; ++j) {
       const int stage = j % F::STAGES, prev = (j - 1) % F::STAGES;
@@ -391,7 +422,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       issue_pv(prev);
       wgmma_wait<1>();  // S of tile j; tile j-1's P*V runs on under the softmax
       fence_acc(s);
-      softmax(t_len - (rank + j * split) * kBN, alpha);
+      softmax(t_len - (rank + j * split) * F::BN, alpha);
       wgmma_wait<0>();
       release(prev);
 #pragma unroll
@@ -417,6 +448,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 1);
     l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 2);
   }
+  // the merge area overlays the tiles: every product of both warpgroups
+  // has run, and every load has landed, once all threads are here
+  if (F::MERGE_IN_RING && split > 1) __syncthreads();
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int lr = 64 * wg + 16 * (warp % 4) + g + 8 * r;  // row in the block
@@ -486,21 +520,22 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// The split over keys that fills the card: 4, else 2, while the grid of
-// `blocks` row tiles times the split stays within one block an SM and
-// every block of a cluster has a key tile; else 1. (kernel_ab.py
-// --splits: at T = 1024 BH = 4 ran fastest split 4 ways, 8 split 2, 16
-// unsplit, where a rule of two blocks an SM would have split it.)
-int fill_split(int blocks, int key_tiles, int sms) {
+// The split over keys that fills the card: 4, else 2 (at most
+// `max_split`), while the grid of `blocks` row tiles times the split stays
+// within one block an SM and every block of a cluster has a key tile; else
+// 1. (kernel_ab.py --splits: at T = 1024 and D = 32 BH = 4 ran fastest
+// split 4 ways, 8 split 2, 16 unsplit, where a rule of two blocks an SM
+// would have split it.)
+int fill_split(int blocks, int key_tiles, int sms, int max_split) {
   int split = 1;
-  while (split < kMaxSplit && blocks * split * 2 <= sms && split * 2 <= key_tiles) split *= 2;
+  while (split < max_split && blocks * split * 2 <= sms && split * 2 <= key_tiles) split *= 2;
   return split;
 }
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, void* lse,
                        int bh, int t, float sm_scale, cudaStream_t stream) {
-  constexpr int ROWS = kThreads / (D / kDimsPerLane);
+  constexpr int ROWS = kThreads / (D / kDimsPerLane<D>);
   const dim3 grid((t + ROWS - 1) / ROWS, bh);
   flash_fwd_kernel<D><<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
@@ -515,12 +550,14 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, vo
   using F = HopperFwd<D>;
   CUtensorMap maps[3];
   const void* src[3] = {q, k, v};
+  const int rows[3] = {64, F::BN, F::BN};  // Q's box is a warpgroup's rows, K's and V's a stage's
   for (int i = 0; i < 3; ++i) {
-    const cudaError_t err = host::tile_map(&maps[i], src[i], bh, t, D, F::W, 64, F::SW);
+    const cudaError_t err = host::tile_map(&maps[i], src[i], bh, t, D, F::W, rows[i], F::SW);
     if (err != cudaSuccess) return err;
   }
   const int row_tiles = (t + kBlockRows - 1) / kBlockRows;
-  if (split == 0) split = fill_split(bh * row_tiles, (t + kBN - 1) / kBN, host::sm_count());
+  if (split == 0)
+    split = fill_split(bh * row_tiles, (t + F::BN - 1) / F::BN, host::sm_count(), F::MAX_SPLIT);
   if (split != 1 && split != 2 && split != 4) return cudaErrorInvalidValue;
   static uint64_t allowed = 0;
   cudaError_t err = host::allow_smem(flash_fwd_wgmma_kernel<D>, F::smem_bytes(true), allowed);
@@ -561,6 +598,8 @@ extern "C" int flash_attention_fwd_split(const void* q, const void* k, const voi
                                          void* lse, int bh, int t, int d, int dtype,
                                          float sm_scale, int split, void* stream) {
   if (bh <= 0 || bh > 65535 || t <= 0) return (int)cudaErrorInvalidValue;
+  const cudaError_t bound = wgmma_sm90_host::bind_device();
+  if (bound != cudaSuccess) return (int)bound;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 8: return (int)launch<8>(q, k, v, o, lse, bh, t, dtype, sm_scale, split, s);
@@ -568,6 +607,7 @@ extern "C" int flash_attention_fwd_split(const void* q, const void* k, const voi
     case 32: return (int)launch<32>(q, k, v, o, lse, bh, t, dtype, sm_scale, split, s);
     case 64: return (int)launch<64>(q, k, v, o, lse, bh, t, dtype, sm_scale, split, s);
     case 128: return (int)launch<128>(q, k, v, o, lse, bh, t, dtype, sm_scale, split, s);
+    case 256: return (int)launch<256>(q, k, v, o, lse, bh, t, dtype, sm_scale, split, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -304,6 +304,17 @@ inline cudaError_t tile_map(CUtensorMap* map, const void* base, int bh, int t, i
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// Makes the current device's primary context current in the calling host
+// thread, through this library's own (static) CUDA runtime. A launch from a
+// thread where no CUDA call had made it current yet (autograd's worker
+// thread, when the flash backward is its first CUDA work) was refused on the
+// card with cudaErrorInvalidValue, at every head dim.
+inline cudaError_t bind_device() {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  return err != cudaSuccess ? err : cudaSetDevice(dev);
+}
+
 // The current device's SM count (cached per device).
 inline int sm_count() {
   static int counts[64];

@@ -21,7 +21,10 @@ contiguous view at an odd offset is refused, not copied).
 Head dims: each kernel is built for the dims in `HEAD_DIMS`, and the three
 bf16 kernels for D = 8 too (zero-filled to the wgmma depth of 16 in shared
 memory); a smaller D is zero-padded to the next built one
-(`kernel_head_dim`), so the f32 kernels pad D = 8 to 16.
+(`kernel_head_dim`), so the f32 kernels pad D = 8 to 16 and every kernel
+runs a D of 129-256 as 256. D = 256 is the widest head any configuration
+reaches (the 1024-channel bottleneck over 4 heads, attended at T = 1024
+from 1024² images); a wider D is refused on the card.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from ddpm_image_restoration_tpu_torch.ops import build
 
 KERNEL = "flash_attention_fwd"
 BWD_KERNEL = "flash_attention_bwd"
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 # The bf16 kernels (wgmma) are built for D = 8 too.
 WGMMA_HEAD_DIMS = (8, *HEAD_DIMS)
 WGMMA_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
@@ -110,10 +113,8 @@ def _launcher(name: str):
 
 def _check(name: str, *tensors: torch.Tensor) -> None:
     """Raises unless the [BH, T, D] tensors are CUDA, contiguous, 16-byte
-    aligned, of one shape, float32 or bfloat16 alike, with D <= 128."""
+    aligned, of one shape, float32 or bfloat16 alike, with D <= 256."""
     q = tensors[0]
-    if q.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {q.device}")
     if q.dim() != 3 or any(z.shape != q.shape for z in tensors):
         raise ValueError(f"{name}: inputs must share one [BH,T,D] shape, got "
                          f"{[tuple(z.shape) for z in tensors]}")
@@ -121,7 +122,11 @@ def _check(name: str, *tensors: torch.Tensor) -> None:
         raise ValueError(f"{name}: dtype must be float32 or bfloat16 for all "
                          f"inputs, got {[z.dtype for z in tensors]}")
     if q.shape[-1] > HEAD_DIMS[-1]:
-        raise ValueError(f"{name}: head dim {q.shape[-1]} > {HEAD_DIMS[-1]}")
+        raise ValueError(f"{name}: head dim {q.shape[-1]} > {HEAD_DIMS[-1]}, the widest "
+                         f"the kernels are built for; no model configuration reaches it "
+                         f"(the widest head is 1024 channels over 4 heads)")
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
     if any(z.device != q.device for z in tensors):
         raise ValueError(f"{name}: inputs on different devices")
     if not all(z.is_contiguous() for z in tensors):
@@ -177,7 +182,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         save_lse: bool = False):
     """[BH, T, D] attention forward; see `flash_attention_plain` for what it
     computes. Launches the kernel for CUDA tensors (bf16 or f32, contiguous,
-    D <= 128) and counts each launch in `flash_attention_fwd.launches`. The
+    D <= 256) and counts each launch in `flash_attention_fwd.launches`. The
     kernel is built for the head dims in HEAD_DIMS; a smaller D is
     zero-padded to the next one (`kernel_head_dim`: zero lanes add nothing
     to the scores, and the softmax scale stays 1/√D), as the JAX wrapper

@@ -36,7 +36,10 @@ Layouts, as in the JAX package:
     gradient of a parameter the module holds whole is the same on every
     model rank and is never summed over 'model'. A ('data', 'model') mesh
     takes both, with or without FSDP (which then splits another dimension
-    of each parameter over 'data'). The JAX package's `shard_train_step`
+    of each parameter over 'data'). Every axis is found by name, in any
+    order; an axis of a training mesh that is neither (e.g. 'spatial') is
+    replicated over: its ranks hold the same blocks and the same batch
+    rows, and nothing is reduced over it. The JAX package's `shard_train_step`
     has no function of its own here: `put_state` gives the state its layout
     (`ShardedState`), and the step of `train/steps.py make_train_step`
     follows it.
@@ -455,7 +458,8 @@ def _column_parallel(module: nn.Module, mesh) -> None:
 
 class ShardedState:
     """How a `TrainState`'s f32 tensors (masters, Adam moments, EMA) lie over
-    a ('data',) or ('data', 'model') mesh, and the train step's collectives.
+    a mesh with a 'data' and maybe a 'model' axis (in any order; any other
+    axis replicated over), and the train step's collectives.
     A parameter that `param_shardings` splits is held by the rank at (data
     rank d, model rank r) as the r-th of m chunks along its 'model'
     dimension, and of that the d-th of n chunks along its 'data'

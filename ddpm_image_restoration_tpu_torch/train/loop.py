@@ -22,14 +22,17 @@ while the card runs the previous step.
 
 Under a process group (`torchrun`, parallel/mesh.py) it trains data-parallel
 over a ('data',) mesh, by default of gcd(batch, world) ranks as in the JAX
-package, and with `fsdp` splits the masters, moments and EMA over it; a
-('data', 'model') mesh (`TrainConfig.mesh_shape`/`mesh_axes`) adds tensor
-parallelism over 'model' (column-parallel layers). Each data rank degrades
-only its block of every batch. A rank outside the mesh says so and returns
-at once, taking no part. Every rank of the mesh validates the whole
-validation set (the numbers are one process's); only the mesh's first rank
-logs, prints, and writes checkpoints, curves and grids. Any other mesh is
-refused.
+package, and with `fsdp` splits the masters, moments and EMA over it; a mesh
+with a 'model' axis too (`TrainConfig.mesh_shape`/`mesh_axes`) adds tensor
+parallelism over 'model' (column-parallel layers). As in the JAX trainer,
+the axes are found by name, in any order, and an axis that names neither
+(e.g. 'spatial') is replicated over: its ranks hold the same parameters and
+the same rows of each batch. Each data rank degrades only its block of
+every batch. A rank outside the mesh says so and returns at once, taking no
+part. Every rank of the mesh validates the whole validation set (the
+numbers are one process's); only the mesh's first rank logs, prints, and
+writes checkpoints, curves and grids. A mesh without a 'data' axis is
+refused, as the JAX trainer cannot run one either.
 """
 
 from __future__ import annotations
@@ -59,6 +62,7 @@ from ddpm_image_restoration_tpu_torch.diffusion.ddrm import DDRMSampler
 from ddpm_image_restoration_tpu_torch.evaluation.metrics import psnr, ssim_metric
 from ddpm_image_restoration_tpu_torch.models import build_model
 from ddpm_image_restoration_tpu_torch.parallel.mesh import (
+    DATA,
     MODEL,
     axis_size,
     broadcast_object,
@@ -78,12 +82,19 @@ from ddpm_image_restoration_tpu_torch.utils.viz import save_restoration_grid, sa
 
 
 def check_supported(cfg: TrainConfig) -> None:
-    """Raise for a training mesh the port has not implemented: any but a
-    ('data',) or a ('data', 'model') one."""
+    """Raise for a training mesh that no trainer runs: axes that are not
+    distinct or do not match the shape's length, or no 'data' axis (the JAX
+    trainer shards each batch over 'data', `parallel/mesh.py
+    batch_sharding`, and fails without one). Any other mesh trains: 'data'
+    and 'model' found by name, in any order; other axes replicated over."""
     axes, shape = tuple(cfg.mesh_axes), tuple(cfg.mesh_shape)
-    if axes not in (("data",), ("data", "model")) or len(shape) != len(axes):
-        raise NotImplementedError(f"mesh {shape} over {axes}: the port trains over a "
-                                  "('data',) or a ('data', 'model') mesh")
+    if len(shape) != len(axes) or len(set(axes)) != len(axes):
+        raise ValueError(f"mesh {shape} over {axes}: a training mesh needs one distinct "
+                         "axis name per dimension")
+    if DATA not in axes:
+        raise ValueError(f"mesh {shape} over {axes}: a training mesh needs a 'data' axis, "
+                         "over which each batch is split; the JAX trainer cannot run one "
+                         "without it either")
 
 
 def train_mesh(cfg: TrainConfig, batch_size: int):
@@ -205,9 +216,12 @@ def train_model(cfg: TrainConfig, dataset=None, epochs: Optional[int] = None,
     verbose = verbose and main
     if main and mesh is not None:
         tp = axis_size(mesh, MODEL)
+        others = [a for a in mesh.mesh_dim_names if a not in (DATA, MODEL)]
         print(f"data-parallel training over {data_size(mesh)} rank(s)"
               f"{f', tensor-parallel over {tp}' if tp > 1 else ''}"
-              f"{' with FSDP' if cfg.fsdp else ''}", flush=True)
+              f"{' with FSDP' if cfg.fsdp else ''}"
+              + "".join(f", replicated over '{a}' ({axis_size(mesh, a)})" for a in others),
+              flush=True)
     loader = DegradationLoader(dataset, train_idx, preset, batch_size, cfg.steps,
                                seed=cfg.seed, num_workers=cfg.data_workers,
                                augment=cfg.augment, rows=(data_rank(mesh), data_size(mesh)))

@@ -42,14 +42,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 ROUNDS = 3
 # (BH, T, D, save_lse): the forward's serve, train-step, restore and AVIF
-# train-step shapes; dQ's and dK/dV's train-step shapes (BH, T, D): WebP
-# down2 and up4, AVIF, a rank of the (2, 2) model-axis step
+# train-step shapes, and the 1024² path's bottleneck (restore, train step);
+# dQ's and dK/dV's train-step shapes (BH, T, D): WebP down2 and up4, AVIF, a
+# rank of the (2, 2) model-axis step, the 1024² train step's D = 256
 FWD = [(32, 1024, 32, False), (32, 1024, 16, False), (72, 1024, 32, True),
-       (4, 1024, 32, False), (64, 1024, 8, True)]
+       (4, 1024, 32, False), (64, 1024, 8, True), (4, 1024, 256, False), (4, 1024, 256, True)]
 BWD = [(72, 1024, 32), (72, 1024, 16), (64, 1024, 16), (64, 1024, 8), (36, 1024, 32),
-       (36, 1024, 16)]
-# (BH, T, D): the restore CLI's, the AVIF restore's and the validation's
-SPLIT_SHAPES = [(4, 1024, 32), (8, 1024, 16), (8, 1024, 32), (16, 1024, 32)]
+       (36, 1024, 16), (4, 1024, 256)]
+# (BH, T, D): the restore CLI's, the AVIF restore's, the validation's and
+# the 1024² path's bottleneck (D = 256 and 128)
+SPLIT_SHAPES = [(4, 1024, 32), (8, 1024, 16), (8, 1024, 32), (16, 1024, 32), (4, 1024, 256),
+                (4, 1024, 128)]
 
 
 def build(name: str, csrc: Path, nvcc: str, flags) -> tuple[str, dict]:

@@ -340,10 +340,14 @@ def scenario_sp_restores(rank, world, tmp, cases):
 
 # ---- the 'model' axis (tests/test_torch_parallel_model.py)
 
-def scenario_tp_train(rank, world, tmp, shape, cfg, batch, n_steps, weights=None):
-    """`run_steps` over a ('data', 'model') mesh of `shape`."""
-    out = run_steps(cfg, batch, n_steps, pm.make_mesh(shape, ("data", "model")), weights)
+def scenario_tp_train(rank, world, tmp, shape, cfg, batch, n_steps, weights=None,
+                      axes=("data", "model")):
+    """`run_steps` over a mesh of `shape` over `axes` (by default ('data',
+    'model')), with this rank's coordinate on each axis."""
+    mesh = pm.make_mesh(shape, axes)
+    out = run_steps(cfg, batch, n_steps, mesh, weights)
     out.pop("_state")
+    out["coords"] = {a: pm.axis_rank(mesh, a) for a in axes}
     return out
 
 

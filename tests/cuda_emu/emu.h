@@ -228,6 +228,7 @@ inline cudaError_t cudaGetDevice(int* dev) {
   *dev = 0;
   return cudaSuccess;
 }
+inline cudaError_t cudaSetDevice(int dev) { return dev == 0 ? cudaSuccess : cudaErrorInvalidValue; }
 inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr attr, int) {
   if (attr != cudaDevAttrMultiProcessorCount) return cudaErrorInvalidValue;
   *value = 132;  // the H100 SXM

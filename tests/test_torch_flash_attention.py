@@ -26,6 +26,7 @@ SHAPES = [
     (1, 256, 4, 32),   # T == one query block
     (2, 300, 2, 64),   # T not a block multiple (padding + key masking)
     (1, 1024, 8, 128),  # lane-aligned head dim
+    (1, 300, 2, 256),  # the widest head (the 1024² bottleneck's), T ragged
 ]
 
 
@@ -42,10 +43,12 @@ def test_plain_matches_pallas_interpret(rng, b, t, h, d):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-3, rtol=2e-3)
 
 
-def test_lse_matches_pallas_interpret(rng):
-    """The [BH,T] LSE against column 0 of the kernel's 128-lane LSE."""
-    q, k, v = (rng.normal(0, 1, (2, 300, 128)).astype(np.float32) for _ in range(3))
-    o_j, lse_j = _flash_bhtd(*map(jnp.asarray, (q, k, v)), real_d=128, interpret=True,
+@pytest.mark.parametrize("d", [128, 256])
+def test_lse_matches_pallas_interpret(rng, d):
+    """The [BH,T] LSE against column 0 of the kernel's 128-lane LSE, at a
+    ragged T."""
+    q, k, v = (rng.normal(0, 1, (2, 300, d)).astype(np.float32) for _ in range(3))
+    o_j, lse_j = _flash_bhtd(*map(jnp.asarray, (q, k, v)), real_d=d, interpret=True,
                              save_lse=True)
     o_t, lse_t = fa.flash_attention_fwd(*map(torch.from_numpy, (q, k, v)), save_lse=True)
     assert lse_t.shape == (2, 300) and lse_t.dtype == torch.float32
@@ -112,6 +115,22 @@ def test_wrapper_routes_by_device():
     m = torch.zeros(2, 8, 16, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fa.flash_attention_fwd(m, m, m)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_check_refuses_heads_wider_than_256(dtype):
+    """Every wrapper refuses D = 257, wider than the widest built head (no
+    configuration reaches it), before it looks at the device; D = 256 gets
+    past that rule (to the device's). Meta tensors stand in for the card's."""
+    stat = torch.zeros(2, 64, device="meta")
+    for d, why in ((257, "head dim 257 > 256"), (256, "unsupported device")):
+        m = torch.zeros(2, 64, d, device="meta", dtype=dtype)
+        calls = (lambda: fa.flash_attention_fwd(m, m, m),
+                 lambda: fa.flash_attention_bwd_dq(m, m, m, m, m, stat),
+                 lambda: fa.flash_attention_bwd_dkv(m, m, m, m, stat, stat))
+        for call in calls:
+            with pytest.raises(ValueError, match=why):
+                call()
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -190,7 +209,10 @@ HEAD_DIM_RULE = [(4, torch.bfloat16, 8, 8, 8), (8, torch.bfloat16, 8, 8, 8),
                  (12, torch.bfloat16, 16, 16, 16), (16, torch.bfloat16, 16, 16, 16),
                  (33, torch.bfloat16, 64, 64, 64), (128, torch.bfloat16, 128, 128, 128),
                  (4, torch.float32, 16, 16, 16), (8, torch.float32, 16, 16, 16),
-                 (32, torch.float32, 32, 32, 32)]
+                 (32, torch.float32, 32, 32, 32),
+                 (129, torch.bfloat16, 256, 256, 256), (160, torch.bfloat16, 256, 256, 256),
+                 (256, torch.bfloat16, 256, 256, 256), (160, torch.float32, 256, 256, 256),
+                 (256, torch.float32, 256, 256, 256)]
 
 
 @pytest.mark.parametrize("d,dtype,fwd,dq,dkv", HEAD_DIM_RULE)
@@ -198,7 +220,8 @@ def test_kernel_head_dim_rule(d, dtype, fwd, dq, dkv):
     """Which head dims each kernel takes natively and which it pads: the
     three bf16 kernels (wgmma, the head dim zero-filled to the wgmma depth
     in shared memory) take D = 8 as it is; the f32 kernels pad it to 16;
-    any other D pads to the next built one."""
+    any other D pads to the next built one, so a D of 129-256 runs as 256
+    (the JAX wrapper pads every D to a multiple of 128)."""
     assert fa.kernel_head_dim("flash_attention_fwd", d, dtype) == fwd
     assert fa.kernel_head_dim("flash_attention_bwd_dq", d, dtype) == dq
     assert fa.kernel_head_dim("flash_attention_bwd_dkv", d, dtype) == dkv
@@ -221,12 +244,12 @@ def test_d8_pad_by_kernel(name, dtype, padded):
         assert d_kernel == 8 and y is x
 
 
-@pytest.mark.parametrize("bh,t,d", [(4, 300, 64), (4, 1300, 16)])
+@pytest.mark.parametrize("bh,t,d", [(4, 300, 64), (4, 1300, 16), (2, 300, 256)])
 def test_bwd_plain_matches_pallas_interpret(rng, bh, t, d):
     """dQ, dK, dV of the plain backward against the JAX backward kernels
     (`_flash_bhtd_bwd`, interpret mode) fed the same q, k, v, o, dO and LSE:
-    one block with padding (T=300), and several 512-blocks with padding
-    (T=1300). The JAX LSE is [BH,T,128]; column 0 is the port's [BH,T].
+    one block with padding (T=300, also at the widest head, D=256), and
+    several 512-blocks with padding (T=1300). The JAX LSE is [BH,T,128]; column 0 is the port's [BH,T].
     f32, atol/rtol 1e-4: the same arithmetic summed in another order."""
     q, k, v, do = (rng.normal(0, 1, (bh, t, d)).astype(np.float32) for _ in range(4))
     o, lse = _flash_bhtd(*map(jnp.asarray, (q, k, v)), real_d=d, interpret=True, save_lse=True)
@@ -272,7 +295,7 @@ def test_bwd_kernel_split_matches_plain(rng):
         torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
 
 
-@pytest.mark.parametrize("b,t,h,d", [(2, 1024, 2, 32), (1, 1300, 2, 16)])
+@pytest.mark.parametrize("b,t,h,d", [(2, 1024, 2, 32), (1, 1300, 2, 16), (1, 1024, 1, 256)])
 def test_function_grads_match_jax_grad(rng, b, t, h, d):
     """Gradients of spatial_attention(impl='flash') (the autograd Function,
     on the CPU through the plain backward) against `jax.grad` of the JAX

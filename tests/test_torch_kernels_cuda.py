@@ -36,12 +36,16 @@ def card():
 # Ragged and short T for the tensor-core kernels' 64-row tiles: one partial
 # tile, several tiles with a ragged last one, exactly one tile.
 RAGGED_SHAPES = [(3, 17, 32), (2, 1000, 16), (4, 1300, 32), (2, 64, 16)]
+# D = 256: the 1024² path's bottleneck (4 heads of 1024 channels at T = 1024,
+# batch 1), a batch of 8 images there, a ragged T, and D = 192, which every
+# wrapper zero-pads to 256.
+WIDE_SHAPES = [(4, 1024, 256), (32, 1024, 256), (3, 300, 256), (2, 300, 192)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bh,t,d", [(32, 1024, 32), (32, 1024, 16), (72, 1024, 32),
                                     (72, 1024, 16), (8, 4096, 16), (4, 300, 64),
-                                    (2, 256, 128), *RAGGED_SHAPES])
+                                    (2, 256, 128), *RAGGED_SHAPES, *WIDE_SHAPES])
 @pytest.mark.parametrize("dtype,step", STEPS)
 def test_kernel_matches_plain_on_card(card, bh, t, d, dtype, step):
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -60,14 +64,15 @@ def test_kernel_matches_plain_on_card(card, bh, t, d, dtype, step):
     torch.cuda.synchronize()
     assert o8.shape == (bh, t, 8)
     assert close(o8, fa.flash_attention_plain(q8, k8, v8), step)
-    wide = torch.zeros(bh, t, 136, device="cuda", dtype=dtype)
+    # a head wider than any configuration's (D > 256) is refused
+    wide = torch.zeros(bh, t, 264, device="cuda", dtype=dtype)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention_fwd(wide, wide, wide)
 
 
 BWD_SHAPES = [(72, 1024, 32), (72, 1024, 16), (36, 1024, 32), (36, 1024, 16), (64, 1024, 8),
               (72, 1024, 64), (4, 300, 64), (4, 1300, 16), (2, 256, 128), (3, 200, 8),
-              *RAGGED_SHAPES]
+              *RAGGED_SHAPES, *WIDE_SHAPES]
 
 
 @pytest.mark.cuda
@@ -79,7 +84,8 @@ def test_bwd_kernels_match_plain_on_card(card, bh, t, d, dtype, step):
     32x32 tokens, D 32 and 16; a rank of the (2, 2) model-axis step; the
     AVIF up4 level, D 8), the 32x32 level of the 128² model (D 64),
     then ragged T, a wide head and D = 8 (bf16 unpadded, f32 zero-padded to
-    16), each entry within one bf16 `step` of the plain output's (see
+    16), then D = 256 (`WIDE_SHAPES`: the dK/dV kernel's two blocks a key
+    tile, each with half the columns), each entry within one bf16 `step` of the plain output's (see
     `close`)."""
     g = torch.Generator(device="cuda").manual_seed(1)
     q, k, v, do = (torch.randn(bh, t, d, device="cuda", generator=g).to(dtype)
@@ -97,6 +103,44 @@ def test_bwd_kernels_match_plain_on_card(card, bh, t, d, dtype, step):
     for got, ref in zip((dq, dk, dv), want):
         assert got.dtype == dtype and got.shape == (bh, t, d)
         assert close(got, ref, step)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 256])
+def test_launch_from_a_fresh_thread_on_card(card, d):
+    """All three wrappers from a host thread in which no CUDA call has run
+    yet, as autograd's worker thread is when the flash backward is its
+    first CUDA work there: each launcher makes the device's context current
+    in its calling thread (such launches were refused with CUDA error 1 at
+    every head dim before), and the results equal the main thread's bit
+    for bit (the kernels are deterministic)."""
+    import threading
+
+    g = torch.Generator(device="cuda").manual_seed(10)
+    q, k, v, do = (torch.randn(4, 1024, d, device="cuda", generator=g).to(torch.bfloat16)
+                   for _ in range(4))
+
+    def run():
+        o, lse = fa.flash_attention_fwd(q, k, v, save_lse=True)
+        dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse)
+        return (o, lse, dq, delta, *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta))
+
+    want = run()
+    got = []
+
+    def in_thread():
+        try:
+            got.append(run())
+        except Exception as e:  # noqa: BLE001 (handed to the test's thread)
+            got.append(e)
+
+    th = threading.Thread(target=in_thread)
+    th.start()
+    th.join()
+    torch.cuda.synchronize()
+    assert not isinstance(got[0], Exception), got[0]
+    for a, b in zip(got[0], want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -162,6 +206,34 @@ def test_function_grads_match_plain_autograd_on_card(card, dtype, rel):
     with torch.no_grad():
         spatial_attention(q, k, v, impl="flash")
     assert fa.flash_attention_bwd_dq.launches == before[1] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,t,d", [(4, 1024, 256), (3, 300, 192)])
+@pytest.mark.parametrize("dtype,rel", [(torch.bfloat16, 2 ** -6), (torch.float32, 1e-4)])
+def test_function_grads_d256_on_card(card, bh, t, d, dtype, rel):
+    """The Function at the 1024² path's bottleneck shape (4, 1024, 256) and
+    at a ragged D = 192 (zero-padded to 256 by every wrapper), against
+    autograd through the plain attention: the output within the kernel
+    bound, the gradients within `rel` of the largest entry (the bound of
+    `test_function_grads_match_plain_autograd_on_card`)."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v, do = (torch.randn(bh, t, d, device="cuda", generator=g).to(dtype)
+                   for _ in range(4))
+    leaves = [z.clone().requires_grad_() for z in (q, k, v)]
+    before = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches)
+    out = fa.FlashAttention.apply(*leaves)
+    got = (out.detach(), *torch.autograd.grad(out, leaves, do))
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    ref_leaves = [z.clone().requires_grad_() for z in (q, k, v)]
+    ref_out = fa.flash_attention_plain(*ref_leaves)
+    ref = (ref_out.detach(), *torch.autograd.grad(ref_out, ref_leaves, do))
+    assert close(got[0], ref[0], 2 ** -7 if dtype == torch.bfloat16 else 0.0)
+    for a, b in zip(got[1:], ref[1:]):
+        assert a.dtype == dtype and a.shape == (bh, t, d) and close(a, b, rel_max=rel)
 
 
 @pytest.mark.cuda
@@ -505,14 +577,17 @@ def test_d8_forward_and_dkv_take_no_pad_on_card(card, monkeypatch, bh, t, dtype,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bh,t,d", [(4, 1024, 32), (8, 1024, 16), (2, 300, 8)])
+@pytest.mark.parametrize("bh,t,d", [(4, 1024, 32), (8, 1024, 16), (2, 300, 8),
+                                    (4, 1024, 256)])
 @pytest.mark.parametrize("split", [0, 1, 2, 4])
 def test_forward_split_over_keys_on_card(card, bh, t, d, split):
     """The bf16 forward at the restore CLI's shape (4, 1024, 32), the AVIF
-    restore's (8, 1024, 16) and a ragged D = 8 one, with its keys split over
-    a cluster of 1, 2 or 4 blocks (the launcher's C entry point forced; 0:
-    its own rule, which takes 4, 2 and 4 here) and merged through
-    distributed shared memory: O and the LSE within their bounds."""
+    restore's (8, 1024, 16), a ragged D = 8 one and the 1024² path's
+    bottleneck (4, 1024, 256), with its keys split over a cluster of 1, 2
+    or 4 blocks (the launcher's C entry point forced; 0: its own rule, which
+    takes 4, 2, 4 and 2 here) and merged through distributed shared memory
+    (at D = 256 from a merge area laid over the ring): O and the LSE within
+    their bounds."""
     import ctypes
 
     from ddpm_image_restoration_tpu_torch.ops import build

@@ -41,9 +41,10 @@ SPLITS = [("  wgmma_sm90::wgmma_rs<1>(d, a.hi, b, true);\n"
            "  wgmma_sm90::wgmma_rs<1>(d, a.lo, b, true);\n",
            "  wgmma_sm90::wgmma_rs<1>(d, a.hi, b, true);\n")]
 # Short and ragged T over the 64-row tiles (one partial tile, one full, a
-# ragged third), every head dim of the build.
+# ragged third), every head dim of the build; at D = 256 ragged over the
+# forward's and dQ's 32-key stages and the f32 kernels' 16-row tiles too.
 SHAPES = [(2, 17, 32), (1, 130, 16), (2, 64, 16), (1, 150, 32), (1, 70, 64), (1, 40, 128),
-          (1, 130, 8), (2, 70, 8)]
+          (1, 130, 8), (2, 70, 8), (1, 70, 256)]
 STEPS = [(torch.bfloat16, 2 ** -7), (torch.float32, 0.0)]
 
 
@@ -152,8 +153,11 @@ def test_emulated_kernels_match_plain(run_kernels, tmp_path, bh, t, d, dtype, st
 # (BH, T, D, split): the forward's keys over a cluster of 4 blocks (one
 # with two key tiles, three with one, T ragged), over 2 at D = 8, and the
 # launcher's own rule at a shape where it splits (3 row tiles, 5 key tiles:
-# 4 ways).
-SPLIT_CASES = [(1, 300, 32, 4), (2, 150, 8, 2), (1, 300, 16, 0)]
+# 4 ways); at D = 256, where the merge area overlays the ring, over 4
+# blocks (5 key tiles of 32: one block with two) and by the rule, which
+# splits it at most 2 ways there.
+SPLIT_CASES = [(1, 300, 32, 4), (2, 150, 8, 2), (1, 300, 16, 0), (1, 150, 256, 4),
+               (1, 70, 256, 0)]
 
 
 @pytest.mark.parametrize("bh,t,d,split", SPLIT_CASES)
@@ -168,7 +172,7 @@ def test_emulated_split_route_matches_plain(run_kernels, tmp_path, bh, t, d, spl
     assert all(s <= 1.0 for s in shares.values()), shares
 
 
-@pytest.mark.parametrize("bh,t,d", [(1, 150, 32), (1, 130, 16), (1, 130, 8)])
+@pytest.mark.parametrize("bh,t,d", [(1, 150, 32), (1, 130, 16), (1, 130, 8), (1, 70, 256)])
 def test_emulated_dropped_lo_fails_the_bound(tmp_path, bh, t, d):
     """A copy of the sources with the `lo` half dropped at the split
     product (wgmma_split: P and dS rounded to bf16 once) fails the bound in

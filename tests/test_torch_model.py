@@ -87,6 +87,33 @@ def test_unified_model_codec_embedding(tmp_path):
         tm(torch.from_numpy(x), torch.from_numpy(t))
 
 
+# A narrow model whose first bottleneck width is 1024 (the release
+# bottleneck's): one encoder stage at 64², so the bottleneck attends at 32²
+# (T = 1024, the flash route) with 1024 and 16 channels over 4 heads: D =
+# 256, the widest head any configuration reaches, and 4.
+WIDE_HEAD = dataclasses.replace(MINI, image_size=64, enc_widths=(8,), bottleneck_widths=(1024, 16),
+                                attention_impl="flash", attn_max_resolution=32)
+
+
+def test_wide_head_model_matches(tmp_path):
+    """The D = 256 model against the JAX model on the same npz weights, f32:
+    __call__ and the encode features (ATOL; the JAX model attends by its
+    XLA path on the CPU, the port by the Function's plain route)."""
+    jm, jv, tm = model_pair("webp", WIDE_HEAD, tmp_path / "wide.npz")
+    attn = tm.bottleneck1.attn
+    assert attn.impl == "flash" and attn.qkv.in_features // attn.num_heads == 256
+    x, t = _inputs(size=64)
+    want = np.asarray(japply(jm, jv, jnp.asarray(x), jnp.asarray(t)))
+    leaves = torch.from_numpy(x).requires_grad_()
+    got = tm(leaves, torch.from_numpy(t))
+    assert got.grad_fn is not None and got.shape == (2, 64, 64, 3)
+    np.testing.assert_allclose(got.detach().numpy(), want, atol=ATOL)
+    _, jh = japply(jm, jv, jnp.asarray(x), jnp.asarray(t), method="encode")
+    with torch.no_grad():
+        _, th = tm.encode(torch.from_numpy(x), torch.from_numpy(t))
+    np.testing.assert_allclose(nchw_to_nhwc(th), np.asarray(jh), atol=ATOL)
+
+
 def test_time_embedding_matches(tiny_pair):
     jm, jv, tm = tiny_pair
     t = np.linspace(0, 1, 7).astype(np.float32)

@@ -40,6 +40,15 @@ from .test_torch_parallel import (  # noqa: F401  (jax_weights: a fixture)
 torch.set_num_threads(1)
 
 SHAPES = {2: (1, 2), 4: (2, 2)}
+# Meshes whose axes the trainer finds by name, as the JAX trainer does: name
+# -> (shape, axes, fsdp) at world 4 and 2. 'model' before 'data', with and
+# without FSDP; and ('data', 'spatial'), whose 'spatial' ranks hold the same
+# blocks and the same batch rows, nothing reduced over them.
+AXES_JOBS = {4: {"model_data": ((2, 2), ("model", "data"), False),
+                 "model_data_fsdp": ((2, 2), ("model", "data"), True),
+                 "data_spatial_fsdp": ((2, 2), ("data", "spatial"), True)},
+             2: {"model_data": ((2, 1), ("model", "data"), False),
+                 "data_spatial": ((1, 2), ("data", "spatial"), False)}}
 # The (1, 2) step under block remat (the column-parallel hooks run again in
 # the recompute, with the dropout masks replayed) and on the AVIF model
 # (its transform weights split in the state, gathered into the module).
@@ -72,17 +81,24 @@ def world4(tmp_path_factory, jax_weights):
                           batch_size=4, ema_decay=0.9, steps=20, mesh_shape=(-1, 2),
                           mesh_axes=("data", "model"), checkpoint_dir=str(tmp / "trainer"),
                           data_workers=1)
+    trainer_md = dataclasses.replace(trainer, mesh_shape=(2, -1), mesh_axes=("model", "data"),
+                                     checkpoint_dir=str(tmp / "trainer_md"))
     jobs4 = [("dp", w.scenario_tp_train, ((2, 2), w.train_cfg(), batch, STEPS)),
              ("fsdp", w.scenario_tp_train, ((2, 2), w.train_cfg(fsdp=True), batch, STEPS)),
              ("jax", w.scenario_tp_train, ((2, 2), w.train_cfg(dropout=0.0, ema_decay=0.0),
                                            batch, 1, jax_weights[0])),
              ("ckpt", w.scenario_tp_checkpoints, (w.train_cfg(fsdp=True), batch)),
              ("trainer", w.scenario_tp_trainer, (trainer,)),
+             ("trainer_md", w.scenario_tp_trainer, (trainer_md,)),
              ("dryrun", w.scenario_dryrun, ())]
     jobs2 = [("dp", w.scenario_tp_train, ((1, 2), w.train_cfg(), batch, STEPS)),
              ("fsdp", w.scenario_tp_train, ((1, 2), w.train_cfg(fsdp=True), batch, STEPS))]
     jobs2 += [(name, w.scenario_tp_train, ((1, 2), cfg, batch, STEPS))
               for name, cfg in OTHER_CFGS.items()]
+    for world, jobs in ((4, jobs4), (2, jobs2)):
+        jobs += [(name, w.scenario_tp_train, (shape, w.train_cfg(fsdp=fsdp), batch, STEPS, None,
+                                              axes))
+                 for name, (shape, axes, fsdp) in AXES_JOBS[world].items()]
     join4 = w.start(w.scenario_many, 4, tmp, jobs4)
     join2 = w.start(w.scenario_many, 2, tmp2 / "spawn", jobs2)
     return {"tmp": tmp, "batch": batch, "one_ckpt": one, 4: join4(), 2: join2()}
@@ -152,24 +168,55 @@ def test_model_axis_step_matches_one_process(world, fsdp, world4):
     cfg = w.train_cfg(fsdp=fsdp)
     one = w.run_steps(cfg, world4["batch"], STEPS)
     grads = _grads_of_one_step(cfg, world4["batch"])
-    m = SHAPES[world][1]
-    for r, out in enumerate(world4[world]):
-        got = out["fsdp" if fsdp else "dp"]
-        np.testing.assert_allclose(got["loss"], one["loss"], rtol=1e-5)
-        np.testing.assert_allclose(got["grad_norm"], one["grad_norm"], rtol=1e-5)
-        for d in ("params", "ema"):
-            assert_params_match(got["state"][d], one["state"][d], grads, STEPS)
-        for d in ("mu", "nu"):
-            top = max(v.abs().max().item() for v in one["state"][d].values())
-            for k, v in one["state"][d].items():
-                np.testing.assert_allclose(got["state"][d][k], v, rtol=0, atol=1e-5 * top,
-                                           err_msg=f"{d} {k}")
-        module = {}
-        for k, v in one["module"].items():
-            held = got["module"][k]
-            module[k] = v if held.shape == v.shape else v.chunk(m, 0)[r % m]
-        assert_params_match(got["module"], module, grads, STEPS)
-        assert got["state"]["step"] == STEPS
+    for out in world4[world]:
+        _assert_steps_match(out["fsdp" if fsdp else "dp"], one, grads, SHAPES[world][1])
+
+
+def _assert_steps_match(got, one, grads, m):
+    """A rank's `run_steps` over a mesh with `m` model ranks against one
+    process's: loss and grad norm, masters, moments and EMA in the
+    one-process layout, and the module (a column-parallel layer's weight
+    and bias: the rank's block of output channels)."""
+    np.testing.assert_allclose(got["loss"], one["loss"], rtol=1e-5)
+    np.testing.assert_allclose(got["grad_norm"], one["grad_norm"], rtol=1e-5)
+    for d in ("params", "ema"):
+        assert_params_match(got["state"][d], one["state"][d], grads, STEPS)
+    for d in ("mu", "nu"):
+        top = max(v.abs().max().item() for v in one["state"][d].values())
+        for k, v in one["state"][d].items():
+            np.testing.assert_allclose(got["state"][d][k], v, rtol=0, atol=1e-5 * top,
+                                       err_msg=f"{d} {k}")
+    module = {}
+    for k, v in one["module"].items():
+        held = got["module"][k]
+        module[k] = v if held.shape == v.shape else v.chunk(m, 0)[got["coords"]["model"]]
+    assert_params_match(got["module"], module, grads, STEPS)
+    assert got["state"]["step"] == STEPS
+
+
+@pytest.mark.parametrize("world,name", [(n, name) for n, jobs in AXES_JOBS.items()
+                                        for name in jobs])
+def test_steps_over_axes_found_by_name_match_one_process(world, name, world4):
+    """Two steps (the fixture's) over a ('model', 'data') mesh, with and
+    without FSDP, and over a ('data', 'spatial') one equal two one-process
+    steps on the whole batch (the module docstring's tolerances): the
+    layout finds 'data' and 'model' by name, and the 'spatial' ranks, which
+    take the same batch rows, hold what their data rank holds."""
+    shape, axes, fsdp = AXES_JOBS[world][name]
+    cfg = w.train_cfg(fsdp=fsdp)
+    one = w.run_steps(cfg, world4["batch"], STEPS)
+    grads = _grads_of_one_step(cfg, world4["batch"])
+    sizes = dict(zip(axes, shape))
+    seen = set()
+    for out in world4[world]:
+        got = out[name]
+        seen.add(tuple(got["coords"][a] for a in axes))
+        _assert_steps_match(got, one, grads, sizes.get("model", 1))
+        want = [k for k, s in pm.param_shardings(
+            w.mini_model(), _FakeMesh(sizes["data"], sizes.get("model", 1)), fsdp=fsdp).items()
+            if s != pm.Split()]
+        assert got["sharded"] == want
+    assert len(seen) == world  # every coordinate of the mesh once
 
 
 @pytest.mark.parametrize("name", list(OTHER_CFGS))
@@ -292,7 +339,8 @@ def test_trainer_over_data_and_model(world4):
     """`train_model` on a (-1, 2) ('data', 'model') mesh at world 4: a (2,
     2) mesh, one epoch of 2 steps with validation and the restoration grid
     (column-parallel on every model rank of data rank 0), the same history
-    on every rank, and one checkpoint written."""
+    on every rank, and one checkpoint written; and on a (2, -1) ('model',
+    'data') mesh, the same losses."""
     outs = [r["trainer"] for r in world4[4]]
     for out in outs:
         assert out["mesh"] == {"data": 2, "model": 2}
@@ -302,6 +350,15 @@ def test_trainer_over_data_and_model(world4):
         assert np.isfinite(out["history"]["loss"]).all()
         assert np.isfinite(out["history"]["val_psnr"]).all()
     assert [f for f in outs[0]["files"] if f.startswith("ckpt_")] == ["ckpt_0.pt"]
+    # the same trainer over ('model', 'data') (2, -1): the same (2, 2) mesh,
+    # its axes found by name, the same losses
+    for out in (r["trainer_md"] for r in world4[4]):
+        assert out["mesh"] == {"model": 2, "data": 2} and out["step"] == 2
+        np.testing.assert_allclose(out["history"]["loss"], outs[0]["history"]["loss"],
+                                   rtol=1e-5)
+        assert np.isfinite(out["history"]["val_psnr"]).all()
+    files = world4[4][0]["trainer_md"]["files"]
+    assert [f for f in files if f.startswith("ckpt_")] == ["ckpt_0.pt"]
 
 
 def test_dryrun_world4(world4):

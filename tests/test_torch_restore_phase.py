@@ -41,9 +41,10 @@ NARROW = ["--width-scale", "16", "--compute-dtype", "float32"]
 
 def test_restore_phase_counts_on_cpu(tmp_path, monkeypatch, counted_kernel, capsys):
     """The whole phase (six restore-CLI variants, the checkpoint of a short
-    training run, the serve CLI on mixed codecs) at width/16 on the CPU,
-    with 4 WebPs (q10 and q90, two each) in place of 8 and a 72x100 image
-    in 6 tiles."""
+    training run, the serve CLI on mixed codecs, that checkpoint exported
+    by `cli/export.py` and restored from the EMA npz) at width/16 on the
+    CPU, with 4 WebPs (q10 and q90, two each) in place of 8 and a 72x100
+    image in 6 tiles."""
     from ddpm_image_restoration_tpu_torch.cli.train import main as train_main
 
     monkeypatch.setattr(chip_smoke, "ROOT", str(tmp_path))
@@ -51,6 +52,8 @@ def test_restore_phase_counts_on_cpu(tmp_path, monkeypatch, counted_kernel, caps
     monkeypatch.setattr(chip_smoke, "TILE_SIZE_HW", (72, 100))
     monkeypatch.setattr(chip_smoke, "RESTORE_FLAGS",
                         ["--device", "cpu", *NARROW, *chip_smoke.RESTORE_FLAGS[2:]])
+    monkeypatch.setattr(chip_smoke, "EXPORT_FLAGS",
+                        ["--device", "cpu", "--width-scale", "16", *chip_smoke.EXPORT_FLAGS[2:]])
     ck = tmp_path / "ck"
     train_main(["--device", "cpu", *NARROW, "--synthetic", "12", "--epochs", "1",
                 "--batch-size", "4", "--attn", "flash", "--attn-max-res", "32", "--steps", "20",
@@ -58,8 +61,11 @@ def test_restore_phase_counts_on_cpu(tmp_path, monkeypatch, counted_kernel, caps
     state = {"smi": "CPU", "train_ckpt": str(ck)}
     chip_smoke.phase_restore(state)
     log = capsys.readouterr().out
-    assert log.count("schedule implies") == 7, log
+    assert log.count("schedule implies") == 8, log
     assert "6 tiles" in log and "in batches of [3, 2, 1]" in log, log
+    for which in ("ema", "raw"):
+        assert (f"the port's reader gives the checkpoint's {which} weights in fp16: True; "
+                f"in the JAX package's layout: True") in log, log
     assert state["launches_restore"]["flash_attention_fwd"] > 0
     assert not ck.exists() and not (tmp_path / "build" / "chip_smoke_restore").exists()
 

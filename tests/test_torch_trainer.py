@@ -218,8 +218,9 @@ def test_validate_all_matches_jax(tmp_path, monkeypatch):
 @pytest.mark.parametrize("flags", [["--fsdp"]])
 def test_cli_refuses_unported_config(flags, monkeypatch):
     """`--fsdp` is ported: the CLI hands it to the trainer, whose check
-    accepts it, as it accepts a ('data', 'model') mesh (no CLI flag reaches
-    it); what it still refuses is any other mesh."""
+    accepts it, as it accepts a ('data', 'model') mesh and the same axes in
+    the other order (no CLI flag reaches them); what it still refuses is a
+    mesh without a 'data' axis, which the JAX trainer cannot run either."""
     import dataclasses
 
     from ddpm_image_restoration_tpu_torch.train import loop
@@ -236,19 +237,32 @@ def test_cli_refuses_unported_config(flags, monkeypatch):
     assert seen["cfg"].fsdp
     loop.check_supported(dataclasses.replace(seen["cfg"], mesh_shape=(1, 1),
                                              mesh_axes=("data", "model")))
-    with pytest.raises(NotImplementedError, match="'data', 'model'"):
-        loop.check_supported(dataclasses.replace(seen["cfg"], mesh_shape=(1, 1),
-                                                 mesh_axes=("model", "data")))
+    loop.check_supported(dataclasses.replace(seen["cfg"], mesh_shape=(1, 1),
+                                             mesh_axes=("model", "data")))
+    with pytest.raises(ValueError, match="'data' axis"):
+        loop.check_supported(dataclasses.replace(seen["cfg"], mesh_shape=(1,),
+                                                 mesh_axes=("model",)))
 
 
 def test_trainer_refuses_what_it_lacks():
+    """The trainer takes every mesh the JAX trainer runs ('data' and
+    'model' by name, in any order; another axis replicated over) and
+    refuses the ones no trainer runs: no 'data' axis, a shape of another
+    length than the axes, an axis named twice."""
     from ddpm_image_restoration_tpu_torch.train.loop import check_supported
 
-    for cfg in (TrainConfig(mesh_shape=(2,), mesh_axes=("data", "model")),
-                TrainConfig(mesh_shape=(4,), mesh_axes=("spatial",))):
-        with pytest.raises(NotImplementedError):
+    for cfg, why in ((TrainConfig(mesh_shape=(2,), mesh_axes=("data", "model")), "distinct"),
+                     (TrainConfig(mesh_shape=(2, 2), mesh_axes=("data", "data")), "distinct"),
+                     (TrainConfig(mesh_shape=(4,), mesh_axes=("spatial",)), "'data' axis"),
+                     (TrainConfig(mesh_shape=(2, 2), mesh_axes=("model", "spatial")),
+                      "'data' axis")):
+        with pytest.raises(ValueError, match=why):
             check_supported(cfg)
-    check_supported(TrainConfig(mesh_shape=(2, 2), mesh_axes=("data", "model")))
+    for axes in (("data", "model"), ("model", "data"), ("data", "spatial"),
+                 ("spatial", "data"), ("model", "spatial", "data")):
+        check_supported(TrainConfig(mesh_shape=(2,) * len(axes), mesh_axes=axes,
+                                    fsdp=True))
+        check_supported(TrainConfig(mesh_shape=(2,) * len(axes), mesh_axes=axes))
     for cfg in (TrainConfig(model=ModelConfig(remat=True)),
                 TrainConfig(consistency_mode="host_loop"), TrainConfig(fsdp=True),
                 TrainConfig(mesh_shape=(2,))):
