@@ -7,9 +7,10 @@ dK/dV use: each then rounds P, and dS, to bf16 once), and holds the bf16
 forward, dQ and dK/dV kernels of that copy and of the checkout to their
 plain versions under chip_smoke.py's bounds, at the D = 32 shapes of the
 main paths, D = 16 and 8 beside them, the restore CLI's (4, 1024, 32),
-which the forward splits over a cluster, and D = 256 at the 1024² path's
-bottleneck (4, 1024, 256), where the forward splits too and dK/dV gives
-each half of the columns a block of its own.
+which the forward splits over a cluster, and D = 256 and 128 at the 1024²
+path's bottleneck (4, 1024, 256) and (4, 1024, 128), where the
+warp-specialised forward splits its keys and dK/dV its query tiles over
+a cluster of 2.
 
     python3 chip_fault_check.py
 
@@ -33,14 +34,16 @@ SPLITS = [("  wgmma_sm90::wgmma_rs<1>(d, a.hi, b, true);\n"
            "  wgmma_sm90::wgmma_rs<1>(d, a.hi, b, true);\n")]
 # (kernel, BH, T, D, save_lse): the forward at its serving, train-step,
 # validation and restore shapes; dQ and dK/dV at the train steps'; the
-# three at the 1024² path's D = 256 (restore and train step).
+# three at the 1024² path's D = 256 (restore and train step), the forward
+# and dK/dV at its D = 128.
 CASES = [("fwd", 32, 1024, 32, False), ("fwd", 72, 1024, 32, True), ("fwd", 16, 1024, 32, False),
          ("fwd", 4, 1024, 32, False),
          ("dq", 72, 1024, 32, True), ("dkv", 72, 1024, 32, True), ("fwd", 32, 1024, 16, False),
          ("dq", 72, 1024, 16, True), ("dkv", 72, 1024, 16, True), ("fwd", 64, 1024, 8, True),
          ("dq", 64, 1024, 8, True), ("dkv", 64, 1024, 8, True),
          ("fwd", 4, 1024, 256, False), ("fwd", 4, 1024, 256, True), ("dq", 4, 1024, 256, True),
-         ("dkv", 4, 1024, 256, True)]
+         ("dkv", 4, 1024, 256, True), ("fwd", 4, 1024, 128, False), ("fwd", 4, 1024, 128, True),
+         ("dkv", 4, 1024, 128, True)]
 
 
 def shares(fa, max_err) -> list[float]:

@@ -9,7 +9,8 @@ NVIDIA card and checks it, phase by phase:
      registers, spills and shared memory (`ptxas -v`) and its tensor-core
      and TMA instructions (HGMMA with UTMALDG in every instantiation of
      the wgmma forward, dQ and dK/dV kernels, D = 8 to 256, and HMMA in
-     none; counted in `cuobjdump -sass`);
+     none; counted in `cuobjdump -sass`), and no spill in the
+     warp-specialised forward and dK/dV (D = 128 and 256);
   3. kernels: each kernel against its plain PyTorch version, with times
      (the kernels' and SDPA's as device time under torch.profiler, the
      plain versions' between CUDA events), and the autograd Function's
@@ -183,14 +184,17 @@ KERNEL_SHAPES = list(dict.fromkeys(s[1:4] for s in FWD_PATH_SHAPES)) + [
 # model-axis step; the 1024² train step's bottleneck, one image x 4 heads
 # at D = 256 and 128), then contract shapes: the 32x32 level of the 128²
 # model (head dim 64, batch 18), ragged, short and wide cases, and D = 256
-# at a batch of 8 images, ragged, and at D = 192 (padded to 256).
+# at a batch of 8 images, ragged, and at D = 192 (padded to 256); last the
+# half-width f32 train gate's down2 and up4 (4 images x 4 heads, D = 16 and
+# 8), for the f32 kernels' times beside SDPA's in f32.
 TRAIN_SHAPES = {(72, 1024, 32): 4, (72, 1024, 16): 4, (64, 1024, 16): 8, (64, 1024, 8): 8,
                 (36, 1024, 32): 4, (36, 1024, 16): 4, (4, 1024, 256): 4, (4, 1024, 128): 4}
 TRAIN_PATHS = {(64, 1024, 16): "avif train step", (64, 1024, 8): "avif train step",
                (36, 1024, 32): "model axis (2, 2)", (36, 1024, 16): "model axis (2, 2)",
                (4, 1024, 256): "train step 1024²", (4, 1024, 128): "train step 1024²"}
 BWD_SHAPES = [*TRAIN_SHAPES, (72, 1024, 64), (4, 300, 64), (4, 1300, 16), (2, 256, 128),
-              (3, 17, 32), (32, 1024, 256), (3, 300, 256), (2, 300, 192)]
+              (3, 17, 32), (32, 1024, 256), (3, 300, 256), (2, 300, 192), (16, 1024, 16),
+              (16, 1024, 8)]
 # Each kernel against its plain version, entry by entry:
 #   |got - ref| <= BF16_STEP * |ref| (bf16 outputs only) + F32_REL * max|ref|.
 # Both accumulate in f32 on the same inputs, so their f32 results differ by
@@ -207,15 +211,30 @@ F32_REL = 1e-4
 FUNCTION_REL = {"bfloat16": 2 ** -6, "float32": F32_REL}
 # Which design computes each kernel, per input dtype.
 DESIGNS = {
-    "flash_attention_fwd": {"bf16": "wgmma m64nNk16, TMA/mbarrier ring (32-key stages at D = "
-                                    "256), hi/lo P, cluster split over keys (merged through "
-                                    "the ring's space at D = 256)", "f32": "FMA"},
+    "flash_attention_fwd": {"bf16": "wgmma m64nNk16, TMA/mbarrier ring, hi/lo P, cluster split "
+                                    "over keys; D <= 64: two warpgroups of 64 rows; D = 128 "
+                                    "and 256: warp-specialised 64-row blocks (producer "
+                                    "warpgroup, setmaxnreg, two consumer warpgroups taking "
+                                    "the key tiles in turn, 64-key stages)", "f32": "FMA"},
     "flash_attention_bwd_dq": {"bf16": "wgmma m64nNk16, TMA/mbarrier ring (32-key stages at "
                                        "D = 256), hi/lo dS", "f32": "FMA"},
-    "flash_attention_bwd_dkv": {"bf16": "wgmma m64nNk16, TMA/mbarrier ring, hi/lo P and dS "
-                                        "(at D = 256 two blocks a key tile, each with half "
-                                        "the columns of dK and dV)", "f32": "FMA"},
+    "flash_attention_bwd_dkv": {"bf16": "wgmma m64nNk16, TMA/mbarrier ring, hi/lo P and dS; "
+                                        "D = 128 and 256: warp-specialised (producer "
+                                        "warpgroup, setmaxnreg; one consumer warpgroup S^T, "
+                                        "P^T and dV, the other dP^T, dS^T and dK), query "
+                                        "tiles over a cluster of 2", "f32": "FMA"},
 }
+# The 1024² path's (kernel, SDPA) device ms of the D = 128 and 256 designs
+# that the warp-specialised forward and dK/dV replaced (the forward's
+# 128-row blocks with 32-key stages at D = 256; dK/dV's 288-thread blocks,
+# two a key tile at D = 256), as chip_smoke measured them on `NVIDIA H100
+# 80GB HBM3, 700.00 W` (PERF.md §6, the kernel table's "was"): forward (BH,
+# T, D, save_lse); dK/dV and dQ (BH, T, D) against SDPA's whole backward,
+# dQ's with that dK/dV beside it.
+WIDE_FWD_BEFORE_MS = {(4, 1024, 256, False): (0.0485, 0.0275), (4, 1024, 256, True): (0.0518, 0.0275),
+               (4, 1024, 128, False): (0.0253, 0.0163), (4, 1024, 128, True): (0.0274, 0.0163)}
+WIDE_DKV_BEFORE_MS = {(4, 1024, 256): (0.1608, 0.0627), (4, 1024, 128): (0.0983, 0.0451)}
+WIDE_DQ_BEFORE_MS = {(4, 1024, 256): (0.0666, 0.0627, 0.1608), (4, 1024, 128): (0.0299, 0.0451, 0.0983)}
 # The bf16 path shapes' (kernel, SDPA) device ms of the mma.sync forward and
 # dK/dV kernels that the wgmma ones replaced, as chip_smoke measured them on
 # `NVIDIA H100 80GB HBM3, 700.00 W` (PERF.md §6, the kernel table's "was"):
@@ -241,10 +260,19 @@ MMA_SYNC_DQ_MS = {
     (36, 1024, 32): (0.0535, 0.0827, 0.0583), (36, 1024, 16): (0.0416, 0.0803, 0.0501)}
 
 
-def ratio_note(ms: float, lib_ms: float, was) -> str:
-    """'kernel/SDPA r (mma.sync kernel: r0)' for a path shape's log line."""
+def ratio_note(ms: float, lib_ms: float, was, design: str = "mma.sync kernel") -> str:
+    """'kernel/SDPA r (<design>: r0)' for a path shape's log line."""
     then = f"{was[0] / was[1]:.3f}" if was else "not recorded"
-    return f"kernel/SDPA {ms / lib_ms if lib_ms > 0 else float('nan'):.3f} (mma.sync kernel: {then})"
+    return f"kernel/SDPA {ms / lib_ms if lib_ms > 0 else float('nan'):.3f} ({design}: {then})"
+
+
+def earlier_design(table_mma_sync: dict, table_wide: dict, key) -> tuple:
+    """(earlier times, what they were) for a path shape's log line: the
+    earlier D = 128 / 256 design's where it has the shape, else the mma.sync
+    kernel's."""
+    if key in table_wide:
+        return table_wide[key], "earlier D = 128/256 design"
+    return table_mma_sync.get(key), "mma.sync kernel"
 
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s; dense
@@ -469,13 +497,18 @@ def phase_build(state: dict) -> None:
     names = (fa.KERNEL, fa.BWD_KERNEL)
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, all at once
         built = list(pool.map(build.build, names))
-    sass = {}
+    sass, spilled = {}, []
     for name, (path, seconds) in zip(names, built):
         log(f"built {path.name} with {build.find_nvcc()} in {seconds:.1f} s")
         log_file = path.with_suffix(".log")
         text = log_file.read_text() if log_file.exists() else ""
         for line in build.ptxas_summary(text):
             log(f"  ptxas: {line}")
+            # the warp-specialised forward and dK/dV (D = 128, 256) keep
+            # every accumulator in registers: no spill
+            if re.match(r"flash_(fwd|bwd_dkv)_wgmma_kernel D=(128|256) bf16", line) and \
+                    "spills 0/0 B" not in line:
+                spilled.append(line)
         for line in text.splitlines():  # e.g. wgmma serialized by ptxas
             if "wgmma" in line.lower() or "warning" in line.lower():
                 log(f"  nvcc: {line.strip()}")
@@ -483,6 +516,8 @@ def phase_build(state: dict) -> None:
             sass[kernel] = ops
             log(f"  sass: {kernel}: " + ", ".join(f"{n} {op}" for op, n in ops.items()))
         build.load(name)
+    if spilled:
+        raise AssertionError(f"the D = 128 / 256 forward or dK/dV spills: {spilled}")
     if not sass:
         return
     # every instantiation of the forward, dQ and dK/dV wgmma kernels (D = 8
@@ -580,7 +615,8 @@ def phase_kernels(state: dict) -> None:
     for path, bh, t, d, lse in FWD_PATH_SHAPES:
         r = rows[(bh, t, d, "bfloat16", lse)]
         log(f"flash_attention_fwd [{path}] (BH,T,D)=({bh},{t},{d}) bf16 lse={lse}: "
-            + ratio_note(r["ms"], r["library_ms"], MMA_SYNC_FWD_MS.get((bh, t, d, lse))))
+            + ratio_note(r["ms"], r["library_ms"],
+                         *earlier_design(MMA_SYNC_FWD_MS, WIDE_FWD_BEFORE_MS, (bh, t, d, lse))))
     state["bwd_rows"] = check_backward(failures)
     check_function(failures)
     if failures:
@@ -663,14 +699,17 @@ def check_backward(failures: list) -> dict:
                 path = TRAIN_PATHS.get((bh, t, d), "train step")
                 dkv_ms, dq_ms = times["dkv"][0], times["dq"][0]
                 log(f"flash_attention_bwd_dkv [{path}] (BH,T,D)=({bh},{t},{d}) bf16: "
-                    + ratio_note(dkv_ms, lib_ms, MMA_SYNC_DKV_MS.get((bh, t, d))))
-                was = MMA_SYNC_DQ_MS.get((bh, t, d))
+                    + ratio_note(dkv_ms, lib_ms,
+                                 *earlier_design(MMA_SYNC_DKV_MS, WIDE_DKV_BEFORE_MS, (bh, t, d))))
+                was, design = earlier_design(MMA_SYNC_DQ_MS, WIDE_DQ_BEFORE_MS, (bh, t, d))
                 pair_was = f"{(was[0] + was[2]) / was[1]:.3f}" if was else "not recorded"
+                pair_label = ("with the earlier dK/dV" if design.startswith("earlier")
+                              else "with the mma.sync dQ")
                 log(f"flash_attention_bwd_dq [{path}] (BH,T,D)=({bh},{t},{d}) bf16: "
-                    + ratio_note(dq_ms, lib_ms, was)
+                    + ratio_note(dq_ms, lib_ms, was, design)
                     + f"; pair dQ + dK/dV {dq_ms + dkv_ms:.4f} ms, pair/SDPA "
                     f"{(dq_ms + dkv_ms) / lib_ms if lib_ms > 0 else float('nan'):.3f} "
-                    f"(with the mma.sync dQ: {pair_was})")
+                    f"({pair_label}: {pair_was})")
     return rows
 
 

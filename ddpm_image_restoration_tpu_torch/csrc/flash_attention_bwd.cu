@@ -79,22 +79,20 @@
 // at 64;
 // the MUFU's T^2 exp2 a head at 16 a clock per SM, 18.0 us whatever D (the
 // floor at D <= 16); the fill is no limit (8*BH blocks of 128 keys: 576 at
-// the train step). The design:
+// the train step). The design at D <= 64 (dkv_pair):
 //   * a block is two consumer warpgroups of 64 keys and one producer warp
 //     (288 threads; one block an SM, ptxas's cap of 168 registers: ptxas -v
-//     gives 147 at D = 32, 128 at 16 and 8, 168 at 64 and 128, where D =
-//     128 spills 196 bytes and its products are serialized; it is on no
-//     path. Without the producer warp, at 256 threads with warp 0
-//     loading, D = 32 ran slower on the card); each
+//     gives 147 at D = 32, 128 at 16 and 8, 168 at 64. Without the
+//     producer warp, at 256 threads with warp 0 loading, D = 32 ran slower
+//     on the card); each
 //     warpgroup's K and V tiles arrive once by TMA and stay in shared
 //     memory as wgmma's A operands;
 //   * the producer streams every query tile's Q and dO by TMA ([BH, T, D]
-//     tensor maps, boxes of BQ rows, zero-filled past T and, at D = 8, over
+//     tensor maps, boxes of 64 rows, zero-filled past T and, at D = 8, over
 //     the columns 8..15) and its LSE and Delta rows by the warp's lanes,
-//     through a ring of 4 (D <= 32), 3 (64, 256) or 2 (128) stages with
-//     full/empty mbarriers; BQ = 64 queries, 32 from D = 128, where the dK
-//     and dV accumulators take 128 f32 a thread;
-//   * S^T = K*Q^T and dP^T = V*dO^T by wgmma m64n{BQ}k16 from K-major
+//     through a ring of 4 (D <= 32) or 3 (64) stages with full/empty
+//     mbarriers;
+//   * S^T = K*Q^T and dP^T = V*dO^T by wgmma m64n64k16 from K-major
 //     descriptors; P^T = exp2(S^T*c - LSE) and dS^T = P^T o (dP^T - Delta)
 //     on the accumulators, query columns >= T given P = 0 explicitly (a
 //     zero LSE would give exp2(0) = 1); dV += P^T*dO and dK += dS^T*Q by
@@ -105,15 +103,42 @@
 //   * the two warpgroups take turns at issuing each group of products
 //     (named barriers), 4-5% faster than issuing at will (PERF.md §6);
 //   * D = 8 natively (zero-filled to the wgmma depth 16 in shared memory;
-//     dK and dV written 8 wide);
-//   * D = 256: dK and dV of 64 keys over all 256 columns would take 256 f32
-//     a thread, more than a thread has, so two blocks share each key tile,
-//     each accumulating half of the columns (64 + 64 f32, as at D = 128)
-//     and computing S^T and dP^T over the whole depth itself (those
-//     products twice: 4/3 of one block's flops); both warpgroups' K and V
-//     take 128 KB, the ring 3 stages of 32 queries (32 KB each; 226 KB in
-//     all). ptxas -v: 168 registers, 204 bytes spilled, its products
-//     serialized, as at D = 128.
+//     dK and dV written 8 wide).
+//
+// D = 128 and 256 (the 1024² model's bottleneck, trained at T = 1024 with
+// BH = 4 for one image). The design above held dK and dV of two warpgroups'
+// keys beside S^T and dP^T in a 288-thread block's 168 registers, which
+// spilled and serialized its products, and at D = 256 split the columns
+// over two blocks that each computed S^T and dP^T (4/3 of the flops). Here
+// the kernel is warp-specialised (dkv_ws):
+//   * a block is one 64-key tile: 384 threads, a producer warpgroup that
+//     gives its registers away (setmaxnreg.dec to 40) and two consumer
+//     warpgroups (setmaxnreg.inc to 232; 168 a thread at launch), so that
+//     each holds one 64 x D accumulator (64 or 128 f32 a thread) in
+//     registers beside a 64 x 64 product tile and its hi/lo parts;
+//   * the work is split by product, not by keys: warpgroup 0 computes S^T
+//     = K*Q^T and P^T, and accumulates dV += P^T*dO; warpgroup 1 computes
+//     dP^T = V*dO^T and, with P^T from warpgroup 0, dS^T = P^T o (dP^T -
+//     Delta), and accumulates dK += dS^T*Q. S^T and dP^T are computed once
+//     per (key tile, query tile), and the two warpgroups' products are the
+//     same size (one 64 x 64 x D product and two hi/lo ones each). P^T
+//     passes through shared memory in f32 (the bytes of its hi/lo pair),
+//     each thread's fragment at its own place, in two buffers handed over
+//     by named barriers (full, then free);
+//   * the producer's first warp streams each query tile's Q and dO by TMA
+//     (64-row boxes) and its LSE and Delta rows by its lanes through a
+//     ring of 4 stages at D = 128 and 2 at D = 256 (200 and 226 KB with K,
+//     V and the P^T buffers);
+//   * filling the card: one block a key tile gives (4, 1024, D) only 64
+//     blocks, so the query tiles are dealt over a cluster of 2 (block r
+//     takes tiles r, r + 2, ...; dkv_fill_split: 2 while twice the key
+//     tiles fit the SMs): 128 blocks at (4, 1024, 256) and (4, 1024, 128).
+//     The two blocks' sums are added through distributed shared memory:
+//     each warpgroup leaves the half of its accumulator that the other
+//     block finishes in the ring's space, and adds the other block's share
+//     of its own half; every output element written once, deterministic;
+//   * work a head: 12*T^2*D flops, 3.2 GFLOP at D = 256 and 1.6 at D = 128
+//     (T = 1024).
 //
 // No atomics: every output element is written by one thread, once, and
 // results are deterministic. P and dS are carried as a bf16 hi part (x
@@ -138,6 +163,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "flash_mma.cuh"
 
@@ -348,8 +375,7 @@ template <int D> struct HopperDims {
 
 // The byte offset of the k16 slice kd of a [rows, DP] K-major tile: its
 // panel, then 32 bytes a slice along the swizzled row.
-template <int D> __device__ __forceinline__ uint32_t kslice(int kd, int rows) {
-  using F = HopperDims<D>;
+template <class F> __device__ __forceinline__ uint32_t kslice(int kd, int rows) {
   return (16 * kd / F::W) * rows * F::SW + (16 * kd % F::W) * 2;
 }
 
@@ -476,10 +502,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     const uint32_t kt = stage_at(stage), vt = kt + F::KTILE;
 #pragma unroll
     for (int kd = 0; kd < F::DP / 16; ++kd) {
-      wgmma_ss<0>(s, make_desc(q_wg + kslice<D>(kd, 64), F::SW),
-                  make_desc(kt + kslice<D>(kd, F::BN), F::SW), kd > 0);
-      wgmma_ss<0>(dp, make_desc(do_wg + kslice<D>(kd, 64), F::SW),
-                  make_desc(vt + kslice<D>(kd, F::BN), F::SW), kd > 0);
+      wgmma_ss<0>(s, make_desc(q_wg + kslice<F>(kd, 64), F::SW),
+                  make_desc(kt + kslice<F>(kd, F::BN), F::SW), kd > 0);
+      wgmma_ss<0>(dp, make_desc(do_wg + kslice<F>(kd, 64), F::SW),
+                  make_desc(vt + kslice<F>(kd, F::BN), F::SW), kd > 0);
     }
     wgmma_commit();
   };
@@ -559,20 +585,12 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 }
 
 template <int D> struct HopperDkv : HopperDims<D> {
+  static_assert(D <= 64, "D = 128 and 256 take HopperDkvWs");
   using B = HopperDims<D>;
-  // blocks a key tile: at D = 256 the dK and dV accumulators of all 256
-  // columns (256 f32 a thread) exceed a thread's registers, so each of two
-  // blocks owns half the columns of dK and dV (OUT_PANELS panels from the
-  // kernel's pn0) and computes S^T and dP^T over the whole depth itself:
-  // those two products are done twice, 4/3 of the flops of one block
-  static constexpr int HALVES = D > 128 ? 2 : 1;
-  static constexpr int OUT_PANELS = B::PANELS / HALVES;
-  // queries a ring stage: fewer from D = 128, where the dK and dV
-  // accumulators (2 * 128 / 2 f32 a thread) take most registers
-  static constexpr int BQ = D <= 64 ? 64 : 32;
+  static constexpr int BQ = 64;                 // queries a ring stage
   static constexpr int KTILE = 64 * B::DP * 2;  // [64 keys, DP]
   static constexpr int QTILE = BQ * B::DP * 2;  // [BQ queries, DP]
-  static constexpr int STAGES = D == 128 ? 2 : (D == 64 || D == 256 ? 3 : 4);
+  static constexpr int STAGES = D == 64 ? 3 : 4;
   // From the 1024-aligned base: each warpgroup's K tile, then each one's V
   // tile; the ring (a Q and a dO tile a stage); the LSE and Delta rows of
   // each stage; the barriers (full, empty, then K/V's).
@@ -582,15 +600,57 @@ template <int D> struct HopperDkv : HopperDims<D> {
   static constexpr int SMEM = 1024 + BARS + 16 * (STAGES + 1);
 };
 
+// D = 128 and 256: a warp-specialised block of one 64-key tile (see the
+// file's note): consumer warpgroup 0 computes S^T and P^T and accumulates
+// dV, consumer warpgroup 1 computes dP^T and accumulates dK, P^T passing
+// between them through shared memory; a producer warpgroup gives its
+// registers to them and streams the query tiles.
+template <int D> struct HopperDkvWs : HopperDims<D> {
+  static_assert(D == 128 || D == 256, "the warp-specialised dK/dV is built for D = 128, 256");
+  using B = HopperDims<D>;
+  static constexpr int BQ = 64;                    // queries a ring stage
+  static constexpr int CONSUMERS = 256;            // two warpgroups
+  static constexpr int THREADS = CONSUMERS + 128;  // and the producer warpgroup
+  // registers a thread after setmaxnreg; 40 * 128 + 232 * 256 = 168 * 384,
+  // the launch's 168 (65536 registers over 384 threads)
+  static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+  static constexpr int KTILE = 64 * B::DP * 2;     // [64 keys, DP]
+  static constexpr int QTILE = BQ * B::DP * 2;     // [BQ queries, DP]
+  static constexpr int STAGES = D == 128 ? 4 : 2;  // as many as fit in 227 KB
+  static constexpr int PTILE = 64 * BQ * 4;        // P^T of one query tile, f32
+  // From the 1024-aligned base: the K tile, the V tile; the ring (a Q and
+  // a dO tile a stage); two P^T buffers; the LSE and Delta rows of each
+  // stage; the barriers (full, empty, then K/V's).
+  static constexpr int RING = 2 * KTILE;
+  static constexpr int PBUF = RING + STAGES * 2 * QTILE;
+  static constexpr int STATS = PBUF + 2 * PTILE;
+  static constexpr int BARS = STATS + STAGES * 2 * BQ * 4;
+  static constexpr int SMEM = 1024 + BARS + 8 * (2 * STAGES + 1);
+  static_assert(SMEM <= 232448, "227 KB a block");
+  // Split over a cluster of 2, block `rank` finishes the panels [rank *
+  // HALF, (rank + 1) * HALF) of dK and dV: each warpgroup leaves the other
+  // half of its accumulator (HALF * NO float4 a thread) in the ring's space
+  // for the other block to add.
+  static constexpr int HALF = B::PANELS / 2;
+  static constexpr int RED_BYTES = 2 * 128 * HALF * B::NO * 16;
+  static_assert(RED_BYTES <= PBUF - RING, "the partial sums overlay the ring");
+};
+
+// Launch shape of flash_bwd_dkv_wgmma_kernel<D>.
+template <int D> struct DkvLaunch {
+  static constexpr bool WS = D >= 128;
+  static constexpr int THREADS = WS ? HopperDkvWs<(WS ? D : 128)>::THREADS : kHopperThreads;
+};
+
+// D <= 64: two consumer warpgroups of 64 keys each and one producer warp.
 template <int D>
-__global__ void __launch_bounds__(kHopperThreads, 1)
-flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
-                           const __grid_constant__ CUtensorMap k_map,
-                           const __grid_constant__ CUtensorMap v_map,
-                           const __grid_constant__ CUtensorMap do_map,
-                           const float* __restrict__ lse, const float* __restrict__ delta,
-                           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                           int t_len, float scale, float scale_log2) {
+__device__ __forceinline__ void dkv_pair(const CUtensorMap& q_map, const CUtensorMap& k_map,
+                                         const CUtensorMap& v_map, const CUtensorMap& do_map,
+                                         const float* __restrict__ lse,
+                                         const float* __restrict__ delta,
+                                         __nv_bfloat16* __restrict__ dk,
+                                         __nv_bfloat16* __restrict__ dv, int t_len, float scale,
+                                         float scale_log2) {
   using namespace flash_mma;
   using namespace wgmma_sm90;
   using F = HopperDkv<D>;
@@ -606,8 +666,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   auto v_at = [&](int w) { return base + (kWarpgroups + w) * F::KTILE; };
 
   const int bh = blockIdx.y;
-  const int key0 = blockIdx.x / F::HALVES * kBlockRows;
-  const int pn0 = blockIdx.x % F::HALVES * F::OUT_PANELS;  // the first panel of dK and dV it owns
+  const int key0 = blockIdx.x * kBlockRows;
   const int n_tiles = (t_len + F::BQ - 1) / F::BQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
@@ -659,9 +718,9 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   } else {
     const int wg = warp / 4;
     const int g = lane >> 2, tq = lane & 3;
-    float dk_acc[F::OUT_PANELS][F::NO][4], dv_acc[F::OUT_PANELS][F::NO][4];
+    float dk_acc[F::PANELS][F::NO][4], dv_acc[F::PANELS][F::NO][4];
 #pragma unroll
-    for (int pn = 0; pn < F::OUT_PANELS; ++pn) {
+    for (int pn = 0; pn < F::PANELS; ++pn) {
 #pragma unroll
       for (int j = 0; j < F::NO; ++j) {
 #pragma unroll
@@ -689,10 +748,10 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       wgmma_fence();
 #pragma unroll
       for (int kd = 0; kd < F::DP / 16; ++kd) {
-        wgmma_ss<0>(s, make_desc(k_at(wg) + kslice<D>(kd, 64), F::SW),
-                    make_desc(qt + kslice<D>(kd, F::BQ), F::SW), kd > 0);
-        wgmma_ss<0>(dp, make_desc(v_at(wg) + kslice<D>(kd, 64), F::SW),
-                    make_desc(dot + kslice<D>(kd, F::BQ), F::SW), kd > 0);
+        wgmma_ss<0>(s, make_desc(k_at(wg) + kslice<F>(kd, 64), F::SW),
+                    make_desc(qt + kslice<F>(kd, F::BQ), F::SW), kd > 0);
+        wgmma_ss<0>(dp, make_desc(v_at(wg) + kslice<F>(kd, 64), F::SW),
+                    make_desc(dot + kslice<F>(kd, F::BQ), F::SW), kd > 0);
       }
       wgmma_commit();
       your_turn();
@@ -734,8 +793,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
       for (int kq = 0; kq < F::BQ / 16; ++kq) {
 #pragma unroll
-        for (int pn = 0; pn < F::OUT_PANELS; ++pn) {
-          const uint32_t at = (pn0 + pn) * F::BQ * F::SW + kq * 16 * F::SW;
+        for (int pn = 0; pn < F::PANELS; ++pn) {
+          const uint32_t at = pn * F::BQ * F::SW + kq * 16 * F::SW;
           wgmma_split(dv_acc[pn], p[kq], make_desc(dot + at, F::SW));
           wgmma_split(dk_acc[pn], ds[kq], make_desc(qt + at, F::SW));
         }
@@ -744,7 +803,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       your_turn();
       wgmma_wait<0>();
 #pragma unroll
-      for (int pn = 0; pn < F::OUT_PANELS; ++pn) {
+      for (int pn = 0; pn < F::PANELS; ++pn) {
         fence_acc(dk_acc[pn]);
         fence_acc(dv_acc[pn]);
       }
@@ -757,11 +816,11 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       if (row >= t_len) continue;
       const size_t at = ((size_t)bh * t_len + row) * D + 2 * tq;
 #pragma unroll
-      for (int pn = 0; pn < F::OUT_PANELS; ++pn) {
+      for (int pn = 0; pn < F::PANELS; ++pn) {
 #pragma unroll
         for (int j = 0; j < F::NO; ++j) {
           if (D >= 16 || 8 * j < D) {  // D = 8: the zero-filled columns 8..15 stay unwritten
-            const size_t c = at + (pn0 + pn) * F::W + 8 * j;
+            const size_t c = at + pn * F::W + 8 * j;
             *reinterpret_cast<uint32_t*>(dk + c) =
                 pack_bf16(dk_acc[pn][j][2 * r] * scale, dk_acc[pn][j][2 * r + 1] * scale);
             *reinterpret_cast<uint32_t*>(dv + c) =
@@ -771,6 +830,246 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       }
     }
   }
+}
+
+// D = 128 and 256: one 64-key tile a block, its query tiles dealt over a
+// cluster of `split` blocks (the file's note). Warpgroup 0 (threads 0-127):
+// S^T, P^T and dV; warpgroup 1 (128-255): dP^T, dS^T and dK; the producer
+// warpgroup (256-383): the loads.
+template <int D>
+__device__ __forceinline__ void dkv_ws(const CUtensorMap& q_map, const CUtensorMap& k_map,
+                                       const CUtensorMap& v_map, const CUtensorMap& do_map,
+                                       const float* __restrict__ lse,
+                                       const float* __restrict__ delta,
+                                       __nv_bfloat16* __restrict__ dk,
+                                       __nv_bfloat16* __restrict__ dv, int t_len, float scale,
+                                       float scale_log2, int split) {
+  using namespace flash_mma;
+  using namespace wgmma_sm90;
+  using F = HopperDkvWs<D>;
+  // named barriers: P^T buffer b full (1 + b) and free (3 + b), each
+  // between the two consumer warpgroups; both consumers (5)
+  constexpr int kPFull = 1, kPFree = 3, kConsumerBar = 5;
+  char* const raw = dynamic_smem();
+  const uint32_t base = (smem_u32(raw) + 1023) & ~1023u;
+  char* const at0 = raw + (base - smem_u32(raw));
+  const float* const stats = reinterpret_cast<const float*>(at0 + F::STATS);
+  const uint32_t bars = base + F::BARS;
+  const uint32_t kv_bar = bars + 16 * F::STAGES;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (F::STAGES + s); };
+  auto q_at = [&](int s) { return base + F::RING + s * 2 * F::QTILE; };  // Q, then dO
+  const uint32_t k_tile = base, v_tile = base + F::KTILE;
+
+  const int bh = blockIdx.y;
+  const int rank = blockIdx.x % split;  // the cluster rank where split > 1
+  const int key0 = blockIdx.x / split * 64;
+  const int n_tiles = (t_len + F::BQ - 1) / F::BQ;
+  const int n_local = rank < n_tiles ? (n_tiles - rank + split - 1) / split : 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < F::STAGES; ++s) {
+      mbar_init(full(s), 1 + 32);  // the TMA's bytes, then each producer lane's rows
+      mbar_init(empty(s), F::CONSUMERS / 32);
+    }
+    mbar_init(kv_bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // the producer: the block's K and V tiles once, then its query tiles'
+    // Q and dO by TMA and their LSE and Delta rows by the first warp's
+    // lanes (zeros past T) through the ring
+    setmaxnreg_dec<F::PRODUCER_REGS>();
+    if (warp == F::CONSUMERS / 32) {
+      if (lane == 0) {
+        mbar_arrive_expect_tx(kv_bar, 2 * F::KTILE);
+        for (int pn = 0; pn < F::PANELS; ++pn) {
+          tma_load_3d(k_tile + pn * 64 * F::SW, &k_map, kv_bar, pn * F::W, key0, bh);
+          tma_load_3d(v_tile + pn * 64 * F::SW, &v_map, kv_bar, pn * F::W, key0, bh);
+        }
+      }
+      const size_t head = (size_t)bh * t_len;  // this head's first row
+      float* const st_all = reinterpret_cast<float*>(at0 + F::STATS);
+      for (int j = 0; j < n_local; ++j) {
+        const int s = j % F::STAGES;
+        const int q0 = (rank + j * split) * F::BQ;
+        mbar_wait(empty(s), ((j / F::STAGES) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_arrive_expect_tx(full(s), 2 * F::QTILE);
+          for (int pn = 0; pn < F::PANELS; ++pn) {
+            tma_load_3d(q_at(s) + pn * F::BQ * F::SW, &q_map, full(s), pn * F::W, q0, bh);
+            tma_load_3d(q_at(s) + F::QTILE + pn * F::BQ * F::SW, &do_map, full(s), pn * F::W,
+                        q0, bh);
+          }
+        }
+        float* const st = st_all + s * 2 * F::BQ;
+        for (int i = lane; i < F::BQ; i += 32) {
+          const bool ok = q0 + i < t_len;
+          st[i] = ok ? lse[head + q0 + i] : 0.f;
+          st[F::BQ + i] = ok ? delta[head + q0 + i] : 0.f;
+        }
+        mbar_arrive(full(s));
+      }
+    }
+    if (split > 1) {  // the consumers' two cluster barriers
+      cluster_sync();
+      cluster_sync();
+    }
+    return;
+  }
+
+  setmaxnreg_inc<F::CONSUMER_REGS>();
+  const int g = lane >> 2, tq = lane & 3;
+  const int ct = threadIdx.x % 128;  // the thread in its warpgroup
+  float acc[F::PANELS][F::NO][4];    // dV (warpgroup 0) or dK (1) of the 64 keys
+#pragma unroll
+  for (int pn = 0; pn < F::PANELS; ++pn) {
+#pragma unroll
+    for (int j = 0; j < F::NO; ++j) acc[pn][j][0] = acc[pn][j][1] = acc[pn][j][2] = acc[pn][j][3] = 0.f;
+  }
+  float x[F::BQ / 8][4];  // S^T, then P^T (warpgroup 0); dP^T, then dS^T (1)
+  Split a[F::BQ / 16];    // P^T or dS^T as the A operand, hi and lo
+
+  mbar_wait(kv_bar, 0);
+  for (int it = 0; it < n_local; ++it) {
+    const int stage = it % F::STAGES, pb = it & 1;
+    mbar_wait(full(stage), (it / F::STAGES) & 1);
+    const uint32_t qt = q_at(stage), dot = qt + F::QTILE;
+    const float* const lse_s = stats + stage * 2 * F::BQ;
+    float4* const pbuf = reinterpret_cast<float4*>(at0 + F::PBUF + pb * F::PTILE);
+    // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (1)
+    const uint32_t a_tile = wg == 0 ? k_tile : v_tile, bt_tile = wg == 0 ? qt : dot;
+    wgmma_fence();
+#pragma unroll
+    for (int kd = 0; kd < F::DP / 16; ++kd)
+      wgmma_ss<0>(x, make_desc(a_tile + kslice<F>(kd, 64), F::SW),
+                  make_desc(bt_tile + kslice<F>(kd, F::BQ), F::SW), kd > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(x);
+    if (wg == 0) {
+      // P^T = exp2(S^T c - LSE); query columns >= T get P = 0 explicitly
+      // (a zero-filled LSE would give exp2(0) = 1)
+      const int n_valid = t_len - (rank + it * split) * F::BQ;
+#pragma unroll
+      for (int j = 0; j < F::BQ / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = 8 * j + 2 * tq + c;
+          const float neg_lse = -lse_s[col] * kLog2e;
+          const bool ok = col < n_valid;
+#pragma unroll
+          for (int e = c; e < 4; e += 2)
+            x[j][e] = ok ? exp2_approx(fmaf(x[j][e], scale_log2, neg_lse)) : 0.f;
+        }
+      }
+      // to warpgroup 1, each thread's fragment at its own place
+      if (it >= 2) named_sync(kPFree + pb, F::CONSUMERS);
+#pragma unroll
+      for (int j = 0; j < F::BQ / 8; ++j)
+        pbuf[j * 128 + ct] = make_float4(x[j][0], x[j][1], x[j][2], x[j][3]);
+      named_arrive(kPFull + pb, F::CONSUMERS);
+    } else {
+      // dS^T = P^T o (dP^T - Delta), P^T from warpgroup 0
+      const float* const delta_s = lse_s + F::BQ;
+      named_sync(kPFull + pb, F::CONSUMERS);
+#pragma unroll
+      for (int j = 0; j < F::BQ / 8; ++j) {
+        const float4 pt = pbuf[j * 128 + ct];
+        const float d0 = delta_s[8 * j + 2 * tq], d1 = delta_s[8 * j + 2 * tq + 1];
+        x[j][0] = pt.x * (x[j][0] - d0);
+        x[j][1] = pt.y * (x[j][1] - d1);
+        x[j][2] = pt.z * (x[j][2] - d0);
+        x[j][3] = pt.w * (x[j][3] - d1);
+      }
+      if (it + 2 < n_local) named_arrive(kPFree + pb, F::CONSUMERS);
+    }
+#pragma unroll
+    for (int kq = 0; kq < F::BQ / 16; ++kq) a[kq] = split_a_trunc(x[2 * kq], x[2 * kq + 1]);
+    // dV += (P^T_hi + P^T_lo) dO (warpgroup 0) or dK += (dS^T_hi + dS^T_lo) Q (1)
+    const uint32_t b_tile = wg == 0 ? dot : qt;
+    wgmma_fence();
+#pragma unroll
+    for (int kq = 0; kq < F::BQ / 16; ++kq) {
+#pragma unroll
+      for (int pn = 0; pn < F::PANELS; ++pn)
+        wgmma_split(acc[pn], a[kq],
+                    make_desc(b_tile + pn * F::BQ * F::SW + kq * 16 * F::SW, F::SW));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int pn = 0; pn < F::PANELS; ++pn) fence_acc(acc[pn]);
+    if (lane == 0) mbar_arrive(empty(stage));  // this stage is free for the producer
+  }
+
+  const float out_scale = wg == 0 ? 1.f : scale;
+  __nv_bfloat16* const out = wg == 0 ? dv : dk;
+  if (split > 1) {
+    // the other block's half of this warpgroup's sums: leave it in the
+    // ring's space (free once both warpgroups are here), read the other
+    // block's share of this block's half, add
+    named_sync(kConsumerBar, F::CONSUMERS);
+    float4* const red = reinterpret_cast<float4*>(at0 + F::RING);
+    const int other = rank ^ 1;
+#pragma unroll
+    for (int pn = 0; pn < F::PANELS; ++pn) {
+      if (pn / F::HALF != other) continue;
+#pragma unroll
+      for (int j = 0; j < F::NO; ++j)
+        red[((wg * F::HALF + pn % F::HALF) * F::NO + j) * 128 + ct] =
+            make_float4(acc[pn][j][0], acc[pn][j][1], acc[pn][j][2], acc[pn][j][3]);
+    }
+    cluster_sync();
+    const uint32_t red_at = smem_u32(red);
+#pragma unroll
+    for (int pn = 0; pn < F::PANELS; ++pn) {
+      if (pn / F::HALF != rank) continue;
+#pragma unroll
+      for (int j = 0; j < F::NO; ++j) {
+        const float4 y = ld_cluster_v4(map_to_rank(
+            red_at + 16 * (((wg * F::HALF + pn % F::HALF) * F::NO + j) * 128 + ct), other));
+        acc[pn][j][0] += y.x;
+        acc[pn][j][1] += y.y;
+        acc[pn][j][2] += y.z;
+        acc[pn][j][3] += y.w;
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = key0 + 16 * (warp % 4) + g + 8 * r;
+    if (row >= t_len) continue;
+    const size_t at = ((size_t)bh * t_len + row) * D + 2 * tq;
+#pragma unroll
+    for (int pn = 0; pn < F::PANELS; ++pn) {
+      if (split > 1 && pn / F::HALF != rank) continue;
+#pragma unroll
+      for (int j = 0; j < F::NO; ++j)
+        *reinterpret_cast<uint32_t*>(out + at + pn * F::W + 8 * j) =
+            pack_bf16(acc[pn][j][2 * r] * out_scale, acc[pn][j][2 * r + 1] * out_scale);
+    }
+  }
+  if (split > 1) cluster_sync();  // no block leaves while the other reads its shared memory
+}
+
+template <int D>
+__global__ void __launch_bounds__(DkvLaunch<D>::THREADS, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const __grid_constant__ CUtensorMap do_map,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                           int t_len, float scale, float scale_log2, int split) {
+  if constexpr (DkvLaunch<D>::WS)
+    dkv_ws<D>(q_map, k_map, v_map, do_map, lse, delta, dk, dv, t_len, scale, scale_log2, split);
+  else
+    dkv_pair<D>(q_map, k_map, v_map, do_map, lse, delta, dk, dv, t_len, scale, scale_log2);
 }
 
 template <int D> dim3 grid_for(int bh, int t) {
@@ -824,38 +1123,66 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o
   return cudaErrorInvalidValue;
 }
 
+// The split of dK/dV's query tiles over a cluster at D >= 128: 2 while the
+// grid of `blocks` key tiles times 2 stays within the SMs and there are 2
+// query tiles to deal; else 1.
+int dkv_fill_split(int blocks, int query_tiles, int sms) {
+  return blocks * 2 <= sms && query_tiles >= 2 ? 2 : 1;
+}
+
 template <int D>
 cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dk, void* dv, int bh,
-                            int t, float scale, cudaStream_t stream) {
+                            int t, float scale, int split, cudaStream_t stream) {
   namespace host = wgmma_sm90_host;
-  using F = HopperDkv<D>;
+  using L = DkvLaunch<D>;
+  using F = std::conditional_t<L::WS, HopperDkvWs<(L::WS ? D : 128)>, HopperDkv<(L::WS ? 64 : D)>>;
   CUtensorMap maps[4];
   const void* tiles[4] = {q, k, v, dout};
   const int rows[4] = {F::BQ, 64, 64, F::BQ};
   cudaError_t err = cudaSuccess;
   for (int i = 0; i < 4 && err == cudaSuccess; ++i)
     err = host::tile_map(&maps[i], tiles[i], bh, t, D, F::W, rows[i], F::SW);
+  // a block's keys: one 64-key tile (D >= 128) or two warpgroups' (D <= 64)
+  const int key_tiles = (t + (L::WS ? 63 : kBlockRows - 1)) / (L::WS ? 64 : kBlockRows);
+  if constexpr (L::WS) {
+    if (split == 0) split = dkv_fill_split(bh * key_tiles, (t + F::BQ - 1) / F::BQ, host::sm_count());
+    if (split != 1 && split != 2) return cudaErrorInvalidValue;
+    static uint64_t covered = 0;
+    if (err == cudaSuccess)
+      err = host::registers_cover(flash_bwd_dkv_wgmma_kernel<D>, F::THREADS,
+                                  F::THREADS - F::CONSUMERS, F::PRODUCER_REGS, F::CONSUMER_REGS,
+                                  covered);
+  } else {
+    split = 1;  // the D <= 64 design has no split
+  }
   static uint64_t allowed = 0;
   if (err == cudaSuccess) err = host::allow_smem(flash_bwd_dkv_wgmma_kernel<D>, F::SMEM, allowed);
   if (err != cudaSuccess) return err;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = split;
+  cluster.val.clusterDim.y = cluster.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((t + kBlockRows - 1) / kBlockRows * F::HALVES, bh);
-  cfg.blockDim = dim3(kHopperThreads);
+  cfg.gridDim = dim3(key_tiles * split, bh);
+  cfg.blockDim = dim3(L::THREADS);
   cfg.dynamicSmemBytes = F::SMEM;
   cfg.stream = stream;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = split > 1 ? 1 : 0;
   err = cudaLaunchKernelEx(&cfg, flash_bwd_dkv_wgmma_kernel<D>, maps[0], maps[1], maps[2],
                            maps[3], static_cast<const float*>(lse),
                            static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
-                           static_cast<__nv_bfloat16*>(dv), t, scale, scale * kLog2e);
+                           static_cast<__nv_bfloat16*>(dv), t, scale, scale * kLog2e, split);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv, int bh,
-                       int t, int dtype, float scale, cudaStream_t stream) {
-  if (dtype == 1) return launch_dkv_bf16<D>(q, k, v, dout, lse, delta, dk, dv, bh, t, scale, stream);
+                       int t, int dtype, float scale, int split, cudaStream_t stream) {
+  if (dtype == 1)
+    return launch_dkv_bf16<D>(q, k, v, dout, lse, delta, dk, dv, bh, t, scale, split, stream);
   if constexpr (D >= 16) {  // the f32 kernel is built from D = 16 up
     if (dtype == 0) {
       flash_bwd_dkv_kernel<D><<<grid_for<D>(bh, t), kThreads, 0, stream>>>(
@@ -885,14 +1212,16 @@ cudaError_t dq_dispatch(const void* q, const void* k, const void* v, const void*
 
 cudaError_t dkv_dispatch(const void* q, const void* k, const void* v, const void* dout,
                          const void* lse, const void* delta, void* dk, void* dv, int bh,
-                         int t, int d, int dtype, float scale, cudaStream_t s) {
+                         int t, int d, int dtype, float scale, int split, cudaStream_t s) {
   switch (d) {
-    case 8: return launch_dkv<8>(q, k, v, dout, lse, delta, dk, dv, bh, t, dtype, scale, s);
-    case 16: return launch_dkv<16>(q, k, v, dout, lse, delta, dk, dv, bh, t, dtype, scale, s);
-    case 32: return launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, bh, t, dtype, scale, s);
-    case 64: return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, bh, t, dtype, scale, s);
-    case 128: return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, bh, t, dtype, scale, s);
-    case 256: return launch_dkv<256>(q, k, v, dout, lse, delta, dk, dv, bh, t, dtype, scale, s);
+    case 8: return launch_dkv<8>(q, k, v, dout, lse, delta, dk, dv, bh, t, dtype, scale, split, s);
+    case 16: return launch_dkv<16>(q, k, v, dout, lse, delta, dk, dv, bh, t, dtype, scale, split, s);
+    case 32: return launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, bh, t, dtype, scale, split, s);
+    case 64: return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, bh, t, dtype, scale, split, s);
+    case 128:
+      return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, bh, t, dtype, scale, split, s);
+    case 256:
+      return launch_dkv<256>(q, k, v, dout, lse, delta, dk, dv, bh, t, dtype, scale, split, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -917,6 +1246,22 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
   return (int)dq_dispatch(q, k, v, o, dout, lse, dq, delta, bh, t, d, dtype, sm_scale, s);
 }
 
+// As flash_attention_bwd_dkv, with the bf16 kernel's split over query
+// tiles forced at D >= 128: split 0 takes the launcher's rule, 1 or 2 that
+// many blocks a cluster (the D <= 64 and f32 kernels ignore it).
+extern "C" int flash_attention_bwd_dkv_split(const void* q, const void* k, const void* v,
+                                             const void* dout, const void* lse,
+                                             const void* delta, void* dk, void* dv, int bh,
+                                             int t, int d, int dtype, float sm_scale, int split,
+                                             void* stream) {
+  if (bh <= 0 || bh > 65535 || t <= 0) return (int)cudaErrorInvalidValue;
+  const cudaError_t bound = wgmma_sm90_host::bind_device();
+  if (bound != cudaSuccess) return (int)bound;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)dkv_dispatch(q, k, v, dout, lse, delta, dk, dv, bh, t, d, dtype, sm_scale, split,
+                           s);
+}
+
 // dK and dV from q, k, v, dO, the LSE and the Delta that
 // flash_attention_bwd_dq wrote (launch this after it on the same stream).
 // dtype 0 = float32 (FMA kernel; d >= 16), 1 = bfloat16 (wgmma kernel, d = 8
@@ -925,9 +1270,6 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
                                        const void* dout, const void* lse, const void* delta,
                                        void* dk, void* dv, int bh, int t, int d, int dtype,
                                        float sm_scale, void* stream) {
-  if (bh <= 0 || bh > 65535 || t <= 0) return (int)cudaErrorInvalidValue;
-  const cudaError_t bound = wgmma_sm90_host::bind_device();
-  if (bound != cudaSuccess) return (int)bound;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)dkv_dispatch(q, k, v, dout, lse, delta, dk, dv, bh, t, d, dtype, sm_scale, s);
+  return flash_attention_bwd_dkv_split(q, k, v, dout, lse, delta, dk, dv, bh, t, d, dtype,
+                                       sm_scale, 0, stream);
 }

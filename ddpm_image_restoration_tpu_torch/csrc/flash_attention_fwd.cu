@@ -19,20 +19,20 @@
 //     the floor at D <= 32;
 //   * filling the card: a block serves 128 query rows, so a (BH, 1024)
 //     call has 8*BH blocks; the restore CLI's BH = 4 gives 32 for 132 SMs.
-// The design:
+// The design at D <= 64 (flash_fwd_wgmma_kernel<D>, fwd_pair):
 //   * a block is two warpgroups of 64 query rows each (256 threads), two
 //     blocks an SM at D <= 32 (ptxas -v: 106 registers at D = 32, 98 at 16
-//     and 8, no spills; 145 and 154 at D = 64 and 128, one block an SM).
+//     and 8, no spills; 145 at D = 64, one block an SM).
 //     No producer warp: a 288-thread block is capped at 168 registers a
 //     thread alone and at 96 two to an SM, where S, P and O spilled, and
 //     one block of 288 an SM ran slower on the card than two of 256.
 //     Thread 0 issues every load;
 //   * TMA from 3-D tensor maps [BH, T, D] with boxes {SW/2, 64, 1}, so rows
 //     >= T of a head and the columns 8..15 of D = 8 load as zeros: each
-//     warpgroup's Q tile once, and K and V through a ring of STAGES (6 at
-//     D <= 64, 4 at 128) stages of 64 keys with full/empty mbarriers (empty
+//     warpgroup's Q tile once, and K and V through a ring of 6 stages of
+//     64 keys with full/empty mbarriers (empty
 //     counts the 8 warps). The first STAGES tiles load at once; tile j's
-//     stage is refilled at the top of iteration j + LAG (3; 2 at D = 128),
+//     stage is refilled at the top of iteration j + LAG (3),
 //     when both warpgroups have let it go, so STAGES - LAG tiles stay ahead
 //     and thread 0 does not wait on the other warpgroup;
 //   * S = Q*K^T by wgmma m64n64k16 from two K-major descriptors; P*V by
@@ -55,19 +55,37 @@
 //     rows from every block's shared memory (distributed shared memory:
 //     M = max m_k, O = sum 2^(m_k - M) O_k / sum 2^(m_k - M) l_k) and
 //     writes them. The rule (fill_split): split = 4, else 2, while blocks *
-//     split <= the 132 SMs and split <= the key tiles, at most 2 from D =
-//     128: the restore CLI's (4, 1024, 32) takes 4, the AVIF restore's (8,
-//     1024, 16) 2, the 1024² path's (4, 1024, 256) and (4, 1024, 128) 2,
-//     every larger path shape 1. flash_attention_fwd_split forces it;
+//     split <= the 132 SMs and split <= the key tiles: the restore CLI's
+//     (4, 1024, 32) takes 4, the AVIF restore's (8, 1024, 16) 2, every
+//     larger path shape 1. flash_attention_fwd_split forces it;
 //   * D = 8 runs natively: the head dim is zero-filled to the wgmma depth
 //     16 by the box, and O is written 8 wide;
-//   * D = 256 (the 1024² model's bottleneck): a [64, 256] tile is 32 KB and
-//     the two warpgroups' Q tiles 64 KB, so the ring's stages hold 32 keys
-//     (32 KB of K and V a stage, 5 stages, 225 KB in all) and S and P take
-//     16 f32 a thread beside O's 128 (ptxas -v: 186 registers, no spill).
-//     The split's merge area (m, l and O of 128 rows, 132 KB) has no room
-//     of its own: it overlays the Q tiles and the ring once every product
-//     of the block has run (a __syncthreads before it is written).
+//
+// D = 128 and 256 (the 1024² model's bottleneck, attended at T = 1024 with
+// BH = 4 for one image): the design above filled only 32 row tiles of 128
+// at BH = 4 and held 32-key stages at D = 256 (short wgmma chains between
+// barriers). Here flash_fwd_wgmma_kernel<D> is warp-specialised (fwd_ws):
+//   * a block serves 64 query rows: 384 threads, a producer warpgroup that
+//     gives its registers away (setmaxnreg.dec to 40) and whose first
+//     thread issues every load, and two consumer warpgroups (setmaxnreg.inc
+//     to 232; 168 a thread at launch), so that O (64 or 128 f32 a thread),
+//     a 64-key S tile (32 f32) and P's hi/lo parts stay in registers;
+//   * the block's Q tile arrives once; K and V through a ring of 64-key
+//     stages (6 at D = 128, 3 at D = 256; 208 and 224 KB with Q); the two
+//     consumer warpgroups take the block's key tiles in turn (tiles 0, 2,
+//     ... and 1, 3, ...), each with its own (m, l, O), so that one's
+//     softmax runs while the other's products do; a stage's empty barrier
+//     counts the 4 warps of the warpgroup that took it;
+//   * the split: a row tile's key tiles dealt over a cluster of `split`
+//     blocks as above (fill_split, at most 2 here: (4, 1024, D) gives 64
+//     row tiles, 128 blocks); after the products, each warpgroup leaves
+//     its (m, l, O) in a merge area laid over Q and the ring, and block r
+//     merges rows [r, r + 1) * 64 / split from the 2 * split shares (its
+//     own two warpgroups' unsplit), four columns a step; every output
+//     element written once, deterministic;
+//   * work a head: S once and P*V twice (hi/lo), 6*T^2*D flops: 0.81 GFLOP
+//     at D = 128 and 1.61 at D = 256 (T = 1024); at (4, 1024, D) 128
+//     blocks for the 132 SMs.
 //
 // f32: flash_fwd_kernel, products on the CUDA cores in f32 (FMA):
 //   * one block owns one (bh, query tile); K and V stream through shared
@@ -92,6 +110,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "flash_mma.cuh"
 
@@ -206,14 +226,13 @@ constexpr int kBlockRows = 64 * kWarpgroups;  // query rows a block
 constexpr int kMaxSplit = 4;
 
 template <int D> struct HopperFwd {
+  static_assert(D <= 64, "D = 128 and 256 take HopperFwdWs");
   static constexpr int DP = D < 16 ? 16 : D;              // head dim in shared memory
   static constexpr int SW = 2 * DP < 128 ? 2 * DP : 128;  // bytes a panel row: the swizzle
   static constexpr int W = SW / 2;                        // columns a panel
   static constexpr int PANELS = DP / W;
   static constexpr int NO = W / 8;                        // n8 blocks of O a panel
-  // keys a ring stage: 32 at D = 256, where a stage of 64 keys' K and V
-  // (64 KB) leaves no room for a ring beside the two Q tiles (64 KB)
-  static constexpr int BN = D > 128 ? 32 : 64;
+  static constexpr int BN = 64;                           // keys a ring stage
   static constexpr int QTILE = 64 * DP * 2;               // a warpgroup's [64, DP] Q tile
   static constexpr int KTILE = BN * DP * 2;               // a stage's [BN, DP] K or V tile
   // blocks an SM: two at D <= 32, where 128 registers a thread suffice
@@ -223,44 +242,133 @@ template <int D> struct HopperFwd {
   // A warpgroup lets go of tile j in iteration j + 1, so LAG >= 2; 3 gives
   // the other warpgroup an iteration's slack before thread 0 waits on it.
   // STAGES - LAG tiles stay ahead.
-  static constexpr int STAGES = D <= 64 ? 6 : (D == 128 ? 4 : 5);
-  static constexpr int LAG = D <= 64 ? 3 : 2;
+  static constexpr int STAGES = 6;
+  static constexpr int LAG = 3;
   // From the 1024-aligned base: a Q tile per warpgroup, the ring (a K and
   // a V tile a stage), its barriers (full, empty, then Q's), and (split
-  // only) the merge area: m[128], l[128] and O[128][DP], f32. At D = 256
-  // the merge area (132 KB) has no room of its own: it overlays the Q
-  // tiles and the ring, which are free once both warpgroups' last
-  // products have run.
+  // only) the merge area: m[128], l[128] and O[128][DP], f32.
   static constexpr int RING = kWarpgroups * QTILE;
   static constexpr int BARS = RING + STAGES * 2 * KTILE;
   static constexpr int END = BARS + 16 * (STAGES + 1);
+  static constexpr int MERGE = END;
   static constexpr int MERGE_BYTES = kBlockRows * (2 + DP) * 4;
-  static constexpr bool MERGE_IN_RING = D > 128;
-  static constexpr int MERGE = MERGE_IN_RING ? 0 : END;
-  // the most blocks fill_split deals a row tile's keys over: 2 from D =
-  // 128, where the merge reads 128 rows of D columns from every block
-  // (kernel_ab.py --splits on the H100: at (4, 1024, 256) 53.6, 48.5 and
-  // 55.8 us unsplit, over 2 and over 4; at (4, 1024, 128) 25.5, 25.2, 31.8)
-  static constexpr int MAX_SPLIT = D >= 128 ? 2 : kMaxSplit;
-  static_assert(!MERGE_IN_RING || MERGE_BYTES <= BARS, "the merge area overlays the ring");
-  static constexpr int smem_bytes(bool split) {
-    return 1024 + END + (split && !MERGE_IN_RING ? MERGE_BYTES : 0);
-  }
+  static constexpr int MAX_SPLIT = kMaxSplit;
+  static constexpr int smem_bytes(bool split) { return 1024 + END + (split ? MERGE_BYTES : 0); }
+};
+
+// D = 128 and 256 (the 1024² model's bottleneck): a warp-specialised block
+// of 64 query rows (see the file's note). Two consumer warpgroups take the
+// block's key tiles in turn, each keeping its own (m, l, O); a producer
+// warpgroup's first thread issues every load.
+template <int D> struct HopperFwdWs {
+  static_assert(D == 128 || D == 256, "the warp-specialised forward is built for D = 128, 256");
+  static constexpr int DP = D;
+  static constexpr int SW = 128;           // bytes a panel row: the swizzle
+  static constexpr int W = 64;             // columns a panel
+  static constexpr int PANELS = D / W;
+  static constexpr int NO = W / 8;         // n8 blocks of O a panel
+  static constexpr int BN = 64;            // keys a ring stage
+  static constexpr int ROWS = 64;          // query rows a block
+  static constexpr int CONSUMERS = 256;    // two warpgroups
+  static constexpr int THREADS = CONSUMERS + 128;  // and the producer warpgroup
+  // registers a thread after setmaxnreg; 40 * 128 + 232 * 256 = 168 * 384,
+  // the launch's 168 (65536 registers over 384 threads)
+  static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+  static constexpr int QTILE = ROWS * DP * 2;  // the block's [64, DP] Q tile
+  static constexpr int KTILE = BN * DP * 2;    // a stage's [64, DP] K or V tile
+  // ring stages: as many as fit beside Q in 227 KB
+  static constexpr int STAGES = D == 128 ? 6 : 3;
+  // From the 1024-aligned base: Q, the ring (a K and a V tile a stage), the
+  // barriers (full, empty, then Q's). The merge area (m[2][64], l[2][64],
+  // then O[2][64][OSTRIDE] of both warpgroups, f32) overlays Q and the ring
+  // once both warpgroups' last products have run; O's rows are padded by 8
+  // floats so that the 8 rows a warp writes at once fall on other banks.
+  static constexpr int RING = QTILE;
+  static constexpr int BARS = RING + STAGES * 2 * KTILE;
+  static constexpr int SMEM = 1024 + BARS + 8 * (2 * STAGES + 1);
+  static constexpr int OSTRIDE = DP + 8;
+  static constexpr int MERGE_O = 2 * 2 * ROWS * 4;  // bytes of m and l before O
+  static constexpr int MERGE_BYTES = MERGE_O + 2 * ROWS * OSTRIDE * 4;
+  static_assert(MERGE_BYTES <= BARS, "the merge area overlays Q and the ring");
+  static_assert(SMEM <= 232448, "227 KB a block");
+  // the most blocks fill_split deals a row tile's keys over
+  static constexpr int MAX_SPLIT = 2;
+};
+
+// Launch shape of flash_fwd_wgmma_kernel<D>.
+template <int D> struct FwdLaunch {
+  static constexpr bool WS = D >= 128;
+  static constexpr int THREADS = WS ? HopperFwdWs<(WS ? D : 128)>::THREADS : kThreadsWg;
+  static constexpr int MIN_BLOCKS = WS ? 1 : HopperFwd<(WS ? 64 : D)>::MIN_BLOCKS;
 };
 
 // The byte offset of the k16 slice kd of a [rows, DP] K-major tile: its
 // panel, then 32 bytes a slice along the swizzled row.
-template <int D> __device__ __forceinline__ uint32_t kslice(int kd, int rows) {
-  using F = HopperFwd<D>;
+template <class F> __device__ __forceinline__ uint32_t kslice(int kd, int rows) {
   return (16 * kd / F::W) * rows * F::SW + (16 * kd % F::W) * 2;
 }
 
+// The online softmax of one key tile's scores in s (a warpgroup's 64 rows
+// x BN keys in the wgmma accumulator layout; keys >= n_valid masked),
+// leaving P in s, updating each row's running max (log2 units) and this
+// lane's share of its normaliser, and returning each row's rescale factor.
+// Row maxima and sums go by trees over the lane's BN/4 columns a row, so
+// that their chains are log2(BN/8) deep, not BN/4.
+template <int BN>
+__device__ __forceinline__ void online_softmax(float (&s)[BN / 8][4], float (&m_row)[2],
+                                               float (&l_row)[2], int n_valid, int tq,
+                                               float scale_log2, float (&alpha)[2]) {
+  using wgmma_sm90::exp2_approx;
+  if (n_valid < BN) {  // the ragged last tile
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (8 * j + 2 * tq + (e & 1) >= n_valid) s[j][e] = -INFINITY;
+    }
+  }
+  float neg_m[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float t[BN / 8];
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) t[j] = fmaxf(s[j][2 * r], s[j][2 * r + 1]);
+#pragma unroll
+    for (int w = BN / 16; w > 0; w /= 2) {
+#pragma unroll
+      for (int j = 0; j < w; ++j) t[j] = fmaxf(t[j], t[j + w]);
+    }
+    float mx = fmaxf(t[0], __shfl_xor_sync(0xffffffffu, t[0], 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m_row[r], mx * scale_log2);  // finite: a real key
+    alpha[r] = exp2_approx(m_row[r] - m_new);
+    m_row[r] = m_new;
+    neg_m[r] = -m_new;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float t[BN / 8];
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      s[j][2 * r] = exp2_approx(fmaf(s[j][2 * r], scale_log2, neg_m[r]));
+      s[j][2 * r + 1] = exp2_approx(fmaf(s[j][2 * r + 1], scale_log2, neg_m[r]));
+      t[j] = s[j][2 * r] + s[j][2 * r + 1];
+    }
+#pragma unroll
+    for (int w = BN / 16; w > 0; w /= 2) {
+#pragma unroll
+      for (int j = 0; j < w; ++j) t[j] += t[j + w];
+    }
+    l_row[r] = l_row[r] * alpha[r] + t[0];
+  }
+}
+
+// D <= 64: two warpgroups of 64 query rows, thread 0 loading.
 template <int D>
-__global__ void __launch_bounds__(kThreadsWg, HopperFwd<D>::MIN_BLOCKS)
-flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
-                       const __grid_constant__ CUtensorMap k_map,
-                       const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o,
-                       float* __restrict__ lse, int t_len, float scale_log2, int split) {
+__device__ __forceinline__ void fwd_pair(const CUtensorMap& q_map, const CUtensorMap& k_map,
+                                         const CUtensorMap& v_map, bf16* __restrict__ o,
+                                         float* __restrict__ lse, int t_len, float scale_log2,
+                                         int split) {
   using namespace flash_mma;
   using namespace wgmma_sm90;
   using F = HopperFwd<D>;
@@ -326,8 +434,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   auto issue_s = [&](int stage) {  // S = Q K^T
 #pragma unroll
     for (int kd = 0; kd < F::DP / 16; ++kd)
-      wgmma_ss<0>(s, make_desc(q_wg + kslice<D>(kd, 64), F::SW),
-                  make_desc(stage_at(stage) + kslice<D>(kd, F::BN), F::SW), kd > 0);
+      wgmma_ss<0>(s, make_desc(q_wg + kslice<F>(kd, 64), F::SW),
+                  make_desc(stage_at(stage) + kslice<F>(kd, F::BN), F::SW), kd > 0);
     wgmma_commit();
   };
   auto issue_pv = [&](int stage) {  // O += (P_hi + P_lo) V
@@ -340,54 +448,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                     make_desc(vt + pn * F::BN * F::SW + kk * 16 * F::SW, F::SW));
     }
     wgmma_commit();
-  };
-  // the online softmax of the tile's scores in s (keys >= n_valid
-  // masked), leaving P in s; returns each row's rescale factor. Row
-  // maxima and sums go by trees over the lane's BN/4 columns a row, so
-  // that their chains are log2(BN/8) deep, not BN/4.
-  auto softmax = [&](int n_valid, float (&alpha)[2]) {
-    if (n_valid < F::BN) {  // the ragged last tile
-#pragma unroll
-      for (int j = 0; j < F::BN / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (8 * j + 2 * tq + (e & 1) >= n_valid) s[j][e] = -INFINITY;
-      }
-    }
-    float neg_m[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float t[F::BN / 8];
-#pragma unroll
-      for (int j = 0; j < F::BN / 8; ++j) t[j] = fmaxf(s[j][2 * r], s[j][2 * r + 1]);
-#pragma unroll
-      for (int w = F::BN / 16; w > 0; w /= 2) {
-#pragma unroll
-        for (int j = 0; j < w; ++j) t[j] = fmaxf(t[j], t[j + w]);
-      }
-      float mx = fmaxf(t[0], __shfl_xor_sync(0xffffffffu, t[0], 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_row[r], mx * scale_log2);  // finite: a real key
-      alpha[r] = exp2_approx(m_row[r] - m_new);
-      m_row[r] = m_new;
-      neg_m[r] = -m_new;
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float t[F::BN / 8];
-#pragma unroll
-      for (int j = 0; j < F::BN / 8; ++j) {
-        s[j][2 * r] = exp2_approx(fmaf(s[j][2 * r], scale_log2, neg_m[r]));
-        s[j][2 * r + 1] = exp2_approx(fmaf(s[j][2 * r + 1], scale_log2, neg_m[r]));
-        t[j] = s[j][2 * r] + s[j][2 * r + 1];
-      }
-#pragma unroll
-      for (int w = F::BN / 16; w > 0; w /= 2) {
-#pragma unroll
-        for (int j = 0; j < w; ++j) t[j] += t[j + w];
-      }
-      l_row[r] = l_row[r] * alpha[r] + t[0];
-    }
   };
   auto split_p = [&]() {
 #pragma unroll
@@ -407,7 +467,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     issue_s(0);
     wgmma_wait<0>();
     fence_acc(s);
-    softmax(t_len - rank * F::BN, alpha);
+    online_softmax<F::BN>(s, m_row, l_row, t_len - rank * F::BN, tq, scale_log2, alpha);
     split_p();
     for (int j = 1; j < n_local; ++j) {
       const int stage = j % F::STAGES, prev = (j - 1) % F::STAGES;
@@ -422,7 +482,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       issue_pv(prev);
       wgmma_wait<1>();  // S of tile j; tile j-1's P*V runs on under the softmax
       fence_acc(s);
-      softmax(t_len - (rank + j * split) * F::BN, alpha);
+      online_softmax<F::BN>(s, m_row, l_row, t_len - (rank + j * split) * F::BN, tq,
+                            scale_log2, alpha);
       wgmma_wait<0>();
       release(prev);
 #pragma unroll
@@ -448,9 +509,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 1);
     l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 2);
   }
-  // the merge area overlays the tiles: every product of both warpgroups
-  // has run, and every load has landed, once all threads are here
-  if (F::MERGE_IN_RING && split > 1) __syncthreads();
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int lr = 64 * wg + 16 * (warp % 4) + g + 8 * r;  // row in the block
@@ -520,6 +578,210 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
+// D = 128 and 256: warp-specialised blocks of 64 query rows (the file's
+// note). Consumer warpgroup w (threads 0-255) takes the block's key tiles w,
+// w + 2, ...; the producer warpgroup (threads 256-383) gives its registers
+// to them and its first thread issues every load.
+template <int D>
+__device__ __forceinline__ void fwd_ws(const CUtensorMap& q_map, const CUtensorMap& k_map,
+                                       const CUtensorMap& v_map, bf16* __restrict__ o,
+                                       float* __restrict__ lse, int t_len, float scale_log2,
+                                       int split) {
+  using namespace flash_mma;
+  using namespace wgmma_sm90;
+  using F = HopperFwdWs<D>;
+  constexpr int kConsumerBar = 1;  // named barrier of the two consumer warpgroups
+  char* const raw = dynamic_smem();
+  const uint32_t base = (smem_u32(raw) + 1023) & ~1023u;
+  char* const area = raw + (base - smem_u32(raw));  // the merge area, after the products
+  const uint32_t bars = base + F::BARS;
+  const uint32_t q_bar = bars + 16 * F::STAGES;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (F::STAGES + s); };
+  auto stage_at = [&](int s) { return base + F::RING + s * 2 * F::KTILE; };  // K, then V
+
+  const int bh = blockIdx.y;
+  const int rank = blockIdx.x % split;  // the cluster rank where split > 1
+  const int m0 = blockIdx.x / split * F::ROWS;
+  const int n_tiles = (t_len + F::BN - 1) / F::BN;
+  const int n_local = rank < n_tiles ? (n_tiles - rank + split - 1) / split : 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < F::STAGES; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), 4);  // the warps of the warpgroup that took the tile
+    }
+    mbar_init(q_bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // the producer: the block's Q tile once, then its key tiles in order
+    // through the ring, a stage refilled once its warpgroup let it go
+    setmaxnreg_dec<F::PRODUCER_REGS>();
+    if (threadIdx.x == F::CONSUMERS) {
+      mbar_arrive_expect_tx(q_bar, F::QTILE);
+      for (int pn = 0; pn < F::PANELS; ++pn)
+        tma_load_3d(base + pn * F::ROWS * F::SW, &q_map, q_bar, pn * F::W, m0, bh);
+      for (int j = 0; j < n_local; ++j) {
+        const int st = j % F::STAGES;
+        mbar_wait(empty(st), ((j / F::STAGES) & 1) ^ 1);
+        const int k0 = (rank + j * split) * F::BN;
+        mbar_arrive_expect_tx(full(st), 2 * F::KTILE);
+        for (int pn = 0; pn < F::PANELS; ++pn) {
+          tma_load_3d(stage_at(st) + pn * F::BN * F::SW, &k_map, full(st), pn * F::W, k0, bh);
+          tma_load_3d(stage_at(st) + F::KTILE + pn * F::BN * F::SW, &v_map, full(st), pn * F::W,
+                      k0, bh);
+        }
+      }
+    }
+    if (split > 1) {  // the consumers' two cluster barriers
+      cluster_sync();
+      cluster_sync();
+    }
+    return;
+  }
+
+  setmaxnreg_inc<F::CONSUMER_REGS>();
+  const int g = lane >> 2, tq = lane & 3;
+  float acc[F::PANELS][F::NO][4];
+#pragma unroll
+  for (int pn = 0; pn < F::PANELS; ++pn) {
+#pragma unroll
+    for (int j = 0; j < F::NO; ++j) acc[pn][j][0] = acc[pn][j][1] = acc[pn][j][2] = acc[pn][j][3] = 0.f;
+  }
+  float m_row[2] = {-INFINITY, -INFINITY};  // running max of rows g and g + 8, log2 units
+  float l_row[2] = {0.f, 0.f};              // this lane's share of their normalisers
+  float s[F::BN / 8][4];                    // S, then P, of one key tile
+  Split p[F::BN / 16];                      // P as the A operand of P*V, hi and lo
+
+  mbar_wait(q_bar, 0);
+  for (int j = wg; j < n_local; j += 2) {
+    const int st = j % F::STAGES;
+    mbar_wait(full(st), (j / F::STAGES) & 1);
+    // S = Q K^T
+    wgmma_fence();
+#pragma unroll
+    for (int kd = 0; kd < F::DP / 16; ++kd)
+      wgmma_ss<0>(s, make_desc(base + kslice<F>(kd, F::ROWS), F::SW),
+                  make_desc(stage_at(st) + kslice<F>(kd, F::BN), F::SW), kd > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    float alpha[2];
+    online_softmax<F::BN>(s, m_row, l_row, t_len - (rank + j * split) * F::BN, tq, scale_log2,
+                          alpha);
+#pragma unroll
+    for (int pn = 0; pn < F::PANELS; ++pn) {
+#pragma unroll
+      for (int jo = 0; jo < F::NO; ++jo) {
+        acc[pn][jo][0] *= alpha[0];
+        acc[pn][jo][1] *= alpha[0];
+        acc[pn][jo][2] *= alpha[1];
+        acc[pn][jo][3] *= alpha[1];
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < F::BN / 16; ++kk) p[kk] = split_a_trunc(s[2 * kk], s[2 * kk + 1]);
+    // O += (P_hi + P_lo) V
+    const uint32_t vt = stage_at(st) + F::KTILE;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < F::BN / 16; ++kk) {
+#pragma unroll
+      for (int pn = 0; pn < F::PANELS; ++pn)
+        wgmma_split(acc[pn], p[kk], make_desc(vt + pn * F::BN * F::SW + kk * 16 * F::SW, F::SW));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int pn = 0; pn < F::PANELS; ++pn) fence_acc(acc[pn]);
+    if (lane == 0) mbar_arrive(empty(st));
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 1);
+    l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 2);
+  }
+  // the merge area overlays Q and the ring: both warpgroups' products have
+  // run, and every load has landed, once both are here
+  named_sync(kConsumerBar, F::CONSUMERS);
+  float* const m_part = reinterpret_cast<float*>(area);  // [2][64], then l [2][64]
+  float* const o_part = reinterpret_cast<float*>(area + F::MERGE_O);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int lr = 16 * (warp % 4) + g + 8 * r;  // row in the block
+    if (tq == 0) {
+      m_part[wg * F::ROWS + lr] = m_row[r];
+      m_part[(2 + wg) * F::ROWS + lr] = l_row[r];
+    }
+    float* const out = o_part + (wg * F::ROWS + lr) * F::OSTRIDE + 2 * tq;
+#pragma unroll
+    for (int pn = 0; pn < F::PANELS; ++pn) {
+#pragma unroll
+      for (int jo = 0; jo < F::NO; ++jo)
+        *reinterpret_cast<float2*>(out + pn * F::W + 8 * jo) =
+            make_float2(acc[pn][jo][2 * r], acc[pn][jo][2 * r + 1]);
+    }
+  }
+  if (split > 1) cluster_sync();
+  else named_sync(kConsumerBar, F::CONSUMERS);
+
+  // block `rank` merges rows [rank, rank + 1) * 64 / split from the 2 *
+  // split shares (each block's two warpgroups'): M = max m_k, O = sum
+  // 2^(m_k - M) O_k / sum 2^(m_k - M) l_k, four columns a step
+  const int rows = F::ROWS / split;
+  const uint32_t m_at = smem_u32(m_part), o_at = smem_u32(o_part);
+  for (int i = threadIdx.x; i < rows * (D / 4); i += F::CONSUMERS) {
+    const int lr = rank * rows + i / (D / 4), c = 4 * (i % (D / 4));
+    const int row = m0 + lr;
+    if (row >= t_len) continue;
+    float mk[2 * kMaxSplit], top = -INFINITY;
+#pragma unroll
+    for (int b = 0; b < 2 * kMaxSplit; ++b) {
+      mk[b] = b < 2 * split
+                  ? ld_cluster_f32(map_to_rank(m_at + 4 * ((b & 1) * F::ROWS + lr), b >> 1))
+                  : -INFINITY;
+      top = fmaxf(top, mk[b]);
+    }
+    float l = 0.f;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int b = 0; b < 2 * kMaxSplit; ++b) {
+      if (b >= 2 * split) continue;
+      const float w = exp2_approx(mk[b] - top);
+      l += w * ld_cluster_f32(map_to_rank(m_at + 4 * ((2 + (b & 1)) * F::ROWS + lr), b >> 1));
+      const float4 x = ld_cluster_v4(
+          map_to_rank(o_at + 4 * (((b & 1) * F::ROWS + lr) * F::OSTRIDE + c), b >> 1));
+      sum.x += w * x.x;
+      sum.y += w * x.y;
+      sum.z += w * x.z;
+      sum.w += w * x.w;
+    }
+    const float inv_l = 1.f / l;
+    uint2 packed;
+    packed.x = pack_bf16(sum.x * inv_l, sum.y * inv_l);
+    packed.y = pack_bf16(sum.z * inv_l, sum.w * inv_l);
+    *reinterpret_cast<uint2*>(o + ((size_t)bh * t_len + row) * D + c) = packed;
+    if (lse != nullptr && c == 0) lse[(size_t)bh * t_len + row] = kLn2 * (top + log2f(l));
+  }
+  if (split > 1) cluster_sync();  // no block leaves while another reads its shared memory
+}
+
+template <int D>
+__global__ void __launch_bounds__(FwdLaunch<D>::THREADS, FwdLaunch<D>::MIN_BLOCKS)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o,
+                       float* __restrict__ lse, int t_len, float scale_log2, int split) {
+  if constexpr (FwdLaunch<D>::WS) fwd_ws<D>(q_map, k_map, v_map, o, lse, t_len, scale_log2, split);
+  else fwd_pair<D>(q_map, k_map, v_map, o, lse, t_len, scale_log2, split);
+}
+
 // The split over keys that fills the card: 4, else 2 (at most
 // `max_split`), while the grid of `blocks` row tiles times the split stays
 // within one block an SM and every block of a cluster has a key tile; else
@@ -547,20 +809,33 @@ template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
                         int bh, int t, float sm_scale, int split, cudaStream_t stream) {
   namespace host = wgmma_sm90_host;
-  using F = HopperFwd<D>;
+  using L = FwdLaunch<D>;
+  // Q's box is a block's (D >= 128) or a warpgroup's rows, K's and V's a stage's
+  using F = std::conditional_t<L::WS, HopperFwdWs<(L::WS ? D : 128)>, HopperFwd<(L::WS ? 64 : D)>>;
   CUtensorMap maps[3];
   const void* src[3] = {q, k, v};
-  const int rows[3] = {64, F::BN, F::BN};  // Q's box is a warpgroup's rows, K's and V's a stage's
+  const int rows[3] = {64, F::BN, F::BN};
   for (int i = 0; i < 3; ++i) {
     const cudaError_t err = host::tile_map(&maps[i], src[i], bh, t, D, F::W, rows[i], F::SW);
     if (err != cudaSuccess) return err;
   }
-  const int row_tiles = (t + kBlockRows - 1) / kBlockRows;
+  const int block_rows = L::WS ? 64 : kBlockRows;
+  const int row_tiles = (t + block_rows - 1) / block_rows;
   if (split == 0)
     split = fill_split(bh * row_tiles, (t + F::BN - 1) / F::BN, host::sm_count(), F::MAX_SPLIT);
   if (split != 1 && split != 2 && split != 4) return cudaErrorInvalidValue;
-  static uint64_t allowed = 0;
-  cudaError_t err = host::allow_smem(flash_fwd_wgmma_kernel<D>, F::smem_bytes(true), allowed);
+  static uint64_t allowed = 0, covered = 0;
+  int smem = 0;
+  cudaError_t err = cudaSuccess;
+  if constexpr (L::WS) {
+    smem = F::SMEM;
+    err = host::registers_cover(flash_fwd_wgmma_kernel<D>, F::THREADS, F::THREADS - F::CONSUMERS,
+                                F::PRODUCER_REGS, F::CONSUMER_REGS, covered);
+    if (err == cudaSuccess) err = host::allow_smem(flash_fwd_wgmma_kernel<D>, smem, allowed);
+  } else {
+    smem = F::smem_bytes(split > 1);
+    err = host::allow_smem(flash_fwd_wgmma_kernel<D>, F::smem_bytes(true), allowed);
+  }
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute cluster;
   cluster.id = cudaLaunchAttributeClusterDimension;
@@ -568,8 +843,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, vo
   cluster.val.clusterDim.y = cluster.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(row_tiles * split, bh);
-  cfg.blockDim = dim3(kThreadsWg);
-  cfg.dynamicSmemBytes = F::smem_bytes(split > 1);
+  cfg.blockDim = dim3(L::THREADS);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = &cluster;
   cfg.numAttrs = split > 1 ? 1 : 0;

@@ -12,11 +12,16 @@
 //   * named barriers (bar.sync, bar.arrive), with which dK/dV's two
 //     consumer warpgroups take turns at issuing their products;
 //   * the cluster barrier and distributed shared memory (mapa and
-//     ld.shared::cluster), for the forward's split over keys;
+//     ld.shared::cluster, scalar and v4), for the forward's split over keys
+//     and dK/dV's over queries;
+//   * setmaxnreg.inc / .dec, with which the warp-specialised kernels (the
+//     forward and dK/dV at D = 128 and 256) move registers from their
+//     producer warpgroup to their consumer warpgroups; the launchers check
+//     that the kernel's register count at launch covers the move
+//     (wgmma_sm90_host::registers_cover);
 //   * ex2.approx.ftz.f32.
-// No setmaxnreg: the forward and dQ have no producer warp (their thread 0
-// issues the loads) and dK/dV's is one warp, with too few registers to be
-// worth giving back.
+// The kernels at D <= 64 and dQ use no setmaxnreg: they have no producer
+// warpgroup (thread 0 issues the loads, or dK/dV's one producer warp).
 //
 // Tiles. A [rows, DP] bf16 tile (DP = the head dim, at least 16, the
 // wgmma depth) lies in shared memory as PANELS = DP*2/SW panels [rows, SW/2]
@@ -246,6 +251,29 @@ __device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
   asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
   return v;
 }
+// Four f32 at a 16-byte aligned address of the cluster's shared memory.
+__device__ __forceinline__ float4 ld_cluster_v4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// ---- register reallocation ---------------------------------------------------
+
+// The warpgroup's registers a thread, raised to (inc) or lowered to (dec) N:
+// every thread of the warpgroup executes it with the same N (a multiple of
+// 8 in 24..256). An inc waits until the block has the registers free.
+template <int N> __device__ __forceinline__ void setmaxnreg_inc() {
+  static_assert(N % 8 == 0 && N >= 24 && N <= 256, "setmaxnreg count");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N> __device__ __forceinline__ void setmaxnreg_dec() {
+  static_assert(N % 8 == 0 && N >= 24 && N <= 256, "setmaxnreg count");
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
 
 // ---- arithmetic -----------------------------------------------------------
 
@@ -326,6 +354,30 @@ inline int sm_count() {
     counts[dev] = n > 0 ? n : 132;
   }
   return counts[dev];
+}
+
+// Whether a warp-specialised kernel's registers at launch (ptxas's count a
+// thread, times `threads`) cover its warpgroups' counts after setmaxnreg:
+// `producers` threads at `producer_regs` and the rest at `consumer_regs`.
+// Where they do not, a consumer's setmaxnreg.inc would wait for registers
+// that no warpgroup gives back, and the kernel would hang; the launcher
+// refuses it instead. Checked once per device.
+template <class Kernel>
+inline cudaError_t registers_cover(Kernel kernel, int threads, int producers, int producer_regs,
+                                   int consumer_regs, uint64_t& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = (uint64_t)1 << (dev & 63);
+  if (done & bit) return cudaSuccess;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  const long have = (long)attr.numRegs * threads;
+  const long need = (long)producer_regs * producers + (long)consumer_regs * (threads - producers);
+  if (need > have) return cudaErrorInvalidValue;
+  done |= bit;
+  return cudaSuccess;
 }
 
 // Raises a kernel's dynamic shared-memory limit to `bytes` once per device.

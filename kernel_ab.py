@@ -12,9 +12,9 @@ shape (within chip_smoke.py's bounds, or the script stops), then the card
 is warmed for 10 s, then each shape is timed for every build in ROUNDS
 rounds, the order reversed each round, as device time under
 torch.profiler (chip_smoke.device_time_ms). The last lines are the
-medians. Timing builds in turns within one process is what makes them
-comparable: the same kernels can read much faster a minute into a call
-than at its start.
+medians, a line per kernel and shape, a column per build. Timing builds
+in turns within one process is what makes them comparable: the same
+kernels can read much faster a minute into a call than at its start.
 
 The forward is called through `flash_attention_fwd` (each build's own
 split rule), dQ through `flash_attention_bwd_dq` and dK/dV through
@@ -26,7 +26,9 @@ five inputs zero-padded to 16, the launch at 16 and dQ sliced back, the
 pad and slice kernels counted in its device time. With --splits, the
 first build's forward is also timed with its keys split over clusters of
 1, 2 and 4 blocks (`flash_attention_fwd_split`) at the small-BH shapes of
-SPLIT_SHAPES. Needs a CUDA card and nvcc.
+SPLIT_SHAPES, and its dK/dV with the query tiles split over clusters of 1
+and 2 blocks (`flash_attention_bwd_dkv_split`, D >= 128) at
+DKV_SPLIT_SHAPES. Needs a CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -39,20 +41,23 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import chip_smoke
+
 ROOT = Path(__file__).resolve().parent
 ROUNDS = 3
-# (BH, T, D, save_lse): the forward's serve, train-step, restore and AVIF
-# train-step shapes, and the 1024² path's bottleneck (restore, train step);
-# dQ's and dK/dV's train-step shapes (BH, T, D): WebP down2 and up4, AVIF, a
-# rank of the (2, 2) model-axis step, the 1024² train step's D = 256
-FWD = [(32, 1024, 32, False), (32, 1024, 16, False), (72, 1024, 32, True),
-       (4, 1024, 32, False), (64, 1024, 8, True), (4, 1024, 256, False), (4, 1024, 256, True)]
-BWD = [(72, 1024, 32), (72, 1024, 16), (64, 1024, 16), (64, 1024, 8), (36, 1024, 32),
-       (36, 1024, 16), (4, 1024, 256)]
+# Every distinct path shape of chip_smoke.py: the forward's (BH, T, D,
+# save_lse) on every path (serving, training, distillation, validation, the
+# CLIs, AVIF, the model axis, the 1024² path), dQ's and dK/dV's (BH, T, D)
+# on every training path
+FWD = list(dict.fromkeys(s[1:] for s in chip_smoke.FWD_PATH_SHAPES))
+BWD = list(chip_smoke.TRAIN_SHAPES)
 # (BH, T, D): the restore CLI's, the AVIF restore's, the validation's and
 # the 1024² path's bottleneck (D = 256 and 128)
 SPLIT_SHAPES = [(4, 1024, 32), (8, 1024, 16), (8, 1024, 32), (16, 1024, 32), (4, 1024, 256),
                 (4, 1024, 128)]
+# (BH, T, D): dK/dV's split over query tiles (D >= 128): the 1024² train
+# step's bottleneck, and BH = 1 and 8 beside it
+DKV_SPLIT_SHAPES = [(4, 1024, 256), (4, 1024, 128), (1, 1024, 256), (8, 1024, 256)]
 
 
 def build(name: str, csrc: Path, nvcc: str, flags) -> tuple[str, dict]:
@@ -77,7 +82,7 @@ def build(name: str, csrc: Path, nvcc: str, flags) -> tuple[str, dict]:
                                                                     ctypes.c_void_p]
     fwd.restype = dq.restype = dkv.restype = ctypes.c_int
     return name, {"fwd": fwd, "dq": dq, "dkv": dkv, "lib": libs["flash_attention_fwd"],
-                  "ptxas": ptxas}
+                  "lib_bwd": libs["flash_attention_bwd"], "ptxas": ptxas}
 
 
 def main() -> int:
@@ -87,7 +92,6 @@ def main() -> int:
     if not torch.cuda.is_available() or len(sys.argv) < 2:
         print(__doc__, file=sys.stderr)
         return 2
-    import chip_smoke
     from ddpm_image_restoration_tpu_torch.ops import build as port_build
     from ddpm_image_restoration_tpu_torch.ops import flash_attention as fa
 
@@ -186,13 +190,14 @@ def main() -> int:
             for key, (per_build, _) in calls.items():
                 call = per_build[name]
                 times[name][key].append(chip_smoke.device_time_ms(call) if call else None)
-    print("device us, median of", ROUNDS, "rounds:", [f"{k}{s}" for k, s in calls], flush=True)
-    for name in names:
+    print(f"device us, median of {ROUNDS} rounds, a line per kernel and shape: "
+          + " ".join(f"{n:>8}" for n in names), flush=True)
+    for key in calls:
         row = []
-        for key in calls:
+        for name in names:
             xs = [x for x in times[name][key] if x is not None]
-            row.append(f"{sorted(xs)[len(xs) // 2] * 1e3:7.1f}" if xs else "      -")
-        print(f"{name:>12} " + " ".join(row), flush=True)
+            row.append(f"{sorted(xs)[len(xs) // 2] * 1e3:8.1f}" if xs else "       -")
+        print(f"{key[0]:>4} {str(key[1]):<22} " + " ".join(row), flush=True)
     if splits:
         name = names[0]
         fwd_split = builds[name]["lib"].flash_attention_fwd_split
@@ -212,6 +217,27 @@ def main() -> int:
                 xs = sorted(chip_smoke.device_time_ms(call) for _ in range(ROUNDS))
                 row.append(f"{xs[len(xs) // 2] * 1e3:7.1f}")
             print(f"  ({bh},{t},{d}) " + " ".join(row), flush=True)
+        dkv_split = getattr(builds[name]["lib_bwd"], "flash_attention_bwd_dkv_split", None)
+        if dkv_split is not None:
+            dkv_split.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+                ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            dkv_split.restype = ctypes.c_int
+            print(f"{name}: dK/dV device us split over 1, 2 blocks, median of {ROUNDS} rounds",
+                  flush=True)
+            for bh, t, d in DKV_SPLIT_SHAPES:
+                q, k, v, do = randn(bh, t, d), randn(bh, t, d), randn(bh, t, d), randn(bh, t, d)
+                o, lse = fa.flash_attention_plain(q, k, v, save_lse=True)
+                delta = (do.float() * o.float()).sum(-1)
+                dk, dv = torch.empty_like(q), torch.empty_like(q)
+                row = []
+                for split in (1, 2):
+                    def call(split=split):
+                        return dkv_split(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                                         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                                         dv.data_ptr(), bh, t, d, 1, d ** -0.5, split, stream)
+                    xs = sorted(chip_smoke.device_time_ms(call) for _ in range(ROUNDS))
+                    row.append(f"{xs[len(xs) // 2] * 1e3:7.1f}")
+                print(f"  ({bh},{t},{d}) " + " ".join(row), flush=True)
     return 0
 
 

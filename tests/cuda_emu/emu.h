@@ -57,8 +57,9 @@ inline int min(int a, int b) { return a < b ? a : b; }
   abort();
 }
 
-// two warpgroups and dK/dV's producer warp; clusters of up to 4 blocks
-constexpr int kEmuMaxWarps = 9;
+// three warpgroups (the warp-specialised kernels: two consumers and a
+// producer); clusters of up to 4 blocks
+constexpr int kEmuMaxWarps = 12;
 constexpr int kEmuMaxCluster = 4;
 constexpr int kEmuSmemWindow = 1 << 20;
 constexpr int kEmuMaxDynamicSmem = 232448;  // the H100's 227 KB a block
@@ -70,6 +71,7 @@ struct EmuNamedBarrier {
 
 struct EmuBlock {
   EmuNamedBarrier named[16];  // bar.sync / bar.arrive ids
+  int maxnreg[kEmuMaxWarps / 4];  // each warpgroup's setmaxnreg count (0: none)
   pthread_barrier_t block;
   pthread_barrier_t warp[kEmuMaxWarps];
   pthread_barrier_t group[(kEmuMaxWarps + 3) / 4];  // warpgroups
@@ -127,6 +129,18 @@ inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
   return {__float2bfloat16(a), __float2bfloat16(b)};
 }
 
+struct alignas(8) float2 {
+  float x, y;
+};
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+struct alignas(8) uint2 {
+  unsigned x, y;
+};
+inline float2 make_float2(float x, float y) { return {x, y}; }
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
+
 inline uint32_t __float_as_uint(float x) {
   uint32_t u;
   memcpy(&u, &x, 4);
@@ -148,6 +162,25 @@ inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
 // What a block leaves behind that a correct kernel never does (a wgmma
 // still in flight); set by the wgmma emulation.
 inline thread_local bool (*emu_block_leftovers)() = nullptr;
+
+// The registers a thread of a `threads`-thread block has at launch where the
+// kernel reallocates them (setmaxnreg): ptxas's count under
+// __launch_bounds__(threads, 1), 65536 / threads rounded down to 8.
+inline int emu_launch_regs(int threads) { return 65536 / threads / 8 * 8; }
+
+// After a block ran: its warpgroups' setmaxnreg counts (a warpgroup that
+// set none keeps the launch's) must fit in the SM's 65536 registers, or
+// the card's setmaxnreg.inc would wait for ever.
+inline void emu_check_registers(EmuBlock& b, int threads) {
+  bool any = false;
+  long total = 0;
+  for (int w = 0; w < threads / 128; ++w) {
+    any = any || b.maxnreg[w] != 0;
+    total += 128L * (b.maxnreg[w] ? b.maxnreg[w] : emu_launch_regs(threads));
+  }
+  if (any && (threads % 128 || total > 65536)) emu_fail("setmaxnreg: more registers than the SM has");
+  for (int& n : b.maxnreg) n = 0;
+}
 
 // Runs `body` for every block of `grid`, `threads` threads a block, the
 // blocks of each cluster of `cluster` together.
@@ -171,6 +204,7 @@ void emu_run(dim3 grid, int threads, int cluster, size_t dynamic_smem, Body body
         for (unsigned bx = 0; bx < grid.x; bx += cluster) {
           if (i == 0) {
             for (int r = 0; r < cluster; ++r) {
+              emu_check_registers(g_blocks[r], threads);  // the previous block's
               memset(g_smem_origin[r], 0xff, dynamic_smem);
               for (EmuNamedBarrier& b : g_blocks[r].named) b = EmuNamedBarrier();
             }
@@ -186,6 +220,7 @@ void emu_run(dim3 grid, int threads, int cluster, size_t dynamic_smem, Body body
   }
   for (auto& th : all) th.join();
   for (int r = 0; r < cluster; ++r) {
+    emu_check_registers(g_blocks[r], threads);
     pthread_barrier_destroy(&g_blocks[r].block);
     for (int w = 0; w < threads / 32; ++w) pthread_barrier_destroy(&g_blocks[r].warp[w]);
     for (int w = 0; w < threads / 128; ++w) pthread_barrier_destroy(&g_blocks[r].group[w]);
@@ -223,6 +258,19 @@ struct cudaLaunchConfig_t {
 };
 
 inline std::map<const void*, int> g_smem_allowed;  // kernel -> its dynamic shared memory limit
+
+struct cudaFuncAttributes {
+  int numRegs;
+};
+// The registers ptxas gives a thread of the warp-specialised kernels
+// (__launch_bounds__(384, 1)); the emulation runs any block size, and checks
+// the setmaxnreg counts against the SM's registers itself (emu.h
+// emu_check_registers).
+template <class... A>
+cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* attr, void (*)(A...)) {
+  attr->numRegs = emu_launch_regs(384);
+  return cudaSuccess;
+}
 
 inline cudaError_t cudaGetDevice(int* dev) {
   *dev = 0;

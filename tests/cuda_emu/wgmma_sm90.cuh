@@ -15,8 +15,12 @@
 //     swizzle, and completes its bytes on the barrier;
 //   * named barriers: arrivals counted per block and id (bar.arrive goes
 //     on, bar.sync waits for the phase), reset for each block;
-//   * the cluster: barrier, mapa and ld.shared::cluster on the
-//     cluster's windows (emu.h); ex2.approx.ftz as exp2f.
+//   * the cluster: barrier, mapa and ld.shared::cluster (scalar and v4,
+//     aligned) on the cluster's windows (emu.h); ex2.approx.ftz as exp2f;
+//   * setmaxnreg: a no-op that checks its count (a multiple of 8 in
+//     24..256), that every thread of the warpgroup gives the same one, and,
+//     once the block has run, that the warpgroups' counts fit in the SM's
+//     registers (emu.h emu_check_registers).
 // The swizzle of an address a with rows of SW bytes: its 16-byte chunk
 // bits [4, 4 + log2(SW/16)) are XORed with the bits from 7 up.
 //
@@ -295,6 +299,26 @@ inline float ld_cluster_f32(uint32_t addr) {
   memcpy(&v, emu_smem(addr), 4);
   return v;
 }
+
+inline float4 ld_cluster_v4(uint32_t addr) {
+  if (addr % 16) emu_fail("ld.shared::cluster.v4 misaligned");
+  float4 v;
+  memcpy(&v, emu_smem(addr), 16);
+  return v;
+}
+
+// ---- register reallocation ---------------------------------------------------
+
+inline void emu_setmaxnreg(int n) {
+  if (n % 8 || n < 24 || n > 256) emu_fail("setmaxnreg: count not a multiple of 8 in 24..256");
+  if (threadIdx.x % 128 == 0) g_blocks[emu_rank].maxnreg[threadIdx.x / 128] = n;
+  emu_group_sync();
+  if (g_blocks[emu_rank].maxnreg[threadIdx.x / 128] != n)
+    emu_fail("setmaxnreg: the warpgroup's threads disagree on the count");
+  emu_group_sync();
+}
+template <int N> inline void setmaxnreg_inc() { emu_setmaxnreg(N); }
+template <int N> inline void setmaxnreg_dec() { emu_setmaxnreg(N); }
 
 // ---- arithmetic -----------------------------------------------------------
 

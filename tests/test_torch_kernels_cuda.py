@@ -609,3 +609,89 @@ def test_forward_split_over_keys_on_card(card, bh, t, d, split):
     assert close(o, ro, 2 ** -7) and close(lse, rlse)
     if split == 0:  # the wrapper's call, the same rule
         assert close(fa.flash_attention_fwd(q, k, v), ro, 2 ** -7)
+
+
+# The warp-specialised bf16 forward and dK/dV at D = 128 and 256 (64-row
+# blocks: the forward's two consumer warpgroups take a block's key tiles in
+# turn; dK/dV's split one 64-key tile's query tiles over a cluster of 2):
+# the 1024² path's shapes at BH = 4 and 1, ragged T over the 64-row tiles
+# (one partial tile, several with a ragged last one, exactly one tile).
+WS_SHAPES = [(4, 1024, 128), (1, 1024, 256), (1, 1024, 128), (3, 150, 128), (2, 64, 128),
+             (1, 300, 256), (5, 70, 256)]
+
+
+def _dkv_split_launcher():
+    import ctypes
+
+    from ddpm_image_restoration_tpu_torch.ops import build
+
+    fn = build.load(fa.BWD_KERNEL).flash_attention_bwd_dkv_split
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,t,d", WS_SHAPES)
+def test_ws_kernels_match_plain_on_card(card, bh, t, d):
+    """The bf16 forward (with and without the LSE), dQ and dK/dV at the
+    warp-specialised designs' shapes, each within its bound."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v, do = (torch.randn(bh, t, d, device="cuda", generator=g).to(torch.bfloat16)
+                   for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, save_lse=True)
+    o_only = fa.flash_attention_fwd(q, k, v)
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    ro, rlse = fa.flash_attention_plain(q, k, v, save_lse=True)
+    assert close(o, ro, 2 ** -7) and close(o_only, ro, 2 ** -7) and close(lse, rlse)
+    rdq, rdelta = fa.flash_attention_bwd_dq_plain(q, k, v, o, do, lse)
+    rdk, rdv = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, rdelta)
+    assert close(dq, rdq, 2 ** -7) and close(delta, rdelta)
+    assert close(dk, rdk, 2 ** -7) and close(dv, rdv, 2 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,t,d", [(4, 1024, 256), (4, 1024, 128), (1, 1024, 256),
+                                    (3, 150, 128), (2, 300, 256)])
+@pytest.mark.parametrize("split", [0, 1, 2])
+def test_dkv_split_over_queries_on_card(card, bh, t, d, split):
+    """The bf16 dK/dV at D = 128 and 256 with its query tiles dealt over a
+    cluster of 1 or 2 blocks (the C entry point forced; 0: the launcher's
+    rule, which takes 2 at every shape here) and the two blocks' sums added
+    through distributed shared memory: dK and dV within their bounds."""
+    fn = _dkv_split_launcher()
+    g = torch.Generator(device="cuda").manual_seed(12)
+    q, k, v, do = (torch.randn(bh, t, d, device="cuda", generator=g).to(torch.bfloat16)
+                   for _ in range(4))
+    o, lse = fa.flash_attention_plain(q, k, v, save_lse=True)
+    delta = (do.float() * o.float()).sum(-1)
+    dk, dv = torch.empty_like(q), torch.empty_like(q)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, t, d, 1, d ** -0.5, split,
+             torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    rdk, rdv = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta)
+    assert close(dk, rdk, 2 ** -7) and close(dv, rdv, 2 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,t,d", [(4, 1024, 256), (4, 1024, 128), (3, 300, 256)])
+def test_dkv_is_deterministic_on_card(card, bh, t, d):
+    """Two launches of the bf16 dK/dV on the same inputs give dK and dV bit
+    for bit (no atomics: every element is written once, the cluster's two
+    partial sums added in one fixed step); the forward likewise."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    q, k, v, do = (torch.randn(bh, t, d, device="cuda", generator=g).to(torch.bfloat16)
+                   for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, save_lse=True)
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse)
+    first = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    second = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, save_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)

@@ -7,7 +7,8 @@ of `wgmma_sm90.cuh` that the three bf16 kernels run (`wgmma` from swizzled
 shared-memory descriptors, K-major and MN-major, and from registers, run at
 the wait that needs it; `mbarrier` phases and transaction counts; TMA tile
 loads with zero fill and swizzle; named barriers; the cluster barrier and
-distributed shared memory), and the tensor-map encoder's checks. The emulated launchers (forward with
+distributed shared memory; `setmaxnreg`, checked), and the tensor-map
+encoder's checks. The emulated launchers (forward with
 LSE, dQ with Delta, dK/dV) then face the same checks as the card tests
 (tests/test_torch_kernels_cuda.py): each output against its plain PyTorch
 version entry by entry, within one bf16 step of the entry (bf16 outputs)
@@ -92,11 +93,12 @@ def run_kernels(tmp_path_factory):
     return _compile(tmp_path_factory.mktemp("cuda_emu"))
 
 
-def _run(run_kernels: Path, work: Path, bh, t, d, dtype, seed=0, split=1):
+def _run(run_kernels: Path, work: Path, bh, t, d, dtype, seed=0, split=1, dkv_split=1):
     """q, k, v, dO from a seeded normal, rounded to `dtype`, through the
     emulated forward (LSE; its bf16 split over keys forced to `split`, 0
-    for the launcher's rule), dQ (Delta) and dK/dV launchers, each at the
-    head dim its wrapper pads D to."""
+    for the launcher's rule), dQ (Delta) and dK/dV (its bf16 split over
+    query tiles at D >= 128 forced to `dkv_split`, 0 for the rule)
+    launchers, each at the head dim its wrapper pads D to."""
     rng = np.random.default_rng(seed)
     ins = {n: torch.from_numpy(rng.normal(size=(bh, t, d)).astype(np.float32)).to(dtype)
            for n in ("q", "k", "v", "do")}
@@ -106,7 +108,7 @@ def _run(run_kernels: Path, work: Path, bh, t, d, dtype, seed=0, split=1):
     dims = [str(fa.kernel_head_dim(name, d, dtype)) for name in
             ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")]
     r = subprocess.run([str(run_kernels), str(work), str(bh), str(t), str(d),
-                        str(int(dtype == torch.bfloat16)), str(split), *dims],
+                        str(int(dtype == torch.bfloat16)), str(split), *dims, str(dkv_split)],
                        capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stderr[-2000:]
 
@@ -172,7 +174,34 @@ def test_emulated_split_route_matches_plain(run_kernels, tmp_path, bh, t, d, spl
     assert all(s <= 1.0 for s in shares.values()), shares
 
 
-@pytest.mark.parametrize("bh,t,d", [(1, 150, 32), (1, 130, 16), (1, 130, 8), (1, 70, 256)])
+# (BH, T, D, split, dkv_split): the warp-specialised bf16 forward and dK/dV
+# at D = 128 and 256, over 64-row tiles: T ragged over three tiles (the
+# forward's two consumer warpgroups taking tiles 0, 2 and 1; dK/dV's ring
+# wrapping at D = 256's two stages), unsplit and split over a cluster of
+# 2 (the forward over keys: one block's second warpgroup with no tile;
+# dK/dV over query tiles, the partial sums added through distributed shared
+# memory), the forward over 4 (a block with no tile), the launchers' own
+# rules (which split both) and one tile (T <= 64: the rules leave both
+# unsplit).
+WS_CASES = [(1, 150, 128, 1, 1), (1, 150, 128, 2, 2), (1, 130, 256, 1, 1), (1, 150, 256, 2, 2),
+            (2, 70, 128, 0, 0), (1, 150, 128, 4, 0), (1, 40, 256, 0, 0)]
+
+
+@pytest.mark.parametrize("bh,t,d,split,dkv_split", WS_CASES)
+def test_emulated_ws_routes_match_plain(run_kernels, tmp_path, bh, t, d, split, dkv_split):
+    """The warp-specialised bf16 forward and dK/dV (a producer warpgroup
+    handing its registers to two consumer warpgroups by setmaxnreg, 384
+    threads a block) on their split and unsplit routes: every output within
+    its bound."""
+    ins, outs = _run(run_kernels, tmp_path / "run", bh, t, d, torch.bfloat16, split=split,
+                     dkv_split=dkv_split)
+    shares = _shares(ins, outs, 2 ** -7)
+    print(f"({bh},{t},{d}) split {split}, dK/dV split {dkv_split}: shares of the bound {shares}")
+    assert all(s <= 1.0 for s in shares.values()), shares
+
+
+@pytest.mark.parametrize("bh,t,d", [(1, 150, 32), (1, 130, 16), (1, 130, 8), (1, 70, 256),
+                                    (1, 130, 128)])
 def test_emulated_dropped_lo_fails_the_bound(tmp_path, bh, t, d):
     """A copy of the sources with the `lo` half dropped at the split
     product (wgmma_split: P and dS rounded to bf16 once) fails the bound in
