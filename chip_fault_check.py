@@ -2,21 +2,26 @@
 """Shows that the card's kernel bounds catch a numerics fault in the
 tensor-core kernels: builds a copy of the port's CUDA sources, outside the
 checkout, with the `lo` product of the hi/lo split dropped at the split
-product of `csrc/flash_mma.cuh` (`wgmma_split`, which the forward, dQ and
-dK/dV use: each then rounds P, and dS, to bf16 once), and holds the bf16
-forward, dQ and dK/dV kernels of that copy and of the checkout to their
-plain versions under chip_smoke.py's bounds, at the D = 32 shapes of the
-main paths, D = 16 and 8 beside them, the restore CLI's (4, 1024, 32),
-which the forward splits over a cluster, and D = 256 and 128 at the 1024²
-path's bottleneck (4, 1024, 256) and (4, 1024, 128), where the
-warp-specialised forward splits its keys and dK/dV its query tiles over
-a cluster of 2.
+product of `csrc/flash_mma.cuh` (`wgmma_split`, which the bf16 forward, dQ
+and dK/dV use: each then rounds P, and dS, to bf16 once) and the 3xTF32
+products of `csrc/flash_tf32.cuh` cut to one (`wgmma_3xtf32_ss`/`_sr`/`_rs`,
+which the f32 forward and dQ use: every product then in one TF32 rounding
+of its operands, 1xTF32), and holds the kernels of that copy and of the
+checkout to their plain versions under chip_smoke.py's bounds: the bf16
+forward, dQ and dK/dV at the D = 32 shapes of the main paths, D = 16 and
+8 beside them, the restore CLI's (4, 1024, 32), which the forward splits
+over a cluster, and D = 256 and 128 at the 1024² path's bottleneck (4,
+1024, 256) and (4, 1024, 128), where the warp-specialised forward splits
+its keys and dK/dV its query tiles over a cluster of 2; the f32 forward
+and dQ at the f32 paths' shapes (the full-width f32 distillation's (72,
+1024, 32|16), the 1024² path's (4, 1024, 256|128)).
 
     python3 chip_fault_check.py
 
-Prints one line per kernel, shape and build (share of the bound: <= 1
-passes) and exits 0 when every case of the checkout passes and every case
-of the faulted copy fails. Needs a CUDA card and nvcc.
+Prints one line per kernel, shape, dtype and build (share of the bound:
+<= 1 passes; the mean |err| beside the max) and exits 0 when every case
+of the checkout passes and every case of the faulted copy fails. Needs a
+CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -28,14 +33,30 @@ import tempfile
 from pathlib import Path
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-# (sound, faulted) at the split point, wgmma_split.
-SPLITS = [("  wgmma_sm90::wgmma_rs<1>(d, a.hi, b, true);\n"
-           "  wgmma_sm90::wgmma_rs<1>(d, a.lo, b, true);\n",
-           "  wgmma_sm90::wgmma_rs<1>(d, a.hi, b, true);\n")]
-# (kernel, BH, T, D, save_lse): the forward at its serving, train-step,
-# validation and restore shapes; dQ and dK/dV at the train steps'; the
-# three at the 1024² path's D = 256 (restore and train step), the forward
-# and dK/dV at its D = 128.
+# (header, [(sound, faulted)]): the bf16 split point, wgmma_split, and the
+# 3xTF32 products, cut to one.
+SPLITS = [("flash_mma.cuh",
+           [("  wgmma_sm90::wgmma_rs<1>(d, a.hi, b, true);\n"
+             "  wgmma_sm90::wgmma_rs<1>(d, a.lo, b, true);\n",
+             "  wgmma_sm90::wgmma_rs<1>(d, a.hi, b, true);\n")]),
+          ("flash_tf32.cuh",
+           [("  wgmma_sm90::wgmma_tf32_ss(d, a_hi, b_lo, accumulate);\n"
+             "  wgmma_sm90::wgmma_tf32_ss(d, a_lo, b_hi, true);\n"
+             "  wgmma_sm90::wgmma_tf32_ss(d, a_hi, b_hi, true);\n",
+             "  wgmma_sm90::wgmma_tf32_ss(d, a_hi, b_hi, accumulate);\n"),
+            ("  wgmma_sm90::wgmma_tf32_ss(d, a_hi, b_lo, accumulate);\n"
+             "  wgmma_sm90::wgmma_tf32_rs(d, a_lo, b_hi, true);\n"
+             "  wgmma_sm90::wgmma_tf32_ss(d, a_hi, b_hi, true);\n",
+             "  wgmma_sm90::wgmma_tf32_ss(d, a_hi, b_hi, accumulate);\n"),
+            ("  wgmma_sm90::wgmma_tf32_rs(d, a.hi, b_lo, true);\n"
+             "  wgmma_sm90::wgmma_tf32_rs(d, a.lo, b_hi, true);\n"
+             "  wgmma_sm90::wgmma_tf32_rs(d, a.hi, b_hi, true);\n",
+             "  wgmma_sm90::wgmma_tf32_rs(d, a.hi, b_hi, true);\n")])]
+# (kernel, BH, T, D, save_lse, dtype): bf16: the forward at its serving,
+# train-step, validation and restore shapes; dQ and dK/dV at the train
+# steps'; the three at the 1024² path's D = 256 (restore and train step),
+# the forward and dK/dV at its D = 128. f32: the forward (without and with
+# the LSE) and dQ at the f32 distillation's and the 1024² path's shapes.
 CASES = [("fwd", 32, 1024, 32, False), ("fwd", 72, 1024, 32, True), ("fwd", 16, 1024, 32, False),
          ("fwd", 4, 1024, 32, False),
          ("dq", 72, 1024, 32, True), ("dkv", 72, 1024, 32, True), ("fwd", 32, 1024, 16, False),
@@ -44,16 +65,24 @@ CASES = [("fwd", 32, 1024, 32, False), ("fwd", 72, 1024, 32, True), ("fwd", 16, 
          ("fwd", 4, 1024, 256, False), ("fwd", 4, 1024, 256, True), ("dq", 4, 1024, 256, True),
          ("dkv", 4, 1024, 256, True), ("fwd", 4, 1024, 128, False), ("fwd", 4, 1024, 128, True),
          ("dkv", 4, 1024, 128, True)]
+CASES = [(*c, "bfloat16") for c in CASES] + [
+    ("fwd", 72, 1024, 32, False, "float32"), ("fwd", 72, 1024, 32, True, "float32"),
+    ("dq", 72, 1024, 32, True, "float32"), ("fwd", 72, 1024, 16, False, "float32"),
+    ("fwd", 72, 1024, 16, True, "float32"), ("dq", 72, 1024, 16, True, "float32"),
+    ("fwd", 4, 1024, 256, False, "float32"), ("fwd", 4, 1024, 256, True, "float32"),
+    ("dq", 4, 1024, 256, True, "float32"), ("fwd", 4, 1024, 128, False, "float32"),
+    ("fwd", 4, 1024, 128, True, "float32"), ("dq", 4, 1024, 128, True, "float32")]
 
 
 def shares(fa, max_err) -> list[float]:
-    """Each case's worst share of its bound, bf16, with this build's kernels."""
+    """Each case's worst share of its bound with this build's kernels."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = []
-    for kind, bh, t, d, save_lse in CASES:
-        q, k, v, do = (torch.randn(bh, t, d, device="cuda", generator=gen).to(torch.bfloat16)
+    for kind, bh, t, d, save_lse, dtype_name in CASES:
+        dtype = getattr(torch, dtype_name)
+        q, k, v, do = (torch.randn(bh, t, d, device="cuda", generator=gen).to(dtype)
                        for _ in range(4))
         if kind == "fwd":
             got = fa.flash_attention_fwd(q, k, v, save_lse=save_lse)
@@ -77,8 +106,10 @@ def shares(fa, max_err) -> list[float]:
         for part, a, b in pairs:
             e, sh = max_err(a, b)
             worst = max(worst, sh)
-            print(f"  {kind} {part} (BH,T,D)=({bh},{t},{d}) bf16: max|err| {e:.3g}, "
-                  f"{sh:.3g} of its bound", flush=True)
+            mean = (a.float() - b.float()).abs().mean().item()
+            print(f"  {kind} {part} (BH,T,D)=({bh},{t},{d}) {dtype_name}: max|err| {e:.3g}, "
+                  f"{sh:.3g} of its bound, mean|err| {mean:.3g}, max|ref| "
+                  f"{b.float().abs().max().item():.3g}", flush=True)
         out.append(worst)
     return out
 
@@ -101,18 +132,19 @@ def main() -> int:
     work = Path(tempfile.mkdtemp(prefix="flash_dropped_lo_"))
     try:
         shutil.copytree(build.CSRC_DIR, work / "csrc")
-        header = work / "csrc" / "flash_mma.cuh"
-        text = header.read_text()
-        for whole, dropped in SPLITS:
-            if text.count(whole) != 1:
-                raise RuntimeError(f"split products not found in flash_mma.cuh: {whole!r}")
-            text = text.replace(whole, dropped)
-        header.write_text(text)
+        for name, splits in SPLITS:
+            header = work / "csrc" / name
+            text = header.read_text()
+            for whole, dropped in splits:
+                if text.count(whole) != 1:
+                    raise RuntimeError(f"split products not found in {name}: {whole!r}")
+                text = text.replace(whole, dropped)
+            header.write_text(text)
         build.CSRC_DIR, build.BUILD_DIR = work / "csrc", work / "build"
         build._LOADED.clear()
         for name in (fa.KERNEL, fa.BWD_KERNEL):
             build.build(name)
-        print(f"faulted build (lo product dropped, {work}):", flush=True)
+        print(f"faulted build (lo products dropped, {work}):", flush=True)
         faulted = shares(fa, chip_smoke.max_err)
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -8,21 +8,26 @@ NVIDIA card and checks it, phase by phase:
      the checkout, one nvcc per source, all started together; each kernel's
      registers, spills and shared memory (`ptxas -v`) and its tensor-core
      and TMA instructions (HGMMA with UTMALDG in every instantiation of
-     the wgmma forward, dQ and dK/dV kernels, D = 8 to 256, and HMMA in
-     none; counted in `cuobjdump -sass`), and no spill in the
-     warp-specialised forward and dK/dV (D = 128 and 256);
+     the bf16 wgmma forward, dQ and dK/dV kernels, D = 8 to 256, and of
+     the f32 forward and dQ where they run TF32 wgmma, and HMMA in none;
+     counted in `cuobjdump -sass`), and no spill in the warp-specialised
+     forward and dK/dV (D = 128 and 256);
   3. kernels: each kernel against its plain PyTorch version, with times
      (the kernels' and SDPA's as device time under torch.profiler, the
      plain versions' between CUDA events), and the autograd Function's
      gradients against autograd through the plain attention, at every path
-     shape (D = 256 and 128 of the 1024² path too) and contract shape;
+     shape (D = 256 and 128 of the 1024² path too) and contract shape, in
+     bf16 and f32; at the f32 path shapes SDPA in f32 under each backend
+     that takes f32 (efficient, math), the faster one the yardstick;
   3b. path1024: the WebP preset's full-width UNet at 1024² (flash attention
      at <= 32²: only the bottleneck attends, at T = 1024 with D = 256, 256
      and 128; random weights, batch 1): `cli/restore.py` on a 1024² WebP
      under the production policy, one train step with block remat, each
      kernel's launches per head dim against what the model's structure
      predicts, and one UNet evaluation with flash attention against the
-     same weights with the plain attention (bf16);
+     same weights with the plain attention (bf16); then the restore, the
+     train step and the evaluation in f32 (`--compute-dtype float32`:
+     the TF32 f32 forward and dQ at D = 256 and 128);
   4. reference: a half-width f32 restore on the card against the same
      restore on the CPU (the CPU path is the one the tests hold to the JAX
      package), a traced-budget, mixed-quality one with decoder reuse, and
@@ -41,8 +46,10 @@ NVIDIA card and checks it, phase by phase:
      alone, timed and profiled;
   8. distill: solver distillation (`cli/distill.py main`) at full width
      from phase `train`'s checkpoint: 2 student evaluations at q10/q50
-     against the full-solver teacher, then the progressive chain (budgets
-     4, 2), then `cli/restore.py --max-evals 2` from the student; every
+     against the full-solver teacher, in bf16 and then in f32 as the
+     README tells users to distill (`--compute-dtype float32`), then the
+     progressive chain (budgets 4, 2), then `cli/restore.py --max-evals
+     2` from the student; every
      kernel's launches against the schedule; then the distill step alone,
      timed, profiled, and its peak memory with and without the solver's
      rematerialisation;
@@ -173,6 +180,28 @@ FWD_PATH_SHAPES = [("serve", 32, 1024, 32, False), ("serve", 32, 1024, 16, False
                    ("restore 1024²", 4, 1024, 256, False), ("restore 1024²", 4, 1024, 128, False),
                    ("train step 1024²", 4, 1024, 256, True),
                    ("train step 1024²", 4, 1024, 128, True)]
+# The f32 kernels' shapes on the main paths, (path, BH, T, D, save_lse):
+# the README's f32 distillation at full width (phase `distill`,
+# `--compute-dtype float32`: the teacher's batch of 18 x 4 heads under
+# no_grad, the student's with the LSE: D = 32 at down2, 16 at up4), the
+# 1024² path's f32 legs (phase `path1024`: the restore and the remat train
+# step, D = 256 and 128), and the half-width f32 gates at D = 16 (the
+# restore's 2 images x 4 heads at down2, the train step's 4 x 4; their D =
+# 8 at up4 runs padded to 16).
+F32_FWD_PATH_SHAPES = [("distill teacher f32", 72, 1024, 32, False),
+                       ("distill teacher f32", 72, 1024, 16, False),
+                       ("distill student f32", 72, 1024, 32, True),
+                       ("distill student f32", 72, 1024, 16, True),
+                       ("restore 1024² f32", 4, 1024, 256, False),
+                       ("restore 1024² f32", 4, 1024, 128, False),
+                       ("train step 1024² f32", 4, 1024, 256, True),
+                       ("train step 1024² f32", 4, 1024, 128, True),
+                       ("f32 restore gate", 8, 1024, 16, False),
+                       ("f32 train gate", 16, 1024, 16, True)]
+# (BH, T, D) -> path of the f32 dQ and dK/dV on the main paths.
+F32_TRAIN_SHAPES = {(72, 1024, 32): "distill student f32", (72, 1024, 16): "distill student f32",
+                    (4, 1024, 256): "train step 1024² f32", (4, 1024, 128): "train step 1024² f32",
+                    (16, 1024, 16): "f32 train gate"}
 # (BH, T, D): those shapes, then long, ragged and wide-head cases of the
 # kernel's contract.
 KERNEL_SHAPES = list(dict.fromkeys(s[1:4] for s in FWD_PATH_SHAPES)) + [
@@ -215,15 +244,41 @@ DESIGNS = {
                                     "over keys; D <= 64: two warpgroups of 64 rows; D = 128 "
                                     "and 256: warp-specialised 64-row blocks (producer "
                                     "warpgroup, setmaxnreg, two consumer warpgroups taking "
-                                    "the key tiles in turn, 64-key stages)", "f32": "FMA"},
+                                    "the key tiles in turn, 64-key stages)",
+                            "f32": "TF32 wgmma m64nNk8, 3xTF32 split (hi/lo by cvt.rna), "
+                                   "TMA/mbarrier ring, a producer warpgroup writing K hi/lo "
+                                   "and V^T hi/lo (keys permuted in groups of 8), cluster split "
+                                   "over keys; D = 16-64: two consumer warpgroups of 64 rows, "
+                                   "D = 128 and 256: one (D = 256: one 16-key stage and a raw "
+                                   "landing area)"},
     "flash_attention_bwd_dq": {"bf16": "wgmma m64nNk16, TMA/mbarrier ring (32-key stages at "
-                                       "D = 256), hi/lo dS", "f32": "FMA"},
+                                       "D = 256), hi/lo dS",
+                               "f32": "TF32 wgmma m64nNk8, 3xTF32 split, TMA/mbarrier ring, "
+                                      "a producer warpgroup writing K, V and K^T hi/lo; two "
+                                      "consumer warpgroups at D <= 64, one at 128 and 256; "
+                                      "D <= 128: cluster split over keys; D = 256: the head "
+                                      "dim split over a cluster of 2, partial S and dP "
+                                      "exchanged through distributed shared memory, Q's lo "
+                                      "part in registers, two 16-key stages"},
     "flash_attention_bwd_dkv": {"bf16": "wgmma m64nNk16, TMA/mbarrier ring, hi/lo P and dS; "
                                         "D = 128 and 256: warp-specialised (producer "
                                         "warpgroup, setmaxnreg; one consumer warpgroup S^T, "
                                         "P^T and dV, the other dP^T, dS^T and dK), query "
                                         "tiles over a cluster of 2", "f32": "FMA"},
 }
+# The f32 instantiations (kernel, head dims) that run TF32 wgmma; the f32
+# dK/dV runs on FMA.
+TF32_DESIGN_DIMS = {"flash_fwd_kernel": (16, 32, 64, 128, 256),
+                    "flash_bwd_dq_kernel": (16, 32, 64, 128, 256)}
+# The f32 path shapes' (kernel, SDPA in f32) device ms of the FMA forward
+# and dQ that the TF32 designs replaced, as chip_smoke measured them on
+# `NVIDIA H100 80GB HBM3, 700.00 W` (PR 17 run 1; PERF.md §6, the f32 rows'
+# "was"): forward (BH, T, D); dQ against SDPA's whole backward. Shapes that
+# no earlier run recorded are logged as such.
+FMA_F32_FWD_MS = {(4, 1024, 256): (0.4412, 0.1496), (4, 1024, 128): (0.2319, 0.0962),
+                  (8, 1024, 16): (0.0874, 0.0980), (16, 1024, 16): (0.0879, 0.1306)}
+FMA_F32_DQ_MS = {(4, 1024, 256): (0.6033, 0.5871), (4, 1024, 128): (0.3376, 0.3085),
+                 (16, 1024, 16): (0.1126, 0.2933)}
 # The 1024² path's (kernel, SDPA) device ms of the D = 128 and 256 designs
 # that the warp-specialised forward and dK/dV replaced (the forward's
 # 128-row blocks with 32-key stages at D = 256; dK/dV's 288-thread blocks,
@@ -279,6 +334,7 @@ def earlier_design(table_mma_sync: dict, table_wide: dict, key) -> tuple:
 # tensor-core bf16 and f32 (non-tensor-core) FLOP/s.
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS_S = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_TF32_FLOPS_S = 495e12  # dense TF32 on the tensor cores
 SERVE_QUALITIES = (10, 30, 50)
 SERVE_BATCH = 8
 TRAIN_BATCH = 18        # the WebP preset's batch size
@@ -434,6 +490,30 @@ def attention_bound_ms(bh: int, t: int, d: int, dtype_name: str,
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
+def tf32_bound_ms(kind: str, bh: int, t: int, d: int) -> float:
+    """The f32 kernels' operations bound read as their 3xTF32 work at the
+    TF32 tensor-core peak (PEAK_TF32_FLOPS_S): three TF32 products for each
+    f32 one, 12*T^2*D flops a head for the forward (S, P*V), 18 for dQ (S,
+    dP, dS*K)."""
+    return 1e3 * {"fwd": 12, "dq": 18}[kind] * bh * t * t * d / PEAK_TF32_FLOPS_S
+
+
+def sdpa_backends_ms(make_call) -> tuple[float, str, dict]:
+    """SDPA's device time under each backend that takes f32 inputs
+    (EFFICIENT_ATTENTION, MATH), each alone under
+    torch.nn.attention.sdpa_kernel: (the faster's ms, its name, every
+    backend's ms). `make_call()` is run under the backend and returns the
+    call to time (for a backward, the graph is built there)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    times = {}
+    for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        with sdpa_kernel([backend]):
+            times[backend.name] = device_time_ms(make_call())
+    best = min(times, key=times.get)
+    return times[best], best, times
+
+
 def bwd_bound_ms(kind: str, bh: int, t: int, d: int, dtype_name: str) -> tuple[float, str]:
     """Least time for one backward kernel's work. Bytes: dQ reads q, k, v,
     o, dO and the LSE and writes dQ and Delta; dK/dV reads q, k, v, dO, the
@@ -520,12 +600,14 @@ def phase_build(state: dict) -> None:
         raise AssertionError(f"the D = 128 / 256 forward or dK/dV spills: {spilled}")
     if not sass:
         return
-    # every instantiation of the forward, dQ and dK/dV wgmma kernels (D = 8
-    # to 256) runs HGMMA and loads by TMA (UTMALDG); no kernel runs HMMA
-    # (mma.sync)
+    # every instantiation of the bf16 forward, dQ and dK/dV wgmma kernels
+    # (D = 8 to 256) and of the f32 forward and dQ (TF32_DESIGN_DIMS) runs
+    # HGMMA and loads by TMA (UTMALDG); no kernel runs HMMA (mma.sync)
     hopper = {k: ops for k, ops in sass.items() if "_wgmma_kernel" in k}
     dq = [k for k in hopper if "dq_wgmma_kernel" in k]
+    tf32 = [f"{kernel} D={d} f32" for kernel, dims in TF32_DESIGN_DIMS.items() for d in dims]
     bad = [k for k, ops in hopper.items() if not (ops["HGMMA"] and ops["UTMALDG"])]
+    bad += [k for k in tf32 if not (k in sass and sass[k]["HGMMA"] and sass[k]["UTMALDG"])]
     bad += [k for k, ops in sass.items() if ops["HMMA"]]
     if len(hopper) != 18 or len(dq) != 6 or bad:
         raise AssertionError(f"wgmma kernels without HGMMA/UTMALDG, or kernels with HMMA, in "
@@ -570,6 +652,7 @@ def phase_kernels(state: dict) -> None:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = {}
     failures = []
+    f32_path = {s[1:4] for s in F32_FWD_PATH_SHAPES}
     for bh, t, d in KERNEL_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).split(".")[-1]
@@ -584,6 +667,14 @@ def phase_kernels(state: dict) -> None:
             if not lib_ms > 0:
                 failures.append(f"sdpa (BH,T,D)=({bh},{t},{d}) {name}: the profiler summed no "
                                 f"device time; {profiled_events(sdpa)}")
+            backend = "default"
+            if dtype == torch.float32 and (bh, t, d) in f32_path:
+                # the library time of an f32 path shape: the faster backend
+                default_ms = lib_ms
+                lib_ms, backend, each = sdpa_backends_ms(lambda: sdpa)
+                log(f"sdpa (BH,T,D)=({bh},{t},{d}) f32 by backend: "
+                    + ", ".join(f"{b} {ms:.4f} ms" for b, ms in each.items())
+                    + f"; the default dispatch {default_ms:.4f} ms; taking {backend}")
             for save_lse in (False, True):
                 got = fa.flash_attention_fwd(q, k, v, save_lse=save_lse)
                 ref = fa.flash_attention_plain(q, k, v, save_lse=save_lse)
@@ -605,7 +696,8 @@ def phase_kernels(state: dict) -> None:
                 bound, by = attention_bound_ms(bh, t, d, name, save_lse)
                 rows[(bh, t, d, name, save_lse)] = dict(
                     max_abs_err=err, ms=ms, event_ms=event_ms, plain_ms=plain_ms,
-                    library_ms=lib_ms, bound_ms=bound, bound_by=by)
+                    library_ms=lib_ms, library=f"sdpa ({backend})", bound_ms=bound,
+                    bound_by=by)
                 log(f"flash_attention_fwd (BH,T,D)=({bh},{t},{d}) {name} lse={save_lse}: "
                     f"max|err| {err:.3g} ({share:.3g} of its bound)  "
                     f"kernel {ms:.4f} ms device ({event_ms:.4f} ms between events)  "
@@ -617,6 +709,13 @@ def phase_kernels(state: dict) -> None:
         log(f"flash_attention_fwd [{path}] (BH,T,D)=({bh},{t},{d}) bf16 lse={lse}: "
             + ratio_note(r["ms"], r["library_ms"],
                          *earlier_design(MMA_SYNC_FWD_MS, WIDE_FWD_BEFORE_MS, (bh, t, d, lse))))
+    for path, bh, t, d, lse in F32_FWD_PATH_SHAPES:
+        r = rows[(bh, t, d, "float32", lse)]
+        log(f"flash_attention_fwd [{path}] (BH,T,D)=({bh},{t},{d}) f32 lse={lse}: kernel "
+            f"{r['ms']:.4f} ms, " + ratio_note(r["ms"], r["library_ms"],
+                                               FMA_F32_FWD_MS.get((bh, t, d)), "FMA kernel")
+            + f" against {r['library']}; bound {r['bound_ms']:.4f} ms (f32 at 67 TFLOP/s), "
+            f"{tf32_bound_ms('fwd', bh, t, d):.4f} ms (3xTF32 at 495)")
     state["bwd_rows"] = check_backward(failures)
     check_function(failures)
     if failures:
@@ -683,18 +782,43 @@ def check_backward(failures: list) -> dict:
             if not lib_ms > 0:
                 failures.append(f"sdpa backward (BH,T,D)=({bh},{t},{d}) {name}: the profiler "
                                 f"summed no device time; {profiled_events(lib_backward)}")
+            backend = "default"
+            if dtype == torch.float32 and (bh, t, d) in F32_TRAIN_SHAPES:
+                def backward_under_backend():
+                    out = F.scaled_dot_product_attention(q4, k4, v4)
+                    return lambda: torch.autograd.grad(out, (q4, k4, v4), do[None],
+                                                       retain_graph=True)
+
+                default_ms = lib_ms
+                lib_ms, backend, each = sdpa_backends_ms(backward_under_backend)
+                log(f"sdpa backward (BH,T,D)=({bh},{t},{d}) f32 by backend: "
+                    + ", ".join(f"{b} {ms:.4f} ms" for b, ms in each.items())
+                    + f"; the default dispatch {default_ms:.4f} ms; taking {backend}")
             role = "train step" if (bh, t, d) in TRAIN_SHAPES else "contract"
             for kind in ("dq", "dkv"):
                 err, (ms, event_ms, plain_ms) = errs[kind], times[kind]
                 bound, by = bwd_bound_ms(kind, bh, t, d, name)
                 rows[(kind, bh, t, d, name)] = dict(max_abs_err=err, ms=ms, event_ms=event_ms,
                                                     plain_ms=plain_ms, library_ms=lib_ms,
+                                                    library=f"sdpa backward ({backend})",
                                                     bound_ms=bound, bound_by=by)
                 log(f"flash_attention_bwd_{kind} (BH,T,D)=({bh},{t},{d}) {name} [{role}]: "
                     f"max|err| {err:.3g}  kernel {ms:.4f} ms device ({event_ms:.4f} ms between "
                     f"events)  plain {plain_ms:.4f} ms  "
                     f"sdpa backward {lib_ms:.4f} ms device ({lib_event_ms:.4f} ms between "
                     f"events)  bound {bound:.4f} ms ({by})")
+            if name == "float32" and (bh, t, d) in F32_TRAIN_SHAPES:
+                path = F32_TRAIN_SHAPES[(bh, t, d)]
+                dkv_ms, dq_ms = times["dkv"][0], times["dq"][0]
+                was = FMA_F32_DQ_MS.get((bh, t, d))
+                log(f"flash_attention_bwd_dq [{path}] (BH,T,D)=({bh},{t},{d}) f32: kernel "
+                    f"{dq_ms:.4f} ms (FMA kernel: {was[0] if was else 'not recorded'}), "
+                    + ratio_note(dq_ms, lib_ms, was, "FMA kernel")
+                    + f" against sdpa backward ({backend}); pair dQ + dK/dV "
+                    f"{dq_ms + dkv_ms:.4f} ms, pair/SDPA "
+                    f"{(dq_ms + dkv_ms) / lib_ms if lib_ms > 0 else float('nan'):.3f}; bound "
+                    f"{bwd_bound_ms('dq', bh, t, d, name)[0]:.4f} ms (f32 at 67 TFLOP/s), "
+                    f"{tf32_bound_ms('dq', bh, t, d):.4f} ms (3xTF32 at 495)")
             if name == "bfloat16" and (bh, t, d) in TRAIN_SHAPES:
                 path = TRAIN_PATHS.get((bh, t, d), "train step")
                 dkv_ms, dq_ms = times["dkv"][0], times["dq"][0]
@@ -760,6 +884,7 @@ def check_function(failures: list) -> None:
 PATH1024_SIZE = 1024
 PATH1024_QUALITY = 30
 PATH1024_SCALE = 1  # widths divided by this (the CPU rehearsal's narrow model)
+PATH1024_F32_MAX_DIFF = 1e-3
 
 
 def flash_head_dims(model, size: int) -> tuple:
@@ -814,7 +939,12 @@ def phase_path1024(state: dict) -> None:
       * one UNet evaluation with flash attention against the same weights
         with the plain attention, both bf16 (a whole restore is chaotic on
         random weights: ROADMAP "Random-weight restores"), within the plain
-        model's own bf16 error against its f32 evaluation, mean and max."""
+        model's own bf16 error against its f32 evaluation, mean and max;
+      * the same restore and train step with `--compute-dtype float32` (the
+        f32 forward and dQ at D = 256 and 128, counted as above), and one
+        f32 evaluation flash against plain under `no_tf32`, max |diff| <=
+        PATH1024_F32_MAX_DIFF (the bound of tests/test_torch_kernels_cuda.py
+        on the full-width f32 flash route against the plain route)."""
     import collections
     import dataclasses
     import io
@@ -865,65 +995,73 @@ def phase_path1024(state: dict) -> None:
         src = os.path.join(work, "in.webp")
         Image.fromarray(np.round((x * 0.5 + 0.5) * 255).astype(np.uint8)).save(src, quality=q)
 
-        # the restore CLI: encoder blocks once per group, decoder blocks per evaluation
-        n, g = static_schedule(q, "webp", *restore_budget())
-        want = collections.Counter({(fa.KERNEL, d): 0 for d in enc + dec})
-        for d in enc:
-            want[(fa.KERNEL, d)] += g
-        for d in dec:
-            want[(fa.KERNEL, d)] += n
-        out_dir = os.path.join(work, "out")
-        torch.cuda.synchronize()
-        _reset_counts()
-        t0 = time.perf_counter()
-        with launches_by_head_dim() as seen, \
-                contextlib.redirect_stdout(io.StringIO()) as printed:
-            restore_main([src, *RESTORE_FLAGS, *narrow, "--image-size", str(size),
-                          "--random-init", "--quality", str(q), "--codec", "webp",
-                          "--output-dir", out_dir])
-        torch.cuda.synchronize()
-        check(f"restore 1024² (n {n}, g {g}; {printed.getvalue().splitlines()[0]})", seen, want,
-              time.perf_counter() - t0)
-        png = os.path.join(out_dir, "in_restored.png")
-        shape = np.asarray(Image.open(png)).shape if os.path.exists(png) else None
-        if shape != (size, size, 3):
-            failures.append(f"restore 1024² wrote {png} of shape {shape}")
+        # the restore CLI: encoder blocks once per group, decoder blocks per
+        # evaluation; bf16, then f32
+        def at(name, d, dtype):  # (kernel, the head dim it runs at in `dtype`)
+            return name, fa.kernel_head_dim(name, d, getattr(torch, dtype))
 
-        # one train step with block remat: each block's forward again in the backward
-        tcfg = TrainConfig(codec="webp", model=dataclasses.replace(cfg, remat=True),
-                           batch_size=1, ema_decay=0.999)
-        torch.manual_seed(SEED)
-        train_model = build_model("webp", tcfg.model, device=CARD)
-        train_state = create_train_state(train_model, tcfg)
-        step = make_train_step(train_model, tcfg)
+        n, g = static_schedule(q, "webp", *restore_budget())
+        for dtype in ("bfloat16", "float32"):
+            want = collections.Counter()
+            for d in enc:
+                want[at(fa.KERNEL, d, dtype)] += g
+            for d in dec:
+                want[at(fa.KERNEL, d, dtype)] += n
+            out_dir = os.path.join(work, f"out_{dtype}")
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            with launches_by_head_dim() as seen, \
+                    contextlib.redirect_stdout(io.StringIO()) as printed:
+                restore_main([src, *RESTORE_FLAGS, *narrow, "--image-size", str(size),
+                              "--random-init", "--quality", str(q), "--codec", "webp",
+                              "--compute-dtype", dtype, "--output-dir", out_dir])
+            torch.cuda.synchronize()
+            check(f"restore 1024² {dtype} (n {n}, g {g}; {printed.getvalue().splitlines()[0]})",
+                  seen, want, time.perf_counter() - t0)
+            png = os.path.join(out_dir, "in_restored.png")
+            shape = np.asarray(Image.open(png)).shape if os.path.exists(png) else None
+            if shape != (size, size, 3):
+                failures.append(f"restore 1024² {dtype} wrote {png} of shape {shape}")
+
+        # one train step with block remat: each block's forward again in the
+        # backward; bf16, then f32
         xt = torch.from_numpy(load_image(src, None)[None]).to(CARD)
         batch = {"x0": torch.from_numpy(x[None]).to(CARD), "xt": xt,
                  "t": torch.tensor([50], device=CARD), "quality": torch.tensor([q], device=CARD)}
-        want = collections.Counter()
-        for d in enc + dec:
-            want[(fa.KERNEL, d)] += 2
-            want[("flash_attention_bwd_dq", d)] += 1
-            want[("flash_attention_bwd_dkv", d)] += 1
-        torch.cuda.synchronize()
-        _reset_counts()
-        t0 = time.perf_counter()
-        with launches_by_head_dim() as seen:
-            metrics = step(train_state, batch, torch.Generator(device=CARD).manual_seed(SEED))
+        for dtype in ("bfloat16", "float32"):
+            want = collections.Counter()
+            for d in enc + dec:
+                want[at(fa.KERNEL, d, dtype)] += 2
+                want[at("flash_attention_bwd_dq", d, dtype)] += 1
+                want[at("flash_attention_bwd_dkv", d, dtype)] += 1
+            tcfg = TrainConfig(codec="webp", model=dataclasses.replace(
+                cfg, remat=True, compute_dtype=dtype), batch_size=1, ema_decay=0.999)
+            torch.manual_seed(SEED)
+            train_model = build_model("webp", tcfg.model, device=CARD)
+            train_state = create_train_state(train_model, tcfg)
+            step = make_train_step(train_model, tcfg)
             torch.cuda.synchronize()
-        check(f"train step 1024² (bf16, remat; loss {metrics['loss'].item():.4f}, grad norm "
-              f"{metrics['grad_norm'].item():.4g})", seen, want, time.perf_counter() - t0)
-        bad = [k for k, p in train_model.named_parameters()
-               if p.grad is None or not torch.isfinite(p.grad).all()]
-        qkv = [getattr(train_model, f"bottleneck{i}").attn.qkv.weight.grad.abs().max().item()
-               for i in (1, 2, 3)]
-        log(f"  |bottleneck qkv grad| max {qkv}; parameters without a finite gradient: {bad}")
-        if bad or not all(v > 0 for v in qkv) or not all(
-                math.isfinite(metrics[k].item()) for k in ("loss", "grad_norm")):
-            failures.append(f"train step 1024²: loss {metrics['loss'].item()}, grad norm "
-                            f"{metrics['grad_norm'].item()}, non-finite or missing gradients "
-                            f"{bad[:5]}, bottleneck qkv grads {qkv}")
-        del train_state, train_model, step, metrics
-        torch.cuda.empty_cache()
+            _reset_counts()
+            t0 = time.perf_counter()
+            with launches_by_head_dim() as seen:
+                metrics = step(train_state, batch, torch.Generator(device=CARD).manual_seed(SEED))
+                torch.cuda.synchronize()
+            check(f"train step 1024² ({dtype}, remat; loss {metrics['loss'].item():.4f}, grad "
+                  f"norm {metrics['grad_norm'].item():.4g})", seen, want,
+                  time.perf_counter() - t0)
+            bad = [k for k, p in train_model.named_parameters()
+                   if p.grad is None or not torch.isfinite(p.grad).all()]
+            qkv = [getattr(train_model, f"bottleneck{i}").attn.qkv.weight.grad.abs().max().item()
+                   for i in (1, 2, 3)]
+            log(f"  |bottleneck qkv grad| max {qkv}; parameters without a finite gradient: {bad}")
+            if bad or not all(v > 0 for v in qkv) or not all(
+                    math.isfinite(metrics[k].item()) for k in ("loss", "grad_norm")):
+                failures.append(f"train step 1024² {dtype}: loss {metrics['loss'].item()}, grad "
+                                f"norm {metrics['grad_norm'].item()}, non-finite or missing "
+                                f"gradients {bad[:5]}, bottleneck qkv grads {qkv}")
+            del train_state, train_model, step, metrics
+            torch.cuda.empty_cache()
 
         # one evaluation: flash against plain attention on the same weights (bf16), and
         # the plain model's own bf16 error against f32 as the yardstick
@@ -958,6 +1096,27 @@ def phase_path1024(state: dict) -> None:
             failures.append(f"UNet 1024²: flash against plain attention max {err.max().item()}"
                             f", mean {err.mean().item()}, beyond the bf16 model's own error "
                             f"(max {floor.max().item()}, mean {floor.mean().item()})")
+        # the f32 evaluation: flash against the plain f32 model (`exact`)
+        del model, plain
+        flash32 = build_model("webp", dataclasses.replace(cfg, compute_dtype="float32"),
+                              device=CARD).eval()
+        flash32.load_state_dict(weights)
+        want = collections.Counter(at(fa.KERNEL, d, "float32") for d in enc + dec)
+        with torch.no_grad(), no_tf32():
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            with launches_by_head_dim() as seen:
+                out32 = flash32(xt, t).float()
+                torch.cuda.synchronize()
+            check("UNet evaluation 1024² (f32, flash)", seen, want, time.perf_counter() - t0)
+        err32 = (out32 - ref32).abs()
+        log(f"  f32 flash against plain attention (no TF32): max|diff| {err32.max().item():.4g}"
+            f", mean {err32.mean().item():.4g}, max|out| {ref32.abs().max().item():.4g} (bound "
+            f"max|diff| <= {PATH1024_F32_MAX_DIFF})")
+        if not (torch.isfinite(out32).all() and err32.max() <= PATH1024_F32_MAX_DIFF):
+            failures.append(f"UNet 1024² f32: flash against plain attention max "
+                            f"{err32.max().item()} > {PATH1024_F32_MAX_DIFF}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
         _reset_counts()
@@ -1526,7 +1685,10 @@ def phase_distill(state: dict) -> None:
       1. `cli/distill.py main`: the student at DISTILL_N_EVAL evaluations at
          q10 and q50 (round-robin) against the full-solver teacher
          (DISTILL_TEACHER_STRIDE 1), one epoch on DISTILL_IMAGES natural
-         images (2 steps);
+         images (2 steps); then the same with `--compute-dtype float32`, as
+         the README tells users to distill, its launches counted per kernel
+         and head dim, the loss and every gradient finite, its step time
+         beside the bf16 run's;
       2. `--progressive` from a stride-10 teacher on fewer images: the
          budget chain must be DISTILL_PROGRESSIVE_BUDGETS (stage0, then the
          root directory);
@@ -1542,6 +1704,7 @@ def phase_distill(state: dict) -> None:
     checkpoints nest inside the step's and r = 2; without the step's, r = 0.)
     The student's evaluations launch the forward with the LSE, the
     teacher's (under no_grad) without it."""
+    import collections
     import shutil
 
     import numpy as np
@@ -1554,6 +1717,7 @@ def phase_distill(state: dict) -> None:
     from ddpm_image_restoration_tpu_torch.config import TrainConfig
     from ddpm_image_restoration_tpu_torch.data.dataset import split_indices
     from ddpm_image_restoration_tpu_torch.models import build_model
+    from ddpm_image_restoration_tpu_torch.ops import flash_attention as fa
     from ddpm_image_restoration_tpu_torch.train.distill import (
         DistillConfig,
         make_distill_step,
@@ -1599,6 +1763,51 @@ def phase_distill(state: dict) -> None:
                for g in qkv.values()):
             failures.append("distill: a flash level of the student got no gradient")
         elapsed("distill CLI")
+
+        # the same run in f32, as the README tells users to distill (bf16
+        # distillation diverges there): the f32 forward with and without
+        # the LSE, dQ and dK/dV at the flash levels' head dims
+        want32 = distill_launches(steps, DISTILL_N_EVAL, DISTILL_TEACHER_STRIDE)
+        with launches_by_head_dim() as seen:
+            (dstate32, hist32), _, _ = _counted(
+                state, f"distill f32 [--compute-dtype float32, n_eval {DISTILL_N_EVAL}, teacher "
+                f"stride {DISTILL_TEACHER_STRIDE}, {steps} steps]", distill_main,
+                [*common, "--synthetic", str(DISTILL_IMAGES), "--checkpoint-dir",
+                 os.path.join(work, "student_f32"), "--n-eval", str(DISTILL_N_EVAL),
+                 "--teacher-stride", str(DISTILL_TEACHER_STRIDE), "--compute-dtype", "float32"],
+                want32, totals, failures)
+        student32 = dstate32.model
+        dims = [fa.kernel_head_dim(fa.KERNEL, d, torch.float32)
+                for d in sum(flash_head_dims(student32, student32.cfg.image_size), [])]
+        by_dim = collections.Counter(seen)
+        want_dim = collections.Counter()
+        for name, n in zip((fa.KERNEL, "flash_attention_bwd_dq", "flash_attention_bwd_dkv"),
+                           want32):
+            for d in dims:
+                want_dim[(name, d)] += n // len(dims)
+        grads = {n: p.grad for n, p in student32.named_parameters()}
+        bad = [n for n, g in grads.items() if g is not None and not torch.isfinite(g).all()]
+        missing = [n for n, g in grads.items() if g is None]
+        qkv32 = [getattr(student32, lvl).attn.qkv.weight.grad for lvl in ("down2", "up4")]
+        log(f"  f32: launches by (kernel, head dim) {dict(sorted(by_dim.items()))}, the schedule "
+            f"implies {dict(sorted(want_dim.items()))}; loss {hist32['loss'][-1]:.4f}, val_psnr "
+            f"{hist32['val_psnr'][-1]:.3f}, {hist32['step_ms'][-1]:.1f} ms/distill step in the "
+            f"loop (bf16: {hist['step_ms'][-1]:.1f}), epoch {hist32['epoch_time'][-1]:.1f} s "
+            f"(bf16: {hist['epoch_time'][-1]:.1f}) on {state['smi']}; parameters with a "
+            f"non-finite gradient {bad}, without one {missing}; |qkv grad| max "
+            f"{[g.abs().max().item() if g is not None else None for g in qkv32]}")
+        if by_dim != want_dim:
+            failures.append(f"distill f32: launches {dict(by_dim)}, the schedule implies "
+                            f"{dict(want_dim)}")
+        if not (dstate32.step == steps and np.isfinite(hist32["loss"]).all()
+                and np.isfinite(hist32["val_psnr"]).all()) or bad or any(
+                    g is None or g.abs().max().item() == 0 for g in qkv32):
+            failures.append(f"distill f32: step {dstate32.step} of {steps}, history "
+                            f"{dict(hist32)}, non-finite gradients {bad[:5]}, flash-level qkv "
+                            f"gradients {[g is not None for g in qkv32]}")
+        del dstate32, student32, grads
+        torch.cuda.empty_cache()
+        elapsed("distill CLI f32")
 
         p_steps = len(split_indices(DISTILL_PROGRESSIVE_IMAGES)[0]) // TRAIN_BATCH
         budgets = DISTILL_PROGRESSIVE_BUDGETS
@@ -3558,7 +3767,9 @@ PHASES = [("environment", phase_environment), ("build", phase_build),
 def kernels_json(state: dict) -> str:
     """One row per kernel. Its top-level numbers are at the first serving
     or training shape in bf16 (down2); `main_path_shapes` has each shape the
-    main paths give it, with its own error and times. `launches` sums the
+    main paths give it in bf16, `f32_path_shapes` each f32 one, with its own
+    error and times (an f32 path shape's library time is SDPA's faster
+    backend in f32, named). `launches` sums the
     main paths' runs (serve, the 1024² path, train, distillation, the
     parallel phase's ranks, the restore and serve CLIs, the evaluator, the
     AVIF family, the Gaussian-mixture restore), each counted from 0;
@@ -3572,10 +3783,13 @@ def kernels_json(state: dict) -> str:
              "avif": state.get("launches_avif", {}),
              "gaussian_mixture": state.get("launches_gaussian_mixture", {})}
 
-    def row(name, source, replaces, rows, shapes, key):
+    def row(name, source, replaces, rows, shapes, key, f32_shapes):
         per_shape = [{"path": path, "shape_bh_t_d": [bh, t, d], "dtype": "bfloat16",
                       "save_lse": lse, **rows[key(bh, t, d, "bfloat16", lse)]}
                      for path, bh, t, d, lse in shapes]
+        f32 = [{"path": path, "shape_bh_t_d": [bh, t, d], "dtype": "float32", "save_lse": lse,
+                **rows[key(bh, t, d, "float32", lse)]}
+               for path, bh, t, d, lse in f32_shapes if key(bh, t, d, "float32", lse) in rows]
         first = per_shape[0]
         by_path = {path: counts.get(name, 0) for path, counts in paths.items()}
         return {
@@ -3587,18 +3801,19 @@ def kernels_json(state: dict) -> str:
             "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"], "library_ms": first["library_ms"],
             "shape": "BH=%d,T=%d,D=%d bf16 (%s, down2)" % (*first["shape_bh_t_d"], first["path"]),
-            "main_path_shapes": per_shape,
+            "main_path_shapes": per_shape, "f32_path_shapes": f32,
         }
 
     fwd_rows, bwd_rows = state["kernel_rows"], state.get("bwd_rows", {})
     kernels = [row("flash_attention_fwd", "flash_attention_fwd.cu", 51, fwd_rows,
-                   FWD_PATH_SHAPES, lambda *k: k)]
+                   FWD_PATH_SHAPES, lambda *k: k, F32_FWD_PATH_SHAPES)]
     for kind, line in (("dq", 207), ("dkv", 247)):
         rows = {k: r for k, r in bwd_rows.items() if k[0] == kind}
         kernels.append(row(f"flash_attention_bwd_{kind}", "flash_attention_bwd.cu", line,
                            rows, [(TRAIN_PATHS.get(s, "train step"), *s, True)
                                   for s in TRAIN_SHAPES],
-                           lambda bh, t, d, n, lse, kind=kind: (kind, bh, t, d, n)))
+                           lambda bh, t, d, n, lse, kind=kind: (kind, bh, t, d, n),
+                           [(path, *s, True) for s, path in F32_TRAIN_SHAPES.items()]))
     return json.dumps({"kernels": kernels})
 
 

@@ -6,7 +6,7 @@
 // Delta = rowsum(dO o O):
 //
 //   dQ = scale * (P o (dO*V^T - Delta)) * K          flash_bwd_dq_wgmma_kernel (bf16)
-//                                                    flash_bwd_dq_kernel (f32)
+//                                                    flash_bwd_dq_kernel (f32, TF32)
 //   dV = P^T * dO,  dK = scale * dS^T * Q            flash_bwd_dkv_wgmma_kernel (bf16)
 //                                                    flash_bwd_dkv_kernel (f32)
 //
@@ -146,7 +146,51 @@
 // same B operand, since one bf16 rounding moves dQ, dK and dV by several
 // bf16 steps against the f32 plain version.
 //
-// In f32 both run on the CUDA cores in f32 FMA (67 TFLOP/s ceiling).
+// f32 dQ (flash_bwd_dq_kernel), at every D: TF32 wgmma with the 3xTF32
+// split (flash_tf32.cuh; the forward's design, flash_attention_fwd.cu),
+// replacing PR 5's FMA kernel (0.3376 ms at (4, 1024, 128), 0.6033 at (4,
+// 1024, 256)). What bounds it at T = 1024: S, dP and dS*K three times
+// each, 18*T^2*D flops a head at 495 TFLOP/s: 20 us at (4, 1024, 128), 39
+// at (4, 1024, 256); at 67 TFLOP/s f32 6*T^2*D, 48 and 96 us. The design:
+//   * C consumer warpgroups of 64 queries (2 at D <= 64, 1 at 128), each
+//     with its own Q and dO hi/lo tiles, and a producer warpgroup: its
+//     first thread issues every TMA load, its warps 1-3 split K and V as
+//     they land into K hi/lo and V hi/lo in place and write K^T hi/lo
+//     (keys along the row, permuted in groups of 8: dS*K's B operand, which
+//     TF32 wgmma reads K-major only);
+//   * shared memory: Q, dO hi/lo, 16*64*D bytes a consumer; stages of BN
+//     keys of 24*BN*D bytes (K, V, K^T, hi and lo):
+//       D = 16:  32 KB, BN 32, 4 stages of 12 KB:  80 KB
+//       D = 32:  64 KB, BN 32, 4 stages of 24 KB: 160 KB
+//       D = 64:  128 KB, BN 32, 2 stages of 48 KB: 224 KB
+//       D = 128: 128 KB (C = 1), BN 16, 2 stages of 48 KB: 224 KB
+//       D = 256: one consumer's Q and dO hi/lo alone would take 256 KB, so
+//         the head dim is split over a cluster of 2 blocks, each holding
+//         its 128 columns: Q hi and dO hi/lo (96 KB; Q's lo part is kept in
+//         the consumer's registers as the A fragments of the S product,
+//         64 a thread, which made room for a second stage and ran 1.18x
+//         faster than Q lo in shared memory with one stage and a raw
+//         landing area), two stages of K, V and K^T (96 KB) and an inbox
+//         for the partner's partial S and dP (8 KB): 200 KB. After the
+//         products each consumer thread stores its partial S and dP into
+//         the partner's inbox (st.shared::cluster) and arrives on the
+//         partner's mbarrier (release at cluster scope), waits for the
+//         partner's, and adds the two in rank order, so that both blocks
+//         hold the same S and dP; each then writes its 128 columns of dQ.
+//         (Issuing tile j + 1's products before tile j's exchange, with a
+//         raw landing area, ran 1.5x slower: kernel_ab.py, PERF.md §6);
+//   * S = Q*K^T and dP = dO*V^T by m64n{BN}k8 from descriptors, P =
+//     exp2(S*c - LSE) and dS = P o (dP - Delta) on the accumulators (keys
+//     >= T given P = 0), dQ += dS*K by register-A m64n{min(D, 64)}k8
+//     against K^T, dS split into hi/lo in registers (split_a_tf32); Delta
+//     from the f32 rows of dO and O, written for dK/dV by block 0 of a
+//     cluster;
+//   * the split over keys: where the grid is short of the card, a row
+//     tile's key tiles are dealt over a cluster of 2 blocks (fill_split:
+//     (4, 1024, 128) takes 2; 4 when forced) and their partial dQ added
+//     through distributed shared memory in one fixed order; every output
+//     element written once, deterministic.
+// The f32 dK/dV runs on the CUDA cores in f32 FMA (67 TFLOP/s ceiling).
 // Layout: each row owned by a block is split over TPR = D/8 adjacent lanes
 // that each hold 8 interleaved dims (so the lanes of one row read different
 // shared-memory banks), 16 dims at D = 256 (16 lanes a row); dot products
@@ -167,6 +211,7 @@
 #include <type_traits>
 
 #include "flash_mma.cuh"
+#include "flash_tf32.cuh"
 
 namespace {
 
@@ -191,84 +236,6 @@ __device__ __forceinline__ void load_tile(float (*dst)[D], const float* __restri
   for (int i = threadIdx.x; i < BN * D; i += kThreads) {
     const int r = i / D, c = i % D;
     dst[r][c] = r < n_valid ? src[(size_t)r * D + c] : 0.f;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ o,
-                    const float* __restrict__ dout, const float* __restrict__ lse,
-                    float* __restrict__ dq, float* __restrict__ delta, int t_len,
-                    float scale, float scale_log2) {
-  constexpr int DPL = Tile<D>::DPL, TPR = Tile<D>::TPR, ROWS = Tile<D>::ROWS, BN = Tile<D>::BN;
-  __shared__ float k_s[BN][D];
-  __shared__ float v_s[BN][D];
-
-  const int bh = blockIdx.y;
-  const int sub = threadIdx.x % TPR;
-  const int row = blockIdx.x * ROWS + threadIdx.x / TPR;
-  const bool row_ok = row < t_len;
-  const size_t base = (size_t)bh * t_len * D;
-  const size_t row_base = base + (size_t)(row_ok ? row : 0) * D;
-
-  float qr[DPL], dor[DPL], acc[DPL];
-  float dsum = 0.f;
-#pragma unroll
-  for (int e = 0; e < DPL; ++e) {
-    const int d = sub + e * TPR;
-    qr[e] = row_ok ? q[row_base + d] * scale_log2 : 0.f;
-    dor[e] = row_ok ? dout[row_base + d] : 0.f;
-    dsum = fmaf(dor[e], row_ok ? o[row_base + d] : 0.f, dsum);
-    acc[e] = 0.f;
-  }
-#pragma unroll
-  for (int off = TPR / 2; off > 0; off >>= 1) dsum += __shfl_xor_sync(0xffffffffu, dsum, off);
-  const size_t stat = (size_t)bh * t_len + row;
-  const float lse_log2 = row_ok ? lse[stat] * kLog2e : 0.f;
-  if (row_ok && sub == 0) delta[stat] = dsum;
-
-  for (int k0 = 0; k0 < t_len; k0 += BN) {
-    const int n_valid = min(BN, t_len - k0);
-    __syncthreads();  // previous tile fully consumed
-    load_tile<D, BN>(k_s, k + base + (size_t)k0 * D, n_valid);
-    load_tile<D, BN>(v_s, v + base + (size_t)k0 * D, n_valid);
-    __syncthreads();
-
-    for (int c0 = 0; c0 < n_valid; c0 += kChunk) {
-      float s[kChunk], dp[kChunk];
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        float a = 0.f, b = 0.f;
-#pragma unroll
-        for (int e = 0; e < DPL; ++e) {
-          a = fmaf(qr[e], k_s[c0 + j][sub + e * TPR], a);
-          b = fmaf(dor[e], v_s[c0 + j][sub + e * TPR], b);
-        }
-        s[j] = a;
-        dp[j] = b;
-      }
-#pragma unroll
-      for (int off = TPR / 2; off > 0; off >>= 1) {
-#pragma unroll
-        for (int j = 0; j < kChunk; ++j) {
-          s[j] += __shfl_xor_sync(0xffffffffu, s[j], off);
-          dp[j] += __shfl_xor_sync(0xffffffffu, dp[j], off);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const float p = (row_ok && c0 + j < n_valid) ? exp2f(s[j] - lse_log2) : 0.f;
-        const float ds = p * (dp[j] - dsum);
-#pragma unroll
-        for (int e = 0; e < DPL; ++e) acc[e] = fmaf(ds, k_s[c0 + j][sub + e * TPR], acc[e]);
-      }
-    }
-  }
-
-  if (row_ok) {
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) dq[row_base + sub + e * TPR] = acc[e] * scale;
   }
 }
 
@@ -357,6 +324,379 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       dv[row_base + sub + e * TPR] = dv_acc[e];
     }
   }
+}
+
+// f32 dQ (flash_bwd_dq_kernel<D>; the file's note): C consumer warpgroups
+// of 64 query rows walk the same key tiles, each with its own Q and dO
+// hi/lo tiles; the producer warpgroup's first thread issues every load and
+// its warps 1-3 split what lands into TF32 hi/lo tiles. At D = 256 the
+// head dim is split over a cluster of DS = 2 blocks: each holds its half of
+// Q, dO, K, V and K^T, the two exchange their partial S and dP each key
+// tile, and each writes its half of dQ.
+template <int D> struct F32Dq {
+  static constexpr int DS = D > 128 ? 2 : 1;       // blocks a row tile's head dim is split over
+  static constexpr int DH = D / DS;                // head dims a block
+  static constexpr int C = D <= 64 ? 2 : 1;        // consumer warpgroups
+  static constexpr int ROWS = 64 * C;              // query rows a block
+  static constexpr int CONSUMERS = 128 * C;
+  static constexpr int THREADS = CONSUMERS + 128;  // and the producer warpgroup
+  static constexpr int SPLITTERS = 96;             // the producer's warps 1-3
+  static constexpr int SW = DH * 4 < 128 ? DH * 4 : 128;  // bytes a row of a [rows, DH] tile
+  static constexpr int W = SW / 4;                         // columns a panel
+  static constexpr int BN = D <= 64 ? 32 : 16;             // keys a ring stage
+  static constexpr int VSW = BN * 4 < 128 ? BN * 4 : 128;  // bytes a row of K^T
+  static constexpr int NC = DH < 64 ? DH : 64;     // output columns a dS*K product
+  static constexpr int QTILE = 64 * DH * 4;        // a [64, DH] f32 tile
+  static constexpr int KTILE = BN * DH * 4;        // a [BN, DH] (or [DH, BN]) f32 tile
+  // The partial S and dP a block sends its partner each key tile (DS = 2):
+  // each consumer thread's accumulators, 2 * BN / 2 f32.
+  static constexpr int XCHG = DS == 2 ? CONSUMERS * BN * 4 : 0;
+  // DS = 2: Q's lo part lives in the consumers' registers (its A fragments
+  // of the DH / 8 k8 steps, 4 a step: 64 registers at DH = 128), not in
+  // shared memory, so that a second stage fits
+  static constexpr bool QLO_REGS = DS == 2;
+  static constexpr int CTILES = QLO_REGS ? 3 : 4;  // [64, DH] tiles a consumer holds
+  // From the 1024-aligned base: each consumer's Q hi, Q lo (unless
+  // QLO_REGS), dO hi, dO lo; the ring (K hi, where raw K lands; K lo; V hi,
+  // where raw V lands; V lo; K^T hi; K^T lo); the partner's inbox (DS = 2);
+  // the barriers (raw full, split full, empty; then Q and dO's, their
+  // split, and the exchange's ready and free). As many stages as fit in
+  // 227 KB, at most 4 (2 at D = 64, 128 and 256).
+  static constexpr int RING = C * CTILES * QTILE;
+  static constexpr int STAGE = 6 * KTILE;
+  static constexpr int FIT = (232448 - 1024 - 512 - RING - XCHG) / STAGE;
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  static constexpr int INBOX = RING + STAGES * STAGE;
+  static constexpr int BARS = INBOX + XCHG;
+  static constexpr int SMEM = 1024 + BARS + 8 * (3 * STAGES + 4);
+  // The key split's partial dQ (f32 [ROWS][OSTRIDE]) overlays Q and the ring.
+  static constexpr int OSTRIDE = DH + 4;
+  // the most blocks a row tile's keys are dealt over: 4 (forced), and 2 by
+  // fill_split (clusters of 4 ran slower than of 2: kernel_ab.py); none
+  // where the cluster splits the head dim
+  static constexpr int MAX_SPLIT = DS == 2 ? 1 : 4, RULE_SPLIT = DS == 2 ? 1 : 2;
+  static_assert(STAGES >= 2 && SMEM <= 232448, "227 KB a block");
+  static_assert(ROWS * OSTRIDE * 4 <= BARS, "the partial dQ overlays Q and the ring");
+};
+
+template <int D>
+__device__ __forceinline__ void dq_tf32(const CUtensorMap& q_map, const CUtensorMap& k_map,
+                                        const CUtensorMap& v_map, const CUtensorMap& do_map,
+                                        const float* __restrict__ q, const float* __restrict__ o,
+                                        const float* __restrict__ dout,
+                                        const float* __restrict__ lse, float* __restrict__ dq,
+                                        float* __restrict__ delta, int t_len, float scale,
+                                        float scale_log2, int split) {
+  using namespace wgmma_sm90;
+  using namespace flash_tf32;
+  using F = F32Dq<D>;
+  constexpr int S = F::STAGES, DH = F::DH;
+  char* const raw = dynamic_smem();
+  const uint32_t base = (smem_u32(raw) + 1023) & ~1023u;
+  char* const area = raw + (base - smem_u32(raw));
+  const uint32_t bars = base + F::BARS;
+  auto raw_full = [&](int s) { return bars + 8 * s; };           // TMA landed
+  auto split_full = [&](int s) { return bars + 8 * (S + s); };    // hi/lo written
+  auto empty = [&](int s) { return bars + 8 * (2 * S + s); };     // consumers done
+  const uint32_t q_bar = bars + 24 * S, q_split = q_bar + 8;
+  const uint32_t x_ready = q_bar + 16, x_free = q_bar + 24;  // DS = 2: the exchange
+  auto stage_at = [&](int s) { return F::RING + s * F::STAGE; };  // bytes from base
+
+  const int bh = blockIdx.y;
+  const int cl = F::DS == 2 ? 2 : split;         // the cluster's blocks
+  const int rank = blockIdx.x % cl;              // the cluster rank where cl > 1
+  const int krank = F::DS == 2 ? 0 : rank;       // the block's share of the keys
+  const int ksplit = F::DS == 2 ? 1 : split;
+  const int d0 = F::DS == 2 ? rank * DH : 0;     // the block's first head dim
+  const int m0 = blockIdx.x / cl * F::ROWS;
+  const int n_tiles = (t_len + F::BN - 1) / F::BN;
+  const int n_local = krank < n_tiles ? (n_tiles - krank + ksplit - 1) / ksplit : 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4;
+  const int g = lane >> 2, tq = lane & 3;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < S; ++st) {
+      mbar_init(raw_full(st), 1);
+      mbar_init(split_full(st), 3);             // the splitting warps
+      mbar_init(empty(st), F::CONSUMERS / 32);  // every consumer warp
+    }
+    mbar_init(q_bar, 1);
+    mbar_init(q_split, 3);
+    mbar_init(x_ready, F::CONSUMERS);  // every partner consumer thread
+    mbar_init(x_free, F::CONSUMERS);
+    mbar_fence_init();
+  }
+  if (F::DS == 2) cluster_sync();  // the partner's barriers exist before any arrival
+  else __syncthreads();
+
+  float acc[DH / F::NC][F::NC / 8][4];
+  if (wg == F::C) {
+    const int ptid = threadIdx.x - F::CONSUMERS;
+    if (ptid == 0) {
+      // the loads: each consumer's Q and dO tiles once, then the key tiles
+      // (K, V) through the ring, a stage refilled once the consumers let it go
+      mbar_arrive_expect_tx(q_bar, F::C * 2 * F::QTILE);
+      for (int c = 0; c < F::C; ++c) {
+        for (int pn = 0; pn < DH / F::W; ++pn) {
+          const uint32_t at = base + c * F::CTILES * F::QTILE + pn * 64 * F::SW;
+          tma_load_3d(at, &q_map, q_bar, d0 + pn * F::W, m0 + 64 * c, bh);
+          tma_load_3d(at + (F::CTILES - 2) * F::QTILE, &do_map, q_bar, d0 + pn * F::W,
+                      m0 + 64 * c, bh);
+        }
+      }
+      for (int j = 0; j < n_local; ++j) {
+        const int st = j % S;
+        if (j >= S) mbar_wait(empty(st), ((j / S) & 1) ^ 1);
+        const int k0 = (krank + j * ksplit) * F::BN;
+        mbar_arrive_expect_tx(raw_full(st), 2 * F::KTILE);
+        for (int pn = 0; pn < DH / F::W; ++pn) {
+          tma_load_3d(base + stage_at(st) + pn * F::BN * F::SW, &k_map, raw_full(st),
+                      d0 + pn * F::W, k0, bh);
+          tma_load_3d(base + stage_at(st) + 2 * F::KTILE + pn * F::BN * F::SW, &v_map,
+                      raw_full(st), d0 + pn * F::W, k0, bh);
+        }
+      }
+    } else if (ptid >= 32) {
+      // the split: Q and dO once, then each stage as it lands
+      const int sid = ptid - 32;
+      mbar_wait(q_bar, 0);
+      for (int c = 0; c < F::C; ++c) {
+        char* const q_tile = area + c * F::CTILES * F::QTILE;
+        char* const do_tile = q_tile + (F::CTILES - 2) * F::QTILE;
+        split_in_place(q_tile, F::QLO_REGS ? nullptr : q_tile + F::QTILE, F::QTILE, sid,
+                       F::SPLITTERS);
+        split_in_place(do_tile, do_tile + F::QTILE, F::QTILE, sid, F::SPLITTERS);
+      }
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(q_split);
+      for (int j = 0; j < n_local; ++j) {
+        const int st = j % S;
+        mbar_wait(raw_full(st), (j / S) & 1);
+        split_keys<DH, F::BN, false>(area + stage_at(st), sid, F::SPLITTERS);
+        fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(split_full(st));
+      }
+    }
+  } else {
+    // Delta = rowsum(dO o O) of this lane's rows g and g + 8 from the f32
+    // rows in device memory (all D columns: 8j + 2tq, +1, then over the
+    // quad), and their LSE in log2 units; rows >= T get 0 for both, so that
+    // their P = 1 meets a zero dO and Delta: dS = 0. Block 0 of a cluster
+    // writes it.
+    const int row0 = m0 + 64 * wg + 16 * (warp % 4) + g;
+    float dlt[2] = {0.f, 0.f}, neg_lse[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      const size_t stat = (size_t)bh * t_len + row;
+      if (row < t_len) {
+#pragma unroll 4
+        for (int j = 0; j < D / 8; ++j) {
+          const size_t at = stat * D + 8 * j + 2 * tq;
+          const float2 d2 = *reinterpret_cast<const float2*>(dout + at);
+          const float2 o2 = *reinterpret_cast<const float2*>(o + at);
+          dlt[r] = fmaf(d2.x, o2.x, dlt[r]);
+          dlt[r] = fmaf(d2.y, o2.y, dlt[r]);
+        }
+        neg_lse[r] = -lse[stat] * kLog2e;
+      }
+      dlt[r] += __shfl_xor_sync(0xffffffffu, dlt[r], 1);
+      dlt[r] += __shfl_xor_sync(0xffffffffu, dlt[r], 2);
+      if (rank == 0 && row < t_len && tq == 0) delta[stat] = dlt[r];
+    }
+#pragma unroll
+    for (int c = 0; c < DH / F::NC; ++c) {
+#pragma unroll
+      for (int j = 0; j < F::NC / 8; ++j) acc[c][j][0] = acc[c][j][1] = acc[c][j][2] = acc[c][j][3] = 0.f;
+    }
+    const uint32_t q_hi = base + wg * F::CTILES * F::QTILE, q_lo = q_hi + F::QTILE;
+    const uint32_t do_hi = q_hi + (F::CTILES - 2) * F::QTILE, do_lo = do_hi + F::QTILE;
+    // QLO_REGS: this thread's part of Q's lo A fragments, from the rows in
+    // device memory (k8 step kd: rows g, g + 8, columns d0 + 8kd + tq, + 4)
+    uint32_t qlo[F::QLO_REGS ? DH / 8 : 1][4];
+    if constexpr (F::QLO_REGS) {
+      const float* const qr = q + ((size_t)bh * t_len + row0) * D + d0 + tq;
+#pragma unroll
+      for (int kd = 0; kd < DH / 8; ++kd) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = i & 1, c = 8 * kd + 4 * (i >> 1);
+          const float x = row0 + 8 * r < t_len ? qr[(size_t)8 * r * D + c] : 0.f;
+          uint32_t hi;
+          split_tf32(x, hi, qlo[kd][i]);
+        }
+      }
+    }
+    // DS = 2: this thread's slot of the partner's inbox (where it sends its
+    // partial S and dP) and of its own (where the partner's arrive)
+    const uint32_t slot = base + F::INBOX + threadIdx.x * F::BN * 4;
+    const uint32_t partner_slot = map_to_rank(slot, rank ^ 1);
+    mbar_wait(q_split, 0);
+    for (int j = 0; j < n_local; ++j) {
+      const int st = j % S;
+      mbar_wait(split_full(st), (j / S) & 1);
+      const uint32_t kt = base + stage_at(st), vt = kt + 2 * F::KTILE, ktt = kt + 4 * F::KTILE;
+      // S = Q K^T and dP = dO V^T, two independent chains, 3xTF32 (over
+      // this block's head dims)
+      float s[F::BN / 8][4], dp[F::BN / 8][4];
+      wgmma_fence();
+#pragma unroll
+      for (int kd = 0; kd < DH / 8; ++kd) {
+        const uint32_t qa = kslice8<F::SW>(kd, 64), ka = kslice8<F::SW>(kd, F::BN);
+        if constexpr (F::QLO_REGS)
+          wgmma_3xtf32_sr(s, make_desc(q_hi + qa, F::SW), qlo[kd], make_desc(kt + ka, F::SW),
+                          make_desc(kt + F::KTILE + ka, F::SW), kd > 0);
+        else
+          wgmma_3xtf32_ss(s, make_desc(q_hi + qa, F::SW), make_desc(q_lo + qa, F::SW),
+                          make_desc(kt + ka, F::SW), make_desc(kt + F::KTILE + ka, F::SW), kd > 0);
+        wgmma_3xtf32_ss(dp, make_desc(do_hi + qa, F::SW), make_desc(do_lo + qa, F::SW),
+                        make_desc(vt + ka, F::SW), make_desc(vt + F::KTILE + ka, F::SW), kd > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(s);
+      fence_acc(dp);
+      if (F::DS == 2) {
+        // the two halves' partial S and dP: each thread sends its own to
+        // the partner's inbox (once the partner has read the last ones),
+        // takes the partner's from its own, and adds them in rank order,
+        // so that both blocks hold the same S and dP
+        if (j > 0) mbar_wait_cluster(x_free, (j - 1) & 1);
+#pragma unroll
+        for (int jj = 0; jj < F::BN / 8; ++jj) {
+          st_cluster_v4(partner_slot + 32 * jj, make_float4(s[jj][0], s[jj][1], s[jj][2], s[jj][3]));
+          st_cluster_v4(partner_slot + 32 * jj + 16,
+                        make_float4(dp[jj][0], dp[jj][1], dp[jj][2], dp[jj][3]));
+        }
+        mbar_arrive_cluster(map_to_rank(x_ready, rank ^ 1));
+        mbar_wait_cluster(x_ready, j & 1);
+        const float* const in = reinterpret_cast<const float*>(area + F::INBOX) +
+                                threadIdx.x * F::BN;
+#pragma unroll
+        for (int jj = 0; jj < F::BN / 8; ++jj) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float ps = in[8 * jj + e], pd = in[8 * jj + 4 + e];
+            s[jj][e] = rank == 0 ? s[jj][e] + ps : ps + s[jj][e];
+            dp[jj][e] = rank == 0 ? dp[jj][e] + pd : pd + dp[jj][e];
+          }
+        }
+        mbar_arrive_cluster(map_to_rank(x_free, rank ^ 1));
+      }
+      // P = exp2(S c - LSE) and dS = P o (dP - Delta) on the accumulators;
+      // key columns >= T get P = 0 explicitly (a zero-filled K gives S = 0,
+      // and exp2(0 - LSE) is not 0)
+      const int n_valid = t_len - (krank + j * ksplit) * F::BN;
+#pragma unroll
+      for (int jj = 0; jj < F::BN / 8; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const bool ok = n_valid >= F::BN || 8 * jj + 2 * tq + (e & 1) < n_valid;
+          const float p = ok ? exp2_approx(fmaf(s[jj][e], scale_log2, neg_lse[r])) : 0.f;
+          dp[jj][e] = p * (dp[jj][e] - dlt[r]);
+        }
+      }
+      SplitTf32 ds[F::BN / 8];
+#pragma unroll
+      for (int kk = 0; kk < F::BN / 8; ++kk) ds[kk] = split_a_tf32(dp[kk]);
+      // dQ += dS K, 3xTF32, against K^T (keys along its rows)
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < F::BN / 8; ++kk) {
+#pragma unroll
+        for (int c = 0; c < DH / F::NC; ++c) {
+          const uint32_t ka = kslice8<F::VSW>(kk, DH) + c * F::NC * F::VSW;
+          wgmma_3xtf32_rs(acc[c], ds[kk], make_desc(ktt + ka, F::VSW),
+                          make_desc(ktt + F::KTILE + ka, F::VSW));
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < DH / F::NC; ++c) fence_acc(acc[c]);
+      if (lane == 0) mbar_arrive(empty(st));
+    }
+    if (ksplit == 1) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        if (row >= t_len) continue;
+        float* const out = dq + ((size_t)bh * t_len + row) * D + d0 + 2 * tq;
+#pragma unroll
+        for (int c = 0; c < DH / F::NC; ++c) {
+#pragma unroll
+          for (int jo = 0; jo < F::NC / 8; ++jo)
+            *reinterpret_cast<float2*>(out + c * F::NC + 8 * jo) =
+                make_float2(acc[c][jo][2 * r] * scale, acc[c][jo][2 * r + 1] * scale);
+        }
+      }
+    }
+  }
+  if (F::DS == 2) {
+    cluster_sync();  // no block leaves while its partner may still signal it
+    return;
+  }
+  if (split == 1) return;
+
+  // the key split: every block's partial dQ into its merge area, laid over
+  // Q and the ring once every product and split of the block has run; block
+  // `rank` adds rows [rank, rank + 1) * ROWS / split over the cluster's
+  // blocks, four columns a step; every output element written once
+  __syncthreads();
+  float* const part = reinterpret_cast<float*>(area);
+  if (wg < F::C) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float* const out = part + (64 * wg + 16 * (warp % 4) + g + 8 * r) * F::OSTRIDE + 2 * tq;
+#pragma unroll
+      for (int c = 0; c < DH / F::NC; ++c) {
+#pragma unroll
+        for (int jo = 0; jo < F::NC / 8; ++jo)
+          *reinterpret_cast<float2*>(out + c * F::NC + 8 * jo) =
+              make_float2(acc[c][jo][2 * r], acc[c][jo][2 * r + 1]);
+      }
+    }
+  }
+  cluster_sync();
+  const int rows = F::ROWS / split;
+  const uint32_t at = smem_u32(part);
+  for (int i = threadIdx.x; i < rows * (DH / 4); i += F::THREADS) {
+    const int lr = rank * rows + i / (DH / 4), c = 4 * (i % (DH / 4));
+    const int row = m0 + lr;
+    if (row >= t_len) continue;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int b = 0; b < F::MAX_SPLIT; ++b) {
+      if (b >= split) continue;
+      const float4 x = ld_cluster_v4(map_to_rank(at + 4 * (lr * F::OSTRIDE + c), b));
+      sum.x += x.x;
+      sum.y += x.y;
+      sum.z += x.z;
+      sum.w += x.w;
+    }
+    *reinterpret_cast<float4*>(dq + ((size_t)bh * t_len + row) * D + c) =
+        make_float4(sum.x * scale, sum.y * scale, sum.z * scale, sum.w * scale);
+  }
+  cluster_sync();  // no block leaves while another reads its shared memory
+}
+
+// f32 dQ: TF32 wgmma with the 3xTF32 split (dq_tf32), at every D.
+template <int D>
+__global__ void __launch_bounds__(F32Dq<D>::THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    const __grid_constant__ CUtensorMap do_map, const float* __restrict__ q,
+                    const float* __restrict__ o, const float* __restrict__ dout,
+                    const float* __restrict__ lse, float* __restrict__ dq,
+                    float* __restrict__ delta, int t_len, float scale, float scale_log2,
+                    int split) {
+  dq_tf32<D>(q_map, k_map, v_map, do_map, q, o, dout, lse, dq, delta, t_len, scale, scale_log2,
+             split);
 }
 
 constexpr int kWarpgroups = 2;                   // consumer warpgroups a block
@@ -1106,19 +1446,57 @@ cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v, const vo
 }
 
 template <int D>
+cudaError_t launch_dq_f32(const void* q, const void* k, const void* v, const void* o,
+                          const void* dout, const void* lse, void* dq, void* delta, int bh,
+                          int t, float scale, int split, cudaStream_t stream) {
+  namespace host = wgmma_sm90_host;
+  using F = F32Dq<D>;
+  CUtensorMap maps[4];
+  const void* tiles[4] = {q, k, v, dout};
+  const int rows[4] = {64, F::BN, F::BN, 64};  // Q's and dO's box a consumer's rows
+  cudaError_t err = cudaSuccess;
+  for (int i = 0; i < 4 && err == cudaSuccess; ++i)
+    err = host::tile_map(&maps[i], tiles[i], bh, t, D, F::W, rows[i], F::SW, 4);
+  const int row_tiles = (t + F::ROWS - 1) / F::ROWS;
+  if (F::DS == 2) {
+    split = 1;  // the cluster splits the head dim, not the keys
+  } else {
+    if (split == 0)
+      split = host::fill_split(bh * row_tiles, (t + F::BN - 1) / F::BN, host::sm_count(),
+                               F::RULE_SPLIT);
+    if (split != 1 && split != 2 && split != 4) return cudaErrorInvalidValue;
+  }
+  const int cluster_blocks = F::DS == 2 ? 2 : split;
+  static uint64_t allowed = 0;
+  if (err == cudaSuccess) err = host::allow_smem(flash_bwd_dq_kernel<D>, F::SMEM, allowed);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = cluster_blocks;
+  cluster.val.clusterDim.y = cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(row_tiles * cluster_blocks, bh);
+  cfg.blockDim = dim3(F::THREADS);
+  cfg.dynamicSmemBytes = F::SMEM;
+  cfg.stream = stream;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = cluster_blocks > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, flash_bwd_dq_kernel<D>, maps[0], maps[1], maps[2], maps[3],
+                           static_cast<const float*>(q), static_cast<const float*>(o),
+                           static_cast<const float*>(dout),
+                           static_cast<const float*>(lse), static_cast<float*>(dq),
+                           static_cast<float*>(delta), t, scale, scale * kLog2e, split);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o,
                       const void* dout, const void* lse, void* dq, void* delta, int bh,
-                      int t, int dtype, float scale, cudaStream_t stream) {
+                      int t, int dtype, float scale, int split, cudaStream_t stream) {
   if (dtype == 1) return launch_dq_bf16<D>(q, k, v, o, dout, lse, dq, delta, bh, t, scale, stream);
   if constexpr (D >= 16) {  // the f32 kernel is built from D = 16 up
-    if (dtype == 0) {
-      flash_bwd_dq_kernel<D><<<grid_for<D>(bh, t), kThreads, 0, stream>>>(
-          static_cast<const float*>(q), static_cast<const float*>(k),
-          static_cast<const float*>(v), static_cast<const float*>(o),
-          static_cast<const float*>(dout), static_cast<const float*>(lse),
-          static_cast<float*>(dq), static_cast<float*>(delta), t, scale, scale * kLog2e);
-      return cudaGetLastError();
-    }
+    if (dtype == 0)
+      return launch_dq_f32<D>(q, k, v, o, dout, lse, dq, delta, bh, t, scale, split, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -1198,14 +1576,16 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
 
 cudaError_t dq_dispatch(const void* q, const void* k, const void* v, const void* o,
                         const void* dout, const void* lse, void* dq, void* delta, int bh,
-                        int t, int d, int dtype, float scale, cudaStream_t s) {
+                        int t, int d, int dtype, float scale, int split, cudaStream_t s) {
   switch (d) {
-    case 8: return launch_dq<8>(q, k, v, o, dout, lse, dq, delta, bh, t, dtype, scale, s);
-    case 16: return launch_dq<16>(q, k, v, o, dout, lse, dq, delta, bh, t, dtype, scale, s);
-    case 32: return launch_dq<32>(q, k, v, o, dout, lse, dq, delta, bh, t, dtype, scale, s);
-    case 64: return launch_dq<64>(q, k, v, o, dout, lse, dq, delta, bh, t, dtype, scale, s);
-    case 128: return launch_dq<128>(q, k, v, o, dout, lse, dq, delta, bh, t, dtype, scale, s);
-    case 256: return launch_dq<256>(q, k, v, o, dout, lse, dq, delta, bh, t, dtype, scale, s);
+    case 8: return launch_dq<8>(q, k, v, o, dout, lse, dq, delta, bh, t, dtype, scale, split, s);
+    case 16: return launch_dq<16>(q, k, v, o, dout, lse, dq, delta, bh, t, dtype, scale, split, s);
+    case 32: return launch_dq<32>(q, k, v, o, dout, lse, dq, delta, bh, t, dtype, scale, split, s);
+    case 64: return launch_dq<64>(q, k, v, o, dout, lse, dq, delta, bh, t, dtype, scale, split, s);
+    case 128:
+      return launch_dq<128>(q, k, v, o, dout, lse, dq, delta, bh, t, dtype, scale, split, s);
+    case 256:
+      return launch_dq<256>(q, k, v, o, dout, lse, dq, delta, bh, t, dtype, scale, split, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1228,22 +1608,33 @@ cudaError_t dkv_dispatch(const void* q, const void* k, const void* v, const void
 
 }  // namespace
 
-// dQ and Delta = rowsum(dO o O) from q, k, v, o, dO ([BH, T, d], dtype 0 =
-// float32 (FMA kernel; d >= 16), 1 = bfloat16 (wgmma kernel, d = 8 too; the
-// [BH, T, d] tensors must be 16-byte aligned)) and the forward's [BH, T]
-// f32 LSE. dq
-// has q's dtype; delta is [BH, T] f32. Returns the launch's
-// cudaGetLastError() (cudaErrorInvalidValue for an unsupported d, dtype or
-// size).
-extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
-                                      const void* o, const void* dout, const void* lse,
-                                      void* dq, void* delta, int bh, int t, int d, int dtype,
-                                      float sm_scale, void* stream) {
+// As flash_attention_bwd_dq, with the f32 kernel's split over keys forced
+// at D <= 128: split 0 takes the launcher's rule, 1, 2 or 4 that many
+// blocks a cluster (the bf16 kernel ignores it, and the f32 one at D = 256,
+// whose cluster splits the head dim).
+extern "C" int flash_attention_bwd_dq_split(const void* q, const void* k, const void* v,
+                                            const void* o, const void* dout, const void* lse,
+                                            void* dq, void* delta, int bh, int t, int d,
+                                            int dtype, float sm_scale, int split, void* stream) {
   if (bh <= 0 || bh > 65535 || t <= 0) return (int)cudaErrorInvalidValue;
   const cudaError_t bound = wgmma_sm90_host::bind_device();
   if (bound != cudaSuccess) return (int)bound;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)dq_dispatch(q, k, v, o, dout, lse, dq, delta, bh, t, d, dtype, sm_scale, s);
+  return (int)dq_dispatch(q, k, v, o, dout, lse, dq, delta, bh, t, d, dtype, sm_scale, split, s);
+}
+
+// dQ and Delta = rowsum(dO o O) from q, k, v, o, dO ([BH, T, d], dtype 0 =
+// float32 (TF32 wgmma kernel, d >= 16), 1 = bfloat16
+// (wgmma kernel, d = 8 too); the [BH, T, d] tensors must be 16-byte
+// aligned) and the forward's [BH, T] f32 LSE. dq has q's dtype; delta is
+// [BH, T] f32. Returns the launch's cudaGetLastError()
+// (cudaErrorInvalidValue for an unsupported d, dtype or size).
+extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
+                                      const void* o, const void* dout, const void* lse,
+                                      void* dq, void* delta, int bh, int t, int d, int dtype,
+                                      float sm_scale, void* stream) {
+  return flash_attention_bwd_dq_split(q, k, v, o, dout, lse, dq, delta, bh, t, d, dtype,
+                                      sm_scale, 0, stream);
 }
 
 // As flash_attention_bwd_dkv, with the bf16 kernel's split over query

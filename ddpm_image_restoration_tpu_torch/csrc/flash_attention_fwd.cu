@@ -87,20 +87,49 @@
 //     at D = 128 and 1.61 at D = 256 (T = 1024); at (4, 1024, D) 128
 //     blocks for the 132 SMs.
 //
-// f32: flash_fwd_kernel, products on the CUDA cores in f32 (FMA):
-//   * one block owns one (bh, query tile); K and V stream through shared
-//     memory a tile at a time, so each key is read from device memory once
-//     per query tile and from shared memory by every row of the tile;
-//   * each query row is split over TPR = D/8 adjacent lanes that each hold 8
-//     interleaved dims of q and of the accumulator in registers (16 dims at
-//     D = 256, whose tiles of K and V are 16 keys, 32 KB of the 48 KB of
-//     static shared memory; interleaving keeps the lanes of one row on
-//     different shared-memory banks); a row's
-//     score is the xor-shuffle sum of its lanes' partial dot products, so
-//     every lane holds the same running max and normaliser;
-//   * keys are processed in chunks of 16: the chunk's scores sit in
-//     registers, the accumulator is rescaled once per chunk, and exp2 with
-//     log2(e) folded into the scale replaces exp.
+// f32: flash_fwd_kernel<D>, at every D (16-256; D = 8 zero-padded to 16
+// by the wrapper), on TF32 wgmma with the 3xTF32 split (flash_tf32.cuh):
+// every product A*B as A_hi*B_hi + A_hi*B_lo + A_lo*B_hi of TF32 parts,
+// accumulated in f32, so that the result keeps f32's accuracy (one TF32
+// product fails the f32 bounds). It replaced PR 4's f32 FMA kernel (67
+// TFLOP/s ceiling; 0.4412 ms at (4, 1024, 256), 2.95x SDPA in f32).
+// What bounds it at T = 1024: S and P*V three times each, 12*T^2*D flops a
+// head at 495 TFLOP/s (TF32): 26 us at (4, 1024, 256), 13 at (4, 1024,
+// 128); at 67 TFLOP/s (f32 FMA, what the plain f32 function needs) 4*T^2*D
+// a head, 64 and 32 us. The design:
+//   * a block is C consumer warpgroups of 64 query rows (C = 2 at D <= 64,
+//     1 at D = 128 and 256) and a producer warpgroup: its first thread issues every
+//     TMA load (f32 tensor maps, zero-filled past T), its warps 1-3 split
+//     what lands into TF32 hi/lo tiles in place (split_in_place,
+//     split_keys) and arrive on the stage's second barrier; C + 1 times 128
+//     threads, no setmaxnreg (C = 2: ptxas's 168 registers a thread hold O,
+//     S and P's hi/lo; C = 1: 255);
+//   * TF32 wgmma takes both operands K-major, so V must lie with the keys
+//     along the row: the splitting warps write V^T hi/lo [D, BN] beside K's
+//     hi/lo, keys permuted in groups of 8 (flash_tf32.cuh) so that S's accumulator
+//     is P's A operand as it stands (split_a_tf32, no shuffles);
+//   * shared memory (227 KB a block): each consumer's Q hi and lo (64 x D
+//     x 4 B each), then stages of BN keys holding K hi (raw K lands there),
+//     K lo (raw V lands there), V^T hi and V^T lo, 16*BN*D bytes:
+//       D = 16:  Q 16 KB, BN 64, 4 stages of 16 KB:  80 KB
+//       D = 32:  Q 32 KB, BN 64, 4 stages of 32 KB: 160 KB
+//       D = 64:  Q 64 KB, BN 32, 4 stages of 32 KB: 192 KB
+//       D = 128: Q 64 KB (C = 1), BN 16, 4 stages of 32 KB: 192 KB
+//       D = 256: Q 128 KB (C = 1), BN 16, 1 stage of 64 KB and a raw
+//         area of 32 KB where TMA lands K and V: 224 KB; tile j + 1 loads
+//         under tile j's products, and its split waits for them (Q's
+//         hi/lo alone take 128 KB of the 227);
+//   * S = Q*K^T by m64n{BN}k8 from descriptors (Q hi/lo, K hi/lo), P*V by
+//     register-A m64n{min(D, 64)}k8 against V^T hi/lo; each warpgroup runs
+//     its products and its softmax one after the other;
+//   * the split over keys as the bf16 kernel's: where the grid is short of
+//     the card, a row tile's key tiles are dealt over a cluster of `split`
+//     blocks (fill_split, at most 2, which ran faster than 4 at every f32
+//     path shape: (4, 1024, 128) and (4, 1024, 256) take 2, 128 blocks; 4
+//     when forced),
+//     each block's (m, l, O) merged through distributed shared
+//     memory from a merge area laid over Q and the ring; every output
+//     element written once, deterministic.
 //
 // Build (plain C interface, no PyTorch headers; loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -114,111 +143,14 @@
 #include <type_traits>
 
 #include "flash_mma.cuh"
+#include "flash_tf32.cuh"
 
 namespace {
 
 using flash_mma::bf16;
 
-constexpr int kThreads = 256;
-// dims of a query row a lane holds: 16 at D = 256, so that a row takes 16
-// lanes and not the whole warp
-template <int D> constexpr int kDimsPerLane = D > 128 ? 16 : 8;
-constexpr int kChunk = 16;
 constexpr float kLn2 = 0.69314718055994531f;
 constexpr float kLog2e = 1.4426950408889634f;
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, int t_len, float scale_log2) {
-  constexpr int DPL = kDimsPerLane<D>;
-  constexpr int TPR = D / DPL;                   // lanes per query row
-  constexpr int ROWS = kThreads / TPR;           // query rows per block
-  // keys per shared-memory tile: K and V take 2*BN*D*4 bytes of the 48 KB
-  // of static shared memory (32 KB at D = 128 and 256)
-  constexpr int BN = D > 128 ? 16 : (D == 128 ? 32 : 64);
-  __shared__ float k_s[BN][D];
-  __shared__ float v_s[BN][D];
-
-  const int bh = blockIdx.y;
-  const int sub = threadIdx.x % TPR;
-  const int row = blockIdx.x * ROWS + threadIdx.x / TPR;
-  const bool row_ok = row < t_len;
-  const size_t base = (size_t)bh * t_len * D;
-
-  float qr[DPL];
-  float acc[DPL];
-#pragma unroll
-  for (int j = 0; j < DPL; ++j) {
-    const int d = sub + j * TPR;
-    qr[j] = row_ok ? q[base + (size_t)row * D + d] * scale_log2 : 0.f;
-    acc[j] = 0.f;
-  }
-  float m = -INFINITY;  // running max, in log2 units
-  float l = 0.f;        // running normaliser
-
-  for (int k0 = 0; k0 < t_len; k0 += BN) {
-    const int n_valid = min(BN, t_len - k0);
-    __syncthreads();  // previous tile fully consumed
-    for (int i = threadIdx.x; i < BN * D; i += kThreads) {
-      const int r = i / D, c = i % D;
-      const bool ok = r < n_valid;
-      const size_t g = base + (size_t)(k0 + r) * D + c;
-      k_s[r][c] = ok ? k[g] : 0.f;
-      v_s[r][c] = ok ? v[g] : 0.f;
-    }
-    __syncthreads();
-
-    for (int c0 = 0; c0 < n_valid; c0 += kChunk) {
-      float s[kChunk];
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        float a = 0.f;
-#pragma unroll
-        for (int e = 0; e < DPL; ++e) a = fmaf(qr[e], k_s[c0 + j][sub + e * TPR], a);
-        s[j] = a;
-      }
-#pragma unroll
-      for (int off = TPR / 2; off > 0; off >>= 1) {
-#pragma unroll
-        for (int j = 0; j < kChunk; ++j) s[j] += __shfl_xor_sync(0xffffffffu, s[j], off);
-      }
-      float m_chunk = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        if (c0 + j >= n_valid) s[j] = -INFINITY;  // ragged last tile
-        m_chunk = fmaxf(m_chunk, s[j]);
-      }
-      // m_chunk is finite: the chunk holds at least one real key.
-      const float m_new = fmaxf(m, m_chunk);
-      const float alpha = exp2f(m - m_new);
-      l *= alpha;
-#pragma unroll
-      for (int e = 0; e < DPL; ++e) acc[e] *= alpha;
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const float p = exp2f(s[j] - m_new);
-        l += p;
-#pragma unroll
-        for (int e = 0; e < DPL; ++e) acc[e] = fmaf(p, v_s[c0 + j][sub + e * TPR], acc[e]);
-      }
-      m = m_new;
-    }
-  }
-
-  if (row_ok) {
-    const float inv_l = 1.f / l;
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) {
-      o[base + (size_t)row * D + sub + j * TPR] = acc[j] * inv_l;
-    }
-    if (lse != nullptr && sub == 0) {
-      // back from log2 to natural units: lse = ln(2) * (m + log2(l))
-      lse[(size_t)bh * t_len + row] = kLn2 * (m + log2f(l));
-    }
-  }
-}
 
 constexpr int kWarpgroups = 2;                // warpgroups a block, 64 query rows each
 constexpr int kThreadsWg = 128 * kWarpgroups;
@@ -782,27 +714,330 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   else fwd_pair<D>(q_map, k_map, v_map, o, lse, t_len, scale_log2, split);
 }
 
-// The split over keys that fills the card: 4, else 2 (at most
-// `max_split`), while the grid of `blocks` row tiles times the split stays
-// within one block an SM and every block of a cluster has a key tile; else
-// 1. (kernel_ab.py --splits: at T = 1024 and D = 32 BH = 4 ran fastest
-// split 4 ways, 8 split 2, 16 unsplit, where a rule of two blocks an SM
-// would have split it.)
-int fill_split(int blocks, int key_tiles, int sms, int max_split) {
-  int split = 1;
-  while (split < max_split && blocks * split * 2 <= sms && split * 2 <= key_tiles) split *= 2;
-  return split;
+// f32 (flash_fwd_kernel<D>, every D; see the file's note): C consumer
+// warpgroups of 64 query rows each walk the same key tiles through the
+// ring, each with its own Q hi/lo tiles and (m, l, O); the producer
+// warpgroup's first thread issues every load and its warps 1-3 split each
+// tile into its TF32 hi/lo forms (flash_tf32.cuh split_keys).
+template <int D> struct F32Fwd {
+  // consumer warpgroups: two at D <= 64; one from 128, where two filled
+  // only 64 blocks at (4, 1024, 128) (RULE_SPLIT 2) and ran 1.5x slower
+  static constexpr int C = D <= 64 ? 2 : 1;
+  static constexpr int ROWS = 64 * C;              // query rows a block
+  static constexpr int CONSUMERS = 128 * C;
+  static constexpr int THREADS = CONSUMERS + 128;  // and the producer warpgroup
+  static constexpr int SPLITTERS = 96;             // the producer's warps 1-3
+  static constexpr int SW = D * 4 < 128 ? D * 4 : 128;  // bytes a row of a [rows, D] tile
+  static constexpr int W = SW / 4;                       // columns a panel
+  static constexpr int BN = D <= 32 ? 64 : (D == 64 ? 32 : 16);  // keys a ring stage
+  static constexpr int VSW = BN * 4 < 128 ? BN * 4 : 128;        // bytes a row of V^T
+  static constexpr int NC = D < 64 ? D : 64;       // output columns a P*V product
+  static constexpr int QTILE = 64 * D * 4;         // a [64, D] f32 tile
+  static constexpr int KTILE = BN * D * 4;         // a [BN, D] (or [D, BN]) f32 tile
+  // From the 1024-aligned base: each consumer's Q hi and Q lo; the ring (K
+  // hi, where raw K lands; K lo, where raw V lands; V^T hi; V^T lo); the
+  // barriers (raw full, split full, empty; then Q's and Q split). As many
+  // stages as fit in 227 KB, at most 4.
+  static constexpr int RING = C * 2 * QTILE;
+  static constexpr int STAGE = 4 * KTILE;
+  static constexpr int FIT = (232448 - 1024 - 512 - RING) / STAGE;
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  // With one stage (D = 256), raw K and V land in an area of their own
+  // (RAW), so that the next tile's load runs under this tile's products
+  // and only its split waits for them.
+  static constexpr bool RAW = STAGES == 1;
+  static constexpr int RAW_AT = RING + STAGES * STAGE;
+  static constexpr int BARS = RAW_AT + (RAW ? 2 * KTILE : 0);
+  static constexpr int SMEM = 1024 + BARS + 8 * (4 * STAGES + 2);
+  // The split's merge area (m[ROWS], l[ROWS], then O[ROWS][OSTRIDE], f32)
+  // overlays Q and the ring once every product and split has run.
+  static constexpr int OSTRIDE = D + 4;
+  static constexpr int MERGE_O = 2 * ROWS * 4;
+  static constexpr int MERGE_BYTES = MERGE_O + ROWS * OSTRIDE * 4;
+  // the most blocks a row tile's keys are dealt over: 4 (forced), and 2 by
+  // fill_split (kernel_ab.py --splits: clusters of 4 ran slower than of 2
+  // at every f32 path shape, as for the bf16 kernels at D >= 128)
+  static constexpr int MAX_SPLIT = 4, RULE_SPLIT = 2;
+  static_assert(STAGES >= 1 && SMEM <= 232448, "227 KB a block");
+  static_assert(MERGE_BYTES <= BARS, "the merge area overlays Q and the ring");
+};
+
+template <int D>
+__global__ void __launch_bounds__(F32Fwd<D>::THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map, float* __restrict__ o,
+                 float* __restrict__ lse, int t_len, float scale_log2, int split) {
+  using namespace wgmma_sm90;
+  using namespace flash_tf32;
+  using F = F32Fwd<D>;
+  constexpr int S = F::STAGES;
+  char* const raw = dynamic_smem();
+  const uint32_t base = (smem_u32(raw) + 1023) & ~1023u;
+  char* const area = raw + (base - smem_u32(raw));
+  const uint32_t bars = base + F::BARS;
+  auto raw_full = [&](int s) { return bars + 8 * s; };         // TMA landed
+  auto split_full = [&](int s) { return bars + 8 * (S + s); };  // hi/lo written
+  auto empty = [&](int s) { return bars + 8 * (2 * S + s); };   // consumers done
+  auto raw_free = [&](int s) { return bars + 8 * (3 * S + s); };  // RAW: split read it
+  const uint32_t q_bar = bars + 32 * S, q_split = q_bar + 8;
+  auto stage_at = [&](int s) { return F::RING + s * F::STAGE; };  // bytes from base
+  // where tile j's raw K and V land: their stage, or (RAW) the raw area
+  auto landing = [&](int s) { return F::RAW ? F::RAW_AT : stage_at(s); };
+
+  const int bh = blockIdx.y;
+  const int rank = blockIdx.x % split;  // the cluster rank where split > 1
+  const int m0 = blockIdx.x / split * F::ROWS;
+  const int n_tiles = (t_len + F::BN - 1) / F::BN;
+  const int n_local = rank < n_tiles ? (n_tiles - rank + split - 1) / split : 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < S; ++st) {
+      mbar_init(raw_full(st), 1);
+      mbar_init(split_full(st), 3);              // the splitting warps
+      mbar_init(empty(st), F::CONSUMERS / 32);   // every consumer warp
+      mbar_init(raw_free(st), 3);                // the splitting warps (RAW)
+    }
+    mbar_init(q_bar, 1);
+    mbar_init(q_split, 3);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  float acc[D / F::NC][F::NC / 8][4];
+  float m_row[2] = {-INFINITY, -INFINITY};  // running max of rows g and g + 8, log2 units
+  float l_row[2] = {0.f, 0.f};              // this lane's share of their normalisers
+  const int g = lane >> 2, tq = lane & 3;
+  if (wg == F::C) {
+    const int ptid = threadIdx.x - F::CONSUMERS;
+    if (ptid == 0) {
+      // the loads: each consumer's Q tile once, then the block's key tiles
+      // through the ring, a stage refilled once the consumers let it go
+      mbar_arrive_expect_tx(q_bar, F::C * F::QTILE);
+      for (int c = 0; c < F::C; ++c) {
+        for (int pn = 0; pn < D / F::W; ++pn)
+          tma_load_3d(base + c * 2 * F::QTILE + pn * 64 * F::SW, &q_map, q_bar, pn * F::W,
+                      m0 + 64 * c, bh);
+      }
+      for (int j = 0; j < n_local; ++j) {
+        const int st = j % S;
+        // the landing place is free once the consumers let the stage go
+        // (in place), or once the splitting warps read the last tile (RAW)
+        if (j >= S) mbar_wait(F::RAW ? raw_free(st) : empty(st), ((j / S) & 1) ^ 1);
+        const int k0 = (rank + j * split) * F::BN;
+        mbar_arrive_expect_tx(raw_full(st), 2 * F::KTILE);
+        for (int pn = 0; pn < D / F::W; ++pn) {
+          tma_load_3d(base + landing(st) + pn * F::BN * F::SW, &k_map, raw_full(st), pn * F::W,
+                      k0, bh);
+          tma_load_3d(base + landing(st) + F::KTILE + pn * F::BN * F::SW, &v_map, raw_full(st),
+                      pn * F::W, k0, bh);
+        }
+      }
+    } else if (ptid >= 32) {
+      // the split: Q once, then each stage as it lands
+      const int sid = ptid - 32;
+      mbar_wait(q_bar, 0);
+      for (int c = 0; c < F::C; ++c)
+        split_in_place(area + c * 2 * F::QTILE, area + c * 2 * F::QTILE + F::QTILE, F::QTILE, sid,
+                       F::SPLITTERS);
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(q_split);
+      for (int j = 0; j < n_local; ++j) {
+        const int st = j % S;
+        mbar_wait(raw_full(st), (j / S) & 1);
+        if (F::RAW) {  // the stage is written once the consumers let it go
+          if (j >= S) mbar_wait(empty(st), ((j / S) & 1) ^ 1);
+          split_keys<D, F::BN, true>(area + stage_at(st), sid, F::SPLITTERS, area + F::RAW_AT);
+        } else {
+          split_keys<D, F::BN, true>(area + stage_at(st), sid, F::SPLITTERS);
+        }
+        fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive(split_full(st));
+          if (F::RAW) mbar_arrive(raw_free(st));
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < D / F::NC; ++c) {
+#pragma unroll
+      for (int j = 0; j < F::NC / 8; ++j) acc[c][j][0] = acc[c][j][1] = acc[c][j][2] = acc[c][j][3] = 0.f;
+    }
+    const uint32_t q_hi = base + wg * 2 * F::QTILE, q_lo = q_hi + F::QTILE;
+    mbar_wait(q_split, 0);
+    for (int j = 0; j < n_local; ++j) {
+      const int st = j % S;
+      mbar_wait(split_full(st), (j / S) & 1);
+      const uint32_t kt = base + stage_at(st), vt = kt + 2 * F::KTILE;
+      // S = Q K^T, 3xTF32
+      float s[F::BN / 8][4];
+      wgmma_fence();
+#pragma unroll
+      for (int kd = 0; kd < D / 8; ++kd) {
+        const uint32_t qa = kslice8<F::SW>(kd, 64), ka = kslice8<F::SW>(kd, F::BN);
+        wgmma_3xtf32_ss(s, make_desc(q_hi + qa, F::SW), make_desc(q_lo + qa, F::SW),
+                        make_desc(kt + ka, F::SW), make_desc(kt + F::KTILE + ka, F::SW), kd > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(s);
+      float alpha[2];
+      online_softmax<F::BN>(s, m_row, l_row, t_len - (rank + j * split) * F::BN, tq, scale_log2,
+                            alpha);
+#pragma unroll
+      for (int c = 0; c < D / F::NC; ++c) {
+#pragma unroll
+        for (int jo = 0; jo < F::NC / 8; ++jo) {
+          acc[c][jo][0] *= alpha[0];
+          acc[c][jo][1] *= alpha[0];
+          acc[c][jo][2] *= alpha[1];
+          acc[c][jo][3] *= alpha[1];
+        }
+      }
+      SplitTf32 p[F::BN / 8];
+#pragma unroll
+      for (int kk = 0; kk < F::BN / 8; ++kk) p[kk] = split_a_tf32(s[kk]);
+      // O += P V, 3xTF32, against V^T (keys along its rows)
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < F::BN / 8; ++kk) {
+#pragma unroll
+        for (int c = 0; c < D / F::NC; ++c) {
+          const uint32_t va = kslice8<F::VSW>(kk, D) + c * F::NC * F::VSW;
+          wgmma_3xtf32_rs(acc[c], p[kk], make_desc(vt + va, F::VSW),
+                          make_desc(vt + F::KTILE + va, F::VSW));
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < D / F::NC; ++c) fence_acc(acc[c]);
+      if (lane == 0) mbar_arrive(empty(st));
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 1);
+      l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 2);
+    }
+    if (split == 1) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = m0 + 64 * wg + 16 * (warp % 4) + g + 8 * r;
+        if (row >= t_len) continue;
+        const float inv_l = 1.f / l_row[r];
+        float* const out = o + ((size_t)bh * t_len + row) * D + 2 * tq;
+#pragma unroll
+        for (int c = 0; c < D / F::NC; ++c) {
+#pragma unroll
+          for (int jo = 0; jo < F::NC / 8; ++jo)
+            *reinterpret_cast<float2*>(out + c * F::NC + 8 * jo) =
+                make_float2(acc[c][jo][2 * r] * inv_l, acc[c][jo][2 * r + 1] * inv_l);
+        }
+        if (lse != nullptr && tq == 0) lse[(size_t)bh * t_len + row] = kLn2 * (m_row[r] + log2f(l_row[r]));
+      }
+    }
+  }
+  if (split == 1) return;
+
+  // the split: every block's (m, l, O) into its merge area, laid over Q and
+  // the ring once every product and split of the block has run
+  __syncthreads();
+  float* const m_part = reinterpret_cast<float*>(area);  // [ROWS], then l [ROWS]
+  float* const o_part = reinterpret_cast<float*>(area + F::MERGE_O);
+  if (wg < F::C) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int lr = 64 * wg + 16 * (warp % 4) + g + 8 * r;
+      if (tq == 0) {
+        m_part[lr] = m_row[r];
+        m_part[F::ROWS + lr] = l_row[r];
+      }
+      float* const out = o_part + lr * F::OSTRIDE + 2 * tq;
+#pragma unroll
+      for (int c = 0; c < D / F::NC; ++c) {
+#pragma unroll
+        for (int jo = 0; jo < F::NC / 8; ++jo)
+          *reinterpret_cast<float2*>(out + c * F::NC + 8 * jo) =
+              make_float2(acc[c][jo][2 * r], acc[c][jo][2 * r + 1]);
+      }
+    }
+  }
+  cluster_sync();
+  // block `rank` merges rows [rank, rank + 1) * ROWS / split from every
+  // block's share: M = max m_k, O = sum 2^(m_k - M) O_k / sum 2^(m_k - M) l_k,
+  // four columns a step; every output element written once
+  const int rows = F::ROWS / split;
+  const uint32_t m_at = smem_u32(m_part), o_at = smem_u32(o_part);
+  for (int i = threadIdx.x; i < rows * (D / 4); i += F::THREADS) {
+    const int lr = rank * rows + i / (D / 4), c = 4 * (i % (D / 4));
+    const int row = m0 + lr;
+    if (row >= t_len) continue;
+    float mk[F::MAX_SPLIT], top = -INFINITY;
+#pragma unroll
+    for (int b = 0; b < F::MAX_SPLIT; ++b) {
+      mk[b] = b < split ? ld_cluster_f32(map_to_rank(m_at + 4 * lr, b)) : -INFINITY;
+      top = fmaxf(top, mk[b]);
+    }
+    float l = 0.f;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int b = 0; b < F::MAX_SPLIT; ++b) {
+      if (b >= split) continue;
+      const float w = exp2_approx(mk[b] - top);
+      l += w * ld_cluster_f32(map_to_rank(m_at + 4 * (F::ROWS + lr), b));
+      const float4 x = ld_cluster_v4(map_to_rank(o_at + 4 * (lr * F::OSTRIDE + c), b));
+      sum.x += w * x.x;
+      sum.y += w * x.y;
+      sum.z += w * x.z;
+      sum.w += w * x.w;
+    }
+    const float inv_l = 1.f / l;
+    *reinterpret_cast<float4*>(o + ((size_t)bh * t_len + row) * D + c) =
+        make_float4(sum.x * inv_l, sum.y * inv_l, sum.z * inv_l, sum.w * inv_l);
+    if (lse != nullptr && c == 0) lse[(size_t)bh * t_len + row] = kLn2 * (top + log2f(l));
+  }
+  cluster_sync();  // no block leaves while another reads its shared memory
 }
 
 template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, void* lse,
-                       int bh, int t, float sm_scale, cudaStream_t stream) {
-  constexpr int ROWS = kThreads / (D / kDimsPerLane<D>);
-  const dim3 grid((t + ROWS - 1) / ROWS, bh);
-  flash_fwd_kernel<D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), static_cast<float*>(lse), t, sm_scale * kLog2e);
-  return cudaGetLastError();
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
+                       int t, float sm_scale, int split, cudaStream_t stream) {
+  namespace host = wgmma_sm90_host;
+  using F = F32Fwd<D>;
+  CUtensorMap maps[3];
+  const void* src[3] = {q, k, v};
+  const int rows[3] = {64, F::BN, F::BN};  // Q's box is a consumer's rows, K's and V's a stage's
+  for (int i = 0; i < 3; ++i) {
+    const cudaError_t err = host::tile_map(&maps[i], src[i], bh, t, D, F::W, rows[i], F::SW, 4);
+    if (err != cudaSuccess) return err;
+  }
+  const int row_tiles = (t + F::ROWS - 1) / F::ROWS;
+  if (split == 0)
+    split = host::fill_split(bh * row_tiles, (t + F::BN - 1) / F::BN, host::sm_count(), F::RULE_SPLIT);
+  if (split != 1 && split != 2 && split != 4) return cudaErrorInvalidValue;
+  static uint64_t allowed = 0;
+  cudaError_t err = host::allow_smem(flash_fwd_kernel<D>, F::SMEM, allowed);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = split;
+  cluster.val.clusterDim.y = cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(row_tiles * split, bh);
+  cfg.blockDim = dim3(F::THREADS);
+  cfg.dynamicSmemBytes = F::SMEM;
+  cfg.stream = stream;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = split > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, flash_fwd_kernel<D>, maps[0], maps[1], maps[2],
+                           static_cast<float*>(o), static_cast<float*>(lse), t, sm_scale * kLog2e,
+                           split);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <int D>
@@ -822,7 +1057,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, vo
   const int block_rows = L::WS ? 64 : kBlockRows;
   const int row_tiles = (t + block_rows - 1) / block_rows;
   if (split == 0)
-    split = fill_split(bh * row_tiles, (t + F::BN - 1) / F::BN, host::sm_count(), F::MAX_SPLIT);
+    split = host::fill_split(bh * row_tiles, (t + F::BN - 1) / F::BN, host::sm_count(), F::MAX_SPLIT);
   if (split != 1 && split != 2 && split != 4) return cudaErrorInvalidValue;
   static uint64_t allowed = 0, covered = 0;
   int smem = 0;
@@ -859,16 +1094,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
                    int t, int dtype, float sm_scale, int split, cudaStream_t stream) {
   if (dtype == 1) return launch_bf16<D>(q, k, v, o, lse, bh, t, sm_scale, split, stream);
   if constexpr (D >= 16) {  // the f32 kernel is built from D = 16 up
-    if (dtype == 0) return launch_f32<D>(q, k, v, o, lse, bh, t, sm_scale, stream);
+    if (dtype == 0) return launch_f32<D>(q, k, v, o, lse, bh, t, sm_scale, split, stream);
   }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// As flash_attention_fwd, with the bf16 kernel's split over keys forced:
-// split 0 takes fill_split's rule, 1, 2 or 4 that many blocks a cluster
-// (the f32 kernel ignores it).
+// As flash_attention_fwd, with the split over keys forced: split 0 takes
+// fill_split's rule, 1, 2 or 4 that many blocks a cluster.
 extern "C" int flash_attention_fwd_split(const void* q, const void* k, const void* v, void* o,
                                          void* lse, int bh, int t, int d, int dtype,
                                          float sm_scale, int split, void* stream) {
@@ -887,8 +1121,9 @@ extern "C" int flash_attention_fwd_split(const void* q, const void* k, const voi
   }
 }
 
-// dtype: 0 = float32 (FMA kernel; d >= 16), 1 = bfloat16 (wgmma kernel; d
-// = 8 too). lse may be null. q, k, v and o must be 16-byte aligned for bf16. Returns the
+// dtype: 0 = float32 (TF32 wgmma kernel; d >= 16), 1 = bfloat16 (wgmma
+// kernel; d = 8 too). lse may be null. q, k, v and o must be 16-byte
+// aligned. Returns the
 // launch's error (cudaErrorInvalidValue for an unsupported d or dtype; the
 // tensor maps' or the launch's own error where the card refuses them).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,

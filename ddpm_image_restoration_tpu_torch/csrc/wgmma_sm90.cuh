@@ -1,8 +1,13 @@
-// Hopper's own instructions for the bf16 flash-attention kernels (the
-// forward, dQ and dK/dV; sm_90a), as inline PTX:
+// Hopper's own instructions for the flash-attention kernels (the bf16
+// forward, dQ and dK/dV, the f32 forward and dQ; sm_90a), as inline PTX:
 //   * wgmma.mma_async m64nNk16 (N = 16, 32, 64; bf16 in, f32 accumulate),
 //     A from a shared-memory descriptor or from registers, B from a
 //     descriptor, K-major or MN-major; fence, commit and wait;
+//   * wgmma.mma_async m64nNk8 in TF32 (N = 16, 32, 64; f32 accumulate), A
+//     from a descriptor or from registers, B from a descriptor, both
+//     K-major only (TF32 has no transpose bits), and cvt.rna.tf32.f32 for
+//     the 3xTF32 split of an f32 operand (split_tf32); fence.proxy.async
+//     after shared-memory writes that wgmma then reads;
 //   * the 64-bit shared-memory matrix descriptor of a swizzled tile;
 //   * mbarrier init, arrive, arrive.expect_tx and try_wait.parity;
 //   * the TMA tile load (cp.async.bulk.tensor.3d) completing on
@@ -11,9 +16,10 @@
 //     -lcuda, no PyTorch headers);
 //   * named barriers (bar.sync, bar.arrive), with which dK/dV's two
 //     consumer warpgroups take turns at issuing their products;
-//   * the cluster barrier and distributed shared memory (mapa and
-//     ld.shared::cluster, scalar and v4), for the forward's split over keys
-//     and dK/dV's over queries;
+//   * the cluster barrier and distributed shared memory (mapa,
+//     ld.shared::cluster, scalar and v4, st.shared::cluster v4, and mbarrier
+//     arrivals and waits at cluster scope), for the forward's split over
+//     keys, dK/dV's over queries and the f32 dQ's over the head dim;
 //   * setmaxnreg.inc / .dec, with which the warp-specialised kernels (the
 //     forward and dK/dV at D = 128 and 256) move registers from their
 //     producer warpgroup to their consumer warpgroups; the launchers check
@@ -38,6 +44,12 @@
 //     = 8*SW apart, and N = SW/2 columns (one panel) per instruction.
 // LBO, the stride between panels in one instruction, is never used: each
 // wgmma reads one panel (N <= SW/2, and a k16 slice lies in one row).
+//
+// TF32 tiles are the same in bytes: a [rows, D] f32 tile lies as panels
+// [rows, SW/4] of SW = min(128, 4*D) bytes a row, and the k8 slice k of a
+// K-major panel starts at the panel + 32*k bytes (8 f32). Since TF32 wgmma
+// reads both operands K-major, the f32 kernels keep V (forward) and K
+// (dQ) also as a transposed tile [D, keys] with the keys along the row.
 //
 // Fragments (g = lane / 4, t = lane % 4). The m64nNk16 accumulator of a
 // warpgroup gives warp w rows 16w..16w+15 and lane l the pairs (row 16w + g
@@ -98,6 +110,27 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       ".reg .pred done;\n"
       "WAIT:\n"
       "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// An arrival, releasing this thread's earlier writes at cluster scope, on
+// the mbarrier at `addr` in a block of the cluster (a map_to_rank address).
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t addr) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(addr)
+               : "memory");
+}
+
+// As mbar_wait, acquiring at cluster scope what the arrivals released (the
+// other blocks' writes before their mbar_arrive_cluster).
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0], %1;\n"
       "@!done bra WAIT;\n"
       "}\n" ::"r"(bar),
       "r"(parity)
@@ -209,6 +242,55 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[8][4], const uint32_t (&a)[4
                  "n"(TRANS_B));
 }
 
+// TF32 (the f32 kernels): m64nNk8, f32 accumulate, both operands K-major
+// (tf32 has no transpose bits). An f32 operand goes in as a hi/lo pair of
+// TF32 values (cvt_tf32), each product as three (hi*hi + hi*lo + lo*hi).
+#define WG_OP32(N) "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 "
+
+// d (64 x N f32, N = 8 * NB) (+)= A * B, A (64 x 8) and B (8 x N) from
+// K-major descriptors of 4-byte TF32 elements.
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[2][4], uint64_t a, uint64_t b,
+                                              bool accumulate) {
+  asm volatile(WG_PRED(10) WG_OP32(16) WG_R8 ", %8, %9, wg_acc, 1, 1;\n}\n"
+               : WG_D8(0)
+               : "l"(a), "l"(b), "r"((int)accumulate));
+}
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[4][4], uint64_t a, uint64_t b,
+                                              bool accumulate) {
+  asm volatile(WG_PRED(18) WG_OP32(32) WG_R16 ", %16, %17, wg_acc, 1, 1;\n}\n"
+               : WG_D16(0)
+               : "l"(a), "l"(b), "r"((int)accumulate));
+}
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[8][4], uint64_t a, uint64_t b,
+                                              bool accumulate) {
+  asm volatile(WG_PRED(34) WG_OP32(64) WG_R32 ", %32, %33, wg_acc, 1, 1;\n}\n"
+               : WG_D32(0)
+               : "l"(a), "l"(b), "r"((int)accumulate));
+}
+
+// The same with A from registers: each thread's a[4] is its part of the
+// 64 x 8 operand in mma.m16n8k8.tf32's A layout on its warp's 16 rows,
+// one TF32 value a register: a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8,
+// t+4).
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[2][4], const uint32_t (&a)[4],
+                                              uint64_t b, bool accumulate) {
+  asm volatile(WG_PRED(13) WG_OP32(16) WG_R8 ", {%8, %9, %10, %11}, %12, wg_acc, 1, 1;\n}\n"
+               : WG_D8(0)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"((int)accumulate));
+}
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[4][4], const uint32_t (&a)[4],
+                                              uint64_t b, bool accumulate) {
+  asm volatile(WG_PRED(21) WG_OP32(32) WG_R16 ", {%16, %17, %18, %19}, %20, wg_acc, 1, 1;\n}\n"
+               : WG_D16(0)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"((int)accumulate));
+}
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[8][4], const uint32_t (&a)[4],
+                                              uint64_t b, bool accumulate) {
+  asm volatile(WG_PRED(37) WG_OP32(64) WG_R32 ", {%32, %33, %34, %35}, %36, wg_acc, 1, 1;\n}\n"
+               : WG_D32(0)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"((int)accumulate));
+}
+
 #undef WG_D4
 #undef WG_D8
 #undef WG_D16
@@ -217,7 +299,14 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[8][4], const uint32_t (&a)[4
 #undef WG_R16
 #undef WG_R32
 #undef WG_OP
+#undef WG_OP32
 #undef WG_PRED
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// reads of it by the async proxy (wgmma operands, TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
 // ---- named barriers ---------------------------------------------------------
 
@@ -261,6 +350,13 @@ __device__ __forceinline__ float4 ld_cluster_v4(uint32_t addr) {
   return v;
 }
 
+// Four f32 to a 16-byte aligned address of the cluster's shared memory.
+__device__ __forceinline__ void st_cluster_v4(uint32_t addr, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(v.x),
+               "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
 // ---- register reallocation ---------------------------------------------------
 
 // The warpgroup's registers a thread, raised to (inc) or lowered to (dec) N:
@@ -282,6 +378,21 @@ __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero),
+// as the f32 bit pattern with its low 13 bits zero.
+__device__ __forceinline__ uint32_t cvt_tf32(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y;
+}
+
+// The 3xTF32 split of an f32 value: hi = tf32(x), lo = tf32(x - hi); hi +
+// lo keeps x to ~2^-22 of itself, where hi alone keeps 2^-11.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = cvt_tf32(x);
+  lo = cvt_tf32(x - __uint_as_float(hi));
 }
 
 }  // namespace wgmma_sm90
@@ -312,21 +423,24 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A map of the bf16 [bh, t, d] tensor at `base` (row-major) with boxes of
-// {cols, rows, 1} in the `sw`-byte swizzle (cols * 2 == sw); out-of-bounds
-// elements (rows >= t, columns >= d) load as zeros.
+// A map of the [bh, t, d] tensor at `base` (row-major; bf16, or f32 where
+// `elem` is 4) with boxes of {cols, rows, 1} in the `sw`-byte swizzle (cols
+// * elem == sw); out-of-bounds elements (rows >= t, columns >= d) load as
+// zeros.
 inline cudaError_t tile_map(CUtensorMap* map, const void* base, int bh, int t, int d, int cols,
-                            int rows, int sw) {
+                            int rows, int sw, int elem = 2) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)t * d * 2};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * elem, (cuuint64_t)t * d * elem};
   const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)rows, 1};
   const cuuint32_t step[3] = {1, 1, 1};
   const CUtensorMapSwizzle swizzle = sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                                      : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                 : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+  const CUtensorMapDataType type =
+      elem == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUresult r = enc(map, type, 3, const_cast<void*>(base), dims,
                          strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
@@ -378,6 +492,19 @@ inline cudaError_t registers_cover(Kernel kernel, int threads, int producers, in
   if (need > have) return cudaErrorInvalidValue;
   done |= bit;
   return cudaSuccess;
+}
+
+// The split over keys that fills the card: 4, else 2 (at most
+// `max_split`), while the grid of `blocks` row tiles times the split stays
+// within one block an SM and every block of a cluster has a key tile; else
+// 1. (kernel_ab.py --splits: at T = 1024 and D = 32 the bf16 forward at BH
+// = 4 ran fastest split 4 ways, 8 split 2, 16 unsplit, where a rule of two
+// blocks an SM would have split it.) The bf16 and f32 forwards' and the f32
+// dQ's rule.
+inline int fill_split(int blocks, int key_tiles, int sms, int max_split) {
+  int split = 1;
+  while (split < max_split && blocks * split * 2 <= sms && split * 2 <= key_tiles) split *= 2;
+  return split;
 }
 
 // Raises a kernel's dynamic shared-memory limit to `bytes` once per device.

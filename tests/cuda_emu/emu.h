@@ -138,6 +138,9 @@ struct alignas(16) float4 {
 struct alignas(8) uint2 {
   unsigned x, y;
 };
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
+};
 inline float2 make_float2(float x, float y) { return {x, y}; }
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 

@@ -4,9 +4,11 @@
 // lse, dq, delta, dk, dv back to <dir> as raw f32.
 //
 //   run_kernels <dir> <bh> <t> <d> <dtype: 0 f32, 1 bf16> <split> <d_fwd> <d_dq> <d_dkv> <dkv_split>
+//               [<dq_split>]
 //
-// split: the bf16 forward's split over keys (0: the launcher's own rule);
+// split: the forward's split over keys (0: the launcher's own rule);
 // dkv_split: the bf16 dK/dV's split over query tiles at D >= 128 (likewise);
+// dq_split: the f32 dQ's split over keys at D <= 128 (likewise; default 0);
 // d_fwd, d_dq, d_dkv: the head dim each launcher runs at, to which its
 // inputs are zero-padded as the wrappers pad them (the outputs sliced back).
 #include <cstdio>
@@ -18,9 +20,9 @@
 
 extern "C" int flash_attention_fwd_split(const void*, const void*, const void*, void*, void*,
                                          int, int, int, int, float, int, void*);
-extern "C" int flash_attention_bwd_dq(const void*, const void*, const void*, const void*,
-                                      const void*, const void*, void*, void*, int, int, int,
-                                      int, float, void*);
+extern "C" int flash_attention_bwd_dq_split(const void*, const void*, const void*, const void*,
+                                            const void*, const void*, void*, void*, int, int, int,
+                                            int, float, int, void*);
 extern "C" int flash_attention_bwd_dkv_split(const void*, const void*, const void*,
                                              const void*, const void*, const void*, void*,
                                              void*, int, int, int, int, float, int, void*);
@@ -73,14 +75,14 @@ void write(const std::string& path, const std::vector<float>& f) {
 }  // namespace
 
 int main(int argc, char** argv) {
-  if (argc != 11) {
-    fprintf(stderr, "usage: run_kernels dir bh t d dtype split d_fwd d_dq d_dkv dkv_split\n");
+  if (argc != 11 && argc != 12) {
+    fprintf(stderr, "usage: run_kernels dir bh t d dtype split d_fwd d_dq d_dkv dkv_split [dq_split]\n");
     return 2;
   }
   const std::string dir = argv[1];
   const int bh = atoi(argv[2]), t = atoi(argv[3]), d = atoi(argv[4]), dt = atoi(argv[5]);
   const int split = atoi(argv[6]), d_fwd = atoi(argv[7]), d_dq = atoi(argv[8]), d_dkv = atoi(argv[9]);
-  const int dkv_split = atoi(argv[10]);
+  const int dkv_split = atoi(argv[10]), dq_split = argc > 11 ? atoi(argv[11]) : 0;
   const size_t rows = (size_t)bh * t, n = rows * d;
   const float scale = 1.f / sqrtf((float)d);
   const std::vector<float> fq = read(dir + "/q", n), fk = read(dir + "/k", n),
@@ -101,9 +103,9 @@ int main(int argc, char** argv) {
                                       t, d_fwd, dt, scale, split, nullptr);
   const std::vector<float> fo = repad(f[3].get(), rows, d_fwd, d);
   std::vector<Tensor> b = tensors(d_dq, {&fq, &fk, &fv, &fo, &fdo}, 1);
-  err = err ? err : flash_attention_bwd_dq(b[0].ptr(), b[1].ptr(), b[2].ptr(), b[3].ptr(),
-                                           b[4].ptr(), lse.ptr(), b[5].ptr(), delta.ptr(), bh, t,
-                                           d_dq, dt, scale, nullptr);
+  err = err ? err : flash_attention_bwd_dq_split(b[0].ptr(), b[1].ptr(), b[2].ptr(), b[3].ptr(),
+                                                 b[4].ptr(), lse.ptr(), b[5].ptr(), delta.ptr(), bh,
+                                                 t, d_dq, dt, scale, dq_split, nullptr);
   std::vector<Tensor> c = tensors(d_dkv, {&fq, &fk, &fv, &fdo}, 2);
   err = err ? err : flash_attention_bwd_dkv_split(c[0].ptr(), c[1].ptr(), c[2].ptr(), c[3].ptr(),
                                                   lse.ptr(), delta.ptr(), c[4].ptr(), c[5].ptr(),

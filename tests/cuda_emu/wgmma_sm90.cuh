@@ -15,8 +15,13 @@
 //     swizzle, and completes its bytes on the barrier;
 //   * named barriers: arrivals counted per block and id (bar.arrive goes
 //     on, bar.sync waits for the phase), reset for each block;
-//   * the cluster: barrier, mapa and ld.shared::cluster (scalar and v4,
-//     aligned) on the cluster's windows (emu.h); ex2.approx.ftz as exp2f;
+//   * the cluster: barrier, mapa, ld.shared::cluster (scalar and v4,
+//     aligned), st.shared::cluster v4 and mbarrier arrivals from another
+//     block on the cluster's windows (emu.h); ex2.approx.ftz as exp2f;
+//   * TF32 wgmma (m64nNk8, the f32 kernels): 4-byte elements read
+//     K-major only (a transposed TF32 operand is refused), each value's
+//     low 13 mantissa bits ignored, the products summed in f32; cvt.rna.
+//     tf32.f32 rounds to nearest, ties away from zero;
 //   * setmaxnreg: a no-op that checks its count (a multiple of 8 in
 //     24..256), that every thread of the warpgroup gives the same one, and,
 //     once the block has run, that the warpgroups' counts fit in the SM's
@@ -85,6 +90,8 @@ inline void mbar_arrive(uint32_t bar) { emu_mbar_update(bar, 1, 0); }
 inline void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
   emu_mbar_update(bar, 1, (long long)bytes);
 }
+// an arrival on another block's barrier (its window's address)
+inline void mbar_arrive_cluster(uint32_t addr) { emu_mbar_update(addr, 1, 0); }
 inline void mbar_wait(uint32_t bar, uint32_t parity) {
   std::unique_lock<std::mutex> lock(g_mbar_mutex);
   const bool done = g_mbar_cv.wait_for(lock, std::chrono::seconds(60), [&] {
@@ -92,6 +99,8 @@ inline void mbar_wait(uint32_t bar, uint32_t parity) {
   });
   if (!done) emu_fail("mbarrier wait never completed");
 }
+
+inline void mbar_wait_cluster(uint32_t bar, uint32_t parity) { mbar_wait(bar, parity); }
 
 // ---- TMA ------------------------------------------------------------------
 
@@ -154,7 +163,17 @@ struct EmuWgmma {
   const uint32_t* a_regs;  // null: A from a_desc
   uint64_t b_desc;
   int trans_b;
+  bool tf32;  // m64nNk8 on TF32 (4-byte elements), else m64nNk16 on bf16
 };
+
+// An f32 bit pattern as the TF32 value the tensor cores take: its low 13
+// mantissa bits ignored.
+inline float emu_tf32_bits(uint32_t u) {
+  u &= 0xffffe000u;
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+}
 inline thread_local std::vector<EmuWgmma> t_issued;
 inline thread_local std::deque<std::vector<EmuWgmma>> t_committed;
 
@@ -178,10 +197,20 @@ struct EmuDesc {
     memcpy(&b, emu_smem(emu_swizzle(addr, sw)), 2);
     return __bfloat162float(b);
   }
+  float at32(uint32_t addr) const {
+    uint32_t u;
+    memcpy(&u, emu_smem(emu_swizzle(addr, sw)), 4);
+    return emu_tf32_bits(u);
+  }
   // K-major: rows sw bytes apart, 8-row groups sbo apart, k along the row
   float k_major(int row, int k) const {
     if (start % sw + 32 > (uint32_t)sw) emu_fail("wgmma: a K-major k16 slice leaves its row");
     return at(start + (row / 8) * sbo + (row % 8) * sw + 2 * k);
+  }
+  // the same for TF32: a k8 slice of 4-byte elements, 32 bytes of its row
+  float k_major32(int row, int k) const {
+    if (start % sw + 32 > (uint32_t)sw) emu_fail("wgmma: a K-major k8 slice leaves its row");
+    return at32(start + (row / 8) * sbo + (row % 8) * sw + 4 * k);
   }
   // MN-major: n along the row (sw/2 columns a panel, panels lbo apart),
   // k rows sw bytes apart, 8-row groups sbo apart
@@ -199,22 +228,39 @@ inline float emu_a_reg(int warp, int row, int k) {
   return __bfloat162float(b);
 }
 
+// The TF32 A operand of a k8 step from registers: mma.m16n8k8.tf32's A
+// layout on each warp's 16 rows, one value a register: a0 (g, t), a1 (g+8,
+// t), a2 (g, t+4), a3 (g+8, t+4).
+inline float emu_a_reg32(int warp, int row, int k) {
+  const int g = row % 8, half = (row % 16) / 8;
+  return emu_tf32_bits((uint32_t)emu_lane_of(warp, 4 * g + k % 4)[half + 2 * (k / 4)]);
+}
+
 // One product, by the warpgroup: every thread calls it with its own op.
 inline void emu_run_wgmma(const EmuWgmma& op) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, first = warp / 4 * 4;
+  if (op.tf32 && op.trans_b) emu_fail("wgmma: TF32 takes K-major operands only");
   if (op.a_regs)
     for (int i = 0; i < 4; ++i) emu_lane(lane)[i] = op.a_regs[i];
   emu_group_sync();
   const EmuDesc b(op.b_desc);
+  const int depth = op.tf32 ? 8 : 16;
   for (int j = 0; j < op.nb; ++j) {
     for (int e = 0; e < 4; ++e) {
       const int row = 16 * (warp % 4) + lane / 4 + 8 * (e >> 1);
       const int col = 8 * j + 2 * (lane % 4) + (e & 1);
       float sum = op.accumulate ? op.d[4 * j + e] : 0.f;
-      for (int k = 0; k < 16; ++k) {
-        const float a = op.a_regs ? emu_a_reg(first + row / 16, row % 16, k)
-                                  : EmuDesc(op.a_desc).k_major(row, k);
-        const float bv = op.trans_b ? b.mn_major(k, col) : b.k_major(col, k);
+      for (int k = 0; k < depth; ++k) {
+        float a, bv;
+        if (op.tf32) {  // products of TF32 values, exact in f32, summed in f32
+          a = op.a_regs ? emu_a_reg32(first + row / 16, row % 16, k)
+                        : EmuDesc(op.a_desc).k_major32(row, k);
+          bv = b.k_major32(col, k);
+        } else {
+          a = op.a_regs ? emu_a_reg(first + row / 16, row % 16, k)
+                        : EmuDesc(op.a_desc).k_major(row, k);
+          bv = op.trans_b ? b.mn_major(k, col) : b.k_major(col, k);
+        }
         sum += a * bv;
       }
       op.d[4 * j + e] = sum;
@@ -231,9 +277,10 @@ inline bool emu_wgmma_leftovers() {
 }
 
 template <int NB> inline void emu_issue(float (&d)[NB][4], uint64_t a, const uint32_t* a_regs,
-                                        uint64_t b, bool accumulate, int trans_b) {
+                                        uint64_t b, bool accumulate, int trans_b,
+                                        bool tf32 = false) {
   emu_block_leftovers = &emu_wgmma_leftovers;
-  t_issued.push_back({&d[0][0], NB, accumulate, a, a_regs, b, trans_b});
+  t_issued.push_back({&d[0][0], NB, accumulate, a, a_regs, b, trans_b, tf32});
 }
 
 template <int TRANS_B, int NB>
@@ -247,6 +294,20 @@ inline void wgmma_rs(float (&d)[NB][4], const uint32_t (&a)[4], uint64_t b, bool
   emu_issue(d, 0, a, b, accumulate, TRANS_B);
 }
 
+// TF32: K-major only (the instruction has no transpose bits; the
+// emulation refuses a transposed TF32 operand, emu_run_wgmma).
+template <int NB>
+inline void wgmma_tf32_ss(float (&d)[NB][4], uint64_t a, uint64_t b, bool accumulate) {
+  static_assert(NB == 2 || NB == 4 || NB == 8, "wgmma m64n16/32/64");
+  emu_issue(d, a, nullptr, b, accumulate, 0, true);
+}
+template <int NB>
+inline void wgmma_tf32_rs(float (&d)[NB][4], const uint32_t (&a)[4], uint64_t b, bool accumulate) {
+  static_assert(NB == 2 || NB == 4 || NB == 8, "wgmma m64n16/32/64");
+  emu_issue(d, 0, a, b, accumulate, 0, true);
+}
+
+inline void fence_proxy_async() {}
 inline void wgmma_fence() {}
 inline void wgmma_commit() {
   t_committed.push_back(std::move(t_issued));
@@ -300,6 +361,11 @@ inline float ld_cluster_f32(uint32_t addr) {
   return v;
 }
 
+inline void st_cluster_v4(uint32_t addr, float4 v) {
+  if (addr % 16) emu_fail("st.shared::cluster.v4 misaligned");
+  memcpy(emu_smem(addr), &v, 16);
+}
+
 inline float4 ld_cluster_v4(uint32_t addr) {
   if (addr % 16) emu_fail("ld.shared::cluster.v4 misaligned");
   float4 v;
@@ -325,6 +391,21 @@ template <int N> inline void setmaxnreg_dec() { emu_setmaxnreg(N); }
 inline float exp2_approx(float x) {
   const float y = exp2f(x);
   return y < 1.17549435e-38f ? 0.f : y;
+}
+
+// cvt.rna.tf32.f32: to 10 mantissa bits, to nearest, ties away from zero
+// (NaN and infinity kept).
+inline uint32_t cvt_tf32(float x) {
+  uint32_t u;
+  memcpy(&u, &x, 4);
+  if ((u & 0x7f800000u) == 0x7f800000u) return u;
+  return (u + 0x1000u) & 0xffffe000u;
+}
+inline void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = cvt_tf32(x);
+  float h;
+  memcpy(&h, &hi, 4);
+  lo = cvt_tf32(x - h);
 }
 
 }  // namespace wgmma_sm90

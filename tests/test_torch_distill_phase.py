@@ -8,23 +8,50 @@ import argparse
 import sys
 from pathlib import Path
 
+import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
+from ddpm_image_restoration_tpu_torch.ops import attention  # noqa: E402
+from ddpm_image_restoration_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from tests.test_torch_evaluate_phase import CPU_FLAGS, counted_kernels  # noqa: E402,F401
 
 torch.set_num_threads(1)
 
 
-def test_distill_phase_counts_on_cpu(tmp_path, monkeypatch, counted_kernels, capsys):
+@pytest.fixture
+def launching_kernels(monkeypatch, counted_kernels):  # noqa: F811
+    """The counting call sites of `counted_kernels`, each call also reaching
+    `ops.flash_attention._launch` (a no-op here) at the head dim the kernel
+    would run at, where the phase counts the f32 run's launches per head
+    dim."""
+    monkeypatch.setattr(fa, "_launch", lambda *args: None)
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        counting = getattr(fa, name)
+
+        def launching(q, *args, counting=counting, name=name, **kw):
+            out = counting(q, *args, **kw)
+            bh, t, d = q.shape
+            fa._launch(name, None, bh, t, fa.kernel_head_dim(name, d, q.dtype), q.dtype, d,
+                       q.device)
+            getattr(fa, name).launches += 1
+            return out
+
+        launching.__name__, launching.launches = name, 0
+        monkeypatch.setattr(fa, name, launching)
+    monkeypatch.setattr(attention, "flash_attention_fwd", fa.flash_attention_fwd)
+
+
+def test_distill_phase_counts_on_cpu(tmp_path, monkeypatch, launching_kernels, capsys):
     """The phase over 20 diffusion steps (both qualities start at step 20)
     from a teacher checkpoint of seeded weights, at batch 2: 5 images (2
     steps) against a stride-4 teacher (6 evaluations, not 20: the CPU takes
-    ~0.2 s an evaluation), the progressive chain from it (budgets 3, 2) on
-    3 images (one step a stage), the step alone timed once."""
+    ~0.2 s an evaluation), the same with `--compute-dtype float32`, the
+    progressive chain from it (budgets 3, 2) on 3 images (one step a
+    stage), the step alone timed once."""
     from ddpm_image_restoration_tpu_torch.cli.common import add_model_flags, model_config_from
     from ddpm_image_restoration_tpu_torch.config import TrainConfig
     from ddpm_image_restoration_tpu_torch.models import build_model
@@ -54,10 +81,12 @@ def test_distill_phase_counts_on_cpu(tmp_path, monkeypatch, counted_kernels, cap
     state = {"smi": "CPU", "train_ckpt": str(ck)}
     chip_smoke.phase_distill(state)
     log = capsys.readouterr().out
-    assert log.count("schedule implies") == 5, log
+    assert log.count("schedule implies") == 7, log
     assert "progressive budgets [3, 2]" in log and "stage directories ['stage0']" in log, log
+    assert "distill f32 [--compute-dtype float32" in log, log
     counts = state["launches_distill"]
-    # 2 + 1 + 1 steps of 2, 3 and 2 student evaluations at two flash levels
-    assert counts["flash_attention_bwd_dq"] == counts["flash_attention_bwd_dkv"] == 18
+    # 2 + 2 (f32) + 1 + 1 steps of 2, 2, 3 and 2 student evaluations at two
+    # flash levels
+    assert counts["flash_attention_bwd_dq"] == counts["flash_attention_bwd_dkv"] == 26
     assert state["train_ckpt"] == str(ck) and ck.exists()
     assert not (tmp_path / "build" / "chip_smoke_distill").exists()

@@ -695,3 +695,107 @@ def test_dkv_is_deterministic_on_card(card, bh, t, d):
     torch.cuda.synchronize()
     assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+# The f32 forward and dQ on TF32 wgmma with the 3xTF32 split: the f32 path
+# shapes (the full-width f32 distillation's (72, 1024, 32|16), the 1024²
+# path's (4, 1024, 256|128), the half-width f32 gates' D = 16), then ragged
+# T over the 64-row tiles and the 16-, 32- and 64-key stages.
+F32_SHAPES = [(72, 1024, 32), (72, 1024, 16), (4, 1024, 256), (4, 1024, 128), (8, 1024, 16),
+              (16, 1024, 16), (3, 150, 128), (2, 70, 16), (1, 300, 64), (5, 200, 256)]
+
+
+def _dq_split_launcher():
+    import ctypes
+
+    from ddpm_image_restoration_tpu_torch.ops import build
+
+    fn = build.load(fa.BWD_KERNEL).flash_attention_bwd_dq_split
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,t,d", F32_SHAPES)
+def test_f32_tf32_kernels_match_plain_and_repeat_on_card(card, bh, t, d):
+    """The f32 forward (with and without the LSE) and dQ (with Delta)
+    within the f32 bound (1e-4 of the largest entry), and two calls of
+    each bit-identical (no atomics; a cluster's shares merged in one fixed
+    order)."""
+    g = torch.Generator(device="cuda").manual_seed(14)
+    q, k, v, do = (torch.randn(bh, t, d, device="cuda", generator=g) for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, save_lse=True)
+    o_only = fa.flash_attention_fwd(q, k, v)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, save_lse=True)
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse)
+    dq2, delta2 = fa.flash_attention_bwd_dq(q, k, v, o, do, lse)
+    torch.cuda.synchronize()
+    ro, rlse = fa.flash_attention_plain(q, k, v, save_lse=True)
+    rdq, rdelta = fa.flash_attention_bwd_dq_plain(q, k, v, o, do, lse)
+    assert close(o, ro) and close(o_only, ro) and close(lse, rlse)
+    assert close(dq, rdq) and close(delta, rdelta)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2) and torch.equal(o, o_only)
+    assert torch.equal(dq, dq2) and torch.equal(delta, delta2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,t,d", [(4, 1024, 256), (4, 1024, 128), (8, 1024, 16),
+                                    (3, 300, 32)])
+@pytest.mark.parametrize("split", [0, 1, 2, 4])
+def test_f32_split_over_keys_on_card(card, bh, t, d, split):
+    """The f32 forward and dQ with their keys dealt over a cluster of 1, 2
+    or 4 blocks (the C entry points forced; 0: the launchers' rules; dQ at
+    D = 256, whose cluster splits the head dim, ignores it) and each
+    block's share merged through distributed shared memory: O, the LSE, dQ
+    and Delta within the f32 bound."""
+    import ctypes
+
+    from ddpm_image_restoration_tpu_torch.ops import build
+
+    fwd = build.load(fa.KERNEL).flash_attention_fwd_split
+    fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fwd.restype = ctypes.c_int
+    dq_fn = _dq_split_launcher()
+    g = torch.Generator(device="cuda").manual_seed(15)
+    q, k, v, do = (torch.randn(bh, t, d, device="cuda", generator=g) for _ in range(4))
+    stream = torch.cuda.current_stream().cuda_stream
+    o, lse = torch.empty_like(q), torch.empty(bh, t, device="cuda")
+    assert fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), bh, t, d,
+               0, d ** -0.5, split, stream) == 0
+    ro, rlse = fa.flash_attention_plain(q, k, v, save_lse=True)
+    dq, delta = torch.empty_like(q), torch.empty(bh, t, device="cuda")
+    assert dq_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ro.data_ptr(), do.data_ptr(),
+                 rlse.data_ptr(), dq.data_ptr(), delta.data_ptr(), bh, t, d, 0, d ** -0.5,
+                 split, stream) == 0
+    torch.cuda.synchronize()
+    rdq, rdelta = fa.flash_attention_bwd_dq_plain(q, k, v, ro, do, rlse)
+    assert close(o, ro) and close(lse, rlse)
+    assert close(dq, rdq) and close(delta, rdelta)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,t,d", [(4, 1024, 256), (72, 1024, 32)])
+def test_f32_kernels_need_the_split_on_card(card, bh, t, d):
+    """What the 3xTF32 split buys: the plain attention with its matmuls in
+    one TF32 product (`allow_tf32`, what a single TF32 wgmma computes)
+    fails the f32 bound that the kernels meet, at the 1024² path's and the
+    f32 distillation's shapes."""
+    g = torch.Generator(device="cuda").manual_seed(16)
+    q, k, v, do = (torch.randn(bh, t, d, device="cuda", generator=g) for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, save_lse=True)
+    dq, _ = fa.flash_attention_bwd_dq(q, k, v, o, do, lse)
+    ro, rlse = fa.flash_attention_plain(q, k, v, save_lse=True)
+    rdq, _ = fa.flash_attention_bwd_dq_plain(q, k, v, o, do, lse)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        to = fa.flash_attention_plain(q, k, v)
+        tdq, _ = fa.flash_attention_bwd_dq_plain(q, k, v, o, do, lse)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    torch.cuda.synchronize()
+    assert close(o, ro) and close(dq, rdq)
+    assert not close(to, ro) and not close(tdq, rdq)

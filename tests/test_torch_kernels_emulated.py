@@ -3,12 +3,13 @@
 The sources in `ddpm_image_restoration_tpu_torch/csrc/` compile with g++
 against `tests/cuda_emu/`, which emulates what they use of CUDA: threads,
 blocks and clusters, `__syncthreads`, shuffles, and the sm_90a instructions
-of `wgmma_sm90.cuh` that the three bf16 kernels run (`wgmma` from swizzled
-shared-memory descriptors, K-major and MN-major, and from registers, run at
-the wait that needs it; `mbarrier` phases and transaction counts; TMA tile
-loads with zero fill and swizzle; named barriers; the cluster barrier and
-distributed shared memory; `setmaxnreg`, checked), and the tensor-map
-encoder's checks. The emulated launchers (forward with
+of `wgmma_sm90.cuh` that the three bf16 kernels and the f32 forward and dQ
+run (`wgmma` in bf16 from swizzled shared-memory descriptors, K-major and
+MN-major, and from registers, and in TF32, K-major only, run at the wait
+that needs it; `cvt.rna.tf32.f32`; `mbarrier` phases and transaction
+counts, arrivals from another block of the cluster; TMA tile loads with
+zero fill and swizzle; named barriers; the cluster barrier and distributed
+shared memory; `setmaxnreg`, checked), and the tensor-map encoder's checks. The emulated launchers (forward with
 LSE, dQ with Delta, dK/dV) then face the same checks as the card tests
 (tests/test_torch_kernels_cuda.py): each output against its plain PyTorch
 version entry by entry, within one bf16 step of the entry (bf16 outputs)
@@ -41,6 +42,20 @@ LAUNCH = re.compile(r"(\w+<[^<>]*>)<<<(.*?)>>>\(")
 SPLITS = [("  wgmma_sm90::wgmma_rs<1>(d, a.hi, b, true);\n"
            "  wgmma_sm90::wgmma_rs<1>(d, a.lo, b, true);\n",
            "  wgmma_sm90::wgmma_rs<1>(d, a.hi, b, true);\n")]
+# The 3xTF32 products of the f32 forward and dQ (flash_tf32.cuh), and the
+# same with the lo products dropped: one TF32 product (1xTF32).
+TF32_SPLITS = [("  wgmma_sm90::wgmma_tf32_ss(d, a_hi, b_lo, accumulate);\n"
+                "  wgmma_sm90::wgmma_tf32_ss(d, a_lo, b_hi, true);\n"
+                "  wgmma_sm90::wgmma_tf32_ss(d, a_hi, b_hi, true);\n",
+                "  wgmma_sm90::wgmma_tf32_ss(d, a_hi, b_hi, accumulate);\n"),
+               ("  wgmma_sm90::wgmma_tf32_ss(d, a_hi, b_lo, accumulate);\n"
+                "  wgmma_sm90::wgmma_tf32_rs(d, a_lo, b_hi, true);\n"
+                "  wgmma_sm90::wgmma_tf32_ss(d, a_hi, b_hi, true);\n",
+                "  wgmma_sm90::wgmma_tf32_ss(d, a_hi, b_hi, accumulate);\n"),
+               ("  wgmma_sm90::wgmma_tf32_rs(d, a.hi, b_lo, true);\n"
+                "  wgmma_sm90::wgmma_tf32_rs(d, a.lo, b_hi, true);\n"
+                "  wgmma_sm90::wgmma_tf32_rs(d, a.hi, b_hi, true);\n",
+                "  wgmma_sm90::wgmma_tf32_rs(d, a.hi, b_hi, true);\n")]
 # Short and ragged T over the 64-row tiles (one partial tile, one full, a
 # ragged third), every head dim of the build; at D = 256 ragged over the
 # forward's and dQ's 32-key stages and the f32 kernels' 16-row tiles too.
@@ -51,19 +66,21 @@ STEPS = [(torch.bfloat16, 2 ** -7), (torch.float32, 0.0)]
 
 def _compile(out: Path, faulted: bool = False) -> Path:
     """The emulation's `run_kernels` program linked with the kernel sources,
-    in `out`; with `faulted`, the split products' `lo` half dropped."""
+    in `out`; with `faulted`, the split products' `lo` half dropped (bf16)
+    and the 3xTF32 products cut to one (f32)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the kernel sources for the CPU")
     out.mkdir(parents=True, exist_ok=True)
     for f in EMU_DIR.iterdir():
         shutil.copy(f, out / f.name)
-    tiles = (build.CSRC_DIR / "flash_mma.cuh").read_text()
-    for sound, dropped in SPLITS:
-        assert tiles.count(sound) == 1
-        if faulted:
-            tiles = tiles.replace(sound, dropped)
-    (out / "flash_mma.cuh").write_text(tiles)
+    for header, splits in (("flash_mma.cuh", SPLITS), ("flash_tf32.cuh", TF32_SPLITS)):
+        tiles = (build.CSRC_DIR / header).read_text()
+        for sound, dropped in splits:
+            assert tiles.count(sound) == 1
+            if faulted:
+                tiles = tiles.replace(sound, dropped)
+        (out / header).write_text(tiles)
     # the launchers' host code (tensor maps, the shared-memory limit) as it
     # stands, for the emulation's wgmma_sm90.cuh to include
     hopper = (build.CSRC_DIR / "wgmma_sm90.cuh").read_text()
@@ -93,12 +110,14 @@ def run_kernels(tmp_path_factory):
     return _compile(tmp_path_factory.mktemp("cuda_emu"))
 
 
-def _run(run_kernels: Path, work: Path, bh, t, d, dtype, seed=0, split=1, dkv_split=1):
+def _run(run_kernels: Path, work: Path, bh, t, d, dtype, seed=0, split=1, dkv_split=1,
+         dq_split=1):
     """q, k, v, dO from a seeded normal, rounded to `dtype`, through the
-    emulated forward (LSE; its bf16 split over keys forced to `split`, 0
-    for the launcher's rule), dQ (Delta) and dK/dV (its bf16 split over
-    query tiles at D >= 128 forced to `dkv_split`, 0 for the rule)
-    launchers, each at the head dim its wrapper pads D to."""
+    emulated forward (LSE; its split over keys forced to `split`, 0 for
+    the launcher's rule), dQ (Delta; the f32 kernel's split over keys at D
+    <= 128 forced to `dq_split`) and dK/dV (its bf16 split over query tiles
+    at D >= 128 forced to `dkv_split`, 0 for the rule) launchers, each at
+    the head dim its wrapper pads D to."""
     rng = np.random.default_rng(seed)
     ins = {n: torch.from_numpy(rng.normal(size=(bh, t, d)).astype(np.float32)).to(dtype)
            for n in ("q", "k", "v", "do")}
@@ -108,7 +127,8 @@ def _run(run_kernels: Path, work: Path, bh, t, d, dtype, seed=0, split=1, dkv_sp
     dims = [str(fa.kernel_head_dim(name, d, dtype)) for name in
             ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")]
     r = subprocess.run([str(run_kernels), str(work), str(bh), str(t), str(d),
-                        str(int(dtype == torch.bfloat16)), str(split), *dims, str(dkv_split)],
+                        str(int(dtype == torch.bfloat16)), str(split), *dims, str(dkv_split),
+                        str(dq_split)],
                        capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stderr[-2000:]
 
@@ -143,7 +163,8 @@ def _shares(ins, outs, step):
 def test_emulated_kernels_match_plain(run_kernels, tmp_path, bh, t, d, dtype, step):
     """bf16 takes the tensor-core forward, dQ and dK/dV kernels (the
     forward unsplit; all three at the head dim itself, D = 8 too), f32 the
-    FMA kernels; every output within its bound."""
+    TF32 forward and dQ (3xTF32; dQ on FMA at D = 256) and the FMA dK/dV;
+    every output within its bound."""
     if dtype == torch.bfloat16:
         assert all(fa.kernel_head_dim(name, d, dtype) == d for name in fa.WGMMA_KERNELS)
     ins, outs = _run(run_kernels, tmp_path / "run", bh, t, d, dtype)
@@ -165,9 +186,9 @@ SPLIT_CASES = [(1, 300, 32, 4), (2, 150, 8, 2), (1, 300, 16, 0), (1, 150, 256, 4
 @pytest.mark.parametrize("bh,t,d,split", SPLIT_CASES)
 @pytest.mark.parametrize("dtype,step", STEPS)
 def test_emulated_split_route_matches_plain(run_kernels, tmp_path, bh, t, d, split, dtype, step):
-    """The bf16 forward with its keys split over a cluster and merged
-    through distributed shared memory (the f32 kernel ignores the split):
-    every output within its bound."""
+    """The forward (bf16, and f32 on TF32) with its keys split over a
+    cluster and merged through distributed shared memory: every output
+    within its bound."""
     ins, outs = _run(run_kernels, tmp_path / "run", bh, t, d, dtype, split=split)
     shares = _shares(ins, outs, step)
     print(f"({bh},{t},{d}) split {split} {dtype}: shares of the bound {shares}")
@@ -213,3 +234,43 @@ def test_emulated_dropped_lo_fails_the_bound(tmp_path, bh, t, d):
     print(f"dropped lo, ({bh},{t},{d}) bf16: shares of the bound {shares}")
     assert min(shares["o"], shares["dq"], shares["dk"], shares["dv"]) > 1.0, shares
     assert max(shares["lse"], shares["delta"]) <= 1.0, shares
+
+
+# (BH, T, D, split, dq_split): the TF32 f32 forward and dQ at D = 16, 32,
+# 64, 128 and 256 over ragged T (the forward's 64-, 32- and 16-key stages,
+# its ring wrapping; D = 256's single stage), unsplit and with the keys of
+# both split over a cluster of 2 or 4 blocks ((1, 70, 32) 4 ways: the
+# forward's 2 key tiles and dQ's 3 leave blocks with none), and the
+# launchers' own rules (which split (1, 150, 64) 2 ways); at D = 256 the
+# forward's one stage with its raw landing area, and dQ's head dim split
+# over a cluster of 2 (its split over keys ignored).
+F32_CASES = [(2, 70, 16, 1, 1), (1, 150, 32, 2, 2), (1, 70, 32, 4, 4), (1, 150, 64, 0, 0),
+             (1, 70, 128, 4, 4), (3, 40, 128, 0, 0), (1, 70, 256, 1, 1), (1, 50, 256, 2, 0)]
+
+
+@pytest.mark.parametrize("bh,t,d,split,dq_split", F32_CASES)
+def test_emulated_f32_tf32_kernels_match_plain(run_kernels, tmp_path, bh, t, d, split, dq_split):
+    """The f32 forward and dQ on TF32 wgmma with the 3xTF32 split (V and
+    K transposed by the producer warps, the keys permuted in groups of 8),
+    split over a cluster and not: every output within the f32 bound (1e-4
+    of the largest entry)."""
+    ins, outs = _run(run_kernels, tmp_path / "run", bh, t, d, torch.float32, split=split,
+                     dq_split=dq_split)
+    shares = _shares(ins, outs, 0.0)
+    print(f"({bh},{t},{d}) split {split}, dQ split {dq_split}, f32: shares of the bound {shares}")
+    assert all(s <= 1.0 for s in shares.values()), shares
+
+
+@pytest.mark.parametrize("bh,t,d", [(1, 150, 16), (1, 150, 32), (1, 70, 128), (1, 70, 256)])
+def test_emulated_one_tf32_product_fails_the_f32_bound(tmp_path, bh, t, d):
+    """A copy with the 3xTF32 products cut to one (A_hi * B_hi: the lo
+    products dropped, every product rounded to TF32 once) fails the f32
+    bound in the forward output and in dQ, while the dK/dV kernel (FMA)
+    and Delta still pass: the bound sees the split."""
+    faulted = _compile(tmp_path / "faulted", faulted=True)
+    ins, outs = _run(faulted, tmp_path / "run", bh, t, d, torch.float32)
+    shares = _shares(ins, outs, 0.0)
+    print(f"one TF32 product, ({bh},{t},{d}) f32: shares of the bound {shares}")
+    assert shares["o"] > 1.0, shares
+    assert shares["dq"] > 1.0, shares
+    assert max(shares["delta"], shares["dk"], shares["dv"]) <= 1.0, shares

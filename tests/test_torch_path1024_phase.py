@@ -51,7 +51,8 @@ def test_path1024_phase_counts_on_cpu(tmp_path, monkeypatch, cpu_launches, capsy
     heads: D = 16, 16 and 8 at T = 1024): each run's launches per kernel and
     head dim equal the structure's prediction, 3g forward launches for the
     restore's g encoder groups, 6 forward (the remat recompute) and 3 dQ
-    and dK/dV launches for the train step, 3 forward for the evaluation."""
+    and dK/dV launches for the train step, each in bf16 and in f32, and 3
+    forward for each of the bf16 and the f32 evaluation."""
     monkeypatch.setattr(chip_smoke, "ROOT", str(tmp_path))
     monkeypatch.setattr(chip_smoke, "CARD", "cpu")
     monkeypatch.setattr(chip_smoke, "PATH1024_SCALE", 16)
@@ -60,11 +61,11 @@ def test_path1024_phase_counts_on_cpu(tmp_path, monkeypatch, cpu_launches, capsy
     state = {"smi": "CPU"}
     chip_smoke.phase_path1024(state)
     log = capsys.readouterr().out
-    assert log.count("the structure predicts") == 3, log
+    assert log.count("the structure predicts") == 6, log
     assert "head dims per encode [16, 16, 8], per decode []" in log, log
     n, g = chip_smoke.static_schedule(chip_smoke.PATH1024_QUALITY, "webp",
                                       *chip_smoke.restore_budget())
-    assert state["launches_path1024"] == {"flash_attention_fwd": 3 * g + 6 + 3,
-                                          "flash_attention_bwd_dq": 3,
-                                          "flash_attention_bwd_dkv": 3}
+    assert state["launches_path1024"] == {"flash_attention_fwd": 2 * (3 * g + 6 + 3),
+                                          "flash_attention_bwd_dq": 6,
+                                          "flash_attention_bwd_dkv": 6}
     assert not (tmp_path / "build" / "chip_smoke_path1024").exists()
