@@ -5,23 +5,23 @@ checkout, with the `lo` product of the hi/lo split dropped at the split
 product of `csrc/flash_mma.cuh` (`wgmma_split`, which the bf16 forward, dQ
 and dK/dV use: each then rounds P, and dS, to bf16 once) and the 3xTF32
 products of `csrc/flash_tf32.cuh` cut to one (`wgmma_3xtf32_ss`/`_sr`/`_rs`,
-which the f32 forward and dQ use: every product then in one TF32 rounding
-of its operands, 1xTF32), and holds the kernels of that copy and of the
+which the f32 forward, dQ and dK/dV use: every product then in one TF32
+rounding of its operands, 1xTF32), and holds the kernels of that copy and of the
 checkout to their plain versions under chip_smoke.py's bounds: the bf16
 forward, dQ and dK/dV at the D = 32 shapes of the main paths, D = 16 and
 8 beside them, the restore CLI's (4, 1024, 32), which the forward splits
 over a cluster, and D = 256 and 128 at the 1024² path's bottleneck (4,
 1024, 256) and (4, 1024, 128), where the warp-specialised forward splits
-its keys and dK/dV its query tiles over a cluster of 2; the f32 forward
-and dQ at the f32 paths' shapes (the full-width f32 distillation's (72,
-1024, 32|16), the 1024² path's (4, 1024, 256|128)).
+its keys and dK/dV its query tiles over a cluster of 2; the f32 forward,
+dQ and dK/dV at the f32 paths' shapes (the full-width f32 distillation's
+(72, 1024, 32|16), the 1024² path's (4, 1024, 256|128)): 16 f32 cases.
 
     python3 chip_fault_check.py
 
 Prints one line per kernel, shape, dtype and build (share of the bound:
 <= 1 passes; the mean |err| beside the max) and exits 0 when every case
-of the checkout passes and every case of the faulted copy fails. Needs a
-CUDA card and nvcc.
+of the checkout passes and every case of the faulted copy fails in each
+output the products feed (O; dQ; dK and dV). Needs a CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -56,7 +56,8 @@ SPLITS = [("flash_mma.cuh",
 # train-step, validation and restore shapes; dQ and dK/dV at the train
 # steps'; the three at the 1024² path's D = 256 (restore and train step),
 # the forward and dK/dV at its D = 128. f32: the forward (without and with
-# the LSE) and dQ at the f32 distillation's and the 1024² path's shapes.
+# the LSE), dQ and dK/dV at the f32 distillation's and the 1024² path's
+# shapes.
 CASES = [("fwd", 32, 1024, 32, False), ("fwd", 72, 1024, 32, True), ("fwd", 16, 1024, 32, False),
          ("fwd", 4, 1024, 32, False),
          ("dq", 72, 1024, 32, True), ("dkv", 72, 1024, 32, True), ("fwd", 32, 1024, 16, False),
@@ -67,15 +68,23 @@ CASES = [("fwd", 32, 1024, 32, False), ("fwd", 72, 1024, 32, True), ("fwd", 16, 
          ("dkv", 4, 1024, 128, True)]
 CASES = [(*c, "bfloat16") for c in CASES] + [
     ("fwd", 72, 1024, 32, False, "float32"), ("fwd", 72, 1024, 32, True, "float32"),
-    ("dq", 72, 1024, 32, True, "float32"), ("fwd", 72, 1024, 16, False, "float32"),
-    ("fwd", 72, 1024, 16, True, "float32"), ("dq", 72, 1024, 16, True, "float32"),
+    ("dq", 72, 1024, 32, True, "float32"), ("dkv", 72, 1024, 32, True, "float32"),
+    ("fwd", 72, 1024, 16, False, "float32"), ("fwd", 72, 1024, 16, True, "float32"),
+    ("dq", 72, 1024, 16, True, "float32"), ("dkv", 72, 1024, 16, True, "float32"),
     ("fwd", 4, 1024, 256, False, "float32"), ("fwd", 4, 1024, 256, True, "float32"),
-    ("dq", 4, 1024, 256, True, "float32"), ("fwd", 4, 1024, 128, False, "float32"),
-    ("fwd", 4, 1024, 128, True, "float32"), ("dq", 4, 1024, 128, True, "float32")]
+    ("dq", 4, 1024, 256, True, "float32"), ("dkv", 4, 1024, 256, True, "float32"),
+    ("fwd", 4, 1024, 128, False, "float32"), ("fwd", 4, 1024, 128, True, "float32"),
+    ("dq", 4, 1024, 128, True, "float32"), ("dkv", 4, 1024, 128, True, "float32")]
 
 
-def shares(fa, max_err) -> list[float]:
-    """Each case's worst share of its bound with this build's kernels."""
+# The outputs in which a faulted product must show, per kernel (the LSE and
+# Delta are sums the products feed little or not at all).
+FAULT_PARTS = {"fwd": ("o",), "dq": ("dq",), "dkv": ("dk", "dv")}
+
+
+def shares(fa, max_err) -> list[tuple[float, float]]:
+    """Each case's worst share of its bound with this build's kernels, over
+    all its outputs and over the least failing of FAULT_PARTS."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -102,15 +111,17 @@ def shares(fa, max_err) -> list[float]:
                 ref = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta)
                 pairs = list(zip(("dk", "dv"), got, ref))
         torch.cuda.synchronize()
-        worst = 0.0
+        worst, least = 0.0, float("inf")
         for part, a, b in pairs:
             e, sh = max_err(a, b)
             worst = max(worst, sh)
+            if part in FAULT_PARTS[kind]:
+                least = min(least, sh)
             mean = (a.float() - b.float()).abs().mean().item()
             print(f"  {kind} {part} (BH,T,D)=({bh},{t},{d}) {dtype_name}: max|err| {e:.3g}, "
                   f"{sh:.3g} of its bound, mean|err| {mean:.3g}, max|ref| "
                   f"{b.float().abs().max().item():.3g}", flush=True)
-        out.append(worst)
+        out.append((worst, least))
     return out
 
 
@@ -149,9 +160,10 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    ok = all(s <= 1.0 for s in sound) and all(s > 1.0 for s in faulted)
-    for case, a, b in zip(CASES, sound, faulted):
-        print(f"{case}: sound {a:.3g}, faulted {b:.3g} of the bound")
+    ok = all(w <= 1.0 for w, _ in sound) and all(least > 1.0 for _, least in faulted)
+    for case, (a, _), (_, b) in zip(CASES, sound, faulted):
+        print(f"{case}: sound {a:.3g}, faulted {b:.3g} of the bound (its least failing "
+              f"output of {'/'.join(FAULT_PARTS[case[0]])})")
     print(f"every sound case passes and every faulted case fails: {ok}")
     return 0 if ok else 1
 

@@ -9,9 +9,10 @@ NVIDIA card and checks it, phase by phase:
      registers, spills and shared memory (`ptxas -v`) and its tensor-core
      and TMA instructions (HGMMA with UTMALDG in every instantiation of
      the bf16 wgmma forward, dQ and dK/dV kernels, D = 8 to 256, and of
-     the f32 forward and dQ where they run TF32 wgmma, and HMMA in none;
-     counted in `cuobjdump -sass`), and no spill in the warp-specialised
-     forward and dK/dV (D = 128 and 256);
+     the f32 forward, dQ and dK/dV (TF32 wgmma, D = 16 to 256), and HMMA
+     in none; counted in `cuobjdump -sass`), and no spill in the
+     warp-specialised bf16 forward and dK/dV (D = 128 and 256) and f32
+     dK/dV (every D);
   3. kernels: each kernel against its plain PyTorch version, with times
      (the kernels' and SDPA's as device time under torch.profiler, the
      plain versions' between CUDA events), and the autograd Function's
@@ -27,7 +28,7 @@ NVIDIA card and checks it, phase by phase:
      predicts, and one UNet evaluation with flash attention against the
      same weights with the plain attention (bf16); then the restore, the
      train step and the evaluation in f32 (`--compute-dtype float32`:
-     the TF32 f32 forward and dQ at D = 256 and 128);
+     the TF32 f32 forward, dQ and dK/dV at D = 256 and 128);
   4. reference: a half-width f32 restore on the card against the same
      restore on the CPU (the CPU path is the one the tests hold to the JAX
      package), a traced-budget, mixed-quality one with decoder reuse, and
@@ -264,12 +265,24 @@ DESIGNS = {
                                         "D = 128 and 256: warp-specialised (producer "
                                         "warpgroup, setmaxnreg; one consumer warpgroup S^T, "
                                         "P^T and dV, the other dP^T, dS^T and dK), query "
-                                        "tiles over a cluster of 2", "f32": "FMA"},
+                                        "tiles over a cluster of 2",
+                                "f32": "TF32 wgmma m64nNk8, 3xTF32 split, TMA/mbarrier ring, "
+                                       "a producer warpgroup writing Q, dO, Q^T and dO^T "
+                                       "hi/lo (queries permuted in groups of 8), setmaxnreg "
+                                       "56/224, K lo and V lo in registers; D <= 32: two "
+                                       "consumer warpgroups of 64 keys each running all four "
+                                       "products; D >= 64: one 64-key tile a block, one "
+                                       "consumer warpgroup S^T, P^T and dV, the other dP^T, "
+                                       "dS^T and dK; D <= 128: query tiles over a cluster of "
+                                       "2 by the rule; D = 256: the head dim split over a "
+                                       "cluster of 2, partial S^T and dP^T exchanged through "
+                                       "distributed shared memory"},
 }
-# The f32 instantiations (kernel, head dims) that run TF32 wgmma; the f32
-# dK/dV runs on FMA.
+# The f32 instantiations (kernel, head dims) that run TF32 wgmma: all three
+# f32 kernels at every head dim they are built for.
 TF32_DESIGN_DIMS = {"flash_fwd_kernel": (16, 32, 64, 128, 256),
-                    "flash_bwd_dq_kernel": (16, 32, 64, 128, 256)}
+                    "flash_bwd_dq_kernel": (16, 32, 64, 128, 256),
+                    "flash_bwd_dkv_kernel": (16, 32, 64, 128, 256)}
 # The f32 path shapes' (kernel, SDPA in f32) device ms of the FMA forward
 # and dQ that the TF32 designs replaced, as chip_smoke measured them on
 # `NVIDIA H100 80GB HBM3, 700.00 W` (PR 17 run 1; PERF.md §6, the f32 rows'
@@ -279,6 +292,13 @@ FMA_F32_FWD_MS = {(4, 1024, 256): (0.4412, 0.1496), (4, 1024, 128): (0.2319, 0.0
                   (8, 1024, 16): (0.0874, 0.0980), (16, 1024, 16): (0.0879, 0.1306)}
 FMA_F32_DQ_MS = {(4, 1024, 256): (0.6033, 0.5871), (4, 1024, 128): (0.3376, 0.3085),
                  (16, 1024, 16): (0.1126, 0.2933)}
+# The same for the FMA dK/dV that the TF32 design replaced: (kernel, SDPA's
+# whole f32 backward, its faster backend) device ms at the f32 path shapes,
+# as chip_smoke measured them on `NVIDIA H100 80GB HBM3, 700.00 W` (PERF.md
+# §6, the f32 dK/dV rows' "was").
+FMA_F32_DKV_MS = {(4, 1024, 256): (0.5372, 0.2606), (4, 1024, 128): (0.3448, 0.1845),
+                  (72, 1024, 32): (0.9805, 1.3463), (72, 1024, 16): (0.4792, 1.2627),
+                  (16, 1024, 16): (0.1364, 0.2914)}
 # The 1024² path's (kernel, SDPA) device ms of the D = 128 and 256 designs
 # that the warp-specialised forward and dK/dV replaced (the forward's
 # 128-row blocks with 32-key stages at D = 256; dK/dV's 288-thread blocks,
@@ -331,10 +351,12 @@ def earlier_design(table_mma_sync: dict, table_wide: dict, key) -> tuple:
 
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s; dense
-# tensor-core bf16 and f32 (non-tensor-core) FLOP/s.
+# tensor-core bf16 FLOP/s; dense TF32 on the tensor cores; f32 outside the
+# tensor cores (FMA: only the "was" bound of the f32 kernels' FMA designs).
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS_S = {"bfloat16": 989e12, "float32": 67e12}
-PEAK_TF32_FLOPS_S = 495e12  # dense TF32 on the tensor cores
+PEAK_BF16_FLOPS_S = 989e12
+PEAK_TF32_FLOPS_S = 495e12
+PEAK_FMA_F32_FLOPS_S = 67e12
 SERVE_QUALITIES = (10, 30, 50)
 SERVE_BATCH = 8
 TRAIN_BATCH = 18        # the WebP preset's batch size
@@ -479,23 +501,37 @@ def max_err(got, ref, rel_max: float | None = None) -> tuple[float, float]:
     return diff.max().item(), (diff / bound.clamp_min(1e-30)).max().item()
 
 
+def products_s(products: int, bh: int, t: int, d: int, dtype_name: str) -> float:
+    """Seconds for `products` T x T x D products (2 flops a multiply-add) at
+    the peak of the tensor-core work the kernels do for the dtype: bf16 at
+    the bf16 peak; f32 as the 3xTF32 split (three TF32 products for each f32
+    one) at the TF32 peak."""
+    flops = 2 * products * bh * t * t * d
+    if dtype_name == "float32":
+        return 3 * flops / PEAK_TF32_FLOPS_S
+    return flops / PEAK_BF16_FLOPS_S
+
+
 def attention_bound_ms(bh: int, t: int, d: int, dtype_name: str,
                        save_lse: bool = False) -> tuple[float, str]:
     """Least time for the work: q, k, v read once and o (and the f32 LSE)
-    written once, over the memory rate; the two T x T x D products over the
-    type's peak."""
+    written once, over the memory rate; the two T x T x D products (S, P*V)
+    at `products_s`'s peak."""
     elt = 2 if dtype_name == "bfloat16" else 4
     t_bytes = (4 * bh * t * d * elt + (4 * bh * t if save_lse else 0)) / PEAK_BYTES_S
-    t_ops = 4 * bh * t * t * d / PEAK_FLOPS_S[dtype_name]
+    t_ops = products_s(2, bh, t, d, dtype_name)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
-def tf32_bound_ms(kind: str, bh: int, t: int, d: int) -> float:
-    """The f32 kernels' operations bound read as their 3xTF32 work at the
-    TF32 tensor-core peak (PEAK_TF32_FLOPS_S): three TF32 products for each
-    f32 one, 12*T^2*D flops a head for the forward (S, P*V), 18 for dQ (S,
-    dP, dS*K)."""
-    return 1e3 * {"fwd": 12, "dq": 18}[kind] * bh * t * t * d / PEAK_TF32_FLOPS_S
+BWD_PRODUCTS = {"dq": 3, "dkv": 4}  # dQ: S, dP, dS*K; dK/dV: S^T, dP^T, dV, dK
+FWD_PRODUCTS = 2
+
+
+def fma_bound_ms(products: int, bh: int, t: int, d: int) -> float:
+    """The operations bound of f32 products on FMA at the f32 peak outside
+    the tensor cores: the bound of the FMA designs that the f32 kernels'
+    TF32 ones replaced, logged beside their "was" times."""
+    return 1e3 * 2 * products * bh * t * t * d / PEAK_FMA_F32_FLOPS_S
 
 
 def sdpa_backends_ms(make_call) -> tuple[float, str, dict]:
@@ -518,11 +554,11 @@ def bwd_bound_ms(kind: str, bh: int, t: int, d: int, dtype_name: str) -> tuple[f
     """Least time for one backward kernel's work. Bytes: dQ reads q, k, v,
     o, dO and the LSE and writes dQ and Delta; dK/dV reads q, k, v, dO, the
     LSE and Delta and writes dK and dV: 6 [BH,T,D] tensors and 2 [BH,T] f32
-    rows either way. Operations: the T x T x D products, 3 of them for dQ
-    (S, dP, dQ) and 4 for dK/dV (S, dP, dV, dK), 2 flops per multiply-add."""
+    rows either way. Operations: the T x T x D products (BWD_PRODUCTS) at
+    `products_s`'s peak."""
     elt = 2 if dtype_name == "bfloat16" else 4
     t_bytes = (6 * bh * t * d * elt + 8 * bh * t) / PEAK_BYTES_S
-    t_ops = {"dq": 6, "dkv": 8}[kind] * bh * t * t * d / PEAK_FLOPS_S[dtype_name]
+    t_ops = products_s(BWD_PRODUCTS[kind], bh, t, d, dtype_name)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
@@ -584,9 +620,11 @@ def phase_build(state: dict) -> None:
         text = log_file.read_text() if log_file.exists() else ""
         for line in build.ptxas_summary(text):
             log(f"  ptxas: {line}")
-            # the warp-specialised forward and dK/dV (D = 128, 256) keep
-            # every accumulator in registers: no spill
-            if re.match(r"flash_(fwd|bwd_dkv)_wgmma_kernel D=(128|256) bf16", line) and \
+            # the warp-specialised kernels (the bf16 forward and dK/dV at
+            # D = 128 and 256, the f32 dK/dV) keep every accumulator in
+            # registers: no spill
+            if re.match(r"flash_(fwd|bwd_dkv)_wgmma_kernel D=(128|256) bf16|"
+                        r"flash_bwd_dkv_kernel D=\d+ f32", line) and \
                     "spills 0/0 B" not in line:
                 spilled.append(line)
         for line in text.splitlines():  # e.g. wgmma serialized by ptxas
@@ -597,11 +635,11 @@ def phase_build(state: dict) -> None:
             log(f"  sass: {kernel}: " + ", ".join(f"{n} {op}" for op, n in ops.items()))
         build.load(name)
     if spilled:
-        raise AssertionError(f"the D = 128 / 256 forward or dK/dV spills: {spilled}")
+        raise AssertionError(f"a warp-specialised forward or dK/dV spills: {spilled}")
     if not sass:
         return
     # every instantiation of the bf16 forward, dQ and dK/dV wgmma kernels
-    # (D = 8 to 256) and of the f32 forward and dQ (TF32_DESIGN_DIMS) runs
+    # (D = 8 to 256) and of the f32 forward, dQ and dK/dV (TF32_DESIGN_DIMS) runs
     # HGMMA and loads by TMA (UTMALDG); no kernel runs HMMA (mma.sync)
     hopper = {k: ops for k, ops in sass.items() if "_wgmma_kernel" in k}
     dq = [k for k in hopper if "dq_wgmma_kernel" in k]
@@ -714,8 +752,9 @@ def phase_kernels(state: dict) -> None:
         log(f"flash_attention_fwd [{path}] (BH,T,D)=({bh},{t},{d}) f32 lse={lse}: kernel "
             f"{r['ms']:.4f} ms, " + ratio_note(r["ms"], r["library_ms"],
                                                FMA_F32_FWD_MS.get((bh, t, d)), "FMA kernel")
-            + f" against {r['library']}; bound {r['bound_ms']:.4f} ms (f32 at 67 TFLOP/s), "
-            f"{tf32_bound_ms('fwd', bh, t, d):.4f} ms (3xTF32 at 495)")
+            + f" against {r['library']}; bound {r['bound_ms']:.4f} ms (3xTF32 at 495 TFLOP/s, "
+            f"{r['bound_by']}), FMA bound {fma_bound_ms(FWD_PRODUCTS, bh, t, d):.4f} ms "
+            f"(f32 at 67)")
     state["bwd_rows"] = check_backward(failures)
     check_function(failures)
     if failures:
@@ -817,8 +856,17 @@ def check_backward(failures: list) -> dict:
                     + f" against sdpa backward ({backend}); pair dQ + dK/dV "
                     f"{dq_ms + dkv_ms:.4f} ms, pair/SDPA "
                     f"{(dq_ms + dkv_ms) / lib_ms if lib_ms > 0 else float('nan'):.3f}; bound "
-                    f"{bwd_bound_ms('dq', bh, t, d, name)[0]:.4f} ms (f32 at 67 TFLOP/s), "
-                    f"{tf32_bound_ms('dq', bh, t, d):.4f} ms (3xTF32 at 495)")
+                    f"{rows[('dq', bh, t, d, name)]['bound_ms']:.4f} ms (3xTF32 at 495 "
+                    f"TFLOP/s, {rows[('dq', bh, t, d, name)]['bound_by']}), FMA bound "
+                    f"{fma_bound_ms(BWD_PRODUCTS['dq'], bh, t, d):.4f} ms (f32 at 67)")
+                was = FMA_F32_DKV_MS.get((bh, t, d))
+                log(f"flash_attention_bwd_dkv [{path}] (BH,T,D)=({bh},{t},{d}) f32: kernel "
+                    f"{dkv_ms:.4f} ms (FMA kernel: {was[0] if was else 'not recorded'}), "
+                    + ratio_note(dkv_ms, lib_ms, was, "FMA kernel")
+                    + f" against sdpa backward ({backend}); bound "
+                    f"{rows[('dkv', bh, t, d, name)]['bound_ms']:.4f} ms (3xTF32 at 495 "
+                    f"TFLOP/s, {rows[('dkv', bh, t, d, name)]['bound_by']}), FMA bound "
+                    f"{fma_bound_ms(BWD_PRODUCTS['dkv'], bh, t, d):.4f} ms (f32 at 67)")
             if name == "bfloat16" and (bh, t, d) in TRAIN_SHAPES:
                 path = TRAIN_PATHS.get((bh, t, d), "train step")
                 dkv_ms, dq_ms = times["dkv"][0], times["dq"][0]

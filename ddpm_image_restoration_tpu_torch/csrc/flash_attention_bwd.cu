@@ -176,7 +176,8 @@
 //         the partner's inbox (st.shared::cluster) and arrives on the
 //         partner's mbarrier (release at cluster scope), waits for the
 //         partner's, and adds the two in rank order, so that both blocks
-//         hold the same S and dP; each then writes its 128 columns of dQ.
+//         hold the same S and dP (flash_tf32.cuh add_partner_partials);
+//         each then writes its 128 columns of dQ.
 //         (Issuing tile j + 1's products before tile j's exchange, with a
 //         raw landing area, ran 1.5x slower: kernel_ab.py, PERF.md §6);
 //   * S = Q*K^T and dP = dO*V^T by m64n{BN}k8 from descriptors, P =
@@ -190,14 +191,78 @@
 //     (4, 1024, 128) takes 2; 4 when forced) and their partial dQ added
 //     through distributed shared memory in one fixed order; every output
 //     element written once, deterministic.
-// The f32 dK/dV runs on the CUDA cores in f32 FMA (67 TFLOP/s ceiling).
-// Layout: each row owned by a block is split over TPR = D/8 adjacent lanes
-// that each hold 8 interleaved dims (so the lanes of one row read different
-// shared-memory banks), 16 dims at D = 256 (16 lanes a row); dot products
-// are the xor-shuffle sum of the lanes' partials; the streamed operand
-// tiles sit in static shared memory (48 KB at most: 16-row tiles at D =
-// 256); 16 partner rows are processed per chunk so that their shuffles and
-// exp2s overlap.
+//
+// f32 dK/dV (flash_bwd_dkv_kernel), at every D: TF32 wgmma with the 3xTF32
+// split, replacing the f32 FMA kernel (0.3448 ms at (4, 1024, 128), 0.5372
+// at (4, 1024, 256), 0.9805 at (72, 1024, 32)). What bounds it at T =
+// 1024: S^T, dP^T, dV and dK three times each, 24*T^2*D flops a head at
+// 495 TFLOP/s: 26 us at (4, 1024, 128), 52 at (4, 1024, 256), 117 at (72,
+// 1024, 32); at 67 TFLOP/s f32 8*T^2*D, 64, 128 and 289 us. The design, in
+// the transposed frame of the bf16 kernel (keys as the M rows):
+//   * a block is two consumer warpgroups and a producer warpgroup (384
+//     threads). The producer gives its registers away (setmaxnreg.dec to
+//     56; the consumers .inc to 224, 168 a thread at launch): its first
+//     thread issues every TMA load, its first warp's lanes bring each query
+//     tile's LSE and Delta rows, its warps 1-3 split what lands;
+//   * S^T and dP^T read K (or V) as A and Q (or dO) as B, both as stored
+//     (K-major over D); K's and V's hi parts stay in shared memory (rounded
+//     in place once), their lo parts in the consumers' registers as the A
+//     fragments of the k8 steps (DH/2 a thread each; wgmma_3xtf32_sr). dV
+//     and dK reduce over queries: P^T and dS^T are register-A operands
+//     taken from the accumulators (split_a_tf32), and their B operands dO^T
+//     and Q^T lie with the queries along the row, permuted in groups of 8
+//     (flash_tf32.cuh; dQ's K^T with keys and queries swapped). So the
+//     splitting warps write four transposed tiles a stage, Q^T and dO^T hi
+//     and lo, beside Q and dO hi/lo in place (split_keys, BOTH_T): 8 tiles
+//     a stage, 32*BN*DH bytes;
+//   * D <= 32 (PAIR): each consumer warpgroup owns 64 of the block's 128
+//     keys and runs all four products on them, S^T with dP^T and dV with
+//     dK interleaved (two independent chains), holding K lo, V lo, dK and
+//     dV (2*D registers a thread besides the 64-query tile's S^T, dP^T and
+//     their hi/lo splits). Against the split by product below it halves the
+//     splitting per product and needs no hand-over: 0.2943 against 0.3645
+//     ms at (72, 1024, 32), 0.0444 against 0.0549 at (16, 1024, 16); taking
+//     turns at issuing (named barriers) gained nothing (kernel_ab.py).
+//     Here the CUDA cores' work a product sets the pace (exp2, dS, the hi/lo
+//     splits of P^T and dS^T, the producer's splitting; twice D = 32's a
+//     flop at D = 16): the stats rows hold -LSE in log2 units, and a full
+//     query tile skips the mask, 0.2070 -> 0.1890 ms at (72, 1024, 16);
+//   * D >= 64: a block is one 64-key tile, split by product as the bf16
+//     dkv_ws: consumer warpgroup 0 computes S^T, P^T = exp2(S^T*c - LSE)
+//     and dV += P^T*dO; warpgroup 1 dP^T, dS^T = P^T o (dP^T - Delta) with
+//     P^T from warpgroup 0 (f32, two shared buffers handed over by named
+//     barriers) and dK += dS^T*Q; each holds one 64 x DH accumulator and
+//     one A lo operand (K lo or V lo), DH registers a thread, where a
+//     warpgroup holding both would need 2*DH = 256 at DH = 128;
+//   * shared memory (227 KB a block): K hi and V hi, 8*KEYS*DH bytes;
+//     stages of BN queries, 32*BN*DH bytes; two P^T buffers of 256*BN
+//     bytes (D >= 64):
+//       D = 16:  16 KB (128 keys), BN 64, 4 stages of 32 KB: 147 KB
+//       D = 32:  32 KB (128 keys), BN 32, 4 stages of 32 KB: 162 KB
+//       D = 64:  32 KB, BN 32, 2 stages of 64 KB, P^T 16 KB: 178 KB
+//       D = 128: 64 KB, BN 16, 2 stages of 64 KB, P^T 8 KB: 201 KB (with
+//         K lo and V lo in shared memory, 128 KB resident, one stage would
+//         fit: the registers keep the ring two deep)
+//       D = 256: K and V hi/lo of 64 keys alone would take 256 KB, so the
+//         head dim is split over a cluster of 2 blocks, each holding its
+//         128 columns of K, V, Q, dO and the transposes (D = 128's counts)
+//         and an inbox for the partner's partial S^T or dP^T (8 KB): 209
+//         KB. After its product each consumer thread stores its partial
+//         S^T (or dP^T) into the partner's inbox (st.shared::cluster),
+//         arrives on the partner's mbarrier of its warpgroup (release at
+//         cluster scope), waits for the partner's and adds the two in rank
+//         order (add_partner_partials, as dQ), so that both blocks hold
+//         the same S^T, dP^T, P^T and dS^T; each writes
+//         its 128 columns of dK and dV;
+//   * query columns >= T get P = 0 explicitly (a zero LSE would give
+//     exp2(0) = 1); key rows >= T (zero-filled by TMA) are not written;
+//   * filling the card: one block a key tile (of KEYS keys), and where
+//     twice the key tiles fit the SMs (dkv_fill_split; (4, 1024, 128): 64
+//     tiles) the query tiles are dealt over a cluster of 2 (block r takes
+//     r, r + 2, ...) and the two blocks' sums added through distributed
+//     shared memory, each block finishing half of each accumulator's n8
+//     blocks; (4, 1024, 256) takes 128 blocks from its head-dim cluster;
+//     every output element written once, deterministic, no atomics.
 //
 // Build (plain C interface, no PyTorch headers; loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -215,116 +280,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kChunk = 16;
 constexpr float kLog2e = 1.4426950408889634f;
-
-template <int D> struct Tile {
-  static constexpr int DPL = D > 128 ? 16 : 8;   // dims of an owned row a lane holds
-  static constexpr int TPR = D / DPL;            // lanes per owned row
-  static constexpr int ROWS = kThreads / TPR;    // owned rows per block
-  // streamed rows per shared tile: two tiles take 2*BN*D*4 bytes of the 48
-  // KB of static shared memory (32 KB at D = 128 and 256)
-  static constexpr int BN = D > 128 ? 16 : (D == 128 ? 32 : 64);
-};
-
-// Loads rows [r0, r0 + BN) of a [T, D] slab into a f32 shared tile, zeros
-// past n_valid.
-template <int D, int BN>
-__device__ __forceinline__ void load_tile(float (*dst)[D], const float* __restrict__ src,
-                                          int n_valid) {
-  for (int i = threadIdx.x; i < BN * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    dst[r][c] = r < n_valid ? src[(size_t)r * D + c] : 0.f;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     float* __restrict__ dk, float* __restrict__ dv, int t_len, float scale,
-                     float scale_log2) {
-  constexpr int DPL = Tile<D>::DPL, TPR = Tile<D>::TPR, ROWS = Tile<D>::ROWS, BN = Tile<D>::BN;
-  __shared__ float q_s[BN][D];
-  __shared__ float do_s[BN][D];
-  __shared__ float lse_s[BN];    // log2 units
-  __shared__ float delta_s[BN];
-
-  const int bh = blockIdx.y;
-  const int sub = threadIdx.x % TPR;
-  const int row = blockIdx.x * ROWS + threadIdx.x / TPR;  // key row
-  const bool row_ok = row < t_len;
-  const size_t base = (size_t)bh * t_len * D;
-  const size_t row_base = base + (size_t)(row_ok ? row : 0) * D;
-  const size_t stat_base = (size_t)bh * t_len;
-
-  float kr[DPL], vr[DPL], dk_acc[DPL], dv_acc[DPL];
-#pragma unroll
-  for (int e = 0; e < DPL; ++e) {
-    const int d = sub + e * TPR;
-    kr[e] = row_ok ? k[row_base + d] * scale_log2 : 0.f;
-    vr[e] = row_ok ? v[row_base + d] : 0.f;
-    dk_acc[e] = 0.f;
-    dv_acc[e] = 0.f;
-  }
-
-  for (int q0 = 0; q0 < t_len; q0 += BN) {
-    const int n_valid = min(BN, t_len - q0);
-    __syncthreads();  // previous tile fully consumed
-    load_tile<D, BN>(q_s, q + base + (size_t)q0 * D, n_valid);
-    load_tile<D, BN>(do_s, dout + base + (size_t)q0 * D, n_valid);
-    for (int i = threadIdx.x; i < BN; i += kThreads) {
-      const bool ok = i < n_valid;
-      lse_s[i] = ok ? lse[stat_base + q0 + i] * kLog2e : 0.f;
-      delta_s[i] = ok ? delta[stat_base + q0 + i] : 0.f;
-    }
-    __syncthreads();
-
-    for (int c0 = 0; c0 < n_valid; c0 += kChunk) {
-      float s[kChunk], dp[kChunk];
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        float a = 0.f, b = 0.f;
-#pragma unroll
-        for (int e = 0; e < DPL; ++e) {
-          a = fmaf(kr[e], q_s[c0 + j][sub + e * TPR], a);
-          b = fmaf(vr[e], do_s[c0 + j][sub + e * TPR], b);
-        }
-        s[j] = a;
-        dp[j] = b;
-      }
-#pragma unroll
-      for (int off = TPR / 2; off > 0; off >>= 1) {
-#pragma unroll
-        for (int j = 0; j < kChunk; ++j) {
-          s[j] += __shfl_xor_sync(0xffffffffu, s[j], off);
-          dp[j] += __shfl_xor_sync(0xffffffffu, dp[j], off);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const int i = c0 + j;
-        const float p = (row_ok && i < n_valid) ? exp2f(s[j] - lse_s[i]) : 0.f;
-        const float ds = p * (dp[j] - delta_s[i]);
-#pragma unroll
-        for (int e = 0; e < DPL; ++e) {
-          dv_acc[e] = fmaf(p, do_s[i][sub + e * TPR], dv_acc[e]);
-          dk_acc[e] = fmaf(ds, q_s[i][sub + e * TPR], dk_acc[e]);
-        }
-      }
-    }
-  }
-
-  if (row_ok) {
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) {
-      dk[row_base + sub + e * TPR] = dk_acc[e] * scale;
-      dv[row_base + sub + e * TPR] = dv_acc[e];
-    }
-  }
-}
 
 // f32 dQ (flash_bwd_dq_kernel<D>; the file's note): C consumer warpgroups
 // of 64 query rows walk the same key tiles, each with its own Q and dO
@@ -559,33 +515,11 @@ __device__ __forceinline__ void dq_tf32(const CUtensorMap& q_map, const CUtensor
       wgmma_wait<0>();
       fence_acc(s);
       fence_acc(dp);
-      if (F::DS == 2) {
-        // the two halves' partial S and dP: each thread sends its own to
-        // the partner's inbox (once the partner has read the last ones),
-        // takes the partner's from its own, and adds them in rank order,
-        // so that both blocks hold the same S and dP
-        if (j > 0) mbar_wait_cluster(x_free, (j - 1) & 1);
-#pragma unroll
-        for (int jj = 0; jj < F::BN / 8; ++jj) {
-          st_cluster_v4(partner_slot + 32 * jj, make_float4(s[jj][0], s[jj][1], s[jj][2], s[jj][3]));
-          st_cluster_v4(partner_slot + 32 * jj + 16,
-                        make_float4(dp[jj][0], dp[jj][1], dp[jj][2], dp[jj][3]));
-        }
-        mbar_arrive_cluster(map_to_rank(x_ready, rank ^ 1));
-        mbar_wait_cluster(x_ready, j & 1);
-        const float* const in = reinterpret_cast<const float*>(area + F::INBOX) +
-                                threadIdx.x * F::BN;
-#pragma unroll
-        for (int jj = 0; jj < F::BN / 8; ++jj) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float ps = in[8 * jj + e], pd = in[8 * jj + 4 + e];
-            s[jj][e] = rank == 0 ? s[jj][e] + ps : ps + s[jj][e];
-            dp[jj][e] = rank == 0 ? dp[jj][e] + pd : pd + dp[jj][e];
-          }
-        }
-        mbar_arrive_cluster(map_to_rank(x_free, rank ^ 1));
-      }
+      // DS = 2: the two halves' partial S and dP, added in rank order
+      if (F::DS == 2)
+        add_partner_partials<F::BN / 8>(
+            partner_slot, reinterpret_cast<const float*>(area + F::INBOX) + threadIdx.x * F::BN,
+            x_ready, x_free, rank, j, s, dp);
       // P = exp2(S c - LSE) and dS = P o (dP - Delta) on the accumulators;
       // key columns >= T get P = 0 explicitly (a zero-filled K gives S = 0,
       // and exp2(0 - LSE) is not 0)
@@ -697,6 +631,477 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
                     int split) {
   dq_tf32<D>(q_map, k_map, v_map, do_map, q, o, dout, lse, dq, delta, t_len, scale, scale_log2,
              split);
+}
+
+// f32 dK/dV (flash_bwd_dkv_kernel<D>; the file's note): a block of two
+// consumer warpgroups (threads 0-255) and a producer warpgroup (256-383),
+// which issues the loads (its first thread), brings the LSE and Delta rows
+// (its first warp) and splits what lands into TF32 hi/lo tiles (warps 1-3).
+// D <= 32 (PAIR): each consumer warpgroup owns 64 keys of the block's 128
+// and runs all four products on them. D >= 64: the block is one 64-key
+// tile, split by product: warpgroup 0 computes S^T and P^T and accumulates
+// dV, warpgroup 1 dP^T and dS^T and accumulates dK. At D = 256 the head
+// dim is split over a cluster of DS = 2 blocks.
+template <int D> struct F32Dkv {
+  static constexpr bool PAIR = D <= 32;            // each consumer warpgroup its own keys
+  static constexpr int KEYS = PAIR ? 128 : 64;     // keys a block
+  static constexpr int DS = D > 128 ? 2 : 1;       // blocks a key tile's head dim is split over
+  static constexpr int DH = D / DS;                // head dims a block
+  static constexpr int CONSUMERS = 256;            // two warpgroups
+  static constexpr int THREADS = CONSUMERS + 128;  // and the producer warpgroup
+  static constexpr int SPLITTERS = 96;             // the producer's warps 1-3
+  // registers a thread after setmaxnreg; 56 * 128 + 224 * 256 = 168 * 384,
+  // the launch's 168 (65536 registers over 384 threads)
+  static constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;
+  static constexpr int BN = D == 16 ? 64 : (D <= 64 ? 32 : 16);  // queries a ring stage
+  static constexpr int SW = DH * 4 < 128 ? DH * 4 : 128;   // bytes a row of a [rows, DH] tile
+  static constexpr int W = SW / 4;                         // columns a panel
+  static constexpr int VSW = BN * 4 < 128 ? BN * 4 : 128;  // bytes a row of Q^T and dO^T
+  static constexpr int NC = DH < 64 ? DH : 64;             // output columns a dV or dK product
+  static constexpr int NB = DH / 8;                        // n8 blocks of a dV or dK accumulator
+  static constexpr int ACCS = PAIR ? 2 : 1;                // accumulators a consumer thread
+  static constexpr int KTILE = KEYS * DH * 4;              // the block's [KEYS, DH] K or V hi
+  static constexpr int QTILE = BN * DH * 4;                // a [BN, DH] (or [DH, BN]) f32 tile
+  static constexpr int STAGE = 8 * QTILE;  // Q, Q lo, dO, dO lo, Q^T, Q^T lo, dO^T, dO^T lo
+  static constexpr int PTILE = PAIR ? 0 : 64 * BN * 4;     // P^T of one query tile, f32
+  // The partial S^T (warpgroup 0) or dP^T (1) a block sends its partner
+  // each query tile (DS = 2): each consumer thread's accumulator, BN / 2 f32.
+  static constexpr int XCHG = DS == 2 ? CONSUMERS * BN / 2 * 4 : 0;
+  // From the 1024-aligned base: K hi, V hi; the ring (split_keys<BOTH_T>'s
+  // eight tiles a stage: raw Q lands in Q hi, raw dO in dO hi); two P^T
+  // buffers (split by product); the partner's inbox (DS = 2); each stage's
+  // -LSE (log2 units) and Delta rows; the barriers (raw full, split full
+  // and empty a stage; then K and V's load and split; each consumer
+  // warpgroup's exchange ready and free). As many stages as fit in 227 KB,
+  // at most 4.
+  static constexpr int RING = 2 * KTILE;
+  static constexpr int FIXED = 1024 + RING + 2 * PTILE + XCHG + 8 * 6;
+  static constexpr int FIT = (232448 - FIXED) / (STAGE + 2 * BN * 4 + 3 * 8);
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  static constexpr int PBUF = RING + STAGES * STAGE;
+  static constexpr int INBOX = PBUF + 2 * PTILE;
+  static constexpr int STATS = INBOX + XCHG;
+  static constexpr int BARS = STATS + STAGES * 2 * BN * 4;
+  static constexpr int SMEM = 1024 + BARS + 8 * (3 * STAGES + 6);
+  // The split over query tiles: each consumer thread leaves the other
+  // block's half of each accumulator's n8 blocks (NB / 2 float4) in the ring.
+  static constexpr int RED_BYTES = CONSUMERS * ACCS * (NB / 2) * 16;
+  static_assert(STAGES >= 2 && SMEM <= 232448, "227 KB a block");
+  static_assert(RED_BYTES <= STAGES * STAGE, "the partial sums overlay the ring");
+};
+
+template <int D>
+__device__ __forceinline__ void dkv_tf32(const CUtensorMap& q_map, const CUtensorMap& k_map,
+                                         const CUtensorMap& v_map, const CUtensorMap& do_map,
+                                         const float* __restrict__ k, const float* __restrict__ v,
+                                         const float* __restrict__ lse,
+                                         const float* __restrict__ delta, float* __restrict__ dk,
+                                         float* __restrict__ dv, int t_len, float scale,
+                                         float scale_log2, int split) {
+  using namespace wgmma_sm90;
+  using namespace flash_tf32;
+  using F = F32Dkv<D>;
+  // named barriers: P^T buffer b full (1 + b) and free (3 + b), each
+  // between the two consumer warpgroups; both consumers (5)
+  constexpr int kPFull = 1, kPFree = 3, kConsumerBar = 5;
+  constexpr int S = F::STAGES, DH = F::DH;
+  char* const raw = dynamic_smem();
+  const uint32_t base = (smem_u32(raw) + 1023) & ~1023u;
+  char* const area = raw + (base - smem_u32(raw));
+  float* const stats = reinterpret_cast<float*>(area + F::STATS);
+  const uint32_t bars = base + F::BARS;
+  auto raw_full = [&](int s) { return bars + 8 * s; };           // TMA landed
+  auto split_full = [&](int s) { return bars + 8 * (S + s); };    // hi/lo and stats written
+  auto empty = [&](int s) { return bars + 8 * (2 * S + s); };     // consumers done
+  const uint32_t kv_bar = bars + 24 * S, kv_split = kv_bar + 8;
+  auto x_ready = [&](int w) { return kv_bar + 16 + 16 * w; };     // DS = 2: the exchange
+  auto x_free = [&](int w) { return kv_bar + 24 + 16 * w; };
+  auto stage_at = [&](int s) { return F::RING + s * F::STAGE; };  // bytes from base
+  const uint32_t k_hi = base, v_hi = base + F::KTILE;
+
+  const int bh = blockIdx.y;
+  const int cl = F::DS == 2 ? 2 : split;      // the cluster's blocks
+  const int rank = blockIdx.x % cl;           // the cluster rank where cl > 1
+  const int qrank = F::DS == 2 ? 0 : rank;    // the block's share of the query tiles
+  const int qsplit = F::DS == 2 ? 1 : split;
+  const int d0 = F::DS == 2 ? rank * DH : 0;  // the block's first head dim
+  const int key0 = blockIdx.x / cl * F::KEYS;
+  const int n_tiles = (t_len + F::BN - 1) / F::BN;
+  const int n_local = qrank < n_tiles ? (n_tiles - qrank + qsplit - 1) / qsplit : 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < S; ++st) {
+      mbar_init(raw_full(st), 1);
+      mbar_init(split_full(st), 3 + 1);         // the splitting warps, the stats' warp
+      mbar_init(empty(st), F::CONSUMERS / 32);  // every consumer warp
+    }
+    mbar_init(kv_bar, 1);
+    mbar_init(kv_split, 3);
+    for (int w = 0; w < 2; ++w) {
+      mbar_init(x_ready(w), 128);  // every thread of the partner's warpgroup w
+      mbar_init(x_free(w), 128);
+    }
+    mbar_fence_init();
+  }
+  if (F::DS == 2) cluster_sync();  // the partner's barriers exist before any arrival
+  else __syncthreads();
+
+  if (wg == 2) {
+    setmaxnreg_dec<F::PRODUCER_REGS>();
+    if (warp == F::CONSUMERS / 32) {
+      // the loads: K and V once, then each query tile's Q and dO through
+      // the ring, a stage refilled once the consumers let it go; the lanes
+      // write the tile's -LSE (in log2 units) and Delta rows (zeros past T)
+      if (lane == 0) {
+        mbar_arrive_expect_tx(kv_bar, 2 * F::KTILE);
+        for (int pn = 0; pn < DH / F::W; ++pn) {
+          tma_load_3d(k_hi + pn * F::KEYS * F::SW, &k_map, kv_bar, d0 + pn * F::W, key0, bh);
+          tma_load_3d(v_hi + pn * F::KEYS * F::SW, &v_map, kv_bar, d0 + pn * F::W, key0, bh);
+        }
+      }
+      const size_t head = (size_t)bh * t_len;  // this head's first row
+      for (int j = 0; j < n_local; ++j) {
+        const int st = j % S;
+        const int q0 = (qrank + j * qsplit) * F::BN;
+        if (j >= S) mbar_wait(empty(st), ((j / S) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_arrive_expect_tx(raw_full(st), 2 * F::QTILE);
+          for (int pn = 0; pn < DH / F::W; ++pn) {
+            tma_load_3d(base + stage_at(st) + pn * F::BN * F::SW, &q_map, raw_full(st),
+                        d0 + pn * F::W, q0, bh);
+            tma_load_3d(base + stage_at(st) + 2 * F::QTILE + pn * F::BN * F::SW, &do_map,
+                        raw_full(st), d0 + pn * F::W, q0, bh);
+          }
+        }
+        float* const rows = stats + st * 2 * F::BN;
+        for (int i = lane; i < F::BN; i += 32) {
+          const bool ok = q0 + i < t_len;
+          rows[i] = ok ? -lse[head + q0 + i] * kLog2e : 0.f;
+          rows[F::BN + i] = ok ? delta[head + q0 + i] : 0.f;
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(split_full(st));
+      }
+    } else {
+      // the split: K and V hi rounded in place once (their lo parts live in
+      // the consumers' registers), then each stage as it lands
+      const int sid = threadIdx.x - F::CONSUMERS - 32;
+      mbar_wait(kv_bar, 0);
+      split_in_place(area, nullptr, 2 * F::KTILE, sid, F::SPLITTERS);
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(kv_split);
+      for (int j = 0; j < n_local; ++j) {
+        const int st = j % S;
+        mbar_wait(raw_full(st), (j / S) & 1);
+        split_keys<DH, F::BN, false, true>(area + stage_at(st), sid, F::SPLITTERS);
+        fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(split_full(st));
+      }
+    }
+    // the consumers' cluster barriers: one at the end (DS = 2), or two
+    // around the split's sum
+    if (cl > 1) cluster_sync();
+    if (F::DS == 1 && split > 1) cluster_sync();
+    return;
+  }
+
+  setmaxnreg_inc<F::CONSUMER_REGS>();
+  const int g = lane >> 2, tq = lane & 3;
+  const int ct = threadIdx.x % 128;               // the thread in its warpgroup
+  const int rows0 = F::PAIR ? 64 * wg : 0;        // this warpgroup's first key in the block
+  const int row0 = key0 + rows0 + 16 * (warp % 4) + g;
+  // A operands' lo fragments from the rows in device memory (k8 step kd:
+  // rows g, g + 8, columns d0 + 8kd + tq, + 4; zeros past T)
+  auto load_lo = [&](const float* __restrict__ x, uint32_t (&lo)[DH / 8][4]) {
+    const float* const src = x + ((size_t)bh * t_len + row0) * D + d0 + tq;
+#pragma unroll
+    for (int kd = 0; kd < DH / 8; ++kd) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = i & 1, c = 8 * kd + 4 * (i >> 1);
+        const float y = row0 + 8 * r < t_len ? src[(size_t)8 * r * D + c] : 0.f;
+        uint32_t hi;
+        split_tf32(y, hi, lo[kd][i]);
+      }
+    }
+  };
+  // the k8 slices of this warpgroup's K or V hi rows, and of a stage's Q or
+  // dO (B of S^T and dP^T) and of its Q^T or dO^T (B of dK and dV)
+  auto a_at = [&](uint32_t tile, int kd) { return tile + rows0 * F::SW + kslice8<F::SW>(kd, F::KEYS); };
+  auto b_at = [&](uint32_t tile, int kd) { return tile + kslice8<F::SW>(kd, F::BN); };
+  auto bt_at = [&](uint32_t tile, int kk, int c) {
+    return tile + kslice8<F::VSW>(kk, DH) + c * F::NC * F::VSW;
+  };
+  // P^T = exp2(X c - LSE) in place, query columns >= T given P = 0
+  // explicitly (a zero LSE would give exp2(0) = 1); a full query tile
+  // takes no mask
+  auto exp_p = [&](float (&x)[F::BN / 8][4], const float* lse_s, int n_valid) {
+    if (n_valid >= F::BN) {
+#pragma unroll
+      for (int j = 0; j < F::BN / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float neg_lse = lse_s[8 * j + 2 * tq + c];
+#pragma unroll
+          for (int e = c; e < 4; e += 2) x[j][e] = exp2_approx(fmaf(x[j][e], scale_log2, neg_lse));
+        }
+      }
+      return;
+    }
+#pragma unroll
+    for (int j = 0; j < F::BN / 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = 8 * j + 2 * tq + c;
+        const float neg_lse = lse_s[col];
+        const bool ok = col < n_valid;
+#pragma unroll
+        for (int e = c; e < 4; e += 2)
+          x[j][e] = ok ? exp2_approx(fmaf(x[j][e], scale_log2, neg_lse)) : 0.f;
+      }
+    }
+  };
+  float acc[F::ACCS][DH / F::NC][F::NC / 8][4];  // dV and dK (PAIR); dV (warpgroup 0) or dK (1)
+#pragma unroll
+  for (int a = 0; a < F::ACCS; ++a) {
+#pragma unroll
+    for (int c = 0; c < DH / F::NC; ++c) {
+#pragma unroll
+      for (int j = 0; j < F::NC / 8; ++j) acc[a][c][j][0] = acc[a][c][j][1] = acc[a][c][j][2] = acc[a][c][j][3] = 0.f;
+    }
+  }
+
+  if constexpr (F::PAIR) {
+    uint32_t klo[DH / 8][4], vlo[DH / 8][4];
+    load_lo(k, klo);
+    load_lo(v, vlo);
+    mbar_wait(kv_split, 0);
+    for (int it = 0; it < n_local; ++it) {
+      const int st = it % S;
+      mbar_wait(split_full(st), (it / S) & 1);
+      const uint32_t qs = base + stage_at(st), ds = qs + 2 * F::QTILE;
+      // S^T = K Q^T and dP^T = V dO^T, two independent chains
+      float s[F::BN / 8][4], dp[F::BN / 8][4];
+      wgmma_fence();
+#pragma unroll
+      for (int kd = 0; kd < DH / 8; ++kd) {
+        wgmma_3xtf32_sr(s, make_desc(a_at(k_hi, kd), F::SW), klo[kd], make_desc(b_at(qs, kd), F::SW),
+                        make_desc(b_at(qs + F::QTILE, kd), F::SW), kd > 0);
+        wgmma_3xtf32_sr(dp, make_desc(a_at(v_hi, kd), F::SW), vlo[kd], make_desc(b_at(ds, kd), F::SW),
+                        make_desc(b_at(ds + F::QTILE, kd), F::SW), kd > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(s);
+      fence_acc(dp);
+      // P^T, then dS^T = P^T o (dP^T - Delta)
+      const float* const lse_s = stats + st * 2 * F::BN;
+      const float* const delta_s = lse_s + F::BN;
+      exp_p(s, lse_s, t_len - (qrank + it * qsplit) * F::BN);
+#pragma unroll
+      for (int j = 0; j < F::BN / 8; ++j) {
+        const float e0 = delta_s[8 * j + 2 * tq], e1 = delta_s[8 * j + 2 * tq + 1];
+        dp[j][0] = s[j][0] * (dp[j][0] - e0);
+        dp[j][1] = s[j][1] * (dp[j][1] - e1);
+        dp[j][2] = s[j][2] * (dp[j][2] - e0);
+        dp[j][3] = s[j][3] * (dp[j][3] - e1);
+      }
+      SplitTf32 p[F::BN / 8], dsa[F::BN / 8];
+#pragma unroll
+      for (int kk = 0; kk < F::BN / 8; ++kk) {
+        p[kk] = split_a_tf32(s[kk]);
+        dsa[kk] = split_a_tf32(dp[kk]);
+      }
+      // dV += P^T dO against dO^T, dK += dS^T Q against Q^T, interleaved
+      const uint32_t qt = qs + 4 * F::QTILE, dot = qs + 6 * F::QTILE;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < F::BN / 8; ++kk) {
+#pragma unroll
+        for (int c = 0; c < DH / F::NC; ++c) {
+          wgmma_3xtf32_rs(acc[0][c], p[kk], make_desc(bt_at(dot, kk, c), F::VSW),
+                          make_desc(bt_at(dot + F::QTILE, kk, c), F::VSW));
+          wgmma_3xtf32_rs(acc[1][c], dsa[kk], make_desc(bt_at(qt, kk, c), F::VSW),
+                          make_desc(bt_at(qt + F::QTILE, kk, c), F::VSW));
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < DH / F::NC; ++c) {
+        fence_acc(acc[0][c]);
+        fence_acc(acc[1][c]);
+      }
+      if (lane == 0) mbar_arrive(empty(st));  // this stage is free for the producer
+    }
+  } else {
+    // this warpgroup's A lo fragments: K lo (warpgroup 0) or V lo (1)
+    uint32_t alo[DH / 8][4];
+    load_lo(wg == 0 ? k : v, alo);
+    // DS = 2: this thread's slot of the partner's inbox (where it sends its
+    // partial S^T or dP^T) and of its own (where the partner's arrive)
+    const uint32_t slot = base + F::INBOX + threadIdx.x * (F::BN / 2) * 4;
+    const uint32_t partner_slot = F::DS == 2 ? map_to_rank(slot, rank ^ 1) : 0;
+    const uint32_t a_hi = wg == 0 ? k_hi : v_hi;
+    mbar_wait(kv_split, 0);
+    for (int it = 0; it < n_local; ++it) {
+      const int st = it % S, pb = it & 1;
+      mbar_wait(split_full(st), (it / S) & 1);
+      const uint32_t qs = base + stage_at(st);
+      // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (1), 3xTF32 over this
+      // block's head dims, Q or dO hi/lo as stored
+      const uint32_t b_hi = wg == 0 ? qs : qs + 2 * F::QTILE;
+      float x[F::BN / 8][4];  // S^T, then P^T (warpgroup 0); dP^T, then dS^T (1)
+      wgmma_fence();
+#pragma unroll
+      for (int kd = 0; kd < DH / 8; ++kd)
+        wgmma_3xtf32_sr(x, make_desc(a_at(a_hi, kd), F::SW), alo[kd],
+                        make_desc(b_at(b_hi, kd), F::SW), make_desc(b_at(b_hi + F::QTILE, kd), F::SW),
+                        kd > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(x);
+      // DS = 2: the two halves' partial S^T (or dP^T), added in rank order
+      if (F::DS == 2)
+        add_partner_partials<F::BN / 8>(
+            partner_slot,
+            reinterpret_cast<const float*>(area + F::INBOX) + threadIdx.x * (F::BN / 2),
+            x_ready(wg), x_free(wg), rank, it, x);
+      const float* const lse_s = stats + st * 2 * F::BN;
+      float4* const pbuf = reinterpret_cast<float4*>(area + F::PBUF + pb * F::PTILE);
+      if (wg == 0) {
+        exp_p(x, lse_s, t_len - (qrank + it * qsplit) * F::BN);
+        // to warpgroup 1, each thread's fragment at its own place
+        if (it >= 2) named_sync(kPFree + pb, F::CONSUMERS);
+#pragma unroll
+        for (int j = 0; j < F::BN / 8; ++j)
+          pbuf[j * 128 + ct] = make_float4(x[j][0], x[j][1], x[j][2], x[j][3]);
+        named_arrive(kPFull + pb, F::CONSUMERS);
+      } else {
+        // dS^T = P^T o (dP^T - Delta), P^T from warpgroup 0
+        const float* const delta_s = lse_s + F::BN;
+        named_sync(kPFull + pb, F::CONSUMERS);
+#pragma unroll
+        for (int j = 0; j < F::BN / 8; ++j) {
+          const float4 pt = pbuf[j * 128 + ct];
+          const float e0 = delta_s[8 * j + 2 * tq], e1 = delta_s[8 * j + 2 * tq + 1];
+          x[j][0] = pt.x * (x[j][0] - e0);
+          x[j][1] = pt.y * (x[j][1] - e1);
+          x[j][2] = pt.z * (x[j][2] - e0);
+          x[j][3] = pt.w * (x[j][3] - e1);
+        }
+        if (it + 2 < n_local) named_arrive(kPFree + pb, F::CONSUMERS);
+      }
+      SplitTf32 a[F::BN / 8];  // P^T or dS^T as the A operand, hi and lo
+#pragma unroll
+      for (int kk = 0; kk < F::BN / 8; ++kk) a[kk] = split_a_tf32(x[kk]);
+      // dV += P^T dO (warpgroup 0) against dO^T, or dK += dS^T Q (1)
+      // against Q^T, 3xTF32 (queries along the rows of both)
+      const uint32_t bt_hi = qs + (wg == 0 ? 6 : 4) * F::QTILE;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < F::BN / 8; ++kk) {
+#pragma unroll
+        for (int c = 0; c < DH / F::NC; ++c)
+          wgmma_3xtf32_rs(acc[0][c], a[kk], make_desc(bt_at(bt_hi, kk, c), F::VSW),
+                          make_desc(bt_at(bt_hi + F::QTILE, kk, c), F::VSW));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < DH / F::NC; ++c) fence_acc(acc[0][c]);
+      if (lane == 0) mbar_arrive(empty(st));  // this stage is free for the producer
+    }
+  }
+
+  // accumulator a: dV (a = 0 where PAIR, and warpgroup 0's), else dK
+  auto is_dv = [&](int a) { return F::PAIR ? a == 0 : wg == 0; };
+  const bool halves = F::DS == 1 && split > 1;
+  constexpr int HALF = F::NB / 2;
+  auto red_slot = [&](int a, int nb) {  // a float4 of the partial sums
+    return ((wg * F::ACCS + a) * HALF + nb % HALF) * 128 + ct;
+  };
+  if (halves) {
+    // the other block's half of each accumulator's n8 blocks: leave it in
+    // the ring's space (free once both warpgroups are here), read the other
+    // block's share of this block's half, add
+    named_sync(kConsumerBar, F::CONSUMERS);
+    float4* const red = reinterpret_cast<float4*>(area + F::RING);
+    const int other = rank ^ 1;
+#pragma unroll
+    for (int a = 0; a < F::ACCS; ++a) {
+#pragma unroll
+      for (int c = 0; c < DH / F::NC; ++c) {
+#pragma unroll
+        for (int j = 0; j < F::NC / 8; ++j) {
+          const int nb = c * (F::NC / 8) + j;
+          if (nb / HALF != other) continue;
+          red[red_slot(a, nb)] =
+              make_float4(acc[a][c][j][0], acc[a][c][j][1], acc[a][c][j][2], acc[a][c][j][3]);
+        }
+      }
+    }
+    cluster_sync();
+    const uint32_t red_at = smem_u32(red);
+#pragma unroll
+    for (int a = 0; a < F::ACCS; ++a) {
+#pragma unroll
+      for (int c = 0; c < DH / F::NC; ++c) {
+#pragma unroll
+        for (int j = 0; j < F::NC / 8; ++j) {
+          const int nb = c * (F::NC / 8) + j;
+          if (nb / HALF != rank) continue;
+          const float4 y = ld_cluster_v4(map_to_rank(red_at + 16 * red_slot(a, nb), other));
+          acc[a][c][j][0] += y.x;
+          acc[a][c][j][1] += y.y;
+          acc[a][c][j][2] += y.z;
+          acc[a][c][j][3] += y.w;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < F::ACCS; ++a) {
+    const float out_scale = is_dv(a) ? 1.f : scale;
+    float* const out = is_dv(a) ? dv : dk;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= t_len) continue;
+      float* const o = out + ((size_t)bh * t_len + row) * D + d0 + 2 * tq;
+#pragma unroll
+      for (int c = 0; c < DH / F::NC; ++c) {
+#pragma unroll
+        for (int j = 0; j < F::NC / 8; ++j) {
+          if (halves && (c * (F::NC / 8) + j) / HALF != rank) continue;
+          *reinterpret_cast<float2*>(o + c * F::NC + 8 * j) =
+              make_float2(acc[a][c][j][2 * r] * out_scale, acc[a][c][j][2 * r + 1] * out_scale);
+        }
+      }
+    }
+  }
+  // no block leaves while its partner may still signal it or read its
+  // shared memory
+  if (cl > 1) cluster_sync();
+}
+
+// f32 dK/dV: TF32 wgmma with the 3xTF32 split (dkv_tf32), at every D.
+template <int D>
+__global__ void __launch_bounds__(F32Dkv<D>::THREADS, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const __grid_constant__ CUtensorMap do_map, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int t_len, float scale, float scale_log2,
+                     int split) {
+  dkv_tf32<D>(q_map, k_map, v_map, do_map, k, v, lse, delta, dk, dv, t_len, scale, scale_log2,
+              split);
 }
 
 constexpr int kWarpgroups = 2;                   // consumer warpgroups a block
@@ -1412,10 +1817,6 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     dkv_pair<D>(q_map, k_map, v_map, do_map, lse, delta, dk, dv, t_len, scale, scale_log2);
 }
 
-template <int D> dim3 grid_for(int bh, int t) {
-  return dim3((t + Tile<D>::ROWS - 1) / Tile<D>::ROWS, bh);
-}
-
 template <int D>
 cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v, const void* o,
                            const void* dout, const void* lse, void* dq, void* delta, int bh,
@@ -1501,9 +1902,11 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o
   return cudaErrorInvalidValue;
 }
 
-// The split of dK/dV's query tiles over a cluster at D >= 128: 2 while the
-// grid of `blocks` key tiles times 2 stays within the SMs and there are 2
-// query tiles to deal; else 1.
+// The split of dK/dV's query tiles over a cluster (bf16 at D >= 128, f32
+// at D <= 128): 2 while the grid of `blocks` key tiles times 2 stays within
+// the SMs and there are 2 query tiles to deal; else 1. (f32: also taking 2
+// where the grid's last round of the SMs would be less than half full,
+// (72, 1024, 32|16), ran 1-3% slower: kernel_ab.py.)
 int dkv_fill_split(int blocks, int query_tiles, int sms) {
   return blocks * 2 <= sms && query_tiles >= 2 ? 2 : 1;
 }
@@ -1556,20 +1959,59 @@ cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v, const v
 }
 
 template <int D>
+cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v, const void* dout,
+                           const void* lse, const void* delta, void* dk, void* dv, int bh,
+                           int t, float scale, int split, cudaStream_t stream) {
+  namespace host = wgmma_sm90_host;
+  using F = F32Dkv<D>;
+  CUtensorMap maps[4];
+  const void* tiles[4] = {q, k, v, dout};
+  const int rows[4] = {F::BN, F::KEYS, F::KEYS, F::BN};  // Q's and dO's box a stage, K's and V's a block's keys
+  cudaError_t err = cudaSuccess;
+  for (int i = 0; i < 4 && err == cudaSuccess; ++i)
+    err = host::tile_map(&maps[i], tiles[i], bh, t, D, F::W, rows[i], F::SW, 4);
+  const int key_tiles = (t + F::KEYS - 1) / F::KEYS;
+  if (F::DS == 2) {
+    split = 1;  // the cluster splits the head dim, not the query tiles
+  } else {
+    if (split == 0) split = dkv_fill_split(bh * key_tiles, (t + F::BN - 1) / F::BN, host::sm_count());
+    if (split != 1 && split != 2) return cudaErrorInvalidValue;
+  }
+  const int cluster_blocks = F::DS == 2 ? 2 : split;
+  static uint64_t covered = 0, allowed = 0;
+  if (err == cudaSuccess)
+    err = host::registers_cover(flash_bwd_dkv_kernel<D>, F::THREADS, F::THREADS - F::CONSUMERS,
+                                F::PRODUCER_REGS, F::CONSUMER_REGS, covered);
+  if (err == cudaSuccess) err = host::allow_smem(flash_bwd_dkv_kernel<D>, F::SMEM, allowed);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = cluster_blocks;
+  cluster.val.clusterDim.y = cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(key_tiles * cluster_blocks, bh);
+  cfg.blockDim = dim3(F::THREADS);
+  cfg.dynamicSmemBytes = F::SMEM;
+  cfg.stream = stream;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = cluster_blocks > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, flash_bwd_dkv_kernel<D>, maps[0], maps[1], maps[2], maps[3],
+                           static_cast<const float*>(k), static_cast<const float*>(v),
+                           static_cast<const float*>(lse), static_cast<const float*>(delta),
+                           static_cast<float*>(dk), static_cast<float*>(dv), t, scale,
+                           scale * kLog2e, split);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv, int bh,
                        int t, int dtype, float scale, int split, cudaStream_t stream) {
   if (dtype == 1)
     return launch_dkv_bf16<D>(q, k, v, dout, lse, delta, dk, dv, bh, t, scale, split, stream);
   if constexpr (D >= 16) {  // the f32 kernel is built from D = 16 up
-    if (dtype == 0) {
-      flash_bwd_dkv_kernel<D><<<grid_for<D>(bh, t), kThreads, 0, stream>>>(
-          static_cast<const float*>(q), static_cast<const float*>(k),
-          static_cast<const float*>(v), static_cast<const float*>(dout),
-          static_cast<const float*>(lse), static_cast<const float*>(delta),
-          static_cast<float*>(dk), static_cast<float*>(dv), t, scale, scale * kLog2e);
-      return cudaGetLastError();
-    }
+    if (dtype == 0)
+      return launch_dkv_f32<D>(q, k, v, dout, lse, delta, dk, dv, bh, t, scale, split, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -1637,9 +2079,11 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
                                       sm_scale, 0, stream);
 }
 
-// As flash_attention_bwd_dkv, with the bf16 kernel's split over query
-// tiles forced at D >= 128: split 0 takes the launcher's rule, 1 or 2 that
-// many blocks a cluster (the D <= 64 and f32 kernels ignore it).
+// As flash_attention_bwd_dkv, with the split over query tiles forced:
+// split 0 takes the launcher's rule, 1 or 2 that many blocks a cluster (the
+// bf16 kernel at D >= 128 and the f32 one at D <= 128; the bf16 kernel at
+// D <= 64 ignores it, and the f32 one at D = 256, whose cluster splits the
+// head dim).
 extern "C" int flash_attention_bwd_dkv_split(const void* q, const void* k, const void* v,
                                              const void* dout, const void* lse,
                                              const void* delta, void* dk, void* dv, int bh,
@@ -1655,8 +2099,8 @@ extern "C" int flash_attention_bwd_dkv_split(const void* q, const void* k, const
 
 // dK and dV from q, k, v, dO, the LSE and the Delta that
 // flash_attention_bwd_dq wrote (launch this after it on the same stream).
-// dtype 0 = float32 (FMA kernel; d >= 16), 1 = bfloat16 (wgmma kernel, d = 8
-// too; the [BH, T, d] tensors must be 16-byte aligned).
+// dtype 0 = float32 (TF32 wgmma kernel, d >= 16), 1 = bfloat16 (wgmma
+// kernel, d = 8 too); the [BH, T, d] tensors must be 16-byte aligned.
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                        const void* dout, const void* lse, const void* delta,
                                        void* dk, void* dv, int bh, int t, int d, int dtype,

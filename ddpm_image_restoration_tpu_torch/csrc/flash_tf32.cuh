@@ -1,6 +1,7 @@
 // The 3xTF32 products and shared-memory tiles of the f32 flash-attention
 // kernels (flash_attention_fwd.cu flash_fwd_kernel, flash_attention_bwd.cu
-// flash_bwd_dq_kernel), on the TF32 wgmma of wgmma_sm90.cuh.
+// flash_bwd_dq_kernel and flash_bwd_dkv_kernel), on the TF32 wgmma of
+// wgmma_sm90.cuh.
 //
 // An f32 operand x goes in as hi = tf32(x) and lo = tf32(x - hi) (cvt.rna;
 // wgmma_sm90::split_tf32), and each product A*B as A_hi*B_hi + A_hi*B_lo +
@@ -12,7 +13,9 @@
 // TF32 wgmma reads both operands K-major. The products whose reduction runs
 // over keys (P*V, dS*K) need V and K with the keys along the row: the
 // producer writes such a transposed tile [D, BN] beside the stored [BN, D]
-// one, the keys of each group of 8 in the order 0, 2, 4, 6, 1, 3, 5, 7
+// one (dK/dV's products P^T*dO and dS^T*Q, reducing over queries, likewise
+// need dO^T and Q^T: there the queries take the keys' part below), the
+// keys of each group of 8 in the order 0, 2, 4, 6, 1, 3, 5, 7
 // (key 8m + 2i + h at place 8m + 4h + i). The accumulator of S (or dP)
 // gives lane (g, t) keys 2t and 2t+1 of each group of 8, and the A operand
 // of a k8 step wants its columns t and t+4: with the keys so permuted those
@@ -113,12 +116,14 @@ __device__ __forceinline__ void split_in_place(char* tile, char* lo, int bytes, 
 // their hi/lo TF32 forms; thread `tid` of `n`. FWD (the forward): the stage
 // is [K hi | K lo | V^T hi | V^T lo], raw K landed in K hi and raw V in K
 // lo (or both in `raw`, K then V, where given); !FWD (dQ): [K hi | K lo |
-// V hi | V lo | K^T hi | K^T lo], raw K in K hi and raw V in V hi. Each
+// V hi | V lo | K^T hi | K^T lo], raw K in K hi and raw V in V hi; with
+// BOTH_T (dK/dV, whose stages hold queries: Q in K's place, dO in V's)
+// also V^T hi | V^T lo after them. Each
 // thread takes 4 keys (8g + 2i + h, i = 0..3) at one column d: it reads
 // them before it writes any of their places, and no other thread reads
 // them, so the tiles convert in place; their transposed hi/lo land as one
 // 16-byte chunk of row d, at places 8g' + 4h + i (g' = g >> 1, h = g & 1).
-template <int D, int BN, bool FWD>
+template <int D, int BN, bool FWD, bool BOTH_T = false>
 __device__ __forceinline__ void split_keys(char* stage, int tid, int n,
                                            const char* raw = nullptr) {
   constexpr int SW = D * 4 < 128 ? D * 4 : 128;
@@ -154,6 +159,10 @@ __device__ __forceinline__ void split_keys(char* stage, int tid, int n,
     const uint32_t at = tile_at<VSW>(d, 4 * g, D);  // = 8(g >> 1) + 4(g & 1)
     *reinterpret_cast<uint4*>(th + at) = FWD ? vh4 : kh4;
     *reinterpret_cast<uint4*>(tl + at) = FWD ? vl4 : kl4;
+    if (BOTH_T) {
+      *reinterpret_cast<uint4*>(th + 2 * TILE + at) = vh4;
+      *reinterpret_cast<uint4*>(tl + 2 * TILE + at) = vl4;
+    }
     const uint32_t khs[4] = {kh4.x, kh4.y, kh4.z, kh4.w}, kls[4] = {kl4.x, kl4.y, kl4.z, kl4.w};
     const uint32_t vhs[4] = {vh4.x, vh4.y, vh4.z, vh4.w}, vls[4] = {vl4.x, vl4.y, vl4.z, vl4.w};
 #pragma unroll
@@ -166,6 +175,43 @@ __device__ __forceinline__ void split_keys(char* stage, int tid, int n,
       }
     }
   }
+}
+
+// The exchange of a head-dim split over a cluster of 2 (the f32 dQ and
+// dK/dV at D = 256), the `it`-th of a consumer thread: it sends its partial
+// accumulators `acc...` (NT fragments of 4 each) to its slot of the
+// partner's inbox at `partner_slot` once the partner has read the last ones
+// (`x_free`), takes the partner's from its own slot `in` once `x_ready`
+// says they are there, and adds the two in rank order, so that both blocks
+// hold the same sums. A slot holds fragment jj of the a-th accumulator at
+// float4 N jj + a (N accumulators).
+template <int NT, typename... Acc>
+__device__ __forceinline__ void add_partner_partials(uint32_t partner_slot, const float* in,
+                                                     uint32_t x_ready, uint32_t x_free,
+                                                     int rank, int it, Acc&... acc) {
+  using namespace wgmma_sm90;
+  constexpr int N = sizeof...(Acc);
+  if (it > 0) mbar_wait_cluster(x_free, (it - 1) & 1);
+#pragma unroll
+  for (int jj = 0; jj < NT; ++jj) {
+    uint32_t at = partner_slot + 16 * N * jj;
+    ((st_cluster_v4(at, make_float4(acc[jj][0], acc[jj][1], acc[jj][2], acc[jj][3])), at += 16),
+     ...);
+  }
+  mbar_arrive_cluster(map_to_rank(x_ready, rank ^ 1));
+  mbar_wait_cluster(x_ready, it & 1);
+#pragma unroll
+  for (int jj = 0; jj < NT; ++jj) {
+    const float4* y = reinterpret_cast<const float4*>(in) + N * jj;
+    auto add = [&](float (&x)[4]) {
+      const float ys[4] = {y->x, y->y, y->z, y->w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[e] = rank == 0 ? x[e] + ys[e] : ys[e] + x[e];
+      ++y;
+    };
+    (add(acc[jj]), ...);
+  }
+  mbar_arrive_cluster(map_to_rank(x_free, rank ^ 1));
 }
 
 }  // namespace flash_tf32

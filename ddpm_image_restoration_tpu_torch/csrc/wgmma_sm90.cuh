@@ -1,5 +1,5 @@
-// Hopper's own instructions for the flash-attention kernels (the bf16
-// forward, dQ and dK/dV, the f32 forward and dQ; sm_90a), as inline PTX:
+// Hopper's own instructions for the flash-attention kernels (the bf16 and
+// f32 forward, dQ and dK/dV; sm_90a), as inline PTX:
 //   * wgmma.mma_async m64nNk16 (N = 16, 32, 64; bf16 in, f32 accumulate),
 //     A from a shared-memory descriptor or from registers, B from a
 //     descriptor, K-major or MN-major; fence, commit and wait;
@@ -19,15 +19,15 @@
 //   * the cluster barrier and distributed shared memory (mapa,
 //     ld.shared::cluster, scalar and v4, st.shared::cluster v4, and mbarrier
 //     arrivals and waits at cluster scope), for the forward's split over
-//     keys, dK/dV's over queries and the f32 dQ's over the head dim;
+//     keys, dK/dV's over queries and the f32 dQ's and dK/dV's over the head
+//     dim;
 //   * setmaxnreg.inc / .dec, with which the warp-specialised kernels (the
-//     forward and dK/dV at D = 128 and 256) move registers from their
-//     producer warpgroup to their consumer warpgroups; the launchers check
-//     that the kernel's register count at launch covers the move
-//     (wgmma_sm90_host::registers_cover);
+//     bf16 forward and dK/dV at D = 128 and 256, the f32 dK/dV at every D)
+//     move registers from their producer warpgroup to their consumer
+//     warpgroups; the launchers check that the kernel's register count at
+//     launch covers the move (wgmma_sm90_host::registers_cover);
 //   * ex2.approx.ftz.f32.
-// The kernels at D <= 64 and dQ use no setmaxnreg: they have no producer
-// warpgroup (thread 0 issues the loads, or dK/dV's one producer warp).
+// The other kernels use no setmaxnreg.
 //
 // Tiles. A [rows, DP] bf16 tile (DP = the head dim, at least 16, the
 // wgmma depth) lies in shared memory as PANELS = DP*2/SW panels [rows, SW/2]
@@ -49,7 +49,8 @@
 // [rows, SW/4] of SW = min(128, 4*D) bytes a row, and the k8 slice k of a
 // K-major panel starts at the panel + 32*k bytes (8 f32). Since TF32 wgmma
 // reads both operands K-major, the f32 kernels keep V (forward) and K
-// (dQ) also as a transposed tile [D, keys] with the keys along the row.
+// (dQ) also as a transposed tile [D, keys] with the keys along the row, and
+// Q and dO (dK/dV) as [D, queries].
 //
 // Fragments (g = lane / 4, t = lane % 4). The m64nNk16 accumulator of a
 // warpgroup gives warp w rows 16w..16w+15 and lane l the pairs (row 16w + g

@@ -13,11 +13,11 @@ Which design serves which dtype on the card:
   * bf16: the forward, dQ and dK/dV run their products by Hopper's
     `wgmma`, their tiles arriving by TMA into an mbarrier ring, with f32
     accumulation, P and dS carried as a bf16 hi/lo pair;
-  * f32: the forward and dQ run on TF32 `wgmma` with the 3xTF32 split
-    (every product as hi*hi + hi*lo + lo*hi of TF32 parts, f32
+  * f32: the forward, dQ and dK/dV run on TF32 `wgmma` with the 3xTF32
+    split (every product as hi*hi + hi*lo + lo*hi of TF32 parts, f32
     accumulation: f32 accuracy, where one TF32 product would not be),
     their tiles arriving by TMA and split into hi/lo by a producer
-    warpgroup; dK/dV runs on the CUDA cores in f32 (FMA).
+    warpgroup.
 The tensor-core kernels read rows by TMA, whose tensor maps need 16-byte
 aligned bases, so every CUDA input must start 16-byte aligned (a
 contiguous view at an odd offset is refused, not copied).

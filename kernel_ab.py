@@ -33,7 +33,10 @@ the two in turn) at F32_FWD and F32_BWD, the f32 path shapes of
 chip_smoke.py; with --splits also the first build's f32 forward and dQ
 split over 1, 2 and 4 blocks (`flash_attention_fwd_split`,
 `flash_attention_bwd_dq_split`, a build without the dQ one skipped) at
-F32_SPLIT_SHAPES. Needs a CUDA card and nvcc.
+F32_SPLIT_SHAPES, and its f32 dK/dV with the query tiles split over 1 and
+2 blocks (`flash_attention_bwd_dkv_split`) at F32_DKV_SPLIT_SHAPES (D =
+256 ignores the split: its cluster splits the head dim). Needs a CUDA
+card and nvcc.
 """
 
 from __future__ import annotations
@@ -69,6 +72,9 @@ DKV_SPLIT_SHAPES = [(4, 1024, 256), (4, 1024, 128), (1, 1024, 256), (8, 1024, 25
 F32_FWD = list(dict.fromkeys(s[1:] for s in chip_smoke.F32_FWD_PATH_SHAPES))
 F32_BWD = list(chip_smoke.F32_TRAIN_SHAPES)
 F32_SPLIT_SHAPES = [(4, 1024, 256), (4, 1024, 128), (8, 1024, 16), (16, 1024, 16)]
+# (BH, T, D): the f32 dK/dV's split over query tiles at the 1024² path's
+# bottleneck
+F32_DKV_SPLIT_SHAPES = [(4, 1024, 256), (4, 1024, 128)]
 
 
 def build(name: str, csrc: Path, nvcc: str, flags) -> tuple[str, dict]:
@@ -252,32 +258,34 @@ def main() -> int:
                     xs = sorted(chip_smoke.device_time_ms(call) for _ in range(ROUNDS))
                     row.append(f"{xs[len(xs) // 2] * 1e3:7.1f}")
                 print(f"  ({bh},{t},{d}) " + " ".join(row), flush=True)
-            kind, split_shapes, counts = (("dkv", DKV_SPLIT_SHAPES, (1, 2))
-                                          if dtype == torch.bfloat16
-                                          else ("dq", F32_SPLIT_SHAPES, (1, 2, 4)))
-            fn = getattr(lib_bwd, f"flash_attention_bwd_{kind}_split", None)
-            if fn is None:
-                continue
-            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
-                ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            print(f"{name}: {tag} {kind} device us split over {counts} blocks, median of "
-                  f"{ROUNDS} rounds", flush=True)
-            for bh, t, d in split_shapes:
-                q, k, v, do = randn(bh, t, d), randn(bh, t, d), randn(bh, t, d), randn(bh, t, d)
-                o, lse = fa.flash_attention_plain(q, k, v, save_lse=True)
-                delta = (do.float() * o.float()).sum(-1)
-                a, b = torch.empty_like(q), torch.empty_like(q)
-                ptrs = ((q, k, v, do, lse, delta, a, b) if kind == "dkv"
-                        else (q, k, v, o, do, lse, a, delta))
-                row = []
-                for split in counts:
-                    def call(split=split):
-                        return fn(*(z.data_ptr() for z in ptrs), bh, t, d, code, d ** -0.5,
-                                  split, stream)
-                    xs = sorted(chip_smoke.device_time_ms(call) for _ in range(ROUNDS))
-                    row.append(f"{xs[len(xs) // 2] * 1e3:7.1f}")
-                print(f"  ({bh},{t},{d}) " + " ".join(row), flush=True)
+            kernels = ([("dkv", DKV_SPLIT_SHAPES, (1, 2))] if dtype == torch.bfloat16
+                       else [("dq", F32_SPLIT_SHAPES, (1, 2, 4)),
+                             ("dkv", F32_DKV_SPLIT_SHAPES, (1, 2))])
+            for kind, split_shapes, counts in kernels:
+                fn = getattr(lib_bwd, f"flash_attention_bwd_{kind}_split", None)
+                if fn is None:
+                    continue
+                fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+                    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+                print(f"{name}: {tag} {kind} device us split over {counts} blocks, median of "
+                      f"{ROUNDS} rounds", flush=True)
+                for bh, t, d in split_shapes:
+                    q, k, v, do = (randn(bh, t, d), randn(bh, t, d), randn(bh, t, d),
+                                   randn(bh, t, d))
+                    o, lse = fa.flash_attention_plain(q, k, v, save_lse=True)
+                    delta = (do.float() * o.float()).sum(-1)
+                    a, b = torch.empty_like(q), torch.empty_like(q)
+                    ptrs = ((q, k, v, do, lse, delta, a, b) if kind == "dkv"
+                            else (q, k, v, o, do, lse, a, delta))
+                    row = []
+                    for split in counts:
+                        def call(split=split):
+                            return fn(*(z.data_ptr() for z in ptrs), bh, t, d, code, d ** -0.5,
+                                      split, stream)
+                        xs = sorted(chip_smoke.device_time_ms(call) for _ in range(ROUNDS))
+                        row.append(f"{xs[len(xs) // 2] * 1e3:7.1f}")
+                    print(f"  ({bh},{t},{d}) " + " ".join(row), flush=True)
     return 0
 
 

@@ -7,7 +7,9 @@
 //               [<dq_split>]
 //
 // split: the forward's split over keys (0: the launcher's own rule);
-// dkv_split: the bf16 dK/dV's split over query tiles at D >= 128 (likewise);
+// dkv_split: the dK/dV's split over query tiles (likewise): the bf16 kernel's
+// at D >= 128, the f32 kernel's at D <= 128 (ignored at D = 256, where its
+// cluster splits the head dim);
 // dq_split: the f32 dQ's split over keys at D <= 128 (likewise; default 0);
 // d_fwd, d_dq, d_dkv: the head dim each launcher runs at, to which its
 // inputs are zero-padded as the wrappers pad them (the outputs sliced back).

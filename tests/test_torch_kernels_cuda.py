@@ -394,8 +394,8 @@ def test_avif_function_grads_on_card(card, d, dtype, rel):
 def test_avif_model_full_width_on_card(card):
     """The AVIF-preset UNet at full width (64², release widths, 8 heads,
     flash at <= 32²) on a batch of 8: in f32 the flash route against the
-    same weights on the plain attention (max |diff| <= 1e-3, the FMA
-    kernel's f32 roundoff through ~20 layers), two forward launches (down2
+    same weights on the plain attention (max |diff| <= 1e-3, the f32
+    kernel's roundoff through ~20 layers), two forward launches (down2
     at D = 16, up4 at D = 8) per call; in bf16 (the tensor-core kernels)
     finite, with the same launches."""
     from ddpm_image_restoration_tpu_torch.config import ModelConfig
@@ -799,3 +799,77 @@ def test_f32_kernels_need_the_split_on_card(card, bh, t, d):
     torch.cuda.synchronize()
     assert close(o, ro) and close(dq, rdq)
     assert not close(to, ro) and not close(tdq, rdq)
+
+
+# The f32 dK/dV on TF32 wgmma with the 3xTF32 split (one 64-key tile a
+# block, warp-specialised by product): the 1024² path's (4, 1024, 128),
+# ragged T at D = 128 and 32 (several 16- and 32-query stages, the last
+# ragged), with its query tiles dealt over a cluster of 1 or 2 blocks, and
+# D = 256, whose cluster splits the head dim (the split ignored).
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,t,d", [(4, 1024, 128), (3, 150, 128), (2, 300, 32), (4, 1024, 256)])
+@pytest.mark.parametrize("split", [0, 1, 2])
+def test_f32_dkv_split_over_queries_on_card(card, bh, t, d, split):
+    """The f32 dK/dV through `flash_attention_bwd_dkv_split` (split 0: the
+    launcher's rule, which takes 2 at (4, 1024, 128) and the ragged
+    shapes), the two blocks' sums added through distributed shared memory:
+    dK and dV within the f32 bound (1e-4 of the largest entry)."""
+    fn = _dkv_split_launcher()
+    g = torch.Generator(device="cuda").manual_seed(17)
+    q, k, v, do = (torch.randn(bh, t, d, device="cuda", generator=g) for _ in range(4))
+    o, lse = fa.flash_attention_plain(q, k, v, save_lse=True)
+    delta = (do * o).sum(-1)
+    dk, dv = torch.empty_like(q), torch.empty_like(q)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, t, d, 0, d ** -0.5, split,
+             torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    rdk, rdv = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta)
+    assert close(dk, rdk) and close(dv, rdv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,t,d", [(4, 1024, 128), (4, 1024, 256), (72, 1024, 32),
+                                    (72, 1024, 16), (16, 1024, 16), (5, 200, 256)])
+def test_f32_dkv_matches_plain_and_repeats_on_card(card, bh, t, d):
+    """The f32 dK/dV at the f32 path shapes (the 1024² train step's, the
+    f32 distillation's, the half-width f32 train gate's) and a ragged D =
+    256, after the dQ kernel's Delta: within the f32 bound of the plain
+    version, and two launches bit-identical (no atomics; the cluster's
+    partial sums added in one fixed order)."""
+    g = torch.Generator(device="cuda").manual_seed(18)
+    q, k, v, do = (torch.randn(bh, t, d, device="cuda", generator=g) for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, save_lse=True)
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse)
+    before = fa.flash_attention_bwd_dkv.launches
+    first = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    second = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd_dkv.launches == before + 2
+    rdq, rdelta = fa.flash_attention_bwd_dq_plain(q, k, v, o, do, lse)
+    rdk, rdv = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, rdelta)
+    assert close(first[0], rdk) and close(first[1], rdv)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,t,d", [(4, 1024, 128), (72, 1024, 16), (16, 1024, 16)])
+def test_function_f32_grads_on_card(card, bh, t, d):
+    """The Function in f32 (the TF32 forward, dQ and dK/dV) at the 1024²
+    train step's D = 128 and the f32 distillation's and train gate's D =
+    16, against autograd through the plain attention: the output within
+    the f32 kernel bound, the gradients within FUNCTION_REL's f32 share
+    (1e-4) of the largest entry."""
+    g = torch.Generator(device="cuda").manual_seed(19)
+    q, k, v, do = (torch.randn(bh, t, d, device="cuda", generator=g) for _ in range(4))
+    leaves = [z.clone().requires_grad_() for z in (q, k, v)]
+    out = fa.FlashAttention.apply(*leaves)
+    got = (out.detach(), *torch.autograd.grad(out, leaves, do))
+    ref_leaves = [z.clone().requires_grad_() for z in (q, k, v)]
+    ref_out = fa.flash_attention_plain(*ref_leaves)
+    ref = (ref_out.detach(), *torch.autograd.grad(ref_out, ref_leaves, do))
+    torch.cuda.synchronize()
+    assert close(got[0], ref[0])
+    for a, b in zip(got[1:], ref[1:]):
+        assert a.dtype == torch.float32 and close(a, b, rel_max=1e-4)

@@ -3,7 +3,7 @@
 The sources in `ddpm_image_restoration_tpu_torch/csrc/` compile with g++
 against `tests/cuda_emu/`, which emulates what they use of CUDA: threads,
 blocks and clusters, `__syncthreads`, shuffles, and the sm_90a instructions
-of `wgmma_sm90.cuh` that the three bf16 kernels and the f32 forward and dQ
+of `wgmma_sm90.cuh` that the three bf16 kernels and the three f32 ones
 run (`wgmma` in bf16 from swizzled shared-memory descriptors, K-major and
 MN-major, and from registers, and in TF32, K-major only, run at the wait
 that needs it; `cvt.rna.tf32.f32`; `mbarrier` phases and transaction
@@ -42,8 +42,8 @@ LAUNCH = re.compile(r"(\w+<[^<>]*>)<<<(.*?)>>>\(")
 SPLITS = [("  wgmma_sm90::wgmma_rs<1>(d, a.hi, b, true);\n"
            "  wgmma_sm90::wgmma_rs<1>(d, a.lo, b, true);\n",
            "  wgmma_sm90::wgmma_rs<1>(d, a.hi, b, true);\n")]
-# The 3xTF32 products of the f32 forward and dQ (flash_tf32.cuh), and the
-# same with the lo products dropped: one TF32 product (1xTF32).
+# The 3xTF32 products of the f32 forward, dQ and dK/dV (flash_tf32.cuh),
+# and the same with the lo products dropped: one TF32 product (1xTF32).
 TF32_SPLITS = [("  wgmma_sm90::wgmma_tf32_ss(d, a_hi, b_lo, accumulate);\n"
                 "  wgmma_sm90::wgmma_tf32_ss(d, a_lo, b_hi, true);\n"
                 "  wgmma_sm90::wgmma_tf32_ss(d, a_hi, b_hi, true);\n",
@@ -115,9 +115,11 @@ def _run(run_kernels: Path, work: Path, bh, t, d, dtype, seed=0, split=1, dkv_sp
     """q, k, v, dO from a seeded normal, rounded to `dtype`, through the
     emulated forward (LSE; its split over keys forced to `split`, 0 for
     the launcher's rule), dQ (Delta; the f32 kernel's split over keys at D
-    <= 128 forced to `dq_split`) and dK/dV (its bf16 split over query tiles
-    at D >= 128 forced to `dkv_split`, 0 for the rule) launchers, each at
-    the head dim its wrapper pads D to."""
+    <= 128 forced to `dq_split`) and dK/dV (its split over query tiles
+    forced to `dkv_split`, 0 for the rule: the bf16 kernel's at D >= 128,
+    the f32 kernel's at D <= 128; at f32 D = 256 the cluster splits the
+    head dim and the split is ignored) launchers, each at the head dim its
+    wrapper pads D to."""
     rng = np.random.default_rng(seed)
     ins = {n: torch.from_numpy(rng.normal(size=(bh, t, d)).astype(np.float32)).to(dtype)
            for n in ("q", "k", "v", "do")}
@@ -163,8 +165,8 @@ def _shares(ins, outs, step):
 def test_emulated_kernels_match_plain(run_kernels, tmp_path, bh, t, d, dtype, step):
     """bf16 takes the tensor-core forward, dQ and dK/dV kernels (the
     forward unsplit; all three at the head dim itself, D = 8 too), f32 the
-    TF32 forward and dQ (3xTF32; dQ on FMA at D = 256) and the FMA dK/dV;
-    every output within its bound."""
+    TF32 forward, dQ and dK/dV (3xTF32; D = 8 padded to 16); every output
+    within its bound."""
     if dtype == torch.bfloat16:
         assert all(fa.kernel_head_dim(name, d, dtype) == d for name in fa.WGMMA_KERNELS)
     ins, outs = _run(run_kernels, tmp_path / "run", bh, t, d, dtype)
@@ -236,28 +238,39 @@ def test_emulated_dropped_lo_fails_the_bound(tmp_path, bh, t, d):
     assert max(shares["lse"], shares["delta"]) <= 1.0, shares
 
 
-# (BH, T, D, split, dq_split): the TF32 f32 forward and dQ at D = 16, 32,
-# 64, 128 and 256 over ragged T (the forward's 64-, 32- and 16-key stages,
-# its ring wrapping; D = 256's single stage), unsplit and with the keys of
-# both split over a cluster of 2 or 4 blocks ((1, 70, 32) 4 ways: the
-# forward's 2 key tiles and dQ's 3 leave blocks with none), and the
-# launchers' own rules (which split (1, 150, 64) 2 ways); at D = 256 the
-# forward's one stage with its raw landing area, and dQ's head dim split
-# over a cluster of 2 (its split over keys ignored).
-F32_CASES = [(2, 70, 16, 1, 1), (1, 150, 32, 2, 2), (1, 70, 32, 4, 4), (1, 150, 64, 0, 0),
-             (1, 70, 128, 4, 4), (3, 40, 128, 0, 0), (1, 70, 256, 1, 1), (1, 50, 256, 2, 0)]
+# (BH, T, D, split, dq_split, dkv_split): the TF32 f32 forward, dQ and
+# dK/dV at D = 16, 32, 64, 128 and 256 over ragged T (the forward's 64-,
+# 32- and 16-key stages, its ring wrapping; D = 256's single stage; dK/dV's
+# 64-, 32- and 16-query stages, its ring wrapping at D >= 32), unsplit and
+# with the keys of the forward and dQ split over a cluster of 2 or 4
+# blocks ((1, 70, 32) 4 ways: the forward's 2 key tiles and dQ's 3 leave
+# blocks with none) and dK/dV's query tiles over 2 (D = 16, 32 and 128;
+# (1, 70, 128): one block's last tile ragged), and the launchers' own
+# rules (which split (1, 150, 64) 2 ways, and dK/dV's query tiles wherever
+# one key tile has two query tiles); at D = 256 the forward's one stage
+# with its raw landing area, and dQ's and dK/dV's head dim split over a
+# cluster of 2 (their other splits ignored); one key tile (T <= 64) at D =
+# 16, 32 and 128.
+F32_CASES = [(2, 70, 16, 1, 1, 1), (1, 150, 32, 2, 2, 2), (1, 70, 32, 4, 4, 1),
+             (1, 150, 64, 0, 0, 0), (1, 70, 128, 4, 4, 2), (3, 40, 128, 0, 0, 0),
+             (1, 70, 256, 1, 1, 1), (1, 50, 256, 2, 0, 0), (1, 150, 128, 1, 1, 1),
+             (1, 150, 128, 1, 1, 2), (1, 130, 256, 1, 1, 2), (1, 150, 16, 0, 0, 2),
+             (2, 40, 16, 1, 1, 0), (3, 17, 32, 1, 1, 0)]
 
 
-@pytest.mark.parametrize("bh,t,d,split,dq_split", F32_CASES)
-def test_emulated_f32_tf32_kernels_match_plain(run_kernels, tmp_path, bh, t, d, split, dq_split):
-    """The f32 forward and dQ on TF32 wgmma with the 3xTF32 split (V and
-    K transposed by the producer warps, the keys permuted in groups of 8),
-    split over a cluster and not: every output within the f32 bound (1e-4
-    of the largest entry)."""
+@pytest.mark.parametrize("bh,t,d,split,dq_split,dkv_split", F32_CASES)
+def test_emulated_f32_tf32_kernels_match_plain(run_kernels, tmp_path, bh, t, d, split, dq_split,
+                                               dkv_split):
+    """The f32 forward, dQ and dK/dV on TF32 wgmma with the 3xTF32 split
+    (V, K, Q^T and dO^T transposed by the producer warps, keys or queries
+    permuted in groups of 8; dK/dV warp-specialised by product), split over
+    a cluster and not: every output within the f32 bound (1e-4 of the
+    largest entry)."""
     ins, outs = _run(run_kernels, tmp_path / "run", bh, t, d, torch.float32, split=split,
-                     dq_split=dq_split)
+                     dq_split=dq_split, dkv_split=dkv_split)
     shares = _shares(ins, outs, 0.0)
-    print(f"({bh},{t},{d}) split {split}, dQ split {dq_split}, f32: shares of the bound {shares}")
+    print(f"({bh},{t},{d}) split {split}, dQ split {dq_split}, dK/dV split {dkv_split}, f32: "
+          f"shares of the bound {shares}")
     assert all(s <= 1.0 for s in shares.values()), shares
 
 
@@ -265,12 +278,14 @@ def test_emulated_f32_tf32_kernels_match_plain(run_kernels, tmp_path, bh, t, d, 
 def test_emulated_one_tf32_product_fails_the_f32_bound(tmp_path, bh, t, d):
     """A copy with the 3xTF32 products cut to one (A_hi * B_hi: the lo
     products dropped, every product rounded to TF32 once) fails the f32
-    bound in the forward output and in dQ, while the dK/dV kernel (FMA)
-    and Delta still pass: the bound sees the split."""
+    bound in the forward output, dQ, dK and dV, while Delta (f32 sums of
+    rows in device memory) still passes: the bound sees the split in every
+    f32 kernel."""
     faulted = _compile(tmp_path / "faulted", faulted=True)
     ins, outs = _run(faulted, tmp_path / "run", bh, t, d, torch.float32)
     shares = _shares(ins, outs, 0.0)
     print(f"one TF32 product, ({bh},{t},{d}) f32: shares of the bound {shares}")
     assert shares["o"] > 1.0, shares
     assert shares["dq"] > 1.0, shares
-    assert max(shares["delta"], shares["dk"], shares["dv"]) <= 1.0, shares
+    assert min(shares["dk"], shares["dv"]) > 1.0, shares
+    assert shares["delta"] <= 1.0, shares

@@ -247,8 +247,14 @@ def test_chip_smoke_bound_and_kernel_line():
     assert by == "bytes" and ms == pytest.approx(1e3 * 4 * 4 * 300 * 64 * 2 / 3.35e12)
     ms, by = chip_smoke.bwd_bound_ms("dq", 72, 1024, 32, "bfloat16")
     assert by == "operations" and ms == pytest.approx(1e3 * 6 * 72 * 1024 ** 2 * 32 / 989e12)
+    # f32: the 3xTF32 split's three TF32 products for each f32 one at the
+    # TF32 peak; the FMA bound of the replaced designs at the f32 peak
     ms, by = chip_smoke.bwd_bound_ms("dkv", 72, 1024, 16, "float32")
-    assert by == "operations" and ms == pytest.approx(1e3 * 8 * 72 * 1024 ** 2 * 16 / 67e12)
+    assert by == "operations" and ms == pytest.approx(1e3 * 24 * 72 * 1024 ** 2 * 16 / 495e12)
+    ms, by = chip_smoke.attention_bound_ms(4, 1024, 128, "float32")
+    assert by == "operations" and ms == pytest.approx(1e3 * 12 * 4 * 1024 ** 2 * 128 / 495e12)
+    assert chip_smoke.fma_bound_ms(4, 72, 1024, 16) == pytest.approx(
+        1e3 * 8 * 72 * 1024 ** 2 * 16 / 67e12)
     ms, by = chip_smoke.bwd_bound_ms("dkv", 4, 30, 64, "bfloat16")
     assert by == "bytes" and ms == pytest.approx(1e3 * (6 * 4 * 30 * 64 * 2 + 8 * 4 * 30) / 3.35e12)
     row = dict(max_abs_err=1e-3, ms=0.3, plain_ms=0.7, library_ms=0.03, bound_ms=0.004,
