@@ -11,10 +11,11 @@ checkout to their plain versions under chip_smoke.py's bounds: the bf16
 forward, dQ and dK/dV at the D = 32 shapes of the main paths, D = 16 and
 8 beside them, the restore CLI's (4, 1024, 32), which the forward splits
 over a cluster, and D = 256 and 128 at the 1024² path's bottleneck (4,
-1024, 256) and (4, 1024, 128), where the warp-specialised forward splits
-its keys and dK/dV its query tiles over a cluster of 2; the f32 forward,
-dQ and dK/dV at the f32 paths' shapes (the full-width f32 distillation's
-(72, 1024, 32|16), the 1024² path's (4, 1024, 256|128)): 16 f32 cases.
+1024, 256) and (4, 1024, 128), where the warp-specialised forward and dQ
+split their keys and dK/dV its query tiles over a cluster of 2 (20 bf16
+cases); the f32 forward, dQ and dK/dV at the f32 paths' shapes (the
+full-width f32 distillation's (72, 1024, 32|16), the 1024² path's (4,
+1024, 256|128)): 16 f32 cases.
 
     python3 chip_fault_check.py
 
@@ -54,8 +55,8 @@ SPLITS = [("flash_mma.cuh",
              "  wgmma_sm90::wgmma_tf32_rs(d, a.hi, b_hi, true);\n")])]
 # (kernel, BH, T, D, save_lse, dtype): bf16: the forward at its serving,
 # train-step, validation and restore shapes; dQ and dK/dV at the train
-# steps'; the three at the 1024² path's D = 256 (restore and train step),
-# the forward and dK/dV at its D = 128. f32: the forward (without and with
+# steps'; the three at the 1024² path's D = 256 and 128 (restore and train
+# step). f32: the forward (without and with
 # the LSE), dQ and dK/dV at the f32 distillation's and the 1024² path's
 # shapes.
 CASES = [("fwd", 32, 1024, 32, False), ("fwd", 72, 1024, 32, True), ("fwd", 16, 1024, 32, False),
@@ -65,7 +66,7 @@ CASES = [("fwd", 32, 1024, 32, False), ("fwd", 72, 1024, 32, True), ("fwd", 16, 
          ("dq", 64, 1024, 8, True), ("dkv", 64, 1024, 8, True),
          ("fwd", 4, 1024, 256, False), ("fwd", 4, 1024, 256, True), ("dq", 4, 1024, 256, True),
          ("dkv", 4, 1024, 256, True), ("fwd", 4, 1024, 128, False), ("fwd", 4, 1024, 128, True),
-         ("dkv", 4, 1024, 128, True)]
+         ("dq", 4, 1024, 128, True), ("dkv", 4, 1024, 128, True)]
 CASES = [(*c, "bfloat16") for c in CASES] + [
     ("fwd", 72, 1024, 32, False, "float32"), ("fwd", 72, 1024, 32, True, "float32"),
     ("dq", 72, 1024, 32, True, "float32"), ("dkv", 72, 1024, 32, True, "float32"),

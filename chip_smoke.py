@@ -11,7 +11,7 @@ NVIDIA card and checks it, phase by phase:
      the bf16 wgmma forward, dQ and dK/dV kernels, D = 8 to 256, and of
      the f32 forward, dQ and dK/dV (TF32 wgmma, D = 16 to 256), and HMMA
      in none; counted in `cuobjdump -sass`), and no spill in the
-     warp-specialised bf16 forward and dK/dV (D = 128 and 256) and f32
+     warp-specialised bf16 forward, dQ and dK/dV (D = 128 and 256) and f32
      dK/dV (every D);
   3. kernels: each kernel against its plain PyTorch version, with times
      (the kernels' and SDPA's as device time under torch.profiler, the
@@ -252,8 +252,12 @@ DESIGNS = {
                                    "over keys; D = 16-64: two consumer warpgroups of 64 rows, "
                                    "D = 128 and 256: one (D = 256: one 16-key stage and a raw "
                                    "landing area)"},
-    "flash_attention_bwd_dq": {"bf16": "wgmma m64nNk16, TMA/mbarrier ring (32-key stages at "
-                                       "D = 256), hi/lo dS",
+    "flash_attention_bwd_dq": {"bf16": "wgmma m64nNk16, TMA/mbarrier ring, hi/lo dS; D <= 64: "
+                                       "two warpgroups of 64 rows; D = 128 and 256: "
+                                       "warp-specialised 64-row blocks (producer warpgroup "
+                                       "streaming 64-key stages, setmaxnreg; one consumer "
+                                       "warpgroup S and P, the other Delta, dP and dS, each "
+                                       "half of dQ's columns), key tiles over a cluster of 2",
                                "f32": "TF32 wgmma m64nNk8, 3xTF32 split, TMA/mbarrier ring, "
                                       "a producer warpgroup writing K, V and K^T hi/lo; two "
                                       "consumer warpgroups at D <= 64, one at 128 and 256; "
@@ -278,6 +282,12 @@ DESIGNS = {
                                        "cluster of 2, partial S^T and dP^T exchanged through "
                                        "distributed shared memory"},
 }
+# The bf16 instantiations (kernel, head dims) that run wgmma: all three
+# bf16 kernels at every head dim they are built for (one name each, the
+# design chosen by D at compile time).
+WGMMA_DESIGN_DIMS = {"flash_fwd_wgmma_kernel": (8, 16, 32, 64, 128, 256),
+                     "flash_bwd_dq_wgmma_kernel": (8, 16, 32, 64, 128, 256),
+                     "flash_bwd_dkv_wgmma_kernel": (8, 16, 32, 64, 128, 256)}
 # The f32 instantiations (kernel, head dims) that run TF32 wgmma: all three
 # f32 kernels at every head dim they are built for.
 TF32_DESIGN_DIMS = {"flash_fwd_kernel": (16, 32, 64, 128, 256),
@@ -304,12 +314,17 @@ FMA_F32_DKV_MS = {(4, 1024, 256): (0.5372, 0.2606), (4, 1024, 128): (0.3448, 0.1
 # 128-row blocks with 32-key stages at D = 256; dK/dV's 288-thread blocks,
 # two a key tile at D = 256), as chip_smoke measured them on `NVIDIA H100
 # 80GB HBM3, 700.00 W` (PERF.md §6, the kernel table's "was"): forward (BH,
-# T, D, save_lse); dK/dV and dQ (BH, T, D) against SDPA's whole backward,
-# dQ's with that dK/dV beside it.
+# T, D, save_lse); dK/dV (BH, T, D) against SDPA's whole backward.
 WIDE_FWD_BEFORE_MS = {(4, 1024, 256, False): (0.0485, 0.0275), (4, 1024, 256, True): (0.0518, 0.0275),
                (4, 1024, 128, False): (0.0253, 0.0163), (4, 1024, 128, True): (0.0274, 0.0163)}
 WIDE_DKV_BEFORE_MS = {(4, 1024, 256): (0.1608, 0.0627), (4, 1024, 128): (0.0983, 0.0451)}
-WIDE_DQ_BEFORE_MS = {(4, 1024, 256): (0.0666, 0.0627, 0.1608), (4, 1024, 128): (0.0299, 0.0451, 0.0983)}
+# The same for the bf16 dQ design that the warp-specialised one replaced
+# at D = 128 and 256 (128-row blocks, thread 0 loading, 32-key stages at
+# D = 256), as chip_smoke measured it on the same card beside the
+# warp-specialised dK/dV (PERF.md §6, the dQ rows' "was"): (dQ, SDPA's
+# whole backward, dK/dV) at (BH, T, D), so that each run logs dQ/SDPA and
+# the pair's (dQ + dK/dV)/SDPA beside the earlier design's.
+WIDE_DQ_BEFORE_MS = {(4, 1024, 256): (0.0663, 0.0653, 0.0288), (4, 1024, 128): (0.0297, 0.0452, 0.0173)}
 # The bf16 path shapes' (kernel, SDPA) device ms of the mma.sync forward and
 # dK/dV kernels that the wgmma ones replaced, as chip_smoke measured them on
 # `NVIDIA H100 80GB HBM3, 700.00 W` (PERF.md §6, the kernel table's "was"):
@@ -620,10 +635,10 @@ def phase_build(state: dict) -> None:
         text = log_file.read_text() if log_file.exists() else ""
         for line in build.ptxas_summary(text):
             log(f"  ptxas: {line}")
-            # the warp-specialised kernels (the bf16 forward and dK/dV at
-            # D = 128 and 256, the f32 dK/dV) keep every accumulator in
+            # the warp-specialised kernels (the bf16 forward, dQ and dK/dV
+            # at D = 128 and 256, the f32 dK/dV) keep every accumulator in
             # registers: no spill
-            if re.match(r"flash_(fwd|bwd_dkv)_wgmma_kernel D=(128|256) bf16|"
+            if re.match(r"flash_(fwd|bwd_dq|bwd_dkv)_wgmma_kernel D=(128|256) bf16|"
                         r"flash_bwd_dkv_kernel D=\d+ f32", line) and \
                     "spills 0/0 B" not in line:
                 spilled.append(line)
@@ -635,21 +650,22 @@ def phase_build(state: dict) -> None:
             log(f"  sass: {kernel}: " + ", ".join(f"{n} {op}" for op, n in ops.items()))
         build.load(name)
     if spilled:
-        raise AssertionError(f"a warp-specialised forward or dK/dV spills: {spilled}")
+        raise AssertionError(f"a warp-specialised kernel spills: {spilled}")
     if not sass:
         return
     # every instantiation of the bf16 forward, dQ and dK/dV wgmma kernels
-    # (D = 8 to 256) and of the f32 forward, dQ and dK/dV (TF32_DESIGN_DIMS) runs
-    # HGMMA and loads by TMA (UTMALDG); no kernel runs HMMA (mma.sync)
-    hopper = {k: ops for k, ops in sass.items() if "_wgmma_kernel" in k}
-    dq = [k for k in hopper if "dq_wgmma_kernel" in k]
-    tf32 = [f"{kernel} D={d} f32" for kernel, dims in TF32_DESIGN_DIMS.items() for d in dims]
-    bad = [k for k, ops in hopper.items() if not (ops["HGMMA"] and ops["UTMALDG"])]
-    bad += [k for k in tf32 if not (k in sass and sass[k]["HGMMA"] and sass[k]["UTMALDG"])]
+    # (WGMMA_DESIGN_DIMS: 18, 6 of them dQ) and of the f32 forward, dQ and
+    # dK/dV (TF32_DESIGN_DIMS) is built, runs HGMMA and loads by TMA
+    # (UTMALDG), and no other wgmma kernel is built; no kernel runs HMMA
+    # (mma.sync)
+    want = [f"{kernel} D={d} bf16" for kernel, dims in WGMMA_DESIGN_DIMS.items() for d in dims]
+    want += [f"{kernel} D={d} f32" for kernel, dims in TF32_DESIGN_DIMS.items() for d in dims]
+    bad = [k for k in want if not (k in sass and sass[k]["HGMMA"] and sass[k]["UTMALDG"])]
+    bad += [k for k in sass if "_wgmma_kernel" in k and k not in want]
     bad += [k for k, ops in sass.items() if ops["HMMA"]]
-    if len(hopper) != 18 or len(dq) != 6 or bad:
-        raise AssertionError(f"wgmma kernels without HGMMA/UTMALDG, or kernels with HMMA, in "
-                             f"their SASS: {bad or sorted(hopper)}")
+    if bad:
+        raise AssertionError(f"wgmma kernels missing, unexpected or without HGMMA/UTMALDG, or "
+                             f"kernels with HMMA, in the SASS: {bad}")
 
 
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG")
@@ -875,7 +891,7 @@ def check_backward(failures: list) -> dict:
                                  *earlier_design(MMA_SYNC_DKV_MS, WIDE_DKV_BEFORE_MS, (bh, t, d))))
                 was, design = earlier_design(MMA_SYNC_DQ_MS, WIDE_DQ_BEFORE_MS, (bh, t, d))
                 pair_was = f"{(was[0] + was[2]) / was[1]:.3f}" if was else "not recorded"
-                pair_label = ("with the earlier dK/dV" if design.startswith("earlier")
+                pair_label = ("the earlier pair" if design.startswith("earlier")
                               else "with the mma.sync dQ")
                 log(f"flash_attention_bwd_dq [{path}] (BH,T,D)=({bh},{t},{d}) bf16: "
                     + ratio_note(dq_ms, lib_ms, was, design)

@@ -36,12 +36,13 @@
 // depth DP = max(D, 16) and dQ twice (hi/lo), 8*T^2*DP flops a head at 989
 // TFLOP/s: 9.8 us at D = 8 and 16, 19.5 at 32; the MUFU's T^2 exp2 a head,
 // 18.0 us whatever D; the fill: 8*BH blocks of 128 queries (576 at the
-// train step, two blocks an SM at D <= 32: 2.2 waves). The design:
+// train step, two blocks an SM at D <= 32: 2.2 waves). The design at D <=
+// 64 (dq_pair):
 //   * a block is two warpgroups of 64 queries (256 threads) and no producer
 //     warp: thread 0 issues every load. Two blocks an SM at D <= 32
-//     (ptxas -v: 124 registers at D = 32, 98 at 16 and 8; 147 and 154 at
-//     D = 64 and 128, one block an SM), for four warpgroups an SM to hide
-//     each other's latency;
+//     (ptxas -v: 124 registers at D = 32, 98 at 16 and 8; 147 at D = 64,
+//     one block an SM), for four warpgroups an SM to hide each other's
+//     latency;
 //   * each warpgroup's Q and dO tiles arrive once by TMA and stay in shared
 //     memory as wgmma's A operands; K and V stream by TMA through a ring of
 //     STAGES stages of 64 keys with full/empty mbarriers, thread 0
@@ -65,12 +66,48 @@
 //     barriers), 32 keys a stage and three blocks an SM were slower too
 //     (PERF.md §6);
 //   * D = 8 natively (zero-filled to the wgmma depth 16 in shared memory;
-//     dQ written 8 wide);
-//   * D = 256 (the 1024² model's bottleneck): the two warpgroups' Q and dO
-//     tiles take 128 KB of the 227 KB, so the ring's stages hold 32 keys
-//     (32 KB of K and V; 3 stages, refilled one iteration after their use,
-//     two tiles ahead; 225 KB in all); S and dP take 16 f32 a thread each
-//     and dQ 128 (ptxas -v: 186 registers, no spill; one block an SM).
+//     dQ written 8 wide).
+//
+// D = 128 and 256 (the 1024² model's bottleneck, trained at T = 1024 with
+// BH = 4 for one image: 6*T^2*D flops a head, 1.6 GFLOP at D = 256). The
+// design above gave (4, 1024, D) 32 blocks of 128 queries for 132 SMs, at
+// D = 256 stages of 32 keys (two warpgroups' Q and dO took 128 KB), and
+// left its loads to a consumer thread. Here the kernel is warp-specialised
+// (dq_ws), as dK/dV below:
+//   * a block is one 64-query tile: 384 threads, a producer warpgroup that
+//     gives its registers away (setmaxnreg.dec to 40) and two consumer
+//     warpgroups (setmaxnreg.inc to 232; 168 a thread at launch);
+//   * the work is split by product so that the two warpgroups match:
+//     warpgroup 0 computes S = Q*K^T and P = exp2(S*c - LSE), warpgroup 1
+//     dP = dO*V^T and, with P from warpgroup 0, dS = P o (dP - Delta) and
+//     its hi/lo split, which goes back to warpgroup 0; each then
+//     accumulates half of dQ's columns, dQ[:, half] += (dS_hi + dS_lo) *
+//     K[:, half]: one 64 x 64 x D product and one 64 x D/2 x 64 hi/lo pair
+//     each a key tile, the exp2 on one side against dS and its split on the
+//     other. (Splitting the keys of a stage between the warpgroups instead
+//     would hold a 64 x D accumulator a warpgroup, 128 registers at D =
+//     256, beside m64n32 products.) P (f32) and dS (its bf16 hi/lo pairs)
+//     pass through one 16 KB buffer each, each thread's fragment at its own
+//     place, handed over by named barriers; one buffer each suffices, as
+//     each warpgroup reads the other's buffer before it next writes its
+//     own;
+//   * the producer's first thread streams the tile's Q and dO once and the
+//     key tiles' K and V by TMA in 64-key stages through a full/empty ring
+//     (4 stages at D = 128, 2 at D = 256: Q and dO 64 KB, a stage 64 KB,
+//     the two buffers 32 KB: 226 KB);
+//   * while the tiles arrive, warpgroup 0 reads its rows' LSE and warpgroup
+//     1 sums their Delta = rowsum(dO o O), every 16-byte load of the rows
+//     issued before the sums (summed by the producer's warps 1-3 a row at
+//     a time, one memory latency a row, the kernel ran 5.3-5.5 us slower
+//     on the card: PERF.md §6);
+//   * filling the card: the key tiles are dealt over a cluster of 2 (block
+//     r takes tiles r, r + 2, ...; pair_fill_split: 2 while twice the row
+//     tiles fit the SMs): 128 blocks at (4, 1024, 256) and (4, 1024, 128).
+//     The two blocks' partial dQ are added through distributed shared
+//     memory: each warpgroup leaves the half of its accumulator that the
+//     other block finishes in the ring's space and adds the other block's
+//     share of its own half; every output element written once,
+//     deterministic; block 0 writes Delta.
 //
 // dK/dV (flash_bwd_dkv_wgmma_kernel) works in the transposed frame, keys as
 // the M rows. What bounds it at T = 1024 (per 72 heads): its products,
@@ -131,7 +168,7 @@
 //     V and the P^T buffers);
 //   * filling the card: one block a key tile gives (4, 1024, D) only 64
 //     blocks, so the query tiles are dealt over a cluster of 2 (block r
-//     takes tiles r, r + 2, ...; dkv_fill_split: 2 while twice the key
+//     takes tiles r, r + 2, ...; pair_fill_split: 2 while twice the key
 //     tiles fit the SMs): 128 blocks at (4, 1024, 256) and (4, 1024, 128).
 //     The two blocks' sums are added through distributed shared memory:
 //     each warpgroup leaves the half of its accumulator that the other
@@ -257,7 +294,7 @@
 //   * query columns >= T get P = 0 explicitly (a zero LSE would give
 //     exp2(0) = 1); key rows >= T (zero-filled by TMA) are not written;
 //   * filling the card: one block a key tile (of KEYS keys), and where
-//     twice the key tiles fit the SMs (dkv_fill_split; (4, 1024, 128): 64
+//     twice the key tiles fit the SMs (pair_fill_split; (4, 1024, 128): 64
 //     tiles) the query tiles are dealt over a cluster of 2 (block r takes
 //     r, r + 2, ...) and the two blocks' sums added through distributed
 //     shared memory, each block finishing half of each accumulator's n8
@@ -1125,10 +1162,9 @@ template <class F> __device__ __forceinline__ uint32_t kslice(int kd, int rows) 
 }
 
 template <int D> struct HopperDq : HopperDims<D> {
+  static_assert(D <= 64, "D = 128 and 256 take HopperDqWs");
   using B = HopperDims<D>;
-  // keys a ring stage: 32 at D = 256, where the two warpgroups' Q and dO
-  // tiles take 128 KB and a stage of 64 keys' K and V 64 KB more
-  static constexpr int BN = D > 128 ? 32 : 64;
+  static constexpr int BN = 64;                 // keys a ring stage
   static constexpr int QTILE = 64 * B::DP * 2;  // a warpgroup's [64, DP] Q or dO tile
   static constexpr int KTILE = BN * B::DP * 2;  // a stage's [BN, DP] K or V tile
   // blocks an SM: two at D <= 32, where 128 registers a thread suffice
@@ -1137,10 +1173,9 @@ template <int D> struct HopperDq : HopperDims<D> {
   // of key tile j is refilled (with tile j + STAGES) by thread 0 at the top
   // of iteration j + LAG, once both warpgroups have let it go (each lets go
   // of tile j at the end of iteration j; LAG - 1 iterations of slack before
-  // thread 0 waits on the other warpgroup). STAGES - LAG tiles stay ahead:
-  // at D = 256 three stages fit, and LAG 1 keeps two ahead.
-  static constexpr int STAGES = D <= 64 ? 6 : (D == 128 ? 4 : 3);
-  static constexpr int LAG = D <= 64 ? 3 : (D == 128 ? 2 : 1);
+  // thread 0 waits on the other warpgroup). STAGES - LAG tiles stay ahead.
+  static constexpr int STAGES = 6;
+  static constexpr int LAG = 3;
   // From the 1024-aligned base: each warpgroup's Q tile, then each one's
   // dO tile; the ring; its barriers (full, empty, then Q and dO's).
   static constexpr int RING = 2 * kWarpgroups * QTILE;
@@ -1148,16 +1183,15 @@ template <int D> struct HopperDq : HopperDims<D> {
   static constexpr int SMEM = 1024 + BARS + 16 * (STAGES + 1);
 };
 
+// D <= 64: two warpgroups of 64 queries each, thread 0 issuing the loads.
 template <int D>
-__global__ void __launch_bounds__(kConsumers, HopperDq<D>::MIN_BLOCKS)
-flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
-                          const __grid_constant__ CUtensorMap k_map,
-                          const __grid_constant__ CUtensorMap v_map,
-                          const __grid_constant__ CUtensorMap do_map,
-                          const __nv_bfloat16* __restrict__ o,
-                          const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                          __nv_bfloat16* __restrict__ dq, float* __restrict__ delta, int t_len,
-                          float scale, float scale_log2) {
+__device__ __forceinline__ void dq_pair(const CUtensorMap& q_map, const CUtensorMap& k_map,
+                                        const CUtensorMap& v_map, const CUtensorMap& do_map,
+                                        const __nv_bfloat16* __restrict__ o,
+                                        const __nv_bfloat16* __restrict__ dout,
+                                        const float* __restrict__ lse,
+                                        __nv_bfloat16* __restrict__ dq, float* __restrict__ delta,
+                                        int t_len, float scale, float scale_log2) {
   using namespace flash_mma;
   using namespace wgmma_sm90;
   using F = HopperDq<D>;
@@ -1327,6 +1361,321 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       }
     }
   }
+}
+
+// D = 128 and 256: a warp-specialised block of one 64-query tile (see the
+// file's note): consumer warpgroup 0 computes S and P, consumer warpgroup 1
+// Delta, dP and dS, P and dS passing between them through shared memory,
+// and each accumulates half of dQ's columns; a producer warpgroup gives its
+// registers to them and streams the tiles.
+template <int D> struct HopperDqWs : HopperDims<D> {
+  static_assert(D == 128 || D == 256, "the warp-specialised dQ is built for D = 128, 256");
+  using B = HopperDims<D>;
+  static constexpr int BN = 64;                    // keys a ring stage
+  static constexpr int CONSUMERS = 256;            // two warpgroups
+  static constexpr int THREADS = CONSUMERS + 128;  // and the producer warpgroup
+  // registers a thread after setmaxnreg; 40 * 128 + 232 * 256 = 168 * 384,
+  // the launch's 168 (65536 registers over 384 threads)
+  static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+  static constexpr int QTILE = 64 * B::DP * 2;     // [64 queries, DP]: Q or dO
+  static constexpr int KTILE = BN * B::DP * 2;     // [BN keys, DP]: K or V
+  static constexpr int STAGES = D == 128 ? 4 : 2;  // 2 fill 227 KB at D = 256
+  static constexpr int XTILE = 64 * BN * 4;        // P in f32, or dS's hi/lo bf16 pairs
+  static constexpr int HALF = B::PANELS / 2;       // dQ's panels a consumer warpgroup
+  // From the 1024-aligned base: the Q tile, the dO tile; the ring (a K and a
+  // V tile a stage); the P and the dS buffer; the barriers (full, empty,
+  // then Q/dO's).
+  static constexpr int RING = 2 * QTILE;
+  static constexpr int XBUF = RING + STAGES * 2 * KTILE;
+  static constexpr int BARS = XBUF + 2 * XTILE;
+  static constexpr int SMEM = 1024 + BARS + 8 * (2 * STAGES + 1);
+  static_assert(SMEM <= 232448, "227 KB a block");
+  // Split over a cluster of 2, block `rank` finishes the n8 blocks [rank *
+  // HB, (rank + 1) * HB) of each warpgroup's accumulator (HALF * NO of
+  // them) and leaves the other HB float4 a thread in the ring's space for
+  // the other block to add.
+  static constexpr int HB = HALF * B::NO / 2;
+  static_assert(2 * 128 * HB * 16 <= XBUF - RING, "the partial sums overlay the ring");
+};
+
+// D = 128 and 256: one 64-query tile a block, its key tiles dealt over a
+// cluster of `split` blocks (the file's note). Warpgroup 0 (threads 0-127):
+// S and P; warpgroup 1 (128-255): Delta, dP and dS; each then dQ's columns
+// of its half; the producer warpgroup (256-383): the loads.
+template <int D>
+__device__ __forceinline__ void dq_ws(const CUtensorMap& q_map, const CUtensorMap& k_map,
+                                      const CUtensorMap& v_map, const CUtensorMap& do_map,
+                                      const __nv_bfloat16* __restrict__ o,
+                                      const __nv_bfloat16* __restrict__ dout,
+                                      const float* __restrict__ lse,
+                                      __nv_bfloat16* __restrict__ dq, float* __restrict__ delta,
+                                      int t_len, float scale, float scale_log2, int split) {
+  using namespace flash_mma;
+  using namespace wgmma_sm90;
+  using F = HopperDqWs<D>;
+  // named barriers between the two consumer warpgroups: P written (1), dS
+  // written (2); both consumers (3)
+  constexpr int kPFull = 1, kDsFull = 2, kConsumerBar = 3;
+  char* const raw = dynamic_smem();
+  const uint32_t base = (smem_u32(raw) + 1023) & ~1023u;
+  char* const at0 = raw + (base - smem_u32(raw));
+  const uint32_t bars = base + F::BARS;
+  const uint32_t q_bar = bars + 16 * F::STAGES;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (F::STAGES + s); };
+  auto k_at = [&](int s) { return base + F::RING + s * 2 * F::KTILE; };  // K, then V
+
+  const int bh = blockIdx.y;
+  const int rank = blockIdx.x % split;  // the cluster rank where split > 1
+  const int m0 = blockIdx.x / split * 64;
+  const int n_tiles = (t_len + F::BN - 1) / F::BN;
+  const int n_local = rank < n_tiles ? (n_tiles - rank + split - 1) / split : 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < F::STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), F::CONSUMERS / 32);
+    }
+    mbar_init(q_bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    setmaxnreg_dec<F::PRODUCER_REGS>();
+    if (threadIdx.x == F::CONSUMERS) {
+      // the loads: the tile's Q and dO once, then the block's key tiles (K,
+      // V) through the ring, a stage refilled once both consumers let it go
+      mbar_arrive_expect_tx(q_bar, 2 * F::QTILE);
+      for (int pn = 0; pn < F::PANELS; ++pn) {
+        tma_load_3d(base + pn * 64 * F::SW, &q_map, q_bar, pn * F::W, m0, bh);
+        tma_load_3d(base + F::QTILE + pn * 64 * F::SW, &do_map, q_bar, pn * F::W, m0, bh);
+      }
+      for (int j = 0; j < n_local; ++j) {
+        const int s = j % F::STAGES;
+        if (j >= F::STAGES) mbar_wait(empty(s), ((j / F::STAGES) & 1) ^ 1);
+        const int k0 = (rank + j * split) * F::BN;
+        mbar_arrive_expect_tx(full(s), 2 * F::KTILE);
+        for (int pn = 0; pn < F::PANELS; ++pn) {
+          tma_load_3d(k_at(s) + pn * F::BN * F::SW, &k_map, full(s), pn * F::W, k0, bh);
+          tma_load_3d(k_at(s) + F::KTILE + pn * F::BN * F::SW, &v_map, full(s), pn * F::W, k0, bh);
+        }
+      }
+    }
+    if (split > 1) {  // the consumers' two cluster barriers
+      cluster_sync();
+      cluster_sync();
+    }
+    return;
+  }
+
+  setmaxnreg_inc<F::CONSUMER_REGS>();
+  const int g = lane >> 2, tq = lane & 3;
+  const int ct = threadIdx.x % 128;      // the thread in its warpgroup
+  const int r0 = 16 * (warp % 4) + g;    // its rows of the tile: r0 and r0 + 8
+  float acc[F::HALF][F::NO][4];          // dQ's columns of this warpgroup's half
+#pragma unroll
+  for (int p = 0; p < F::HALF; ++p) {
+#pragma unroll
+    for (int j = 0; j < F::NO; ++j) acc[p][j][0] = acc[p][j][1] = acc[p][j][2] = acc[p][j][3] = 0.f;
+  }
+  float x[F::BN / 8][4];  // S, then P (warpgroup 0); dP, then dS (1): 64 queries x BN keys
+  Split a[F::BN / 16];    // dS as the A operand of dS*K, hi and lo
+  float4* const pbuf = reinterpret_cast<float4*>(at0 + F::XBUF);
+  uint4* const dsbuf = reinterpret_cast<uint4*>(at0 + F::XBUF + F::XTILE);
+  // Q and K^T (warpgroup 0) or dO and V^T (1) for S or dP
+  const uint32_t a_tile = base + wg * F::QTILE;
+  // While the tiles arrive: the LSE of this thread's rows r0 and r0 + 8 in
+  // log2 units, negated (warpgroup 0), or their Delta = rowsum(dO o O) in
+  // f32 from the bf16 rows in device memory (1): the quad's lanes take
+  // 16-byte chunks tq, tq + 4, ..., all loads issued before the sums, then
+  // shuffles; block 0 of a cluster writes it for dK/dV. Rows >= T get 0
+  // for both, so that their P = 1 meets a zero dO and Delta: dS = 0.
+  float row_v[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = m0 + r0 + 8 * r;
+    const size_t stat = (size_t)bh * t_len + row;
+    if (wg == 0) {
+      if (row < t_len) row_v[r] = -lse[stat] * kLog2e;
+      continue;
+    }
+    if (row < t_len) {
+      uint4 d8[D / 32], o8[D / 32];
+      const uint4* const drow = reinterpret_cast<const uint4*>(dout + stat * D);
+      const uint4* const orow = reinterpret_cast<const uint4*>(o + stat * D);
+#pragma unroll
+      for (int i = 0; i < D / 32; ++i) {
+        d8[i] = drow[tq + 4 * i];
+        o8[i] = orow[tq + 4 * i];
+      }
+#pragma unroll
+      for (int i = 0; i < D / 32; ++i) {
+        const uint32_t dw[4] = {d8[i].x, d8[i].y, d8[i].z, d8[i].w};
+        const uint32_t ow[4] = {o8[i].x, o8[i].y, o8[i].z, o8[i].w};
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          row_v[r] = fmaf(__uint_as_float(dw[w] << 16), __uint_as_float(ow[w] << 16), row_v[r]);
+          row_v[r] = fmaf(__uint_as_float(dw[w] & 0xffff0000u), __uint_as_float(ow[w] & 0xffff0000u),
+                          row_v[r]);
+        }
+      }
+    }
+    row_v[r] += __shfl_xor_sync(0xffffffffu, row_v[r], 1);
+    row_v[r] += __shfl_xor_sync(0xffffffffu, row_v[r], 2);
+    if (rank == 0 && row < t_len && tq == 0) delta[stat] = row_v[r];
+  }
+  mbar_wait(q_bar, 0);
+  for (int it = 0; it < n_local; ++it) {
+    const int stage = it % F::STAGES;
+    mbar_wait(full(stage), (it / F::STAGES) & 1);
+    const uint32_t kt = k_at(stage);
+    wgmma_fence();
+#pragma unroll
+    for (int kd = 0; kd < F::DP / 16; ++kd)
+      wgmma_ss<0>(x, make_desc(a_tile + kslice<F>(kd, 64), F::SW),
+                  make_desc(kt + wg * F::KTILE + kslice<F>(kd, F::BN), F::SW), kd > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(x);
+    if (wg == 0) {
+      // P = exp2(S c - LSE); key columns >= T get P = 0 explicitly (a
+      // zero-filled K gives S = 0, and exp2(0 - LSE) is not 0)
+      const int n_valid = t_len - (rank + it * split) * F::BN;
+#pragma unroll
+      for (int j = 0; j < F::BN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool ok = 8 * j + 2 * tq + (e & 1) < n_valid;
+          x[j][e] = ok ? exp2_approx(fmaf(x[j][e], scale_log2, row_v[e >> 1])) : 0.f;
+        }
+      }
+      // to warpgroup 1, each thread's fragment at its own place (free: warpgroup
+      // 1 read the last P before it wrote the dS read below)
+#pragma unroll
+      for (int j = 0; j < F::BN / 8; ++j)
+        pbuf[j * 128 + ct] = make_float4(x[j][0], x[j][1], x[j][2], x[j][3]);
+      named_arrive(kPFull, F::CONSUMERS);
+      named_sync(kDsFull, F::CONSUMERS);
+#pragma unroll
+      for (int kk = 0; kk < F::BN / 16; ++kk) {
+        const uint4 hi = dsbuf[2 * kk * 128 + ct], lo = dsbuf[(2 * kk + 1) * 128 + ct];
+        a[kk].hi[0] = hi.x, a[kk].hi[1] = hi.y, a[kk].hi[2] = hi.z, a[kk].hi[3] = hi.w;
+        a[kk].lo[0] = lo.x, a[kk].lo[1] = lo.y, a[kk].lo[2] = lo.z, a[kk].lo[3] = lo.w;
+      }
+    } else {
+      // dS = P o (dP - Delta), P from warpgroup 0; its hi/lo split to
+      // warpgroup 0 (free: warpgroup 0 read the last dS before it wrote P)
+      named_sync(kPFull, F::CONSUMERS);
+#pragma unroll
+      for (int j = 0; j < F::BN / 8; ++j) {
+        const float4 p = pbuf[j * 128 + ct];
+        x[j][0] = p.x * (x[j][0] - row_v[0]);
+        x[j][1] = p.y * (x[j][1] - row_v[0]);
+        x[j][2] = p.z * (x[j][2] - row_v[1]);
+        x[j][3] = p.w * (x[j][3] - row_v[1]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < F::BN / 16; ++kk) {
+        a[kk] = split_a_trunc(x[2 * kk], x[2 * kk + 1]);
+        dsbuf[2 * kk * 128 + ct] = make_uint4(a[kk].hi[0], a[kk].hi[1], a[kk].hi[2], a[kk].hi[3]);
+        dsbuf[(2 * kk + 1) * 128 + ct] =
+            make_uint4(a[kk].lo[0], a[kk].lo[1], a[kk].lo[2], a[kk].lo[3]);
+      }
+      named_arrive(kDsFull, F::CONSUMERS);
+    }
+    // dQ += (dS_hi + dS_lo) K on this warpgroup's panels, K read MN-major
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < F::BN / 16; ++kk) {
+#pragma unroll
+      for (int p = 0; p < F::HALF; ++p)
+        wgmma_split(acc[p], a[kk],
+                    make_desc(kt + (wg * F::HALF + p) * F::BN * F::SW + kk * 16 * F::SW, F::SW));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int p = 0; p < F::HALF; ++p) fence_acc(acc[p]);
+    if (lane == 0) mbar_arrive(empty(stage));  // this stage is free for the producer
+  }
+
+  if (split > 1) {
+    // the other block's share of this warpgroup's sums: leave it in the
+    // ring's space (free once both warpgroups are here), read the other
+    // block's share of this block's, add
+    named_sync(kConsumerBar, F::CONSUMERS);
+    float4* const red = reinterpret_cast<float4*>(at0 + F::RING);
+    const int other = rank ^ 1;
+#pragma unroll
+    for (int p = 0; p < F::HALF; ++p) {
+#pragma unroll
+      for (int j = 0; j < F::NO; ++j) {
+        const int b = p * F::NO + j;
+        if (b / F::HB == other)
+          red[(wg * F::HB + b % F::HB) * 128 + ct] =
+              make_float4(acc[p][j][0], acc[p][j][1], acc[p][j][2], acc[p][j][3]);
+      }
+    }
+    cluster_sync();
+    const uint32_t red_at = smem_u32(red);
+#pragma unroll
+    for (int p = 0; p < F::HALF; ++p) {
+#pragma unroll
+      for (int j = 0; j < F::NO; ++j) {
+        const int b = p * F::NO + j;
+        if (b / F::HB != rank) continue;
+        const float4 y =
+            ld_cluster_v4(map_to_rank(red_at + 16 * ((wg * F::HB + b % F::HB) * 128 + ct), other));
+        acc[p][j][0] += y.x;
+        acc[p][j][1] += y.y;
+        acc[p][j][2] += y.z;
+        acc[p][j][3] += y.w;
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = m0 + r0 + 8 * r;
+    if (row >= t_len) continue;
+    __nv_bfloat16* const out = dq + ((size_t)bh * t_len + row) * D + 2 * tq;
+#pragma unroll
+    for (int p = 0; p < F::HALF; ++p) {
+#pragma unroll
+      for (int j = 0; j < F::NO; ++j) {
+        if (split > 1 && (p * F::NO + j) / F::HB != rank) continue;
+        *reinterpret_cast<uint32_t*>(out + (wg * F::HALF + p) * F::W + 8 * j) =
+            pack_bf16(acc[p][j][2 * r] * scale, acc[p][j][2 * r + 1] * scale);
+      }
+    }
+  }
+  if (split > 1) cluster_sync();  // no block leaves while the other reads its shared memory
+}
+
+// Launch shape of flash_bwd_dq_wgmma_kernel<D>.
+template <int D> struct DqLaunch {
+  static constexpr bool WS = D >= 128;
+  static constexpr int THREADS = WS ? HopperDqWs<(WS ? D : 128)>::THREADS : kConsumers;
+  static constexpr int MIN_BLOCKS = WS ? 1 : HopperDq<(WS ? 64 : D)>::MIN_BLOCKS;
+};
+
+template <int D>
+__global__ void __launch_bounds__(DqLaunch<D>::THREADS, DqLaunch<D>::MIN_BLOCKS)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap do_map,
+                          const __nv_bfloat16* __restrict__ o,
+                          const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                          __nv_bfloat16* __restrict__ dq, float* __restrict__ delta, int t_len,
+                          float scale, float scale_log2, int split) {
+  if constexpr (DqLaunch<D>::WS)
+    dq_ws<D>(q_map, k_map, v_map, do_map, o, dout, lse, dq, delta, t_len, scale, scale_log2,
+             split);
+  else
+    dq_pair<D>(q_map, k_map, v_map, do_map, o, dout, lse, dq, delta, t_len, scale, scale_log2);
 }
 
 template <int D> struct HopperDkv : HopperDims<D> {
@@ -1817,12 +2166,23 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     dkv_pair<D>(q_map, k_map, v_map, do_map, lse, delta, dk, dv, t_len, scale, scale_log2);
 }
 
+// The split of a grid's inner tiles over a cluster of 2 (the bf16 dQ's key
+// tiles at D >= 128, dK/dV's query tiles in bf16 at D >= 128 and in f32 at
+// D <= 128): 2 while the grid of `blocks` tiles times 2 stays within the
+// SMs and there are 2 inner tiles to deal; else 1. (f32 dK/dV: also taking
+// 2 where the grid's last round of the SMs would be less than half full,
+// (72, 1024, 32|16), ran 1-3% slower: kernel_ab.py.)
+int pair_fill_split(int blocks, int inner_tiles, int sms) {
+  return blocks * 2 <= sms && inner_tiles >= 2 ? 2 : 1;
+}
+
 template <int D>
 cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v, const void* o,
                            const void* dout, const void* lse, void* dq, void* delta, int bh,
-                           int t, float scale, cudaStream_t stream) {
+                           int t, float scale, int split, cudaStream_t stream) {
   namespace host = wgmma_sm90_host;
-  using F = HopperDq<D>;
+  using L = DqLaunch<D>;
+  using F = std::conditional_t<L::WS, HopperDqWs<(L::WS ? D : 128)>, HopperDq<(L::WS ? 64 : D)>>;
   CUtensorMap maps[4];
   const void* tiles[4] = {q, k, v, dout};
   cudaError_t err = cudaSuccess;
@@ -1830,19 +2190,38 @@ cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v, const vo
   const int rows[4] = {64, F::BN, F::BN, 64};
   for (int i = 0; i < 4 && err == cudaSuccess; ++i)
     err = host::tile_map(&maps[i], tiles[i], bh, t, D, F::W, rows[i], F::SW);
+  // a block's queries: one 64-row tile (D >= 128) or two warpgroups' (D <= 64)
+  const int row_tiles = (t + (L::WS ? 63 : kBlockRows - 1)) / (L::WS ? 64 : kBlockRows);
+  if constexpr (L::WS) {
+    if (split == 0) split = pair_fill_split(bh * row_tiles, (t + F::BN - 1) / F::BN, host::sm_count());
+    if (split != 1 && split != 2) return cudaErrorInvalidValue;
+    static uint64_t covered = 0;
+    if (err == cudaSuccess)
+      err = host::registers_cover(flash_bwd_dq_wgmma_kernel<D>, F::THREADS,
+                                  F::THREADS - F::CONSUMERS, F::PRODUCER_REGS, F::CONSUMER_REGS,
+                                  covered);
+  } else {
+    split = 1;  // the D <= 64 design has no split
+  }
   static uint64_t allowed = 0;
   if (err == cudaSuccess) err = host::allow_smem(flash_bwd_dq_wgmma_kernel<D>, F::SMEM, allowed);
   if (err != cudaSuccess) return err;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = split;
+  cluster.val.clusterDim.y = cluster.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((t + kBlockRows - 1) / kBlockRows, bh);
-  cfg.blockDim = dim3(kConsumers);
+  cfg.gridDim = dim3(row_tiles * split, bh);
+  cfg.blockDim = dim3(L::THREADS);
   cfg.dynamicSmemBytes = F::SMEM;
   cfg.stream = stream;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = split > 1 ? 1 : 0;
   err = cudaLaunchKernelEx(&cfg, flash_bwd_dq_wgmma_kernel<D>, maps[0], maps[1], maps[2], maps[3],
                            static_cast<const __nv_bfloat16*>(o),
                            static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
                            static_cast<__nv_bfloat16*>(dq), static_cast<float*>(delta), t, scale,
-                           scale * kLog2e);
+                           scale * kLog2e, split);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -1894,21 +2273,13 @@ template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o,
                       const void* dout, const void* lse, void* dq, void* delta, int bh,
                       int t, int dtype, float scale, int split, cudaStream_t stream) {
-  if (dtype == 1) return launch_dq_bf16<D>(q, k, v, o, dout, lse, dq, delta, bh, t, scale, stream);
+  if (dtype == 1)
+    return launch_dq_bf16<D>(q, k, v, o, dout, lse, dq, delta, bh, t, scale, split, stream);
   if constexpr (D >= 16) {  // the f32 kernel is built from D = 16 up
     if (dtype == 0)
       return launch_dq_f32<D>(q, k, v, o, dout, lse, dq, delta, bh, t, scale, split, stream);
   }
   return cudaErrorInvalidValue;
-}
-
-// The split of dK/dV's query tiles over a cluster (bf16 at D >= 128, f32
-// at D <= 128): 2 while the grid of `blocks` key tiles times 2 stays within
-// the SMs and there are 2 query tiles to deal; else 1. (f32: also taking 2
-// where the grid's last round of the SMs would be less than half full,
-// (72, 1024, 32|16), ran 1-3% slower: kernel_ab.py.)
-int dkv_fill_split(int blocks, int query_tiles, int sms) {
-  return blocks * 2 <= sms && query_tiles >= 2 ? 2 : 1;
 }
 
 template <int D>
@@ -1927,7 +2298,7 @@ cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v, const v
   // a block's keys: one 64-key tile (D >= 128) or two warpgroups' (D <= 64)
   const int key_tiles = (t + (L::WS ? 63 : kBlockRows - 1)) / (L::WS ? 64 : kBlockRows);
   if constexpr (L::WS) {
-    if (split == 0) split = dkv_fill_split(bh * key_tiles, (t + F::BQ - 1) / F::BQ, host::sm_count());
+    if (split == 0) split = pair_fill_split(bh * key_tiles, (t + F::BQ - 1) / F::BQ, host::sm_count());
     if (split != 1 && split != 2) return cudaErrorInvalidValue;
     static uint64_t covered = 0;
     if (err == cudaSuccess)
@@ -1974,7 +2345,7 @@ cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v, const vo
   if (F::DS == 2) {
     split = 1;  // the cluster splits the head dim, not the query tiles
   } else {
-    if (split == 0) split = dkv_fill_split(bh * key_tiles, (t + F::BN - 1) / F::BN, host::sm_count());
+    if (split == 0) split = pair_fill_split(bh * key_tiles, (t + F::BN - 1) / F::BN, host::sm_count());
     if (split != 1 && split != 2) return cudaErrorInvalidValue;
   }
   const int cluster_blocks = F::DS == 2 ? 2 : split;
@@ -2050,10 +2421,11 @@ cudaError_t dkv_dispatch(const void* q, const void* k, const void* v, const void
 
 }  // namespace
 
-// As flash_attention_bwd_dq, with the f32 kernel's split over keys forced
-// at D <= 128: split 0 takes the launcher's rule, 1, 2 or 4 that many
-// blocks a cluster (the bf16 kernel ignores it, and the f32 one at D = 256,
-// whose cluster splits the head dim).
+// As flash_attention_bwd_dq, with the split over keys forced: split 0
+// takes the launcher's rule, else that many blocks a cluster: 1, 2 or 4 in
+// f32 at D <= 128, 1 or 2 in bf16 at D >= 128 (the bf16 kernel at D <= 64
+// ignores it, and the f32 one at D = 256, whose cluster splits the head
+// dim).
 extern "C" int flash_attention_bwd_dq_split(const void* q, const void* k, const void* v,
                                             const void* o, const void* dout, const void* lse,
                                             void* dq, void* delta, int bh, int t, int d,

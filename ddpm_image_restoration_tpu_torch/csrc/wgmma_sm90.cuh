@@ -14,15 +14,16 @@
 //     an mbarrier, and the host side: a tensor map encoded with
 //     cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint (no
 //     -lcuda, no PyTorch headers);
-//   * named barriers (bar.sync, bar.arrive), with which dK/dV's two
-//     consumer warpgroups take turns at issuing their products;
+//   * named barriers (bar.sync, bar.arrive), with which two consumer
+//     warpgroups take turns at issuing their products or hand each other
+//     operands through shared memory;
 //   * the cluster barrier and distributed shared memory (mapa,
 //     ld.shared::cluster, scalar and v4, st.shared::cluster v4, and mbarrier
-//     arrivals and waits at cluster scope), for the forward's split over
-//     keys, dK/dV's over queries and the f32 dQ's and dK/dV's over the head
-//     dim;
+//     arrivals and waits at cluster scope), for the forward's and the bf16
+//     dQ's split over keys, dK/dV's over queries and the f32 dQ's and
+//     dK/dV's over the head dim;
 //   * setmaxnreg.inc / .dec, with which the warp-specialised kernels (the
-//     bf16 forward and dK/dV at D = 128 and 256, the f32 dK/dV at every D)
+//     bf16 forward, dQ and dK/dV at D = 128 and 256, the f32 dK/dV at every D)
 //     move registers from their producer warpgroup to their consumer
 //     warpgroups; the launchers check that the kernel's register count at
 //     launch covers the move (wgmma_sm90_host::registers_cover);

@@ -26,10 +26,11 @@ five inputs zero-padded to 16, the launch at 16 and dQ sliced back, the
 pad and slice kernels counted in its device time. With --splits, the
 first build's forward is also timed with its keys split over clusters of
 1, 2 and 4 blocks (`flash_attention_fwd_split`) at the small-BH shapes of
-SPLIT_SHAPES, and its dK/dV with the query tiles split over clusters of 1
-and 2 blocks (`flash_attention_bwd_dkv_split`, D >= 128) at
-DKV_SPLIT_SHAPES. `--dtype float32` times the f32 kernels instead (both:
-the two in turn) at F32_FWD and F32_BWD, the f32 path shapes of
+SPLIT_SHAPES, and its dQ with the key tiles and its dK/dV with the query
+tiles split over clusters of 1 and 2 blocks (`flash_attention_bwd_dq_split`,
+`flash_attention_bwd_dkv_split`, D >= 128) at WS_SPLIT_SHAPES. `--dtype
+float32` times the f32 kernels instead (both: the two in turn) at
+F32_FWD and F32_BWD, the f32 path shapes of
 chip_smoke.py; with --splits also the first build's f32 forward and dQ
 split over 1, 2 and 4 blocks (`flash_attention_fwd_split`,
 `flash_attention_bwd_dq_split`, a build without the dQ one skipped) at
@@ -63,9 +64,10 @@ BWD = list(chip_smoke.TRAIN_SHAPES)
 # the 1024² path's bottleneck (D = 256 and 128)
 SPLIT_SHAPES = [(4, 1024, 32), (8, 1024, 16), (8, 1024, 32), (16, 1024, 32), (4, 1024, 256),
                 (4, 1024, 128)]
-# (BH, T, D): dK/dV's split over query tiles (D >= 128): the 1024² train
-# step's bottleneck, and BH = 1 and 8 beside it
-DKV_SPLIT_SHAPES = [(4, 1024, 256), (4, 1024, 128), (1, 1024, 256), (8, 1024, 256)]
+# (BH, T, D): the bf16 dQ's split over key tiles and dK/dV's over query
+# tiles (D >= 128): the 1024² train step's bottleneck, and BH = 1 and 8
+# beside it
+WS_SPLIT_SHAPES = [(4, 1024, 256), (4, 1024, 128), (1, 1024, 256), (8, 1024, 256)]
 # f32 (BH, T, D, save_lse) and (BH, T, D): chip_smoke.py's f32 path shapes
 # (the full-width f32 distillation's, the 1024² path's, the half-width f32
 # gates' at D = 16, where D = 8 runs padded to 16)
@@ -258,7 +260,8 @@ def main() -> int:
                     xs = sorted(chip_smoke.device_time_ms(call) for _ in range(ROUNDS))
                     row.append(f"{xs[len(xs) // 2] * 1e3:7.1f}")
                 print(f"  ({bh},{t},{d}) " + " ".join(row), flush=True)
-            kernels = ([("dkv", DKV_SPLIT_SHAPES, (1, 2))] if dtype == torch.bfloat16
+            kernels = ([("dq", WS_SPLIT_SHAPES, (1, 2)), ("dkv", WS_SPLIT_SHAPES, (1, 2))]
+                       if dtype == torch.bfloat16
                        else [("dq", F32_SPLIT_SHAPES, (1, 2, 4)),
                              ("dkv", F32_DKV_SPLIT_SHAPES, (1, 2))])
             for kind, split_shapes, counts in kernels:

@@ -143,6 +143,7 @@ struct alignas(16) uint4 {
 };
 inline float2 make_float2(float x, float y) { return {x, y}; }
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return {x, y, z, w}; }
 
 inline uint32_t __float_as_uint(float x) {
   uint32_t u;

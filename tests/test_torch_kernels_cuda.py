@@ -697,14 +697,6 @@ def test_dkv_is_deterministic_on_card(card, bh, t, d):
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
-# The f32 forward and dQ on TF32 wgmma with the 3xTF32 split: the f32 path
-# shapes (the full-width f32 distillation's (72, 1024, 32|16), the 1024²
-# path's (4, 1024, 256|128), the half-width f32 gates' D = 16), then ragged
-# T over the 64-row tiles and the 16-, 32- and 64-key stages.
-F32_SHAPES = [(72, 1024, 32), (72, 1024, 16), (4, 1024, 256), (4, 1024, 128), (8, 1024, 16),
-              (16, 1024, 16), (3, 150, 128), (2, 70, 16), (1, 300, 64), (5, 200, 256)]
-
-
 def _dq_split_launcher():
     import ctypes
 
@@ -715,6 +707,45 @@ def _dq_split_launcher():
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,t,d", [(4, 1024, 256), (4, 1024, 128), (1, 1024, 256),
+                                    (3, 150, 128), (2, 300, 256)])
+@pytest.mark.parametrize("split", [0, 1, 2])
+def test_dq_split_over_keys_on_card(card, bh, t, d, split):
+    """The bf16 dQ at D = 128 and 256 (one 64-query tile a block) with its
+    key tiles dealt over a cluster of 1 or 2 blocks (the C entry point
+    forced; 0: the launcher's rule, which takes 2 at every shape here) and
+    the two blocks' partial dQ added through distributed shared memory: dQ
+    and Delta within their bounds, and a second launch bit for bit the
+    same (every element written once, no atomics)."""
+    fn = _dq_split_launcher()
+    g = torch.Generator(device="cuda").manual_seed(16)
+    q, k, v, do = (torch.randn(bh, t, d, device="cuda", generator=g).to(torch.bfloat16)
+                   for _ in range(4))
+    o, lse = fa.flash_attention_plain(q, k, v, save_lse=True)
+    stream = torch.cuda.current_stream().cuda_stream
+    outs = []
+    for _ in range(2):
+        dq, delta = torch.empty_like(q), torch.empty(bh, t, device="cuda")
+        assert fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                  lse.data_ptr(), dq.data_ptr(), delta.data_ptr(), bh, t, d, 1, d ** -0.5,
+                  split, stream) == 0
+        outs.append((dq, delta))
+    torch.cuda.synchronize()
+    rdq, rdelta = fa.flash_attention_bwd_dq_plain(q, k, v, o, do, lse)
+    (dq, delta), (dq2, delta2) = outs
+    assert close(dq, rdq, 2 ** -7) and close(delta, rdelta)
+    assert torch.equal(dq, dq2) and torch.equal(delta, delta2)
+
+
+# The f32 forward and dQ on TF32 wgmma with the 3xTF32 split: the f32 path
+# shapes (the full-width f32 distillation's (72, 1024, 32|16), the 1024²
+# path's (4, 1024, 256|128), the half-width f32 gates' D = 16), then ragged
+# T over the 64-row tiles and the 16-, 32- and 64-key stages.
+F32_SHAPES = [(72, 1024, 32), (72, 1024, 16), (4, 1024, 256), (4, 1024, 128), (8, 1024, 16),
+              (16, 1024, 16), (3, 150, 128), (2, 70, 16), (1, 300, 64), (5, 200, 256)]
 
 
 @pytest.mark.cuda

@@ -58,7 +58,7 @@ TF32_SPLITS = [("  wgmma_sm90::wgmma_tf32_ss(d, a_hi, b_lo, accumulate);\n"
                 "  wgmma_sm90::wgmma_tf32_rs(d, a.hi, b_hi, true);\n")]
 # Short and ragged T over the 64-row tiles (one partial tile, one full, a
 # ragged third), every head dim of the build; at D = 256 ragged over the
-# forward's and dQ's 32-key stages and the f32 kernels' 16-row tiles too.
+# f32 kernels' 16-row tiles too.
 SHAPES = [(2, 17, 32), (1, 130, 16), (2, 64, 16), (1, 150, 32), (1, 70, 64), (1, 40, 128),
           (1, 130, 8), (2, 70, 8), (1, 70, 256)]
 STEPS = [(torch.bfloat16, 2 ** -7), (torch.float32, 0.0)]
@@ -223,13 +223,40 @@ def test_emulated_ws_routes_match_plain(run_kernels, tmp_path, bh, t, d, split, 
     assert all(s <= 1.0 for s in shares.values()), shares
 
 
+# (BH, T, D, dq_split): the warp-specialised bf16 dQ at D = 128 and 256
+# (one 64-query tile a block; S and P in one consumer warpgroup, dP and dS
+# in the other, each accumulating half of dQ's columns), its key tiles
+# dealt over a cluster of 1 or 2 blocks and the partial dQ added through
+# distributed shared memory: T ragged over three 64-row tiles unsplit and
+# split 2 (block 0 takes key tiles 0 and 2, its last one ragged; block 1
+# tile 1), D = 256 ragged over two full tiles, the launcher's rule (which
+# splits (2, 70, 128) and (1, 200, 256): block 1 takes tiles 1 and 3, its
+# last one ragged), and one tile (T <= 64: the rule leaves it unsplit;
+# forced to 2, block 1 has no key tile).
+DQ_WS_CASES = [(1, 150, 128, 1), (1, 150, 128, 2), (1, 130, 256, 1), (1, 150, 256, 2),
+               (2, 70, 128, 0), (1, 200, 256, 0), (1, 40, 128, 0), (1, 40, 256, 2)]
+
+
+@pytest.mark.parametrize("bh,t,d,dq_split", DQ_WS_CASES)
+def test_emulated_dq_ws_routes_match_plain(run_kernels, tmp_path, bh, t, d, dq_split):
+    """The warp-specialised bf16 dQ (a producer warpgroup summing Delta and
+    handing its registers to two consumer warpgroups by setmaxnreg, P and
+    dS passed between them through shared memory) on its split and unsplit
+    routes: dQ and Delta (and the other outputs) within their bounds."""
+    ins, outs = _run(run_kernels, tmp_path / "run", bh, t, d, torch.bfloat16, dq_split=dq_split)
+    shares = _shares(ins, outs, 2 ** -7)
+    print(f"({bh},{t},{d}) dQ split {dq_split}: shares of the bound {shares}")
+    assert all(s <= 1.0 for s in shares.values()), shares
+
+
 @pytest.mark.parametrize("bh,t,d", [(1, 150, 32), (1, 130, 16), (1, 130, 8), (1, 70, 256),
                                     (1, 130, 128)])
 def test_emulated_dropped_lo_fails_the_bound(tmp_path, bh, t, d):
     """A copy of the sources with the `lo` half dropped at the split
     product (wgmma_split: P and dS rounded to bf16 once) fails the bound in
     the forward output, dQ, dK and dV, while the f32 statistics still pass:
-    the bounds see the split in every kernel."""
+    the bounds see the split in every kernel (at D = 128 and 256 the
+    warp-specialised forward, dQ and dK/dV)."""
     faulted = _compile(tmp_path / "faulted", faulted=True)
     ins, outs = _run(faulted, tmp_path / "run", bh, t, d, torch.bfloat16)
     shares = _shares(ins, outs, 2 ** -7)
