@@ -33,9 +33,20 @@ NVIDIA card and checks it, phase by phase:
      restore on the CPU (the CPU path is the one the tests hold to the JAX
      package), a traced-budget, mixed-quality one with decoder reuse, and
      one of the AVIF-preset model;
+  4b. release: the release WebP weights (`artifacts_release/
+     webp_real_r5.npz`, loaded once, strict, its sha256 against the
+     fixture's) at full width: the JAX package's inputs from
+     `tests/torch_release/webp_real_r5_jax.npz` restored on the card
+     through the serve core under the production policy, in f32 held to
+     the JAX package's own f32 restores (mean|diff| <= 1e-4, max <= 2e-2,
+     n + g forward launches), in bf16 by PSNR (within 0.1 dB of the JAX
+     restore's); then `cli/restore.py` (tiles; `--quality auto`),
+     `cli/serve.py --once` and `cli/evaluate.py` with `--params-npz` on
+     those weights, each output's PSNR against its clean image;
   5. serve: the WebP restore server core at full width (64², the release
-     widths, bf16, flash attention at <= 32²) on three batches of 8 images
-     under the production solver policy, counting the kernel's launches;
+     weights that phase `release` loaded, bf16, flash attention at <= 32²)
+     on three batches of 8 images under the production solver policy,
+     counting the kernel's launches;
   6. train_reference: one half-width f32 train step on the card against the
      same step on the CPU (loss and every gradient), WebP and AVIF presets,
      and one half-width f32 distill step (2 student evaluations through the
@@ -114,9 +125,11 @@ card's `nvidia-smi` name and power limit, and last `{"ok": true, ...}`. It
 exits non-zero, printing no result, when any phase fails, when no CUDA card
 is visible, or when the port's package is not beside it. It needs torch,
 numpy, scipy (the Fréchet distance), nvcc, a C++ compiler (the native
-codec engine) and Pillow with AVIF (phases `restore`, `evaluate`, `avif`
-and `gaussian_mixture` read and write image files; the serving phase skips
-the exact final projection, saying why, without Pillow).
+codec engine), Pillow with AVIF (phases `release`, `restore`, `evaluate`,
+`avif` and `gaussian_mixture` read and write image files; the serving
+phase skips the exact final projection, saying why, without Pillow), and
+the release npz and its fixture (phases `release` and `serve` fail
+without them).
 """
 
 from __future__ import annotations
@@ -158,7 +171,8 @@ JAX_PACKAGE = PACKAGE.removesuffix("_torch")  # the reference; never imported he
 # attends over its data rank's whole batch, an `--sp` rank over the
 # gathered tokens of every image); then phase `path1024`'s bottleneck at
 # 1024² (4 heads of 1024 and 512 channels at 32² tokens, batch 1: D = 256
-# and 128), restored and trained.
+# and 128), restored and trained; last phase `release`'s bf16 restores of the
+# JAX package's inputs (2 images x 4 heads).
 FWD_PATH_SHAPES = [("serve", 32, 1024, 32, False), ("serve", 32, 1024, 16, False),
                    ("train step", 72, 1024, 32, True), ("train step", 72, 1024, 16, True),
                    ("distill teacher", 72, 1024, 32, False),
@@ -180,7 +194,8 @@ FWD_PATH_SHAPES = [("serve", 32, 1024, 32, False), ("serve", 32, 1024, 16, False
                    ("model axis (2, 2)", 36, 1024, 16, True),
                    ("restore 1024²", 4, 1024, 256, False), ("restore 1024²", 4, 1024, 128, False),
                    ("train step 1024²", 4, 1024, 256, True),
-                   ("train step 1024²", 4, 1024, 128, True)]
+                   ("train step 1024²", 4, 1024, 128, True),
+                   ("release", 8, 1024, 32, False), ("release", 8, 1024, 16, False)]
 # The f32 kernels' shapes on the main paths, (path, BH, T, D, save_lse):
 # the README's f32 distillation at full width (phase `distill`,
 # `--compute-dtype float32`: the teacher's batch of 18 x 4 heads under
@@ -188,7 +203,8 @@ FWD_PATH_SHAPES = [("serve", 32, 1024, 32, False), ("serve", 32, 1024, 16, False
 # 1024² path's f32 legs (phase `path1024`: the restore and the remat train
 # step, D = 256 and 128), and the half-width f32 gates at D = 16 (the
 # restore's 2 images x 4 heads at down2, the train step's 4 x 4; their D =
-# 8 at up4 runs padded to 16).
+# 8 at up4 runs padded to 16), and phase `release`'s full-width f32 restores
+# of the JAX package's inputs (2 images x 4 heads: D = 32 and 16).
 F32_FWD_PATH_SHAPES = [("distill teacher f32", 72, 1024, 32, False),
                        ("distill teacher f32", 72, 1024, 16, False),
                        ("distill student f32", 72, 1024, 32, True),
@@ -198,7 +214,9 @@ F32_FWD_PATH_SHAPES = [("distill teacher f32", 72, 1024, 32, False),
                        ("train step 1024² f32", 4, 1024, 256, True),
                        ("train step 1024² f32", 4, 1024, 128, True),
                        ("f32 restore gate", 8, 1024, 16, False),
-                       ("f32 train gate", 16, 1024, 16, True)]
+                       ("f32 train gate", 16, 1024, 16, True),
+                       ("release f32", 8, 1024, 32, False),
+                       ("release f32", 8, 1024, 16, False)]
 # (BH, T, D) -> path of the f32 dQ and dK/dV on the main paths.
 F32_TRAIN_SHAPES = {(72, 1024, 32): "distill student f32", (72, 1024, 16): "distill student f32",
                     (4, 1024, 256): "train step 1024² f32", (4, 1024, 128): "train step 1024² f32",
@@ -421,6 +439,28 @@ DISTILL_TIMED_STEPS = 1
 DISTILL_PROGRESSIVE_IMAGES = 23
 DISTILL_PROGRESSIVE_STRIDE = 10
 DISTILL_PROGRESSIVE_BUDGETS = [4, 2]
+# A restore held to another implementation's on the same input and weights
+# (phases `reference` and `release`): mean and max |diff|. The surrogate
+# rounds DCT coefficients; a last-bit difference can move one coefficient by
+# a quantisation step, so the max is looser than the mean.
+RESTORE_MEAN_DIFF = 1e-4
+RESTORE_MAX_DIFF = 2e-2
+# The release phase: the release WebP weights (the one npz that the copy of
+# the tree sent to the card holds, `.chiprunignore`) and the JAX package's own f32 restores on them
+# (`tests/_torch_release.py` writes that fixture). The bf16 restore's PSNR
+# must be within RELEASE_PSNR_DB of the JAX restore's; a restore must gain
+# over its input wherever the JAX restore gained RELEASE_GAIN_DB or more at
+# that quality. The CLIs' files: the fixture's two images as WebPs at
+# RELEASE_CLI_QUALITIES, and a TILE_SIZE_HW natural image at q30 for tiles;
+# the evaluator on RELEASE_EVAL_IMAGES natural images.
+RELEASE_NPZ = os.path.join("artifacts_release", "webp_real_r5.npz")
+RELEASE_FIXTURE = os.path.join("tests", "torch_release", "webp_real_r5_jax.npz")
+RELEASE_PSNR_DB = 0.1
+RELEASE_GAIN_DB = 0.3
+RELEASE_CLI_QUALITIES = (10, 50)
+RELEASE_TILE_QUALITY = 30
+RELEASE_EVAL_IMAGES = 16
+RELEASE_SCALE = 1  # widths divided by this (the CPU rehearsal's narrow model)
 # The whole run takes 6-11 minutes on an H100; past this, fail rather than hang.
 TIME_LIMIT_S = 900
 
@@ -599,6 +639,11 @@ def phase_environment(state: dict) -> None:
     log(f"device {torch.cuda.get_device_name(0)}  count {torch.cuda.device_count()}")
     state["smi"] = nvidia_smi_line()
     log(state["smi"])
+    for label, ignore in (("as it stands", None), ("as copied to the card", ".chiprunignore")):
+        files = list(copy_files(ROOT, ignore))
+        n_bytes = sum(b for _, b in files)
+        log(f"the tree beside this script, {label}: {n_bytes} bytes "
+            f"({n_bytes / 2 ** 20:.1f} MiB), {len(files)} files")
     clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
                              "--format=csv,noheader"], capture_output=True, text=True,
                             timeout=60).stdout.strip()
@@ -1239,11 +1284,10 @@ def phase_reference(state: dict) -> None:
         log(f"card vs CPU restore (2x64x64, half width, f32, {label}, {launched} kernel "
             f"launches{'' if want is None else f'; schedule implies {want}'}): "
             f"max|diff| {diff.max().item():.3g}  mean|diff| {diff.mean().item():.3g}")
-        # The surrogate rounds DCT coefficients; a last-bit difference can move
-        # one coefficient by a quantisation step, so the max is looser than the mean.
         if not (launched > 0 and (want is None or launched == want)
                 and np.isfinite(out_gpu.numpy()).all()
-                and diff.mean().item() <= 1e-4 and diff.max().item() <= 2e-2):
+                and diff.mean().item() <= RESTORE_MEAN_DIFF
+                and diff.max().item() <= RESTORE_MAX_DIFF):
             raise AssertionError(f"the card's restore ({label}) disagrees with the CPU's")
 
 
@@ -1279,6 +1323,371 @@ def static_schedule(quality: float, codec: str, budget: int | None = None,
     return n, math.ceil(n / reuse)
 
 
+def file_sha256(path: str) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 20), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def copy_files(root: str, ignore_file: str | None = ".chiprunignore"):
+    """(path relative to `root`, bytes) of each file that the copy of
+    `root` sent to the card holds: all but `.git/`, `chiprun_out/` and what
+    `ignore_file` lists (None: nothing more). A pattern with an inner or
+    leading slash matches the path from the root, one without a name at any
+    depth (gitignore's rule; the copy was seen to drop such names at the
+    root), '#' starts a comment, and a pattern ending in '/' matches
+    nothing: the copy kept `results/` for the pattern `results/` (and was
+    then refused as over 256 MiB) and left it out for `results`."""
+    import fnmatch
+
+    patterns = []
+    if ignore_file and os.path.exists(os.path.join(root, ignore_file)):
+        with open(os.path.join(root, ignore_file)) as f:
+            patterns = [p.strip() for p in f if p.strip() and not p.startswith("#")]
+
+    def ignored(rel: str) -> bool:
+        for p in patterns:
+            if p.endswith("/"):
+                continue
+            if fnmatch.fnmatch(rel, p.lstrip("/")) if "/" in p else \
+                    fnmatch.fnmatch(os.path.basename(rel), p):
+                return True
+        return False
+
+    for dirpath, dirnames, filenames in os.walk(root):
+        rel_dir = os.path.relpath(dirpath, root)
+        rel_dir = "" if rel_dir == "." else rel_dir
+        dirnames[:] = [d for d in dirnames
+                       if os.path.join(rel_dir, d) not in (".git", "chiprun_out")
+                       and not ignored(os.path.join(rel_dir, d))]
+        for name in filenames:
+            rel = os.path.join(rel_dir, name)
+            if not ignored(rel):
+                yield rel, os.lstat(os.path.join(dirpath, name)).st_size
+
+
+def load_release(state: dict) -> dict:
+    """The release npz and the JAX package's restores on it (the fixture),
+    both read from the checkout: the state dict, strict against the full
+    model's parameters, in state["release_params"], the fixture in
+    state["release_fixture"]. Raises if either file is absent or the npz's
+    sha256 is not the fixture's."""
+    import numpy as np
+
+    from ddpm_image_restoration_tpu_torch.train.checkpoint import load_release_params
+
+    npz, fixture_path = (os.path.join(ROOT, p) for p in (RELEASE_NPZ, RELEASE_FIXTURE))
+    for path in (npz, fixture_path):
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"{path} is not in this copy: phases release and serve run "
+                                    f"on the release weights only")
+    with np.load(fixture_path) as data:
+        fixture = {k: data[k] for k in data.files}
+    t0 = time.perf_counter()
+    params = load_release_params(npz)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sha = file_sha256(npz)
+    log(f"weights: {RELEASE_NPZ}, {os.path.getsize(npz)} bytes, {len(params)} tensors, loaded in "
+        f"{load_s:.2f} s; sha256 {sha} ({time.perf_counter() - t0:.2f} s); the fixture's "
+        f"{fixture['weights_sha256']} (JAX {fixture['jax_version']})")
+    if sha != str(fixture["weights_sha256"]):
+        raise AssertionError(f"{RELEASE_NPZ} is not the file the fixture was made from")
+    state["release_params"], state["release_fixture"] = params, fixture
+    return params
+
+
+def release_model(state: dict, compute_dtype: str, device: str):
+    """The WebP model (widths / RELEASE_SCALE, flash at <= 32²) in
+    `compute_dtype` on `device`, holding state["release_params"] (strict)."""
+    from ddpm_image_restoration_tpu_torch.config import ModelConfig
+    from ddpm_image_restoration_tpu_torch.models import build_model
+
+    cfg = ModelConfig(compute_dtype=compute_dtype, attention_impl="flash",
+                      attn_max_resolution=32).scaled(RELEASE_SCALE)
+    model = build_model("webp", cfg, device=device)
+    model.load_state_dict(state["release_params"], strict=True)
+    return model
+
+
+def fixture_gain(fixture: dict, q) -> float:
+    """The JAX restore's PSNR gain over its input at quality q, dB."""
+    return float(fixture[f"psnr_restored_{q}"]) - float(fixture[f"psnr_y_{q}"])
+
+
+def release_compare(q, got, want, launched: int, n: int, g: int) -> tuple[str, list]:
+    """(log line, failures) of an f32 restore `got` at quality q held to the
+    JAX package's `want`: the RESTORE_*_DIFF bounds, every value finite, and
+    n + g forward launches."""
+    import numpy as np
+
+    diff = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    line = (f"q{q}: f32 restore against the JAX package's: mean|diff| {diff.mean():.3g} "
+            f"(bound {RESTORE_MEAN_DIFF:g}), max|diff| {diff.max():.3g} "
+            f"(bound {RESTORE_MAX_DIFF:g}); {launched} forward launches, schedule implies "
+            f"{n} + {g}")
+    failures = []
+    if not (np.isfinite(got).all() and diff.mean() <= RESTORE_MEAN_DIFF
+            and diff.max() <= RESTORE_MAX_DIFF):
+        failures.append(f"q{q}: the f32 restore disagrees with the JAX package's (mean "
+                        f"{diff.mean():.3g}, max {diff.max():.3g}, finite "
+                        f"{bool(np.isfinite(got).all())})")
+    if launched != n + g:
+        failures.append(f"q{q}: {launched} forward launches, schedule implies {n + g}")
+    return line, failures
+
+
+def release_restores(model, fixture: dict, device: str, totals: dict) -> tuple[dict, list]:
+    """Each fixture input y_q restored by `model` through `sample_batch`
+    (the production policy at q, final_exact=False), f32 convolutions in
+    full f32. An f32 model is held to the fixture's restore
+    (`release_compare`); the forward's launches are counted from 0 per
+    restore into `totals`. Returns ({q: the restore's PSNR against x0, dB},
+    failures)."""
+    import torch
+
+    from ddpm_image_restoration_tpu_torch.cli.serve import sample_batch
+    from ddpm_image_restoration_tpu_torch.evaluation.metrics import psnr
+    from ddpm_image_restoration_tpu_torch.ops import flash_attention as fa
+
+    f32 = model.cfg.compute_dtype == "float32"
+    x0 = torch.tensor(fixture["x0"])
+    psnrs, failures = {}, []
+    for q in (int(q) for q in fixture["qualities"]):
+        y = torch.tensor(fixture[f"y_{q}"], device=device)
+        n, g = static_schedule(q, "webp")
+        if n != int(fixture[f"evals_{q}"]):
+            failures.append(f"q{q}: {n} evaluations, the JAX package ran "
+                            f"{int(fixture[f'evals_{q}'])}")
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        with no_tf32():
+            out = sample_batch(model, y, q, "webp", final_exact=False).cpu()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        for k, v in counts.items():
+            totals[k] += v
+        psnrs[q] = psnr(out, x0).item()
+        log(f"q{q} {model.cfg.compute_dtype}: {y.shape[0]} images in {1e3 * wall:.1f} ms; "
+            f"PSNR {psnrs[q]:.4f} dB (input {float(fixture[f'psnr_y_{q}']):.4f}, the JAX f32 "
+            f"restore {float(fixture[f'psnr_restored_{q}']):.4f}); launches {counts}")
+        if counts["flash_attention_bwd_dq"] or counts["flash_attention_bwd_dkv"]:
+            failures.append(f"q{q}: backward launches {counts}")
+        if f32:
+            line, bad = release_compare(q, out.numpy(), fixture[f"restored_{q}"],
+                                        counts[fa.KERNEL], n, g)
+            log(line)
+            failures += bad
+        elif counts[fa.KERNEL] != n + g:
+            failures.append(f"q{q} {model.cfg.compute_dtype}: {counts[fa.KERNEL]} forward "
+                            f"launches, schedule implies {n + g}")
+    return psnrs, failures
+
+
+def release_psnr_failures(label: str, fixture: dict, q, got_db: float, input_db: float,
+                          near_db: float | None = None) -> list:
+    """The release PSNR rules for one restore at quality q: its gain over
+    its input positive wherever the fixture's is RELEASE_GAIN_DB or more;
+    with `near_db`, its PSNR within that of the fixture's restore."""
+    failures = []
+    want_gain = fixture_gain(fixture, q) >= RELEASE_GAIN_DB
+    if want_gain and not got_db > input_db:
+        failures.append(f"{label} q{q}: PSNR {got_db:.4f} dB does not exceed the input's "
+                        f"{input_db:.4f} (the JAX restore gained {fixture_gain(fixture, q):.4f})")
+    ref = float(fixture[f"psnr_restored_{q}"])
+    if near_db is not None and not abs(got_db - ref) <= near_db:
+        failures.append(f"{label} q{q}: PSNR {got_db:.4f} dB, the JAX f32 restore's {ref:.4f}: "
+                        f"more than {near_db} dB apart")
+    return failures
+
+
+def psnr_u8(a, b) -> float:
+    """PSNR of two 8-bit images, dB."""
+    import numpy as np
+
+    mse = np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2)
+    return float(10 * np.log10(255.0 ** 2 / max(mse, 1e-12)))
+
+
+def write_release_inputs(inputs: str, fixture: dict) -> list:
+    """The CLIs' files, written by Pillow into `inputs`: the fixture's two
+    images as 64² WebPs at RELEASE_CLI_QUALITIES, and one TILE_SIZE_HW
+    natural image at RELEASE_TILE_QUALITY. Returns [(path, quality, the
+    clean 8-bit image)]."""
+    import numpy as np
+    from PIL import Image
+
+    from ddpm_image_restoration_tpu_torch.data.dataset import SyntheticImageDataset
+
+    os.makedirs(inputs)
+    th, tw = TILE_SIZE_HW
+    wide = SyntheticImageDataset(1, tw, seed=int(fixture["seed"]) + 1, kind="natural")[0][:th]
+    files = []
+    for name, x, q in [*((f"r{i}_q{q}.webp", fixture["x0"][i], q)
+                         for i, q in enumerate(RELEASE_CLI_QUALITIES)),
+                       (f"wide_q{RELEASE_TILE_QUALITY}.webp", wide, RELEASE_TILE_QUALITY)]:
+        clean = np.round((x * 0.5 + 0.5) * 255).astype(np.uint8)
+        path = os.path.join(inputs, name)
+        Image.fromarray(clean).save(path, quality=q)
+        files.append((path, q, clean))
+    return files
+
+
+def release_clis(state: dict, work: str, totals: dict) -> list:
+    """The README's card commands on `--params-npz` RELEASE_NPZ, each
+    counted from 0 against its schedule: `cli/restore.py` in tile mode on
+    the non-square WebP and with `--quality auto` on the 64² ones, `cli/
+    serve.py --once` on the 64² ones (one batch of 8 at the bucket nearest
+    their median quality), `cli/evaluate.py` on RELEASE_EVAL_IMAGES natural
+    images at the fixture's qualities. Each output PNG's PSNR against its
+    clean image, and the evaluator's mean per quality, under
+    `release_psnr_failures`. Returns the failures."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from ddpm_image_restoration_tpu_torch.cli.evaluate import main as evaluate_main
+    from ddpm_image_restoration_tpu_torch.cli.restore import main as restore_main
+    from ddpm_image_restoration_tpu_torch.cli.serve import _BUCKETS
+    from ddpm_image_restoration_tpu_torch.cli.serve import main as serve_main
+    from ddpm_image_restoration_tpu_torch.codecs.estimate import estimate_quality
+    from ddpm_image_restoration_tpu_torch.ops import flash_attention as fa
+    from ddpm_image_restoration_tpu_torch.utils.tiling import plan_tiles
+
+    fixture = state["release_fixture"]
+    npz = ["--params-npz", os.path.join(ROOT, RELEASE_NPZ)]
+    files = write_release_inputs(os.path.join(work, "in"), fixture)
+    squares, (wide, wide_q, _) = files[:-1], files[-1]
+    th, tw = TILE_SIZE_HW
+    qs = [estimate_quality(p) for p, _, _ in squares]
+
+    def groups(q):
+        return static_schedule(q, "webp", *restore_budget())
+
+    per_batch = [groups(q) for q in ([qs[0]] if len(set(qs)) == 1 else qs)]
+    n_t, g_t = groups(wide_q)
+    tile_batches = math.ceil(len(plan_tiles(th, tw, 64, 32)[0]) / 16)
+    bucket = min(_BUCKETS, key=lambda b: abs(b - float(np.median(qs))))
+    runs = [
+        ("restore --quality auto", restore_main,
+         [*(p for p, _, _ in squares), *RESTORE_FLAGS, *npz, "--codec", "webp",
+          "--quality", "auto"], squares, sum(n + g for n, g in per_batch)),
+        (f"restore --size-mode tile, {th}x{tw}", restore_main,
+         [wide, *RESTORE_FLAGS, *npz, "--codec", "webp", "--quality", str(wide_q),
+          "--size-mode", "tile"], [files[-1]], tile_batches * (n_t + g_t)),
+        ("serve --once", serve_main,
+         ["--watch", os.path.join(work, "watch"), *CARD_FLAGS, *npz, "--codec", "webp",
+          "--quality", "auto", "--solver", "auto", "--batch-size", str(SERVE_BATCH), "--once"],
+         squares, sum(static_schedule(bucket, "webp"))),
+        ("evaluate", evaluate_main,
+         ["--codec", "webp", *CARD_FLAGS, *npz, "--synthetic", str(RELEASE_EVAL_IMAGES),
+          "--synthetic-kind", "natural", "--batch-size", str(EVAL_BATCH),
+          "--qualities", *map(str, fixture["qualities"]), "--solver", "auto"], None,
+         math.ceil(RELEASE_EVAL_IMAGES / EVAL_BATCH)
+         * sum(sum(static_schedule(int(q), "webp")) for q in fixture["qualities"])),
+    ]
+    os.makedirs(os.path.join(work, "watch"))
+    for p, _, _ in squares:
+        shutil.copy(p, os.path.join(work, "watch"))
+    failures = []
+    for i, (label, main, argv, inputs, want) in enumerate(runs):
+        out_dir = os.path.join(work, f"out{i}")
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        _quiet(main, [*argv, "--output-dir", out_dir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        for k, v in counts.items():
+            totals[k] += v
+        if counts != {fa.KERNEL: want, "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}:
+            failures.append(f"{label}: launches {counts}, schedule implies {want} forward")
+        per = []
+        if inputs is None:
+            with open(os.path.join(out_dir, "metrics_summary.json")) as f:
+                rows = json.load(f)["results"]
+            for q, r in rows.items():
+                per.append(f"q{q} {r['restored_psnr']:.4f} dB (compressed "
+                           f"{r['compressed_psnr']:.4f}, gain "
+                           f"{r['restored_psnr'] - r['compressed_psnr']:+.4f})")
+                if not np.isfinite([r["restored_psnr"], r["compressed_psnr"]]).all():
+                    failures.append(f"{label} q{q}: PSNRs not finite: {r}")
+                failures += release_psnr_failures(label, fixture, q, r["restored_psnr"],
+                                                  r["compressed_psnr"])
+            n_images = RELEASE_EVAL_IMAGES
+        else:
+            for path, q, clean in inputs:
+                stem = os.path.splitext(os.path.basename(path))[0]
+                png = os.path.join(out_dir, stem + "_restored.png")
+                if not os.path.exists(png):
+                    failures.append(f"{label}: wrote no {png}")
+                    continue
+                got = np.asarray(Image.open(png).convert("RGB"))
+                seen = np.asarray(Image.open(path).convert("RGB"))
+                if got.shape != clean.shape:
+                    failures.append(f"{label}: {png} has shape {got.shape}, not {clean.shape}")
+                    continue
+                out_db, in_db = psnr_u8(got, clean), psnr_u8(seen, clean)
+                per.append(f"{stem} {out_db:.4f} dB (input {in_db:.4f}, gain "
+                           f"{out_db - in_db:+.4f})")
+                failures += release_psnr_failures(f"{label} {stem}", fixture, q, out_db, in_db)
+            n_images = len(inputs)
+        log(f"{label} [--params-npz {RELEASE_NPZ}]: {n_images} image(s), "
+            f"{1e3 * wall / n_images:.1f} ms/image on {state['smi']}; launches {counts} "
+            f"(schedule implies {want} forward); " + "; ".join(per))
+    return failures
+
+
+def phase_release(state: dict) -> None:
+    """The release WebP weights (`webp_real_r5.npz`) at full width: loaded
+    once (strict), their sha256 against the fixture's; each fixture input
+    restored on the card in f32 (no TF32 in the convolutions; the f32
+    forward kernel) through the serve core and held to the JAX package's
+    own restore (RESTORE_*_DIFF, n + g forward launches), then in bf16,
+    the production dtype, whose PSNR must be within RELEASE_PSNR_DB of the
+    JAX restore's; then the README's CLIs on those weights
+    (`release_clis`)."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    load_release(state)
+    fixture = state["release_fixture"]
+    totals = dict.fromkeys(_counts(), 0)
+    failures = []
+    for dtype in ("float32", "bfloat16"):
+        model = release_model(state, dtype, CARD)
+        psnrs, bad = release_restores(model, fixture, CARD, totals)
+        failures += bad
+        if dtype == "bfloat16":
+            for q, db in psnrs.items():
+                failures += release_psnr_failures("bf16 restore", fixture, q, db,
+                                                  float(fixture[f"psnr_y_{q}"]),
+                                                  near_db=RELEASE_PSNR_DB)
+        del model
+    for q in fixture["qualities"]:
+        log(f"q{q}: the JAX restore's gain {fixture_gain(fixture, q):+.4f} dB: the gain rule "
+            + ("applies" if fixture_gain(fixture, q) >= RELEASE_GAIN_DB else
+               f"does not apply (under {RELEASE_GAIN_DB} dB)"))
+    work = os.path.join(ROOT, "build", "chip_smoke_release")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        failures += release_clis(state, work, totals)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    state["launches_release"] = totals
+    log(f"phase release: launches {totals}, {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
 def phase_serve(state: dict) -> None:
     import numpy as np
     import torch
@@ -1290,17 +1699,14 @@ def phase_serve(state: dict) -> None:
     from ddpm_image_restoration_tpu_torch.diffusion.ddrm import _solver_indices
     from ddpm_image_restoration_tpu_torch.models import build_model
     from ddpm_image_restoration_tpu_torch.ops import flash_attention as fa
-    from ddpm_image_restoration_tpu_torch.train.checkpoint import load_release_params
 
+    if "release_params" not in state:
+        raise AssertionError(f"no release weights: phase release loads {RELEASE_NPZ}, and "
+                             f"phase serve runs on those weights only")
     cfg = ModelConfig(attention_impl="flash", attn_max_resolution=32)  # webp, full width
-    torch.manual_seed(SEED)
     model = build_model("webp", cfg, device="cuda")
-    npz = os.path.join(ROOT, "artifacts_release", "webp_real_r5.npz")
-    if os.path.exists(npz):
-        model.load_state_dict(load_release_params(npz))
-        log(f"weights: {npz}")
-    else:
-        log(f"weights: seeded random init (seed {SEED}); {npz} not in this copy")
+    model.load_state_dict(state["release_params"], strict=True)
+    log(f"weights: {RELEASE_NPZ}")
     n_params = sum(p.numel() for p in model.parameters())
     log(f"model: webp, {n_params / 1e6:.1f} M parameters, {cfg.compute_dtype}, "
         f"attention flash at <= {cfg.attn_max_resolution}^2")
@@ -3820,7 +4226,7 @@ def phase_modules(state: dict) -> None:
 
 PHASES = [("environment", phase_environment), ("build", phase_build),
           ("kernels", phase_kernels), ("path1024", phase_path1024),
-          ("reference", phase_reference),
+          ("reference", phase_reference), ("release", phase_release),
           ("serve", phase_serve), ("train_reference", phase_train_reference),
           ("train", phase_train), ("distill", phase_distill), ("parallel", phase_parallel),
           ("restore", phase_restore),
@@ -3836,7 +4242,8 @@ def kernels_json(state: dict) -> str:
     backend in f32, named). `launches` sums the
     main paths' runs (serve, the 1024² path, train, distillation, the
     parallel phase's ranks, the restore and serve CLIs, the evaluator, the
-    AVIF family, the Gaussian-mixture restore), each counted from 0;
+    AVIF family, the Gaussian-mixture restore, the release weights' restores
+    and CLIs), each counted from 0;
     `launches_by_path` splits it."""
     paths = {"serve": state["launches"], "path1024": state.get("launches_path1024", {}),
              "train": state.get("launches_train", {}),
@@ -3845,7 +4252,8 @@ def kernels_json(state: dict) -> str:
              "restore": state.get("launches_restore", {}),
              "evaluate": state.get("launches_evaluate", {}),
              "avif": state.get("launches_avif", {}),
-             "gaussian_mixture": state.get("launches_gaussian_mixture", {})}
+             "gaussian_mixture": state.get("launches_gaussian_mixture", {}),
+             "release": state.get("launches_release", {})}
 
     def row(name, source, replaces, rows, shapes, key, f32_shapes):
         per_shape = [{"path": path, "shape_bh_t_d": [bh, t, d], "dtype": "bfloat16",
