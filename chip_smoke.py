@@ -33,19 +33,26 @@ NVIDIA card and checks it, phase by phase:
      restore on the CPU (the CPU path is the one the tests hold to the JAX
      package), a traced-budget, mixed-quality one with decoder reuse, and
      one of the AVIF-preset model;
-  4b. release: the release WebP weights (`artifacts_release/
-     webp_real_r5.npz`, loaded once, strict, its sha256 against the
+  4b. release: the release weights (`artifacts_release/webp_real_r5.npz`,
+     or `--release`'s, loaded once, strict, its sha256 against the
      fixture's) at full width: the JAX package's inputs from
-     `tests/torch_release/webp_real_r5_jax.npz` restored on the card
-     through the serve core under the production policy, in f32 held to
-     the JAX package's own f32 restores (mean|diff| <= 1e-4, max <= 2e-2,
-     n + g forward launches), in bf16 by PSNR (within 0.1 dB of the JAX
-     restore's); then `cli/restore.py` (tiles; `--quality auto`),
-     `cli/serve.py --once` and `cli/evaluate.py` with `--params-npz` on
-     those weights, each output's PSNR against its clean image;
-  5. serve: the WebP restore server core at full width (64², the release
+     `tests/torch_release/<release>_jax.npz` restored on the card through
+     the serve core under the production policy of each case's codec, in
+     f32 held to the JAX package's own f32 restores (mean|diff| <= 1e-4,
+     max <= 2e-2, an image at a reference edge by PSNR, n + g forward
+     launches), in bf16 by PSNR (within 0.1 dB of the JAX f32 restore's,
+     or of the span to JAX's own bf16 restore's where the fixture has it);
+     then the README's CLIs with `--params-npz` on those weights, each output's
+     PSNR against its clean image: for the WebP release `cli/restore.py`
+     (tiles; `--quality auto`; `--solver gaussian_mixture`), `cli/serve.py
+     --once` and `cli/evaluate.py`; for the unified one `cli/restore.py`
+     on a JPEG, a WebP and an AVIF, `cli/serve.py --once` on a directory
+     of the three (codec-pure batches, counted) and `cli/evaluate.py
+     --codec jpeg`, all with `--model-codec all --codec auto`;
+  5. serve: the restore server core at full width (64², the release
      weights that phase `release` loaded, bf16, flash attention at <= 32²)
-     on three batches of 8 images under the production solver policy,
+     on three batches of 8 images under the production solver policy (WebP;
+     for the unified model one JPEG, one WebP and one AVIF batch),
      counting the kernel's launches;
   6. train_reference: one half-width f32 train step on the card against the
      same step on the CPU (loss and every gradient), WebP and AVIF presets,
@@ -113,7 +120,16 @@ NVIDIA card and checks it, phase by phase:
      here), in turns: ms/batch, output against the default, and each op's
      time on its own between CUDA events.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--release NAME]
+
+`--release all_teacher_r3` runs phases `release` and `serve` on the unified
+multi-codec release (`--model-codec all`: JPEG, WebP and AVIF restores held
+to the JAX package's own in `tests/torch_release/all_teacher_r3_jax.npz`,
+and the restore, serve and evaluate CLIs with `--codec auto`) instead of
+`webp_real_r5`; every other phase runs as without it. Given explicitly, the
+copy must hold that npz and its fixture and no other release npz (a copy
+sent to the card holds one); the script refuses otherwise, as it does an
+unknown name.
 
 On a host with several cards, `torchrun --standalone --nproc-per-node N
 chip_smoke.py --parallel-child-nccl OUTDIR` runs phase `parallel`'s ranks
@@ -445,21 +461,43 @@ DISTILL_PROGRESSIVE_BUDGETS = [4, 2]
 # a quantisation step, so the max is looser than the mean.
 RESTORE_MEAN_DIFF = 1e-4
 RESTORE_MAX_DIFF = 2e-2
-# The release phase: the release WebP weights (the one npz that the copy of
-# the tree sent to the card holds, `.chiprunignore`) and the JAX package's own f32 restores on them
-# (`tests/_torch_release.py` writes that fixture). The bf16 restore's PSNR
-# must be within RELEASE_PSNR_DB of the JAX restore's; a restore must gain
-# over its input wherever the JAX restore gained RELEASE_GAIN_DB or more at
-# that quality. The CLIs' files: the fixture's two images as WebPs at
-# RELEASE_CLI_QUALITIES, and a TILE_SIZE_HW natural image at q30 for tiles;
-# the evaluator on RELEASE_EVAL_IMAGES natural images.
-RELEASE_NPZ = os.path.join("artifacts_release", "webp_real_r5.npz")
-RELEASE_FIXTURE = os.path.join("tests", "torch_release", "webp_real_r5_jax.npz")
+# The release phase: release weights (`--release NAME`, DEFAULT_RELEASE
+# without it: `artifacts_release/NAME.npz`, the one npz that the copy of the
+# tree sent to the card holds, `.chiprunignore`) and the JAX package's own
+# f32 restores on them (`tests/torch_release/NAME_jax.npz`, written by
+# `tests/_torch_release.py`); RELEASES gives each name's model preset. The
+# bf16 restore's PSNR must be within RELEASE_PSNR_DB of the JAX f32
+# restore's (or of the span from it to JAX's own bf16 restore's, where the
+# fixture records that), and an f32 image that the fixture names a
+# reference edge (JAX's own restore moves past RESTORE_MAX_DIFF for a 1e-6
+# input move) within RELEASE_PSNR_DB of the JAX f32 image's; a restore
+# must gain over its input wherever the JAX restore gained RELEASE_GAIN_DB
+# or more in that case. The WebP release's CLI files: the fixture's two
+# images as WebPs at RELEASE_CLI_QUALITIES, and a TILE_SIZE_HW natural image
+# at q30 for tiles; the evaluator on RELEASE_EVAL_IMAGES natural images; the
+# Gaussian-mixture restore on image 0 as a WebP at GM_QUALITY. The unified
+# release's (`--model-codec all --codec auto`): UNIFIED_RESTORE_FILES for
+# the restore CLI, UNIFIED_SERVE_FILES (both images in each codec, one codec
+# a batch) for the server, the evaluator on JPEG.
+RELEASES = {"webp_real_r5": "webp", "all_teacher_r3": "all"}
+DEFAULT_RELEASE = "webp_real_r5"
+
+
+def release_files(name: str) -> tuple[str, str]:
+    """(npz, fixture) of release `name`, relative to the checkout."""
+    return (os.path.join("artifacts_release", f"{name}.npz"),
+            os.path.join("tests", "torch_release", f"{name}_jax.npz"))
+
+
+RELEASE_NPZ, RELEASE_FIXTURE = release_files(DEFAULT_RELEASE)
 RELEASE_PSNR_DB = 0.1
 RELEASE_GAIN_DB = 0.3
 RELEASE_CLI_QUALITIES = (10, 50)
 RELEASE_TILE_QUALITY = 30
 RELEASE_EVAL_IMAGES = 16
+UNIFIED_RESTORE_FILES = (("jpeg", 0, 10), ("webp", 1, 50), ("avif", 0, 30))  # codec, image, q
+UNIFIED_SERVE_FILES = {"jpeg": 10, "webp": 30, "avif": 50}
+UNIFIED_FLAGS = ["--model-codec", "all", "--codec", "auto", "--quality", "auto"]
 RELEASE_SCALE = 1  # widths divided by this (the CPU rehearsal's narrow model)
 # The whole run takes 6-11 minutes on an H100; past this, fail rather than hang.
 TIME_LIMIT_S = 900
@@ -1014,17 +1052,18 @@ def flash_head_dims(model, size: int) -> tuple:
 
 
 @contextlib.contextmanager
-def launches_by_head_dim():
-    """Records each kernel launch as (wrapper name, head dim the kernel ran
-    at) from the one helper every wrapper launches through
-    (`ops.flash_attention._launch`); the wrappers' counts are untouched."""
+def launches_by_head_dim(key=lambda name, bh, t, d_kernel, dtype: (name, d_kernel)):
+    """Records each kernel launch as key(wrapper name, BH, T, head dim the
+    kernel ran at, dtype), by default (wrapper name, head dim), from the one
+    helper every wrapper launches through (`ops.flash_attention._launch`);
+    the wrappers' counts are untouched."""
     from ddpm_image_restoration_tpu_torch.ops import flash_attention as fa
 
     real, seen = fa._launch, []
 
     def recording(name, pointers, bh, t, d_kernel, dtype, d, device):
         real(name, pointers, bh, t, d_kernel, dtype, d, device)
-        seen.append((name, d_kernel))
+        seen.append(key(name, bh, t, d_kernel, dtype))
 
     fa._launch = recording
     try:
@@ -1370,6 +1409,36 @@ def copy_files(root: str, ignore_file: str | None = ".chiprunignore"):
                 yield rel, os.lstat(os.path.join(dirpath, name)).st_size
 
 
+def release_name(state: dict) -> str:
+    """The release this run restores with (`--release`, else the default)."""
+    return state.get("release", DEFAULT_RELEASE)
+
+
+def release_refusal(name: str, root: str) -> str | None:
+    """Why `--release name`, given explicitly, cannot run from the copy at
+    `root` (None when it can): its npz or its fixture is absent, or another
+    release npz lies beside it (a copy for the card holds one npz: two pass
+    its 256 MiB). No phase then falls back to other weights."""
+    for path in release_files(name):
+        if not os.path.exists(os.path.join(root, path)):
+            return f"{path} is not in this copy: --release {name} runs on those weights only"
+    folder = os.path.join(root, "artifacts_release")
+    others = sorted(f for f in os.listdir(folder) if f.endswith(".npz") and f != f"{name}.npz")
+    if others:
+        return (f"this copy holds {', '.join(others)} beside {name}.npz: a copy for the card "
+                f"holds one release npz")
+    return None
+
+
+def parse_args(argv: list) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description="Runs the port on one CUDA card, phase by phase.")
+    ap.add_argument("--release", choices=sorted(RELEASES), default=None,
+                    help=f"the release weights of phases release and serve (default "
+                         f"{DEFAULT_RELEASE}); given explicitly, the copy must hold that npz "
+                         f"and its fixture and no other release npz")
+    return ap.parse_args(argv)
+
+
 def load_release(state: dict) -> dict:
     """The release npz and the JAX package's restores on it (the fixture),
     both read from the checkout: the state dict, strict against the full
@@ -1380,7 +1449,8 @@ def load_release(state: dict) -> dict:
 
     from ddpm_image_restoration_tpu_torch.train.checkpoint import load_release_params
 
-    npz, fixture_path = (os.path.join(ROOT, p) for p in (RELEASE_NPZ, RELEASE_FIXTURE))
+    npz_rel, fixture_rel = release_files(release_name(state))
+    npz, fixture_path = (os.path.join(ROOT, p) for p in (npz_rel, fixture_rel))
     for path in (npz, fixture_path):
         if not os.path.exists(path):
             raise FileNotFoundError(f"{path} is not in this copy: phases release and serve run "
@@ -1392,62 +1462,85 @@ def load_release(state: dict) -> dict:
     load_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     sha = file_sha256(npz)
-    log(f"weights: {RELEASE_NPZ}, {os.path.getsize(npz)} bytes, {len(params)} tensors, loaded in "
+    log(f"weights: {npz_rel}, {os.path.getsize(npz)} bytes, {len(params)} tensors, loaded in "
         f"{load_s:.2f} s; sha256 {sha} ({time.perf_counter() - t0:.2f} s); the fixture's "
         f"{fixture['weights_sha256']} (JAX {fixture['jax_version']})")
     if sha != str(fixture["weights_sha256"]):
-        raise AssertionError(f"{RELEASE_NPZ} is not the file the fixture was made from")
+        raise AssertionError(f"{npz_rel} is not the file the fixture was made from")
     state["release_params"], state["release_fixture"] = params, fixture
     return params
 
 
 def release_model(state: dict, compute_dtype: str, device: str):
-    """The WebP model (widths / RELEASE_SCALE, flash at <= 32²) in
-    `compute_dtype` on `device`, holding state["release_params"] (strict)."""
+    """The release's model (its preset, widths / RELEASE_SCALE, flash at
+    <= 32²) in `compute_dtype` on `device`, holding state["release_params"]
+    (strict)."""
     from ddpm_image_restoration_tpu_torch.config import ModelConfig
     from ddpm_image_restoration_tpu_torch.models import build_model
 
     cfg = ModelConfig(compute_dtype=compute_dtype, attention_impl="flash",
                       attn_max_resolution=32).scaled(RELEASE_SCALE)
-    model = build_model("webp", cfg, device=device)
+    model = build_model(RELEASES[release_name(state)], cfg, device=device)
     model.load_state_dict(state["release_params"], strict=True)
     return model
 
 
-def fixture_gain(fixture: dict, q) -> float:
-    """The JAX restore's PSNR gain over its input at quality q, dB."""
-    return float(fixture[f"psnr_restored_{q}"]) - float(fixture[f"psnr_y_{q}"])
+def fixture_tag(fixture: dict, codec: str, q) -> str:
+    """The key suffix of the (codec, quality) case in a release fixture: the
+    quality in a one-codec fixture, "<codec>_<quality>" where it lists
+    `codecs` (tests/_torch_release.py)."""
+    return f"{codec}_{int(q)}" if "codecs" in fixture else str(int(q))
 
 
-def release_compare(q, got, want, launched: int, n: int, g: int) -> tuple[str, list]:
-    """(log line, failures) of an f32 restore `got` at quality q held to the
-    JAX package's `want`: the RESTORE_*_DIFF bounds, every value finite, and
-    n + g forward launches."""
+def fixture_cases(fixture: dict) -> list:
+    """[(codec, quality, tag)] of the fixture's restores, in its order."""
+    codecs = fixture["codecs"] if "codecs" in fixture else ["webp"] * len(fixture["qualities"])
+    return [(str(c), int(q), fixture_tag(fixture, str(c), q))
+            for c, q in zip(codecs, fixture["qualities"])]
+
+
+def fixture_gain(fixture: dict, tag) -> float:
+    """The JAX restore's PSNR gain over its input in case `tag`, dB."""
+    return float(fixture[f"psnr_restored_{tag}"]) - float(fixture[f"psnr_y_{tag}"])
+
+
+def release_compare(q, got, want, launched: int, n: int, g: int, codec: str = "",
+                    by_psnr=()) -> tuple[str, list]:
+    """(log line, failures) of an f32 restore `got` at quality q (of
+    `codec`, named in the line when given) held to the JAX package's `want`:
+    the RESTORE_*_DIFF bounds over every image but those in `by_psnr`
+    (reference edges, which the caller holds by PSNR), every value finite,
+    and n + g forward launches."""
     import numpy as np
 
-    diff = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
-    line = (f"q{q}: f32 restore against the JAX package's: mean|diff| {diff.mean():.3g} "
+    keep = [i for i in range(len(want)) if i not in by_psnr]
+    diff = np.abs(np.asarray(got, np.float64)[keep] - np.asarray(want, np.float64)[keep])
+    case = f"{codec} q{q}" if codec else f"q{q}"
+    line = (f"{case}: f32 restore against the JAX package's: mean|diff| {diff.mean():.3g} "
             f"(bound {RESTORE_MEAN_DIFF:g}), max|diff| {diff.max():.3g} "
-            f"(bound {RESTORE_MAX_DIFF:g}); {launched} forward launches, schedule implies "
-            f"{n} + {g}")
+            f"(bound {RESTORE_MAX_DIFF:g})"
+            + (f" over images {keep} (images {list(by_psnr)} by PSNR)" if by_psnr else "")
+            + f"; {launched} forward launches, schedule implies {n} + {g}")
     failures = []
     if not (np.isfinite(got).all() and diff.mean() <= RESTORE_MEAN_DIFF
             and diff.max() <= RESTORE_MAX_DIFF):
-        failures.append(f"q{q}: the f32 restore disagrees with the JAX package's (mean "
+        failures.append(f"{case}: the f32 restore disagrees with the JAX package's (mean "
                         f"{diff.mean():.3g}, max {diff.max():.3g}, finite "
                         f"{bool(np.isfinite(got).all())})")
     if launched != n + g:
-        failures.append(f"q{q}: {launched} forward launches, schedule implies {n + g}")
+        failures.append(f"{case}: {launched} forward launches, schedule implies {n + g}")
     return line, failures
 
 
 def release_restores(model, fixture: dict, device: str, totals: dict) -> tuple[dict, list]:
-    """Each fixture input y_q restored by `model` through `sample_batch`
-    (the production policy at q, final_exact=False), f32 convolutions in
-    full f32. An f32 model is held to the fixture's restore
-    (`release_compare`); the forward's launches are counted from 0 per
-    restore into `totals`. Returns ({q: the restore's PSNR against x0, dB},
-    failures)."""
+    """Each fixture input restored by `model` through `sample_batch` (the
+    production policy of its codec at its quality, final_exact=False), f32
+    convolutions in full f32. An f32 model is held to the fixture's restore
+    (`release_compare`), an image the fixture names a reference edge by its
+    PSNR within RELEASE_PSNR_DB of the JAX restore's; the forward's launches
+    are counted from 0 per restore into `totals`. Returns ({tag: the
+    restore's PSNR against x0, dB}, failures)."""
+    import numpy as np
     import torch
 
     from ddpm_image_restoration_tpu_torch.cli.serve import sample_batch
@@ -1456,53 +1549,78 @@ def release_restores(model, fixture: dict, device: str, totals: dict) -> tuple[d
 
     f32 = model.cfg.compute_dtype == "float32"
     x0 = torch.tensor(fixture["x0"])
+    edges = {str(e) for e in fixture.get("reference_edges", [])}
+    named = "codecs" in fixture
     psnrs, failures = {}, []
-    for q in (int(q) for q in fixture["qualities"]):
-        y = torch.tensor(fixture[f"y_{q}"], device=device)
-        n, g = static_schedule(q, "webp")
-        if n != int(fixture[f"evals_{q}"]):
-            failures.append(f"q{q}: {n} evaluations, the JAX package ran "
-                            f"{int(fixture[f'evals_{q}'])}")
+    for codec, q, tag in fixture_cases(fixture):
+        case = f"{codec} q{q}" if named else f"q{q}"
+        y = torch.tensor(fixture[f"y_{tag}"], device=device)
+        n, g = static_schedule(q, codec)
+        if n != int(fixture[f"evals_{tag}"]):
+            failures.append(f"{case}: {n} evaluations, the JAX package ran "
+                            f"{int(fixture[f'evals_{tag}'])}")
         torch.cuda.synchronize()
         _reset_counts()
         t0 = time.perf_counter()
         with no_tf32():
-            out = sample_batch(model, y, q, "webp", final_exact=False).cpu()
+            out = sample_batch(model, y, q, codec, final_exact=False).cpu()
         wall = time.perf_counter() - t0
         counts = _counts()
         for k, v in counts.items():
             totals[k] += v
-        psnrs[q] = psnr(out, x0).item()
-        log(f"q{q} {model.cfg.compute_dtype}: {y.shape[0]} images in {1e3 * wall:.1f} ms; "
-            f"PSNR {psnrs[q]:.4f} dB (input {float(fixture[f'psnr_y_{q}']):.4f}, the JAX f32 "
-            f"restore {float(fixture[f'psnr_restored_{q}']):.4f}); launches {counts}")
+        psnrs[tag] = psnr(out, x0).item()
+        bf16_ref = (f", its bf16 restore {float(fixture[f'psnr_restored_bf16_{tag}']):.4f}"
+                    if f"psnr_restored_bf16_{tag}" in fixture else "")
+        log(f"{case} {model.cfg.compute_dtype}: {y.shape[0]} images in {1e3 * wall:.1f} ms; "
+            f"PSNR {psnrs[tag]:.4f} dB (input {float(fixture[f'psnr_y_{tag}']):.4f}, the JAX f32 "
+            f"restore {float(fixture[f'psnr_restored_{tag}']):.4f}{bf16_ref}); launches {counts}")
         if counts["flash_attention_bwd_dq"] or counts["flash_attention_bwd_dkv"]:
-            failures.append(f"q{q}: backward launches {counts}")
+            failures.append(f"{case}: backward launches {counts}")
         if f32:
-            line, bad = release_compare(q, out.numpy(), fixture[f"restored_{q}"],
-                                        counts[fa.KERNEL], n, g)
+            want = fixture[f"restored_{tag}"]
+            held = [i for i in range(len(want)) if f"{tag}/{i}" in edges]
+            line, bad = release_compare(q, out.numpy(), want, counts[fa.KERNEL], n, g,
+                                        codec if named else "", held)
             log(line)
             failures += bad
+            for i in held:
+                got_db = psnr(out[i:i + 1], x0[i:i + 1]).item()
+                ref_db = psnr(torch.tensor(want[i:i + 1]), x0[i:i + 1]).item()
+                log(f"{case} image {i}: a reference edge (the JAX package's own restore moves "
+                    f"{float(fixture[f'self_move_{tag}'][i]):.3g} for a 1e-6 input move, past "
+                    f"{RESTORE_MAX_DIFF:g}): held by PSNR, {got_db:.4f} dB against the JAX "
+                    f"restore's {ref_db:.4f} (within {RELEASE_PSNR_DB}); its max|diff| "
+                    f"{float(np.abs(out[i].numpy() - want[i]).max()):.3g}")
+                if not abs(got_db - ref_db) <= RELEASE_PSNR_DB:
+                    failures.append(f"{case} image {i}: PSNR {got_db:.4f} dB, the JAX restore's "
+                                    f"{ref_db:.4f}: more than {RELEASE_PSNR_DB} dB apart")
         elif counts[fa.KERNEL] != n + g:
-            failures.append(f"q{q} {model.cfg.compute_dtype}: {counts[fa.KERNEL]} forward "
+            failures.append(f"{case} {model.cfg.compute_dtype}: {counts[fa.KERNEL]} forward "
                             f"launches, schedule implies {n + g}")
     return psnrs, failures
 
 
-def release_psnr_failures(label: str, fixture: dict, q, got_db: float, input_db: float,
+def release_psnr_failures(label: str, fixture: dict, tag, got_db: float, input_db: float,
                           near_db: float | None = None) -> list:
-    """The release PSNR rules for one restore at quality q: its gain over
-    its input positive wherever the fixture's is RELEASE_GAIN_DB or more;
-    with `near_db`, its PSNR within that of the fixture's restore."""
+    """The release PSNR rules for one restore in the fixture's case `tag`:
+    its gain over its input positive wherever the fixture's is
+    RELEASE_GAIN_DB or more; with `near_db` (a bf16 restore), its PSNR
+    within that of the JAX package's own restores: its f32 one, or, where
+    the fixture records its bf16 one too, the span between the two (JAX's
+    own bf16 restore of the unified release lies up to 0.23 dB from its
+    f32 one)."""
     failures = []
-    want_gain = fixture_gain(fixture, q) >= RELEASE_GAIN_DB
+    want_gain = fixture_gain(fixture, tag) >= RELEASE_GAIN_DB
     if want_gain and not got_db > input_db:
-        failures.append(f"{label} q{q}: PSNR {got_db:.4f} dB does not exceed the input's "
-                        f"{input_db:.4f} (the JAX restore gained {fixture_gain(fixture, q):.4f})")
-    ref = float(fixture[f"psnr_restored_{q}"])
-    if near_db is not None and not abs(got_db - ref) <= near_db:
-        failures.append(f"{label} q{q}: PSNR {got_db:.4f} dB, the JAX f32 restore's {ref:.4f}: "
-                        f"more than {near_db} dB apart")
+        failures.append(f"{label} [{tag}]: PSNR {got_db:.4f} dB does not exceed the input's "
+                        f"{input_db:.4f} (the JAX restore gained {fixture_gain(fixture, tag):.4f})")
+    refs = [float(fixture[f"psnr_restored_{tag}"])]
+    if f"psnr_restored_bf16_{tag}" in fixture:
+        refs.append(float(fixture[f"psnr_restored_bf16_{tag}"]))
+    if near_db is not None and not min(refs) - near_db <= got_db <= max(refs) + near_db:
+        failures.append(f"{label} [{tag}]: PSNR {got_db:.4f} dB, the JAX restores' "
+                        f"{' and '.join(f'{r:.4f}' for r in refs)} (f32, bf16): more than "
+                        f"{near_db} dB apart")
     return failures
 
 
@@ -1514,95 +1632,169 @@ def psnr_u8(a, b) -> float:
     return float(10 * np.log10(255.0 ** 2 / max(mse, 1e-12)))
 
 
-def write_release_inputs(inputs: str, fixture: dict) -> list:
-    """The CLIs' files, written by Pillow into `inputs`: the fixture's two
-    images as 64² WebPs at RELEASE_CLI_QUALITIES, and one TILE_SIZE_HW
-    natural image at RELEASE_TILE_QUALITY. Returns [(path, quality, the
-    clean 8-bit image)]."""
+def write_release_file(folder: str, name: str, x, q: int) -> tuple:
+    """The [-1, 1] image `x` written by Pillow at quality q into `folder`, in
+    the format of `name`'s extension. Returns (path, the clean 8-bit
+    image)."""
     import numpy as np
     from PIL import Image
 
-    from ddpm_image_restoration_tpu_torch.data.dataset import SyntheticImageDataset
-
-    os.makedirs(inputs)
-    th, tw = TILE_SIZE_HW
-    wide = SyntheticImageDataset(1, tw, seed=int(fixture["seed"]) + 1, kind="natural")[0][:th]
-    files = []
-    for name, x, q in [*((f"r{i}_q{q}.webp", fixture["x0"][i], q)
-                         for i, q in enumerate(RELEASE_CLI_QUALITIES)),
-                       (f"wide_q{RELEASE_TILE_QUALITY}.webp", wide, RELEASE_TILE_QUALITY)]:
-        clean = np.round((x * 0.5 + 0.5) * 255).astype(np.uint8)
-        path = os.path.join(inputs, name)
-        Image.fromarray(clean).save(path, quality=q)
-        files.append((path, q, clean))
-    return files
+    os.makedirs(folder, exist_ok=True)
+    clean = np.round((np.asarray(x) * 0.5 + 0.5) * 255).astype(np.uint8)
+    path = os.path.join(folder, name)
+    Image.fromarray(clean).save(path, quality=q)
+    return path, clean
 
 
-def release_clis(state: dict, work: str, totals: dict) -> list:
-    """The README's card commands on `--params-npz` RELEASE_NPZ, each
-    counted from 0 against its schedule: `cli/restore.py` in tile mode on
-    the non-square WebP and with `--quality auto` on the 64² ones, `cli/
-    serve.py --once` on the 64² ones (one batch of 8 at the bucket nearest
-    their median quality), `cli/evaluate.py` on RELEASE_EVAL_IMAGES natural
-    images at the fixture's qualities. Each output PNG's PSNR against its
-    clean image, and the evaluator's mean per quality, under
-    `release_psnr_failures`. Returns the failures."""
+def webp_release_runs(state: dict, work: str) -> list:
+    """The README's card commands on the WebP release (`--params-npz`), as
+    `run_release_clis` takes them: `cli/restore.py` with `--quality auto`
+    on the fixture's images as 64² WebPs at RELEASE_CLI_QUALITIES and in
+    tile mode on a TILE_SIZE_HW natural image, `cli/serve.py --once` on the
+    64² ones (one batch of 8 at the bucket nearest their median quality),
+    `cli/evaluate.py` on RELEASE_EVAL_IMAGES natural images at the
+    fixture's qualities, and `cli/restore.py --solver gaussian_mixture` on
+    image 0 as a WebP at GM_QUALITY (the README's command)."""
     import shutil
 
     import numpy as np
-    import torch
-    from PIL import Image
 
     from ddpm_image_restoration_tpu_torch.cli.evaluate import main as evaluate_main
     from ddpm_image_restoration_tpu_torch.cli.restore import main as restore_main
     from ddpm_image_restoration_tpu_torch.cli.serve import _BUCKETS
     from ddpm_image_restoration_tpu_torch.cli.serve import main as serve_main
     from ddpm_image_restoration_tpu_torch.codecs.estimate import estimate_quality
-    from ddpm_image_restoration_tpu_torch.ops import flash_attention as fa
+    from ddpm_image_restoration_tpu_torch.data.dataset import SyntheticImageDataset
     from ddpm_image_restoration_tpu_torch.utils.tiling import plan_tiles
 
     fixture = state["release_fixture"]
-    npz = ["--params-npz", os.path.join(ROOT, RELEASE_NPZ)]
-    files = write_release_inputs(os.path.join(work, "in"), fixture)
-    squares, (wide, wide_q, _) = files[:-1], files[-1]
+    npz = ["--params-npz", os.path.join(ROOT, release_files(release_name(state))[0])]
+    inputs, watch = os.path.join(work, "in"), os.path.join(work, "watch")
+    squares = [(*write_release_file(inputs, f"r{i}_q{q}.webp", fixture["x0"][i], q), str(q))
+               for i, q in enumerate(RELEASE_CLI_QUALITIES)]
     th, tw = TILE_SIZE_HW
+    wide_x = SyntheticImageDataset(1, tw, seed=int(fixture["seed"]) + 1, kind="natural")[0][:th]
+    wide = (*write_release_file(inputs, f"wide_q{RELEASE_TILE_QUALITY}.webp", wide_x,
+                                RELEASE_TILE_QUALITY), str(RELEASE_TILE_QUALITY))
+    gm = (*write_release_file(os.path.join(work, "gm"), f"gm_q{GM_QUALITY}.webp",
+                              fixture["x0"][0], GM_QUALITY), str(GM_QUALITY))
+    os.makedirs(watch)
+    for path, _, _ in squares:
+        shutil.copy(path, watch)
     qs = [estimate_quality(p) for p, _, _ in squares]
 
     def groups(q):
         return static_schedule(q, "webp", *restore_budget())
 
     per_batch = [groups(q) for q in ([qs[0]] if len(set(qs)) == 1 else qs)]
-    n_t, g_t = groups(wide_q)
+    n_t, g_t = groups(RELEASE_TILE_QUALITY)
     tile_batches = math.ceil(len(plan_tiles(th, tw, 64, 32)[0]) / 16)
     bucket = min(_BUCKETS, key=lambda b: abs(b - float(np.median(qs))))
-    runs = [
-        ("restore --quality auto", restore_main,
-         [*(p for p, _, _ in squares), *RESTORE_FLAGS, *npz, "--codec", "webp",
-          "--quality", "auto"], squares, sum(n + g for n, g in per_batch)),
-        (f"restore --size-mode tile, {th}x{tw}", restore_main,
-         [wide, *RESTORE_FLAGS, *npz, "--codec", "webp", "--quality", str(wide_q),
-          "--size-mode", "tile"], [files[-1]], tile_batches * (n_t + g_t)),
-        ("serve --once", serve_main,
-         ["--watch", os.path.join(work, "watch"), *CARD_FLAGS, *npz, "--codec", "webp",
-          "--quality", "auto", "--solver", "auto", "--batch-size", str(SERVE_BATCH), "--once"],
-         squares, sum(static_schedule(bucket, "webp"))),
-        ("evaluate", evaluate_main,
-         ["--codec", "webp", *CARD_FLAGS, *npz, "--synthetic", str(RELEASE_EVAL_IMAGES),
-          "--synthetic-kind", "natural", "--batch-size", str(EVAL_BATCH),
-          "--qualities", *map(str, fixture["qualities"]), "--solver", "auto"], None,
-         math.ceil(RELEASE_EVAL_IMAGES / EVAL_BATCH)
-         * sum(sum(static_schedule(int(q), "webp")) for q in fixture["qualities"])),
+    return [
+        dict(label="restore --quality auto", main=restore_main,
+             argv=[*(p for p, _, _ in squares), *RESTORE_FLAGS, *npz, "--codec", "webp",
+                   "--quality", "auto"], inputs=squares, want=sum(n + g for n, g in per_batch)),
+        dict(label=f"restore --size-mode tile, {th}x{tw}", main=restore_main,
+             argv=[wide[0], *RESTORE_FLAGS, *npz, "--codec", "webp", "--quality",
+                   str(RELEASE_TILE_QUALITY), "--size-mode", "tile"], inputs=[wide],
+             want=tile_batches * (n_t + g_t)),
+        dict(label="serve --once", main=serve_main,
+             argv=["--watch", watch, *CARD_FLAGS, *npz, "--codec", "webp", "--quality", "auto",
+                   "--solver", "auto", "--batch-size", str(SERVE_BATCH), "--once"],
+             inputs=squares, want=sum(static_schedule(bucket, "webp")), batches=1),
+        dict(label="evaluate", main=evaluate_main, codec="webp",
+             argv=["--codec", "webp", *CARD_FLAGS, *npz, "--synthetic", str(RELEASE_EVAL_IMAGES),
+                   "--synthetic-kind", "natural", "--batch-size", str(EVAL_BATCH),
+                   "--qualities", *map(str, fixture["qualities"]), "--solver", "auto"],
+             inputs=None, want=math.ceil(RELEASE_EVAL_IMAGES / EVAL_BATCH)
+             * sum(sum(static_schedule(int(q), "webp")) for q in fixture["qualities"])),
+        dict(label=f"restore --solver gaussian_mixture --quality {GM_QUALITY}", main=restore_main,
+             argv=[gm[0], *CARD_FLAGS, *npz, "--solver", "gaussian_mixture", "--quality",
+                   str(GM_QUALITY)], inputs=[gm], want=gm_launches()),
     ]
-    os.makedirs(os.path.join(work, "watch"))
-    for p, _, _ in squares:
-        shutil.copy(p, os.path.join(work, "watch"))
+
+
+def unified_release_runs(state: dict, work: str) -> list:
+    """The README's unified deployment on the unified release
+    (`--params-npz ... --model-codec all --codec auto --quality auto`), as
+    `run_release_clis` takes them: `cli/restore.py` on one JPEG, one WebP
+    and one AVIF (UNIFIED_RESTORE_FILES: each file restored alone, at its
+    detected codec and estimated quality), `cli/serve.py --once` on a
+    directory of both fixture images in each codec (UNIFIED_SERVE_FILES:
+    three codec-pure batches of SERVE_BATCH, each at the bucket nearest its
+    median quality), and `cli/evaluate.py --codec jpeg --model-codec all`
+    on RELEASE_EVAL_IMAGES natural images at the fixture's JPEG
+    qualities."""
+    import shutil
+
+    import numpy as np
+
+    from ddpm_image_restoration_tpu_torch.cli.evaluate import main as evaluate_main
+    from ddpm_image_restoration_tpu_torch.cli.restore import main as restore_main
+    from ddpm_image_restoration_tpu_torch.cli.serve import _BUCKETS
+    from ddpm_image_restoration_tpu_torch.cli.serve import main as serve_main
+    from ddpm_image_restoration_tpu_torch.codecs.estimate import estimate_quality
+
+    fixture = state["release_fixture"]
+    npz = ["--params-npz", os.path.join(ROOT, release_files(release_name(state))[0])]
+    ext = {"jpeg": "jpg", "webp": "webp", "avif": "avif"}
+    inputs, watch = os.path.join(work, "in"), os.path.join(work, "watch")
+    singles = [(*write_release_file(inputs, f"r{i}_{c}_q{q}.{ext[c]}", fixture["x0"][i], q),
+                fixture_tag(fixture, c, q)) for c, i, q in UNIFIED_RESTORE_FILES]
+    served = [(*write_release_file(inputs, f"s{i}_{c}_q{q}.{ext[c]}", x, q),
+               fixture_tag(fixture, c, q))
+              for c, q in UNIFIED_SERVE_FILES.items() for i, x in enumerate(fixture["x0"])]
+    os.makedirs(watch)
+    for path, _, _ in served:  # the server moves what it restored out of `watch`
+        shutil.copy(path, watch)
+    restore_want = sum(sum(static_schedule(estimate_quality(p), c, *restore_budget()))
+                       for (p, _, _), (c, _, _) in zip(singles, UNIFIED_RESTORE_FILES))
+    serve_want = 0
+    for c in UNIFIED_SERVE_FILES:
+        qs = [estimate_quality(p) for p, _, _ in served if f"_{c}_" in os.path.basename(p)]
+        serve_want += sum(static_schedule(
+            min(_BUCKETS, key=lambda b: abs(b - float(np.median(qs)))), c))
+    jpeg_qs = [q for c, q, _ in fixture_cases(fixture) if c == "jpeg"]
+    return [
+        dict(label="restore --codec auto --model-codec all", main=restore_main,
+             argv=[*(p for p, _, _ in singles), *RESTORE_FLAGS, *npz, *UNIFIED_FLAGS],
+             inputs=singles, want=restore_want),
+        dict(label="serve --once --codec auto --model-codec all", main=serve_main,
+             argv=["--watch", watch, *CARD_FLAGS, *npz, *UNIFIED_FLAGS, "--solver", "auto",
+                   "--batch-size", str(SERVE_BATCH), "--once"],
+             inputs=served, want=serve_want, batches=len(UNIFIED_SERVE_FILES)),
+        dict(label="evaluate --codec jpeg --model-codec all", main=evaluate_main, codec="jpeg",
+             argv=["--codec", "jpeg", "--model-codec", "all", *CARD_FLAGS, *npz, "--synthetic",
+                   str(RELEASE_EVAL_IMAGES), "--synthetic-kind", "natural", "--batch-size",
+                   str(EVAL_BATCH), "--qualities", *map(str, jpeg_qs), "--solver", "auto"],
+             inputs=None, want=math.ceil(RELEASE_EVAL_IMAGES / EVAL_BATCH)
+             * sum(sum(static_schedule(q, "jpeg")) for q in jpeg_qs)),
+    ]
+
+
+def run_release_clis(state: dict, runs: list, work: str, totals: dict) -> list:
+    """Each run (`webp_release_runs`, `unified_release_runs`: label, main,
+    argv, inputs as [(path, clean 8-bit image, fixture tag)] or None for the
+    evaluator, want: its forward launches, batches: the server's batches)
+    counted from 0 against its schedule, its output directory under `work`.
+    Each output PNG's PSNR against its clean image, and the evaluator's mean
+    per quality, under `release_psnr_failures`. Returns the failures."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from ddpm_image_restoration_tpu_torch.ops import flash_attention as fa
+
+    fixture = state["release_fixture"]
+    npz_rel = release_files(release_name(state))[0]
     failures = []
-    for i, (label, main, argv, inputs, want) in enumerate(runs):
+    for i, run in enumerate(runs):
+        label, want = run["label"], run["want"]
         out_dir = os.path.join(work, f"out{i}")
         torch.cuda.synchronize()
         _reset_counts()
         t0 = time.perf_counter()
-        _quiet(main, [*argv, "--output-dir", out_dir])
+        _, printed = _quiet(run["main"], [*run["argv"], "--output-dir", out_dir])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = _counts()
@@ -1611,7 +1803,13 @@ def release_clis(state: dict, work: str, totals: dict) -> list:
         if counts != {fa.KERNEL: want, "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}:
             failures.append(f"{label}: launches {counts}, schedule implies {want} forward")
         per = []
-        if inputs is None:
+        if run.get("batches") is not None:
+            batches = sum(line.startswith("restored ") for line in printed.splitlines())
+            per.append(f"{batches} batches")
+            if batches != run["batches"]:
+                failures.append(f"{label}: {batches} batches, {run['batches']} codec-pure "
+                                f"ones expected")
+        if run["inputs"] is None:
             with open(os.path.join(out_dir, "metrics_summary.json")) as f:
                 rows = json.load(f)["results"]
             for q, r in rows.items():
@@ -1620,11 +1818,12 @@ def release_clis(state: dict, work: str, totals: dict) -> list:
                            f"{r['restored_psnr'] - r['compressed_psnr']:+.4f})")
                 if not np.isfinite([r["restored_psnr"], r["compressed_psnr"]]).all():
                     failures.append(f"{label} q{q}: PSNRs not finite: {r}")
-                failures += release_psnr_failures(label, fixture, q, r["restored_psnr"],
-                                                  r["compressed_psnr"])
+                failures += release_psnr_failures(label, fixture,
+                                                  fixture_tag(fixture, run["codec"], q),
+                                                  r["restored_psnr"], r["compressed_psnr"])
             n_images = RELEASE_EVAL_IMAGES
         else:
-            for path, q, clean in inputs:
+            for path, clean, tag in run["inputs"]:
                 stem = os.path.splitext(os.path.basename(path))[0]
                 png = os.path.join(out_dir, stem + "_restored.png")
                 if not os.path.exists(png):
@@ -1638,23 +1837,26 @@ def release_clis(state: dict, work: str, totals: dict) -> list:
                 out_db, in_db = psnr_u8(got, clean), psnr_u8(seen, clean)
                 per.append(f"{stem} {out_db:.4f} dB (input {in_db:.4f}, gain "
                            f"{out_db - in_db:+.4f})")
-                failures += release_psnr_failures(f"{label} {stem}", fixture, q, out_db, in_db)
-            n_images = len(inputs)
-        log(f"{label} [--params-npz {RELEASE_NPZ}]: {n_images} image(s), "
+                failures += release_psnr_failures(f"{label} {stem}", fixture, tag, out_db, in_db)
+            n_images = len(run["inputs"])
+        log(f"{label} [--params-npz {npz_rel}]: {n_images} image(s), "
             f"{1e3 * wall / n_images:.1f} ms/image on {state['smi']}; launches {counts} "
             f"(schedule implies {want} forward); " + "; ".join(per))
     return failures
 
 
 def phase_release(state: dict) -> None:
-    """The release WebP weights (`webp_real_r5.npz`) at full width: loaded
-    once (strict), their sha256 against the fixture's; each fixture input
-    restored on the card in f32 (no TF32 in the convolutions; the f32
-    forward kernel) through the serve core and held to the JAX package's
-    own restore (RESTORE_*_DIFF, n + g forward launches), then in bf16,
-    the production dtype, whose PSNR must be within RELEASE_PSNR_DB of the
-    JAX restore's; then the README's CLIs on those weights
-    (`release_clis`)."""
+    """The release weights (`--release`, default `webp_real_r5.npz`) at
+    full width: loaded once (strict), their sha256 against the fixture's;
+    each fixture case (codec, quality) restored on the card in f32 (no TF32
+    in the convolutions; the f32 forward kernel) through the serve core and
+    held to the JAX package's own restore (RESTORE_*_DIFF, the fixture's
+    reference edges by PSNR, n + g forward launches), then in bf16, the
+    production dtype, whose PSNR must be within RELEASE_PSNR_DB of the JAX
+    restores' (`release_psnr_failures`); the launch shapes logged; then
+    the README's CLIs on those weights (`webp_release_runs` or, for the
+    unified model, `unified_release_runs`)."""
+    import collections
     import shutil
 
     t_phase = time.perf_counter()
@@ -1662,24 +1864,32 @@ def phase_release(state: dict) -> None:
     fixture = state["release_fixture"]
     totals = dict.fromkeys(_counts(), 0)
     failures = []
-    for dtype in ("float32", "bfloat16"):
-        model = release_model(state, dtype, CARD)
-        psnrs, bad = release_restores(model, fixture, CARD, totals)
-        failures += bad
-        if dtype == "bfloat16":
-            for q, db in psnrs.items():
-                failures += release_psnr_failures("bf16 restore", fixture, q, db,
-                                                  float(fixture[f"psnr_y_{q}"]),
-                                                  near_db=RELEASE_PSNR_DB)
-        del model
-    for q in fixture["qualities"]:
-        log(f"q{q}: the JAX restore's gain {fixture_gain(fixture, q):+.4f} dB: the gain rule "
-            + ("applies" if fixture_gain(fixture, q) >= RELEASE_GAIN_DB else
-               f"does not apply (under {RELEASE_GAIN_DB} dB)"))
+    def shape(name, bh, t, d, dtype):
+        return name, bh, t, d, str(dtype).split(".")[-1]
+
+    with launches_by_head_dim(shape) as shapes:
+        for dtype in ("float32", "bfloat16"):
+            model = release_model(state, dtype, CARD)
+            psnrs, bad = release_restores(model, fixture, CARD, totals)
+            failures += bad
+            if dtype == "bfloat16":
+                for tag, db in psnrs.items():
+                    failures += release_psnr_failures("bf16 restore", fixture, tag, db,
+                                                      float(fixture[f"psnr_y_{tag}"]),
+                                                      near_db=RELEASE_PSNR_DB)
+            del model
+    log("launch shapes of the serve core's restores (kernel, BH, T, D, dtype): "
+        f"{dict(collections.Counter(shapes))}")
+    for _, _, tag in fixture_cases(fixture):
+        log(f"[{tag}]: the JAX restore's gain {fixture_gain(fixture, tag):+.4f} dB: the gain "
+            "rule " + ("applies" if fixture_gain(fixture, tag) >= RELEASE_GAIN_DB else
+                       f"does not apply (under {RELEASE_GAIN_DB} dB)"))
     work = os.path.join(ROOT, "build", "chip_smoke_release")
     shutil.rmtree(work, ignore_errors=True)
     try:
-        failures += release_clis(state, work, totals)
+        runs = (webp_release_runs if RELEASES[release_name(state)] == "webp"
+                else unified_release_runs)(state, work)
+        failures += run_release_clis(state, runs, work, totals)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     state["launches_release"] = totals
@@ -1689,6 +1899,13 @@ def phase_release(state: dict) -> None:
 
 
 def phase_serve(state: dict) -> None:
+    """The restore server core at full width on the release weights that
+    phase `release` loaded (bf16, flash at <= 32²): three batches of 8 at
+    SERVE_QUALITIES, all WebP for the WebP release, one JPEG, one WebP and
+    one AVIF batch for the unified model (what `--codec auto --model-codec
+    all` serves: codec-pure batches, the model conditioned on each batch's
+    codec), counting the kernel's launches against the schedule; then the
+    batches again, timed, and one profiled."""
     import numpy as np
     import torch
 
@@ -1700,37 +1917,39 @@ def phase_serve(state: dict) -> None:
     from ddpm_image_restoration_tpu_torch.models import build_model
     from ddpm_image_restoration_tpu_torch.ops import flash_attention as fa
 
+    npz_rel = release_files(release_name(state))[0]
     if "release_params" not in state:
-        raise AssertionError(f"no release weights: phase release loads {RELEASE_NPZ}, and "
+        raise AssertionError(f"no release weights: phase release loads {npz_rel}, and "
                              f"phase serve runs on those weights only")
-    cfg = ModelConfig(attention_impl="flash", attn_max_resolution=32)  # webp, full width
-    model = build_model("webp", cfg, device="cuda")
+    preset_name = RELEASES[release_name(state)]
+    codecs = ["webp"] * len(SERVE_QUALITIES) if preset_name == "webp" else ["jpeg", "webp", "avif"]
+    cfg = ModelConfig(attention_impl="flash", attn_max_resolution=32)  # full width
+    model = build_model(preset_name, cfg, device="cuda")
     model.load_state_dict(state["release_params"], strict=True)
-    log(f"weights: {RELEASE_NPZ}")
+    log(f"weights: {npz_rel}")
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"model: webp, {n_params / 1e6:.1f} M parameters, {cfg.compute_dtype}, "
+    log(f"model: {preset_name}, {n_params / 1e6:.1f} M parameters, {cfg.compute_dtype}, "
         f"attention flash at <= {cfg.attn_max_resolution}^2")
     final_exact = state["pil"]
     if not final_exact:
         log("final_exact: skipped, Pillow cannot be imported here (the exact "
             "host codec needs it; the card path does not)")
 
-    preset = get_preset("webp")
     batches, expected = [], 0
-    for i, q in enumerate(SERVE_QUALITIES):
+    for i, (q, codec) in enumerate(zip(SERVE_QUALITIES, codecs)):
         x0 = torch.from_numpy(synthetic_images(SERVE_BATCH, cfg.image_size, SEED + 10 + i)).cuda()
-        batches.append((q, codec_surrogate(x0, q, codec="webp")))
-        init_t = init_timestep_for_quality(q, 100, preset)
-        stride, reuse, _, _ = solver_for(init_t, q, "webp")
+        batches.append((q, codec, codec_surrogate(x0, q, codec=codec)))
+        init_t = init_timestep_for_quality(q, 100, get_preset(codec))
+        stride, reuse, _, _ = solver_for(init_t, q, codec)
         n_evals = len(_solver_indices(init_t, stride))
         # one T=1024 level in the encoder (down2), one in the decoder (up4)
         expected += n_evals + math.ceil(n_evals / reuse)
-        log(f"q{q}: init_t {init_t}, stride {stride}, {n_evals} evaluations, "
+        log(f"{codec} q{q}: init_t {init_t}, stride {stride}, {n_evals} evaluations, "
             f"encoder reuse {reuse}")
 
     torch.cuda.synchronize()
     _reset_counts()
-    outs = [restore_batch(model, y, q, "webp", final_exact=final_exact) for q, y in batches]
+    outs = [restore_batch(model, y, q, codec, final_exact=final_exact) for q, codec, y in batches]
     torch.cuda.synchronize()
     state["launches"] = counts = _counts()
     launches = counts[fa.KERNEL]
@@ -1739,26 +1958,26 @@ def phase_serve(state: dict) -> None:
     if launches != expected or counts["flash_attention_bwd_dq"] or \
             counts["flash_attention_bwd_dkv"]:
         raise AssertionError(f"kernels launched {counts}, schedule implies {expected} forward")
-    for (q, y), out in zip(batches, outs):
+    for (q, codec, y), out in zip(batches, outs):
         o = out.cpu().numpy()
         if o.shape != tuple(y.shape) or not np.isfinite(o).all() or np.abs(o).max() > 1.0:
-            raise AssertionError(f"q{q}: bad output shape {o.shape}, finite "
+            raise AssertionError(f"{codec} q{q}: bad output shape {o.shape}, finite "
                                  f"{np.isfinite(o).all()}, max |x| {np.abs(o).max()}")
 
     # steady-state timing: the same three batches again
     times = []
-    for q, y in batches:
+    for q, codec, y in batches:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        restore_batch(model, y, q, "webp", final_exact=final_exact)
+        restore_batch(model, y, q, codec, final_exact=final_exact)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     ms = 1e3 * sum(times) / len(times)
     log(f"serve: {ms:.1f} ms/batch of {SERVE_BATCH}, {SERVE_BATCH * len(times) / sum(times):.1f} "
         f"img/s on {state['smi']} (final_exact {final_exact})")
-    profile_run(f"one batch of {SERVE_BATCH}, q30",
-                lambda: restore_batch(model, batches[1][1], batches[1][0], "webp",
-                                      final_exact=final_exact))
+    q, codec, y = batches[1]
+    profile_run(f"one batch of {SERVE_BATCH}, {codec} q{q}",
+                lambda: restore_batch(model, y, q, codec, final_exact=final_exact))
 
 
 def profile_run(label: str, run) -> None:
@@ -4293,6 +4512,11 @@ def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PACKAGE)):
         print(f"chip_smoke: {PACKAGE}/ is not beside this script", file=sys.stderr)
         return 2
+    child = sys.argv[1:2] in (["--parallel-child"], ["--parallel-child-nccl"])
+    release = None if child else parse_args(sys.argv[1:]).release
+    if release is not None and (why := release_refusal(release, ROOT)):
+        print(f"chip_smoke: {why}", file=sys.stderr)
+        return 2
     sys.path.insert(0, ROOT)
     import torch
 
@@ -4300,14 +4524,16 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
               file=sys.stderr)
         return 2
-    if sys.argv[1:2] in (["--parallel-child"], ["--parallel-child-nccl"]):
+    if child:
         return child_main(sys.argv[1:])
+
     def on_alarm(signum, frame):
         raise TimeoutError(f"chip_smoke exceeded {TIME_LIMIT_S} s")
 
     signal.signal(signal.SIGALRM, on_alarm)
     signal.alarm(TIME_LIMIT_S)
-    state: dict = {}
+    state: dict = {"release": release or DEFAULT_RELEASE}
+    log(f"release weights: {state['release']} ({release_files(state['release'])[0]})")
     t_all = time.perf_counter()
     for name, fn in PHASES:
         t0 = time.perf_counter()

@@ -7,6 +7,14 @@ calibrated multiplier, a calibrated in-loop deblocking pass, and back to RGB.
 The calibration tables are the JAX package's, interpolated in quality by
 `interp` (torch has no `interp`). Images are NHWC in [-1, 1], as in the JAX
 package.
+
+The JAX package's surrogate always runs jitted, and XLA compiles its
+divisions by a constant into multiplications by the constant's f32
+reciprocal. The port multiplies by the same f32 numbers where the quotient
+reaches a rounding: the quant tables' `/ 100` (so they round where the
+compiled JAX function rounds them: an entry of exact value k + 0.5 can come
+out as k) and the chroma blend's `/ 50`. The last `/ 255` feeds only the
+output's clip, which a last-bit change cannot step, and stays a division.
 """
 
 from __future__ import annotations
@@ -142,14 +150,22 @@ def _av1_style_table(b: int = 8) -> np.ndarray:
     return (14.0 + 4.5 * i).astype(np.float32)
 
 
+# f32 reciprocals of the JAX code's constant divisors, as XLA folds them
+_INV_100 = float(np.float32(1 / 100))
+_INV_50 = float(np.float32(1 / 50))
+
+
 def jpeg_quality_scale(quality: torch.Tensor) -> torch.Tensor:
     """libjpeg quality -> table scale factor (in %)."""
     quality = torch.clamp(quality, 1, 100).float()
-    return torch.where(quality < 50.0, 5000.0 / quality, 200.0 - 2.0 * quality)
+    # a tensor over a tensor: torch computes `5000.0 / quality` as
+    # 5000 * (1 / quality), rounded twice, where XLA divides once
+    return torch.where(quality < 50.0, quality.new_tensor(5000.0) / quality,
+                       200.0 - 2.0 * quality)
 
 
 def _scaled_table(base: torch.Tensor, quality: torch.Tensor) -> torch.Tensor:
-    scale = jpeg_quality_scale(quality) / 100.0
+    scale = jpeg_quality_scale(quality) * _INV_100
     table = base * scale[..., None, None]
     return torch.clamp(torch.floor(table + 0.5), 1.0, 255.0)
 
@@ -305,7 +321,7 @@ def _surrogate_raw(x: torch.Tensor, quality, codec: str, subsample: bool,
     cr = ycc[..., 2]
 
     if subsample:
-        w420 = torch.clamp((75.0 - quality) / 50.0, 0.0, 1.0)[:, None, None]
+        w420 = torch.clamp((75.0 - quality) * _INV_50, 0.0, 1.0)[:, None, None]
         cb = w420 * _subsample_420(cb) + (1.0 - w420) * cb
         cr = w420 * _subsample_420(cr) + (1.0 - w420) * cr
 

@@ -169,8 +169,10 @@ def test_release_restores_on_cpu_width16(narrow, cpu_launches):
     """The phase's f32 comparison at width/16 on the CPU: each quality's
     restore through the serve core within the card bounds of the JAX
     package's, n + g forward launches and no backward one, the PSNRs the
-    fixture's; a restore with one element moved past the max bound, one
-    moved past the mean bound, or a launch short of the schedule fails."""
+    fixture's (keyed by the fixture's case tag, the quality here); a
+    restore with one element moved past the max bound, one moved past the
+    mean bound, or a launch short of the schedule fails, and an image left
+    to PSNR (a reference edge) drops out of the bounds."""
     tm, fixture, moved, _ = narrow
     for q in rel.QUALITIES:  # the JAX package's own output is stable here
         line, bad = chip_smoke.release_compare(q, moved[q], fixture[f"restored_{q}"], 0, 0, 0)
@@ -182,7 +184,7 @@ def test_release_restores_on_cpu_width16(narrow, cpu_launches):
     assert totals == {fa.KERNEL: sum(n + g for n, g in schedules.values()),
                       **dict.fromkeys(FWD_ONLY, 0)}
     for q in rel.QUALITIES:
-        assert psnrs[q] == pytest.approx(float(fixture[f"psnr_restored_{q}"]), abs=1e-3)
+        assert psnrs[str(q)] == pytest.approx(float(fixture[f"psnr_restored_{q}"]), abs=1e-3)
 
     want = fixture["restored_30"]
     n, g = schedules[30]
@@ -194,16 +196,19 @@ def test_release_restores_on_cpu_width16(narrow, cpu_launches):
     assert "disagrees" in " ".join(chip_smoke.release_compare(30, shifted, want, n + g, n, g)[1])
     assert "forward launches" in " ".join(
         chip_smoke.release_compare(30, want, want, n + g - 1, n, g)[1])
+    image0 = want.copy()
+    image0[0] += 1.5 * chip_smoke.RESTORE_MAX_DIFF
+    assert chip_smoke.release_compare(30, image0, want, n + g, n, g, by_psnr=[0])[1] == []
 
 
 def test_release_phase_on_cpu_width16(narrow, cpu_launches, monkeypatch, capsys):
     """The whole phase at width/16 on the CPU, in a copy that holds
     `narrow`'s weights and fixture where the release ones lie: the load and
-    its sha256, the f32 and bf16 restores, then the restore, serve and
-    evaluate CLIs on `--params-npz`, each run's launches against its
-    schedule (the phase fails otherwise), its work directory removed. The
-    evaluator on 8 images (one batch) and a 72x100 image in tiles (one tile
-    batch) to keep it short."""
+    its sha256, the f32 and bf16 restores, then the restore, serve,
+    evaluate and Gaussian-mixture restore CLIs on `--params-npz`, each
+    run's launches against its schedule (the phase fails otherwise), its
+    work directory removed. The evaluator on 8 images (one batch) and a
+    72x100 image in tiles (one tile batch) to keep it short."""
     root = narrow[3]
     monkeypatch.setattr(chip_smoke, "ROOT", str(root))
     monkeypatch.setattr(chip_smoke, "CARD", "cpu")
@@ -218,7 +223,8 @@ def test_release_phase_on_cpu_width16(narrow, cpu_launches, monkeypatch, capsys)
     chip_smoke.phase_release(state)
     log = capsys.readouterr().out
     assert log.count("f32 restore against the JAX package's") == 3, log
-    assert log.count("[--params-npz artifacts_release/webp_real_r5.npz]") == 4, log
+    assert log.count("[--params-npz artifacts_release/webp_real_r5.npz]") == 5, log
+    assert "restore --solver gaussian_mixture --quality 30 [--params-npz" in log, log
     schedules = [chip_smoke.static_schedule(q, "webp") for q in rel.QUALITIES]
     totals = state["launches_release"]
     assert totals[fa.KERNEL] > 2 * sum(n + g for n, g in schedules)

@@ -16,45 +16,66 @@ torch.set_num_threads(1)
 
 
 def _table_boundary_qualities(codec, qs):
-    """Qualities at which the jitted JAX quant tables differ from the exact
-    ones, checked to be rounding-boundary cases: XLA computes `scale / 100`
-    as a multiply by 0.01, so an entry whose exact value is k + 0.5 (where
-    floor(x + 0.5) must give k + 1, as libjpeg's integer formula does) can
-    come out as k. The port divides, as the JAX code is written."""
-    quirk = np.zeros(len(qs), bool)
+    """Qualities at which the jitted JAX quant tables differ from the ones
+    the JAX code computes as written (jit disabled), checked to be
+    rounding-boundary cases that the port shares with the jitted tables:
+    XLA compiles `scale / 100` as a multiply by the f32 constant 0.01, so
+    an entry whose exact value is k + 0.5 (where floor(x + 0.5) gives k + 1,
+    as libjpeg's integer formula does) can come out as k. The port
+    multiplies by the same constant: its tables equal the jitted ones bit
+    for bit, and differ from the unjitted ones by -1 at such entries only."""
+    edge = np.zeros(len(qs), bool)
     for base in jsur._base_tables(codec):
         tj = np.asarray(jax.jit(jsur._scaled_table)(jnp.asarray(base), jnp.asarray(qs)))
         tt = tsur._scaled_table(torch.from_numpy(base), torch.from_numpy(qs)).numpy()
+        with jax.disable_jit():
+            te = np.asarray(jsur._scaled_table(jnp.asarray(base), jnp.asarray(qs)))
+        np.testing.assert_array_equal(tt, tj)
         exact = base.astype(np.float64) * np.asarray(
             jsur.jpeg_quality_scale(jnp.asarray(qs)), np.float64)[:, None, None] / 100.0
-        off = tj != tt
-        assert np.all(tt[off] - tj[off] == 1)
+        off = tt != te
+        assert np.all(tt[off] - te[off] == -1)
         assert np.allclose((exact + 0.5)[off], np.round(exact + 0.5)[off], atol=1e-4)
-        quirk |= off.reshape(len(qs), -1).any(axis=1)
-    return quirk
+        edge |= off.reshape(len(qs), -1).any(axis=1)
+    return edge
+
+
+def test_scaled_table_equals_jitted_jax_bit_for_bit():
+    """The port's quant tables against `jax.jit(_scaled_table)` at every
+    integer quality 0-120 and every half quality 0.5-99.5 (the calibration
+    grids' midpoints among them), for each base table of each codec: equal
+    bit for bit (`_table_boundary_qualities` asserts it), and the qualities
+    where both differ from the unjitted tables are the rounding edges
+    recorded in ROADMAP.md (Queue 3)."""
+    qs = np.concatenate([np.arange(0, 121), np.arange(0.5, 100, 1.0)]).astype(np.float32)
+    edges = {codec: set(qs[_table_boundary_qualities(codec, qs)].tolist())
+             for codec in ("jpeg", "webp", "avif")}
+    grid = set(jsur._CALIBRATION["jpeg"][0])
+    grid |= {(a + b) / 2 for a, b in zip(sorted(grid)[:-1], sorted(grid)[1:])}
+    assert {c: sorted(e & grid) for c, e in edges.items()} == {
+        "jpeg": [85.0, 92.5, 95.0], "webp": [92.5, 97.5],
+        "avif": [70.0, 85.0, 90.0, 92.5, 95.0, 97.5]}
 
 
 @pytest.mark.parametrize("codec", ["jpeg", "webp", "avif"])
 def test_surrogate_over_calibration_grid(codec):
     """One image per quality, f32. Every calibration knot, the midpoints
-    between knots and both clamped ends against the JAX code run as written
-    (jit disabled); the knots and ends also against the jitted JAX
-    surrogate (the production path), except where its quant table hits the
-    rounding quirk above (logged in ROADMAP.md, Queue 3)."""
+    between knots and both clamped ends against the jitted JAX surrogate
+    (the function the JAX package runs), with no exception; and against
+    the JAX code run as written (jit disabled) at every quality except the
+    quant-table rounding edges above (ROADMAP.md, Queue 3)."""
     grid = np.asarray(jsur._CALIBRATION[codec][0], np.float32)
     knots = np.concatenate([grid, [0.0, 120.0]]).astype(np.float32)
     every = np.concatenate([knots, (grid[:-1] + grid[1:]) / 2]).astype(np.float32)
     x = smooth_images(len(every), 16, seed=1)
     got = tsur.codec_surrogate(torch.from_numpy(x), torch.from_numpy(every), codec=codec).numpy()
+    want_jit = np.asarray(jsur.codec_surrogate(jnp.asarray(x), jnp.asarray(every), codec=codec))
+    np.testing.assert_allclose(got, want_jit, atol=1e-5)
     with jax.disable_jit():
         want = np.asarray(jsur.codec_surrogate(jnp.asarray(x), jnp.asarray(every), codec=codec))
-    np.testing.assert_allclose(got, want, atol=1e-5)
-    n = len(knots)
-    want_jit = np.asarray(jsur.codec_surrogate(jnp.asarray(x[:n]), jnp.asarray(knots),
-                                               codec=codec))
-    ok = ~_table_boundary_qualities(codec, knots)
-    assert ok.sum() >= n - 4
-    np.testing.assert_allclose(got[:n][ok], want_jit[ok], atol=1e-5)
+    ok = ~_table_boundary_qualities(codec, every)
+    assert ok.sum() >= len(every) - 6
+    np.testing.assert_allclose(got[ok], want[ok], atol=1e-5)
 
 
 @pytest.mark.parametrize("codec", ["webp", "jpeg"])
