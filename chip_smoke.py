@@ -37,7 +37,10 @@ NVIDIA card and checks it, phase by phase:
      or `--release`'s, loaded once, strict, its sha256 against the
      fixture's) at full width: the JAX package's inputs from
      `tests/torch_release/<release>_jax.npz` restored on the card through
-     the serve core under the production policy of each case's codec, in
+     the serve core under the production policy of each case's codec,
+     twice (the signature's first call runs the solver eager, the second
+     captures it as a CUDA graph and replays it; the two compared bit for
+     bit), each in
      f32 held to the JAX package's own f32 restores (mean|diff| <= 1e-4,
      max <= 2e-2, an image at a reference edge by PSNR, n + g forward
      launches), in bf16 by PSNR (within 0.1 dB of the JAX f32 restore's,
@@ -52,8 +55,10 @@ NVIDIA card and checks it, phase by phase:
   5. serve: the restore server core at full width (64², the release
      weights that phase `release` loaded, bf16, flash attention at <= 32²)
      on three batches of 8 images under the production solver policy (WebP;
-     for the unified model one JPEG, one WebP and one AVIF batch),
-     counting the kernel's launches;
+     for the unified model one JPEG, one WebP and one AVIF batch) in four
+     passes: the signatures' first calls (eager), their captures, timed
+     replays, and timed eager calls again, each pass's launches held to
+     the schedule, one batch profiled each way;
   6. train_reference: one half-width f32 train step on the card against the
      same step on the CPU (loss and every gradient), WebP and AVIF presets,
      and one half-width f32 distill step (2 student evaluations through the
@@ -1532,13 +1537,23 @@ def release_compare(q, got, want, launched: int, n: int, g: int, codec: str = ""
     return line, failures
 
 
-def release_restores(model, fixture: dict, device: str, totals: dict) -> tuple[dict, list]:
+SOLVER_MODES = ("eager", "graph")  # a signature's first call, then its captured loop
+
+
+def release_restores(model, fixture: dict, device: str, totals: dict,
+                     modes: tuple = ("eager",)) -> tuple[dict, list]:
     """Each fixture input restored by `model` through `sample_batch` (the
     production policy of its codec at its quality, final_exact=False), f32
-    convolutions in full f32. An f32 model is held to the fixture's restore
+    convolutions in full f32, once per mode in `modes`: the signature's
+    first call runs the solver eager, a second call ("graph", SOLVER_MODES
+    on the card) captures the solver loop as a CUDA graph and replays it.
+    Each restore is held alike: an f32 model's to the fixture's restore
     (`release_compare`), an image the fixture names a reference edge by its
-    PSNR within RELEASE_PSNR_DB of the JAX restore's; the forward's launches
-    are counted from 0 per restore into `totals`. Returns ({tag: the
+    PSNR within RELEASE_PSNR_DB of the JAX restore's; a bf16 model's PSNR
+    by `release_psnr_failures`; its forward launches, counted from 0 per
+    restore into `totals`, to the schedule's n + g. A graph's restore is
+    also compared with the eager one: bit for bit, or its max|diff| logged
+    (the fixture's bounds stay the gate). Returns ({tag: the last mode's
     restore's PSNR against x0, dB}, failures)."""
     import numpy as np
     import torch
@@ -1559,30 +1574,42 @@ def release_restores(model, fixture: dict, device: str, totals: dict) -> tuple[d
         if n != int(fixture[f"evals_{tag}"]):
             failures.append(f"{case}: {n} evaluations, the JAX package ran "
                             f"{int(fixture[f'evals_{tag}'])}")
-        torch.cuda.synchronize()
-        _reset_counts()
-        t0 = time.perf_counter()
-        with no_tf32():
-            out = sample_batch(model, y, q, codec, final_exact=False).cpu()
-        wall = time.perf_counter() - t0
-        counts = _counts()
-        for k, v in counts.items():
-            totals[k] += v
-        psnrs[tag] = psnr(out, x0).item()
-        bf16_ref = (f", its bf16 restore {float(fixture[f'psnr_restored_bf16_{tag}']):.4f}"
-                    if f"psnr_restored_bf16_{tag}" in fixture else "")
-        log(f"{case} {model.cfg.compute_dtype}: {y.shape[0]} images in {1e3 * wall:.1f} ms; "
-            f"PSNR {psnrs[tag]:.4f} dB (input {float(fixture[f'psnr_y_{tag}']):.4f}, the JAX f32 "
-            f"restore {float(fixture[f'psnr_restored_{tag}']):.4f}{bf16_ref}); launches {counts}")
-        if counts["flash_attention_bwd_dq"] or counts["flash_attention_bwd_dkv"]:
-            failures.append(f"{case}: backward launches {counts}")
-        if f32:
+        outs = {}
+        for mode in modes:
+            how = f" [{mode}]" if len(modes) > 1 else ""
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            with no_tf32():
+                out = outs[mode] = sample_batch(model, y, q, codec, final_exact=False).cpu()
+            wall = time.perf_counter() - t0
+            counts = _counts()
+            for k, v in counts.items():
+                totals[k] += v
+            psnrs[tag] = psnr(out, x0).item()
+            bf16_ref = (f", its bf16 restore {float(fixture[f'psnr_restored_bf16_{tag}']):.4f}"
+                        if f"psnr_restored_bf16_{tag}" in fixture else "")
+            log(f"{case}{how} {model.cfg.compute_dtype}: {y.shape[0]} images in "
+                f"{1e3 * wall:.1f} ms; PSNR {psnrs[tag]:.4f} dB (input "
+                f"{float(fixture[f'psnr_y_{tag}']):.4f}, the JAX f32 restore "
+                f"{float(fixture[f'psnr_restored_{tag}']):.4f}{bf16_ref}); launches {counts}")
+            if counts["flash_attention_bwd_dq"] or counts["flash_attention_bwd_dkv"]:
+                failures.append(f"{case}{how}: backward launches {counts}")
+            if not f32:
+                failures += release_psnr_failures(f"bf16 restore{how}", fixture, tag,
+                                                  psnrs[tag], float(fixture[f"psnr_y_{tag}"]),
+                                                  near_db=RELEASE_PSNR_DB)
+                if counts[fa.KERNEL] != n + g:
+                    failures.append(f"{case}{how} {model.cfg.compute_dtype}: "
+                                    f"{counts[fa.KERNEL]} forward launches, schedule implies "
+                                    f"{n + g}")
+                continue
             want = fixture[f"restored_{tag}"]
             held = [i for i in range(len(want)) if f"{tag}/{i}" in edges]
             line, bad = release_compare(q, out.numpy(), want, counts[fa.KERNEL], n, g,
                                         codec if named else "", held)
-            log(line)
-            failures += bad
+            log(line + how)
+            failures += [b + how for b in bad]
             for i in held:
                 got_db = psnr(out[i:i + 1], x0[i:i + 1]).item()
                 ref_db = psnr(torch.tensor(want[i:i + 1]), x0[i:i + 1]).item()
@@ -1590,13 +1617,17 @@ def release_restores(model, fixture: dict, device: str, totals: dict) -> tuple[d
                     f"{float(fixture[f'self_move_{tag}'][i]):.3g} for a 1e-6 input move, past "
                     f"{RESTORE_MAX_DIFF:g}): held by PSNR, {got_db:.4f} dB against the JAX "
                     f"restore's {ref_db:.4f} (within {RELEASE_PSNR_DB}); its max|diff| "
-                    f"{float(np.abs(out[i].numpy() - want[i]).max()):.3g}")
+                    f"{float(np.abs(out[i].numpy() - want[i]).max()):.3g}{how}")
                 if not abs(got_db - ref_db) <= RELEASE_PSNR_DB:
-                    failures.append(f"{case} image {i}: PSNR {got_db:.4f} dB, the JAX restore's "
-                                    f"{ref_db:.4f}: more than {RELEASE_PSNR_DB} dB apart")
-        elif counts[fa.KERNEL] != n + g:
-            failures.append(f"{case} {model.cfg.compute_dtype}: {counts[fa.KERNEL]} forward "
-                            f"launches, schedule implies {n + g}")
+                    failures.append(f"{case} image {i}{how}: PSNR {got_db:.4f} dB, the JAX "
+                                    f"restore's {ref_db:.4f}: more than {RELEASE_PSNR_DB} dB "
+                                    f"apart")
+        if "graph" in outs:
+            same = torch.equal(outs["graph"], outs["eager"])
+            log(f"{case} {model.cfg.compute_dtype}: the graph's restore against the eager one: "
+                + ("bit for bit" if same else "NOT bit for bit, max|diff| "
+                   f"{(outs['graph'] - outs['eager']).abs().max().item():.3g} (held to the "
+                   f"fixture's bounds)"))
     return psnrs, failures
 
 
@@ -1849,15 +1880,19 @@ def phase_release(state: dict) -> None:
     """The release weights (`--release`, default `webp_real_r5.npz`) at
     full width: loaded once (strict), their sha256 against the fixture's;
     each fixture case (codec, quality) restored on the card in f32 (no TF32
-    in the convolutions; the f32 forward kernel) through the serve core and
-    held to the JAX package's own restore (RESTORE_*_DIFF, the fixture's
-    reference edges by PSNR, n + g forward launches), then in bf16, the
-    production dtype, whose PSNR must be within RELEASE_PSNR_DB of the JAX
-    restores' (`release_psnr_failures`); the launch shapes logged; then
+    in the convolutions; the f32 forward kernel) through the serve core,
+    eager and then as a replayed CUDA graph (`release_restores`), each held
+    to the JAX package's own restore (RESTORE_*_DIFF, the fixture's
+    reference edges by PSNR, n + g forward launches) and the graph to the
+    eager restore, then in bf16, the production dtype, whose PSNR must be
+    within RELEASE_PSNR_DB of the JAX restores' (`release_psnr_failures`)
+    in either mode; the launch shapes logged; then
     the README's CLIs on those weights (`webp_release_runs` or, for the
     unified model, `unified_release_runs`)."""
     import collections
     import shutil
+
+    import torch
 
     t_phase = time.perf_counter()
     load_release(state)
@@ -1870,13 +1905,9 @@ def phase_release(state: dict) -> None:
     with launches_by_head_dim(shape) as shapes:
         for dtype in ("float32", "bfloat16"):
             model = release_model(state, dtype, CARD)
-            psnrs, bad = release_restores(model, fixture, CARD, totals)
-            failures += bad
-            if dtype == "bfloat16":
-                for tag, db in psnrs.items():
-                    failures += release_psnr_failures("bf16 restore", fixture, tag, db,
-                                                      float(fixture[f"psnr_y_{tag}"]),
-                                                      near_db=RELEASE_PSNR_DB)
+            # on the CPU there is no graph: a second call would run eager again
+            modes = SOLVER_MODES if torch.device(CARD).type == "cuda" else ("eager",)
+            failures += release_restores(model, fixture, CARD, totals, modes)[1]
             del model
     log("launch shapes of the serve core's restores (kernel, BH, T, D, dtype): "
         f"{dict(collections.Counter(shapes))}")
@@ -1904,8 +1935,10 @@ def phase_serve(state: dict) -> None:
     SERVE_QUALITIES, all WebP for the WebP release, one JPEG, one WebP and
     one AVIF batch for the unified model (what `--codec auto --model-codec
     all` serves: codec-pure batches, the model conditioned on each batch's
-    codec), counting the kernel's launches against the schedule; then the
-    batches again, timed, and one profiled."""
+    codec), four passes, each timed and its forward launches held to the
+    schedule: the signatures' first calls (eager), their captures (the
+    solver loop as a CUDA graph) and replays, replays, and eager again
+    (fresh samplers); one batch profiled in each mode."""
     import numpy as np
     import torch
 
@@ -1947,37 +1980,57 @@ def phase_serve(state: dict) -> None:
         log(f"{codec} q{q}: init_t {init_t}, stride {stride}, {n_evals} evaluations, "
             f"encoder reuse {reuse}")
 
-    torch.cuda.synchronize()
-    _reset_counts()
-    outs = [restore_batch(model, y, q, codec, final_exact=final_exact) for q, codec, y in batches]
-    torch.cuda.synchronize()
-    state["launches"] = counts = _counts()
-    launches = counts[fa.KERNEL]
-    log(f"launches on the serving path: {counts} (schedule implies {expected} forward, "
-        f"no backward)")
-    if launches != expected or counts["flash_attention_bwd_dq"] or \
-            counts["flash_attention_bwd_dkv"]:
-        raise AssertionError(f"kernels launched {counts}, schedule implies {expected} forward")
-    for (q, codec, y), out in zip(batches, outs):
-        o = out.cpu().numpy()
-        if o.shape != tuple(y.shape) or not np.isfinite(o).all() or np.abs(o).max() > 1.0:
-            raise AssertionError(f"{codec} q{q}: bad output shape {o.shape}, finite "
-                                 f"{np.isfinite(o).all()}, max |x| {np.abs(o).max()}")
+    def serve_pass(label: str, eager: bool = False) -> list:
+        """The batches once, in turn, each timed to a synchronise; the
+        launches counted from 0 over the pass and held to the schedule.
+        `eager` drops the model's samplers before each batch (the serve
+        core keeps one per codec on the model), so that each runs as a
+        signature's first call: eager."""
+        outs, times = [], []
+        torch.cuda.synchronize()
+        _reset_counts()
+        for q, codec, y in batches:
+            if eager:
+                model.__dict__.pop("_serve_samplers", None)
+            t0 = time.perf_counter()
+            outs.append(restore_batch(model, y, q, codec, final_exact=final_exact))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        counts = _counts()
+        for k, v in counts.items():
+            totals[k] += v
+        ms = 1e3 * sum(times) / len(times)
+        log(f"serve {label}: {ms:.1f} ms/batch of {SERVE_BATCH} "
+            f"({', '.join(f'{1e3 * t:.1f}' for t in times)}), "
+            f"{SERVE_BATCH * len(times) / sum(times):.1f} img/s on {state['smi']} (final_exact "
+            f"{final_exact}); launches {counts} (schedule implies {expected} forward, no "
+            f"backward)")
+        if counts[fa.KERNEL] != expected or counts["flash_attention_bwd_dq"] or \
+                counts["flash_attention_bwd_dkv"]:
+            raise AssertionError(f"serve {label}: kernels launched {counts}, schedule implies "
+                                 f"{expected} forward")
+        for (q, codec, y), out in zip(batches, outs):
+            o = out.cpu().numpy()
+            if o.shape != tuple(y.shape) or not np.isfinite(o).all() or np.abs(o).max() > 1.0:
+                raise AssertionError(f"serve {label} {codec} q{q}: bad output shape {o.shape}, "
+                                     f"finite {np.isfinite(o).all()}, max |x| {np.abs(o).max()}")
+        return outs
 
-    # steady-state timing: the same three batches again
-    times = []
-    for q, codec, y in batches:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        restore_batch(model, y, q, codec, final_exact=final_exact)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    ms = 1e3 * sum(times) / len(times)
-    log(f"serve: {ms:.1f} ms/batch of {SERVE_BATCH}, {SERVE_BATCH * len(times) / sum(times):.1f} "
-        f"img/s on {state['smi']} (final_exact {final_exact})")
+    totals = dict.fromkeys(_counts(), 0)
+    first = serve_pass("eager, the signatures' first calls")
+    serve_pass("graph, captured and replayed")
+    graph = serve_pass("graph, replayed (timed)")
     q, codec, y = batches[1]
-    profile_run(f"one batch of {SERVE_BATCH}, {codec} q{q}",
+    profile_run(f"one batch of {SERVE_BATCH}, {codec} q{q}, graph replayed",
                 lambda: restore_batch(model, y, q, codec, final_exact=final_exact))
+    eager = serve_pass("eager (timed)", eager=True)
+    model.__dict__.pop("_serve_samplers", None)
+    profile_run(f"one batch of {SERVE_BATCH}, {codec} q{q}, eager",
+                lambda: restore_batch(model, y, q, codec, final_exact=final_exact))
+    state["launches"] = totals
+    for (q, codec, _), a, b, c in zip(batches, first, graph, eager):
+        log(f"serve {codec} q{q}: graph against eager max|diff| {(b - a).abs().max().item():.3g}, "
+            f"eager against eager {(c - a).abs().max().item():.3g}")
 
 
 def profile_run(label: str, run) -> None:

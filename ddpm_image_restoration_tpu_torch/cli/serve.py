@@ -78,6 +78,20 @@ def solver_for(init_t: int, quality: float, codec: str, solver: str = "auto",
     return stride, encoder_reuse, None, protect
 
 
+def sampler_for(model, codec: str) -> DDRMSampler:
+    """The sampler that restores `codec` with `model`: one per (model,
+    codec), kept on the model, as the JAX serve's `get_sampler` keeps one
+    per codec, so that a served batch of a signature seen before replays
+    that signature's captured solver loop (diffusion/ddrm.py)."""
+    samplers = getattr(model, "_serve_samplers", None)
+    if samplers is None:
+        samplers = model._serve_samplers = {}
+    if codec not in samplers:
+        samplers[codec] = DDRMSampler(model, get_preset(codec),
+                                      codec_id=sampler_codec_id(model, codec))
+    return samplers[codec]
+
+
 def sample_batch(model, y: torch.Tensor, quality, codec: str = "webp", steps: int = 100,
                  solver: str = "auto", stride: int = 1, max_evals: int = 0,
                  encoder_reuse: int = 1, final_exact: bool = True,
@@ -108,7 +122,7 @@ def sample_batch(model, y: torch.Tensor, quality, codec: str = "webp", steps: in
             raise ValueError("traced needs solver 'auto' or max_evals")
         q_b = np.broadcast_to(np.asarray(quality, np.float64).reshape(-1), (y.shape[0],))
         steps_arg = [init_timestep_for_quality(int(round(q)), steps, preset) for q in q_b]
-    return DDRMSampler(model, preset, codec_id=sampler_codec_id(model, codec)).sample(
+    return sampler_for(model, codec).sample(
         y, quality, steps_arg, stride=b_stride, protect=b_protect,
         protect_adaptive=protect_adaptive, encoder_reuse=b_enc, eta=b_eta,
         decoder_reuse_depth=decoder_reuse_depth, traced_budget=budget,

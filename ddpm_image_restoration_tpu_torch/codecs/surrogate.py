@@ -79,8 +79,23 @@ def kron_dct_matrix(n: int) -> np.ndarray:
     return np.kron(d, d).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def device_constant(make, args: tuple, device: torch.device,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The numpy array `make(*args)` as a tensor on `device` in `dtype`,
+    copied there once per (make, args, device, dtype) and kept for the life
+    of the process: an op that runs every solver step reads its constant
+    from the device instead of copying it from the host each time (a copy
+    that makes the host wait, and cannot be captured in a CUDA graph). Never
+    dropped, since a captured graph reads it by address; the set of
+    constants is finite. Made outside inference mode, so that autograd can
+    save it for a backward. Callers must not write to it."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.asarray(make(*args))).to(device=device, dtype=dtype)
+
+
 def _kron(n: int, like: torch.Tensor) -> torch.Tensor:
-    return torch.from_numpy(kron_dct_matrix(n)).to(device=like.device, dtype=like.dtype)
+    return device_constant(kron_dct_matrix, (n,), like.device, like.dtype)
 
 
 def blockify(x: torch.Tensor, b: int) -> torch.Tensor:
@@ -159,8 +174,9 @@ def jpeg_quality_scale(quality: torch.Tensor) -> torch.Tensor:
     """libjpeg quality -> table scale factor (in %)."""
     quality = torch.clamp(quality, 1, 100).float()
     # a tensor over a tensor: torch computes `5000.0 / quality` as
-    # 5000 * (1 / quality), rounded twice, where XLA divides once
-    return torch.where(quality < 50.0, quality.new_tensor(5000.0) / quality,
+    # 5000 * (1 / quality), rounded twice, where XLA divides once (the
+    # numerator a fill on quality's device, not a copy from the host)
+    return torch.where(quality < 50.0, torch.full_like(quality, 5000.0) / quality,
                        200.0 - 2.0 * quality)
 
 
@@ -170,11 +186,16 @@ def _scaled_table(base: torch.Tensor, quality: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.floor(table + 0.5), 1.0, 255.0)
 
 
+def _knots(values: tuple) -> np.ndarray:
+    return np.asarray(values, np.float32)
+
+
 def interp(x: torch.Tensor, xp, fp) -> torch.Tensor:
     """Piecewise-linear interpolation like `np.interp` / `jnp.interp`:
-    increasing knots `xp`, values `fp`, constant beyond the end knots."""
-    xp = torch.as_tensor(xp, dtype=torch.float32, device=x.device)
-    fp = torch.as_tensor(fp, dtype=torch.float32, device=x.device)
+    increasing knots `xp`, values `fp` (host sequences, kept on x's device
+    by `device_constant`), constant beyond the end knots."""
+    xp, fp = (device_constant(_knots, (tuple(np.asarray(v, np.float32).reshape(-1).tolist()),),
+                              x.device) for v in (xp, fp))
     x = x.float().contiguous()
     i = torch.clamp(torch.searchsorted(xp, x, right=True), 1, len(xp) - 1)
     x0, x1, f0, f1 = xp[i - 1], xp[i], fp[i - 1], fp[i]
@@ -284,7 +305,20 @@ def _base_tables(codec: str):
     raise ValueError(f"unknown codec {codec!r}")
 
 
+def _base_table(codec: str, chroma: bool) -> np.ndarray:
+    return _base_tables(codec)[int(chroma)]
+
+
 def _per_sample(v, bsz: int, device) -> torch.Tensor:
+    """A scalar or [B] value as a [B] f32 tensor on `device`: a tensor as it
+    is, a Python number as an op argument (a fill on the device, no copy
+    from the host); anything else (a list, an array) is host data, copied."""
+    if torch.is_tensor(v):
+        if v.device != torch.device(device):
+            v = v.to(device)
+        return v.float().reshape(-1).expand(bsz)
+    if isinstance(v, (int, float, np.number)):
+        return torch.full((bsz,), float(v), dtype=torch.float32, device=device)
     return torch.as_tensor(v, dtype=torch.float32, device=device).reshape(-1).expand(bsz)
 
 
@@ -325,9 +359,8 @@ def _surrogate_raw(x: torch.Tensor, quality, codec: str, subsample: bool,
         cb = w420 * _subsample_420(cb) + (1.0 - w420) * cb
         cr = w420 * _subsample_420(cr) + (1.0 - w420) * cr
 
-    luma_t, chroma_t = _base_tables(codec)
-    qt_l = _scaled_table(torch.from_numpy(luma_t).to(dev), quality) * strength_mult
-    qt_c = _scaled_table(torch.from_numpy(chroma_t).to(dev), quality) * strength_mult
+    qt_l, qt_c = (_scaled_table(device_constant(_base_table, (codec, chroma), dev), quality)
+                  * strength_mult for chroma in (False, True))
 
     def quantize_channel(chan: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
         coeffs = block_dct2(chan, b)                       # [B,H/b,W/b,b,b]

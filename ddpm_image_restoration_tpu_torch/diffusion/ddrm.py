@@ -12,9 +12,17 @@ Per reverse step i (descending, t = i/steps), as in the reference
                x_t = phase_consistency(x_t, y, α)
     last:      x_t = x'
 
-The JAX package runs the loop as one `lax.scan` under jit; PyTorch runs
-eagerly, so here it is a Python loop over solver slots with the same step
-algebra. Encoder reuse k > 1 encodes on every k-th slot and decodes from the
+The JAX package runs the loop as one `lax.scan` under jit, one compiled
+program per signature; here it is a Python loop over solver slots with the
+same step algebra, and on a card that loop is captured as one CUDA graph
+per signature and replayed (`_CapturedLoop`): under no_grad, in
+'surrogate' mode, without remat, on a model whose forward holds no
+collective. The first call of a signature runs eager (the warm-up), the
+second captures and replays, later ones replay; a capture that fails
+raises. Everything else (grad, remat, the host-codec modes, CPU tensors, a
+spatially split or column-parallel model) runs the loop eagerly, and the
+exact final projection and the protection blends always do, as in the JAX
+package. Encoder reuse k > 1 encodes on every k-th slot and decodes from the
 cached features in between, which is the JAX package's scan over groups of k
 steps plus its tail; decoder reuse caches the deep decoder stages over the
 same groups. `DDRMSampler.run` is that loop alone (the JAX package's
@@ -24,14 +32,17 @@ student through (train/distill.py); `sample` is `run` without grad plus
 the exact final projection and the protection blends. The traced-budget
 solver (the JAX package's `_build_budget`) gives each sample its own step
 indices in a fixed number of slots, with per-sample masks; its schedule is
-host data here, so its branches cost no wait on the card. Sampler
-statistics stay f32 whatever the model's compute dtype. Noise comes from a
-`torch.Generator`, so at eta > 0 the samples differ from the JAX package's;
-at eta 0 (the production policy) the two agree.
+host data here, so its branches cost no wait on the card, and the slot
+loop makes no tensor from host data. Sampler statistics stay f32 whatever
+the model's compute dtype. Noise comes from a `torch.Generator`, drawn
+before the loop in slot order, so at eta > 0 the samples differ from the
+JAX package's; at eta 0 (the production policy) the two agree.
 """
 
 from __future__ import annotations
 
+import collections
+import itertools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -40,6 +51,7 @@ import torch.nn.functional as F
 
 from ddpm_image_restoration_tpu_torch.codecs.surrogate import codec_surrogate, interp
 from ddpm_image_restoration_tpu_torch.config import CodecPreset
+from ddpm_image_restoration_tpu_torch.ops.flash_attention import COUNTED_KERNELS
 from ddpm_image_restoration_tpu_torch.parallel.mesh import take_rows
 from ddpm_image_restoration_tpu_torch.utils.remat import checkpoint
 
@@ -160,19 +172,20 @@ def _lanes(mask: torch.Tensor) -> torch.Tensor:
 
 def _ddrm_update(x_theta, c, y, t, last: np.ndarray, last_d: torch.Tensor,
                  phase: np.ndarray, phase_d: torch.Tensor, eta: float, eta_b: float,
-                 preset: CodecPreset, noise) -> torch.Tensor:
+                 preset: CodecPreset, noise: Optional[torch.Tensor]) -> torch.Tensor:
     """Post-consistency update (webp_training.py:455-471) for one solver
     slot. `last` and `phase` are the slot's per-sample flags on the host
     (they pick the branches, so nothing waits on the card), `last_d` and
     `phase_d` the same flags on the card for the per-lane selects. The
     static schedule gives every lane the same flags; the traced budget gives
-    each sample its own. `noise()` draws the eta noise, shaped like y."""
+    each sample its own. `noise` is the slot's eta noise, shaped like y
+    (None when eta is 0 or the slot is every lane's last)."""
     x_prime = x_theta - c + y
     if last.all():
         return x_prime
     x_next = eta_b * x_prime + (1.0 - eta_b) * x_theta
     if eta:
-        x_next = x_next + eta * noise() * (t * preset.sampler_noise_scale)[:, None, None, None]
+        x_next = x_next + eta * noise * (t * preset.sampler_noise_scale)[:, None, None, None]
     if phase.any():
         adjusted = phase_consistency(x_next, y, preset.phase_alpha)
         x_next = adjusted if phase.all() else torch.where(_lanes(phase_d), adjusted, x_next)
@@ -182,6 +195,46 @@ def _ddrm_update(x_theta, c, y, t, last: np.ndarray, last_d: torch.Tensor,
 
 
 CONSISTENCY_MODES = ("surrogate", "callback", "host_loop")
+# Captured solver loops kept per sampler, the least recently replayed
+# dropped first (the JAX package's `_compiled` is unbounded; a graph holds
+# its activations' memory). Signatures seen once (run eager) are remembered
+# up to SEEN_SIGNATURES.
+GRAPH_CACHE_SIZE = 8
+SEEN_SIGNATURES = 64
+
+
+class _CapturedLoop:
+    """One solver loop captured as a CUDA graph: static copies of its inputs
+    (y, the [B] quality, the noise), its outputs in the graph's memory pool,
+    and the kernel launches the capture counted. The flash wrappers count
+    in Python, which a replay does not run: the capture's counts are taken
+    back, and each replay adds them, so the counters still count launches
+    on the device. The graph reads the model's weights by address: an
+    in-place update between replays is seen (a reassigned parameter changes
+    the signature instead)."""
+
+    def __init__(self, loop, inputs: tuple, pool):
+        self.loop = loop  # keeps the schedule tensors the graph reads alive
+        self.inputs = tuple(None if z is None else z.clone() for z in inputs)
+        self.graph = torch.cuda.CUDAGraph()
+        before = [fn.launches for fn in COUNTED_KERNELS]
+        try:
+            with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
+                self.outputs = loop(*self.inputs)
+        finally:
+            captured = [fn.launches for fn in COUNTED_KERNELS]
+            for fn, n in zip(COUNTED_KERNELS, before):
+                fn.launches = n
+        self.launches = [a - b for a, b in zip(captured, before)]
+
+    def replay(self, *inputs) -> tuple:
+        for static, z in zip(self.inputs, inputs):
+            if static is not None:
+                static.copy_(z)
+        self.graph.replay()
+        for fn, n in zip(COUNTED_KERNELS, self.launches):
+            fn.launches += n
+        return tuple(o.clone() for o in self.outputs)
 
 
 class DDRMSampler:
@@ -217,6 +270,9 @@ class DDRMSampler:
         self.codec_id = codec_id
         self.prediction = prediction
         self.consistency_mode = consistency_mode
+        self._graphs: collections.OrderedDict = collections.OrderedDict()  # signature -> loop
+        self._seen: collections.OrderedDict = collections.OrderedDict()    # run once, eager
+        self._pool = None  # one memory pool for all of this sampler's graphs
 
     def _schedule(self, steps, stride: int, q_host: np.ndarray, encoder_reuse: int,
                   traced_budget: int):
@@ -277,7 +333,15 @@ class DDRMSampler:
         shorter group is the JAX package's tail) under activation
         checkpointing, so the backward keeps one group's activations at a
         time instead of every step's, at the cost of a second forward of
-        each group; the noise generator is replayed in the recompute.
+        each group; the recompute reads the same noise, which is drawn
+        before the loop.
+
+        On CUDA, under no_grad, in 'surrogate' mode and without remat, the
+        loop runs as a captured CUDA graph from the second call of its
+        signature (`_signature`) on: the first call runs eager, the second
+        captures and replays, later ones replay; the outputs are copies out
+        of the graph's pool and equal the eager loop's. A failed capture
+        raises.
 
         `rows` = (start, stop) restores only rows start..stop-1 of the batch
         (a data-parallel rank's share; rows past the batch's end repeat its
@@ -297,28 +361,95 @@ class DDRMSampler:
             raise ValueError(
                 f"a differentiable run needs the 'surrogate' consistency mode: the "
                 f"host codec of {self.consistency_mode!r} has no gradient")
-        preset, model, cond, depth = self.preset, self.model, self.codec_id, decoder_reuse_depth
+        preset = self.preset
         eta = preset.eta if eta is None else eta
         eta_b = preset.eta_b if eta_b is None else eta_b
-        b = y.shape[0]
+        b, in_dtype = y.shape[0], y.dtype
         y = y.float()
         q_host = np.broadcast_to(np.asarray(quality, np.float32).reshape(-1), (b,))
         if torch.is_tensor(steps):
             steps = steps.cpu().numpy()
-        idx, used, last, t_host, phase = self._schedule(steps, stride, q_host, encoder_reuse,
-                                                        traced_budget)
+        sched = self._schedule(steps, stride, q_host, encoder_reuse, traced_budget)
+        # the slots that draw eta noise, each a draw of the whole batch as
+        # the reference draws it, made here in slot order
+        draws = [p for p in range(len(sched[0])) if eta and not sched[2][p].all()]
+        noise = torch.stack([take_rows(torch.randn((b, *y.shape[1:]), generator=generator,
+                                                   device=y.device, dtype=torch.float32), rows)
+                             for _ in draws]) if draws else None
         if rows is not None:
             y, q_host = take_rows(y, rows), take_rows(q_host, rows)
-            idx, used, last, t_host, phase = (take_rows(a, rows, axis=1)
-                                              for a in (idx, used, last, t_host, phase))
+            sched = tuple(take_rows(a, rows, axis=1) for a in sched)
         q_vec = torch.tensor(q_host, device=y.device)
 
-        def noise() -> torch.Tensor:
-            z = torch.randn((b, *y.shape[1:]), generator=generator, device=y.device,
-                            dtype=torch.float32)
-            return take_rows(z, rows)
-        used_d, last_d, phase_d, t_all = (torch.from_numpy(np.ascontiguousarray(a)).to(y.device)
-                                          for a in (used, last, phase, t_host))
+        def loop():
+            """The slot loop over device tensors: (y, q_vec, noise) -> (x_t, x̂)."""
+            sched_d = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(y.device)
+                            for a in sched[1:])
+            return lambda y_, q_, z_: self._loop(y_, q_, z_, q_host, sched, sched_d, draws, eta,
+                                                 eta_b, encoder_reuse, decoder_reuse_depth, remat)
+
+        if not self._graphed(y, remat):
+            return loop()(y, q_vec, noise)
+        key = self._signature(y, in_dtype, sched, eta, eta_b, encoder_reuse,
+                              decoder_reuse_depth, rows, tuple(draws))
+        captured = self._graphs.get(key)
+        if captured is None:
+            if key not in self._seen:  # the signature's first call: eager, the warm-up
+                self._seen[key] = None
+                if len(self._seen) > SEEN_SIGNATURES:
+                    self._seen.popitem(last=False)
+                return loop()(y, q_vec, noise)
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            captured = self._graphs[key] = _CapturedLoop(loop(), (y, q_vec, noise), self._pool)
+            if len(self._graphs) > GRAPH_CACHE_SIZE:
+                self._graphs.popitem(last=False)
+        self._graphs.move_to_end(key)
+        return captured.replay(y, q_vec, noise)
+
+    def _graphed(self, y: torch.Tensor, remat: bool) -> bool:
+        """Whether this run replays a captured graph: CUDA tensors, no grad,
+        the surrogate, no remat, and no collective in the model's forward (a
+        spatial mesh or column-parallel layers: their process groups are
+        not captured)."""
+        model = self.model
+        return (y.is_cuda and not torch.is_grad_enabled() and not remat
+                and self.consistency_mode == "surrogate"
+                and getattr(model, "spatial_mesh", None) is None
+                and not any(getattr(m, "column_parallel", False) for m in model.modules()))
+
+    def _signature(self, y: torch.Tensor, in_dtype: torch.dtype, sched: tuple, eta, eta_b,
+                   encoder_reuse: int, decoder_reuse_depth: int, rows, draws: tuple) -> tuple:
+        """What a captured loop is specific to: the JAX sampler's `_compiled`
+        key (the schedule, encoder and decoder reuse), and what the port
+        decides on the host: the batch's shape and dtype, the model's
+        compute dtype, the preset, codec id and prediction, the schedule
+        arrays (idx, used, last, t, phase) by value (the phase gate is a
+        host branch here), eta, eta_b, rows, the slots that draw noise, the
+        TF32 settings the kernels were picked under, and the model itself
+        with its parameters' and buffers' addresses (a reassigned parameter
+        recaptures; an in-place update is read by the replay). The quality
+        and the noise are inputs, not part of it."""
+        model = self.model
+        weights = tuple((t.data_ptr(), t.dtype) for t in
+                        itertools.chain(model.parameters(), model.buffers()))
+        return (model, weights, model.cfg.compute_dtype, model.training,
+                tuple(y.shape), in_dtype, y.device, self.preset, self.codec_id, self.prediction,
+                tuple((a.shape, a.dtype.str, a.tobytes()) for a in sched),
+                float(eta), float(eta_b), encoder_reuse, decoder_reuse_depth, rows, draws,
+                torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+                torch.is_inference_mode_enabled())
+
+    def _loop(self, y, q_vec, noise, q_host, sched: tuple, sched_d: tuple, draws: list,
+              eta, eta_b, encoder_reuse: int, depth: int, remat: bool):
+        """The solver slots over (y, q_vec, noise) on the device: host flags
+        pick the branches (`sched`), device flags (`sched_d`: used, last, t,
+        phase) the per-lane selects; nothing here makes a tensor from host
+        data, so a CUDA graph can capture it."""
+        preset, model, cond = self.preset, self.model, self.codec_id
+        idx, used, last, _, phase = sched
+        used_d, last_d, t_all, phase_d = sched_d
+        slot_noise = {p: k for k, p in enumerate(draws)}
 
         def group(x_t, x_theta, first, stop):
             """Slots first..stop-1: one encode (and deep decode) at the
@@ -338,8 +469,9 @@ class DDRMSampler:
                 if self.prediction == "residual":
                     x_new = x_t + x_new
                 c = self._consistency(x_new, q_vec, q_host)
+                z = noise[slot_noise[p]] if p in slot_noise else None
                 x_next = _ddrm_update(x_new, c, y, t, last[p], last_d[p], phase[p], phase_d[p],
-                                      eta, eta_b, preset, noise)
+                                      eta, eta_b, preset, z)
                 if used[p].all():
                     x_t, x_theta = x_next, x_new
                 else:
@@ -351,8 +483,7 @@ class DDRMSampler:
         for first in range(0, len(idx), encoder_reuse):
             stop = min(first + encoder_reuse, len(idx))
             if remat:
-                x_t, x_theta = checkpoint(group, x_t, x_theta, first, stop,
-                                          generators=(generator,))
+                x_t, x_theta = checkpoint(group, x_t, x_theta, first, stop)
             else:
                 x_t, x_theta = group(x_t, x_theta, first, stop)
         return x_t, x_theta

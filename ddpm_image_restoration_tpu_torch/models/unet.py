@@ -26,6 +26,7 @@ splits (that module says how each op crosses the shard edges).
 from __future__ import annotations
 
 import dataclasses
+import numbers
 from typing import Optional, Tuple
 
 import torch
@@ -265,7 +266,8 @@ class CodecDiffusionModel(nn.Module):
 
     def _prep(self, t, compression_level, codec_id=None):
         dev = self.out_conv.weight.device
-        t = torch.as_tensor(t, dtype=torch.float32, device=dev)
+        if not (torch.is_tensor(t) and t.device == dev and t.dtype == torch.float32):
+            t = torch.as_tensor(t, dtype=torch.float32, device=dev)
         if t.dim() == 0:
             t = t[None]
         t_emb = self.time_embed(t)
@@ -273,7 +275,10 @@ class CodecDiffusionModel(nn.Module):
             if codec_id is None:
                 raise ValueError("codec_conditioning=True: pass codec_id "
                                  "(config.codec_index of the degradation codec)")
-            cid = torch.as_tensor(codec_id, dtype=torch.long, device=dev).expand(t.shape)
+            if isinstance(codec_id, numbers.Integral):  # a fill on the device, no host copy
+                cid = torch.full(t.shape, int(codec_id), dtype=torch.long, device=dev)
+            else:
+                cid = torch.as_tensor(codec_id, dtype=torch.long, device=dev).expand(t.shape)
             t_emb = t_emb + self.codec_embed(cid)
         if compression_level is None:
             compression_level = t  # webp_training.py:373-374

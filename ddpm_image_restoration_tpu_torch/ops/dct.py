@@ -12,7 +12,7 @@ import functools
 import numpy as np
 import torch
 
-from ddpm_image_restoration_tpu_torch.codecs.surrogate import kron_dct_matrix
+from ddpm_image_restoration_tpu_torch.codecs.surrogate import device_constant, kron_dct_matrix
 
 
 def spatial_block_dct(x: torch.Tensor, block_size: int) -> torch.Tensor:
@@ -27,7 +27,7 @@ def spatial_block_dct(x: torch.Tensor, block_size: int) -> torch.Tensor:
     if h % bs or w % bs:
         x_p = torch.nn.functional.pad(x, (0, (-w) % bs, 0, (-h) % bs))
         return spatial_block_dct(x_p, bs)[:, :, :h, :w]
-    k = torch.from_numpy(kron_dct_matrix(bs)).to(device=x.device, dtype=x.dtype)
+    k = device_constant(kron_dct_matrix, (bs,), x.device, x.dtype)
     hb, wb = h // bs, w // bs
     tiles = x.reshape(b, c, hb, bs, wb, bs).permute(0, 1, 2, 4, 3, 5)
     coeffs = torch.matmul(tiles.reshape(b, c, hb, wb, bs * bs), k.T)
@@ -52,9 +52,11 @@ def _low_freq_mask_np(h: int, w: int, block_size: int, low_size: int) -> np.ndar
 
 def low_freq_mask(h: int, w: int, block_size: int, low_size: int,
                   device=None, dtype=torch.float32) -> torch.Tensor:
-    """Static low-frequency mask shaped [1,1,h,w] for NCHW broadcast."""
-    m = torch.from_numpy(_low_freq_mask_np(h, w, block_size, low_size))
-    return m.to(device=device, dtype=dtype)[None, None]
+    """Static low-frequency mask shaped [1,1,h,w] for NCHW broadcast (kept
+    on `device` by `device_constant`)."""
+    m = device_constant(_low_freq_mask_np, (h, w, block_size, low_size),
+                        torch.device(device or "cpu"), dtype)
+    return m[None, None]
 
 
 def adjusted_group_count(channels: int, max_groups: int = 8) -> int:

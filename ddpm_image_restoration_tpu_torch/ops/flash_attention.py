@@ -252,6 +252,9 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta):
 flash_attention_fwd.launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
+# the wrappers that count their launches (a captured graph adds its own
+# launches to them on each replay: diffusion/ddrm.py `_CapturedLoop`)
+COUNTED_KERNELS = (flash_attention_fwd, flash_attention_bwd_dq, flash_attention_bwd_dkv)
 
 
 def flash_attention_bwd(q, k, v, o, do, lse):

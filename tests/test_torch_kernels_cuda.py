@@ -904,3 +904,210 @@ def test_function_f32_grads_on_card(card, bh, t, d):
     assert close(got[0], ref[0])
     for a, b in zip(got[1:], ref[1:]):
         assert a.dtype == torch.float32 and close(a, b, rel_max=1e-4)
+
+
+# -- The DDRM solver loop as a captured CUDA graph (diffusion/ddrm.py): the
+# first call of a signature runs eager, the second captures and replays,
+# later ones replay. A width/8 model at 64² with flash at 32² (T = 1024).
+
+GRAPH_CFG = dict(image_size=64, attention_impl="flash", attn_max_resolution=32)
+
+
+def _graph_model(codec="webp", dtype="float32"):
+    from ddpm_image_restoration_tpu_torch.config import ModelConfig
+    from ddpm_image_restoration_tpu_torch.models import build_model
+
+    torch.manual_seed(0)
+    cfg = ModelConfig(compute_dtype=dtype, **GRAPH_CFG).scaled(8)
+    return build_model(codec, cfg, device="cpu").to("cuda")
+
+
+def _graph_y(n=3, seed=1):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.rand(n, 64, 64, 3, generator=g) * 2 - 1).cuda()
+
+
+# static: 21 steps at stride 5 (20, 15, 10, 5, 0), q10 under the phase gate;
+# traced: a budget of 4 slots per sample, a per-sample quality
+GRAPH_RUNS = {"static": dict(quality=10, steps=21, stride=5, encoder_reuse=2),
+              "traced": dict(quality=[10.0, 40.0, 70.0], steps=[16, 11, 30], traced_budget=4,
+                             encoder_reuse=2)}
+
+
+def _sampler(model, codec="webp", codec_id=None):
+    from ddpm_image_restoration_tpu_torch.config import get_preset
+    from ddpm_image_restoration_tpu_torch.diffusion.ddrm import DDRMSampler
+
+    return DDRMSampler(model, get_preset(codec), codec_id=codec_id)
+
+
+def _counted_run(sampler, y, **kw):
+    """sampler.run under no_grad and the forward launches it counted."""
+    before = fa.flash_attention_fwd.launches
+    with torch.no_grad():
+        out = sampler.run(y, **kw)
+    torch.cuda.synchronize()
+    return out, fa.flash_attention_fwd.launches - before
+
+
+def _same(a, b):
+    return all(torch.equal(x, z) for x, z in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("run", sorted(GRAPH_RUNS))
+def test_solver_graph_equals_eager_on_card(card, dtype, run):
+    """Static schedule and traced budget, f32 and bf16, eta 0: the second
+    call captures and replays and equals the eager first call bit for bit;
+    a third call on another batch replays and equals a fresh sampler's
+    eager run of it; each call counts the same forward launches."""
+    model = _graph_model("webp", dtype)
+    kw = dict(GRAPH_RUNS[run], eta=0.0)
+    y, y2 = _graph_y(), _graph_y(seed=2)
+    s = _sampler(model)
+    eager, n_eager = _counted_run(s, y, **kw)
+    assert not s._graphs and n_eager > 0
+    graph, n_capture = _counted_run(s, y, **kw)
+    assert len(s._graphs) == 1 and n_capture == n_eager
+    assert _same(graph, eager)
+    again, n_replay = _counted_run(s, y2, **kw)
+    want, _ = _counted_run(_sampler(model), y2, **kw)
+    assert n_replay == n_eager and _same(again, want)
+    assert torch.isfinite(again[0]).all() and not _same(again, graph)
+
+
+@pytest.mark.cuda
+def test_solver_graph_noise_and_generator_on_card(card):
+    """eta 0.85 with an explicit generator: the replay reads the noise that
+    eager draws (drawn before the loop, in slot order), leaves the
+    generator where eager leaves it, and draws nothing from the default
+    generator."""
+    model = _graph_model()
+    kw = dict(GRAPH_RUNS["static"], eta=0.85)
+    y = _graph_y()
+    g = torch.Generator(device="cuda")
+    want, _ = _counted_run(_sampler(model), y, generator=g.manual_seed(5), **kw)
+    after = g.get_state()
+    s = _sampler(model)
+    for call in range(3):
+        default = torch.cuda.get_rng_state()
+        got, _ = _counted_run(s, y, generator=g.manual_seed(5), **kw)
+        assert len(s._graphs) == min(call, 1)
+        assert _same(got, want) and torch.equal(g.get_state(), after)
+        assert torch.equal(torch.cuda.get_rng_state(), default)
+    other, _ = _counted_run(s, y, generator=g.manual_seed(6), **kw)
+    assert not _same(other, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [None, (1, 3)])
+def test_solver_graph_rows_and_codec_id_on_card(card, rows):
+    """The unified model conditioned on JPEG's codec id, all rows or a
+    data-parallel rank's (1, 3) (row 3 is padding): the replays equal the
+    eager restore of those rows."""
+    from ddpm_image_restoration_tpu_torch.config import codec_index
+
+    model = _graph_model("all")
+    kw = dict(GRAPH_RUNS["static"], eta=0.0, rows=rows)
+    y = _graph_y()
+    want, _ = _counted_run(_sampler(model, "jpeg", codec_index("jpeg")), y, **kw)
+    s = _sampler(model, "jpeg", codec_index("jpeg"))
+    for call in range(3):
+        got, _ = _counted_run(s, y, **kw)
+        assert len(s._graphs) == min(call, 1) and _same(got, want)
+    assert got[0].shape[0] == (3 if rows is None else 2)
+
+
+@pytest.mark.cuda
+def test_solver_graph_reads_weights_by_address_on_card(card):
+    """An in-place weight update between replays is seen by the replay (it
+    equals a fresh eager run on the updated weights); a reassigned
+    parameter changes the signature, so its first call runs eager."""
+    model = _graph_model()
+    kw = dict(GRAPH_RUNS["static"], eta=0.0)
+    y = _graph_y()
+    s = _sampler(model)
+    for _ in range(2):
+        before, _ = _counted_run(s, y, **kw)
+    with torch.no_grad():
+        model.out_conv.weight.mul_(0.5)
+    got, _ = _counted_run(s, y, **kw)
+    want, _ = _counted_run(_sampler(model), y, **kw)
+    assert len(s._graphs) == 1 and _same(got, want) and not _same(got, before)
+    model.out_conv.weight = torch.nn.Parameter(model.out_conv.weight.clone(),
+                                               requires_grad=False)
+    seen = len(s._seen)
+    _counted_run(s, y, **kw)
+    assert len(s._graphs) == 1 and len(s._seen) == seen + 1
+
+
+@pytest.mark.cuda
+def test_serve_core_replays_on_card(card):
+    """`restore_batch` keeps one sampler per (model, codec): three calls
+    of one signature give one graph, equal outputs and equal launches."""
+    from ddpm_image_restoration_tpu_torch.cli.serve import restore_batch, sampler_for
+
+    model = _graph_model()
+    y = _graph_y()
+    outs, counts = [], []
+    for _ in range(3):
+        before = fa.flash_attention_fwd.launches
+        outs.append(restore_batch(model, y, 30, "webp", final_exact=False))
+        torch.cuda.synchronize()
+        counts.append(fa.flash_attention_fwd.launches - before)
+    assert len(sampler_for(model, "webp")._graphs) == 1
+    assert len(set(counts)) == 1 and counts[0] > 0
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[1], outs[2])
+
+
+# A failed capture leaves the process's CUDA state unusable (the default
+# generator stays marked as capturing: PyTorch's own test of a failed
+# capture runs in a subprocess too), so this one runs in a process of its own.
+FAILED_CAPTURE = """
+from ddpm_image_restoration_tpu_torch.ops import flash_attention as fa
+from tests.test_torch_kernels_cuda import GRAPH_RUNS, _counted_run, _graph_model, _graph_y, _sampler
+
+model = _graph_model()
+encode = model.encode
+
+
+def waiting_encode(x, *a, **k):
+    x.sum().item()
+    return encode(x, *a, **k)
+
+
+model.encode = waiting_encode
+kw = dict(GRAPH_RUNS["static"], eta=0.0)
+s = _sampler(model)
+_counted_run(s, _graph_y(), **kw)
+for _ in range(2):
+    before = [fn.launches for fn in fa.COUNTED_KERNELS]
+    try:
+        _counted_run(s, _graph_y(), **kw)
+    except RuntimeError as e:
+        print("raised:", str(e).strip().splitlines()[0])
+    else:
+        raise SystemExit("the capture did not raise")
+    assert not s._graphs, s._graphs
+    assert [fn.launches for fn in fa.COUNTED_KERNELS] == before
+print("ok")
+"""
+
+
+@pytest.mark.cuda
+def test_solver_graph_failed_capture_raises_on_card(card):
+    """A loop that waits on the device (here an `.item()` in the model's
+    encoder) runs eager on its first call and raises on the capture, every
+    time: no quiet eager fallback, no graph kept, the launch counters left
+    as they were."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", FAILED_CAPTURE], cwd=root, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0 and proc.stdout.count("raised:") == 2, \
+        proc.stdout + proc.stderr
+    assert proc.stdout.strip().endswith("ok"), proc.stdout
