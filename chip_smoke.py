@@ -64,10 +64,11 @@ NVIDIA card and checks it, phase by phase:
      and one half-width f32 distill step (2 student evaluations through the
      rematerialised solver) likewise;
   7. train: the WebP trainer (`cli/train.py main`) at full width, bf16,
-     batch 18, EMA: one epoch, then a second resumed from the checkpoint the
-     first wrote, counting each kernel's launches in the train steps,
-     validation and the epoch's restoration grid; then the train step
-     alone, timed and profiled;
+     batch 18, EMA: two epochs in one run (the step's graph replayed
+     across validation), then a third resumed from the checkpoint the
+     first run wrote, counting each kernel's launches in the train steps,
+     validation and the epoch's restoration grid; the data pipeline alone;
+     then the train step alone, timed and profiled;
   8. distill: solver distillation (`cli/distill.py main`) at full width
      from phase `train`'s checkpoint: 2 student evaluations at q10/q50
      against the full-solver teacher, in bf16 and then in f32 as the
@@ -414,7 +415,9 @@ PEAK_FMA_F32_FLOPS_S = 67e12
 SERVE_QUALITIES = (10, 30, 50)
 SERVE_BATCH = 8
 TRAIN_BATCH = 18        # the WebP preset's batch size
-TRAIN_IMAGES = 135      # natural synthetic images: 108 train (6 steps an epoch), 13 val
+# natural synthetic images: 432 train (24 steps an epoch, the loop timed over
+# 22: far more than the loader's 4 workers + 2 prefetched batches), 54 val
+TRAIN_IMAGES = 540
 SEED = 0
 # The restore phase's files: 2 WebPs 64² at each quality, 2 JPEGs, and one
 # non-square WebP for tile mode; the CLIs' common flags (the release model,
@@ -437,10 +440,10 @@ EVAL_IMAGES = 20
 EVAL_BATCH = 8
 EVAL_QUALITIES = (10, 30, 50)
 # The avif phase: the AVIF trainer (batch 8, the preset's) on natural
-# synthetic images (80% train: 6 steps of 8), the evaluator and the restore
+# synthetic images (80% train: 24 steps of 8), the evaluator and the restore
 # CLI on its checkpoint at the preset's validation qualities, then two steps
 # of the unified trainer (batch 18: 36 training images of 45).
-AVIF_TRAIN_IMAGES = 60
+AVIF_TRAIN_IMAGES = 240
 AVIF_EVAL_IMAGES = 8
 AVIF_QUALITIES = (20, 50, 80)
 ALL_TRAIN_IMAGES = 45
@@ -2242,14 +2245,19 @@ def distill_reference(model_cfg, x0) -> list:
 
 
 def phase_train(state: dict) -> None:
-    """The WebP trainer at full width through its entry point: one epoch,
-    then a second resumed from the first's checkpoint. In each run the
+    """The WebP trainer at full width through its entry point: two epochs
+    in one run, then a third resumed from its checkpoint. In each run the
     kernels must launch as the schedule implies: per train step the forward
     kernel with LSE at down2 and up4 and one dQ and one dK/dV launch each;
     per validation (3 qualities, init_t model evaluations each at stride 1)
     one forward launch at down2 (encode) and one at up4 (decode) per
     evaluation, and as many for epoch 0's restoration grid (q10, 80
-    evaluations). Then the train step alone, timed and profiled."""
+    evaluations). Each run's first step runs eager, its second captures the
+    step's CUDA graph, and every later one replays it, validation (on the
+    EMA sampler's own graphs) between epochs included: one capture and
+    E·steps − 1 replays a run of E epochs (`counting_step_graphs`). Then
+    the data pipeline alone (`loader_alone`) and the train step alone,
+    eager and as a graph (`step_alone`)."""
     import shutil
 
     import numpy as np
@@ -2265,43 +2273,56 @@ def phase_train(state: dict) -> None:
     preset = get_preset("webp")
     steps = len(split_indices(TRAIN_IMAGES)[0]) // TRAIN_BATCH
     val_evals = sum(init_timestep_for_quality(q, 100, preset) for q in preset.val_qualities)
-    expected = {"flash_attention_fwd": 2 * steps + 2 * val_evals,
-                "flash_attention_bwd_dq": 2 * steps, "flash_attention_bwd_dkv": 2 * steps}
     # epoch 0 (in the first run only) also restores the restoration grid
     grid_evals = grid_restore_evals(preset, 100)
     argv = ["--codec", "webp", "--attn", "flash", "--attn-max-res", "32", "--batch-size",
             str(TRAIN_BATCH), "--ema-decay", "0.999", "--synthetic", str(TRAIN_IMAGES),
             "--synthetic-kind", "natural", "--checkpoint-dir", ckpt_dir, "--seed", str(SEED),
             "--device", "cuda"]
-    totals = dict.fromkeys(expected, 0)
+    totals = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+              "flash_attention_bwd_dkv": 0}
+    step_ms = []
     try:  # the checkpoint stays for phase `restore`, which removes it
-        for epochs in (1, 2):
+        for first, last in ((0, 2), (2, 3)):
+            n_epochs = last - first
             torch.cuda.synchronize()
             _reset_counts()
             t0 = time.perf_counter()
-            train_state, hist = train_main(argv + ["--epochs", str(epochs)])
+            with counting_step_graphs() as graphs:
+                train_state, hist = train_main(argv + ["--epochs", str(last)])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = _counts()
             for k, v in counts.items():
                 totals[k] += v
-            want = dict(expected)
-            if epochs == 1:
-                want["flash_attention_fwd"] += 2 * grid_evals
+            want = {"flash_attention_fwd": n_epochs * (2 * steps + 2 * val_evals)
+                    + (2 * grid_evals if first == 0 else 0),
+                    "flash_attention_bwd_dq": 2 * n_epochs * steps,
+                    "flash_attention_bwd_dkv": 2 * n_epochs * steps}
             model = train_state.model
             qkv = {lvl: getattr(model, lvl).attn.qkv.weight.grad for lvl in ("down2", "up4")}
-            log(f"train run to epoch {epochs}: {wall:.1f} s; epoch {epochs - 1}: loss "
-                f"{hist['loss'][-1]:.4f}, val_psnr {hist['val_psnr'][-1]:.3f}, val_ssim "
-                f"{hist['val_ssim'][-1]:.4f}, {hist['step_ms'][-1]:.1f} ms/step in the loop "
-                f"(data pipeline included), epoch {hist['epoch_time'][-1]:.1f} s; optimizer step "
-                f"{train_state.step}; launches {counts} (schedule implies {want}); "
-                f"|qkv grad| max down2 {qkv['down2'].abs().max().item():.3g}, "
+            step_ms += hist["step_ms"]
+            log(f"train run to epoch {last} ({n_epochs} epoch(s) from epoch {first}): "
+                f"{wall:.1f} s; per epoch: loss "
+                f"{[round(v, 4) for v in hist['loss']]}, val_psnr "
+                f"{[round(v, 3) for v in hist['val_psnr']]}, val_ssim "
+                f"{[round(v, 4) for v in hist['val_ssim']]}, "
+                f"{[round(v, 1) for v in hist['step_ms']]} ms/step in the loop (data "
+                f"pipeline included, over the {steps - 2} steps after 2 warm-up steps), "
+                f"epoch {[round(v, 1) for v in hist['epoch_time']]} s; optimizer step "
+                f"{train_state.step}; step graphs {graphs}; launches {counts} (schedule "
+                f"implies {want}); |qkv grad| max down2 {qkv['down2'].abs().max().item():.3g}, "
                 f"up4 {qkv['up4'].abs().max().item():.3g}")
             if counts != want:
                 raise AssertionError(f"kernel launches {counts}, schedule implies {want}")
-            if not (len(hist["loss"]) == 1 and train_state.step == epochs * steps):
-                raise AssertionError(f"run to epoch {epochs} trained {len(hist['loss'])} "
-                                     f"epochs, {train_state.step} steps: no resume")
+            if graphs != {"captures": 1, "replays": n_epochs * steps - 1}:
+                raise AssertionError(f"the loop's {n_epochs}x{steps} steps ran {graphs}: the "
+                                     "first eager, then one capture and a replay a step")
+            if not (len(hist["loss"]) == len(hist["val_psnr"]) == n_epochs
+                    and train_state.step == last * steps):
+                raise AssertionError(f"run to epoch {last} trained and validated "
+                                     f"{len(hist['loss'])} and {len(hist['val_psnr'])} "
+                                     f"epochs, {train_state.step} steps")
             if not (np.isfinite(hist["loss"]).all() and np.isfinite(hist["val_psnr"]).all()):
                 raise AssertionError(f"non-finite loss or val PSNR: {dict(hist)}")
             for lvl, g in qkv.items():
@@ -2313,7 +2334,57 @@ def phase_train(state: dict) -> None:
     state["train_ckpt"] = ckpt_dir
     state["launches_train"] = totals
 
+    loader_alone(state, "webp", TRAIN_IMAGES, TRAIN_BATCH, step_ms)
     step_alone(state, "webp", model, train_state, TRAIN_BATCH)
+
+
+@contextlib.contextmanager
+def counting_step_graphs():
+    """Counts the captures and replays of the train steps that
+    `train/loop.py train_model` makes inside the block (its
+    `make_train_step`, wrapped): the yielded dict is filled as the block
+    ends."""
+    from ddpm_image_restoration_tpu_torch.train import loop
+
+    made, make = [], loop.make_train_step
+
+    def recording(*a, **k):
+        made.append(make(*a, **k))
+        return made[-1]
+
+    counts = {}
+    loop.make_train_step = recording
+    try:
+        yield counts
+    finally:
+        loop.make_train_step = make
+        counts["captures"] = sum(step.cache.captures for step in made)
+        counts["replays"] = sum(g.replays for step in made for g in step.graphs.values())
+
+
+def loader_alone(state: dict, codec: str, images: int, batch: int, loop_ms: list) -> None:
+    """The trainer's data pipeline without the card: one epoch of the
+    DegradationLoader that `train_model` builds for `cli/train.py
+    --synthetic {images} --synthetic-kind natural` (the same images,
+    split, workers and prefetch), ms per batch on the card's host, logged
+    beside the loop's `step_ms` (`loop_ms`, one per epoch trained)."""
+    from ddpm_image_restoration_tpu_torch.config import TrainConfig
+    from ddpm_image_restoration_tpu_torch.data.dataset import SyntheticImageDataset, split_indices
+    from ddpm_image_restoration_tpu_torch.data.pipeline import DegradationLoader
+
+    cfg = TrainConfig(codec=codec, batch_size=batch, seed=SEED)
+    ds = SyntheticImageDataset(images, cfg.model.image_size, kind="natural")
+    loader = DegradationLoader(ds, split_indices(images, cfg.split_fracs, cfg.split_seed)[0],
+                               cfg.preset, batch, cfg.steps, seed=cfg.seed,
+                               num_workers=cfg.data_workers, augment=cfg.augment)
+    t0 = time.perf_counter()
+    n = sum(1 for _ in loader.epoch(0))
+    ms = 1e3 * (time.perf_counter() - t0) / n
+    log(f"{codec} data pipeline alone (DegradationLoader, {cfg.data_workers} workers, batch "
+        f"{batch} of {ds.image_size}² natural images made in the loop, {n} batches): "
+        f"{ms:.1f} ms/batch on the card's host ({os.cpu_count()} cores); the loop's step_ms "
+        f"{[round(v, 1) for v in loop_ms]} (step alone: below)")
+    state.setdefault("loader_ms", {})[codec] = ms
 
 
 def grid_restore_evals(preset, steps: int) -> int:
@@ -2325,11 +2396,55 @@ def grid_restore_evals(preset, steps: int) -> int:
     return init_timestep_for_quality(preset.val_qualities[0], steps, preset)
 
 
+STEP_ALONE_STEPS = 5
+STEP_ALONE_EAGER_RUNS = 3  # eager runs whose spread bounds the graph's
+STATE_PARTS = ("params", "mu", "nu", "ema")  # the train state's f32 dicts
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """torch's deterministic algorithms inside the block, warn only (an op
+    without a deterministic CUDA kernel still runs, and warns); yields the
+    names of the ops that warned."""
+    import warnings
+
+    import torch
+
+    ops = set()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield ops
+        finally:
+            torch.use_deterministic_algorithms(False)
+            ops.update(str(w.message).split(" does not have a deterministic")[0][:80]
+                       for w in caught if "does not have a deterministic" in str(w.message))
+
+
 def step_alone(state: dict, codec: str, model, train_state, batch: int) -> None:
-    """The trainer's step alone on one device batch (no data pipeline),
-    full width, bf16, EMA: wall time over 5 steps after a warm one, the
-    steps' peak device memory (the model and its train state included),
-    then one step profiled."""
+    """The trainer's step alone on one device batch (no data pipeline), full
+    width, bf16, the model's dropout, EMA, eager and as its captured graph,
+    each run from copies of one state (the trainer's, put back in place;
+    the dropout generator reseeded):
+      1. as training runs it, in torch's default setting: STEP_ALONE_STEPS
+         eager steps after a warm one (`train_step.eager`, the body a
+         signature's first call runs), then `train_step`'s first call
+         (eager) and second (capture and replay) and STEP_ALONE_STEPS
+         replays; then each once more. Logs ms/step, each run's peak device
+         memory (the model and its train state included; the graph's pool
+         and its capture counted), one step of each profiled, and per
+         quantity the graph against eager beside eager against eager and
+         graph against graph (no gate: here two eager runs differ);
+      2. the gate, under torch's deterministic algorithms (warn only: the
+         ops without a deterministic CUDA kernel are logged, and run):
+         STEP_ALONE_EAGER_RUNS eager runs of STEP_ALONE_STEPS steps, then a
+         second step function's graph captured under the same setting and
+         replayed as in 1. Per quantity (the steps' losses and grad norms;
+         the masters, moments and EMA after them) the graph must equal the
+         first eager run bit for bit where the eager runs agree bit for
+         bit, else lie within twice their spread (their largest pairwise
+         difference), and the replays must count the eager launches."""
     import torch
 
     from ddpm_image_restoration_tpu_torch.codecs.surrogate import codec_surrogate
@@ -2338,26 +2453,104 @@ def step_alone(state: dict, codec: str, model, train_state, batch: int) -> None:
 
     cfg = TrainConfig(codec=codec, model=model.cfg, batch_size=batch, ema_decay=0.999)
     dev = model.out_conv.weight.device
+    card = dev.type == "cuda"  # else the CPU rehearsal: every call eager, no device memory
     x0 = torch.from_numpy(synthetic_images(batch, model.cfg.image_size, SEED + 4)).to(dev)
     t = torch.randint(1, 100, (batch,), generator=torch.Generator().manual_seed(SEED))
     device_batch = {"x0": x0, "xt": codec_surrogate(x0, 30, codec=codec), "t": t.to(dev)}
+    gen = torch.Generator(device=dev)
+    saved = {p: {k: v.to("cpu", copy=True) for k, v in getattr(train_state, p).items()}
+             for p in STATE_PARTS}
+    count = train_state.step
+
+    def put_back():
+        with torch.no_grad():
+            for p in STATE_PARTS:
+                for k, v in getattr(train_state, p).items():
+                    v.copy_(saved[p][k])
+        train_state.step = count
+        train_state.write_back()
+        gen.manual_seed(SEED + 1)
+
+    def steps(fn, warm_up=()):
+        """STEP_ALONE_STEPS calls of fn from the state put back; the calls
+        of `warm_up` first, each from the state put back (their memory
+        counted, not their time)."""
+        torch.cuda.synchronize()
+        if card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        for warm in warm_up:
+            put_back()
+            warm(train_state, device_batch, gen)
+        put_back()
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = [fn(train_state, device_batch, gen) for _ in range(STEP_ALONE_STEPS)]
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / STEP_ALONE_STEPS
+        return {"ms": ms, "peak": torch.cuda.max_memory_allocated(dev) if card else 0,
+                "counts": _counts(),
+                "loss": torch.stack([m["loss"] for m in out]).cpu(),
+                "grad_norm": torch.stack([m["grad_norm"] for m in out]).cpu(),
+                **{p: {k: v.to("cpu", copy=True) for k, v in getattr(train_state, p).items()}
+                   for p in STATE_PARTS}}
+
+    def graph_run(step):
+        out = steps(step, warm_up=(step, step) if card else ())
+        if len(step.graphs) != int(card):
+            raise AssertionError(f"{codec} step alone: {len(step.graphs)} graphs captured")
+        return out
+
+    def diff(a, b) -> float:
+        if isinstance(a, dict):
+            return max((a[k] - b[k]).abs().max().item() for k in a)
+        return (a - b).abs().max().item()
+
+    def spread(a, b, part) -> str:
+        return f"{diff(a[part], b[part]):.3g}"
+
     step = make_train_step(model, cfg)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    if dev.type == "cuda":  # the step's own peak, not the process's
-        torch.cuda.reset_peak_memory_stats(dev)
-    step(train_state, device_batch, gen)
-    torch.cuda.synchronize()
-    n = 5
-    t0 = time.perf_counter()
-    for _ in range(n):
-        step(train_state, device_batch, gen)
-    torch.cuda.synchronize()
-    ms = 1e3 * (time.perf_counter() - t0) / n
-    log(f"train step alone ({codec}, full width, bf16, batch {batch}, EMA): {ms:.1f} ms/step, "
-        f"{batch * 1e3 / ms:.1f} img/s on {state['smi']}; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    profile_run(f"one {codec} train step, batch {batch}",
+    eager = steps(step.eager, warm_up=(step.eager,))
+    graph = graph_run(step)
+    eager2, graph2 = steps(step.eager), graph_run(step)
+    log(f"train step alone ({codec}, full width, bf16, batch {batch}, dropout "
+        f"{model.cfg.dropout}, EMA) on {state['smi']}: eager {eager['ms']:.1f} ms/step "
+        f"({batch * 1e3 / eager['ms']:.1f} img/s), graph {graph['ms']:.1f} ms/step "
+        f"({batch * 1e3 / graph['ms']:.1f} img/s, {eager['ms'] / graph['ms']:.2f}x); peak "
+        f"device memory eager {_gib(eager['peak'])}, graph {_gib(graph['peak'])} (its capture "
+        f"and pool included); launches over {STEP_ALONE_STEPS} steps eager {eager['counts']}, "
+        f"graph {graph['counts']}; in torch's default setting, max |diff| over "
+        f"{STEP_ALONE_STEPS} steps, graph against eager (eager against eager, graph against "
+        "graph): " + ", ".join(f"{p} {spread(graph, eager, p)} ({spread(eager2, eager, p)}, "
+                               f"{spread(graph2, graph, p)})"
+                               for p in ("loss", "grad_norm", *STATE_PARTS)))
+    profile_run(f"one {codec} train step, batch {batch}, eager",
+                lambda: step.eager(train_state, device_batch, gen))
+    profile_run(f"one {codec} train step, batch {batch}, graph replayed",
                 lambda: step(train_state, device_batch, gen))
+    del step
+
+    det_step = make_train_step(model, cfg)
+    with deterministic_algorithms() as nondeterministic:
+        runs = [steps(det_step.eager) for _ in range(STEP_ALONE_EAGER_RUNS)]
+        det_graph = graph_run(det_step)
+    failures, verdicts = [], []
+    for part in ("loss", "grad_norm", *STATE_PARTS):
+        spread = max(diff(a[part], b[part]) for i, a in enumerate(runs) for b in runs[i + 1:])
+        err = diff(det_graph[part], runs[0][part])
+        verdicts.append(f"{part} {err:.3g} (eager spread {spread:.3g})")
+        if not (err == 0 if spread == 0 else err <= 2 * spread):
+            failures.append(f"{part}: graph against eager {err:.3g}, eager spread {spread:.3g}")
+    if not all(r["counts"] == det_graph["counts"] == graph["counts"] for r in runs):
+        failures.append(f"launches: graph {det_graph['counts']}, eager {runs[0]['counts']}")
+    if not (torch.isfinite(det_graph["loss"]).all()
+            and len(set(det_graph["loss"].tolist())) == STEP_ALONE_STEPS):
+        failures.append(f"graph losses {det_graph['loss'].tolist()}")
+    log(f"  under deterministic algorithms, graph against {STEP_ALONE_EAGER_RUNS} eager runs, "
+        f"max |diff| over {STEP_ALONE_STEPS} steps: " + "; ".join(verdicts)
+        + f"; ops without a deterministic CUDA kernel: {sorted(nondeterministic) or 'none'}")
+    if failures:
+        raise AssertionError(f"{codec} step alone: " + "; ".join(failures))
 
 
 def _counted(state: dict, label: str, fn, argv, want, totals: dict, failures: list):
@@ -3051,7 +3244,8 @@ def phase_avif(state: dict) -> None:
          images at the preset's batch of 8 with EMA and a checkpoint (per
          step the forward with LSE and one dQ and one dK/dV at down2 and
          up4; validation at 20/50/80 from init_t 75/50/20 at stride 1, and
-         the restoration grid at q20);
+         the restoration grid at q20); then its data pipeline alone
+         (`loader_alone`) and its step alone (`step_alone`);
       2. `cli/evaluate.py --codec avif` on that checkpoint's EMA,
          AVIF_EVAL_IMAGES images at AVIF_QUALITIES under the AVIF policy;
       3. `cli/restore.py --model-codec avif` on AVIF files Pillow writes
@@ -3105,7 +3299,8 @@ def phase_avif(state: dict) -> None:
         grads["down2 transform"] = m.down2.freq_guide.adaptive_transform.transform_weights.grad
         log(f"  heads {m.down2.attn.num_heads}; loss {hist['loss'][-1]:.4f}, val_psnr "
             f"{hist['val_psnr'][-1]:.3f}, val_ssim {hist['val_ssim'][-1]:.4f}, "
-            f"{hist['step_ms'][-1]:.1f} ms/step in the loop, epoch {hist['epoch_time'][-1]:.1f} s; "
+            f"{hist['step_ms'][-1]:.1f} ms/step in the loop (over the {steps - 2} steps after 2 "
+            f"warm-up steps), epoch {hist['epoch_time'][-1]:.1f} s; "
             f"{steps} steps, {n_val} validation evaluations; |grad| max "
             + ", ".join(f"{k} {g.abs().max().item():.3g}" for k, g in grads.items()))
         if not (tstate.step == steps and np.isfinite(hist["loss"]).all()
@@ -3114,6 +3309,7 @@ def phase_avif(state: dict) -> None:
         if any(g is None or not torch.isfinite(g).all() or g.abs().max().item() == 0
                for g in grads.values()):
             failures.append("avif train: a flash level or the adaptive transform got no gradient")
+        loader_alone(state, "avif", AVIF_TRAIN_IMAGES, avif.batch_size, hist["step_ms"])
         step_alone(state, "avif", m, tstate, avif.batch_size)
 
         evaluate_want = sum(sum(static_schedule(q, "avif", steps=DIFFUSION_STEPS))
@@ -3279,7 +3475,9 @@ def parallel_train_world1(state: dict, failures: list, totals: dict) -> None:
     world 1: the JAX rule needs 2 ranks), each from the same weights on the
     same batch with the same dropout generator. Each state's peak memory
     while it is built and takes its first step, above what the process held
-    before; then ms/step over PARALLEL_TIMED_STEPS steps each, in turns.
+    before; then ms/step over PARALLEL_TIMED_STEPS steps each, in turns,
+    the plain step eager (`train_step.eager`, as the meshes run: its
+    captured graph is timed by `step_alone`).
 
     Bound: at world 1 the mean over the mesh is the step's own gradient, so
     the loss must agree to rel 1e-6 (the forward is the same), and the
@@ -3345,8 +3543,9 @@ def parallel_train_world1(state: dict, failures: list, totals: dict) -> None:
         r = runs[mode]
         sync()
         t0 = time.perf_counter()
+        timed = r["step"].eager if mode == "plain" else r["step"]
         for _ in range(PARALLEL_TIMED_STEPS):
-            r["step"](r["state"], batch, r["gen"])
+            timed(r["state"], batch, r["gen"])
         sync()
         r["ms"].append(1e3 * (time.perf_counter() - t0) / PARALLEL_TIMED_STEPS)
     for mode in ("plain", "data mesh", "fsdp"):

@@ -15,7 +15,7 @@ Per reverse step i (descending, t = i/steps), as in the reference
 The JAX package runs the loop as one `lax.scan` under jit, one compiled
 program per signature; here it is a Python loop over solver slots with the
 same step algebra, and on a card that loop is captured as one CUDA graph
-per signature and replayed (`_CapturedLoop`): under no_grad, in
+per signature and replayed (`utils/graphs.py GraphCache`): under no_grad, in
 'surrogate' mode, without remat, on a model whose forward holds no
 collective. The first call of a signature runs eager (the warm-up), the
 second captures and replays, later ones replay; a capture that fails
@@ -41,7 +41,6 @@ JAX package's; at eta 0 (the production policy) the two agree.
 
 from __future__ import annotations
 
-import collections
 import itertools
 from typing import Optional, Tuple
 
@@ -51,8 +50,8 @@ import torch.nn.functional as F
 
 from ddpm_image_restoration_tpu_torch.codecs.surrogate import codec_surrogate, interp
 from ddpm_image_restoration_tpu_torch.config import CodecPreset
-from ddpm_image_restoration_tpu_torch.ops.flash_attention import COUNTED_KERNELS
 from ddpm_image_restoration_tpu_torch.parallel.mesh import take_rows
+from ddpm_image_restoration_tpu_torch.utils.graphs import GraphCache
 from ddpm_image_restoration_tpu_torch.utils.remat import checkpoint
 
 
@@ -195,46 +194,9 @@ def _ddrm_update(x_theta, c, y, t, last: np.ndarray, last_d: torch.Tensor,
 
 
 CONSISTENCY_MODES = ("surrogate", "callback", "host_loop")
-# Captured solver loops kept per sampler, the least recently replayed
-# dropped first (the JAX package's `_compiled` is unbounded; a graph holds
-# its activations' memory). Signatures seen once (run eager) are remembered
-# up to SEEN_SIGNATURES.
+# Captured solver loops kept per sampler (the JAX package's `_compiled` is
+# unbounded; a graph holds its activations' memory).
 GRAPH_CACHE_SIZE = 8
-SEEN_SIGNATURES = 64
-
-
-class _CapturedLoop:
-    """One solver loop captured as a CUDA graph: static copies of its inputs
-    (y, the [B] quality, the noise), its outputs in the graph's memory pool,
-    and the kernel launches the capture counted. The flash wrappers count
-    in Python, which a replay does not run: the capture's counts are taken
-    back, and each replay adds them, so the counters still count launches
-    on the device. The graph reads the model's weights by address: an
-    in-place update between replays is seen (a reassigned parameter changes
-    the signature instead)."""
-
-    def __init__(self, loop, inputs: tuple, pool):
-        self.loop = loop  # keeps the schedule tensors the graph reads alive
-        self.inputs = tuple(None if z is None else z.clone() for z in inputs)
-        self.graph = torch.cuda.CUDAGraph()
-        before = [fn.launches for fn in COUNTED_KERNELS]
-        try:
-            with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
-                self.outputs = loop(*self.inputs)
-        finally:
-            captured = [fn.launches for fn in COUNTED_KERNELS]
-            for fn, n in zip(COUNTED_KERNELS, before):
-                fn.launches = n
-        self.launches = [a - b for a, b in zip(captured, before)]
-
-    def replay(self, *inputs) -> tuple:
-        for static, z in zip(self.inputs, inputs):
-            if static is not None:
-                static.copy_(z)
-        self.graph.replay()
-        for fn, n in zip(COUNTED_KERNELS, self.launches):
-            fn.launches += n
-        return tuple(o.clone() for o in self.outputs)
 
 
 class DDRMSampler:
@@ -270,9 +232,9 @@ class DDRMSampler:
         self.codec_id = codec_id
         self.prediction = prediction
         self.consistency_mode = consistency_mode
-        self._graphs: collections.OrderedDict = collections.OrderedDict()  # signature -> loop
-        self._seen: collections.OrderedDict = collections.OrderedDict()    # run once, eager
-        self._pool = None  # one memory pool for all of this sampler's graphs
+        # one memory pool for all of this sampler's graphs
+        self._cache = GraphCache(GRAPH_CACHE_SIZE, shared_pool=True)
+        self._graphs, self._seen = self._cache.graphs, self._cache.seen
 
     def _schedule(self, steps, stride: int, q_host: np.ndarray, encoder_reuse: int,
                   traced_budget: int):
@@ -392,20 +354,7 @@ class DDRMSampler:
             return loop()(y, q_vec, noise)
         key = self._signature(y, in_dtype, sched, eta, eta_b, encoder_reuse,
                               decoder_reuse_depth, rows, tuple(draws))
-        captured = self._graphs.get(key)
-        if captured is None:
-            if key not in self._seen:  # the signature's first call: eager, the warm-up
-                self._seen[key] = None
-                if len(self._seen) > SEEN_SIGNATURES:
-                    self._seen.popitem(last=False)
-                return loop()(y, q_vec, noise)
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
-            captured = self._graphs[key] = _CapturedLoop(loop(), (y, q_vec, noise), self._pool)
-            if len(self._graphs) > GRAPH_CACHE_SIZE:
-                self._graphs.popitem(last=False)
-        self._graphs.move_to_end(key)
-        return captured.replay(y, q_vec, noise)
+        return self._cache(key, loop(), (y, q_vec, noise))
 
     def _graphed(self, y: torch.Tensor, remat: bool) -> bool:
         """Whether this run replays a captured graph: CUDA tensors, no grad,

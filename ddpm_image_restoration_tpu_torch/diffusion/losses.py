@@ -24,6 +24,8 @@ import functools
 import numpy as np
 import torch
 
+from ddpm_image_restoration_tpu_torch.codecs.surrogate import device_constant
+
 
 @functools.lru_cache(maxsize=None)
 def _gaussian_band(n: int, size: int = 11, sigma: float = 1.5) -> np.ndarray:
@@ -46,10 +48,14 @@ def _gaussian_filter(x: torch.Tensor) -> torch.Tensor:
     its window convolution at precision=HIGHEST. A float32 matmul on the card
     is full f32 unless `torch.backends.cuda.matmul.allow_tf32` is set, which
     the port never does (cuDNN's f32 convolutions, by contrast, default to
-    TF32)."""
+    TF32).
+
+    The bands are held on the device once per size (`device_constant`): a
+    copy from the host each call would make the host wait, and could not be
+    captured in the train step's CUDA graph."""
     h, w = x.shape[-2:]
-    band_h = torch.as_tensor(_gaussian_band(h), device=x.device)
-    band_w = torch.as_tensor(_gaussian_band(w), device=x.device)
+    band_h = device_constant(_gaussian_band, (h,), x.device)
+    band_w = device_constant(_gaussian_band, (w,), x.device)
     return torch.matmul(torch.matmul(band_h, x), band_w.T)
 
 

@@ -277,6 +277,8 @@ class CodecDiffusionModel(nn.Module):
                                  "(config.codec_index of the degradation codec)")
             if isinstance(codec_id, numbers.Integral):  # a fill on the device, no host copy
                 cid = torch.full(t.shape, int(codec_id), dtype=torch.long, device=dev)
+            elif torch.is_tensor(codec_id) and codec_id.device == dev:  # a batch's ids
+                cid = codec_id.long().expand(t.shape)
             else:
                 cid = torch.as_tensor(codec_id, dtype=torch.long, device=dev).expand(t.shape)
             t_emb = t_emb + self.codec_embed(cid)
@@ -350,7 +352,11 @@ class CodecDiffusionModel(nn.Module):
 
     def forward(self, x: torch.Tensor, t, compression_level=None,
                 codec_id=None) -> torch.Tensor:
-        t = torch.as_tensor(t, dtype=torch.float32, device=self.out_conv.weight.device)
+        dev = self.out_conv.weight.device
+        if torch.is_tensor(t) and t.device == dev:  # already on the device: no host copy
+            t = t.float()
+        else:
+            t = torch.as_tensor(t, dtype=torch.float32, device=dev)
         if t.dim() == 0:
             t = t.expand(x.shape[0])
         features = self.encode(x, t, compression_level, codec_id)

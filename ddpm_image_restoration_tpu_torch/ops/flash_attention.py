@@ -253,7 +253,7 @@ flash_attention_fwd.launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
 # the wrappers that count their launches (a captured graph adds its own
-# launches to them on each replay: diffusion/ddrm.py `_CapturedLoop`)
+# launches to them on each replay: utils/graphs.py `CapturedGraph`)
 COUNTED_KERNELS = (flash_attention_fwd, flash_attention_bwd_dq, flash_attention_bwd_dkv)
 
 

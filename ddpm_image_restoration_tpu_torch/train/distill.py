@@ -50,7 +50,6 @@ from ddpm_image_restoration_tpu_torch.train.steps import (
     apply_gradients,
     create_train_state,
     param_grads,
-    update_ema,
 )
 
 
@@ -121,9 +120,7 @@ def make_distill_step(student, teacher, cfg: TrainConfig, dcfg: DistillConfig, q
         if gt_w:
             loss = loss + gt_w * loss_fn(out, x0)
         loss.backward()
-        g_norm = apply_gradients(state, param_grads(student))
-        if cfg.ema_decay > 0:
-            update_ema(state, cfg.ema_decay)
+        g_norm = apply_gradients(state, param_grads(student), cfg.ema_decay)
         return {"loss": loss.detach(), "grad_norm": g_norm}
 
     return step, init_t, s_stride, t_stride

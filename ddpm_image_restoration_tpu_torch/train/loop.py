@@ -17,8 +17,12 @@ As in the JAX package (train_model_ddrm_* webp_training.py:773-822):
 
 Every codec preset trains: 'jpeg', 'webp', 'avif' and the unified 'all'
 model (per-sample mixed-codec batches, validated across the three codecs).
-The port trains eagerly: batches stream from the host degradation pipeline
-while the card runs the previous step.
+Batches stream from the host degradation pipeline while the card runs the
+previous step. On a card, in one process, the step replays one captured
+CUDA graph (train/steps.py `make_train_step`): the run's first batch runs
+eager, the second captures, every later one replays, validation's sampler
+graphs in between included; a resumed run captures anew. Over a mesh, and
+with block remat, the step stays eager.
 
 Under a process group (`torchrun`, parallel/mesh.py) it trains data-parallel
 over a ('data',) mesh, by default of gcd(batch, world) ranks as in the JAX
@@ -180,9 +184,11 @@ def train_model(cfg: TrainConfig, dataset=None, epochs: Optional[int] = None,
     """End-to-end training on `device`. Returns (state, logger.history).
 
     Each epoch logs `loss` (mean train loss), `val_psnr`, `val_ssim`,
-    `epoch_time` (s, with validation) and, when the epoch has two or more
-    steps, `step_ms`: wall time per train step after the epoch's first
-    (warm) step, ending in a device synchronise.
+    `epoch_time` (s, with validation) and, when the epoch has more steps
+    than its warm-up, `step_ms`: wall time per train step after the
+    epoch's warm-up steps, ending in a device synchronise. The warm-up is
+    the first step, and on a card the second too (which captures the
+    step's graph in the run's first epoch).
 
     Under a process group every rank calls it (module docstring); a rank
     outside the training mesh returns (None, {})."""
@@ -271,19 +277,20 @@ def train_model(cfg: TrainConfig, dataset=None, epochs: Optional[int] = None,
     best_psnr = -float("inf")
     last_save_epoch = -(10 ** 9)
 
+    warm = 2 if dev.type == "cuda" else 1  # steps before `step_ms`'s clock starts
     for epoch in range(start_epoch, epochs):
         t_start = time.time()
         losses = []
         t_warm = None
         for batch in loader.epoch(epoch):
             losses.append(train_step(state, to_device(batch, dev), generator)["loss"])
-            if t_warm is None:
+            if len(losses) == warm:
                 sync_device(dev)
                 t_warm = time.perf_counter()
         sync_device(dev)
         timed = {}
-        if len(losses) > 1:
-            timed["step_ms"] = 1e3 * (time.perf_counter() - t_warm) / (len(losses) - 1)
+        if len(losses) > warm:
+            timed["step_ms"] = 1e3 * (time.perf_counter() - t_warm) / (len(losses) - warm)
         train_loss = float(torch.stack(losses).mean()) if losses else float("nan")
 
         if state.ema is not None and state.layout is not None:

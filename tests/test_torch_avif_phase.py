@@ -22,7 +22,8 @@ def test_avif_phase_counts_on_cpu(tmp_path, monkeypatch, counted_kernels, capsys
     images and 4 AVIF files at q20/q50, and 23 unified training images (one
     step of 18), over 20 diffusion steps: the two trainers' validation
     restores, most of the time, run 46 and 55 model evaluations instead of
-    145 and 190."""
+    145 and 190; the AVIF step alone takes one step a run (eager twice,
+    then its graph path, which the CPU runs eager)."""
     monkeypatch.setattr(chip_smoke, "ROOT", str(tmp_path))
     monkeypatch.setattr(chip_smoke, "CARD_FLAGS", CPU_FLAGS)
     monkeypatch.setattr(chip_smoke, "RESTORE_FLAGS",
@@ -32,6 +33,7 @@ def test_avif_phase_counts_on_cpu(tmp_path, monkeypatch, counted_kernels, capsys
     monkeypatch.setattr(chip_smoke, "AVIF_QUALITIES", (20, 50))
     monkeypatch.setattr(chip_smoke, "ALL_TRAIN_IMAGES", 23)
     monkeypatch.setattr(chip_smoke, "DIFFUSION_STEPS", 20)
+    monkeypatch.setattr(chip_smoke, "STEP_ALONE_STEPS", 1)
     state = {"smi": "CPU", "avif": True}
     chip_smoke.phase_avif(state)
     log = capsys.readouterr().out

@@ -1111,3 +1111,204 @@ def test_solver_graph_failed_capture_raises_on_card(card):
     assert proc.returncode == 0 and proc.stdout.count("raised:") == 2, \
         proc.stdout + proc.stderr
     assert proc.stdout.strip().endswith("ok"), proc.stdout
+
+
+# -- The train step as a captured CUDA graph (train/steps.py): the first call
+# of a signature runs eager, the second captures and replays, later ones
+# replay. Width/8 models at 64², bf16, dropout 0.1, EMA on, flash at 32²
+# (T = 1024), a batch of 3.
+
+TRAIN_GRAPH_STEPS = 5
+STATE_PARTS = ("params", "mu", "nu", "ema")
+
+
+def _train_batches(codec, n=TRAIN_GRAPH_STEPS):
+    batches = []
+    for i in range(n):
+        g = torch.Generator().manual_seed(10 + i)
+        x0 = torch.rand(3, 64, 64, 3, generator=g) * 2 - 1
+        b = {"x0": x0, "xt": (x0 + 0.1 * torch.randn(x0.shape, generator=g)).clamp(-1, 1),
+             "t": torch.randint(1, 100, (3,), generator=g, dtype=torch.int32)}
+        if codec == "all":
+            b["codec_id"] = torch.tensor([0, 1, 2])
+        batches.append({k: v.cuda() for k, v in b.items()})
+    return batches
+
+
+def _train_run(codec, graph: bool):
+    """TRAIN_GRAPH_STEPS steps from one seeded model and state on distinct
+    batches, through `train_step` (graph) or `train_step.eager`: per step
+    the loss, grad norm and flash launches; the state, `.grad` and the
+    step after."""
+    from ddpm_image_restoration_tpu_torch.config import TrainConfig
+    from ddpm_image_restoration_tpu_torch.train.steps import create_train_state, make_train_step
+
+    model = _graph_model(codec, "bfloat16")
+    cfg = TrainConfig(codec=codec, model=model.cfg, batch_size=3, ema_decay=0.999)
+    state = create_train_state(model, cfg)
+    step = make_train_step(model, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = {"loss": [], "grad_norm": [], "counts": []}
+    for b in _train_batches(codec):
+        before = [fn.launches for fn in fa.COUNTED_KERNELS]
+        m = (step if graph else step.eager)(state, b, gen)
+        torch.cuda.synchronize()
+        out["counts"].append([fn.launches - n for fn, n in zip(fa.COUNTED_KERNELS, before)])
+        out["loss"].append(m["loss"])
+        out["grad_norm"].append(m["grad_norm"])
+    out["loss"], out["grad_norm"] = torch.stack(out["loss"]), torch.stack(out["grad_norm"])
+    for part in STATE_PARTS:
+        out[part] = {k: v.clone() for k, v in getattr(state, part).items()}
+    out["grad"] = {n: p.grad.float().clone() for n, p in model.named_parameters()}
+    return out, state, step
+
+
+def _max_diff(a, b) -> float:
+    if isinstance(a, dict):
+        return max((a[k].float() - b[k].float()).abs().max().item() for k in a)
+    return (a.float() - b.float()).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["webp", "avif", "all"])
+def test_train_graph_equals_eager_on_card(card, codec):
+    """Five steps from copies of one state (the unified model with a
+    per-sample codec_id), under torch's deterministic algorithms (warn
+    only: the AVIF gates' antialiased resize has no deterministic
+    backward, and runs): the graph path (eager, capture, three replays)
+    against the first of three eager runs, per quantity (losses, grad
+    norms, masters, moments, EMA, the last step's `.grad`): bit for bit
+    where the eager runs agree bit for bit, else within twice their
+    spread. One graph, four replays, and each step counts the eager step's
+    flash launches; the losses are distinct (copies, not the graph's
+    static output)."""
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            runs = [_train_run(codec, graph=False)[0] for _ in range(3)]
+            graph, state, step = _train_run(codec, graph=True)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    eager = runs[0]
+    assert len(step.graphs) == 1 and next(iter(step.graphs.values())).replays == 4
+    assert state.step == TRAIN_GRAPH_STEPS
+    assert graph["counts"] == eager["counts"] and eager["counts"][0] == [2, 2, 2]
+    assert torch.isfinite(graph["loss"]).all()
+    assert len(set(graph["loss"].tolist())) == TRAIN_GRAPH_STEPS
+    for part in ("loss", "grad_norm", *STATE_PARTS, "grad"):
+        spread = max(_max_diff(a[part], b[part]) for i, a in enumerate(runs) for b in runs[i + 1:])
+        err = _max_diff(graph[part], eager[part])
+        assert (err == 0) if spread == 0 else (err <= 2 * spread), (part, err, spread)
+
+
+@pytest.mark.cuda
+def test_train_graph_captures_on_its_stream_and_recaptures_on_resume(card, monkeypatch):
+    """In the capturing call every flash launch, the backward's dQ and
+    dK/dV from autograd's thread included, lands on a stream being
+    captured, and none in the eager first call. A resume that loads a
+    state dict (new EMA tensors) changes the signature: the next call runs
+    eager, the one after captures a second graph, whose replay updates the
+    new EMA (ema·d + params·(1 − d) at the call's scalars, bit for bit)
+    and leaves the old EMA as it was."""
+    from ddpm_image_restoration_tpu_torch.config import TrainConfig
+    from ddpm_image_restoration_tpu_torch.train.steps import create_train_state, make_train_step
+
+    model = _graph_model("webp", "bfloat16")
+    cfg = TrainConfig(codec="webp", model=model.cfg, batch_size=3, ema_decay=0.999)
+    state = create_train_state(model, cfg)
+    step, gen = make_train_step(model, cfg), torch.Generator(device="cuda").manual_seed(3)
+    batches = _train_batches("webp")
+    seen, launch = [], fa._launch
+
+    def recording(name, *a, **k):
+        seen.append((name, torch.cuda.is_current_stream_capturing()))
+        return launch(name, *a, **k)
+
+    monkeypatch.setattr(fa, "_launch", recording)
+    per_call = []
+    for b in batches[:3]:
+        seen.clear()
+        step(state, b, gen)
+        torch.cuda.synchronize()
+        per_call.append(list(seen))
+    assert [c for _, c in per_call[0]] == [False] * 6
+    assert sorted(per_call[1]) == sorted([(n, True) for n in ("flash_attention_fwd",
+                                                              "flash_attention_bwd_dq",
+                                                              "flash_attention_bwd_dkv")] * 2)
+    assert per_call[2] == [] and len(step.graphs) == 1
+    old_ema = state.ema
+    old_values = {k: v.clone() for k, v in old_ema.items()}
+    state.load_state_dict(state.state_dict())
+    assert state.ema is not old_ema
+    seen.clear()
+    step(state, batches[3], gen)
+    assert len(step.graphs) == 1 and len(seen) == 6 and not any(c for _, c in seen)
+    step(state, batches[4], gen)  # captures the resumed state's graph
+    assert len(step.graphs) == 2
+    before = {k: v.clone() for k, v in state.ema.items()}
+    step(state, batches[0], gen)
+    torch.cuda.synchronize()
+    d, keep = state.scalars.value[3], state.scalars.value[4]
+    for k, v in state.ema.items():
+        assert torch.equal(v, before[k] * d + state.params[k] * keep), k
+    for k, v in old_ema.items():
+        assert torch.equal(v, old_values[k]), k
+
+
+# As the solver's failed capture, in a process of its own.
+FAILED_STEP_CAPTURE = """
+import torch
+from ddpm_image_restoration_tpu_torch.config import TrainConfig
+from ddpm_image_restoration_tpu_torch.ops import flash_attention as fa
+from ddpm_image_restoration_tpu_torch.train.steps import create_train_state, make_train_step
+from tests.test_torch_kernels_cuda import _graph_model, _train_batches
+
+model = _graph_model("webp", "bfloat16")
+encode = model.encode
+
+
+def waiting_encode(x, *a, **k):
+    x.sum().item()
+    return encode(x, *a, **k)
+
+
+model.encode = waiting_encode
+cfg = TrainConfig(codec="webp", model=model.cfg, batch_size=3, ema_decay=0.999)
+state = create_train_state(model, cfg)
+step, gen = make_train_step(model, cfg), torch.Generator(device="cuda").manual_seed(3)
+batch = _train_batches("webp", 1)[0]
+step(state, batch, gen)
+for _ in range(2):
+    before = [fn.launches for fn in fa.COUNTED_KERNELS]
+    try:
+        step(state, batch, gen)
+    except RuntimeError as e:
+        print("raised:", str(e).strip().splitlines()[0])
+    else:
+        raise SystemExit("the capture did not raise")
+    assert not step.graphs, step.graphs
+    assert [fn.launches for fn in fa.COUNTED_KERNELS] == before
+    assert state.step == 1, state.step
+print("ok")
+"""
+
+
+@pytest.mark.cuda
+def test_train_graph_failed_capture_raises_on_card(card):
+    """A step that waits on the device (an `.item()` in the model's
+    encoder) runs eager on its first call and raises on the capture, every
+    time: no eager fallback, no graph kept, the counters and the step count
+    left as they were."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", FAILED_STEP_CAPTURE], cwd=root,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0 and proc.stdout.count("raised:") == 2, \
+        proc.stdout + proc.stderr
+    assert proc.stdout.strip().endswith("ok"), proc.stdout
