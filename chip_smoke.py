@@ -157,6 +157,7 @@ without them).
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import functools
 import importlib.util
@@ -452,14 +453,24 @@ ALL_TRAIN_IMAGES = 45
 FLASH_PER_EVAL = 2
 # The distill phase: the student's budget and qualities against the
 # full-solver teacher on DISTILL_IMAGES natural images (36 training images:
-# 2 steps of 18), the step alone timed over DISTILL_TIMED_STEPS steps; then
-# the progressive chain from a stride-10 teacher on DISTILL_PROGRESSIVE_IMAGES
-# (18 training images: 1 step a stage), whose budgets must be these.
+# 2 steps of 18), the step alone timed over DISTILL_TIMED_EAGER warm eager
+# calls and DISTILL_TIMED_REPLAYS replays; then the progressive chain from a
+# stride-10 teacher on DISTILL_PROGRESSIVE_IMAGES (18 training images: 1 step
+# a stage), whose budgets must be these.
 DISTILL_N_EVAL = 2
 DISTILL_QUALITIES = (10, 50)
 DISTILL_TEACHER_STRIDE = 1   # the full solver
 DISTILL_IMAGES = 45
-DISTILL_TIMED_STEPS = 1
+DISTILL_TIMED_EAGER = 3
+DISTILL_TIMED_REPLAYS = 3
+# The step alone's gates run a shorter teacher (3 evaluations at q50, not
+# 50) over 2 steps a run: 3 + 3 runs in torch's default setting and 3 + 1
+# under deterministic algorithms, remat on and off, in bf16 and f32.
+DISTILL_GATE_TEACHER_STRIDE = 25
+DISTILL_GATE_STEPS = 2
+# The distiller's shared memory pool (`distill_pool`): each bucket's steps of
+# one `cli/distill.py` run, with the gates' shorter teacher.
+DISTILL_POOL_STEPS = 3
 DISTILL_PROGRESSIVE_IMAGES = 23
 DISTILL_PROGRESSIVE_STRIDE = 10
 DISTILL_PROGRESSIVE_BUDGETS = [4, 2]
@@ -1040,6 +1051,7 @@ PATH1024_SIZE = 1024
 PATH1024_QUALITY = 30
 PATH1024_SCALE = 1  # widths divided by this (the CPU rehearsal's narrow model)
 PATH1024_F32_MAX_DIFF = 1e-3
+PATH1024_GATE_STEPS = 2  # steps a run of the remat train step's gates
 
 
 def flash_head_dims(model, size: int) -> tuple:
@@ -1088,16 +1100,28 @@ def phase_path1024(state: dict) -> None:
         (DDRMSampler, surrogate steps, final_exact): the forward once per
         bottleneck block per encode, so 3g launches for g encoder groups,
         2g of them at D = 256;
-      * one train step (`train/steps.py make_train_step`, bf16, block remat,
-        EMA): per attention block the forward with the LSE twice (the
-        recompute), dQ and dK/dV once, at (4, 1024, 256) for two blocks;
-        the loss and every gradient finite;
+      * the train step (`train/steps.py make_train_step`, bf16, block remat,
+        dropout, EMA) three times: its first call (eager), its capture and
+        a replay, each with its peak device memory (a replay allocates
+        nothing; the capture counts the graph's pool), and each per
+        attention block the forward with the LSE twice
+        (the recompute), dQ and dK/dV once, at (4, 1024, 256) for two
+        blocks; the loss and every gradient finite. The replay runs under
+        the profiler, and its kernels are counted in the device's trace by
+        name and template head dim (`flash_traced`): a replay runs no
+        Python, so nothing else sees its launches. One eager step is
+        profiled too, its device count held to the same prediction. Then
+        its gates
+        (`graph_gates`, PATH1024_GATE_STEPS steps a run): the graph in
+        torch's default setting, and one captured under deterministic
+        algorithms, against eager;
       * one UNet evaluation with flash attention against the same weights
         with the plain attention, both bf16 (a whole restore is chaotic on
         random weights: ROADMAP "Random-weight restores"), within the plain
         model's own bf16 error against its f32 evaluation, mean and max;
-      * the same restore and train step with `--compute-dtype float32` (the
-        f32 forward and dQ at D = 256 and 128, counted as above), and one
+      * the same restore and train step (and its gates) with
+        `--compute-dtype float32` (the f32 forward and dQ at D = 256 and
+        128, counted as above), and one
         f32 evaluation flash against plain under `no_tf32`, max |diff| <=
         PATH1024_F32_MAX_DIFF (the bound of tests/test_torch_kernels_cuda.py
         on the full-width f32 flash route against the plain route)."""
@@ -1134,12 +1158,18 @@ def phase_path1024(state: dict) -> None:
         failures.append(f"the 1024² model's flash blocks have head dims {enc + dec}, "
                         f"not the bottleneck's 256, 256 and 128")
 
-    def check(label, seen, want, wall):
+    def check(label, seen, want, wall, on_device=False):
+        """`seen`, the launches by (kernel, head dim), against `want`: the
+        calls that reached `_launch`, or with `on_device` the kernels in
+        the device's trace (a replay runs no Python). They go into the
+        totals; the wrappers' counts (for a replay, what its capture
+        counted, added again) must agree with them."""
         got, counts = collections.Counter(seen), _counts()
-        for k, v in counts.items():
-            totals[k] += v
         by_kernel = {n: sum(v for (k, _), v in got.items() if k == n) for n in counts}
-        log(f"{label}: {wall:.2f} s on {state['smi']}; launches by (kernel, head dim) "
+        for k, v in by_kernel.items():
+            totals[k] += v
+        source = "in the device's trace" if on_device else "launched"
+        log(f"{label}: {wall:.2f} s on {state['smi']}; kernels {source} by (kernel, head dim) "
             f"{dict(sorted(got.items()))}, the structure predicts {dict(sorted(want.items()))}; "
             f"wrapper counts {counts}")
         if got != want or by_kernel != counts:
@@ -1197,15 +1227,41 @@ def phase_path1024(state: dict) -> None:
             train_model = build_model("webp", tcfg.model, device=CARD)
             train_state = create_train_state(train_model, tcfg)
             step = make_train_step(train_model, tcfg)
-            torch.cuda.synchronize()
-            _reset_counts()
-            t0 = time.perf_counter()
-            with launches_by_head_dim() as seen:
-                metrics = step(train_state, batch, torch.Generator(device=CARD).manual_seed(SEED))
+            gen = torch.Generator(device=CARD).manual_seed(SEED)
+            card = train_model.out_conv.weight.device.type == "cuda"
+            t_dtype = time.perf_counter()
+            for call in ("eager", "capture", "replay"):
                 torch.cuda.synchronize()
-            check(f"train step 1024² ({dtype}, remat; loss {metrics['loss'].item():.4f}, grad "
-                  f"norm {metrics['grad_norm'].item():.4g})", seen, want,
-                  time.perf_counter() - t0)
+                if card:
+                    torch.cuda.reset_peak_memory_stats()
+                _reset_counts()
+                t0 = time.perf_counter()
+                on_device = call == "replay" and card
+                if on_device:  # a replay runs no Python: the device's trace counts its kernels
+                    out = []
+                    seen, sessions = flash_traced(
+                        f"one 1024² train step ({dtype}, remat), graph replayed",
+                        lambda: out.append(step(train_state, batch, gen)), want)
+                    metrics = out[-1]
+                else:
+                    with launches_by_head_dim() as seen:
+                        metrics = step(train_state, batch, gen)
+                        torch.cuda.synchronize()
+                peak = _gib(torch.cuda.max_memory_allocated()) if card else "-"
+                check(f"train step 1024² ({dtype}, remat, dropout {tcfg.model.dropout}, {call}"
+                      f"{', under the profiler' if on_device else ''}; loss "
+                      f"{metrics['loss'].item():.4f}, grad norm "
+                      f"{metrics['grad_norm'].item():.4g}; peak device memory {peak})", seen,
+                      want, time.perf_counter() - t0, on_device)
+            graphs = list(step.cache.graphs.values())
+            if card and (len(graphs) != 1 or graphs[0].replays != 1 + sessions):
+                failures.append(f"train step 1024² {dtype}: {len(graphs)} graphs, replays "
+                                f"{[g.replays for g in graphs]}")
+            eager_flash, _ = flash_traced(f"one 1024² train step ({dtype}, remat), eager",
+                                          lambda: step.eager(train_state, batch, gen), want)
+            if card and eager_flash != want:
+                failures.append(f"train step 1024² {dtype}, eager: kernels in the device's "
+                                f"trace {dict(eager_flash)}, the structure predicts {dict(want)}")
             bad = [k for k, p in train_model.named_parameters()
                    if p.grad is None or not torch.isfinite(p.grad).all()]
             qkv = [getattr(train_model, f"bottleneck{i}").attn.qkv.weight.grad.abs().max().item()
@@ -1216,7 +1272,12 @@ def phase_path1024(state: dict) -> None:
                 failures.append(f"train step 1024² {dtype}: loss {metrics['loss'].item()}, grad "
                                 f"norm {metrics['grad_norm'].item()}, non-finite or missing "
                                 f"gradients {bad[:5]}, bottleneck qkv grads {qkv}")
-            del train_state, train_model, step, metrics
+            runner = StepRuns(train_state, batch, gen, PATH1024_GATE_STEPS)
+            failures += graph_gates(f"train step 1024² {dtype}, remat", runner,
+                                    lambda: make_train_step(train_model, tcfg), step)
+            log(f"  (train step 1024² {dtype}: {time.perf_counter() - t_dtype:.1f} s with its "
+                "gates)")
+            del train_state, train_model, step, metrics, runner, graphs
             torch.cuda.empty_cache()
 
         # one evaluation: flash against plain attention on the same weights (bf16), and
@@ -1941,7 +2002,9 @@ def phase_serve(state: dict) -> None:
     codec), four passes, each timed and its forward launches held to the
     schedule: the signatures' first calls (eager), their captures (the
     solver loop as a CUDA graph) and replays, replays, and eager again
-    (fresh samplers); one batch profiled in each mode."""
+    (fresh samplers); one batch profiled in each mode, the replayed one's
+    flash kernels counted in the device's trace (`flash_traced`) and held
+    to the schedule."""
     import numpy as np
     import torch
 
@@ -1971,7 +2034,7 @@ def phase_serve(state: dict) -> None:
         log("final_exact: skipped, Pillow cannot be imported here (the exact "
             "host codec needs it; the card path does not)")
 
-    batches, expected = [], 0
+    batches, expected, per_batch = [], 0, []
     for i, (q, codec) in enumerate(zip(SERVE_QUALITIES, codecs)):
         x0 = torch.from_numpy(synthetic_images(SERVE_BATCH, cfg.image_size, SEED + 10 + i)).cuda()
         batches.append((q, codec, codec_surrogate(x0, q, codec=codec)))
@@ -1979,7 +2042,8 @@ def phase_serve(state: dict) -> None:
         stride, reuse, _, _ = solver_for(init_t, q, codec)
         n_evals = len(_solver_indices(init_t, stride))
         # one T=1024 level in the encoder (down2), one in the decoder (up4)
-        expected += n_evals + math.ceil(n_evals / reuse)
+        per_batch.append(n_evals + math.ceil(n_evals / reuse))
+        expected += per_batch[-1]
         log(f"{codec} q{q}: init_t {init_t}, stride {stride}, {n_evals} evaluations, "
             f"encoder reuse {reuse}")
 
@@ -2024,8 +2088,13 @@ def phase_serve(state: dict) -> None:
     serve_pass("graph, captured and replayed")
     graph = serve_pass("graph, replayed (timed)")
     q, codec, y = batches[1]
-    profile_run(f"one batch of {SERVE_BATCH}, {codec} q{q}, graph replayed",
-                lambda: restore_batch(model, y, q, codec, final_exact=final_exact))
+    flash, _ = flash_traced(f"one batch of {SERVE_BATCH}, {codec} q{q}, graph replayed",
+                            lambda: restore_batch(model, y, q, codec, final_exact=final_exact),
+                            (per_batch[1], 0, 0))
+    if by_wrapper(flash) != (per_batch[1], 0, 0):  # a replay runs no Python: the trace counts
+        raise AssertionError(f"serve {codec} q{q}, one batch replayed: flash kernels in the "
+                             f"device's trace {dict(flash)}, the schedule implies "
+                             f"{per_batch[1]} forward")
     eager = serve_pass("eager (timed)", eager=True)
     model.__dict__.pop("_serve_samplers", None)
     profile_run(f"one batch of {SERVE_BATCH}, {codec} q{q}, eager",
@@ -2036,7 +2105,7 @@ def phase_serve(state: dict) -> None:
             f"eager against eager {(c - a).abs().max().item():.3g}")
 
 
-def profile_run(label: str, run) -> None:
+def profile_run(label: str, run) -> collections.Counter:
     """Where one call's time goes: device-busy share of the wall time and
     the kernels with the most device time (torch.profiler, CUPTI). One
     session around the call alone (see device_time_ms): it can miss
@@ -2044,9 +2113,9 @@ def profile_run(label: str, run) -> None:
     activity only and sums the profiler's raw events, never building its
     per-op tables: for a call of ~80,000 launches (a distill step) those
     took 24-50 s on the H100's host, and nothing here reads them. (On the
-    CPU, where there is no device activity, it records the host's.)"""
-    import collections
-
+    CPU, where there is no device activity, it records the host's.)
+    Returns the flash kernels that the device ran in the call
+    (`flash_on_device`), a replayed graph's included, and logs them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2063,11 +2132,59 @@ def profile_run(label: str, run) -> None:
             per_kernel[e.name()][0] += 1
             per_kernel[e.name()][1] += e.duration_ns() / 1e3
     busy_ms = sum(us for _, us in per_kernel.values()) / 1e3
+    flash = flash_on_device(per_kernel)
     log(f"profile ({label}): wall {wall_ms:.1f} ms under the profiler, "
         f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.0f}%), "
-        f"{sum(n for n, _ in per_kernel.values())} device kernel launches")
+        f"{sum(n for n, _ in per_kernel.values())} device kernel launches; flash kernels on "
+        f"the device by (wrapper, head dim) {dict(sorted(flash.items()))}")
     for name, (n, us) in sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:8]:
         log(f"  {us / 1e3:8.2f} ms  x{n:<5d} {name[:90]}")
+    return flash
+
+
+# A flash kernel's device name (csrc/flash_attention_*.cu): the wrapper it
+# belongs to and its template head dim.
+FLASH_DEVICE_NAME = re.compile(r"\bflash_(fwd|bwd_dq|bwd_dkv)(?:_wgmma)?_kernel<(\d+)>")
+
+
+def flash_on_device(per_kernel: dict) -> collections.Counter:
+    """The flash kernels of a profile (kernel name -> [count, device us]) by
+    (wrapper name, head dim), read from each kernel's name and template:
+    the launches that the device ran, whether Python launched them or a
+    graph replayed them."""
+    got = collections.Counter()
+    for name, (n, _) in per_kernel.items():
+        m = FLASH_DEVICE_NAME.search(name)
+        if m:
+            got[(f"flash_attention_{m.group(1)}", int(m.group(2)))] += n
+    return got
+
+
+def flash_traced(label: str, run, want, sessions: int = 3) -> tuple:
+    """The flash kernels that `run` launches on the device, from up to
+    `sessions` profiled calls (`profile_run`): per (wrapper, head dim) the
+    largest count over them, since a session can miss a kernel's record but
+    never adds one (one session of an eager distill step read 2 of its 8
+    backward launches short). Stops once the count is `want` (a Counter by
+    (wrapper, head dim), or a (forward, dQ, dK/dV) tuple). Returns (the
+    count, the sessions run). On the CPU, which has no device trace, one
+    session."""
+    import torch
+
+    best = collections.Counter()
+    for n in range(1, sessions + 1):
+        best |= profile_run(label if n == 1 else f"{label}, session {n}", run)
+        if not torch.cuda.is_available() or (
+                by_wrapper(best) if isinstance(want, tuple) else best) == want:
+            break
+    return best, n
+
+
+def by_wrapper(by_dim: collections.Counter) -> tuple:
+    """(forward, dQ, dK/dV) launches of a count by (wrapper, head dim)."""
+    return tuple(sum(n for (name, _), n in by_dim.items() if name == w)
+                 for w in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                           "flash_attention_bwd_dkv"))
 
 
 @contextlib.contextmanager
@@ -2397,8 +2514,9 @@ def grid_restore_evals(preset, steps: int) -> int:
 
 
 STEP_ALONE_STEPS = 5
-STEP_ALONE_EAGER_RUNS = 3  # eager runs whose spread bounds the graph's
+GATE_RUNS = 3  # runs of each kind whose spread bounds a graph's difference from eager
 STATE_PARTS = ("params", "mu", "nu", "ema")  # the train state's f32 dicts
+GATE_PARTS = ("loss", "grad_norm", *STATE_PARTS)
 
 
 @contextlib.contextmanager
@@ -2422,29 +2540,188 @@ def deterministic_algorithms():
                        for w in caught if "does not have a deterministic" in str(w.message))
 
 
+class StepRuns:
+    """Runs of a step function (`fn(train_state, batch, generator)`: a
+    train step, a distill step, or either's `.eager`) of `n_steps` steps
+    each, from copies of one train state on one device batch: before each
+    run the masters, moments, EMA and step count are put back in place and
+    the generator reseeded. The copies and each run's results stay on the
+    state's device (a full-width state is 1.8 GB: a trip through the host
+    took ~0.6 s each way). After the runs, `put_back()` leaves the state as
+    it was."""
+
+    def __init__(self, train_state, batch: dict, generator, n_steps: int):
+        import torch
+
+        self.state, self.batch, self.gen, self.n_steps = train_state, batch, generator, n_steps
+        self.dev = train_state.model.out_conv.weight.device
+        self.card = self.dev.type == "cuda"
+        # what a run's peak counts besides its own growth: the model, the
+        # state and what else the phase holds, not these copies or results
+        self.resident = torch.cuda.memory_allocated(self.dev) if self.card else 0
+        self.saved = self._copy()
+        self.count = train_state.step
+        self.torch = torch
+
+    def _copy(self) -> dict:
+        return {p: {k: v.clone() for k, v in getattr(self.state, p).items()} for p in STATE_PARTS}
+
+    def put_back(self) -> None:
+        with self.torch.no_grad():
+            for p in STATE_PARTS:
+                for k, v in getattr(self.state, p).items():
+                    v.copy_(self.saved[p][k])
+        self.state.step = self.count
+        self.state.write_back()
+        self.gen.manual_seed(SEED + 1)
+
+    def run(self, fn, warm_up=()) -> dict:
+        """`n_steps` calls of fn from the state put back, the calls of
+        `warm_up` first, each from the state put back (their memory
+        counted, not their time): ms/step, peak device memory (the
+        resident memory and the run's own growth above it), the flash
+        launches of the timed steps, their losses and grad norms and the
+        state after them."""
+        torch, dev = self.torch, self.dev
+        torch.cuda.synchronize()
+        if self.card:
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+        for warm in warm_up:
+            self.put_back()
+            warm(self.state, self.batch, self.gen)
+        self.put_back()
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = [fn(self.state, self.batch, self.gen) for _ in range(self.n_steps)]
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / self.n_steps
+        peak = self.resident + torch.cuda.max_memory_allocated(dev) - base if self.card else 0
+        return {"ms": ms, "peak": peak, "counts": _counts(),
+                "loss": torch.stack([m["loss"] for m in out]),
+                "grad_norm": torch.stack([m["grad_norm"] for m in out]), **self._copy()}
+
+    def graph_run(self, step, label: str) -> dict:
+        """A run of `step` after its first call (eager) and its second
+        (capture): on a card it must hold one graph (on the CPU none)."""
+        out = self.run(step, warm_up=(step, step) if self.card else ())
+        if len(step.cache.graphs) != int(self.card):
+            raise AssertionError(f"{label}: {len(step.cache.graphs)} graphs captured")
+        return out
+
+
+def _diff(a, b) -> float:
+    import torch
+
+    if isinstance(a, dict):
+        return torch.stack([(a[k] - b[k]).abs().max() for k in a]).max().item()
+    return (a - b).abs().max().item()
+
+
+def _spread(runs: list, part: str) -> float:
+    return max(_diff(a[part], b[part]) for i, a in enumerate(runs) for b in runs[i + 1:])
+
+
+def default_setting_gate(eagers: list, graphs: list) -> tuple[str, list]:
+    """The graph captured in torch's default setting (the one the trainer
+    and the distiller replay) against eager: per quantity (GATE_PARTS), the
+    first graph run against the first eager run within twice the larger of
+    the eager runs' and the graph runs' spreads (their largest pairwise
+    differences; bit for bit where both are 0). Returns (the log's
+    verdicts, failures)."""
+    verdicts, failures = [], []
+    for part in GATE_PARTS:
+        bound = 2 * max(_spread(eagers, part), _spread(graphs, part))
+        err = _diff(graphs[0][part], eagers[0][part])
+        verdicts.append(f"{part} {err:.3g} (eager {_spread(eagers, part):.3g}, graph "
+                        f"{_spread(graphs, part):.3g})")
+        if not (err == 0 if bound == 0 else err <= bound):
+            failures.append(f"default setting {part}: graph against eager {err:.3g} > {bound:.3g}")
+    return "; ".join(verdicts), failures
+
+
+def deterministic_gate(eagers: list, graph: dict) -> tuple[str, list]:
+    """Under deterministic algorithms: per quantity the graph must equal the
+    first eager run bit for bit where the eager runs agree bit for bit,
+    else lie within twice their spread; the graph's launches must be the
+    eager runs' and its losses finite and distinct. Returns (the log's
+    verdicts, failures)."""
+    import torch
+
+    verdicts, failures = [], []
+    for part in GATE_PARTS:
+        spread, err = _spread(eagers, part), _diff(graph[part], eagers[0][part])
+        verdicts.append(f"{part} {err:.3g} (eager spread {spread:.3g})")
+        if not (err == 0 if spread == 0 else err <= 2 * spread):
+            failures.append(f"{part}: graph against eager {err:.3g}, eager spread {spread:.3g}")
+    if not all(r["counts"] == graph["counts"] for r in eagers):
+        failures.append(f"launches: graph {graph['counts']}, eager {eagers[0]['counts']}")
+    if not (torch.isfinite(graph["loss"]).all()
+            and len(set(graph["loss"].tolist())) == len(graph["loss"])):
+        failures.append(f"graph losses {graph['loss'].tolist()}")
+    return "; ".join(verdicts), failures
+
+
+def graph_gates(label: str, runner: StepRuns, make_step, step=None, eagers: list = (),
+                graphs: list = (), default_setting: bool = True) -> list:
+    """Both gates of a captured step against its eager body, from copies of
+    one state (`runner`): in torch's default setting (unless
+    `default_setting` is False), GATE_RUNS eager runs (`step.eager`) and
+    GATE_RUNS runs of one step function's graph (`step`, else
+    `make_step()`; `eagers` and `graphs` are its runs made already, topped
+    up to GATE_RUNS: `default_setting_gate`), then under deterministic
+    algorithms GATE_RUNS eager runs and a second step function's graph
+    captured under that setting (`deterministic_gate`). Logs both; returns
+    the failures."""
+    failures, t0 = [], time.perf_counter()
+    if default_setting:
+        step = make_step() if step is None else step
+        eagers, graphs = list(eagers), list(graphs)
+        while len(eagers) < GATE_RUNS or len(graphs) < GATE_RUNS:
+            if len(eagers) < GATE_RUNS:
+                eagers.append(runner.run(step.eager))
+            if len(graphs) < GATE_RUNS:
+                graphs.append(runner.graph_run(step, label))
+        verdicts, failures = default_setting_gate(eagers, graphs)
+        log(f"  {label}, torch's default setting: eager {[round(r['ms'], 1) for r in eagers]} "
+            f"ms/step, graph {[round(r['ms'], 1) for r in graphs]} (replays), peak device "
+            f"memory eager {_gib(eagers[0]['peak'])}, graph {_gib(graphs[0]['peak'])} (a "
+            f"replay allocates nothing: the pool counts at the capture); max "
+            f"|diff| over {runner.n_steps} steps, graph against eager (eager against eager, "
+            f"graph against graph, {GATE_RUNS} runs each; bound twice the larger): {verdicts} "
+            f"[{time.perf_counter() - t0:.1f} s]")
+    del step
+    t0 = time.perf_counter()  # its graph's memory, unless the caller keeps the step
+    det_step = make_step()
+    with deterministic_algorithms() as nondeterministic:
+        det_eagers = [runner.run(det_step.eager) for _ in range(GATE_RUNS)]
+        det_graph = runner.graph_run(det_step, label)
+    verdicts, det_failures = deterministic_gate(det_eagers, det_graph)
+    log(f"  {label}, under deterministic algorithms, graph against {GATE_RUNS} eager runs, max "
+        f"|diff| over {runner.n_steps} steps: {verdicts}; ops without a deterministic CUDA "
+        f"kernel: {sorted(nondeterministic) or 'none'}; eager "
+        f"{[round(r['ms'], 1) for r in det_eagers]} ms/step, graph {det_graph['ms']:.1f} "
+        f"[{time.perf_counter() - t0:.1f} s]")
+    runner.put_back()
+    return failures + det_failures
+
+
 def step_alone(state: dict, codec: str, model, train_state, batch: int) -> None:
     """The trainer's step alone on one device batch (no data pipeline), full
     width, bf16, the model's dropout, EMA, eager and as its captured graph,
-    each run from copies of one state (the trainer's, put back in place;
-    the dropout generator reseeded):
-      1. as training runs it, in torch's default setting: STEP_ALONE_STEPS
-         eager steps after a warm one (`train_step.eager`, the body a
-         signature's first call runs), then `train_step`'s first call
-         (eager) and second (capture and replay) and STEP_ALONE_STEPS
-         replays; then each once more. Logs ms/step, each run's peak device
-         memory (the model and its train state included; the graph's pool
-         and its capture counted), one step of each profiled, and per
-         quantity the graph against eager beside eager against eager and
-         graph against graph (no gate: here two eager runs differ);
-      2. the gate, under torch's deterministic algorithms (warn only: the
-         ops without a deterministic CUDA kernel are logged, and run):
-         STEP_ALONE_EAGER_RUNS eager runs of STEP_ALONE_STEPS steps, then a
-         second step function's graph captured under the same setting and
-         replayed as in 1. Per quantity (the steps' losses and grad norms;
-         the masters, moments and EMA after them) the graph must equal the
-         first eager run bit for bit where the eager runs agree bit for
-         bit, else lie within twice their spread (their largest pairwise
-         difference), and the replays must count the eager launches."""
+    each run from copies of one state (`StepRuns`: the trainer's, put back
+    in place; the dropout generator reseeded): STEP_ALONE_STEPS eager steps
+    after a warm one (`train_step.eager`, the body a signature's first call
+    runs), then `train_step`'s first call (eager) and second (capture and
+    replay) and STEP_ALONE_STEPS replays. Logs ms/step, each run's peak
+    device memory (the model and its train state included; the graph's
+    pool and its capture counted) and one step of each profiled, its flash
+    kernels in the device's trace (`flash_traced`) held to the eager
+    steps' launches a step; then the
+    gates (`graph_gates`): the graph in torch's default setting against
+    eager, and a graph captured under deterministic algorithms against
+    eager, bit for bit where the eager runs agree bit for bit."""
     import torch
 
     from ddpm_image_restoration_tpu_torch.codecs.surrogate import codec_surrogate
@@ -2453,104 +2730,40 @@ def step_alone(state: dict, codec: str, model, train_state, batch: int) -> None:
 
     cfg = TrainConfig(codec=codec, model=model.cfg, batch_size=batch, ema_decay=0.999)
     dev = model.out_conv.weight.device
-    card = dev.type == "cuda"  # else the CPU rehearsal: every call eager, no device memory
     x0 = torch.from_numpy(synthetic_images(batch, model.cfg.image_size, SEED + 4)).to(dev)
     t = torch.randint(1, 100, (batch,), generator=torch.Generator().manual_seed(SEED))
     device_batch = {"x0": x0, "xt": codec_surrogate(x0, 30, codec=codec), "t": t.to(dev)}
-    gen = torch.Generator(device=dev)
-    saved = {p: {k: v.to("cpu", copy=True) for k, v in getattr(train_state, p).items()}
-             for p in STATE_PARTS}
-    count = train_state.step
-
-    def put_back():
-        with torch.no_grad():
-            for p in STATE_PARTS:
-                for k, v in getattr(train_state, p).items():
-                    v.copy_(saved[p][k])
-        train_state.step = count
-        train_state.write_back()
-        gen.manual_seed(SEED + 1)
-
-    def steps(fn, warm_up=()):
-        """STEP_ALONE_STEPS calls of fn from the state put back; the calls
-        of `warm_up` first, each from the state put back (their memory
-        counted, not their time)."""
-        torch.cuda.synchronize()
-        if card:
-            torch.cuda.reset_peak_memory_stats(dev)
-        for warm in warm_up:
-            put_back()
-            warm(train_state, device_batch, gen)
-        put_back()
-        torch.cuda.synchronize()
-        _reset_counts()
-        t0 = time.perf_counter()
-        out = [fn(train_state, device_batch, gen) for _ in range(STEP_ALONE_STEPS)]
-        torch.cuda.synchronize()
-        ms = 1e3 * (time.perf_counter() - t0) / STEP_ALONE_STEPS
-        return {"ms": ms, "peak": torch.cuda.max_memory_allocated(dev) if card else 0,
-                "counts": _counts(),
-                "loss": torch.stack([m["loss"] for m in out]).cpu(),
-                "grad_norm": torch.stack([m["grad_norm"] for m in out]).cpu(),
-                **{p: {k: v.to("cpu", copy=True) for k, v in getattr(train_state, p).items()}
-                   for p in STATE_PARTS}}
-
-    def graph_run(step):
-        out = steps(step, warm_up=(step, step) if card else ())
-        if len(step.graphs) != int(card):
-            raise AssertionError(f"{codec} step alone: {len(step.graphs)} graphs captured")
-        return out
-
-    def diff(a, b) -> float:
-        if isinstance(a, dict):
-            return max((a[k] - b[k]).abs().max().item() for k in a)
-        return (a - b).abs().max().item()
-
-    def spread(a, b, part) -> str:
-        return f"{diff(a[part], b[part]):.3g}"
+    runner = StepRuns(train_state, device_batch, torch.Generator(device=dev),
+                      STEP_ALONE_STEPS)
+    label = f"{codec} step alone"
 
     step = make_train_step(model, cfg)
-    eager = steps(step.eager, warm_up=(step.eager,))
-    graph = graph_run(step)
-    eager2, graph2 = steps(step.eager), graph_run(step)
+    eager = runner.run(step.eager, warm_up=(step.eager,))
+    graph = runner.graph_run(step, label)
     log(f"train step alone ({codec}, full width, bf16, batch {batch}, dropout "
         f"{model.cfg.dropout}, EMA) on {state['smi']}: eager {eager['ms']:.1f} ms/step "
         f"({batch * 1e3 / eager['ms']:.1f} img/s), graph {graph['ms']:.1f} ms/step "
         f"({batch * 1e3 / graph['ms']:.1f} img/s, {eager['ms'] / graph['ms']:.2f}x); peak "
         f"device memory eager {_gib(eager['peak'])}, graph {_gib(graph['peak'])} (its capture "
         f"and pool included); launches over {STEP_ALONE_STEPS} steps eager {eager['counts']}, "
-        f"graph {graph['counts']}; in torch's default setting, max |diff| over "
-        f"{STEP_ALONE_STEPS} steps, graph against eager (eager against eager, graph against "
-        "graph): " + ", ".join(f"{p} {spread(graph, eager, p)} ({spread(eager2, eager, p)}, "
-                               f"{spread(graph2, graph, p)})"
-                               for p in ("loss", "grad_norm", *STATE_PARTS)))
-    profile_run(f"one {codec} train step, batch {batch}, eager",
-                lambda: step.eager(train_state, device_batch, gen))
-    profile_run(f"one {codec} train step, batch {batch}, graph replayed",
-                lambda: step(train_state, device_batch, gen))
-    del step
-
-    det_step = make_train_step(model, cfg)
-    with deterministic_algorithms() as nondeterministic:
-        runs = [steps(det_step.eager) for _ in range(STEP_ALONE_EAGER_RUNS)]
-        det_graph = graph_run(det_step)
-    failures, verdicts = [], []
-    for part in ("loss", "grad_norm", *STATE_PARTS):
-        spread = max(diff(a[part], b[part]) for i, a in enumerate(runs) for b in runs[i + 1:])
-        err = diff(det_graph[part], runs[0][part])
-        verdicts.append(f"{part} {err:.3g} (eager spread {spread:.3g})")
-        if not (err == 0 if spread == 0 else err <= 2 * spread):
-            failures.append(f"{part}: graph against eager {err:.3g}, eager spread {spread:.3g}")
-    if not all(r["counts"] == det_graph["counts"] == graph["counts"] for r in runs):
-        failures.append(f"launches: graph {det_graph['counts']}, eager {runs[0]['counts']}")
-    if not (torch.isfinite(det_graph["loss"]).all()
-            and len(set(det_graph["loss"].tolist())) == STEP_ALONE_STEPS):
-        failures.append(f"graph losses {det_graph['loss'].tolist()}")
-    log(f"  under deterministic algorithms, graph against {STEP_ALONE_EAGER_RUNS} eager runs, "
-        f"max |diff| over {STEP_ALONE_STEPS} steps: " + "; ".join(verdicts)
-        + f"; ops without a deterministic CUDA kernel: {sorted(nondeterministic) or 'none'}")
+        f"graph {graph['counts']}")
+    per_step = tuple(n // STEP_ALONE_STEPS for n in eager["counts"].values())
+    on_device = {"eager": flash_traced(
+        f"one {codec} train step, batch {batch}, eager",
+        lambda: step.eager(train_state, device_batch, runner.gen), per_step)[0],
+                 "graph replayed": flash_traced(
+        f"one {codec} train step, batch {batch}, graph replayed",
+        lambda: step(train_state, device_batch, runner.gen), per_step)[0]}
+    failures = graph_gates(label, runner, lambda: make_train_step(model, cfg), step, [eager],
+                           [graph])
+    for call, flash in on_device.items() if runner.card else ():
+        if by_wrapper(flash) != per_step:
+            failures.append(f"one step {call}: flash kernels in the device's trace "
+                            f"{dict(flash)}, the eager steps launched {per_step} a step")
+    if graph["counts"] != eager["counts"]:
+        failures.append(f"launches: graph {graph['counts']}, eager {eager['counts']}")
     if failures:
-        raise AssertionError(f"{codec} step alone: " + "; ".join(failures))
+        raise AssertionError(f"{label}: " + "; ".join(failures))
 
 
 def _counted(state: dict, label: str, fn, argv, want, totals: dict, failures: list):
@@ -2603,14 +2816,22 @@ def distill_launches(n_steps: int, n_eval: int, teacher_stride: int = 1,
     for b in range(n_steps):
         init_t = init_timestep_for_quality(DISTILL_QUALITIES[b % len(DISTILL_QUALITIES)],
                                            DIFFUSION_STEPS, preset)
-        e_t = _evals(init_t, teacher_n_eval, teacher_stride)
-        e_s = _evals(init_t, n_eval)
-        fwd += FLASH_PER_EVAL * (e_t + (1 + recompute) * e_s)
-        bwd += FLASH_PER_EVAL * e_s
+        f, b_, _ = distill_step_launches(init_t, n_eval, teacher_stride, teacher_n_eval,
+                                         recompute)
+        fwd, bwd = fwd + f, bwd + b_
     fwd += FLASH_PER_EVAL * sum(
         _evals(init_timestep_for_quality(q, DIFFUSION_STEPS, preset), n_eval)
         for q in preset.val_qualities)
     return fwd, bwd, bwd
+
+
+def distill_step_launches(init_t: int, n_eval: int, teacher_stride: int = 1,
+                          teacher_n_eval: int = 0, recompute: int = 1) -> tuple:
+    """(forward, dQ, dK/dV) launches of one distill step from `init_t`
+    (`distill_launches`' term of a step)."""
+    e_t, e_s = _evals(init_t, teacher_n_eval, teacher_stride), _evals(init_t, n_eval)
+    return (FLASH_PER_EVAL * (e_t + (1 + recompute) * e_s), FLASH_PER_EVAL * e_s,
+            FLASH_PER_EVAL * e_s)
 
 
 def phase_distill(state: dict) -> None:
@@ -2629,8 +2850,13 @@ def phase_distill(state: dict) -> None:
          root directory);
       3. `cli/restore.py --max-evals 2` from the student's EMA on the
          restore phase's WebPs;
-      4. the distill step alone (q50), timed and profiled, and its peak
-         device memory with the solver's rematerialisation on and off.
+      4. `cli/distill.py main` again, DISTILL_POOL_STEPS steps a bucket,
+         its graphs in one memory pool, held to the same run through
+         `step.eager` (`distill_pool`);
+      5. the distill step alone (q50), bf16 and f32 (`distill_alone`):
+         eager and as its captured graph, timed, profiled, its peak device
+         memory with the solver's rematerialisation on and off, and the
+         graph against eager (`graph_gates`).
     Launches per step follow `distill_launches` with r = 1: the student's
     solver runs each step under activation checkpointing (`DDRMSampler.run`,
     remat=True) and its blocks without (no `--remat`), so the backward
@@ -2648,16 +2874,10 @@ def phase_distill(state: dict) -> None:
     from ddpm_image_restoration_tpu_torch.cli.distill import main as distill_main
     from ddpm_image_restoration_tpu_torch.cli.restore import main as restore_main
     from ddpm_image_restoration_tpu_torch.codecs.estimate import estimate_quality
-    from ddpm_image_restoration_tpu_torch.codecs.surrogate import codec_surrogate
-    from ddpm_image_restoration_tpu_torch.config import TrainConfig
     from ddpm_image_restoration_tpu_torch.data.dataset import split_indices
     from ddpm_image_restoration_tpu_torch.models import build_model
     from ddpm_image_restoration_tpu_torch.ops import flash_attention as fa
-    from ddpm_image_restoration_tpu_torch.train.distill import (
-        DistillConfig,
-        make_distill_step,
-        teacher_weights,
-    )
+    from ddpm_image_restoration_tpu_torch.train.distill import DistillConfig, teacher_weights
 
     ckpt_dir = state.get("train_ckpt")
     if ckpt_dir is None:
@@ -2740,8 +2960,7 @@ def phase_distill(state: dict) -> None:
             failures.append(f"distill f32: step {dstate32.step} of {steps}, history "
                             f"{dict(hist32)}, non-finite gradients {bad[:5]}, flash-level qkv "
                             f"gradients {[g is not None for g in qkv32]}")
-        del dstate32, student32, grads
-        torch.cuda.empty_cache()
+        del grads
         elapsed("distill CLI f32")
 
         p_steps = len(split_indices(DISTILL_PROGRESSIVE_IMAGES)[0]) // TRAIN_BATCH
@@ -2768,6 +2987,9 @@ def phase_distill(state: dict) -> None:
             failures.append(f"distill --progressive: budgets {chain}, stages {stages}")
         elapsed("progressive")
 
+        distill_pool(state, common, work, failures)
+        elapsed("shared pool")
+
         webps, _, _ = write_restore_inputs(os.path.join(work, "in"))
         qs = [estimate_quality(p) for p in webps]
         per_batch = [qs[0]] if len(set(qs)) == 1 else qs
@@ -2788,57 +3010,247 @@ def phase_distill(state: dict) -> None:
         state["launches_distill"] = totals
         elapsed("student restore")
 
-        # the distill step alone, on one device batch (no data pipeline)
-        dev = student.out_conv.weight.device
-        teacher_model = build_model("webp", student.cfg, device=dev)
-        teacher_model.load_state_dict(teacher_weights(DistillConfig(teacher_dir=ckpt_dir),
-                                                      verbose=False))
-        cfg = TrainConfig(codec="webp", model=student.cfg, batch_size=TRAIN_BATCH,
-                          ema_decay=0.999, steps=DIFFUSION_STEPS)
-        x0 = torch.from_numpy(synthetic_images(TRAIN_BATCH, student.cfg.image_size,
-                                               SEED + 4)).to(dev)
-        batch = {"x0": x0, "xt": codec_surrogate(x0, 50, codec="webp")}
-        dcfg = DistillConfig(n_eval=DISTILL_N_EVAL, teacher_stride=DISTILL_TEACHER_STRIDE)
-        for remat in (True, False):
-            step, init_t, _, _ = make_distill_step(student, teacher_model, cfg, dcfg, 50,
-                                                   remat=remat)
-            torch.cuda.synchronize()
-            if dev.type == "cuda":
-                torch.cuda.reset_peak_memory_stats(dev)
-            _reset_counts()
-            step(dstate, batch)
-            torch.cuda.synchronize()
-            counts = _counts()
-            peak = (f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
-                    if dev.type == "cuda" else "not measured (no card)")
-            e_t, e_s = _evals(init_t, 0, DISTILL_TEACHER_STRIDE), _evals(init_t, DISTILL_N_EVAL)
-            want = (FLASH_PER_EVAL * (e_t + (2 if remat else 1) * e_s),
-                    FLASH_PER_EVAL * e_s, FLASH_PER_EVAL * e_s)
-            log(f"distill step alone (webp q50: teacher {e_t} evaluations, student {e_s}; "
-                f"full width, bf16, batch {TRAIN_BATCH}, EMA), solver remat {remat}: peak "
-                f"device memory {peak}; launches {counts} (schedule implies {want}); the "
-                f"student's differentiated run and its backward alone: "
-                f"{student_run_peak(student, batch['xt'], init_t, remat)}")
-            if tuple(counts.values()) != want:
-                failures.append(f"distill step alone (remat {remat}): launches {counts}, "
-                                f"schedule implies {want}")
-            if remat:
-                n = DISTILL_TIMED_STEPS
-                t0 = time.perf_counter()
-                for _ in range(n):
-                    step(dstate, batch)
-                torch.cuda.synchronize()
-                ms = 1e3 * (time.perf_counter() - t0) / n
-                log(f"distill step alone: {ms:.1f} ms/step, {TRAIN_BATCH * 1e3 / ms:.1f} img/s "
-                    f"on {state['smi']}")
-                elapsed("step alone timed")
-                profile_run(f"one distill step, webp q50, batch {TRAIN_BATCH}",
-                            lambda: step(dstate, batch))
-                elapsed("profile")
+        # the distill step alone, on one device batch (no data pipeline): bf16,
+        # then f32
+        weights = teacher_weights(DistillConfig(teacher_dir=ckpt_dir), verbose=False)
+        for dtype, st in (("bfloat16", dstate), ("float32", dstate32)):
+            dev = st.model.out_conv.weight.device
+            teacher_model = build_model("webp", st.model.cfg, device=dev)
+            teacher_model.load_state_dict(weights)
+            distill_alone(state, st, teacher_model, failures)
+            del teacher_model
+            elapsed(f"step alone {dtype}")
+        del dstate32, student32
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if failures:
         raise AssertionError("; ".join(failures))
+
+
+def distill_pool(state: dict, common: list, work: str, failures: list) -> None:
+    """The production distiller's graphs (`train/distill.py distill_model`
+    through `cli/distill.py main`, bf16): DISTILL_POOL_STEPS steps for each
+    of the two DISTILL_QUALITIES buckets (round-robin), the teacher at
+    DISTILL_GATE_TEACHER_STRIDE, every bucket's graphs in one cache and
+    memory pool. Under deterministic algorithms, twice: the steps as
+    `distill_model` makes them (a bucket's first step eager, its second
+    captured and replayed, later ones replayed) and each step through
+    `step.eager`. The first must capture once per bucket and replay
+    DISTILL_POOL_STEPS − 1 times per bucket; both runs' launches must be
+    the schedule's (`distill_launches`; the graph run's replays counted as
+    their captures' launches) and their losses and grad norms per step,
+    masters, moments, EMA and validation PSNR bit for bit equal. Logs each
+    run's wall time and peak device memory above what the phase held
+    before it. Its launches stay out of the phase's totals."""
+    import torch
+
+    from ddpm_image_restoration_tpu_torch.cli.distill import main as distill_main
+    from ddpm_image_restoration_tpu_torch.data.dataset import split_indices
+    from ddpm_image_restoration_tpu_torch.train import distill as distill_mod
+
+    steps = len(DISTILL_QUALITIES) * DISTILL_POOL_STEPS
+    images = steps * TRAIN_BATCH
+    while len(split_indices(images)[0]) < steps * TRAIN_BATCH:
+        images += 1
+    want = distill_launches(steps, DISTILL_N_EVAL, DISTILL_GATE_TEACHER_STRIDE)
+    card = torch.cuda.is_available() and "cuda" in common
+    runs = {}
+    for mode in ("graph", "eager"):
+        made, per_step, real = [], [], distill_mod.make_distill_step
+
+        def making(*a, mode=mode, made=made, per_step=per_step, real=real, **k):
+            step, *rest = real(*a, **k)
+            made.append(step)
+            fn = step.eager if mode == "eager" else step
+
+            def recorded(train_state, batch, generator=None):
+                out = fn(train_state, batch, generator)
+                per_step.append(out)
+                return out
+
+            return (recorded, *rest)
+
+        if card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        distill_mod.make_distill_step = making
+        try:
+            with deterministic_algorithms() as nondeterministic:
+                (dstate, hist), _, wall = _counted(
+                    state, f"distill shared pool, {mode} [{DISTILL_POOL_STEPS} steps a bucket, "
+                    f"teacher stride {DISTILL_GATE_TEACHER_STRIDE}, deterministic algorithms]",
+                    distill_main,
+                    [*common, "--synthetic", str(images), "--checkpoint-dir",
+                     os.path.join(work, f"pool_{mode}"), "--n-eval", str(DISTILL_N_EVAL),
+                     "--teacher-stride", str(DISTILL_GATE_TEACHER_STRIDE)],
+                    want, dict.fromkeys(_counts(), 0), failures)
+        finally:
+            distill_mod.make_distill_step = real
+        peak = (f"{_gib(torch.cuda.max_memory_allocated() - base)} above the "
+                f"{_gib(base)} allocated before" if card else "not measured (no card)")
+        caches = {id(s.cache): s.cache for s in made}
+        graphs = [g for c in caches.values() for g in c.graphs.values()]
+        runs[mode] = {"loss": torch.stack([m["loss"] for m in per_step]),
+                      "grad_norm": torch.stack([m["grad_norm"] for m in per_step]),
+                      **{p: {k: v.clone() for k, v in getattr(dstate, p).items()}
+                         for p in STATE_PARTS},
+                      "val_psnr": hist["val_psnr"]}
+        log(f"  {mode}: {len(per_step)} steps in {wall:.1f} s with the teacher's and "
+            f"students' setup and one validation; peak device memory {peak}; "
+            f"{len(made)} step functions, {len(caches)} cache(s), "
+            f"{sum(c.captures for c in caches.values())} captures, replays "
+            f"{[g.replays for g in graphs]}; ops without a deterministic CUDA kernel: "
+            f"{sorted(nondeterministic) or 'none'}")
+        # on the CPU nothing is captured
+        replays = [DISTILL_POOL_STEPS - 1] * len(DISTILL_QUALITIES) if card else []
+        if mode == "graph" and (len(made) != len(DISTILL_QUALITIES) or len(caches) != 1
+                                or [g.replays for g in graphs] != replays):
+            failures.append(f"distill shared pool: {len(made)} step functions, {len(caches)} "
+                            f"caches, replays {[g.replays for g in graphs]}")
+        if len(per_step) != steps:
+            failures.append(f"distill shared pool, {mode}: {len(per_step)} steps of {steps}")
+        del dstate, hist, made, caches, graphs, per_step
+        if card:
+            torch.cuda.empty_cache()
+    diffs = {p: _diff(runs["graph"][p], runs["eager"][p]) for p in GATE_PARTS}
+    log(f"  distill shared pool, graph against eager, max |diff| (bit for bit): {diffs}; "
+        f"val_psnr {runs['graph']['val_psnr']} and {runs['eager']['val_psnr']}")
+    if any(diffs.values()) or runs["graph"]["val_psnr"] != runs["eager"]["val_psnr"]:
+        failures.append(f"distill shared pool: graph against eager {diffs}, val_psnr "
+                        f"{runs['graph']['val_psnr']}, {runs['eager']['val_psnr']}")
+
+
+def distill_alone(state: dict, train_state, teacher, failures: list) -> None:
+    """The distill step alone (webp q50, full width, batch TRAIN_BATCH, EMA,
+    the student's and the teacher's compute dtype) on one device batch:
+      1. per solver remat on and off, one eager call (remat on: the step's
+         first call, which runs eager; off: `step.eager`), timed: its
+         launches against the schedule's (`distill_step_launches`), peak
+         device memory, and the student's run and backward alone
+         (`student_run_peak`);
+      2. remat on: DISTILL_TIMED_EAGER warm eager calls (`step.eager`)
+         timed, one more profiled, the step's second call (capture and
+         replay), then DISTILL_TIMED_REPLAYS replays timed; peak device
+         memory of the capture and replays (the graph's pool included)
+         and one more replay profiled (device time, busy share). The
+         flash kernels of the profiled eager call and of the profiled
+         replay are counted in the device's trace (`flash_traced`: a
+         replay runs no Python) and held to the schedule's; the
+         wrappers' counts of the timed replays (the capture's count added
+         per replay) are held to it too;
+      3. the gates (`graph_gates`) from copies of the state, with the
+         teacher at DISTILL_GATE_TEACHER_STRIDE over DISTILL_GATE_STEPS
+         steps (depth cut for time): the graph in torch's default setting
+         (remat on) and, under deterministic algorithms, remat on and off.
+    The state is left as the timed steps leave it."""
+    import torch
+
+    from ddpm_image_restoration_tpu_torch.codecs.surrogate import codec_surrogate
+    from ddpm_image_restoration_tpu_torch.config import TrainConfig
+    from ddpm_image_restoration_tpu_torch.train.distill import DistillConfig, make_distill_step
+
+    student = train_state.model
+    dtype, dev = student.cfg.compute_dtype, student.out_conv.weight.device
+    card = dev.type == "cuda"
+    cfg = TrainConfig(codec="webp", model=student.cfg, batch_size=TRAIN_BATCH,
+                      ema_decay=0.999, steps=DIFFUSION_STEPS)
+    x0 = torch.from_numpy(synthetic_images(TRAIN_BATCH, student.cfg.image_size,
+                                           SEED + 4)).to(dev)
+    batch = {"x0": x0, "xt": codec_surrogate(x0, 50, codec="webp")}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    dcfg = DistillConfig(n_eval=DISTILL_N_EVAL, teacher_stride=DISTILL_TEACHER_STRIDE)
+    label = f"distill step alone ({dtype})"
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        _reset_counts()
+        fn(train_state, batch, gen)
+        torch.cuda.synchronize()
+        return tuple(_counts().values())
+
+    def peak() -> str:
+        return _gib(torch.cuda.max_memory_allocated(dev)) if card else "not measured (no card)"
+
+    for remat in (True, False):
+        step, init_t, _, _ = make_distill_step(student, teacher, cfg, dcfg, 50, remat=remat)
+        want = distill_step_launches(init_t, DISTILL_N_EVAL, DISTILL_TEACHER_STRIDE,
+                                     recompute=int(remat))
+        if card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        counts = counted(step if remat else step.eager)  # a signature's first call: eager
+        first_ms, eager_peak = 1e3 * (time.perf_counter() - t0), peak()
+        log(f"{label} (webp q50: teacher {_evals(init_t, 0, DISTILL_TEACHER_STRIDE)} "
+            f"evaluations, student {_evals(init_t, DISTILL_N_EVAL)}; full width, batch "
+            f"{TRAIN_BATCH}, EMA), solver remat {remat}, eager: peak device memory "
+            f"{eager_peak}; launches {counts} (schedule implies {want}); the student's "
+            f"differentiated run and its backward alone: "
+            f"{student_run_peak(student, batch['xt'], init_t, remat)}")
+        if counts != want:
+            failures.append(f"{label} (remat {remat}): launches {counts}, schedule implies "
+                            f"{want}")
+        if not remat:
+            continue
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DISTILL_TIMED_EAGER):
+            step.eager(train_state, batch, gen)
+        torch.cuda.synchronize()
+        eager_ms = 1e3 * (time.perf_counter() - t0) / DISTILL_TIMED_EAGER
+        on_device = {"eager": flash_traced(
+            f"one distill step, webp q50, batch {TRAIN_BATCH}, {dtype}, eager",
+            lambda: step.eager(train_state, batch, gen), want)}
+        if card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        capture = counted(step)
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(DISTILL_TIMED_REPLAYS):
+            step(train_state, batch, gen)
+        torch.cuda.synchronize()
+        graph_ms = 1e3 * (time.perf_counter() - t0) / DISTILL_TIMED_REPLAYS
+        replayed = tuple(_counts().values())
+        graphs = list(step.cache.graphs.values())
+        replays = graphs[0].replays if graphs else 0
+        log(f"{label}: eager {eager_ms:.1f} ms/step ({TRAIN_BATCH * 1e3 / eager_ms:.1f} img/s) "
+            f"over {DISTILL_TIMED_EAGER} warm calls (the first call {first_ms:.1f}), graph "
+            f"{graph_ms:.1f} ms/step ({TRAIN_BATCH * 1e3 / graph_ms:.1f} img/s, "
+            f"{eager_ms / graph_ms:.2f}x) over {DISTILL_TIMED_REPLAYS} replays; peak device "
+            f"memory eager {eager_peak}, graph {peak()} (its capture and pool included); "
+            f"{len(graphs)} graph(s), {replays} replays; launches of the capture {capture}, "
+            f"wrapper counts of the {DISTILL_TIMED_REPLAYS} replays {replayed} (the capture's, "
+            f"added per replay; the schedule implies {want} a step) on {state['smi']}")
+        if capture != want or replayed != tuple(DISTILL_TIMED_REPLAYS * n for n in want):
+            failures.append(f"{label}: launches {capture}, replays {replayed}, the schedule "
+                            f"implies {want} a step")
+        on_device["graph replayed"] = flash_traced(
+            f"one distill step, webp q50, batch {TRAIN_BATCH}, {dtype}, graph replayed",
+            lambda: step(train_state, batch, gen), want)
+        if card:
+            replays = graphs[0].replays if graphs else 0
+            sessions = on_device["graph replayed"][1]
+            if len(graphs) != 1 or replays != 1 + DISTILL_TIMED_REPLAYS + sessions:
+                failures.append(f"{label}: {len(graphs)} graphs, {replays} replays")
+            for call, (flash, sessions) in on_device.items():
+                log(f"  {label}, one step {call}: flash kernels in the device's trace "
+                    f"{by_wrapper(flash)} over {sessions} profiled call(s) (the schedule "
+                    f"implies {want})")
+                if by_wrapper(flash) != want:
+                    failures.append(f"{label}, one step {call}: flash kernels in the device's "
+                                    f"trace {dict(flash)}, the schedule implies {want}")
+        del step, graphs
+
+    gate_dcfg = DistillConfig(n_eval=DISTILL_N_EVAL, teacher_stride=DISTILL_GATE_TEACHER_STRIDE)
+    runner = StepRuns(train_state, batch, gen, DISTILL_GATE_STEPS)
+    for remat in (True, False):
+        gate = f"{label}, remat {'on' if remat else 'off'}, teacher stride " \
+               f"{DISTILL_GATE_TEACHER_STRIDE}"
+        failures += [f"{gate}: {f}" for f in graph_gates(
+            gate, runner, lambda remat=remat: make_distill_step(
+                student, teacher, cfg, gate_dcfg, 50, remat=remat)[0], default_setting=remat)]
 
 
 def student_run_peak(student, y, init_t: int, remat: bool) -> str:
@@ -4705,6 +5117,15 @@ PHASES = [("environment", phase_environment), ("build", phase_build),
           ("gaussian_mixture", phase_gaussian_mixture), ("modules", phase_modules)]
 
 
+# How `launches` counts a CUDA graph's replays, which run no Python.
+REPLAY_LAUNCHES = (
+    "each wrapper call that launches its kernel counts one; a captured graph's replay adds "
+    "the launches its capture recorded (utils/graphs.py CapturedGraph.replay), except the "
+    "1024² train step's replay, counted in the device's trace; the device's trace of one "
+    "replay each of the serve solver, the train step and the distill step is held to the "
+    "schedule (flash_traced)")
+
+
 def kernels_json(state: dict) -> str:
     """One row per kernel. Its top-level numbers are at the first serving
     or training shape in bf16 (down2); `main_path_shapes` has each shape the
@@ -4715,7 +5136,8 @@ def kernels_json(state: dict) -> str:
     parallel phase's ranks, the restore and serve CLIs, the evaluator, the
     AVIF family, the Gaussian-mixture restore, the release weights' restores
     and CLIs), each counted from 0;
-    `launches_by_path` splits it."""
+    `launches_by_path` splits it; `launches_counted` says how a replayed
+    graph's launches enter it (`REPLAY_LAUNCHES`)."""
     paths = {"serve": state["launches"], "path1024": state.get("launches_path1024", {}),
              "train": state.get("launches_train", {}),
              "distill": state.get("launches_distill", {}),
@@ -4740,6 +5162,7 @@ def kernels_json(state: dict) -> str:
             "design": DESIGNS[name],
             "replaces": f"{JAX_PACKAGE}/ops/pallas/flash_attention.py:{replaces}",
             "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "launches_counted": REPLAY_LAUNCHES,
             "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
             "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"], "library_ms": first["library_ms"],

@@ -41,6 +41,7 @@ JAX package's; at eta 0 (the production policy) the two agree.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 from typing import Optional, Tuple
 
@@ -193,6 +194,28 @@ def _ddrm_update(x_theta, c, y, t, last: np.ndarray, last_d: torch.Tensor,
     return x_next
 
 
+@dataclasses.dataclass(frozen=True)
+class SolverPlan:
+    """What `DDRMSampler.prepare` sets up on the host for a solver run:
+    the quality per row (`q_host`) and on the device (`q_vec`), the
+    schedule's (idx, used, last, t, phase) as [slots, rows] host arrays
+    (`sched`) and its (used, last, t, phase) on the device (`sched_d`), the
+    slots that draw eta noise, the whole batch's shape (each draw's), the
+    rows restored, eta, eta_b, encoder reuse and decoder reuse depth."""
+
+    q_host: np.ndarray
+    sched: tuple
+    sched_d: tuple
+    q_vec: torch.Tensor
+    draws: list
+    shape: tuple
+    rows: Optional[Tuple[int, int]]
+    eta: float
+    eta_b: float
+    encoder_reuse: int
+    decoder_reuse_depth: int
+
+
 CONSISTENCY_MODES = ("surrogate", "callback", "host_loop")
 # Captured solver loops kept per sampler (the JAX package's `_compiled` is
 # unbounded; a graph holds its activations' memory).
@@ -234,7 +257,6 @@ class DDRMSampler:
         self.consistency_mode = consistency_mode
         # one memory pool for all of this sampler's graphs
         self._cache = GraphCache(GRAPH_CACHE_SIZE, shared_pool=True)
-        self._graphs, self._seen = self._cache.graphs, self._cache.seen
 
     def _schedule(self, steps, stride: int, q_host: np.ndarray, encoder_reuse: int,
                   traced_budget: int):
@@ -309,7 +331,35 @@ class DDRMSampler:
         (a data-parallel rank's share; rows past the batch's end repeat its
         last row and are padding). The schedule, the phase gate and the eta
         noise are still those of the whole batch, so each row comes out as a
-        restore of the whole batch gives it."""
+        restore of the whole batch gives it.
+
+        `run` is `prepare`, `draw_noise` and `_loop`: a caller that captures
+        the loop in a graph of its own (the distill step) prepares once,
+        outside its capture, and calls the other two in its body (not
+        `run`: graphs do not nest)."""
+        if torch.is_grad_enabled() and self.consistency_mode != "surrogate":
+            raise ValueError(
+                f"a differentiable run needs the 'surrogate' consistency mode: the "
+                f"host codec of {self.consistency_mode!r} has no gradient")
+        plan = self.prepare(y, quality, steps, stride, encoder_reuse, decoder_reuse_depth,
+                            traced_budget, eta, eta_b, rows)
+        noise = self.draw_noise(plan, y.device, generator)
+        y_rows = take_rows(y.float(), rows)
+        if not self._graphed(y, remat):
+            return self._loop(y_rows, plan.q_vec, noise, plan, remat)
+        key = self._signature(y_rows, y.dtype, plan.sched, plan.eta, plan.eta_b, encoder_reuse,
+                              decoder_reuse_depth, rows, tuple(plan.draws))
+        return self._cache(key, lambda y_, q_, z_: self._loop(y_, q_, z_, plan, remat),
+                           (y_rows, plan.q_vec, noise))
+
+    def prepare(self, y: torch.Tensor, quality, steps, stride: int = 1, encoder_reuse: int = 1,
+                decoder_reuse_depth: int = 0, traced_budget: int = 0,
+                eta: Optional[float] = None, eta_b: Optional[float] = None,
+                rows: Optional[Tuple[int, int]] = None) -> "SolverPlan":
+        """The host's part of `run` (its arguments, `y` read for its shape
+        and device only): the schedule, the slots that draw noise, and the
+        quality vector and the schedule's per-lane flags on the device. The
+        plan can be kept and reused for any batch of y's shape."""
         if encoder_reuse < 1:
             raise ValueError("encoder_reuse must be >= 1")
         if decoder_reuse_depth < 0:
@@ -319,42 +369,37 @@ class DDRMSampler:
                 "decoder_reuse_depth requires encoder_reuse > 1 (the deep "
                 "decoder is cached per encoder-reuse group)"
             )
-        if torch.is_grad_enabled() and self.consistency_mode != "surrogate":
-            raise ValueError(
-                f"a differentiable run needs the 'surrogate' consistency mode: the "
-                f"host codec of {self.consistency_mode!r} has no gradient")
         preset = self.preset
         eta = preset.eta if eta is None else eta
         eta_b = preset.eta_b if eta_b is None else eta_b
-        b, in_dtype = y.shape[0], y.dtype
-        y = y.float()
+        b = y.shape[0]
         q_host = np.broadcast_to(np.asarray(quality, np.float32).reshape(-1), (b,))
         if torch.is_tensor(steps):
             steps = steps.cpu().numpy()
         sched = self._schedule(steps, stride, q_host, encoder_reuse, traced_budget)
         # the slots that draw eta noise, each a draw of the whole batch as
-        # the reference draws it, made here in slot order
+        # the reference draws it, in slot order
         draws = [p for p in range(len(sched[0])) if eta and not sched[2][p].all()]
-        noise = torch.stack([take_rows(torch.randn((b, *y.shape[1:]), generator=generator,
-                                                   device=y.device, dtype=torch.float32), rows)
-                             for _ in draws]) if draws else None
         if rows is not None:
-            y, q_host = take_rows(y, rows), take_rows(q_host, rows)
+            q_host = take_rows(q_host, rows)
             sched = tuple(take_rows(a, rows, axis=1) for a in sched)
         q_vec = torch.tensor(q_host, device=y.device)
+        sched_d = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(y.device) for a in sched[1:])
+        return SolverPlan(q_host, sched, sched_d, q_vec, draws, tuple(y.shape), rows, eta, eta_b,
+                          encoder_reuse, decoder_reuse_depth)
 
-        def loop():
-            """The slot loop over device tensors: (y, q_vec, noise) -> (x_t, x̂)."""
-            sched_d = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(y.device)
-                            for a in sched[1:])
-            return lambda y_, q_, z_: self._loop(y_, q_, z_, q_host, sched, sched_d, draws, eta,
-                                                 eta_b, encoder_reuse, decoder_reuse_depth, remat)
-
-        if not self._graphed(y, remat):
-            return loop()(y, q_vec, noise)
-        key = self._signature(y, in_dtype, sched, eta, eta_b, encoder_reuse,
-                              decoder_reuse_depth, rows, tuple(draws))
-        return self._cache(key, loop(), (y, q_vec, noise))
+    @staticmethod
+    def draw_noise(plan: "SolverPlan", device: torch.device,
+                   generator: Optional[torch.Generator] = None) -> Optional[torch.Tensor]:
+        """The plan's eta noise, [draws, rows, H, W, C] f32 (None when it
+        draws none): one draw of the whole batch per drawing slot, from
+        `generator`, each cut to the plan's rows. Made on the device, so a
+        captured body may draw it from a registered generator."""
+        if not plan.draws:
+            return None
+        return torch.stack([take_rows(torch.randn(plan.shape, generator=generator, device=device,
+                                                  dtype=torch.float32), plan.rows)
+                            for _ in plan.draws])
 
     def _graphed(self, y: torch.Tensor, remat: bool) -> bool:
         """Whether this run replays a captured graph: CUDA tensors, no grad,
@@ -389,16 +434,19 @@ class DDRMSampler:
                 torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
                 torch.is_inference_mode_enabled())
 
-    def _loop(self, y, q_vec, noise, q_host, sched: tuple, sched_d: tuple, draws: list,
-              eta, eta_b, encoder_reuse: int, depth: int, remat: bool):
-        """The solver slots over (y, q_vec, noise) on the device: host flags
-        pick the branches (`sched`), device flags (`sched_d`: used, last, t,
-        phase) the per-lane selects; nothing here makes a tensor from host
-        data, so a CUDA graph can capture it."""
+    def _loop(self, y: torch.Tensor, q_vec: torch.Tensor, noise: Optional[torch.Tensor],
+              plan: "SolverPlan", remat: bool = False):
+        """The solver slots of `plan` over the f32 observation `y` (the
+        plan's rows), the quality vector `q_vec` (the plan's, or a graph's
+        static copy of it) and the `noise` of `draw_noise`, on the device:
+        host flags pick the branches, the plan's device flags the per-lane
+        selects; nothing here makes a tensor from host data, so a CUDA
+        graph can capture it. Returns (x_t, x̂)."""
         preset, model, cond = self.preset, self.model, self.codec_id
-        idx, used, last, _, phase = sched
-        used_d, last_d, t_all, phase_d = sched_d
-        slot_noise = {p: k for k, p in enumerate(draws)}
+        q_host, eta, eta_b, depth = plan.q_host, plan.eta, plan.eta_b, plan.decoder_reuse_depth
+        idx, used, last, _, phase = plan.sched
+        used_d, last_d, t_all, phase_d = plan.sched_d
+        slot_noise = {p: k for k, p in enumerate(plan.draws)}
 
         def group(x_t, x_theta, first, stop):
             """Slots first..stop-1: one encode (and deep decode) at the
@@ -429,8 +477,8 @@ class DDRMSampler:
             return x_t, x_theta
 
         x_t = x_theta = y
-        for first in range(0, len(idx), encoder_reuse):
-            stop = min(first + encoder_reuse, len(idx))
+        for first in range(0, len(idx), plan.encoder_reuse):
+            stop = min(first + plan.encoder_reuse, len(idx))
             if remat:
                 x_t, x_theta = checkpoint(group, x_t, x_theta, first, stop)
             else:

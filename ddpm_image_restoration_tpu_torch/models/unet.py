@@ -73,18 +73,30 @@ class Dropout(nn.Module):
         self.generator: Optional[torch.Generator] = None
         self.shard: Tuple[int, int] = (0, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training or self.rate == 0.0:
-            return x
+    @property
+    def active(self) -> bool:
+        return self.training and self.rate != 0.0
+
+    def keep_mask(self, shape: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+        """The boolean mask of kept elements for an input of `shape`, drawn
+        from `self.generator` (the draw `forward` makes without one)."""
         if self.generator is None:
             raise RuntimeError("training dropout needs a torch.Generator: "
                                "call set_dropout_generator(model, generator)")
-        keep_prob = 1.0 - self.rate
         r, n = self.shard
-        b = x.shape[0]
-        u = torch.rand((n * b, *x.shape[1:]), generator=self.generator, device=x.device)
-        keep = u[r * b:(r + 1) * b] < keep_prob
-        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+        b = shape[0]
+        u = torch.rand((n * b, *shape[1:]), generator=self.generator, device=device)
+        return u[r * b:(r + 1) * b] < 1.0 - self.rate
+
+    def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`keep`: the mask drawn beforehand by `keep_mask` (a
+        rematerialised block draws it outside its checkpoint), else drawn
+        here."""
+        if not self.active:
+            return x
+        if keep is None:
+            keep = self.keep_mask(x.shape, x.device)
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
 
 
 def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator],
@@ -130,8 +142,10 @@ class ResAttnBlock(nn.Module):
 
     With `cfg.remat` (the JAX package's `nn.remat(ResAttnBlock)`) a call
     made with grad enabled keeps only the block's inputs and recomputes its
-    body in the backward; the recompute replays the dropout generator, so
-    it draws the forward's mask.
+    body in the backward. In training its dropout mask is drawn before the
+    checkpointed region, as the plain block would draw it, and passed in,
+    so the recompute reads the forward's mask and the region draws nothing
+    (utils/remat.py): a CUDA graph captures it like the plain block.
 
     `sp` is the block's `parallel.spatial.SpatialLevel` when its level runs
     split over a spatial mesh (set by the model), else None."""
@@ -170,18 +184,20 @@ class ResAttnBlock(nn.Module):
     def forward(self, x: torch.Tensor, t_emb: torch.Tensor,
                 compression_level: torch.Tensor) -> torch.Tensor:
         if self.remat and torch.is_grad_enabled():
-            drop = self.dropout
-            gen = drop.generator if drop.training and drop.rate else None
-            return checkpoint(self._body, x, t_emb, compression_level, generators=(gen,))
+            keep = None
+            if self.dropout.active:  # the mask of conv1's output, which keeps x's rows
+                keep = self.dropout.keep_mask(
+                    (x.shape[0], self.conv1.out_channels, *x.shape[2:]), x.device)
+            return checkpoint(self._body, x, t_emb, compression_level, keep)
         return self._body(x, t_emb, compression_level)
 
-    def _body(self, x: torch.Tensor, t_emb: torch.Tensor,
-              compression_level: torch.Tensor) -> torch.Tensor:
+    def _body(self, x: torch.Tensor, t_emb: torch.Tensor, compression_level: torch.Tensor,
+              keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         dt, sp = self.dtype, self.sp
         h = spatial.conv3x3(self.conv1, spatial.group_norm(self.norm1, x.float(), sp).to(dt), sp)
         h = h + self.time_proj(t_emb.to(dt))[:, :, None, None]
         h = F.gelu(spatial.group_norm(self.norm2, h.float(), sp).to(dt), approximate="tanh")
-        h = spatial.conv3x3(self.conv2, self.dropout(h), sp)
+        h = spatial.conv3x3(self.conv2, self.dropout(h, keep), sp)
         if self.attn is not None:
             h = h + self.attn(h, sp)
         h = self.freq_guide(h, compression_level, sp)

@@ -10,8 +10,8 @@ and the restore, serve and evaluate CLIs run it with `--max-evals n`.
 Each distill step, for its batch's quality q:
   * the teacher (a second, frozen `CodecDiffusionModel` holding the teacher
     weights) restores the batch under `torch.no_grad()` at its stride;
-  * the student restores it through `DDRMSampler.run` with grad enabled and
-    in eval mode (no dropout, as the JAX package's step applies the model
+  * the student restores it through the sampler's loop with grad enabled
+    and in eval mode (no dropout, as the JAX package's step applies the model
     without a dropout rng), each solver step (or encoder-reuse group) under
     activation checkpointing, so the backward holds one step's activations
     at a time (the JAX package's full-width run ran out of memory without
@@ -22,6 +22,12 @@ Each distill step, for its batch's quality q:
 The solver's noise follows the production policy (eta 0), so teacher and
 student are deterministic and the step matches the JAX package's step for
 step. Qualities go round-robin over the batches, continuing across epochs.
+
+The JAX package jits the step once per quality bucket; on a card, in one
+process, the port captures it as one CUDA graph per signature and replays
+it (`make_distill_step`), both solver loops inside: the sampler's own
+graphs are not entered (graphs do not nest), and each loop's schedule is
+prepared on the host once per batch shape, outside the capture.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,11 +52,18 @@ from ddpm_image_restoration_tpu_torch.diffusion.ddrm import DDRMSampler, _solver
 from ddpm_image_restoration_tpu_torch.diffusion.losses import loss_for_preset
 from ddpm_image_restoration_tpu_torch.diffusion.policy import production_solver_config
 from ddpm_image_restoration_tpu_torch.train.steps import (
+    GRAPH_CACHE_SIZE,
     TrainState,
-    apply_gradients,
+    _graphed,
+    _keep_grads,
+    _weights,
     create_train_state,
+    optimizer_update,
     param_grads,
+    state_signature,
+    update_ema,
 )
+from ddpm_image_restoration_tpu_torch.utils.graphs import GraphCache
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,48 +95,137 @@ class DistillConfig:
     teacher_n_eval: int = 0
 
 
+@dataclasses.dataclass(frozen=True)
+class _Bucket:
+    """What a quality bucket's step body reads besides the state and the
+    batch: the teacher's and the student's samplers, the loss, the gt
+    weight, whether the EMA updates, and the student's solver remat."""
+
+    teacher: DDRMSampler
+    student: DDRMSampler
+    loss_fn: Callable
+    gt_weight: float
+    ema: bool
+    remat: bool
+
+
+def _step_body(b: _Bucket, state: TrainState, plan_t, plan_s, x0: torch.Tensor,
+               xt: torch.Tensor, generator: Optional[torch.Generator]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The distill step's device work: the teacher's solver loop under
+    no_grad, the student's under grad (`plan_t`, `plan_s`: their
+    `DDRMSampler.prepare` plans), the loss with its gt term, the backward,
+    the f32 gradients, clip + AdamW on the masters, the write-back and the
+    EMA; returns (loss, grad norm). It makes no tensor from host data and
+    waits on nothing, so a CUDA graph can capture it; it does not count the
+    step."""
+    y, x0 = xt.float(), x0.float()
+    with torch.no_grad():
+        target = b.teacher._loop(y, plan_t.q_vec,
+                                 b.teacher.draw_noise(plan_t, y.device, generator), plan_t)[0]
+    out = b.student._loop(y, plan_s.q_vec, b.student.draw_noise(plan_s, y.device, generator),
+                          plan_s, b.remat)[0]
+    loss = b.loss_fn(out, target)
+    if b.gt_weight:
+        loss = loss + b.gt_weight * b.loss_fn(out, x0)
+    loss.backward()
+    g_norm = optimizer_update(state, param_grads(state.model))
+    if b.ema:
+        update_ema(state)
+    return loss.detach(), g_norm
+
+
 def make_distill_step(student, teacher, cfg: TrainConfig, dcfg: DistillConfig, quality: int,
-                      remat: bool = True):
+                      remat: bool = True, cache: Optional[GraphCache] = None):
     """The distill step of one quality bucket. Returns (step, init_t,
     student stride, teacher stride), where step(state, batch, generator=None)
     -> {'loss', 'grad_norm'} (0-d tensors) trains `state` (the student's
     train state) on batch = {'x0': clean, 'xt': codec(x0, quality)}, NHWC
     tensors on the student's device. `remat=False` keeps every student
-    step's activations for the backward (more memory, no recompute)."""
+    step's activations for the backward (more memory, no recompute).
+
+    On a card, in one process, without collectives in the student (the
+    train step's `_graphed`), the step runs as one captured CUDA graph per
+    signature (`_signature`), the JAX package's jitted step: the first call
+    eager, the second captures and replays, later ones copy the batch in
+    and replay (`utils/graphs.py GraphCache`); a failed capture raises. The
+    graph holds `_step_body`: both solver loops (the student's remat
+    included), the loss, the backward and the optimizer step. `cache` is
+    the cache of graphs: `distill_model` gives every bucket's step one
+    cache in one memory pool (buckets never run at once); without one the
+    step makes its own. `step.eager` is the step run eagerly, as a
+    signature's first call runs it; `step.cache` is the cache."""
     preset = cfg.preset
     init_t = init_timestep_for_quality(quality, cfg.steps, preset)
     s_stride = student_stride(init_t, dcfg.n_eval)
     t_stride = dcfg.teacher_stride
     if dcfg.teacher_n_eval:  # progressive stages: the teacher at its own budget
         t_stride = student_stride(init_t, dcfg.teacher_n_eval)
-    teacher_sampler = DDRMSampler(teacher, preset)
-    student_sampler = DDRMSampler(student, preset)
-    loss_fn = loss_for_preset(preset.loss_kind)
     policy_eta = production_solver_config(quality).get("eta")
     eta = preset.eta if policy_eta is None else policy_eta
     eta_b = preset.eta_b
-    gt_w = float(dcfg.gt_weight)
+    bucket = _Bucket(DDRMSampler(teacher, preset), DDRMSampler(student, preset),
+                     loss_for_preset(preset.loss_kind), float(dcfg.gt_weight),
+                     cfg.ema_decay > 0, remat)
+    cache = GraphCache(GRAPH_CACHE_SIZE, shared_pool=True) if cache is None else cache
+    plans: Dict[tuple, tuple] = {}
+    static = (quality, init_t, s_stride, t_stride, float(eta), float(eta_b), remat,
+              bucket.gt_weight, preset.name, bucket.ema)
 
-    def step(state: TrainState, batch: Dict[str, torch.Tensor],
-             generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        y = batch["xt"].float()
-        x0 = batch["x0"].float()
-        with torch.no_grad():
-            target = teacher_sampler.run(y, quality, init_t, t_stride, eta=eta, eta_b=eta_b,
-                                         generator=generator)[0]
+    def prepare(state: TrainState, y: torch.Tensor) -> tuple:
+        """The host's part of a call: eval mode, no `.grad`, the step's
+        scalars on the device, and the teacher's and the student's solver
+        plans for this batch shape (made once, so a captured body reads
+        them by address)."""
         student.eval()
         for p in student.parameters():
             p.grad = None
-        out = student_sampler.run(y, quality, init_t, s_stride, eta=eta, eta_b=eta_b,
-                                  generator=generator, remat=remat)[0]
-        loss = loss_fn(out, target)
-        if gt_w:
-            loss = loss + gt_w * loss_fn(out, x0)
-        loss.backward()
-        g_norm = apply_gradients(state, param_grads(student), cfg.ema_decay)
-        return {"loss": loss.detach(), "grad_norm": g_norm}
+        state.load_scalars(cfg.ema_decay)
+        key = (tuple(y.shape), y.device)
+        if key not in plans:
+            plans[key] = tuple(
+                sampler.prepare(y, quality, init_t, stride, eta=eta, eta_b=eta_b)
+                for sampler, stride in ((bucket.teacher, t_stride), (bucket.student, s_stride)))
+        return plans[key]
 
+    def metrics(state: TrainState, loss: torch.Tensor, g_norm: torch.Tensor) -> dict:
+        state.step += 1
+        return {"loss": loss, "grad_norm": g_norm}
+
+    def eager(state: TrainState, batch: Dict[str, torch.Tensor],
+              generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        plan_t, plan_s = prepare(state, batch["xt"])
+        return metrics(state, *_step_body(bucket, state, plan_t, plan_s, batch["x0"],
+                                          batch["xt"], generator))
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        if not _graphed(state, batch):
+            return eager(state, batch, generator)
+        plan_t, plan_s = prepare(state, batch["xt"])
+
+        def body(x0, xt):
+            return _step_body(bucket, state, plan_t, plan_s, x0, xt, generator)
+
+        return metrics(state, *cache(_signature(state, teacher, batch, generator, static), body,
+                                     [batch["x0"], batch["xt"]], generators=(generator,),
+                                     after=lambda: _keep_grads(student)))
+
+    step.eager = eager
+    step.cache = cache
     return step, init_t, s_stride, t_stride
+
+
+def _signature(state: TrainState, teacher, batch: Dict[str, torch.Tensor],
+               generator: Optional[torch.Generator], static: tuple) -> tuple:
+    """What a captured distill step is specific to: the student's state
+    (`train/steps.py state_signature`), the teacher with its weights'
+    addresses and dtypes, its compute dtype and mode, the generator, and
+    the bucket's `static` settings (quality, init_t, both strides, eta,
+    eta_b, remat, the gt weight, the loss's preset, the EMA on or off)."""
+    return state_signature(state, batch) + (teacher, _weights(teacher),
+                                             teacher.cfg.compute_dtype, teacher.training,
+                                             generator, static)
 
 
 def teacher_weights(dcfg: DistillConfig, verbose: bool = True) -> Dict[str, torch.Tensor]:
@@ -219,9 +321,10 @@ def distill_model(cfg: TrainConfig, dcfg: DistillConfig, dataset=None,
             for n, m in store.items():
                 m.copy_(weights[n])
 
-    steps = {}
+    steps, cache = {}, GraphCache(max(GRAPH_CACHE_SIZE, len(qualities)), shared_pool=True)
     for q in qualities:
-        steps[q], init_t, s_stride, t_stride = make_distill_step(student, teacher, cfg, dcfg, q)
+        steps[q], init_t, s_stride, t_stride = make_distill_step(student, teacher, cfg, dcfg, q,
+                                                                 cache=cache)
         if verbose:
             print(f"quality {q}: teacher {init_t} steps/stride {t_stride} -> student "
                   f"stride {s_stride} ({dcfg.n_eval} evals)", flush=True)

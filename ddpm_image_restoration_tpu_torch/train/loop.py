@@ -21,8 +21,8 @@ Batches stream from the host degradation pipeline while the card runs the
 previous step. On a card, in one process, the step replays one captured
 CUDA graph (train/steps.py `make_train_step`): the run's first batch runs
 eager, the second captures, every later one replays, validation's sampler
-graphs in between included; a resumed run captures anew. Over a mesh, and
-with block remat, the step stays eager.
+graphs in between included; a resumed run captures anew; block remat
+(`--remat`) is captured too. Over a mesh the step stays eager.
 
 Under a process group (`torchrun`, parallel/mesh.py) it trains data-parallel
 over a ('data',) mesh, by default of gcd(batch, world) ranks as in the JAX

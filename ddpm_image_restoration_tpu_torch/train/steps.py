@@ -277,8 +277,8 @@ def param_grads(model: nn.Module) -> Dict[str, torch.Tensor]:
             for n, p in model.named_parameters()}
 
 
-# Captured train steps kept per step function (each holds its activations'
-# memory).
+# Captured steps kept per step function, train or distill, with a cache of
+# its own (each holds its activations' memory).
 GRAPH_CACHE_SIZE = 2
 
 
@@ -316,39 +316,48 @@ def _step_body(state: TrainState, batch: Dict[str, torch.Tensor], loss_fn: Calla
 def _graphed(state: TrainState, batch: Dict[str, torch.Tensor]) -> bool:
     """Whether this call replays a captured graph: a CUDA batch, one process
     (no layout: the data mesh, FSDP and the 'model' axis reduce over
-    process groups, which are not captured), no block remat (its recompute
-    replays generators from the host), and no collective in the model's
-    forward (a spatial mesh or column-parallel layers)."""
+    process groups, which are not captured), and no collective in the
+    model's forward (a spatial mesh or column-parallel layers). Block remat
+    is captured too: its regions draw nothing (utils/remat.py)."""
     m = state.model
     return (batch["xt"].is_cuda and state.layout is None
             and getattr(m, "spatial_mesh", None) is None
-            and not any(getattr(mod, "remat", False) or getattr(mod, "column_parallel", False)
-                        for mod in m.modules()))
+            and not any(getattr(mod, "column_parallel", False) for mod in m.modules()))
 
 
-def _signature(state: TrainState, batch: Dict[str, torch.Tensor],
-               generator: Optional[torch.Generator], cfg: TrainConfig) -> tuple:
-    """What a captured step is specific to: the model with its parameters'
-    and buffers' addresses, the addresses of the masters, moments, EMA (or
-    None: the EMA off) and step scalars (a replaced tensor recaptures; an
-    in-place change is read by the replay), the batch's keys, shapes and
-    dtypes (`codec_id` or not), the compute dtype, the dropout rate and
-    generator, the optimizer's constants, the TF32 settings the kernels
-    were picked under, and training mode. What `cfg` decides (the loss,
-    whether the EMA updates) is fixed for a step function, which keeps
-    its own graphs."""
+def _weights(m: nn.Module) -> tuple:
+    """A module's parameters and buffers by address and dtype."""
+    return tuple((t.data_ptr(), t.dtype) for t in itertools.chain(m.parameters(), m.buffers()))
+
+
+def state_signature(state: TrainState, batch: Dict[str, torch.Tensor]) -> tuple:
+    """What any captured optimizer step (this module's and the distill
+    step) is specific to: the model with its weights' addresses and dtypes,
+    the addresses of the masters, moments, EMA (or None: the EMA off) and
+    step scalars (a replaced tensor recaptures; an in-place change is read
+    by the replay), the batch's keys, shapes, dtypes and device, the
+    compute dtype, the optimizer's constants, the TF32 settings the kernels
+    were picked under, and training mode."""
     m, tx = state.model, state.tx
-    weights = tuple((t.data_ptr(), t.dtype) for t in itertools.chain(m.parameters(), m.buffers()))
 
     def addresses(d):
         return None if d is None else tuple(t.data_ptr() for t in d.values())
 
-    return (m, weights, addresses(state.params), addresses(state.mu), addresses(state.nu),
+    return (m, _weights(m), addresses(state.params), addresses(state.mu), addresses(state.nu),
             addresses(state.ema), state.scalars.value.data_ptr(),
             tuple((k, tuple(v.shape), v.dtype, v.device) for k, v in sorted(batch.items())),
-            m.cfg.compute_dtype, m.cfg.dropout, generator,
-            (tx.max_norm, tx.b1, tx.b2, tx.weight_decay, tx.eps),
+            m.cfg.compute_dtype, (tx.max_norm, tx.b1, tx.b2, tx.weight_decay, tx.eps),
             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32, m.training)
+
+
+def _signature(state: TrainState, batch: Dict[str, torch.Tensor],
+               generator: Optional[torch.Generator], cfg: TrainConfig) -> tuple:
+    """What a captured train step is specific to: `state_signature`, block
+    remat, the dropout rate and generator. What `cfg` decides (the loss,
+    whether the EMA updates) is fixed for a step function, which keeps its
+    own graphs."""
+    m = state.model
+    return state_signature(state, batch) + (m.cfg.remat, m.cfg.dropout, generator)
 
 
 def _keep_grads(model: nn.Module) -> Callable[[], None]:
@@ -371,9 +380,9 @@ def make_train_step(model: nn.Module, cfg: TrainConfig) -> Callable:
     masks from `generator`. Returns {'loss', 'grad_norm'} as 0-d tensors;
     the parameters' `.grad` keep this step's gradients.
 
-    On a card, in one process, without block remat and without collectives
-    in the model (`_graphed`), the step runs as a captured CUDA graph from
-    the second call of its signature (`_signature`) on: the first call
+    On a card, in one process, without collectives in the model
+    (`_graphed`; block remat or not), the step runs as a captured CUDA
+    graph from the second call of its signature (`_signature`) on: the first call
     runs eager (the warm-up of autograd and the cuBLAS, cuDNN and cuFFT
     plans), the second captures and replays, later ones copy the batch in
     and replay (`utils/graphs.py GraphCache`). A replay draws the dropout

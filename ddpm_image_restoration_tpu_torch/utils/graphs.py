@@ -39,8 +39,13 @@ class CapturedGraph:
     `generators` is registered with the graph, so every replay draws from
     it where an eager call would and advances it as far. `after`, when
     given, is called once the capture has ended; what it returns is called
-    after every replay. A failed capture raises, with the counters as they
-    were."""
+    after every replay. A failed capture raises, with the counters, the
+    current stream and every generator it drew from (those given and the
+    device's default one) as they were: torch leaves a generator whose
+    capture did not end marked as capturing, and its next draw raises, so
+    each gets back a copy of its state from before the capture. (A graph
+    captured earlier that draws from the default generator keeps advancing
+    the state it registered, not the copy.)"""
 
     def __init__(self, body: Callable, inputs: Sequence[Optional[torch.Tensor]], pool=None,
                  generators: Iterable[Optional[torch.Generator]] = (),
@@ -48,14 +53,22 @@ class CapturedGraph:
         self.body = body  # keeps what the graph reads (schedule tensors, the state) alive
         self.inputs = tuple(None if z is None else z.clone() for z in inputs)
         self.graph = torch.cuda.CUDAGraph()
-        for g in generators:
-            if g is not None and g.device.type == "cuda":
-                with torch.cuda.device(g.device):
-                    self.graph.register_generator_state(g)
+        gens = [g for g in generators if g is not None and g.device.type == "cuda"]
+        for g in gens:
+            with torch.cuda.device(g.device):
+                self.graph.register_generator_state(g)
+        gens.append(torch.cuda.default_generators[torch.cuda.current_device()])
+        saved = [(g, g.clone_state()) for g in gens]
+        stream = torch.cuda.current_stream()
         before = [fn.launches for fn in COUNTED_KERNELS]
         try:
             with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
                 self.outputs = tuple(body(*self.inputs))
+        except BaseException:
+            torch.cuda.set_stream(stream)  # torch.cuda.graph leaves its own when capture_end raises
+            for g, state in saved:
+                g.graphsafe_set_state(state)
+            raise
         finally:
             captured = [fn.launches for fn in COUNTED_KERNELS]
             for fn, n in zip(COUNTED_KERNELS, before):

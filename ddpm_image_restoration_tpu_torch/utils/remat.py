@@ -1,45 +1,31 @@
-"""Activation rematerialisation that replays explicit `torch.Generator`s.
+"""Activation rematerialisation for regions that draw no random numbers.
 
 `torch.utils.checkpoint.checkpoint` (non-reentrant) keeps a region's inputs
 and recomputes its forward during the backward. Its `preserve_rng_state`
-restores the global CPU and CUDA RNGs only: a region that draws from an
-explicit generator (training dropout, the sampler's noise) would draw other
-numbers in the recompute, and its gradients would be silently wrong.
-`checkpoint` here saves those generators' states where the region starts;
-each recompute starts them from there and puts them back where it found
-them afterwards, so the recompute draws what the forward drew.
+saves and restores the global CPU and CUDA RNG states from the host around
+the recompute, which a CUDA graph capture cannot hold (the state of a
+generator being captured lives on the device). The port's regions draw
+nothing, so there is nothing to restore:
+  * a UNet block under `ModelConfig.remat` draws its dropout mask from the
+    trainer's generator before the region and passes it in
+    (models/unet.py `ResAttnBlock`), so the recompute reads the forward's
+    mask;
+  * a solver group (diffusion/ddrm.py `DDRMSampler._loop`) reads the eta
+    noise drawn before the loop.
+A region that drew from any generator would draw other numbers in its
+recompute, and its gradients would be silently wrong: draw outside and
+pass the numbers in.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, Optional
+from typing import Callable
 
-import torch
 import torch.utils.checkpoint
 
 
-def checkpoint(fn: Callable, *args, generators: Iterable[Optional[torch.Generator]] = ()):
+def checkpoint(fn: Callable, *args):
     """fn(*args) under `torch.utils.checkpoint.checkpoint(use_reentrant=False)`,
-    with every generator in `generators` (None entries are skipped) replayed
-    from its state at this call in each recompute."""
-    gens = [g for g in generators if g is not None]
-    if not gens:
-        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
-    start = [g.get_state() for g in gens]
-    calls = 0
-
-    def replay(*a):
-        nonlocal calls
-        calls += 1
-        if calls == 1:  # the forward itself: the generators are at `start`
-            return fn(*a)
-        found = [g.get_state() for g in gens]
-        for g, s in zip(gens, start):
-            g.set_state(s)
-        try:
-            return fn(*a)
-        finally:
-            for g, s in zip(gens, found):
-                g.set_state(s)
-
-    return torch.utils.checkpoint.checkpoint(replay, *args, use_reentrant=False)
+    without saving or restoring any RNG state: `fn` must draw nothing."""
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             preserve_rng_state=False)

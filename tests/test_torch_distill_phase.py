@@ -5,6 +5,7 @@ derives from its schedules, the recompute of the rematerialised solver
 included."""
 
 import argparse
+import collections
 import sys
 from pathlib import Path
 
@@ -51,7 +52,13 @@ def test_distill_phase_counts_on_cpu(tmp_path, monkeypatch, launching_kernels, c
     steps) against a stride-4 teacher (6 evaluations, not 20: the CPU takes
     ~0.2 s an evaluation), the same with `--compute-dtype float32`, the
     progressive chain from it (budgets 3, 2) on 3 images (one step a
-    stage), the step alone timed once."""
+    stage), the shared-pool run (`distill_pool`: 2 steps a bucket, each
+    way, all eager here, held to each other bit for bit), the step alone in
+    both dtypes timed once each way (eager, and its graph path, which the
+    CPU runs eager), not profiled; of its four
+    gates (`graph_gates`: remat on and off, each dtype) only the first
+    remat-off one runs (two eager runs and the graph path of one step,
+    with a one-evaluation teacher), the others are recorded."""
     from ddpm_image_restoration_tpu_torch.cli.common import add_model_flags, model_config_from
     from ddpm_image_restoration_tpu_torch.config import TrainConfig
     from ddpm_image_restoration_tpu_torch.models import build_model
@@ -65,7 +72,23 @@ def test_distill_phase_counts_on_cpu(tmp_path, monkeypatch, launching_kernels, c
     monkeypatch.setattr(chip_smoke, "TRAIN_BATCH", 2)
     monkeypatch.setattr(chip_smoke, "RESTORE_QUALITIES", (10,))
     monkeypatch.setattr(chip_smoke, "DISTILL_TEACHER_STRIDE", 4)
-    monkeypatch.setattr(chip_smoke, "DISTILL_TIMED_STEPS", 1)
+    monkeypatch.setattr(chip_smoke, "DISTILL_TIMED_EAGER", 1)
+    monkeypatch.setattr(chip_smoke, "DISTILL_POOL_STEPS", 2)
+    monkeypatch.setattr(chip_smoke, "DISTILL_TIMED_REPLAYS", 1)
+    monkeypatch.setattr(chip_smoke, "DISTILL_GATE_TEACHER_STRIDE", 20)
+    monkeypatch.setattr(chip_smoke, "DISTILL_GATE_STEPS", 1)
+    monkeypatch.setattr(chip_smoke, "GATE_RUNS", 2)
+    monkeypatch.setattr(chip_smoke, "profile_run",
+                        lambda label, run: collections.Counter())
+    gates, real_gates = [], chip_smoke.graph_gates
+
+    def gate(label, *a, default_setting=True, **k):
+        gates.append(default_setting)
+        if len(gates) == 2:
+            return real_gates(label, *a, default_setting=default_setting, **k)
+        return []
+
+    monkeypatch.setattr(chip_smoke, "graph_gates", gate)
     monkeypatch.setattr(chip_smoke, "DISTILL_PROGRESSIVE_IMAGES", 3)
     monkeypatch.setattr(chip_smoke, "DISTILL_PROGRESSIVE_STRIDE", 4)
     monkeypatch.setattr(chip_smoke, "DISTILL_PROGRESSIVE_BUDGETS", [3, 2])
@@ -81,7 +104,12 @@ def test_distill_phase_counts_on_cpu(tmp_path, monkeypatch, launching_kernels, c
     state = {"smi": "CPU", "train_ckpt": str(ck)}
     chip_smoke.phase_distill(state)
     log = capsys.readouterr().out
-    assert log.count("schedule implies") == 7, log
+    # the CLI runs (5 lines), the shared-pool runs (2), and per dtype the
+    # step alone with and without remat eager and its graph path (3)
+    assert log.count("schedule implies") == 13, log
+    assert "distill shared pool, graph against eager, max |diff| (bit for bit)" in log, log
+    assert gates == [True, False, True, False], gates
+    assert log.count("under deterministic algorithms") == 1, log
     assert "progressive budgets [3, 2]" in log and "stage directories ['stage0']" in log, log
     assert "distill f32 [--compute-dtype float32" in log, log
     counts = state["launches_distill"]

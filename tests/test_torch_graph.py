@@ -172,10 +172,10 @@ def test_scalars_reach_the_ops_unchanged():
 def _key(sampler, y, quality, steps, **kw):
     """The signature `run` computes for these arguments (the graph path
     forced on, so that the CPU run records it as a first call)."""
-    sampler._seen.clear()
+    sampler._cache.seen.clear()
     with torch.no_grad():
         sampler.run(y, quality, steps, **kw)
-    (key,) = sampler._seen
+    (key,) = sampler._cache.seen
     return key
 
 
@@ -246,4 +246,4 @@ def test_graph_path_only_for_cuda_no_grad_surrogate(models, monkeypatch):
     with torch.no_grad():
         s.sample(_y(), 10, 21, stride=5, eta=0.0, final_exact=False)
         s.sample(_y(), 10, 21, stride=5, eta=0.0, final_exact=False)
-    assert not s._seen and not s._graphs
+    assert not s._cache.seen and not s._cache.graphs

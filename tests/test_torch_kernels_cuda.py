@@ -913,12 +913,12 @@ def test_function_f32_grads_on_card(card, bh, t, d):
 GRAPH_CFG = dict(image_size=64, attention_impl="flash", attn_max_resolution=32)
 
 
-def _graph_model(codec="webp", dtype="float32"):
+def _graph_model(codec="webp", dtype="float32", remat=False):
     from ddpm_image_restoration_tpu_torch.config import ModelConfig
     from ddpm_image_restoration_tpu_torch.models import build_model
 
     torch.manual_seed(0)
-    cfg = ModelConfig(compute_dtype=dtype, **GRAPH_CFG).scaled(8)
+    cfg = ModelConfig(compute_dtype=dtype, remat=remat, **GRAPH_CFG).scaled(8)
     return build_model(codec, cfg, device="cpu").to("cuda")
 
 
@@ -967,9 +967,9 @@ def test_solver_graph_equals_eager_on_card(card, dtype, run):
     y, y2 = _graph_y(), _graph_y(seed=2)
     s = _sampler(model)
     eager, n_eager = _counted_run(s, y, **kw)
-    assert not s._graphs and n_eager > 0
+    assert not s._cache.graphs and n_eager > 0
     graph, n_capture = _counted_run(s, y, **kw)
-    assert len(s._graphs) == 1 and n_capture == n_eager
+    assert len(s._cache.graphs) == 1 and n_capture == n_eager
     assert _same(graph, eager)
     again, n_replay = _counted_run(s, y2, **kw)
     want, _ = _counted_run(_sampler(model), y2, **kw)
@@ -993,7 +993,7 @@ def test_solver_graph_noise_and_generator_on_card(card):
     for call in range(3):
         default = torch.cuda.get_rng_state()
         got, _ = _counted_run(s, y, generator=g.manual_seed(5), **kw)
-        assert len(s._graphs) == min(call, 1)
+        assert len(s._cache.graphs) == min(call, 1)
         assert _same(got, want) and torch.equal(g.get_state(), after)
         assert torch.equal(torch.cuda.get_rng_state(), default)
     other, _ = _counted_run(s, y, generator=g.manual_seed(6), **kw)
@@ -1015,7 +1015,7 @@ def test_solver_graph_rows_and_codec_id_on_card(card, rows):
     s = _sampler(model, "jpeg", codec_index("jpeg"))
     for call in range(3):
         got, _ = _counted_run(s, y, **kw)
-        assert len(s._graphs) == min(call, 1) and _same(got, want)
+        assert len(s._cache.graphs) == min(call, 1) and _same(got, want)
     assert got[0].shape[0] == (3 if rows is None else 2)
 
 
@@ -1034,12 +1034,12 @@ def test_solver_graph_reads_weights_by_address_on_card(card):
         model.out_conv.weight.mul_(0.5)
     got, _ = _counted_run(s, y, **kw)
     want, _ = _counted_run(_sampler(model), y, **kw)
-    assert len(s._graphs) == 1 and _same(got, want) and not _same(got, before)
+    assert len(s._cache.graphs) == 1 and _same(got, want) and not _same(got, before)
     model.out_conv.weight = torch.nn.Parameter(model.out_conv.weight.clone(),
                                                requires_grad=False)
-    seen = len(s._seen)
+    seen = len(s._cache.seen)
     _counted_run(s, y, **kw)
-    assert len(s._graphs) == 1 and len(s._seen) == seen + 1
+    assert len(s._cache.graphs) == 1 and len(s._cache.seen) == seen + 1
 
 
 @pytest.mark.cuda
@@ -1056,7 +1056,7 @@ def test_serve_core_replays_on_card(card):
         outs.append(restore_batch(model, y, 30, "webp", final_exact=False))
         torch.cuda.synchronize()
         counts.append(fa.flash_attention_fwd.launches - before)
-    assert len(sampler_for(model, "webp")._graphs) == 1
+    assert len(sampler_for(model, "webp")._cache.graphs) == 1
     assert len(set(counts)) == 1 and counts[0] > 0
     assert torch.equal(outs[0], outs[1]) and torch.equal(outs[1], outs[2])
 
@@ -1089,7 +1089,7 @@ for _ in range(2):
         print("raised:", str(e).strip().splitlines()[0])
     else:
         raise SystemExit("the capture did not raise")
-    assert not s._graphs, s._graphs
+    assert not s._cache.graphs, s._cache.graphs
     assert [fn.launches for fn in fa.COUNTED_KERNELS] == before
 print("ok")
 """
@@ -1135,7 +1135,7 @@ def _train_batches(codec, n=TRAIN_GRAPH_STEPS):
     return batches
 
 
-def _train_run(codec, graph: bool):
+def _train_run(codec, graph: bool, dtype="bfloat16", remat=False):
     """TRAIN_GRAPH_STEPS steps from one seeded model and state on distinct
     batches, through `train_step` (graph) or `train_step.eager`: per step
     the loss, grad norm and flash launches; the state, `.grad` and the
@@ -1143,7 +1143,7 @@ def _train_run(codec, graph: bool):
     from ddpm_image_restoration_tpu_torch.config import TrainConfig
     from ddpm_image_restoration_tpu_torch.train.steps import create_train_state, make_train_step
 
-    model = _graph_model(codec, "bfloat16")
+    model = _graph_model(codec, dtype, remat)
     cfg = TrainConfig(codec=codec, model=model.cfg, batch_size=3, ema_decay=0.999)
     state = create_train_state(model, cfg)
     step = make_train_step(model, cfg)
@@ -1202,6 +1202,176 @@ def test_train_graph_equals_eager_on_card(card, codec):
         spread = max(_max_diff(a[part], b[part]) for i, a in enumerate(runs) for b in runs[i + 1:])
         err = _max_diff(graph[part], eager[part])
         assert (err == 0) if spread == 0 else (err <= 2 * spread), (part, err, spread)
+
+
+def _deterministic(run):
+    """`run()` under torch's deterministic algorithms, warn only."""
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            return run()
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+
+def _held_to_eager(graph, runs, parts):
+    """Per quantity, the graph against the first eager run: bit for bit
+    where the eager runs agree bit for bit, else within twice their
+    spread."""
+    for part in parts:
+        spread = max(_max_diff(a[part], b[part]) for i, a in enumerate(runs) for b in runs[i + 1:])
+        err = _max_diff(graph[part], runs[0][part])
+        assert (err == 0) if spread == 0 else (err <= 2 * spread), (part, err, spread)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_remat_train_graph_equals_eager_on_card(card, dtype):
+    """Block remat with dropout 0.1 (each block's mask drawn before its
+    checkpoint): five steps through the graph path against three eager
+    runs under deterministic algorithms, as above; each step launches the
+    forward twice per attention block (the recompute), dQ and dK/dV
+    once."""
+    runs = _deterministic(lambda: [_train_run("webp", False, dtype, remat=True)[0]
+                                   for _ in range(3)])
+    graph, state, step = _deterministic(lambda: _train_run("webp", True, dtype, remat=True))
+    assert len(step.graphs) == 1 and next(iter(step.graphs.values())).replays == 4
+    assert graph["counts"] == runs[0]["counts"] and runs[0]["counts"][0] == [4, 2, 2]
+    assert len(set(graph["loss"].tolist())) == TRAIN_GRAPH_STEPS
+    _held_to_eager(graph, runs, ("loss", "grad_norm", *STATE_PARTS, "grad"))
+
+
+# -- The distill step as a captured CUDA graph (train/distill.py): the
+# teacher and the student are the width/8 model above with one seed's
+# weights; q30 over 20 diffusion steps, the teacher at stride 10 (3
+# evaluations), the student at 2, EMA on, a batch of 3.
+
+DISTILL_GRAPH_STEPS = 4
+
+
+def _distill_run(dtype, remat: bool, graph: bool, steps=DISTILL_GRAPH_STEPS):
+    """`steps` distill steps on distinct batches through the step (graph)
+    or `step.eager`: per step the loss, grad norm and flash launches; the
+    state and `.grad` after."""
+    from ddpm_image_restoration_tpu_torch.config import TrainConfig
+    from ddpm_image_restoration_tpu_torch.train.distill import DistillConfig, make_distill_step
+    from ddpm_image_restoration_tpu_torch.train.steps import create_train_state
+
+    teacher, student = _graph_model("webp", dtype), _graph_model("webp", dtype)
+    cfg = TrainConfig(codec="webp", model=student.cfg, steps=20, batch_size=3, ema_decay=0.999)
+    state = create_train_state(student, cfg)
+    step, *_ = make_distill_step(student, teacher, cfg,
+                                 DistillConfig(n_eval=2, teacher_stride=10), 30, remat=remat)
+    out = {"loss": [], "grad_norm": [], "counts": []}
+    for b in _train_batches("webp", steps):
+        before = [fn.launches for fn in fa.COUNTED_KERNELS]
+        m = (step if graph else step.eager)(state, {"x0": b["x0"], "xt": b["xt"]})
+        torch.cuda.synchronize()
+        out["counts"].append([fn.launches - n for fn, n in zip(fa.COUNTED_KERNELS, before)])
+        out["loss"].append(m["loss"])
+        out["grad_norm"].append(m["grad_norm"])
+    out["loss"], out["grad_norm"] = torch.stack(out["loss"]), torch.stack(out["grad_norm"])
+    for part in STATE_PARTS:
+        out[part] = {k: v.clone() for k, v in getattr(state, part).items()}
+    out["grad"] = {n: p.grad.float().clone() for n, p in student.named_parameters()}
+    return out, state, step
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [True, False])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_distill_graph_equals_eager_on_card(card, dtype, remat):
+    """Four distill steps through the graph path (eager, capture, two
+    replays) against three runs of `step.eager`, under deterministic
+    algorithms: losses, grad norms, masters, moments, EMA and the last
+    `.grad` bit for bit where the eager runs agree bit for bit, else within
+    twice their spread. One graph, three replays; every step counts the
+    eager step's flash launches: the forward 2·(3 + (1 + r)·2) times (r =
+    1 with the solver's remat), dQ and dK/dV 2·2 times."""
+    runs = _deterministic(lambda: [_distill_run(dtype, remat, False)[0] for _ in range(3)])
+    graph, state, step = _deterministic(lambda: _distill_run(dtype, remat, True))
+    want = [2 * (3 + (2 if remat else 1) * 2), 4, 4]
+    assert len(step.cache.graphs) == 1
+    assert next(iter(step.cache.graphs.values())).replays == DISTILL_GRAPH_STEPS - 1
+    assert state.step == DISTILL_GRAPH_STEPS
+    assert graph["counts"] == runs[0]["counts"] == [want] * DISTILL_GRAPH_STEPS
+    assert torch.isfinite(graph["loss"]).all()
+    assert len(set(graph["loss"].tolist())) == DISTILL_GRAPH_STEPS
+    _held_to_eager(graph, runs, ("loss", "grad_norm", *STATE_PARTS, "grad"))
+
+
+# As the solver's failed capture, in a process of its own; after each
+# failure the default generator and the step's own draw again, and the
+# step's generator is where it was before the call.
+FAILED_DISTILL_CAPTURE = """
+import torch
+from ddpm_image_restoration_tpu_torch.config import TrainConfig
+from ddpm_image_restoration_tpu_torch.ops import flash_attention as fa
+from ddpm_image_restoration_tpu_torch.train.distill import DistillConfig, make_distill_step
+from ddpm_image_restoration_tpu_torch.train.steps import create_train_state
+from tests.test_torch_kernels_cuda import _graph_model, _train_batches
+
+teacher, student = _graph_model("webp", "bfloat16"), _graph_model("webp", "bfloat16")
+encode = student.encode
+
+
+def waiting_encode(x, *a, **k):
+    x.sum().item()
+    return encode(x, *a, **k)
+
+
+student.encode = waiting_encode
+cfg = TrainConfig(codec="webp", model=student.cfg, steps=20, batch_size=3, ema_decay=0.999)
+state = create_train_state(student, cfg)
+step, *_ = make_distill_step(student, teacher, cfg, DistillConfig(n_eval=2, teacher_stride=10), 30)
+gen = torch.Generator(device="cuda").manual_seed(3)
+b = _train_batches("webp", 1)[0]
+batch = {"x0": b["x0"], "xt": b["xt"]}
+step(state, batch, gen)
+stream = torch.cuda.current_stream()
+for _ in range(2):
+    before = [fn.launches for fn in fa.COUNTED_KERNELS]
+    gen_state = gen.get_state()
+    try:
+        step(state, batch, gen)
+    except RuntimeError as e:
+        print("raised:", str(e).strip().splitlines()[0])
+    else:
+        raise SystemExit("the capture did not raise")
+    assert not step.cache.graphs, step.cache.graphs
+    assert [fn.launches for fn in fa.COUNTED_KERNELS] == before
+    assert state.step == 1, state.step
+    assert torch.equal(gen.get_state(), gen_state)
+    assert torch.cuda.current_stream() == stream
+    torch.randn(4, device="cuda")
+    torch.randn(4, device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    gen.set_state(gen_state)
+print("ok")
+"""
+
+
+@pytest.mark.cuda
+def test_distill_graph_failed_capture_raises_on_card(card):
+    """A distill step that waits on the device (an `.item()` in the
+    student's encoder) runs eager on its first call and raises on the
+    capture, every time: no eager fallback, no graph kept, the counters,
+    the step count and the current stream left as they were, and no
+    generator left marked as capturing (each draws again; the step's
+    generator is where it was)."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", FAILED_DISTILL_CAPTURE], cwd=root,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0 and proc.stdout.count("raised:") == 2, \
+        proc.stdout + proc.stderr
+    assert proc.stdout.strip().endswith("ok"), proc.stdout
 
 
 @pytest.mark.cuda

@@ -300,8 +300,9 @@ def test_remat_train_step_with_dropout_equals_plain(tmp_path):
     `ModelConfig(remat=True)` and dropout 0.3 against the same step without
     remat, both drawing their masks from a generator seeded alike: the same
     loss and gradients, bitwise on the CPU, and the generator left in the
-    same state. Each block's recompute replays the dropout generator; a
-    checkpoint without that replay (`torch.utils.checkpoint` alone, which
+    same state. Each block draws its mask before its checkpoint and passes
+    it in, so the recompute reads the forward's mask; a checkpoint whose
+    region draws the mask itself (`torch.utils.checkpoint` alone, which
     restores only the global RNGs) draws other masks in the recompute, and
     its gradients differ."""
     import torch.utils.checkpoint
@@ -332,11 +333,12 @@ def test_remat_train_step_with_dropout_equals_plain(tmp_path):
     assert all(torch.equal(grads[n], r_grads[n]) for n in grads)
     assert grads["down1.attn.qkv.weight"].abs().max() > 0
 
-    def plain_checkpoint(fn, *args, generators=()):
-        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    def drawing_inside(self, x, t_emb, compression_level):
+        return torch.utils.checkpoint.checkpoint(self._body, x, t_emb, compression_level,
+                                                 use_reentrant=False)
 
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(unet, "checkpoint", plain_checkpoint)
+        mp.setattr(unet.ResAttnBlock, "forward", drawing_inside)
         p_loss, p_grads, _ = step(True)
     assert torch.equal(loss, p_loss)
     assert not all(torch.equal(grads[n], p_grads[n]) for n in grads)

@@ -5,6 +5,7 @@ structure must equal the calls that reach each wrapper's launch
 through the restore CLI at 1024², a train step with block remat and one UNet
 evaluation."""
 
+import collections
 import functools
 import sys
 from pathlib import Path
@@ -51,21 +52,30 @@ def test_path1024_phase_counts_on_cpu(tmp_path, monkeypatch, cpu_launches, capsy
     heads: D = 16, 16 and 8 at T = 1024): each run's launches per kernel and
     head dim equal the structure's prediction, 3g forward launches for the
     restore's g encoder groups, 6 forward (the remat recompute) and 3 dQ
-    and dK/dV launches for the train step, each in bf16 and in f32, and 3
-    forward for each of the bf16 and the f32 evaluation."""
+    and dK/dV launches for each of the train step's three calls (eager,
+    capture, replay: all eager on the CPU), each in bf16 and in f32, and 3
+    forward for each of the bf16 and the f32 evaluation. The train step's
+    gates (`graph_gates`, rehearsed in tests/test_torch_distill_phase.py
+    and tests/test_torch_avif_phase.py) are recorded and its profiles
+    skipped: a width/16 step at 1024² takes seconds here."""
     monkeypatch.setattr(chip_smoke, "ROOT", str(tmp_path))
     monkeypatch.setattr(chip_smoke, "CARD", "cpu")
     monkeypatch.setattr(chip_smoke, "PATH1024_SCALE", 16)
+    monkeypatch.setattr(chip_smoke, "profile_run",
+                        lambda label, run: collections.Counter())
+    gates = []
+    monkeypatch.setattr(chip_smoke, "graph_gates", lambda label, *a, **k: gates.append(label) or [])
     monkeypatch.setattr(chip_smoke, "RESTORE_FLAGS",
                         ["--device", "cpu", *chip_smoke.RESTORE_FLAGS[2:]])
     state = {"smi": "CPU"}
     chip_smoke.phase_path1024(state)
     log = capsys.readouterr().out
-    assert log.count("the structure predicts") == 6, log
+    assert log.count("the structure predicts") == 10, log
+    assert gates == ["train step 1024² bfloat16, remat", "train step 1024² float32, remat"]
     assert "head dims per encode [16, 16, 8], per decode []" in log, log
     n, g = chip_smoke.static_schedule(chip_smoke.PATH1024_QUALITY, "webp",
                                       *chip_smoke.restore_budget())
-    assert state["launches_path1024"] == {"flash_attention_fwd": 2 * (3 * g + 6 + 3),
-                                          "flash_attention_bwd_dq": 6,
-                                          "flash_attention_bwd_dkv": 6}
+    assert state["launches_path1024"] == {"flash_attention_fwd": 2 * (3 * g + 3 * 6 + 3),
+                                          "flash_attention_bwd_dq": 2 * 3 * 3,
+                                          "flash_attention_bwd_dkv": 2 * 3 * 3}
     assert not (tmp_path / "build" / "chip_smoke_path1024").exists()

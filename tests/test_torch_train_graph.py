@@ -5,8 +5,8 @@ AVIF and unified MINI models with dropout and the EMA on; the step's f32
 scalars (learning rate, bias corrections, the EMA's decay) are optax's and
 the JAX step's f32 values; the signature tells apart what a captured step
 is specific to; and the graph path is never taken on CPU tensors, over a
-mesh, with block remat or on a model whose forward holds collectives. The
-capture and replay themselves run on the card
+mesh or on a model whose forward holds collectives (block remat takes
+it). The capture and replay themselves run on the card
 (tests/test_torch_kernels_cuda.py); three port steps against three jitted
 JAX steps are in tests/test_torch_train.py."""
 
@@ -158,8 +158,8 @@ def test_signature_tells_apart_what_a_graph_is_specific_to():
     """Keys differ with the model, a reassigned parameter, a replaced
     master, moment or EMA tensor (a resume that loads new tensors), the EMA
     on or off, the batch's keys (`codec_id`), shapes and dtypes, the
-    compute dtype, the dropout rate, the generator, the TF32 flags and
-    training mode; they match for another batch of the same shapes and
+    compute dtype, block remat, the dropout rate, the generator, the TF32
+    flags and training mode; they match for another batch of the same shapes and
     after an in-place update of any of those tensors (the graph reads them
     by address). The loss is the step function's own (`cfg` is closed
     over), and so is its cache of graphs."""
@@ -195,7 +195,7 @@ def test_signature_tells_apart_what_a_graph_is_specific_to():
     differs()
     state.ema = saved_ema
     assert _key(state, batch, gen, cfg) == k
-    for field, value in (("compute_dtype", "bfloat16"), ("dropout", 0.2)):
+    for field, value in (("compute_dtype", "bfloat16"), ("dropout", 0.2), ("remat", True)):
         saved_cfg = model.cfg
         model.cfg = dataclasses.replace(saved_cfg, **{field: value})
         differs()
@@ -215,10 +215,10 @@ def test_signature_tells_apart_what_a_graph_is_specific_to():
 
 
 def test_graph_path_only_for_cuda_one_process_without_remat(monkeypatch):
-    """`_graphed` holds for a CUDA batch in one process; not over a mesh
-    (a layout), with block remat, on a spatially split or column-parallel
-    model, or on CPU tensors. A CPU run never computes a signature and
-    keeps no graph."""
+    """`_graphed` holds for a CUDA batch in one process, with block remat
+    too (its regions draw nothing); not over a mesh (a layout), on a
+    spatially split or column-parallel model, or on CPU tensors. A CPU run
+    never computes a signature and keeps no graph."""
     model, cfg, state, batch = _setup("webp")
     cuda_batch = {"xt": types.SimpleNamespace(is_cuda=True)}
     assert steps._graphed(state, cuda_batch)
@@ -234,7 +234,7 @@ def test_graph_path_only_for_cuda_one_process_without_remat(monkeypatch):
     model.spatial_mesh = None
     assert steps._graphed(state, cuda_batch)
     remat_model, _, remat_state, _ = _setup("webp", remat=True)
-    assert not steps._graphed(remat_state, cuda_batch)
+    assert steps._graphed(remat_state, cuda_batch)
 
     def no_signature(*a, **k):
         raise AssertionError("a signature computed for a CPU run")
